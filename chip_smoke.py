@@ -1,0 +1,471 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``paddle_tpu_torch``) on one CUDA card and check it.
+
+Run from the repository root, on a host with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. device  -- the card's name and power limit, as ``nvidia-smi`` gives them;
+2. build   -- the CUDA kernels, compiled from ``paddle_tpu_torch/csrc`` by
+              ``paddle_tpu_torch/native/build.py`` (one ``nvcc`` per source);
+3. kernels -- each kernel against its plain PyTorch version at the serving
+              path's shapes (S=8 slots, H=8 heads, D=64, page 16, 64 pages a
+              slot, shuffled page ids): the max abs error beside its stated
+              tolerance, and CUDA-event times of the kernel, the plain
+              version and ``F.scaled_dot_product_attention`` on K/V gathered
+              to dense (a yardstick the port never calls), with the least
+              time the card could take (bytes or operations over the
+              data-sheet peak of the named card);
+4. serve   -- the README's serving model at full width (vocab 32000,
+              d_model 512, 8 layers, 8 heads, ffn 2048, max_seq_len 1024;
+              random weights from a seed) behind ``DecodeServer`` on the
+              card: 8 greedy requests of 100-600 prompt tokens, the second
+              of two sharing a 256-token prefix submitted after the first
+              finished (the prefix-hit suffix path), then a chunked-prefill
+              engine (``prefill_chunk_pages=8``) on a 700-token prompt.  The
+              launch counters are zeroed just before and read just after;
+              streamed logits are held against ``recompute_logits``;
+5. profile -- 8 requests under ``torch.profiler``: the device's busy share of
+              the window and its time by kernel.
+
+Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
+raises, so the script exits non-zero without the last line; without a CUDA
+device it exits 1 before doing anything.
+"""
+import json
+import math
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+# The served model is float32 and every comparison below holds float32
+# results to float32 tolerances: a matmul or convolution dropping to TF32
+# (about three decimal digits) must fail them, not pass unnoticed.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from paddle_tpu_torch.framework import flags  # noqa: E402
+from paddle_tpu_torch.native import build  # noqa: E402
+from paddle_tpu_torch.observe import tracer  # noqa: E402
+from paddle_tpu_torch.ops import paged_attention as pa  # noqa: E402
+from paddle_tpu_torch.serving import (DecodeConfig, DecodeServer,  # noqa: E402
+                                      TransformerLM)
+
+SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
+REPLACES = {
+    "paged_decode_attention": "paddle_tpu/ops/pallas_decode_attention.py:71",
+    "paged_chunk_attention": "paddle_tpu/ops/pallas_decode_attention.py:232",
+}
+# Data-sheet peaks (dense): bytes/s of device memory, and operations/s by
+# the input type the kernels compute from (float32 on the CUDA cores;
+# bfloat16 and int8 on the tensor cores, the fastest the work could run).
+CARDS = (  # (name substring, bytes/s, {dtype: ops/s}); first match wins
+    ("H100 PCIe", 2.0e12, {"float32": 51e12, "bfloat16": 756e12,
+                           "int8": 1513e12}),
+    ("H100 NVL", 3.9e12, {"float32": 60e12, "bfloat16": 835e12,
+                          "int8": 1670e12}),
+    ("H100", 3.35e12, {"float32": 67e12, "bfloat16": 989e12,
+                       "int8": 1979e12}),
+)
+# Tolerances of kernel vs plain version on the same inputs, per element:
+# |kernel - plain| <= TOL + REL_TOL * |plain|.  float32 and int8 pools
+# (dequantized exactly in float32 by both): the two differ only in summation
+# order over at most 1024 positions.  bfloat16 pool and q: both compute in
+# float32 from the same bfloat16 inputs and round the result to bfloat16,
+# so they may also sit one bfloat16 step apart, and a step is at most 2**-7
+# of the value (8 significant bits).
+TOL = {"float32": 3e-5, "int8": 3e-5, "bfloat16": 3e-5}
+REL_TOL = {"float32": 0.0, "int8": 0.0, "bfloat16": 2.0 ** -7}
+# Streamed logits vs the recompute oracle at full width: the same float32
+# model through different kernels and matmul shapes, i.e. summation order
+# only, compounded over 8 layers.
+LOGIT_TOL = 1e-3
+S, H, D, PAGE, PPS = 8, 8, 64, 16, 64
+
+
+def log(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def card_peaks(name):
+    for key, bw, ops in CARDS:
+        if key in name:
+            return bw, ops
+    raise RuntimeError(f"no data-sheet peaks for card {name!r}")
+
+
+def cuda_ms(fn, flush, reps=30, warmup=3):
+    """Median milliseconds of ``fn`` by CUDA events, with the L2 cache
+    flushed before each timed call (in serving, the other layers' pools
+    and the weights evict a layer's pages between its calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        flush()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def nvidia_smi(query):
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def warm_card(dev, seconds=1.0):
+    """Keep the card busy until its clocks have left idle: a case timed
+    first after an idle spell otherwise runs partly at idle clocks."""
+    a = torch.randn(4096, 4096, device=dev)
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < seconds:
+        for _ in range(10):
+            a @ a
+        torch.cuda.synchronize()
+
+
+def phase_device():
+    smi = nvidia_smi("name,power.limit")
+    print(smi, flush=True)
+    name = torch.cuda.get_device_name(0)
+    log("device", nvidia_smi=smi, torch=torch.__version__,
+        cuda=torch.version.cuda, kind=name,
+        count=torch.cuda.device_count())
+    return name
+
+
+def phase_build():
+    t0 = time.monotonic()
+    paths = build.build_all()
+    secs = time.monotonic() - t0
+    regs, spills = [], 0
+    for p in paths.values():
+        with open(p + ".log") as f:
+            text = f.read()
+        regs += [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spills += sum(int(x) for x in
+                      re.findall(r"(\d+) bytes spill stores", text))
+    log("build", seconds=round(secs, 3), libraries=sorted(paths),
+        max_registers=max(regs) if regs else None, spill_store_bytes=spills)
+
+
+def make_case(gen, dev, rows_per_slot, row_lengths, q_dtype, kv):
+    """Random q [S, R, H, D], pools of S*PPS+1 pages with shuffled ids."""
+    s = row_lengths.shape[0]
+    n_pages = s * PPS + 1
+    table = (torch.randperm(n_pages - 1, generator=gen) + 1) \
+        .reshape(s, PPS).to(torch.int32)
+    q = torch.randn(s, rows_per_slot, H, D, generator=gen).to(q_dtype)
+    kf = torch.randn(n_pages, PAGE, H, D, generator=gen)
+    vf = torch.randn(n_pages, PAGE, H, D, generator=gen)
+    ks = vs = None
+    if kv == "int8":
+        from paddle_tpu_torch.serving.kv_cache import quantize_kv
+
+        kp, ks = quantize_kv(kf)
+        vp, vs = quantize_kv(vf)
+    else:
+        dt = getattr(torch, kv)
+        kp, vp = kf.to(dt), vf.to(dt)
+    to = (lambda t: None if t is None else t.to(dev).contiguous())
+    return dict(q=to(q), k_pages=to(kp), v_pages=to(vp), page_table=to(table),
+                row_lengths=to(row_lengths.to(torch.int32)), k_scales=to(ks),
+                v_scales=to(vs))
+
+
+def case_bound(c, kv, peaks):
+    """Least time for the work of one call: each input read once (q, the
+    live K/V -- and scales -- of each slot up to its widest row, the live
+    page-table entries, the lengths), the output written once; operations
+    4*H*D per live (row, position) pair (QK and PV, multiply-add each)."""
+    bw, ops_rate = peaks
+    q, lens = c["q"], c["row_lengths"].long().clamp(max=PAGE * PPS)
+    widest = lens.max(dim=1).values
+    kv_elt = c["k_pages"].element_size()
+    per_pos = 2 * H * D * kv_elt + (2 * H * 4 if kv == "int8" else 0)
+    nbytes = (2 * q.numel() * q.element_size() + int(widest.sum()) * per_pos
+              + int(((widest + PAGE - 1) // PAGE).sum()) * 4
+              + lens.numel() * 4)
+    ops = 4 * H * D * int(lens.sum())
+    t_bytes = nbytes / bw * 1e3
+    t_ops = ops / ops_rate[kv] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_inputs(c, kv):
+    """The yardstick's inputs: K/V gathered to dense [S, H, T, D] (int8
+    dequantized), q [S, H, R, D], a boolean mask [S, 1, R, T]."""
+    k = pa._gather_dequant(c["k_pages"], c["k_scales"], c["page_table"])
+    v = pa._gather_dequant(c["v_pages"], c["v_scales"], c["page_table"])
+    dt = c["q"].dtype
+    k, v = k.to(dt).transpose(1, 2).contiguous(), \
+        v.to(dt).transpose(1, 2).contiguous()
+    q = c["q"].transpose(1, 2).contiguous()
+    t = torch.arange(k.shape[2], device=k.device)
+    mask = (t[None, None, :] < c["row_lengths"].long()[:, :, None])[:, None]
+    return q, k, v, mask
+
+
+def run_case(label, kernel, c, kv, peaks, flush):
+    decode = kernel == "paged_decode_attention"
+    args = dict(c)
+    lens = args.pop("row_lengths")
+    q = args.pop("q")
+    if decode:
+        q, lens = q[:, 0].contiguous(), lens[:, 0].contiguous()
+        fn = pa.paged_decode_attention
+        plain = pa.paged_decode_attention_reference
+    else:
+        fn = pa.paged_chunk_attention
+        plain = pa.paged_chunk_attention_reference
+    out = fn(q, args["k_pages"], args["v_pages"], args["page_table"], lens,
+             k_scales=args["k_scales"], v_scales=args["v_scales"])
+    ref = plain(q, args["k_pages"], args["v_pages"], args["page_table"], lens,
+                k_scales=args["k_scales"], v_scales=args["v_scales"])
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != q.dtype:
+        raise RuntimeError(f"{label}: output {tuple(out.shape)} "
+                           f"{out.dtype}, want {tuple(ref.shape)} {q.dtype}")
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    excess = float((diff - REL_TOL[kv] * ref.float().abs()).max())
+    if not math.isfinite(err) or excess > TOL[kv]:
+        raise RuntimeError(f"{label}: kernel vs plain differ by {err} (max "
+                           f"abs), beyond {TOL[kv]} + {REL_TOL[kv]}*|plain|")
+    kw = dict(k_scales=args["k_scales"], v_scales=args["v_scales"])
+    ms = cuda_ms(lambda: fn(q, args["k_pages"], args["v_pages"],
+                            args["page_table"], lens, **kw), flush)
+    plain_ms = cuda_ms(lambda: plain(q, args["k_pages"], args["v_pages"],
+                                     args["page_table"], lens, **kw), flush)
+    sq, sk, sv, mask = sdpa_inputs(c, kv)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        sq, sk, sv, attn_mask=mask), flush)
+    bound_ms, bound_by = case_bound(c, kv, peaks)
+    row = dict(case=label, kernel=kernel, pool=kv, q=str(q.dtype)[6:],
+               shape=list(c["q"].shape), max_abs_err=err, tolerance=TOL[kv],
+               rel_tolerance=REL_TOL[kv],
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    log("kernels", **row)
+    return row
+
+
+def phase_kernels(name):
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    peaks = card_peaks(name)
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush = l2.zero_
+    warm_card(dev)
+    clocks = "clocks.sm,power.draw,temperature.gpu"
+    log("clocks", at="kernels start", **{clocks: nvidia_smi(clocks)})
+    decode_lens = torch.tensor([1, 15, 16, 17, 500, 1024, 250, 777])
+    rows = []
+    for kv, qd in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
+                   ("int8", torch.float32)):
+        c = make_case(gen, dev, 1, decode_lens[:, None], qd, kv)
+        rows.append(run_case(f"decode_{kv}", "paged_decode_attention", c,
+                             kv, peaks, flush))
+    chunk16 = (496 + torch.arange(1, 17))[None]          # one chunk
+    prefill = torch.arange(1, 1025)[None]                # whole prompt
+    verify = decode_lens.clamp(max=1020)[:, None] + torch.arange(4)[None]
+    for label, lens, kv in (("chunk_S1_R16", chunk16, "float32"),
+                            ("chunk_S1_R1024", prefill, "float32"),
+                            ("chunk_S8_R4", verify, "float32"),
+                            ("chunk_S8_R4_int8", verify, "int8")):
+        c = make_case(gen, dev, lens.shape[1], lens, torch.float32, kv)
+        rows.append(run_case(label, "paged_chunk_attention", c, kv, peaks,
+                             flush))
+    del l2
+    log("clocks", at="kernels end", **{clocks: nvidia_smi(clocks)})
+    return rows
+
+
+def phase_serve():
+    torch.manual_seed(0)
+    dev = torch.device("cuda", 0)
+    model = TransformerLM(vocab_size=32000, d_model=512, num_layers=8,
+                          num_heads=8, ffn_dim=2048, max_seq_len=1024,
+                          device=dev)
+    weights = model.init_weights(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(1)
+    prefix = rng.randint(1, 32000, 256).tolist()
+    prompts = [rng.randint(1, 32000, n).tolist()
+               for n in (100, 180, 260, 340, 420, 600)]
+    shared_a = prefix + rng.randint(1, 32000, 90).tolist()
+    shared_b = prefix + rng.randint(1, 32000, 150).tolist()
+    long_prompt = rng.randint(1, 32000, 700).tolist()
+    kw = dict(max_new_tokens=32, record_logits=True)
+    srv = DecodeServer(model, weights, DecodeConfig(
+        slots=8, max_seq_len=1024, page_size=16)).start()
+    try:
+        # one short request first: the numbers below are of a warm
+        # process (cuBLAS handles, the kernel library, allocator pools)
+        srv.submit(rng.randint(1, 32000, 64).tolist(),
+                   max_new_tokens=4).result(timeout=600)
+        torch.cuda.synchronize()
+        flags.set_flags({"enable_tracer": True})
+        tracer.clear()
+        pa.reset_launch_counts()    # the main path's counts start here
+        t0 = time.monotonic()
+        reqs = [srv.submit(p, **kw) for p in prompts]
+        req_a = srv.submit(shared_a, **kw)
+        req_a.result(timeout=600)   # registers the prefix pages
+        req_b = srv.submit(shared_b, **kw)
+        for r in reqs + [req_b]:
+            r.result(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        spans = tracer.snapshot()
+        stats = srv.stats()
+    finally:
+        srv.stop()
+    chunked = DecodeServer(model, None, DecodeConfig(
+        slots=8, max_seq_len=1024, page_size=16,
+        prefill_chunk_pages=8)).start()
+    try:
+        req_long = chunked.submit(long_prompt, **kw)
+        req_long.result(timeout=600)
+        chunked_stats = chunked.stats()
+    finally:
+        chunked.stop()
+    torch.cuda.synchronize()
+    launches = {"paged_decode_attention": pa.paged_decode_attention.launches,
+                "paged_chunk_attention": pa.paged_chunk_attention.launches}
+    flags.set_flags({"enable_tracer": False})
+
+    if stats["cache_hit_rate"] <= 0 or chunked_stats["prefill_chunks"] < 2:
+        raise RuntimeError(f"a path was not taken: prefix hit rate "
+                           f"{stats['cache_hit_rate']}, prefill chunks "
+                           f"{chunked_stats['prefill_chunks']}")
+    for k, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"{k} was never launched on the main path")
+    all_reqs = [(p, r) for p, r in zip(prompts + [shared_a, shared_b],
+                                       reqs + [req_a, req_b])]
+    all_reqs.append((long_prompt, req_long))
+    oracle_err, logit_scale = 0.0, 0.0
+    eng = chunked.replicas[0]
+    for prompt, r in all_reqs:
+        n = len(r.generated)
+        if n != 32 or len(r.logits_trace) != n or \
+                not all(0 <= t < 32000 for t in r.generated):
+            raise RuntimeError(f"bad output: {n} tokens, "
+                               f"{len(r.logits_trace)} logit rows")
+        for i in sorted({0, n // 2, n - 1}):
+            got = r.logits_trace[i]
+            if got.shape != (32000,) or not np.isfinite(got).all() \
+                    or np.ptp(got) == 0:
+                raise RuntimeError(f"logits {got.shape} not finite, or "
+                                   f"all equal")
+            want = eng.recompute_logits(prompt + r.generated[:i])
+            oracle_err = max(oracle_err, float(np.abs(got - want).max()))
+            logit_scale = max(logit_scale, float(np.abs(want).max()))
+    if oracle_err > LOGIT_TOL:
+        raise RuntimeError(f"streamed logits vs recompute_logits: max abs "
+                           f"{oracle_err} > {LOGIT_TOL}")
+    step_ms = [1e3 * sp.duration for sp in spans
+               if sp.name == "serving/decode_step"]
+    prefill_ms = [1e3 * sp.duration for sp in spans
+                  if sp.name == "serving/decode_prefill"]
+    ttft_ms = [1e3 * (r.t_first_token - r.t_enqueue)
+               for _p, r in all_reqs[:-1]]
+    n_tokens = sum(len(r.generated) for _p, r in all_reqs[:-1])
+    log("serve", requests=len(all_reqs), tokens=n_tokens,
+        tokens_per_s=n_tokens / wall, wall_s=wall,
+        decode_step_p50_ms=float(np.median(step_ms)),
+        decode_steps=len(step_ms), ttft_p50_ms=float(np.median(ttft_ms)),
+        prefill_p50_ms=float(np.median(prefill_ms)),
+        prefills=len(prefill_ms),
+        prefix_hit_rate=stats["cache_hit_rate"],
+        prefill_chunks=chunked_stats["prefill_chunks"],
+        logits_vs_oracle_max_abs=oracle_err, tolerance=LOGIT_TOL,
+        oracle_logits_max_abs=logit_scale,
+        launches=launches)
+    return launches, model
+
+
+def phase_profile(model):
+    """Where a decode-heavy window's time goes: 8 requests (300-token
+    prompts, 24 new tokens) under torch.profiler; the device's busy time
+    is the sum of its kernel and copy intervals (one stream, so they do
+    not overlap), against the host clock around the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, 32000, 300).tolist() for _ in range(8)]
+    srv = DecodeServer(model, None, DecodeConfig(
+        slots=8, max_seq_len=1024, page_size=16)).start()
+    try:
+        srv.submit(prompts[0][:64], max_new_tokens=2).result(timeout=600)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            reqs = [srv.submit(p, max_new_tokens=24) for p in prompts]
+            for r in reqs:
+                r.result(timeout=600)
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+    finally:
+        srv.stop()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            key = re.sub(r"\(.*", "", name)[:80]
+            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log("profile", window_ms=wall_us / 1e3, tokens=8 * 24,
+        device_busy_ms=busy_us / 1e3 if busy_us else None,
+        device_busy_share=busy_us / wall_us if busy_us else None,
+        top_device_ms={k: v / 1e3 for k, v in top})
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; this script measures "
+              "the port on the card and has nothing to do here",
+              file=sys.stderr)
+        return 1
+    name = phase_device()
+    phase_build()
+    rows = phase_kernels(name)
+    launches, model = phase_serve()
+    phase_profile(model)
+    kernels = []
+    for kernel, case in (("paged_decode_attention", "decode_float32"),
+                         ("paged_chunk_attention", "chunk_S1_R1024")):
+        row = next(r for r in rows if r["case"] == case)
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[kernel], "launches": launches[kernel],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

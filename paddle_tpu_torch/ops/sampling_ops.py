@@ -1,0 +1,104 @@
+"""Decode-time token samplers for the PyTorch port.
+
+Counterpart of the token samplers in ``paddle_tpu/ops/sampling_ops.py``
+(``greedy_sample``, ``filter_top_k_top_p``, ``sample_tokens``).  The
+JAX engine threads one PRNG key per request, ``fold_in(key(seed),
+token_index)``, so a request's tokens do not depend on its slot, its
+batch neighbours or its replica.  The port keeps that property with one
+``torch.Generator`` per drawn token, seeded from (request seed, token
+index) by :func:`token_generator`, and a draw that reads only its own
+row.  JAX's threefry bits cannot be reproduced, so only greedy output
+is comparable across the two packages; draws are checked by their
+statistics.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    """argmax over the vocab axis -> int32 token ids (first maximum on
+    ties, as ``jnp.argmax``)."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def filter_top_k_top_p(logits: torch.Tensor, top_k: torch.Tensor,
+                       top_p: torch.Tensor) -> torch.Tensor:
+    """Mask logits outside the per-row top-k / nucleus-p sets to -inf.
+
+    ``top_k`` [..] int (<= 0 disables) and ``top_p`` [..] float
+    (>= 1.0 disables) are per-row tensors on the logits' device.  Ties
+    at the threshold logit are kept (the sorted-threshold caveat)."""
+    v = logits.shape[-1]
+    desc = torch.sort(logits, dim=-1, descending=True).values
+    # top-k: keep logits >= the k-th largest (k clipped into [1, V])
+    k_idx = (top_k.to(torch.int64) - 1).clamp(0, v - 1)
+    thresh_k = torch.gather(desc, -1, k_idx[..., None])
+    keep_k = (top_k <= 0)[..., None] | (logits >= thresh_k)
+    # top-p: over the sorted distribution keep the minimal prefix whose
+    # mass reaches p (the first token is always kept: cum - prob < p)
+    probs = torch.softmax(desc, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep_sorted = (cum - probs) < top_p[..., None]
+    inf = torch.tensor(float("inf"), dtype=desc.dtype, device=desc.device)
+    thresh_p = torch.where(keep_sorted, desc, inf).min(
+        dim=-1, keepdim=True).values
+    keep_p = (top_p >= 1.0)[..., None] | (logits >= thresh_p)
+    return torch.where(keep_k & keep_p, logits, -inf)
+
+
+_M64 = (1 << 64) - 1
+
+
+def _mix(seed: int, index: int) -> int:
+    """splitmix64 of (seed, index): every bit of the result depends on
+    both, so a generator that reads only the low 32 bits of its seed
+    (the CPU's Mersenne Twister) still tells (seed, index) pairs apart."""
+    z = ((((int(seed) & 0xFFFFFFFF) << 32) | (int(index) & 0xFFFFFFFF))
+         + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) & 0x7FFFFFFFFFFFFFFF
+
+
+def token_generator(seed: int, index: int,
+                    device: torch.device) -> torch.Generator:
+    """The generator of one request's ``index``-th token: seeded from
+    (seed, index) alone, never from the slot or the batch."""
+    g = torch.Generator(device=device)
+    g.manual_seed(_mix(seed, index))
+    return g
+
+
+def sample_tokens(generators: Sequence[Optional[torch.Generator]],
+                  logits: torch.Tensor, temperature, top_k,
+                  top_p) -> torch.Tensor:
+    """One int32 token per row: greedy where ``temperature <= 0``, else
+    a draw from the temperature-scaled, top-k/top-p-filtered
+    distribution with that row's generator.  ``logits`` [S, V];
+    ``temperature``/``top_k``/``top_p`` [S] host arrays (the scheduler's
+    per-request settings: on the host the sampler picks the rows that
+    draw without waiting for the device); ``generators[i]`` serves row
+    i and may be None for greedy rows."""
+    temperature = torch.as_tensor(temperature, dtype=torch.float32)
+    out = greedy_sample(logits)
+    rows = torch.nonzero(temperature > 0.0).flatten().tolist()
+    if not rows:
+        return out
+    dev = logits.device
+    idx = torch.as_tensor(rows, device=dev)
+    t = temperature[rows].to(dev)
+    filt = filter_top_k_top_p(
+        logits[idx].float() / t[:, None],
+        torch.as_tensor(top_k)[rows].to(dev),
+        torch.as_tensor(top_p, dtype=torch.float32)[rows].to(dev))
+    probs = torch.softmax(filt, dim=-1)
+    for j, i in enumerate(rows):
+        if generators[i] is None:
+            raise ValueError(f"row {i} samples at temperature "
+                             f"{float(temperature[i])} but has no generator")
+        out[i] = torch.multinomial(probs[j], 1,
+                                   generator=generators[i])[0].to(torch.int32)
+    return out

@@ -1,0 +1,730 @@
+"""Paged per-slot KV cache with prefix sharing for autoregressive decode
+(serving/decode.py) -- PyTorch port.
+
+Counterpart of ``paddle_tpu/serving/kv_cache.py``.  The host side --
+``CacheConfig``, ``PageAllocator``, ``PrefixIndex``, ``ClaimInfo`` and
+``PagedKVCache``'s claim / release / copy-on-write / eviction /
+``debug_check`` -- is kept line for line: page tables, refcounts, the
+exact-content prefix trie and the shared-aware reservation behave as in
+the JAX package (its module docstring describes them).  What differs is
+where the pools live and how they change:
+
+    k_pages, v_pages : [num_layers, num_pages, page_size, heads, head_dim]
+    k_scales, v_scales (quantized) : [num_layers, num_pages, page_size, heads]
+
+are torch tensors on the cache's device, held as attributes of the
+``PagedKVCache`` (no ``Scope``), and every write is an IN-PLACE
+``index_put_`` -- the port's stand-in for JAX's donated functional
+``.at[].set`` through ``Executor.run_persistent``.  Page 0 is the trash
+page: dead rows write there, with duplicate indices whose winner does
+not matter, and reads are always masked by length.
+
+The migration payload (``KVPageExport``, ``export_pages``,
+``install_pages``) of disaggregated serving waits for a later slice.
+"""
+from __future__ import annotations
+
+import math
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..framework.place import DeviceLike, default_device
+from ..monitor import stat_add
+from ..ops.quant_ops import SCALE_EPS
+
+KV_QMAX = 127.0  # symmetric int8 grid for quantized pages
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A cache dtype given as a torch dtype or its name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = str(getattr(dtype, "name", dtype))
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported cache dtype {dtype!r}; expected "
+                         f"one of {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+class CacheExhaustedError(RuntimeError):
+    """The page pool cannot cover a request's worst-case reservation."""
+
+
+class CacheConfig:
+    """Geometry of the paged cache (everything static / compile-time).
+
+    ``quantized=True`` (``FLAGS_decode_kv_quant``) stores pages as int8
+    with a parallel per-page scale pool: one float32 scale per head per
+    position-in-page (a ``[page_size, heads]`` scale plane per page,
+    living in ``k/v_scales [layers, pages, page_size, heads]``).  The
+    position-granular plane — rather than one scalar per page — is what
+    keeps stored bytes WRITE-ONCE: re-deriving a position (a rejected
+    speculative row, a chunked-prefill replay) re-quantizes only itself,
+    so page content is order-independent and speculative decode stays
+    bitwise-equal to its own non-speculative quantized run.  Bytes per
+    position drop from ``2*head_dim`` (bf16) to ``head_dim + 4`` —
+    about half — which is exactly what ``page_bytes()`` reports, so the
+    worst-case admission reservation and the device-memory accounting both
+    see the shrink and a fixed pool byte budget holds ~2x the pages."""
+
+    def __init__(self, num_layers: int, num_heads: int, head_dim: int,
+                 num_slots: int, max_seq_len: int, page_size: int,
+                 num_pages: Optional[int] = None, dtype="float32",
+                 quantized: bool = False):
+        if max_seq_len % page_size:
+            raise ValueError(
+                f"max_seq_len ({max_seq_len}) must be a multiple of "
+                f"page_size ({page_size})")
+        self.num_layers = int(num_layers)
+        self.num_heads = int(num_heads)
+        self.head_dim = int(head_dim)
+        self.num_slots = int(num_slots)
+        self.max_seq_len = int(max_seq_len)
+        self.page_size = int(page_size)
+        self.pages_per_slot = self.max_seq_len // self.page_size
+        # default pool: every slot can hold a max-length sequence, plus
+        # the reserved trash page — admission then only ever blocks on
+        # free SLOTS, never pages.  A smaller explicit pool exercises
+        # real paging pressure (admission waits for pages).
+        self.num_pages = int(num_pages) if num_pages is not None \
+            else self.num_slots * self.pages_per_slot + 1
+        if self.num_pages < 2:
+            raise ValueError("num_pages must be >= 2 (page 0 is trash)")
+        self.quantized = bool(quantized)
+        # ``dtype`` stays the COMPUTE/reference dtype (what dequantized
+        # values and the full-recompute oracle use); ``store_dtype`` is
+        # what the page pools hold
+        self.dtype = torch_dtype(dtype)
+        self.store_dtype = torch.int8 if self.quantized else self.dtype
+        self.scale_dtype = torch.float32
+
+    def pages_for(self, seq_len: int) -> int:
+        return max(1, math.ceil(int(seq_len) / self.page_size))
+
+    def page_bytes(self) -> int:
+        """Device bytes ONE page costs in one pool — including its
+        scale plane when quantized, so capacity math can't hide the
+        scale overhead."""
+        data = (self.page_size * self.num_heads * self.head_dim
+                * self.store_dtype.itemsize)
+        if self.quantized:
+            data += (self.page_size * self.num_heads
+                     * self.scale_dtype.itemsize)
+        return data
+
+    def per_page_pool_bytes(self) -> int:
+        """Total device bytes one page costs across EVERY pool (k + v,
+        all layers, scale planes included) — the unit a fixed byte
+        budget is divided by to size ``num_pages``."""
+        return 2 * self.num_layers * self.page_bytes()
+
+    def cache_bytes(self) -> int:
+        """Total device bytes of the page arrays (k + v, scale pools
+        included when quantized)."""
+        return self.num_pages * self.per_page_pool_bytes()
+
+
+class PageAllocator:
+    """Host-side free list over page ids 1..num_pages-1 (0 is trash).
+
+    A double free corrupts the pool silently (two slots end up writing
+    the same page), so ``free`` detects it via a mirror set and raises
+    LOUDLY instead."""
+
+    def __init__(self, num_pages: int):
+        self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self._free_set = set(self._free)
+        self._lock = threading.Lock()
+
+    @property
+    def num_free(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """Take n pages, or None (atomically nothing) when the pool
+        cannot cover the request."""
+        if n <= 0:
+            # guard the n==0 slice below (`self._free[-0:]` is the
+            # WHOLE list, not an empty one) — a fully-shared claim
+            # legitimately needs zero fresh pages
+            return []
+        with self._lock:
+            if n > len(self._free):
+                return None
+            taken = self._free[-n:]
+            del self._free[-n:]
+            self._free_set.difference_update(taken)
+            return list(reversed(taken))
+
+    def free(self, pages: Sequence[int]) -> None:
+        with self._lock:
+            for p in pages:
+                p = int(p)
+                if p == 0:
+                    continue
+                if p in self._free_set:
+                    raise RuntimeError(
+                        f"double free of KV-cache page {p}: the page is "
+                        f"already on the free list (refcount/lifecycle "
+                        f"bug — a slot release or eviction ran twice)")
+                self._free.append(p)
+                self._free_set.add(p)
+
+
+class _PrefixEntry:
+    __slots__ = ("page_id", "parent", "tokens", "full", "children",
+                 "tick")
+
+    def __init__(self, page_id, parent, tokens, full, tick):
+        self.page_id = page_id
+        self.parent = parent
+        self.tokens = tokens
+        self.full = full
+        self.children = 0
+        self.tick = tick
+
+
+class PrefixIndex:
+    """Exact-content trie over registered (immutable) pages.
+
+    Node key = ``(parent_page_id, tuple(page_tokens))`` — page ids are
+    unique while resident, so the chain match is exact and a prompt can
+    never hit a page holding different bytes (no hash collisions by
+    construction).  Entries record their token content, so the FINAL
+    partial page of a prompt can be matched as a token-prefix of a
+    registered tail (the consumer then copy-on-writes at its first
+    divergent token).  Single-threaded by contract: only the engine
+    thread mutates it (admission / release / eviction)."""
+
+    def __init__(self, page_size: int):
+        self.page_size = int(page_size)
+        self._by_key: Dict[tuple, _PrefixEntry] = {}
+        self._children: Dict[int, List[_PrefixEntry]] = {}
+        self._by_page: Dict[int, _PrefixEntry] = {}
+        self._tick = 0
+
+    def __len__(self) -> int:
+        return len(self._by_page)
+
+    def is_registered(self, page_id: int) -> bool:
+        return int(page_id) in self._by_page
+
+    def lookup(self, prompt: Sequence[int]) -> Tuple[List[int],
+                                                     Optional[int]]:
+        """Longest registered prefix of ``prompt``: ``(full_pages,
+        partial_page)`` — ordered page ids for every whole matched page
+        and, when the REMAINING prompt tail is a token-prefix of a
+        registered page's content, that page id (the CoW candidate).
+        A partial hit therefore always means the ENTIRE prompt is
+        cache-covered."""
+        p = self.page_size
+        prompt = [int(t) for t in prompt]
+        n = len(prompt)
+        self._tick += 1
+        full: List[int] = []
+        parent = 0
+        while (len(full) + 1) * p <= n:
+            toks = tuple(prompt[len(full) * p:(len(full) + 1) * p])
+            e = self._by_key.get((parent, toks))
+            if e is None:
+                break
+            e.tick = self._tick
+            full.append(e.page_id)
+            parent = e.page_id
+        partial = None
+        m = n - len(full) * p
+        if m > 0:
+            tail = tuple(prompt[len(full) * p:])
+            for e in self._children.get(parent, ()):
+                if len(e.tokens) >= m and e.tokens[:m] == tail:
+                    e.tick = self._tick
+                    partial = e.page_id
+                    break
+        return full, partial
+
+    def register(self, pages: Sequence[int], tokens: Sequence[int],
+                 on_new) -> int:
+        """Register the chain of ``pages`` holding ``tokens`` (page i
+        holds tokens[i*p:(i+1)*p]; the last page may be partial).  An
+        existing identical entry is adopted as the chain parent and the
+        caller's duplicate page is simply not registered (it frees
+        normally).  ``on_new(page_id)`` is called for each page the
+        index takes a reference on.  Returns newly registered count."""
+        p = self.page_size
+        tokens = [int(t) for t in tokens]
+        parent = 0
+        new = 0
+        for i, pid in enumerate(pages):
+            pid = int(pid)
+            toks = tuple(tokens[i * p:(i + 1) * p])
+            if not toks or pid == 0:
+                break
+            existing = self._by_key.get((parent, toks))
+            if existing is not None:
+                parent = existing.page_id
+                if len(toks) < p:
+                    break
+                continue
+            if pid in self._by_page:
+                # the page is already registered under another key —
+                # never alias one page into two trie positions
+                break
+            e = _PrefixEntry(pid, parent, toks, len(toks) == p,
+                             self._tick)
+            self._by_key[(parent, toks)] = e
+            self._children.setdefault(parent, []).append(e)
+            if parent in self._by_page:
+                self._by_page[parent].children += 1
+            self._by_page[pid] = e
+            on_new(pid)
+            new += 1
+            if not e.full:
+                break
+            parent = pid
+        return new
+
+    def evict(self, n_pages: int, can_evict, on_evict) -> int:
+        """Free up to ``n_pages`` pages by removing least-recently-hit
+        CHILDLESS entries whose page ``can_evict(pid)`` approves (only
+        the index references it).  Bottom-up by construction: an entry
+        with children is never removed, so a freed-and-reused page id
+        can never be mistaken for a live chain parent.  O(entries) per
+        eviction — fine at host-bookkeeping scale."""
+        freed = 0
+        while freed < n_pages:
+            victims = [e for e in self._by_page.values()
+                       if e.children == 0 and can_evict(e.page_id)]
+            if not victims:
+                break
+            e = min(victims, key=lambda v: v.tick)
+            self._remove(e)
+            on_evict(e.page_id)
+            freed += 1
+        return freed
+
+    def _remove(self, e: _PrefixEntry) -> None:
+        del self._by_key[(e.parent, e.tokens)]
+        sibs = self._children[e.parent]
+        sibs.remove(e)
+        if not sibs:
+            del self._children[e.parent]
+        if e.parent in self._by_page:
+            self._by_page[e.parent].children -= 1
+        del self._by_page[e.page_id]
+
+
+class ClaimInfo:
+    """What an admission claim resolved to (prefix-cache accounting)."""
+
+    __slots__ = ("hit_tokens", "full_hits", "partial", "hit_pages",
+                 "prompt_pages", "fresh_pages")
+
+    def __init__(self, hit_tokens, full_hits, partial, hit_pages,
+                 prompt_pages, fresh_pages):
+        self.hit_tokens = hit_tokens      # prompt positions cache-covered
+        self.full_hits = full_hits        # whole shared pages
+        self.partial = partial            # borrowed a partial tail page
+        self.hit_pages = hit_pages        # full_hits + (1 if partial)
+        self.prompt_pages = prompt_pages  # ceil(len(prompt)/page)
+        self.fresh_pages = fresh_pages    # newly allocated pages
+
+
+class PagedKVCache:
+    """Host bookkeeping (page tables, lengths, refcounts, allocator,
+    prefix index) + the device page pools, which live on this object
+    and are updated in place by the engine thread."""
+
+    def __init__(self, config: CacheConfig, device: DeviceLike = None,
+                 prefix_cache=True):
+        self.config = config
+        self.device = default_device(device)
+        # optional per-request tracing hook: ``on_event(slot, name,
+        # **attrs)`` fired on cache lifecycle events (cow_swap, evict,
+        # register) — the decode engine wires it to the owning
+        # request's timeline (observe/request_trace.py); ``slot`` is
+        # None for events with no slot owner (evictions during an
+        # admission allocation)
+        self.on_event = None
+        self.allocator = PageAllocator(config.num_pages)
+        self.prefix: Optional[PrefixIndex] = \
+            PrefixIndex(config.page_size) if prefix_cache else None
+        c = config
+        # per-slot host mirrors: the scheduler reads/writes these; the
+        # device sees them as small per-step int32 copies
+        self.page_table = np.zeros((c.num_slots, c.pages_per_slot),
+                                   np.int32)
+        self.lengths = np.zeros((c.num_slots,), np.int32)
+        self._slot_pages: List[List[int]] = [[] for _ in range(c.num_slots)]
+        # every page id a slot holds ONE reference on (table pages +
+        # the CoW spare); release decrefs exactly this list
+        self._slot_refs: List[List[int]] = [[] for _ in range(c.num_slots)]
+        # reserved CoW target for a borrowed partial page (at most one)
+        self._cow_spare: List[List[int]] = [[] for _ in range(c.num_slots)]
+        self._refs = [0] * c.num_pages
+        shape = (c.num_layers, c.num_pages, c.page_size, c.num_heads,
+                 c.head_dim)
+        self.k_pages = torch.zeros(shape, dtype=c.store_dtype,
+                                   device=self.device)
+        self.v_pages = torch.zeros(shape, dtype=c.store_dtype,
+                                   device=self.device)
+        # quantized mode: parallel per-page scale pools (one scale per
+        # head per position-in-page), plus the freed-page reset queue
+        # the scale audit relies on
+        self.k_scales: Optional[torch.Tensor] = None
+        self.v_scales: Optional[torch.Tensor] = None
+        self._pending_scale_resets: List[int] = []
+        if c.quantized:
+            sshape = shape[:-1]
+            self.k_scales = torch.full(sshape, SCALE_EPS,
+                                       dtype=c.scale_dtype,
+                                       device=self.device)
+            self.v_scales = torch.full(sshape, SCALE_EPS,
+                                       dtype=c.scale_dtype,
+                                       device=self.device)
+
+    def pools(self) -> Tuple[torch.Tensor, ...]:
+        """Every pool indexed by page id: K/V pages, plus the scale
+        pools when quantized (what a copy-on-write must copy)."""
+        if self.config.quantized:
+            return self.k_pages, self.v_pages, self.k_scales, self.v_scales
+        return self.k_pages, self.v_pages
+
+    def _fire(self, slot, name, **attrs) -> None:
+        hook = self.on_event
+        if hook is None:
+            return
+        try:
+            hook(slot, name, **attrs)
+        except Exception:  # noqa: BLE001 — instrumentation must never
+            stat_add("request_trace_errors")  # corrupt cache bookkeeping
+
+    # -- refcounts --------------------------------------------------------
+    def _incref(self, pid: int) -> None:
+        self._refs[pid] += 1
+
+    def _decref(self, pid: int) -> None:
+        r = self._refs[pid] = self._refs[pid] - 1
+        if r < 0:
+            raise RuntimeError(
+                f"KV-cache page {pid} refcount went negative — a "
+                f"release/eviction path dropped a reference it never "
+                f"held")
+        if r == 0:
+            self.allocator.free([pid])
+            if self.config.quantized:
+                # hygiene + auditability: a freed page's scale plane is
+                # reset to SCALE_EPS (flushed in one batched device op
+                # at the end of the release/claim that freed it).  Not
+                # load-bearing for numerics — the write path quantizes
+                # each position with its own fresh scale and reads are
+                # length-masked — but it makes "this page is free" an
+                # observable device-side fact debug_check() can assert.
+                self._pending_scale_resets.append(pid)
+
+    def flush_scale_resets(self) -> None:
+        """Apply pending freed-page scale resets to both scale pools, in
+        place.  Runs on the owner thread between step dispatches."""
+        if not self._pending_scale_resets:
+            return
+        pids = torch.as_tensor(sorted(set(self._pending_scale_resets)),
+                               dtype=torch.int64, device=self.device)
+        self._pending_scale_resets = []
+        for arr in (self.k_scales, self.v_scales):
+            arr[:, pids] = SCALE_EPS
+
+    def refcount(self, pid: int) -> int:
+        return self._refs[int(pid)]
+
+    @property
+    def shared_pages(self) -> int:
+        """Pages currently pinned by the prefix index."""
+        return len(self.prefix) if self.prefix is not None else 0
+
+    def _alloc_evicting(self, n: int) -> Optional[List[int]]:
+        """Allocate n pages, evicting cache-only prefix entries under
+        pressure (least-recently-hit, childless first)."""
+        pages = self.allocator.alloc(n)
+        if pages is not None or self.prefix is None:
+            return pages
+        short = n - self.allocator.num_free
+        evicted = self.prefix.evict(
+            short, can_evict=lambda pid: self._refs[pid] == 1,
+            on_evict=self._decref)
+        if evicted:
+            stat_add("decode_prefix_evictions", evicted)
+            self._fire(None, "evict", pages=evicted)
+        return self.allocator.alloc(n)
+
+    # -- slot lifecycle ---------------------------------------------------
+    def claim(self, slot: int, reserve_tokens: int,
+              prompt: Optional[Sequence[int]] = None
+              ) -> Optional[ClaimInfo]:
+        """Reserve pages covering ``reserve_tokens`` positions for the
+        slot, sharing every registered prefix page of ``prompt``; None
+        when the pool can't cover the FRESH remainder (caller retries
+        later).  Shared-aware worst case: ``total - shared_full`` fresh
+        pages are taken either way — with a partial borrow one of them
+        is held back as the CoW spare, so the later copy-on-write can
+        never hit an empty pool."""
+        total = self.config.pages_for(reserve_tokens)
+        full_hits: List[int] = []
+        partial: Optional[int] = None
+        if self.prefix is not None and prompt is not None:
+            full_hits, partial = self.prefix.lookup(prompt)
+        hits = full_hits + ([partial] if partial is not None else [])
+        # pin the matched pages BEFORE the eviction-backed allocation:
+        # a just-matched childless tail page is index-only (refcount 1)
+        # and would otherwise be a legal eviction victim — freed and
+        # handed straight back as this claim's "fresh" page, aliasing
+        # one physical page under two table roles
+        for pid in hits:
+            self._incref(pid)
+        n_fresh = total - len(full_hits)
+        fresh = self._alloc_evicting(n_fresh)
+        if fresh is None and partial is not None:
+            # drop the partial borrow under pressure: unpinned, its
+            # page becomes an eviction candidate again, and the fresh
+            # count is unchanged (the borrow traded its CoW spare for
+            # a plain page) — so any reservation the submit-time check
+            # admitted can still be satisfied instead of deadlocking
+            # the queue head behind its own matched page
+            self._decref(partial)
+            partial = None
+            hits = list(full_hits)
+            fresh = self._alloc_evicting(n_fresh)
+        if fresh is None:
+            for pid in hits:
+                self._decref(pid)  # still index-pinned: never frees
+            return None
+        for pid in fresh:
+            self._incref(pid)
+        table_pages = list(full_hits)
+        rest = list(fresh)
+        spare: List[int] = []
+        if partial is not None:
+            spare = [rest.pop(0)]
+            table_pages.append(partial)
+        table_pages += rest
+        self._slot_pages[slot] = table_pages
+        self._slot_refs[slot] = hits + fresh
+        self._cow_spare[slot] = spare
+        row = np.zeros((self.config.pages_per_slot,), np.int32)
+        row[:len(table_pages)] = table_pages
+        self.page_table[slot] = row
+        self.lengths[slot] = 0
+        self.flush_scale_resets()  # evictions may have freed pages
+        prompt_len = len(prompt) if prompt is not None else 0
+        hit_tokens = len(full_hits) * self.config.page_size
+        if partial is not None:
+            hit_tokens = prompt_len  # partial hit == full prompt cover
+        return ClaimInfo(
+            hit_tokens=hit_tokens, full_hits=len(full_hits),
+            partial=partial is not None,
+            hit_pages=len(full_hits) + (1 if partial is not None else 0),
+            prompt_pages=self.config.pages_for(max(prompt_len, 1))
+            if prompt is not None else 0,
+            fresh_pages=len(fresh))
+
+    def release(self, slot: int,
+                register_tokens: Optional[Sequence[int]] = None) -> None:
+        """Drop the slot's references.  When ``register_tokens`` is
+        given (the token content whose K/V the slot's leading pages
+        hold), those pages are first registered in the prefix index —
+        the index takes its own reference, so registered pages survive
+        the release for future prompts to share."""
+        if register_tokens and self.prefix is not None:
+            n_pages = self.config.pages_for(len(register_tokens))
+            new = self.prefix.register(
+                self._slot_pages[slot][:n_pages], register_tokens,
+                on_new=self._incref)
+            if new:
+                self._fire(slot, "register", pages=new,
+                           tokens=len(register_tokens))
+        for pid in self._slot_refs[slot]:
+            self._decref(pid)
+        self._slot_pages[slot] = []
+        self._slot_refs[slot] = []
+        self._cow_spare[slot] = []
+        self.page_table[slot] = 0
+        self.lengths[slot] = 0
+        self.flush_scale_resets()
+
+    def slot_pages(self, slot: int) -> List[int]:
+        return list(self._slot_pages[slot])
+
+    # -- copy-on-write ----------------------------------------------------
+    def writable(self, slot: int, position: int) -> bool:
+        pid = int(self.page_table[slot][int(position)
+                                        // self.config.page_size])
+        if pid == 0:
+            return True  # trash absorbs anything
+        return self._refs[pid] == 1 and not (
+            self.prefix is not None and self.prefix.is_registered(pid))
+
+    def plan_cow(self, slot: int, positions: Sequence[int]
+                 ) -> List[Tuple[int, int]]:
+        """Make every page covering ``positions`` writable by the slot.
+        Shared/registered pages are swapped for the slot's reserved
+        spare (falling back to a fresh allocation, which the
+        reservation accounting makes unreachable); the page table is
+        updated NOW and the returned ``(src, dst)`` copies MUST be
+        performed on-device by the caller before its next write
+        dispatch."""
+        plans: List[Tuple[int, int]] = []
+        p = self.config.page_size
+        for idx in sorted({int(pos) // p for pos in positions}):
+            pid = int(self.page_table[slot][idx])
+            if pid == 0 or self.writable(slot, idx * p):
+                continue
+            if self._cow_spare[slot]:
+                dst = self._cow_spare[slot].pop()
+            else:
+                got = self._alloc_evicting(1)
+                if got is None:
+                    raise CacheExhaustedError(
+                        f"copy-on-write for slot {slot} page index "
+                        f"{idx} found an empty pool — the shared-aware "
+                        f"reservation accounting is broken (a spare "
+                        f"page should have been held at admission)")
+                dst = got[0]
+                self._incref(dst)
+                self._slot_refs[slot].append(dst)
+            self.page_table[slot][idx] = dst
+            self._slot_pages[slot][idx] = dst
+            self._slot_refs[slot].remove(pid)
+            # shared pages are held by the index and/or other slots, so
+            # this decref can never free the page mid-copy
+            self._decref(pid)
+            self._fire(slot, "cow_swap", src=pid, dst=dst,
+                       page_index=idx)
+            plans.append((pid, dst))
+        return plans
+
+    def write_coords(self, slot: int):
+        """(page_id, offset) for the NEXT position of the slot."""
+        t = int(self.lengths[slot])
+        return (int(self.page_table[slot][t // self.config.page_size]),
+                t % self.config.page_size)
+
+
+    def copy_page(self, src: int, dst: int) -> None:
+        """The device half of copy-on-write: page ``src`` onto page
+        ``dst`` in every pool (all layers), in place."""
+        for pool in self.pools():
+            pool[:, dst] = pool[:, src]
+
+    # -- integrity audit (chaos tests / debugging) ------------------------
+    def debug_check(self) -> None:
+        """Assert the refcount/free-list/index books balance: every
+        page is exactly one of {free, referenced}, and each page's
+        refcount equals index-pin + per-slot references.  When the
+        cache is quantized the audit extends to scale-pool/page-pool
+        agreement: every scale is finite and positive, and every FREE
+        page's scale plane is reset to ``SCALE_EPS``.  Raises
+        AssertionError with the discrepancy."""
+        self.flush_scale_resets()
+        want = [0] * self.config.num_pages
+        for slot_refs in self._slot_refs:
+            for pid in slot_refs:
+                want[pid] += 1
+        if self.prefix is not None:
+            for pid in list(self.prefix._by_page):
+                want[pid] += 1
+        with self.allocator._lock:
+            free = set(self.allocator._free)
+            assert len(free) == len(self.allocator._free), \
+                "free list holds duplicate pages"
+        for pid in range(1, self.config.num_pages):
+            assert self._refs[pid] == want[pid], (
+                f"page {pid}: refcount {self._refs[pid]} != "
+                f"{want[pid]} held references")
+            in_free = pid in free
+            assert in_free == (self._refs[pid] == 0), (
+                f"page {pid}: refcount {self._refs[pid]} but "
+                f"{'on' if in_free else 'not on'} the free list")
+        if not self.config.quantized:
+            return
+        free_idx = np.asarray(sorted(free), np.int64)
+        for name, pool in (("k_scales", self.k_scales),
+                           ("v_scales", self.v_scales)):
+            arr = pool.cpu().numpy()
+            assert np.isfinite(arr).all(), (
+                f"scale pool {name} holds non-finite scales — a write "
+                f"path stored an unclamped/overflowed scale")
+            assert (arr > 0).all(), (
+                f"scale pool {name} holds non-positive scales")
+            if len(free_idx):
+                stale = arr[:, free_idx]
+                bad = np.any(stale != np.float32(SCALE_EPS), axis=(0, 2, 3))
+                assert not bad.any(), (
+                    f"scale pool {name}: freed pages "
+                    f"{free_idx[bad].tolist()} kept live scales — a free "
+                    f"path skipped the reset")
+
+
+# -- device-side helpers (update the page pools IN PLACE) ------------------
+
+
+def _index(t) -> torch.Tensor:
+    return t.to(torch.int64) if isinstance(t, torch.Tensor) \
+        else torch.as_tensor(t, dtype=torch.int64)
+
+
+def quantize_kv(val: torch.Tensor):
+    """Symmetric int8 quantization of K/V values at per-position
+    per-head granularity: ``val [..., H, D] -> (q int8 [..., H, D],
+    scale f32 [..., H])`` with the scale clamped PER SLICE (an all-zero
+    head stores exact zeros instead of dividing by ~0).  Pure and
+    position-local, so every write path produces identical stored
+    bytes for identical values.  ``torch.round`` rounds half to even,
+    as ``jnp.round`` does, so the stored bytes match the JAX
+    package's."""
+    v = val.float()
+    scale = torch.clamp(v.abs().amax(dim=-1) / KV_QMAX, min=SCALE_EPS)
+    q = torch.clamp(torch.round(v / scale[..., None]), -KV_QMAX, KV_QMAX) \
+        .to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
+    """Inverse of :func:`quantize_kv` (broadcast the per-position
+    per-head scale back over head_dim)."""
+    return (q.float() * scale.float()[..., None]).to(torch_dtype(dtype))
+
+
+def write_token_layer(pages, scales, layer: int, val, page_id, offset):
+    """Write one new position per row, in place: ``val [R, H, D]`` lands
+    at ``(layer, page_id[r], offset[r])``; dead rows pass page 0 (the
+    trash page).  ``scales=None`` is the unquantized path; otherwise
+    the int8 bytes and their per-position scales are written together.
+    Replaces the JAX package's donated ``pages.at[...].set``."""
+    idx = (_index(page_id), _index(offset))
+    if scales is None:
+        pages[layer].index_put_(idx, val.to(pages.dtype))
+        return
+    q, s = quantize_kv(val)
+    pages[layer].index_put_(idx, q)
+    scales[layer].index_put_(idx, s.to(scales.dtype))
+
+
+def write_prompt_layer(pages, scales, layer: int, val, page_ids):
+    """Write a whole prompt's positions for one slot, in place:
+    ``val [n_pages*page, H, D]`` (padded to a page multiple) is stored
+    page-wholesale into ``page_ids [n_pages]``; each position quantizes
+    independently when ``scales`` is given."""
+    ids = _index(page_ids)
+    n, page = ids.shape[0], pages.shape[2]
+    v = val.reshape(n, page, val.shape[-2], val.shape[-1])
+    if scales is None:
+        pages[layer].index_put_((ids,), v.to(pages.dtype))
+        return
+    q, s = quantize_kv(v)
+    pages[layer].index_put_((ids,), q)
+    scales[layer].index_put_((ids,), s.to(scales.dtype))
