@@ -5,30 +5,63 @@ Run from the repository root, on a host with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
-1. device  -- the card's name and power limit, as ``nvidia-smi`` gives them;
-2. build   -- the CUDA kernels, compiled from ``paddle_tpu_torch/csrc`` by
-              ``paddle_tpu_torch/native/build.py`` (one ``nvcc`` per source);
-3. kernels -- each kernel against its plain PyTorch version at the serving
-              path's shapes (S=8 slots, H=8 heads, D=64, page 16, 64 pages a
-              slot, shuffled page ids): the max abs error beside its stated
-              tolerance, and CUDA-event times of the kernel, the plain
-              version and ``F.scaled_dot_product_attention`` on K/V gathered
-              to dense (a yardstick the port never calls), with the least
-              time the card could take (bytes or operations over the
-              data-sheet peak of the named card);
-4. serve   -- the README's serving model at full width (vocab 32000,
-              d_model 512, 8 layers, 8 heads, ffn 2048, max_seq_len 1024;
-              random weights from a seed) behind ``DecodeServer`` on the
-              card: 8 greedy requests of 100-600 prompt tokens, the second
-              of two sharing a 256-token prefix submitted after the first
-              finished (the prefix-hit suffix path), then a chunked-prefill
-              engine (``prefill_chunk_pages=8``) on a 700-token prompt.  The
-              launch counters are zeroed just before and read just after;
-              streamed logits are held against ``recompute_logits``;
-5. profile -- 8 requests under ``torch.profiler``: the device's busy share of
-              the window and its time by kernel.
+1. device   -- the card's name and power limit, as ``nvidia-smi`` gives them;
+2. build    -- the CUDA kernels, compiled from ``paddle_tpu_torch/csrc`` by
+               ``paddle_tpu_torch/native/build.py`` (one ``nvcc`` per source,
+               all started together);
+3. kernels  -- each kernel against its plain PyTorch version on the same
+               inputs: the max abs error beside its stated tolerance, and
+               CUDA-event times (L2 flushed before each call) of the kernel,
+               the plain version and one PyTorch library call computing the
+               same function (a yardstick the port never calls), with the
+               least time the card could take (bytes or operations over the
+               data-sheet peak of the named card).  The paged decode and chunk
+               kernels (B5, B6) at the serving path's shapes (S=8 slots, H=8
+               heads, D=64, page 16, 64 pages a slot, shuffled page ids),
+               against ``F.scaled_dot_product_attention`` on K/V gathered to
+               dense; the biased flash-attention forward (B1) at BERT-base's
+               shape (B=32, H=12, S=128, D=64, key mask) in bfloat16 and
+               float32, with a full [B, H, S, S] bias, unbiased and causal,
+               at S=512 and at D=128, against ``F.scaled_dot_product_attention``
+               with the bias as ``attn_mask``;
+4. serve    -- the README's serving model at full width (vocab 32000,
+               d_model 512, 8 layers, 8 heads, ffn 2048, max_seq_len 1024;
+               random weights from a seed) behind ``DecodeServer`` on the
+               card: 8 greedy requests of 100-600 prompt tokens, the second
+               of two sharing a 256-token prefix submitted after the first
+               finished (the prefix-hit suffix path), then a chunked-prefill
+               engine (``prefill_chunk_pages=8``) on a 700-token prompt.  The
+               paged kernels' launch counters are zeroed just before and read
+               just after; streamed logits are held against
+               ``recompute_logits``;
+5. profile  -- 8 requests under ``torch.profiler``: the device's busy share of
+               the window and its time by kernel;
+6. train    -- BERT-base pretraining at full width (vocab 30522, hidden 768,
+               12 layers, 12 heads, ffn 3072, max_pos 512, seq 128, 20
+               predictions a sequence; random weights from the program's
+               seed) as ``bench.py``'s ``bench_bert`` drives it, through the
+               port: ``bert_base_pretrain_program``, ``decorate(opt,
+               use_bf16=True).minimize(loss)``, ``Executor()`` on the card,
+               the startup program, a warm ``run_steps(steps=3)``, then timed
+               steps, each synced.  Batch 32 (the benchmark's 256 is cut to
+               the script's time limit), dropout 0.1, AdamW (lr 1e-4, weight
+               decay 0.01), ``FLAGS_flash_attention=always`` so that the fused
+               attention op runs B1.  B1's launch counter is zeroed just
+               before the timed steps and read just after: 24 a step (12
+               attention layers, each run again by its generic gradient);
+7. train_profile -- one such step under ``torch.profiler``: the device's busy
+               share and its time by kernel, B1's share included, and host
+               and device time by op type (each op's lowering in a range of
+               its own), which prices the forward that generic gradients
+               run again;
+8. train_oracle -- float32 (no AMP), dropout 0, batch 8, full width: one
+               startup copied into two scopes, 3 steps with B1
+               (``FLAGS_flash_attention=always``) and 3 with the plain
+               composition (``never``); the per-step losses agree within
+               1e-4 relative, B1 ran only in the first, and the loss fell
+               (AdamW at lr 1e-5 here, where the steps do not overshoot).
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
@@ -51,17 +84,26 @@ import torch.nn.functional as F
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from paddle_tpu_torch.framework import flags  # noqa: E402
+import paddle_tpu_torch as pt  # noqa: E402
+from paddle_tpu_torch.amp import decorate  # noqa: E402
+from paddle_tpu_torch.framework import flags, unique_name  # noqa: E402
+from paddle_tpu_torch.framework.program import program_guard  # noqa: E402
 from paddle_tpu_torch.native import build  # noqa: E402
 from paddle_tpu_torch.observe import tracer  # noqa: E402
+from paddle_tpu_torch.ops import flash_attention_bias as fab  # noqa: E402
 from paddle_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from paddle_tpu_torch.serving import (DecodeConfig, DecodeServer,  # noqa: E402
                                       TransformerLM)
 
-SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
+SOURCES = {
+    "paged_decode_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
+    "paged_chunk_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
+    "flash_attention_bias": "paddle_tpu_torch/csrc/flash_attention.cu",
+}
 REPLACES = {
     "paged_decode_attention": "paddle_tpu/ops/pallas_decode_attention.py:71",
     "paged_chunk_attention": "paddle_tpu/ops/pallas_decode_attention.py:232",
+    "flash_attention_bias": "paddle_tpu/ops/pallas_attention.py:34",
 }
 # Data-sheet peaks (dense): bytes/s of device memory, and operations/s by
 # the input type the kernels compute from (float32 on the CUDA cores;
@@ -88,6 +130,32 @@ REL_TOL = {"float32": 0.0, "int8": 0.0, "bfloat16": 2.0 ** -7}
 # only, compounded over 8 layers.
 LOGIT_TOL = 1e-3
 S, H, D, PAGE, PPS = 8, 8, 64, 16, 64
+# B1 (flash attention with a streamed bias) against its plain version: the
+# same rule, TOL + REL_TOL * |plain| per element.  Both sum in float32 from
+# the same inputs over at most 512 keys and round once to q's type, so
+# float32 results differ by summation order only, and bfloat16 ones also by
+# at most one bfloat16 step.
+# (label, B, H, S, D, dtype, bias, causal); the first is the main path's call
+FLASH_CASES = (
+    ("bert_bf16", 32, 12, 128, 64, "bfloat16", "key", False),
+    ("bert_f32", 32, 12, 128, 64, "float32", "key", False),
+    ("full_bias_bf16", 32, 12, 128, 64, "bfloat16", "full", False),
+    ("causal_no_bias_bf16", 32, 12, 128, 64, "bfloat16", "none", True),
+    ("S512_bf16", 8, 12, 512, 64, "bfloat16", "key", False),
+    ("D128_bf16", 32, 6, 128, 128, "bfloat16", "key", False),
+)
+# BERT-base pretraining (bench.py's bench_bert, BASELINE config 3) at full
+# width; the batch is cut from the benchmark's 256 to the time limit.
+BERT_PREDS, TRAIN_BATCH, ORACLE_BATCH = 20, 32, 8
+TRAIN_STEPS = 10
+B1_PER_STEP = 24   # 12 fused attention ops, each replayed by its gradient
+# train oracle: the float32 losses of B1 and of the plain composition, per
+# step, within this relative gap (summation order over 3 steps)
+ORACLE_RTOL = 1e-4
+# At the benchmark's lr (1e-4) the first AdamW steps on one batch overshoot
+# (every weight moves by about lr at once) and the loss may rise before it
+# falls; the oracle's "the loss fell" check runs at a fine-tuning rate.
+ORACLE_LR = 1e-5
 
 
 def log(phase, **fields):
@@ -221,6 +289,23 @@ def sdpa_inputs(c, kv):
     return q, k, v, mask
 
 
+def check_close(label, out, ref, want_dtype, kind):
+    """Max abs error of a kernel's output against its plain version's;
+    raises beyond ``TOL[kind] + REL_TOL[kind] * |plain|`` per element."""
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != want_dtype:
+        raise RuntimeError(f"{label}: output {tuple(out.shape)} {out.dtype},"
+                           f" want {tuple(ref.shape)} {want_dtype}")
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    excess = float((diff - REL_TOL[kind] * ref.float().abs()).max())
+    if not math.isfinite(err) or excess > TOL[kind]:
+        raise RuntimeError(f"{label}: kernel vs plain differ by {err} (max "
+                           f"abs), beyond {TOL[kind]} + {REL_TOL[kind]}"
+                           f"*|plain|")
+    return err
+
+
 def run_case(label, kernel, c, kv, peaks, flush):
     decode = kernel == "paged_decode_attention"
     args = dict(c)
@@ -237,16 +322,7 @@ def run_case(label, kernel, c, kv, peaks, flush):
              k_scales=args["k_scales"], v_scales=args["v_scales"])
     ref = plain(q, args["k_pages"], args["v_pages"], args["page_table"], lens,
                 k_scales=args["k_scales"], v_scales=args["v_scales"])
-    torch.cuda.synchronize()
-    if out.shape != ref.shape or out.dtype != q.dtype:
-        raise RuntimeError(f"{label}: output {tuple(out.shape)} "
-                           f"{out.dtype}, want {tuple(ref.shape)} {q.dtype}")
-    diff = (out.float() - ref.float()).abs()
-    err = float(diff.max())
-    excess = float((diff - REL_TOL[kv] * ref.float().abs()).max())
-    if not math.isfinite(err) or excess > TOL[kv]:
-        raise RuntimeError(f"{label}: kernel vs plain differ by {err} (max "
-                           f"abs), beyond {TOL[kv]} + {REL_TOL[kv]}*|plain|")
+    err = check_close(label, out, ref, q.dtype, kv)
     kw = dict(k_scales=args["k_scales"], v_scales=args["v_scales"])
     ms = cuda_ms(lambda: fn(q, args["k_pages"], args["v_pages"],
                             args["page_table"], lens, **kw), flush)
@@ -291,6 +367,8 @@ def phase_kernels(name):
         c = make_case(gen, dev, lens.shape[1], lens, torch.float32, kv)
         rows.append(run_case(label, "paged_chunk_attention", c, kv, peaks,
                              flush))
+    for case in FLASH_CASES:
+        rows.append(run_flash_case(gen, dev, case, peaks, flush))
     del l2
     log("clocks", at="kernels end", **{clocks: nvidia_smi(clocks)})
     return rows
@@ -400,12 +478,27 @@ def phase_serve():
     return launches, model
 
 
+def device_time_by_kernel(prof):
+    """Device microseconds by kernel (and copy) name from a profile; the
+    card runs one stream here, so the intervals do not overlap.  A
+    profiler range also shows on the device's timeline, spanning the
+    kernels launched inside it: it is not a kernel, and is left out."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            name = e.name.replace("(anonymous namespace)::", "")
+            key = re.sub(r"\(.*", "", name)[:80]
+            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+    return by_name
+
+
 def phase_profile(model):
     """Where a decode-heavy window's time goes: 8 requests (300-token
     prompts, 24 new tokens) under torch.profiler; the device's busy time
-    is the sum of its kernel and copy intervals (one stream, so they do
-    not overlap), against the host clock around the window."""
-    from torch.autograd import DeviceType
+    is the sum of its kernel and copy intervals, against the host clock
+    around the window."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.RandomState(2)
@@ -425,18 +518,262 @@ def phase_profile(model):
             wall_us = (time.monotonic() - t0) * 1e6
     finally:
         srv.stop()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "")
-            key = re.sub(r"\(.*", "", name)[:80]
-            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+    by_name = device_time_by_kernel(prof)
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log("profile", window_ms=wall_us / 1e3, tokens=8 * 24,
         device_busy_ms=busy_us / 1e3 if busy_us else None,
         device_busy_share=busy_us / wall_us if busy_us else None,
         top_device_ms={k: v / 1e3 for k, v in top})
+
+
+# ---- B1 and the static-graph training path ----------------------------------
+
+
+def flash_case(gen, dev, b, h, s, d, dtype, bias):
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen).to(dt).to(dev)
+               for _ in range(3))
+    if bias == "key":       # BERT's additive key mask: 0 keep, -1e4 pad
+        keep = torch.rand(b, 1, 1, s, generator=gen) > 0.1
+        bias_t = torch.where(keep, 0.0, -1e4)
+    elif bias == "full":
+        bias_t = torch.randn(b, h, s, s, generator=gen)
+    else:
+        bias_t = None
+    return q, k, v, None if bias_t is None else bias_t.to(dt).to(dev)
+
+
+def flash_bound(q, bias, causal, peaks):
+    """Least time for one call: q, k, v and the bias (in its natural
+    shape) read once, the output written once; 4*D operations (QK and PV,
+    multiply-add each) per (query, key) pair the mask leaves."""
+    bw, ops_rate = peaks
+    b, h, s, d = q.shape
+    nbytes = 4 * q.numel() * q.element_size()
+    if bias is not None:
+        nbytes += bias.numel() * bias.element_size()
+    pairs = s * (s + 1) // 2 if causal else s * s
+    ops = 4 * d * pairs * b * h
+    t_bytes = nbytes / bw * 1e3
+    t_ops = ops / ops_rate[str(q.dtype)[6:]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def run_flash_case(gen, dev, case, peaks, flush):
+    label, b, h, s, d, dtype, bias_kind, causal = case
+    q, k, v, bias = flash_case(gen, dev, b, h, s, d, dtype, bias_kind)
+    kw = dict(sm_scale=1.0 / math.sqrt(d), causal=causal)
+    out = fab.flash_attention_bias(q, k, v, bias, **kw)
+    ref = fab.flash_attention_bias_reference(q, k, v, bias, **kw)
+    err = check_close(label, out, ref, q.dtype, dtype)
+    ms = cuda_ms(lambda: fab.flash_attention_bias(q, k, v, bias, **kw), flush)
+    plain_ms = cuda_ms(lambda: fab.flash_attention_bias_reference(
+        q, k, v, bias, **kw), flush)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=bias, is_causal=causal, scale=kw["sm_scale"]),
+        flush)
+    bound_ms, bound_by = flash_bound(q, bias, causal, peaks)
+    row = dict(case=label, kernel="flash_attention_bias", q=dtype,
+               shape=[b, h, s, d], bias=bias_kind, causal=causal,
+               max_abs_err=err, tolerance=TOL[dtype],
+               rel_tolerance=REL_TOL[dtype], ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+    log("kernels", **row)
+    return row
+
+
+def build_bert(batch, amp, dropout, lr=1e-4):
+    """BERT-base pretraining at full width, as bench.py builds it."""
+    from paddle_tpu_torch.text import bert_base_pretrain_program
+
+    with unique_name.guard():
+        main, startup, _feeds, loss, opt = bert_base_pretrain_program(
+            batch_size=batch, max_preds_per_seq=BERT_PREDS,
+            dropout_prob=dropout, lr=lr)
+        main.random_seed = 1
+        with program_guard(main, startup):
+            (decorate(opt, use_bf16=True) if amp else opt).minimize(loss)
+    return main, startup, loss
+
+
+def bert_feed(batch, seed, padded_keys=0):
+    """bench_bert's synthetic feeds; ``padded_keys`` masks the last keys
+    of every other sequence."""
+    seq, preds = 128, BERT_PREDS
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, 30522, (batch, seq)).astype("int64")
+    flat_pos = np.concatenate(
+        [b * seq + rng.choice(seq - padded_keys, preds, replace=False)
+         for b in range(batch)]).astype("int64")
+    mask = np.zeros((batch, 1, 1, seq), "float32")
+    if padded_keys:
+        mask[::2, :, :, seq - padded_keys:] = -1e4
+    return {"input_ids": ids,
+            "token_type_ids": np.zeros((batch, seq), "int64"),
+            "pos_ids": np.tile(np.arange(seq, dtype="int64"), (batch, 1)),
+            "input_mask": mask, "masked_flat_pos": flat_pos,
+            "masked_labels": ids.reshape(-1)[flat_pos].reshape(-1, 1),
+            "masked_weights": np.ones((batch * preds, 1), "float32"),
+            "nsp_labels": rng.randint(0, 2, (batch, 1)).astype("int64")}
+
+
+def phase_train():
+    flags.set_flags({"flash_attention": "always"})
+    t0 = time.monotonic()
+    main, startup, loss = build_bert(TRAIN_BATCH, amp=True, dropout=0.1)
+    build_s = time.monotonic() - t0
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.monotonic() - t0
+    feed = bert_feed(TRAIN_BATCH, seed=0)
+    t0 = time.monotonic()
+    warm = exe.run_steps(main, feed=feed, fetch_list=[loss], scope=scope,
+                         steps=3)[0]
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    fab.reset_launch_count()    # the main path's count starts here
+    step_ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.ravel()[0]))
+    launches = fab.flash_attention_bias.launches
+    losses = [float(x) for x in warm.float().cpu().ravel()] + losses
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"BERT losses not finite: {losses}")
+    if launches != B1_PER_STEP * TRAIN_STEPS:
+        raise RuntimeError(f"B1 launched {launches} times in {TRAIN_STEPS} "
+                           f"steps, want {B1_PER_STEP} a step")
+    p50 = float(np.median(step_ms))
+    log("train", model="bert-base", batch=TRAIN_BATCH, seq=128,
+        amp="bfloat16", dropout=0.1, steps=TRAIN_STEPS,
+        step_ms_p50=p50, step_ms=step_ms,
+        tokens_per_s=TRAIN_BATCH * 128 / (p50 / 1e3),
+        program_ops=len(main.global_block.ops), build_s=build_s,
+        startup_s=startup_s, warm_run_steps_3_s=warm_s, losses=losses,
+        b1_launches=launches, b1_launches_per_step=launches / TRAIN_STEPS,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches, (exe, main, feed, loss, scope)
+
+
+def op_ranges():
+    """Wrap every op's lowering, for one profiled step, in a profiler range
+    named ``op/<type>``, so that host and device time add up by op type.
+    Returns the undo.  (The ranges cost host time of their own.)"""
+    from torch.profiler import record_function
+
+    from paddle_tpu_torch.framework import executor
+
+    real = executor.get_lowering
+
+    def labelled(op_type):
+        rule = real(op_type)
+
+        def run(ctx, op):
+            with record_function("op/" + op_type):
+                rule(ctx, op)
+        return run
+
+    executor.get_lowering = labelled
+    return lambda: setattr(executor, "get_lowering", real)
+
+
+def phase_train_profile(state):
+    """One bf16 BERT-base step under torch.profiler: the device's busy
+    share of the step's host time, its time by kernel, and host and device
+    time by op type.  A ``<type>_grad`` op without a lowering of its own
+    takes the generic gradient, which runs ``<type>``'s forward again
+    under autograd: the time of those forward types is what the replay
+    repeats."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.framework.lowering import LOWERINGS
+
+    exe, main, feed, loss, scope = state
+    torch.cuda.synchronize()
+    undo = op_ranges()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+            wall_us = (time.monotonic() - t0) * 1e6
+    finally:
+        undo()
+    by_name = device_time_by_kernel(prof)
+    busy_us = sum(by_name.values())
+    b1_us = sum(t for k, t in by_name.items() if "flash_fwd_kernel" in k)
+    if not b1_us:
+        raise RuntimeError("the profiled step ran no B1 kernel")
+    host, dev, count = {}, {}, {}
+    for e in prof.events():   # the ranges on the host's timeline
+        if e.device_type == DeviceType.CPU and e.name.startswith("op/"):
+            t = e.name[3:]
+            host[t] = host.get(t, 0.0) + e.cpu_time_total / 1e3
+            dev[t] = dev.get(t, 0.0) + e.device_time_total / 1e3
+            count[t] = count.get(t, 0) + 1
+    replayed = {t[:-len("_grad")] for t in count
+                if t.endswith("_grad") and t not in LOWERINGS}
+    by_type = {t: [count[t], host[t], dev[t]]
+               for t in sorted(host, key=lambda t: -host[t])}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log("train_profile", step_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+        device_busy_share=busy_us / wall_us, b1_device_ms=b1_us / 1e3,
+        b1_share_of_busy=b1_us / busy_us, kernels=len(by_name),
+        top_device_ms={k: v / 1e3 for k, v in top},
+        ops_host_ms=sum(host.values()), ops_device_ms=sum(dev.values()),
+        generic_grad_host_ms=sum(host[t + "_grad"] for t in replayed),
+        generic_grad_device_ms=sum(dev[t + "_grad"] for t in replayed),
+        replayed_forward_host_ms=sum(host[t] for t in replayed),
+        replayed_forward_device_ms=sum(dev[t] for t in replayed),
+        by_op_type_count_host_ms_device_ms=by_type)
+
+
+def phase_train_oracle():
+    main, startup, loss = build_bert(ORACLE_BATCH, amp=False, dropout=0.0,
+                                     lr=ORACLE_LR)
+    exe = pt.Executor()
+    first = pt.framework.Scope()
+    exe.run(startup, scope=first)
+    second = pt.framework.Scope()
+    for n in first.local_var_names():
+        v = first.get_var(n)
+        if isinstance(v, torch.Tensor):
+            second.set_var(n, v.clone())
+    feed = bert_feed(ORACLE_BATCH, seed=1, padded_keys=16)
+    runs = {}
+    try:
+        for mode, scope in (("always", first), ("never", second)):
+            flags.set_flags({"flash_attention": mode})
+            before = fab.flash_attention_bias.launches
+            out = exe.run_steps(main, feed=feed, fetch_list=[loss],
+                                scope=scope, steps=3, return_numpy=True)[0]
+            runs[mode] = ([float(x) for x in out.ravel()],
+                          fab.flash_attention_bias.launches - before)
+    finally:
+        flags.set_flags({"flash_attention": "auto"})
+    (flash, n_flash), (plain, n_plain) = runs["always"], runs["never"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(flash, plain))
+    log("train_oracle", batch=ORACLE_BATCH, dtype="float32", steps=3,
+        losses_b1=flash, losses_plain=plain, max_rel_gap=gap,
+        tolerance=ORACLE_RTOL, b1_launches=[n_flash, n_plain])
+    if not all(math.isfinite(x) for x in flash + plain) or gap > ORACLE_RTOL:
+        raise RuntimeError(f"B1 vs plain losses {flash} vs {plain}: "
+                           f"relative gap {gap} > {ORACLE_RTOL}")
+    if n_flash != 3 * B1_PER_STEP or n_plain != 0:
+        raise RuntimeError(f"B1 launches {n_flash} (want {3 * B1_PER_STEP})"
+                           f" with 'always', {n_plain} (want 0) with 'never'")
+    if not (flash[2] < flash[0] and plain[2] < plain[0]):
+        raise RuntimeError(f"the loss did not fall: {flash}, {plain}")
 
 
 def main():
@@ -450,12 +787,20 @@ def main():
     rows = phase_kernels(name)
     launches, model = phase_serve()
     phase_profile(model)
+    del model
+    torch.cuda.empty_cache()
+    launches["flash_attention_bias"], state = phase_train()
+    phase_train_profile(state)
+    del state
+    torch.cuda.empty_cache()
+    phase_train_oracle()
     kernels = []
     for kernel, case in (("paged_decode_attention", "decode_float32"),
-                         ("paged_chunk_attention", "chunk_S1_R1024")):
+                         ("paged_chunk_attention", "chunk_S1_R1024"),
+                         ("flash_attention_bias", FLASH_CASES[0][0])):
         row = next(r for r in rows if r["case"] == case)
         kernels.append({
-            "name": kernel, "route": "cuda", "source": SOURCE,
+            "name": kernel, "route": "cuda", "source": SOURCES[kernel],
             "replaces": REPLACES[kernel], "launches": launches[kernel],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

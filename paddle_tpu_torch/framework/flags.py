@@ -170,3 +170,16 @@ define_flag("decode_kv_quant", False,
             "pool (serving/kv_cache.py) — scales are per position-in-"
             "page per head; the attention kernels dequantize pages "
             "inline")
+
+# ---- static-graph executor and its lowerings (framework/executor.py,
+# ops/fused.py) ------------------------------------------------------------
+define_flag("check_nan_inf", False,
+            "scan every op output for NaN/Inf after each executor run "
+            "(reference operator.cc:1129); the port's executor raises "
+            "NotImplementedError when it is set: the scan comes with a "
+            "later slice of the port")
+define_flag("flash_attention", "auto",
+            "fused attention kernel engagement: 'auto' (the flash kernel "
+            "only on CUDA tensors whose float32 score tensor would pass "
+            "2 GB), 'always' (at every aligned shape on CUDA tensors), "
+            "'never' (the plain composition)")

@@ -6,6 +6,11 @@ simulates one on the CPU.  Here every entry point takes a ``device``
 and runs on the CUDA card unless the caller asks for the CPU (as the
 tests do): asking for the card on a host without one raises instead of
 falling back, so a measurement can never come from the CPU by accident.
+
+The static-graph executor takes a ``Place`` as the JAX package's does:
+``CPUPlace()`` or ``CUDAPlace(i)``; ``_default_place()`` is
+``CUDAPlace(0)`` and raises without CUDA (the JAX package's falls back to
+the CPU there).
 """
 from __future__ import annotations
 
@@ -36,3 +41,50 @@ def device_of(module: torch.nn.Module) -> Optional[torch.device]:
     for p in module.parameters():
         return p.device
     return None
+
+
+class Place:
+    """Base device identity (reference platform/place.h)."""
+
+    device_id: int = 0
+
+    def __eq__(self, other):
+        return type(self) is type(other) and self.device_id == other.device_id
+
+    def __hash__(self):
+        return hash((type(self).__name__, self.device_id))
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.device_id})"
+
+    def torch_device(self) -> torch.device:
+        raise NotImplementedError
+
+
+class CPUPlace(Place):
+    def __init__(self):
+        self.device_id = 0
+
+    def torch_device(self) -> torch.device:
+        return torch.device("cpu")
+
+
+class CUDAPlace(Place):
+    """CUDA card ``device_id``; raises when torch sees no such card."""
+
+    def __init__(self, device_id: int = 0):
+        self.device_id = int(device_id)
+
+    def torch_device(self) -> torch.device:
+        dev = default_device(torch.device("cuda", self.device_id))
+        if self.device_id >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"CUDAPlace({self.device_id}) out of range: "
+                f"{torch.cuda.device_count()} card(s) visible")
+        return dev
+
+
+def _default_place() -> Place:
+    """``CUDAPlace(0)``, after checking that torch sees a card."""
+    default_device()
+    return CUDAPlace(0)

@@ -1,0 +1,143 @@
+"""Scope: runtime variable storage (name -> torch tensor).
+
+Counterpart of ``paddle_tpu/framework/scope.py``.  Values are tensors on
+the executor's device; a Scope is a flat dict with an optional parent
+chain, as in the JAX package.  The lazy views of packed (pipeline) and
+layer-stacked state, ``PackedParamRef`` and ``StackedParamRef``, belong
+to the sharding and layer-scan paths, which are later slices of the port.
+
+``scope_from_numpy`` builds a Scope from host arrays, e.g. the JAX
+package's scope after its startup program: the two packages draw random
+numbers with different generators, so a comparison starts both from the
+same values.
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .place import DeviceLike, default_device
+
+
+def to_tensor(value, device: Optional[torch.device] = None) -> torch.Tensor:
+    """``value`` as a tensor on ``device`` (numpy arrays, bfloat16 ones
+    from ``ml_dtypes`` included); a tensor passes through when it is
+    already there."""
+    if not isinstance(value, torch.Tensor):
+        arr = np.asarray(value)
+        if not arr.flags.c_contiguous:  # (ascontiguousarray makes 0-d 1-d)
+            arr = np.ascontiguousarray(arr)
+        if not arr.flags.writeable:  # torch tensors are always writable
+            arr = arr.copy()
+        if arr.dtype.name == "bfloat16":
+            value = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            value = torch.from_numpy(arr)
+    if device is not None and value.device != device:
+        value = value.to(device)
+    return value
+
+
+def to_numpy(value) -> np.ndarray:
+    """Host copy of a tensor (bfloat16 as ``ml_dtypes.bfloat16``)."""
+    if not isinstance(value, torch.Tensor):
+        return np.asarray(value)
+    t = value.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+class _TensorView:
+    """Minimal ``.get_tensor()`` compatibility object."""
+
+    def __init__(self, scope: "Scope", name: str):
+        self._scope = scope
+        self._name = name
+
+    def set(self, array, place=None):
+        self._scope.set_var(self._name, array, place)
+
+    def shape(self):
+        return list(self._scope.get_var(self._name).shape)
+
+    def __array__(self, dtype=None, copy=None):
+        arr = to_numpy(self._scope.get_var(self._name))
+        return arr.astype(dtype) if dtype is not None else arr
+
+
+class _VarView:
+    def __init__(self, scope: "Scope", name: str):
+        self._scope = scope
+        self._name = name
+
+    def get_tensor(self) -> _TensorView:
+        return _TensorView(self._scope, self._name)
+
+
+_scope_serial = itertools.count()
+
+
+class Scope:
+    def __init__(self, parent: Optional["Scope"] = None):
+        self._vars: Dict[str, object] = {}
+        self._parent = parent
+        # monotone id for executor caches: id() of a GC'd scope can be
+        # recycled by a new scope and silently serve stale analysis
+        self.serial = next(_scope_serial)
+
+    # -- core -------------------------------------------------------------
+    def has_var(self, name: str) -> bool:
+        return name in self._vars or (self._parent is not None
+                                      and self._parent.has_var(name))
+
+    def get_var(self, name: str):
+        s = self
+        while s is not None:
+            if name in s._vars:
+                return s._vars[name]
+            s = s._parent
+        raise KeyError(f"variable {name!r} not found in scope")
+
+    def set_var(self, name: str, value, place=None):
+        """Store ``value``; host arrays become tensors, moved to
+        ``place``'s device when one is given."""
+        if value is not None and not isinstance(value, torch.Generator):
+            value = to_tensor(value, None if place is None
+                              else place.torch_device())
+        self._vars[name] = value
+
+    def local_var_names(self):
+        return list(self._vars)
+
+    # -- reference-api compatibility --------------------------------------
+    def var(self, name: str) -> _VarView:
+        self._vars.setdefault(name, None)
+        return _VarView(self, name)
+
+    def find_var(self, name: str) -> Optional[_VarView]:
+        return _VarView(self, name) if self.has_var(name) else None
+
+
+def scope_from_numpy(arrays: Dict[str, np.ndarray],
+                     device: DeviceLike = None) -> Scope:
+    """A Scope holding ``arrays`` as tensors on ``device`` (the CUDA card
+    unless the caller asks for the CPU), each with its own dtype."""
+    dev = default_device(device)
+    scope = Scope()
+    for name, arr in arrays.items():
+        scope.set_var(name, to_tensor(arr, dev))
+    return scope
+
+
+_global_scope = Scope()
+
+
+def global_scope() -> Scope:
+    return _global_scope
+

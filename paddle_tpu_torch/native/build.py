@@ -12,7 +12,8 @@ nothing built builds everything at first use.
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits
 for them together; ``load`` builds (if needed) and opens one library.
 There is no fallback: a host without ``nvcc`` raises, and only CPU
-tensors take the plain PyTorch versions (see ``ops/paged_attention``).
+tensors take the plain PyTorch versions (see ``ops/paged_attention`` and
+``ops/flash_attention_bias``).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from typing import Dict, Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 OUT_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("paged_attention",)
+SOURCES = ("paged_attention", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 BUILD_TIMEOUT_S = 600

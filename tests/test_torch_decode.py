@@ -255,6 +255,19 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         weights_from_numpy({"layers": []})
     assert place.default_device("cpu") == torch.device("cpu")
+    # the static-graph entry points of slice 2
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework.scope import scope_from_numpy
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.Executor()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.Executor(pt.CUDAPlace(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.framework.run_startup(pt.framework.Program())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scope_from_numpy({"w": np.zeros(2, "f4")})
+    assert pt.Executor(pt.CPUPlace()).device == torch.device("cpu")
 
 
 def _imports(path):
