@@ -25,7 +25,15 @@ Phases, each printing JSON lines:
                shape (B=32, H=12, S=128, D=64, key mask) in bfloat16 and
                float32, with a full [B, H, S, S] bias, unbiased and causal,
                at S=512 and at D=128, against ``F.scaled_dot_product_attention``
-               with the bias as ``attn_mask``;
+               with the bias as ``attn_mask``; the flash-attention training
+               kernels (B2 forward with lse, B3 dq, B4 dk/dv) at the unfused
+               path's shape (B=32, H=12, S=128, D=64, float32, key mask) and
+               in bfloat16, with a full [B, H, S, S] mask, unmasked and
+               causal, at S=512 and at D=128: B2 against SDPA's forward, B3
+               and B4 together against ``torch.autograd.grad`` through SDPA
+               (one call gives dq, dk and dv); and, untimed, rows whose mask
+               is -inf everywhere (denominator 0: out 0, lse -1e30, finite
+               gradients);
 4. serve    -- the README's serving model at full width (vocab 32000,
                d_model 512, 8 layers, 8 heads, ffn 2048, max_seq_len 1024;
                random weights from a seed) behind ``DecodeServer`` on the
@@ -61,7 +69,27 @@ Phases, each printing JSON lines:
                (``FLAGS_flash_attention=always``) and 3 with the plain
                composition (``never``); the per-step losses agree within
                1e-4 relative, B1 ran only in the first, and the loss fell
-               (AdamW at lr 1e-5 here, where the steps do not overshoot).
+               (AdamW at lr 1e-5 here, where the steps do not overshoot);
+9. train_unfused -- the same model built with the unfused attention chain
+               (``use_fused_attention=False``: matmul, mask add, softmax,
+               matmul per layer), float32, dropout 0, batch 32, as
+               ``bench.py``'s ``bench_flash_attention`` builds it, under
+               ``FLAGS_flash_attention=always``: the executor's graph-pass
+               pipeline rewrites the 12 chains and their 12 grad chains to
+               ``flash_attention`` / ``flash_attention_grad``, whose
+               lowering runs B2 forward and B3 + B4 backward.  The three
+               launch counters are zeroed just before the timed steps and
+               read just after: 24 / 12 / 12 a step (the generic gradient
+               replays the forward);
+10. train_unfused_profile -- one such step under ``torch.profiler``: device
+               time of B2, B3 and B4 and of the ``flash_attention`` /
+               ``flash_attention_grad`` op ranges, and their share of busy;
+11. train_unfused_oracle -- float32, dropout 0, batch 8, lr 1e-5: one startup
+               in three scopes, 3 steps each: the unfused program under
+               ``never`` (the chain on ``torch.matmul``), under ``always``
+               (B2-B4), and the fused program of phase 6 under ``always``
+               (B1); losses pairwise within 1e-4 relative, no B2-B4 launch
+               in the ``never`` and fused runs.
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
@@ -86,10 +114,13 @@ torch.backends.cudnn.allow_tf32 = False
 
 import paddle_tpu_torch as pt  # noqa: E402
 from paddle_tpu_torch.amp import decorate  # noqa: E402
-from paddle_tpu_torch.framework import flags, unique_name  # noqa: E402
+from paddle_tpu_torch.framework import (flags, passes,  # noqa: E402
+                                        unique_name)
 from paddle_tpu_torch.framework.program import program_guard  # noqa: E402
 from paddle_tpu_torch.native import build  # noqa: E402
+from paddle_tpu_torch.monitor import stat_get, stat_reset  # noqa: E402
 from paddle_tpu_torch.observe import tracer  # noqa: E402
+from paddle_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops import flash_attention_bias as fab  # noqa: E402
 from paddle_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from paddle_tpu_torch.serving import (DecodeConfig, DecodeServer,  # noqa: E402
@@ -99,11 +130,17 @@ SOURCES = {
     "paged_decode_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
     "paged_chunk_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
     "flash_attention_bias": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_fwd": "paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dq": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
 }
 REPLACES = {
     "paged_decode_attention": "paddle_tpu/ops/pallas_decode_attention.py:71",
     "paged_chunk_attention": "paddle_tpu/ops/pallas_decode_attention.py:232",
     "flash_attention_bias": "paddle_tpu/ops/pallas_attention.py:34",
+    "flash_attention_fwd": "paddle_tpu/ops/flash_attention.py:121",
+    "flash_attention_bwd_dq": "paddle_tpu/ops/flash_attention.py:215",
+    "flash_attention_bwd_dkv": "paddle_tpu/ops/flash_attention.py:250",
 }
 # Data-sheet peaks (dense): bytes/s of device memory, and operations/s by
 # the input type the kernels compute from (float32 on the CUDA cores;
@@ -144,6 +181,25 @@ FLASH_CASES = (
     ("S512_bf16", 8, 12, 512, 64, "bfloat16", "key", False),
     ("D128_bf16", 32, 6, 128, 128, "bfloat16", "key", False),
 )
+# B2-B4 (the flash-attention training kernels) against their plain versions,
+# which take the same operands (B3 and B4: the kernel's lse and delta).  The
+# forward's out and lse are held to B1's rule.  The gradients are sums over
+# up to 512 rows or keys of products of O(1) terms, each carrying the few
+# ulps of an exp: float32 within 1e-4 absolute, bfloat16 within that plus one
+# bfloat16 step of the value.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-4}
+# (label, B, H, S, D, dtype, mask, causal); the first is the main path's call
+TRAIN_FLASH_CASES = (
+    ("unfused_f32", 32, 12, 128, 64, "float32", "key", False),
+    ("unfused_bf16", 32, 12, 128, 64, "bfloat16", "key", False),
+    ("unfused_full_mask_f32", 32, 12, 128, 64, "float32", "full", False),
+    ("unfused_causal_no_mask_bf16", 32, 12, 128, 64, "bfloat16", "none",
+     True),
+    ("unfused_S512_bf16", 8, 12, 512, 64, "bfloat16", "key", False),
+    ("unfused_D128_bf16", 32, 6, 128, 128, "bfloat16", "key", False),
+)
+UNFUSED_STEPS = 6
+B2_PER_STEP, B3_PER_STEP, B4_PER_STEP = 24, 12, 12  # 12 layers; B2 replayed
 # BERT-base pretraining (bench.py's bench_bert, BASELINE config 3) at full
 # width; the batch is cut from the benchmark's 256 to the time limit.
 BERT_PREDS, TRAIN_BATCH, ORACLE_BATCH = 20, 32, 8
@@ -218,18 +274,29 @@ def phase_device():
 
 
 def phase_build():
+    """Build every kernel library; report, from the compiler's own log,
+    each library's kernel count, most registers a thread and spill stores,
+    with the (mangled) names of the instances that spill."""
     t0 = time.monotonic()
     paths = build.build_all()
     secs = time.monotonic() - t0
-    regs, spills = [], 0
-    for p in paths.values():
+    report = {}
+    for name, p in paths.items():
         with open(p + ".log") as f:
             text = f.read()
-        regs += [int(x) for x in re.findall(r"Used (\d+) registers", text)]
-        spills += sum(int(x) for x in
-                      re.findall(r"(\d+) bytes spill stores", text))
-    log("build", seconds=round(secs, 3), libraries=sorted(paths),
-        max_registers=max(regs) if regs else None, spill_store_bytes=spills)
+        entries = re.findall(
+            r"Compiling entry function '(\S+?)' for.*?(\d+) bytes spill "
+            r"stores.*?Used (\d+) registers", text, flags=re.S)
+        if not entries:
+            raise RuntimeError(f"no kernel in the build log of {name}")
+        report[name] = dict(
+            kernels=len(entries),
+            max_registers=max(int(r) for _n, _s, r in entries),
+            spill_store_bytes=sum(int(s) for _n, s, _r in entries),
+            spilling={re.sub(r"^_ZN\d+_GLOBAL__N_\w+?_cu_[0-9a-f]{8}\d+", "",
+                             n): int(s)
+                      for n, s, _r in entries if int(s)})
+    log("build", seconds=round(secs, 3), libraries=report)
 
 
 def make_case(gen, dev, rows_per_slot, row_lengths, q_dtype, kv):
@@ -289,9 +356,11 @@ def sdpa_inputs(c, kv):
     return q, k, v, mask
 
 
-def check_close(label, out, ref, want_dtype, kind):
+def check_close(label, out, ref, want_dtype, kind, tol=None):
     """Max abs error of a kernel's output against its plain version's;
-    raises beyond ``TOL[kind] + REL_TOL[kind] * |plain|`` per element."""
+    raises beyond ``tol + REL_TOL[kind] * |plain|`` per element (``tol``
+    is ``TOL[kind]`` unless given)."""
+    tol = TOL[kind] if tol is None else tol
     torch.cuda.synchronize()
     if out.shape != ref.shape or out.dtype != want_dtype:
         raise RuntimeError(f"{label}: output {tuple(out.shape)} {out.dtype},"
@@ -299,9 +368,9 @@ def check_close(label, out, ref, want_dtype, kind):
     diff = (out.float() - ref.float()).abs()
     err = float(diff.max())
     excess = float((diff - REL_TOL[kind] * ref.float().abs()).max())
-    if not math.isfinite(err) or excess > TOL[kind]:
+    if not math.isfinite(err) or excess > tol:
         raise RuntimeError(f"{label}: kernel vs plain differ by {err} (max "
-                           f"abs), beyond {TOL[kind]} + {REL_TOL[kind]}"
+                           f"abs), beyond {tol} + {REL_TOL[kind]}"
                            f"*|plain|")
     return err
 
@@ -369,6 +438,9 @@ def phase_kernels(name):
                              flush))
     for case in FLASH_CASES:
         rows.append(run_flash_case(gen, dev, case, peaks, flush))
+    for case in TRAIN_FLASH_CASES:
+        rows += run_train_flash_case(gen, dev, case, peaks, flush)
+    check_dead_rows(gen, dev)
     del l2
     log("clocks", at="kernels end", **{clocks: nvidia_smi(clocks)})
     return rows
@@ -583,14 +655,143 @@ def run_flash_case(gen, dev, case, peaks, flush):
     return row
 
 
-def build_bert(batch, amp, dropout, lr=1e-4):
+def train_flash_bounds(q, mask, causal, peaks):
+    """Least times for B2, B3 and B4 on one call's operands.  Bytes: q, k,
+    v (and do, lse, delta for the backward) and the mask in its natural
+    shape read once, each output written once.  Operations per (query,
+    key) pair the mask leaves, multiply-add each: 4*D in B2 (QK, PV), 6*D
+    in B3 (S, dP, dQ), 8*D in B4 (S, dV, dP, dK)."""
+    bw, ops_rate = peaks
+    b, h, s, d = q.shape
+    tensor = q.numel() * q.element_size()
+    stat = b * h * s * 4                      # lse or delta, float32
+    mask_b = 0 if mask is None else mask.numel() * mask.element_size()
+    pairs = (s * (s + 1) // 2 if causal else s * s) * b * h
+    rate = ops_rate[str(q.dtype)[6:]]
+    out = {}
+    for name, nbytes, per_pair in (
+            ("flash_attention_fwd", 4 * tensor + stat + mask_b, 4 * d),
+            ("flash_attention_bwd_dq", 5 * tensor + 2 * stat + mask_b, 6 * d),
+            ("flash_attention_bwd_dkv", 6 * tensor + 2 * stat + mask_b,
+             8 * d)):
+        t_bytes, t_ops = nbytes / bw * 1e3, per_pair * pairs / rate * 1e3
+        out[name] = (t_bytes, "bytes") if t_bytes >= t_ops \
+            else (t_ops, "operations")
+    return out
+
+
+def run_train_flash_case(gen, dev, case, peaks, flush):
+    """B2, B3 and B4 on one set of operands: each against its plain
+    version, timed beside it and beside the library's call."""
+    label, b, h, s, d, dtype, mask_kind, causal = case
+    q, k, v, mask = flash_case(gen, dev, b, h, s, d, dtype, mask_kind)
+    do = torch.randn(b, h, s, d, generator=gen).to(q.dtype).to(dev)
+    scale = 1.0 / math.sqrt(d)
+    fwd_args = (q, k, v, mask, scale, causal)
+    out, lse = fa.flash_attention_fwd(*fwd_args)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(*fwd_args)
+    delta = (do.float() * out.float()).sum(-1)
+    bwd_args = (q, k, v, mask, do, lse, delta, scale, causal)
+    dq = fa.flash_attention_bwd_dq(*bwd_args)
+    dk, dv = fa.flash_attention_bwd_dkv(*bwd_args)
+    ref_dq = fa.flash_attention_bwd_dq_reference(*bwd_args)
+    ref_dk, ref_dv = fa.flash_attention_bwd_dkv_reference(*bwd_args)
+    tol = BWD_TOL[dtype]
+    errs = {
+        "flash_attention_fwd": max(
+            check_close(label + " out", out, ref_out, q.dtype, dtype),
+            check_close(label + " lse", lse, ref_lse, torch.float32,
+                        "float32")),
+        "flash_attention_bwd_dq": check_close(
+            label + " dq", dq, ref_dq, q.dtype, dtype, tol),
+        "flash_attention_bwd_dkv": max(
+            check_close(label + " dk", dk, ref_dk, q.dtype, dtype, tol),
+            check_close(label + " dv", dv, ref_dv, q.dtype, dtype, tol)),
+    }
+    fns = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(*fwd_args),
+            lambda: fa.flash_attention_fwd_reference(*fwd_args)),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(*bwd_args),
+            lambda: fa.flash_attention_bwd_dq_reference(*bwd_args)),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_attention_bwd_dkv(*bwd_args),
+            lambda: fa.flash_attention_bwd_dkv_reference(*bwd_args)),
+    }
+    # the yardsticks: SDPA's forward for B2; for B3 and B4 together, one
+    # pull-back through SDPA's graph, which gives dq, dk and dv
+    sdpa_kw = dict(attn_mask=mask, is_causal=causal, scale=scale)
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, **sdpa_kw), flush)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        sdpa_out, leaves, do, retain_graph=True), flush)
+    del sdpa_out, leaves
+    bounds = train_flash_bounds(q, mask, causal, peaks)
+    rows = []
+    for kernel, (fn, plain) in fns.items():
+        bound_ms, bound_by = bounds[kernel]
+        backward = kernel != "flash_attention_fwd"
+        row = dict(case=label, kernel=kernel, q=dtype, shape=[b, h, s, d],
+                   mask=mask_kind, causal=causal, max_abs_err=errs[kernel],
+                   tolerance=tol if backward else TOL[dtype],
+                   rel_tolerance=REL_TOL[dtype], ms=cuda_ms(fn, flush),
+                   plain_ms=cuda_ms(plain, flush),
+                   library_ms=lib_bwd if backward else lib_fwd,
+                   library="sdpa backward (dq, dk, dv in one call)"
+                   if backward else "sdpa forward",
+                   bound_ms=bound_ms, bound_by=bound_by)
+        log("kernels", **row)
+        rows.append(row)
+    return rows
+
+
+def check_dead_rows(gen, dev):
+    """Rows whose mask is -inf everywhere (softmax denominator 0): B2 must
+    give out 0 and lse -1e30 there, and B3/B4 finite gradients with dq 0 on
+    those rows, each equal to its plain version within the float32
+    tolerances above."""
+    b, h, s, d, dead = 2, 2, 128, 64, [5, 77]
+    q, k, v, _ = flash_case(gen, dev, b, h, s, d, "float32", "none")
+    do = torch.randn(b, h, s, d, generator=gen).to(dev)
+    mask = torch.zeros(b, 1, s, s, device=dev)
+    mask[:, :, dead, :] = float("-inf")
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fa.flash_attention_fwd(q, k, v, mask, scale, False)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, mask, scale,
+                                                        False)
+    delta = (do * out).sum(-1)
+    args = (q, k, v, mask, do, lse, delta, scale, False)
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    ref_dq = fa.flash_attention_bwd_dq_reference(*args)
+    ref_dk, ref_dv = fa.flash_attention_bwd_dkv_reference(*args)
+    errs = [check_close("dead_rows " + n, x, r, torch.float32, "float32", t)
+            for n, x, r, t in (("out", out, ref_out, None),
+                               ("lse", lse, ref_lse, None),
+                               ("dq", dq, ref_dq, BWD_TOL["float32"]),
+                               ("dk", dk, ref_dk, BWD_TOL["float32"]),
+                               ("dv", dv, ref_dv, BWD_TOL["float32"]))]
+    if not (bool((out[:, :, dead] == 0).all())
+            and bool((lse[:, :, dead] == -1e30).all())
+            and bool((dq[:, :, dead] == 0).all())):
+        raise RuntimeError("dead rows: out, dq not 0 or lse not -1e30")
+    log("kernels", case="dead_rows_f32", kernel="flash_attention_fwd+bwd",
+        shape=[b, h, s, d], dead_rows=dead,
+        max_abs_err_out_lse_dq_dk_dv=errs, out_is_0=True,
+        lse_is_minus_1e30=True, dq_is_0=True)
+
+
+def build_bert(batch, amp, dropout, lr=1e-4, fused=True):
     """BERT-base pretraining at full width, as bench.py builds it."""
     from paddle_tpu_torch.text import bert_base_pretrain_program
 
     with unique_name.guard():
         main, startup, _feeds, loss, opt = bert_base_pretrain_program(
             batch_size=batch, max_preds_per_seq=BERT_PREDS,
-            dropout_prob=dropout, lr=lr)
+            dropout_prob=dropout, lr=lr, use_fused_attention=fused)
         main.random_seed = 1
         with program_guard(main, startup):
             (decorate(opt, use_bf16=True) if amp else opt).minimize(loss)
@@ -685,13 +886,19 @@ def op_ranges():
     return lambda: setattr(executor, "get_lowering", real)
 
 
-def phase_train_profile(state):
-    """One bf16 BERT-base step under torch.profiler: the device's busy
-    share of the step's host time, its time by kernel, and host and device
-    time by op type.  A ``<type>_grad`` op without a lowering of its own
-    takes the generic gradient, which runs ``<type>``'s forward again
-    under autograd: the time of those forward types is what the replay
-    repeats."""
+def phase_train_profile(state, phase="train_profile",
+                        kernels=(("b1", "flash_fwd_kernel"),),
+                        op_types=()):
+    """One BERT-base step under torch.profiler: the device's busy share of
+    the step's host time, its time by kernel (``kernels``: (label, name
+    part) of the hand-written kernels the step must have run), and host
+    and device time by op type (``op_types``: types reported on their
+    own).  A ``<type>_grad`` op without a lowering of its own takes the
+    generic gradient, which runs ``<type>``'s forward again under
+    autograd: the time of those forward types is what the replay repeats.
+    Kernels that ``torch.autograd.grad`` launches run on the autograd
+    engine's thread, outside the op ranges: they count by kernel name
+    only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -711,9 +918,11 @@ def phase_train_profile(state):
         undo()
     by_name = device_time_by_kernel(prof)
     busy_us = sum(by_name.values())
-    b1_us = sum(t for k, t in by_name.items() if "flash_fwd_kernel" in k)
-    if not b1_us:
-        raise RuntimeError("the profiled step ran no B1 kernel")
+    ours = {}
+    for label, part in kernels:
+        ours[label] = sum(t for k, t in by_name.items() if part in k)
+        if not ours[label]:
+            raise RuntimeError(f"the profiled step ran no {part}")
     host, dev, count = {}, {}, {}
     for e in prof.events():   # the ranges on the host's timeline
         if e.device_type == DeviceType.CPU and e.name.startswith("op/"):
@@ -726,9 +935,16 @@ def phase_train_profile(state):
     by_type = {t: [count[t], host[t], dev[t]]
                for t in sorted(host, key=lambda t: -host[t])}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    log("train_profile", step_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-        device_busy_share=busy_us / wall_us, b1_device_ms=b1_us / 1e3,
-        b1_share_of_busy=b1_us / busy_us, kernels=len(by_name),
+    log(phase, step_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+        device_busy_share=busy_us / wall_us,
+        **{f"{label}_device_ms": t / 1e3 for label, t in ours.items()},
+        **{f"{label}_share_of_busy": t / busy_us
+           for label, t in ours.items()},
+        **{f"op_{t}_count_host_ms_device_ms": by_type.get(t)
+           for t in op_types},
+        **{f"op_{t}_share_of_busy": dev.get(t, 0.0) * 1e3 / busy_us
+           for t in op_types},
+        kernels=len(by_name),
         top_device_ms={k: v / 1e3 for k, v in top},
         ops_host_ms=sum(host.values()), ops_device_ms=sum(dev.values()),
         generic_grad_host_ms=sum(host[t + "_grad"] for t in replayed),
@@ -744,11 +960,7 @@ def phase_train_oracle():
     exe = pt.Executor()
     first = pt.framework.Scope()
     exe.run(startup, scope=first)
-    second = pt.framework.Scope()
-    for n in first.local_var_names():
-        v = first.get_var(n)
-        if isinstance(v, torch.Tensor):
-            second.set_var(n, v.clone())
+    second = copy_scope(first)
     feed = bert_feed(ORACLE_BATCH, seed=1, padded_keys=16)
     runs = {}
     try:
@@ -776,12 +988,141 @@ def phase_train_oracle():
         raise RuntimeError(f"the loss did not fall: {flash}, {plain}")
 
 
+def copy_scope(scope):
+    out = pt.framework.Scope()
+    for n in scope.local_var_names():
+        v = scope.get_var(n)
+        if isinstance(v, torch.Tensor):
+            out.set_var(n, v.clone())
+    return out
+
+
+def unfused_launches():
+    return [f.launches for f in fa.KERNEL_WRAPPERS]
+
+
+def phase_train_unfused():
+    """The main path of the unfused slice: float32, dropout 0, the unfused
+    chain rewritten by the graph passes, B2-B4 in every layer."""
+    flags.set_flags({"flash_attention": "always"})
+    t0 = time.monotonic()
+    main, startup, loss = build_bert(TRAIN_BATCH, amp=False, dropout=0.0,
+                                     fused=False)
+    build_s = time.monotonic() - t0
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    torch.cuda.reset_peak_memory_stats()
+    exe.run(startup, scope=scope)
+    feed = bert_feed(TRAIN_BATCH, seed=0, padded_keys=16)
+    for name in ("pass_flash_attention_fused",
+                 "pass_flash_attention_grad_fused"):
+        stat_reset(name)
+    t0 = time.monotonic()
+    warm = exe.run_steps(main, feed=feed, fetch_list=[loss], scope=scope,
+                         steps=2)[0]
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    rewritten = [stat_get("pass_flash_attention_fused"),
+                 stat_get("pass_flash_attention_grad_fused")]
+    fa.reset_launch_counts()    # the main path's counts start here
+    step_ms, losses = [], []
+    for _ in range(UNFUSED_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.ravel()[0]))
+    launches = unfused_launches()
+    losses = [float(x) for x in warm.float().cpu().ravel()] + losses
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"unfused BERT losses not finite: {losses}")
+    if rewritten != [12, 12]:
+        raise RuntimeError(f"the pass rewrote {rewritten} attention chains "
+                           f"and grad chains, want [12, 12]")
+    want = [n * UNFUSED_STEPS
+            for n in (B2_PER_STEP, B3_PER_STEP, B4_PER_STEP)]
+    if launches != want:
+        raise RuntimeError(f"B2/B3/B4 launched {launches} times in "
+                           f"{UNFUSED_STEPS} steps, want {want}")
+    rewritten_ops = len(passes.apply_passes(
+        main, fetch_names=(loss.name,), feed_names=tuple(feed),
+        scope=scope).global_block.ops)
+    p50 = float(np.median(step_ms))
+    log("train_unfused", model="bert-base", batch=TRAIN_BATCH, seq=128,
+        dtype="float32", dropout=0.0, steps=UNFUSED_STEPS, step_ms_p50=p50,
+        step_ms=step_ms, tokens_per_s=TRAIN_BATCH * 128 / (p50 / 1e3),
+        program_ops=len(main.global_block.ops),
+        program_ops_after_passes=rewritten_ops, chains_rewritten=rewritten,
+        build_s=build_s, warm_run_steps_2_s=warm_s, losses=losses,
+        launches_b2_b3_b4=launches,
+        launches_per_step=[n / UNFUSED_STEPS for n in launches],
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return dict(zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"), launches)), \
+        (exe, main, feed, loss, scope)
+
+
+def phase_train_unfused_oracle():
+    """never (the chain as built) / always (B2-B4) / the fused program
+    (B1): one startup, three scopes, 3 float32 steps each."""
+    unfused, startup, u_loss = build_bert(ORACLE_BATCH, amp=False,
+                                          dropout=0.0, lr=ORACLE_LR,
+                                          fused=False)
+    fused, _startup, f_loss = build_bert(ORACLE_BATCH, amp=False,
+                                         dropout=0.0, lr=ORACLE_LR)
+    exe = pt.Executor()
+    first = pt.framework.Scope()
+    exe.run(startup, scope=first)
+    feed = bert_feed(ORACLE_BATCH, seed=1, padded_keys=16)
+    runs = {}
+    try:
+        for label, mode, prog, loss, scope in (
+                ("never", "never", unfused, u_loss, copy_scope(first)),
+                ("always", "always", unfused, u_loss, copy_scope(first)),
+                ("fused", "always", fused, f_loss, first)):
+            flags.set_flags({"flash_attention": mode})
+            fa.reset_launch_counts()
+            b1_before = fab.flash_attention_bias.launches
+            out = exe.run_steps(prog, feed=feed, fetch_list=[loss],
+                                scope=scope, steps=3, return_numpy=True)[0]
+            runs[label] = ([float(x) for x in out.ravel()],
+                           unfused_launches(),
+                           fab.flash_attention_bias.launches - b1_before)
+    finally:
+        flags.set_flags({"flash_attention": "auto"})
+        fa.reset_launch_counts()
+    losses = {k: v[0] for k, v in runs.items()}
+    gaps = {f"{a}_vs_{b}": max(abs(x - y) / abs(y)
+                               for x, y in zip(losses[a], losses[b]))
+            for a, b in (("always", "never"), ("fused", "never"),
+                         ("always", "fused"))}
+    log("train_unfused_oracle", batch=ORACLE_BATCH, dtype="float32", steps=3,
+        losses=losses, max_rel_gaps=gaps, tolerance=ORACLE_RTOL,
+        launches_b2_b3_b4={k: v[1] for k, v in runs.items()},
+        launches_b1={k: v[2] for k, v in runs.items()})
+    flat = [x for v in losses.values() for x in v]
+    if not all(math.isfinite(x) for x in flat) \
+            or max(gaps.values()) > ORACLE_RTOL:
+        raise RuntimeError(f"never / always / fused losses {losses}: "
+                           f"relative gaps {gaps} > {ORACLE_RTOL}")
+    want = {"never": ([0, 0, 0], 0),
+            "always": ([3 * B2_PER_STEP, 3 * B3_PER_STEP, 3 * B4_PER_STEP],
+                       0),
+            "fused": ([0, 0, 0], 3 * B1_PER_STEP)}
+    got = {k: (v[1], v[2]) for k, v in runs.items()}
+    if got != want:
+        raise RuntimeError(f"kernel launches {got}, want {want}")
+    if not all(v[2] < v[0] for v in losses.values()):
+        raise RuntimeError(f"the loss did not fall: {losses}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script measures "
               "the port on the card and has nothing to do here",
               file=sys.stderr)
         return 1
+    t_start = time.monotonic()
     name = phase_device()
     phase_build()
     rows = phase_kernels(name)
@@ -794,17 +1135,33 @@ def main():
     del state
     torch.cuda.empty_cache()
     phase_train_oracle()
+    unfused, state = phase_train_unfused()
+    launches.update(unfused)
+    phase_train_profile(
+        state, phase="train_unfused_profile",
+        kernels=(("b2", "flash_fwd_kernel"), ("b3", "flash_bwd_dq_kernel"),
+                 ("b4", "flash_bwd_dkv_kernel")),
+        op_types=("flash_attention", "flash_attention_grad"))
+    del state
+    torch.cuda.empty_cache()
+    phase_train_unfused_oracle()
     kernels = []
+    main_case = TRAIN_FLASH_CASES[0][0]
     for kernel, case in (("paged_decode_attention", "decode_float32"),
                          ("paged_chunk_attention", "chunk_S1_R1024"),
-                         ("flash_attention_bias", FLASH_CASES[0][0])):
-        row = next(r for r in rows if r["case"] == case)
+                         ("flash_attention_bias", FLASH_CASES[0][0]),
+                         ("flash_attention_fwd", main_case),
+                         ("flash_attention_bwd_dq", main_case),
+                         ("flash_attention_bwd_dkv", main_case)):
+        row = next(r for r in rows
+                   if r["case"] == case and r["kernel"] == kernel)
         kernels.append({
             "name": kernel, "route": "cuda", "source": SOURCES[kernel],
             "replaces": REPLACES[kernel], "launches": launches[kernel],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    log("done", seconds=round(time.monotonic() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

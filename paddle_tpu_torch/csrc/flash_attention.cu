@@ -1,5 +1,6 @@
-// Flash attention forward with a streamed additive bias (B1) for Hopper
-// (sm_90a).
+// Flash attention forward with a streamed additive bias for Hopper
+// (sm_90a): B1, and B2, which is B1 plus the per-row logsumexp that the
+// tiled recompute backward (flash_attention_bwd.cu) reads.
 //
 //   q, k, v  [B, H, S, D]   float32 or bfloat16, contiguous
 //   bias     none, a key mask [B|1, H|1, 1, Sk] or a full [B|1, H|1, Sq, Sk]
@@ -7,6 +8,8 @@
 //            (b, h, query) that are 0 along its broadcast dims: it is read
 //            in its natural shape and never materialized to [B, H, Sq, Sk]
 //   out      [B, H, Sq, D] in q's dtype
+//   lse      (B2 only) [B, H, Sq] float32: m + log(l), the row's running
+//            max plus the log of its denominator; -1e30 where l == 0
 //
 //   out = softmax(q k^T * sm_scale + bias [, causal: -1e30 where key > row]) v
 //
@@ -15,12 +18,18 @@
 // returns 0 (the TPU kernel's l == 0 guard).  With causal, key blocks wholly
 // above the diagonal of a query tile are never read.
 //
-// Replaces _fwd_kernel in paddle_tpu/ops/pallas_attention.py (launched by
-// _flash_call: grid (B*H, Sq/128, Sk/128), the running max, denominator and
-// accumulator carried across the key blocks in VMEM scratch).  Contract
-// shared with the plain PyTorch version flash_attention_bias_reference in
-// paddle_tpu_torch/ops/flash_attention_bias.py, whose wrapper checks shapes
-// (S % 128 == 0, D in {64, 128, 256}), dtypes and contiguity before a launch.
+// Replaces _fwd_kernel in paddle_tpu/ops/pallas_attention.py (B1; launched
+// by _flash_call: grid (B*H, Sq/128, Sk/128), the running max, denominator
+// and accumulator carried across the key blocks in VMEM scratch) and
+// _fwd_kernel in paddle_tpu/ops/flash_attention.py (B2; launched by
+// _fwd_call on the same grid, storing lse at the last key block).  One
+// kernel template serves both: kLse compiles the one extra store per row in
+// or out.  Contracts shared with the
+// plain PyTorch versions flash_attention_bias_reference
+// (paddle_tpu_torch/ops/flash_attention_bias.py) and
+// flash_attention_fwd_reference (paddle_tpu_torch/ops/flash_attention.py),
+// whose wrappers check shapes (S % 128 == 0, D in {64, 128, 256}), dtypes
+// and contiguity before a launch.
 //
 // What bounds it on this card: at BERT's shapes (S = 128, D = 64) the work
 // is ~4*S*D operations per (row, key) pair against 4*S*D*4 bytes of q, k, v
@@ -42,80 +51,19 @@
 // Tensor cores (wgmma) and TMA staging are later work.
 //
 // Built by paddle_tpu_torch/native/build.py into a library with a plain C
-// interface: the entry point launches on the caller's stream and returns
+// interface: each entry point launches on the caller's stream and returns
 // cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // the TPU kernel's mask constant
-
-enum DType : int { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Four neighbouring elements as float4 (16 or 8 bytes, aligned: every row
-// starts at a multiple of D elements and D is a multiple of 32).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  return make_float4(__low2float(a), __high2float(a), __low2float(b),
-                     __high2float(b));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-constexpr int NW = 4;   // warps per block
-constexpr int BC = 32;  // keys staged per step, one per lane
-
-template <int VPT>
-struct Shape {
-  static constexpr int D = 32 * VPT;
-  static constexpr int RPW = VPT <= 2 ? 8 : 8 / VPT * 2;  // rows per warp
-  static constexpr int BR = NW * RPW;  // rows per block: 32, 16, 8
-  static constexpr int KS = D + 4;     // padded K row (floats)
-  static constexpr int NL = BC * D / 4 / (NW * 32);  // float4 per thread
-  static constexpr int kSmem =
-      (BR * D + BC * KS + BC * D + NW * RPW * BC) * sizeof(float);
-};
-
-template <typename TQ, typename TB, int VPT>
+template <typename TQ, typename TB, int VPT, bool kLse>
 __global__ void __launch_bounds__(NW * 32)
     flash_fwd_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
                      const TQ* __restrict__ v, const TB* __restrict__ bias,
-                     TQ* __restrict__ out, int H, int Sq, int Sk, int bias_sb,
+                     TQ* __restrict__ out, float* __restrict__ lse, int H,
+                     int Sq, int Sk, int bias_sb,
                      int bias_sh, int bias_sq, float sm_scale, int causal) {
   using Sh = Shape<VPT>;
   constexpr int D = Sh::D, RPW = Sh::RPW, BR = Sh::BR, KS = Sh::KS,
@@ -227,55 +175,43 @@ __global__ void __launch_bounds__(NW * 32)
 #pragma unroll
     for (int j = 0; j < VPT; ++j)
       op[lane + 32 * j] = from_f32<TQ>(acc[i][j] / dv);
+    if (kLse && lane == 0)  // the statistic the backward recomputes from
+      lse[(size_t)bh * Sq + row] =
+          denom == 0.f ? kNegInf : m[i] + logf(denom);
   }
 }
 
-struct Args {
-  const void *q, *k, *v, *bias;
-  void* out;
-  int B, H, Sq, Sk, D, bias_sb, bias_sh, bias_sq;
-  float sm_scale;
-  int causal;
-  cudaStream_t stream;
+template <bool kLse>
+struct Fwd {
+  template <typename TQ, typename TB, int VPT>
+  struct Launch {
+    static cudaError_t run(const Args& a) {
+      using Sh = Shape<VPT>;
+      const auto kernel = flash_fwd_kernel<TQ, TB, VPT, kLse>;
+      const cudaError_t e = allow_smem(kernel, Sh::kSmem);
+      if (e != cudaSuccess) return e;
+      kernel<<<dim3(a.B * a.H, a.Sq / Sh::BR), NW * 32, Sh::kSmem,
+               a.stream>>>(
+          static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k),
+          static_cast<const TQ*>(a.v), static_cast<const TB*>(a.bias),
+          static_cast<TQ*>(a.out), a.lse, a.H, a.Sq, a.Sk, a.bias_sb,
+          a.bias_sh, a.bias_sq, a.sm_scale, a.causal);
+      return cudaGetLastError();
+    }
+  };
 };
 
-template <typename TQ, typename TB, int VPT>
-cudaError_t launch(const Args& a) {
-  using Sh = Shape<VPT>;
-  const auto kernel = flash_fwd_kernel<TQ, TB, VPT>;
-  if (Sh::kSmem > 48 * 1024) {  // above 48 KB only as opted-in dynamic smem
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<dim3(a.B * a.H, a.Sq / Sh::BR), NW * 32, Sh::kSmem, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.k),
-      static_cast<const TQ*>(a.v), static_cast<const TB*>(a.bias),
-      static_cast<TQ*>(a.out), a.H, a.Sq, a.Sk, a.bias_sb, a.bias_sh,
-      a.bias_sq, a.sm_scale, a.causal);
-  return cudaGetLastError();
-}
-
-template <typename TQ, typename TB>
-cudaError_t dispatch_d(const Args& a) {
-  switch (a.D) {
-    case 64:
-      return launch<TQ, TB, 2>(a);
-    case 128:
-      return launch<TQ, TB, 4>(a);
-    case 256:
-      return launch<TQ, TB, 8>(a);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <typename TQ>
-cudaError_t dispatch_bias(const Args& a, int bias_dtype) {
-  // no bias: the float instantiation with a null pointer
-  if (a.bias == nullptr || bias_dtype == kF32) return dispatch_d<TQ, float>(a);
-  if (bias_dtype == kBF16) return dispatch_d<TQ, __nv_bfloat16>(a);
-  return cudaErrorInvalidValue;
+Args fwd_args(const void* q, const void* k, const void* v, const void* bias,
+              void* out, float* lse, int B, int H, int Sq, int Sk, int D,
+              int bias_sb, int bias_sh, int bias_sq, float sm_scale,
+              int causal, void* stream) {
+  Args a{};
+  a.q = q, a.k = k, a.v = v, a.bias = bias, a.out = out, a.lse = lse;
+  a.B = B, a.H = H, a.Sq = Sq, a.Sk = Sk, a.D = D;
+  a.bias_sb = bias_sb, a.bias_sh = bias_sh, a.bias_sq = bias_sq;
+  a.sm_scale = sm_scale, a.causal = causal;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return a;
 }
 
 }  // namespace
@@ -286,8 +222,8 @@ const char* paddle_flash_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, k, v [B, H, S, D]; bias strides in elements (0 along broadcast dims).
-// Returns cudaGetLastError() after the launch.
+// B1.  q, k, v [B, H, S, D]; bias strides in elements (0 along broadcast
+// dims).  Returns cudaGetLastError() after the launch.
 int paddle_flash_attention_bias_fwd(const void* q, const void* k,
                                     const void* v, const void* bias,
                                     void* out, int B, int H, int Sq, int Sk,
@@ -295,18 +231,24 @@ int paddle_flash_attention_bias_fwd(const void* q, const void* k,
                                     int bias_sq, float sm_scale, int causal,
                                     int q_dtype, int bias_dtype,
                                     void* stream) {
-  const Args a{q,       k,       v,       bias,     out,
-               B,       H,       Sq,      Sk,       D,
-               bias_sb, bias_sh, bias_sq, sm_scale, causal,
-               static_cast<cudaStream_t>(stream)};
-  switch (q_dtype) {
-    case kF32:
-      return static_cast<int>(dispatch_bias<float>(a, bias_dtype));
-    case kBF16:
-      return static_cast<int>(dispatch_bias<__nv_bfloat16>(a, bias_dtype));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<Fwd<false>::Launch>(
+      fwd_args(q, k, v, bias, out, nullptr, B, H, Sq, Sk, D, bias_sb, bias_sh,
+               bias_sq, sm_scale, causal, stream),
+      q_dtype, bias_dtype);
+}
+
+// B2.  As B1, and lse [B, H, Sq] float32.
+int paddle_flash_attention_fwd_lse(const void* q, const void* k,
+                                   const void* v, const void* bias, void* out,
+                                   float* lse, int B, int H, int Sq, int Sk,
+                                   int D, int bias_sb, int bias_sh,
+                                   int bias_sq, float sm_scale, int causal,
+                                   int q_dtype, int bias_dtype,
+                                   void* stream) {
+  return dispatch<Fwd<true>::Launch>(
+      fwd_args(q, k, v, bias, out, lse, B, H, Sq, Sk, D, bias_sb, bias_sh,
+               bias_sq, sm_scale, causal, stream),
+      q_dtype, bias_dtype);
 }
 
 }  // extern "C"

@@ -26,10 +26,17 @@ meshes and tensor parallelism, host I/O ops (save/load), ``use_prune``,
 ``warmup``, ``run_persistent``, auto-checkpoint, localsgd, pipeline
 programs, and the NaN scan (``FLAGS_check_nan_inf``).  Runs are
 synchronous: the JAX executor's pipelined window of in-flight steps
-(``StepHandle``) and its graph-pass pipeline are not ported either.  For
-the static BERT program those passes only remove provably redundant
-casts and dead ops, so running the program as built gives the same
-results.
+(``StepHandle``) is not ported either.
+
+Graph passes: before a program's block runs, ``_apply_graph_passes``
+hands it to the ``framework/passes.py`` pipeline (attention-chain fusion
+to ``flash_attention``, redundant-cast and dead-op elimination), which
+rewrites a clone and leaves the caller's program as built.  The result
+is cached per (fingerprint, pass list, fetch and feed names, scope, and
+the values of ``FLAGS_flash_attention`` and ``FLAGS_fuse_passes``, the
+two flags the passes read); ``FLAGS_fuse_passes=0`` runs the program as
+built.  The startup program goes through the same call, where no pass
+finds anything to do.
 """
 from __future__ import annotations
 
@@ -40,6 +47,9 @@ import numpy as np
 import torch
 
 from . import dtypes
+from ..monitor import stat_add
+from ..observe import tracer as otrace
+from . import passes as passes_mod
 from .flags import flag
 from .lowering import PSEUDO_OPS, LoweringContext, get_lowering
 from .place import Place, _default_place
@@ -50,6 +60,13 @@ RNG_VAR = "@RNG_KEY@"
 
 # ops the JAX executor runs host-side (file I/O)
 HOST_OPS = {"save", "load", "save_combine", "load_combine"}
+
+# ops whose effect is not visible through their outputs (p2p send/recv
+# pairs match POSITIONALLY per ring, so dropping either end corrupts the
+# pairing; barrier is a rendezvous; print emits a host debug callback) --
+# the pass-pipeline DCE must never slice them away
+SIDE_EFFECT_OPS = {"send_v2", "partial_send", "recv_v2", "partial_recv",
+                   "barrier", "print"}
 
 
 def _later(what: str):
@@ -88,6 +105,10 @@ class Executor:
         self.device = self.place.torch_device()
         # (program fingerprint, feed names, scope serial) -> (in, out)
         self._analysis_cache: Dict[tuple, tuple] = {}
+        # (program fingerprint, pass config, fetch/feed names, scope
+        # serial, pass flags) -> pass-rewritten program (or the original
+        # when no pass applied)
+        self._pass_cache: Dict[tuple, Program] = {}
 
     # ------------------------------------------------------------------
     def run(
@@ -107,7 +128,10 @@ class Executor:
         self._refuse_left_out(program)
         feeds = _feed_tensors(program.global_block, dict(feed or {}),
                               self.device)
-        fetches = self._run_block(program, feeds, _names(fetch_list), scope)
+        fetch_names = _names(fetch_list)
+        program = self._apply_graph_passes(program, fetch_names, feeds,
+                                           scope)
+        fetches = self._run_block(program, feeds, fetch_names, scope)
         return [to_numpy(v) for v in fetches] if return_numpy else fetches
 
     # ------------------------------------------------------------------
@@ -152,6 +176,8 @@ class Executor:
             n_steps = int(steps)
         feeds = _feed_tensors(program.global_block, feed, self.device)
         fetch_names = _names(fetch_list)
+        program = self._apply_graph_passes(program, fetch_names, feeds,
+                                           scope)
         per_step: List[List[torch.Tensor]] = [[] for _ in fetch_names]
         for i in range(n_steps):
             step_feed = feeds if steps is not None else \
@@ -172,6 +198,7 @@ class Executor:
 
     def close(self):
         self._analysis_cache.clear()
+        self._pass_cache.clear()
 
     # ------------------------------------------------------------------
     def _refuse_left_out(self, program):
@@ -186,6 +213,30 @@ class Executor:
             raise _later("auto-checkpoint (PADDLE_RUNNING_ENV)")
         if flag("check_nan_inf"):
             raise _later("the NaN/Inf scan (FLAGS_check_nan_inf)")
+
+    def _apply_graph_passes(self, program, fetch_names, feed, scope):
+        """Run the framework.passes pipeline over ``program`` before
+        lowering (reference build-strategy graph passes).  The result --
+        a rewritten clone, or the original object when no pass changed
+        anything -- is cached per (fingerprint, pass config, fetch/feed
+        names, scope serial) and the values of the flags the passes
+        read; FLAGS_fuse_passes gates the whole pipeline."""
+        if not flag("fuse_passes"):
+            return program
+        with otrace.span("executor/pass_pipeline"):
+            pipeline = passes_mod.default_pipeline()
+            key = (program.fingerprint(), pipeline.config_key(),
+                   fetch_names, frozenset(feed), scope.serial,
+                   str(flag("flash_attention")), bool(flag("fuse_passes")))
+            cached = self._pass_cache.get(key)
+            if cached is not None:
+                stat_add("executor_pass_cache_hit")
+                return cached
+            ctx = passes_mod.PassContext(fetch_names=fetch_names,
+                                         feed_names=tuple(feed),
+                                         scope=scope)
+            out = self._pass_cache[key] = pipeline.apply(program, ctx)
+            return out
 
     def _generator(self, scope, program) -> torch.Generator:
         gen = scope.get_var(RNG_VAR) if scope.has_var(RNG_VAR) else None
@@ -240,6 +291,38 @@ class Executor:
 def _names(fetch_list) -> tuple:
     return tuple(v.name if isinstance(v, Variable) else str(v)
                  for v in (fetch_list or []))
+
+
+def _prune_ops(program, fetch_names, keep_side_effect_ops=False):
+    """Backward slice: keep only ops whose outputs (transitively) feed the
+    fetch list (reference framework/prune.h).
+
+    ``keep_side_effect_ops`` (the pass-pipeline DCE caller) additionally
+    keeps ops with no outputs and the SIDE_EFFECT_OPS unconditionally.
+
+    An op that owns a sub-block also reads what the sub-block reads from
+    its surroundings.  The port lowers no control flow yet, so such a
+    program raises here instead of being sliced by its visible reads
+    alone."""
+    block = program.global_block
+    needed = set(fetch_names)
+    keep = []
+    for op in reversed(block.ops):
+        if op.type in PSEUDO_OPS:
+            continue
+        keep_this = bool(set(op.output_arg_names()) & needed)
+        if keep_side_effect_ops and (
+                op.type in SIDE_EFFECT_OPS or not op.output_arg_names()):
+            keep_this = True
+        if any(op.has_attr(a)
+               for a in ("sub_block", "sub_block_t", "sub_block_f")):
+            raise _later(f"pruning a program with control flow (op "
+                         f"{op.type!r} owns a sub-block)")
+        if keep_this:
+            keep.append(op)
+            needed.update(op.input_arg_names())
+    keep.reverse()
+    return keep
 
 
 def _analyze_state(program: Program, feed_names: set, scope: Scope):

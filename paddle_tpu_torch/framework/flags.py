@@ -182,4 +182,13 @@ define_flag("flash_attention", "auto",
             "fused attention kernel engagement: 'auto' (the flash kernel "
             "only on CUDA tensors whose float32 score tensor would pass "
             "2 GB), 'always' (at every aligned shape on CUDA tensors), "
-            "'never' (the plain composition)")
+            "'never' (the plain composition).  Also gates the graph pass "
+            "that rewrites an unfused attention chain to flash_attention "
+            "(framework/passes.py): 'never' no rewrite, 'always' rewrite, "
+            "'auto' only when the default device is CUDA")
+define_flag("fuse_passes", True,
+            "run the program-IR optimization pass pipeline "
+            "(framework/passes.py: attention-chain fusion, redundant-cast "
+            "and dead-op elimination) on a clone of the program before "
+            "the executor lowers it; off runs the program exactly as "
+            "built")

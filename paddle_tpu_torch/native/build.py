@@ -6,14 +6,15 @@ for Hopper (``sm_90a``) into a shared library with a plain C interface,
 which ``ops/`` loads with ``ctypes``: no PyTorch headers, so a build
 takes seconds instead of minutes.  The library lands in
 ``paddle_tpu_torch/_build/`` under a name that carries a hash of the
-source and the flags, so an edited source rebuilds and a checkout with
-nothing built builds everything at first use.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source rebuilds and a checkout with nothing built builds everything at
+first use.
 
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits
 for them together; ``load`` builds (if needed) and opens one library.
 There is no fallback: a host without ``nvcc`` raises, and only CPU
-tensors take the plain PyTorch versions (see ``ops/paged_attention`` and
-``ops/flash_attention_bias``).
+tensors take the plain PyTorch versions (see ``ops/paged_attention``,
+``ops/flash_attention_bias`` and ``ops/flash_attention``).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from typing import Dict, Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 OUT_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("paged_attention", "flash_attention")
+SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 BUILD_TIMEOUT_S = 600
@@ -61,11 +62,14 @@ def source_path(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``name``'s library lives: keyed by the bytes of its source
-    and the compiler flags."""
+    """Where ``name``'s library lives: keyed by the bytes of its source,
+    of the headers beside it and the compiler flags."""
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, f)
+                                       for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(OUT_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -1,8 +1,9 @@
-"""Creation and random ops: ``fill_constant``, ``gaussian_random``,
-``dropout`` (+ grad).
+"""Creation and random ops: ``fill_constant``, ``assign``,
+``gaussian_random``, ``dropout`` (+ grad).
 
 Counterpart of ``paddle_tpu/ops/creation.py``, limited to the op types
-the static BERT program and its startup program emit (the rest come
+the static BERT program and its startup program emit, and ``assign``,
+which the redundant-cast pass leaves where a cast was (the rest come
 with later slices).  Random ops draw from the executor's
 ``torch.Generator`` (``ops/common.op_generator``); the JAX package draws
 from threefry, so the two agree in distribution, not in bits.
@@ -31,6 +32,11 @@ def _fill_constant(ctx, op):
     shape = [int(s) for s in op.attr("shape", [])]
     ctx.set_out(op, "Out", torch.full(shape, value, dtype=attr_dtype(op),
                                       device=ctx.device))
+
+
+@register_lower("assign")
+def _assign(ctx, op):
+    ctx.set_out(op, "Out", ctx.in1(op, "X"))
 
 
 @register_lower("gaussian_random")

@@ -165,35 +165,36 @@ def _check_args(q, k, v, bias, block_q=SEQ_BLOCK, block_k=SEQ_BLOCK):
                 f"exactly Sk")
 
 
-def _check_launch(q, k, v, bias):
-    """What the kernel takes beyond the shape contract; raise on the rest."""
+def _check_launch(q, k, v, bias, what="flash_attention_bias"):
+    """What the kernels take beyond the shape contract; raise on the rest
+    (``what`` names the calling op in the message)."""
     tensors = [t for t in (q, k, v, bias) if t is not None]
     dev = q.device
     if any(t.device != dev for t in tensors):
         raise ValueError(
-            f"flash_attention_bias: every tensor must lie on one device, "
+            f"{what}: every tensor must lie on one device, "
             f"got {sorted({str(t.device) for t in tensors})}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(
-            f"flash_attention_bias: q, k, v must share one dtype of "
+            f"{what}: q, k, v must share one dtype of "
             f"float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if bias is not None and bias.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash_attention_bias: bias must be float32 or "
+        raise ValueError(f"{what}: bias must be float32 or "
                          f"bfloat16, got {bias.dtype}")
     if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bias: head_dim {q.shape[-1]} "
+        raise ValueError(f"{what}: head_dim {q.shape[-1]} "
                          f"not in {HEAD_DIMS}")
     if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("flash_attention_bias: every tensor must be "
+        raise ValueError(f"{what}: every tensor must be "
                          "contiguous")
     if bias is not None and bias.numel() >= 2 ** 31:
-        raise ValueError("flash_attention_bias: the kernel addresses the "
+        raise ValueError(f"{what}: the kernel addresses the "
                          "bias with 32-bit strides; got "
                          f"{bias.numel()} elements")
     if dev.type != "cuda":
         raise RuntimeError(
-            f"flash_attention_bias: the kernel runs on CUDA tensors only "
+            f"{what}: the kernel runs on CUDA tensors only "
             f"(the plain version takes CPU tensors), got {dev}")
 
 

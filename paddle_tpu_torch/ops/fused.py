@@ -17,6 +17,10 @@ when the float32 score tensor would pass 2 GB.  ``_FORCE_ENGAGE`` lets
 tests engage it on CPU tensors, where B1's wrapper runs its plain
 version.  Both lowerings are differentiable, so the generic gradient
 (ops/grad_generic.py) replays either unchanged.
+
+The same engagement rule (``_flash_engaged``) serves the
+``flash_attention`` op that the graph pass emits for the unfused chain
+(ops/flash_attention.py: B2 forward, B3/B4 backward).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 
 from ..framework.flags import flag
 from ..framework.lowering import register_lower
+from .flash_attention import _shape_ok
 from .flash_attention_bias import flash_attention_bias
 
 
@@ -45,10 +50,6 @@ def _plain_attention(q, k, v, bias, sm_scale, causal=False):
 
 
 _FORCE_ENGAGE = False  # tests: engage B1 on CPU tensors (its plain version)
-
-
-def _shape_ok(sq, sk, d):
-    return sq % 128 == 0 and sk % 128 == 0 and d in (64, 128, 256)
 
 
 def _flash_engaged(b, h, sq, sk, d, device) -> bool:

@@ -1,10 +1,12 @@
-"""Math ops: ``mul``, the elementwise family, ``sum``, reductions.
+"""Math ops: ``mul``, ``matmul``, the elementwise family, ``sum``,
+reductions.
 
 Counterpart of ``paddle_tpu/ops/math_ops.py``, limited to the op types
-the static BERT program emits (the rest come with later slices).
-Reference parity: operators/mul_op.cc, elementwise/*, sum_op.cc,
-reduce_ops/*, mean_op.cc.  ``mul`` is one ``torch.matmul``: a large
-matrix product outside any kernel of the port.
+the static BERT program emits, fused or unfused (the rest come with later
+slices).  Reference parity: operators/mul_op.cc, matmul_op.cc,
+elementwise/*, sum_op.cc, reduce_ops/*, mean_op.cc.  ``mul`` and
+``matmul`` are one ``torch.matmul`` each: large matrix products outside
+any kernel of the port.  ``matmul_grad`` takes the generic gradient.
 """
 from __future__ import annotations
 
@@ -34,6 +36,35 @@ def _prod(t):
     for v in t:
         p *= int(v)
     return p
+
+
+def _matmul_common(x, y, trans_x, trans_y, alpha=1.0):
+    if trans_x and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if trans_y and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(*promote(x, y))
+    if alpha != 1.0:
+        out = out * alpha
+    return out
+
+
+@register_lower("matmul")
+def _matmul(ctx, op):
+    out = _matmul_common(
+        ctx.in1(op, "X"), ctx.in1(op, "Y"),
+        bool(op.attr("transpose_X", False)),
+        bool(op.attr("transpose_Y", False)),
+        float(op.attr("alpha", 1.0)))
+    ctx.set_out(op, "Out", out)
+
+
+@register_lower("matmul_v2")
+def _matmul_v2(ctx, op):
+    out = _matmul_common(
+        ctx.in1(op, "X"), ctx.in1(op, "Y"),
+        bool(op.attr("trans_x", False)), bool(op.attr("trans_y", False)))
+    ctx.set_out(op, "Out", out)
 
 
 _BINARY = {

@@ -1,8 +1,10 @@
-"""NN ops: ``softmax_with_cross_entropy`` (+ grad) and ``layer_norm``.
+"""NN ops: ``softmax``, ``softmax_with_cross_entropy`` (+ grad) and
+``layer_norm``.
 
 Counterpart of ``paddle_tpu/ops/nn_ops.py``, limited to the op types the
-static BERT program emits (the rest come with later slices).  Reference
-parity: operators/softmax_with_cross_entropy_op.h (``ignore_index``
+static BERT program emits, fused or unfused (the rest come with later
+slices).  Reference parity: operators/softmax_op.cc (``softmax_grad``
+takes the generic gradient), softmax_with_cross_entropy_op.h (``ignore_index``
 positions carry zero loss and zero gradient, whatever its sign) and
 layer_norm_op.cc (``begin_norm_axis``; ``Mean``/``Variance`` outputs
 flattened to the leading dims).
@@ -13,6 +15,16 @@ import torch
 import torch.nn.functional as F
 
 from ..framework.lowering import register_lower
+
+
+@register_lower("softmax")
+def _softmax(ctx, op):
+    """bf16-transparent: exp/sum run in float32 (bf16's 8 significant
+    bits lose small probabilities), Out follows x.dtype so attention prob
+    tensors stay bf16 under AMP."""
+    x = ctx.in1(op, "X")
+    out = torch.softmax(x.float(), dim=int(op.attr("axis", -1)))
+    ctx.set_out(op, "Out", out.to(x.dtype))
 
 
 def _hard_labels(label, ndim, axis):

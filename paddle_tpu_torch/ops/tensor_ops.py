@@ -1,9 +1,10 @@
-"""Tensor manipulation ops: ``reshape2``, ``slice``, ``gather``, ``cast``.
+"""Tensor manipulation ops: ``reshape2``, ``transpose2`` (+ grad),
+``slice``, ``gather``, ``cast``.
 
 Counterpart of ``paddle_tpu/ops/tensor_ops.py``, limited to the op types
-the static BERT program emits (the rest come with later slices).
-Reference parity: operators/reshape_op.cc, slice_op.cc, gather_op.cc,
-cast_op.cc.
+the static BERT program emits, fused or unfused (the rest come with later
+slices).  Reference parity: operators/reshape_op.cc, transpose_op.cc,
+slice_op.cc, gather_op.cc, cast_op.cc.
 """
 from __future__ import annotations
 
@@ -32,6 +33,22 @@ def _reshape(ctx, op):
     if op.outputs.get("XShape"):
         # the reference's XShape carries the input shape behind a 0 dim
         ctx.set_out(op, "XShape", x.new_zeros((0,) + tuple(x.shape)))
+
+
+@register_lower("transpose", "transpose2")
+def _transpose(ctx, op):
+    x = ctx.in1(op, "X")
+    ctx.set_out(op, "Out", x.permute([int(a) for a in op.attr("axis", [])]))
+    if op.outputs.get("XShape"):
+        ctx.set_out(op, "XShape", x.new_zeros((0,) + tuple(x.shape)))
+
+
+@register_lower("transpose2_grad")
+def _transpose2_grad(ctx, op):
+    dy = ctx.in1(op, "Out@GRAD")
+    axis = [int(a) for a in op.attr("axis", [])]
+    inv = sorted(range(len(axis)), key=axis.__getitem__)  # argsort
+    ctx.set_out(op, "X@GRAD", dy.permute(inv))
 
 
 @register_lower("slice")

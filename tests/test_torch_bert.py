@@ -7,10 +7,21 @@ from the JAX package's startup values (carried over with
 ``scope_from_numpy``: the packages draw random numbers differently) and
 trained 3 steps by both executors on the same feeds.
 
+The same model with the unfused attention chain
+(``use_fused_attention=False``) goes through both packages' graph-pass
+pipelines: under ``FLAGS_flash_attention=never`` the chain runs as built
+(matmul, add, softmax, matmul and their generic gradients), under
+``always`` ``FlashAttentionPass`` rewrites both layers to
+``flash_attention`` / ``flash_attention_grad`` (the JAX side on its
+Pallas kernels in interpret mode, the port on B2-B4's plain versions).
+
 Tolerances:
 - float32: losses and final parameters within 1e-4 (absolute, on losses
   of about 3-5 and weights of about 0.02-1).  The two run the same float32
   arithmetic in other summation orders; the measured gap is about 1e-5.
+- the port's unfused ``always`` run against its ``never`` run: 1e-5 on
+  the losses: the same float32 attention, once as whole-row softmax
+  and once as exp(S - lse) recomputed in the backward.
 - bfloat16 AMP: the matmuls, attention and their gradients run in
   bfloat16 (8 significant bits), rounded at places that differ between
   XLA and torch.  The losses are held to one bfloat16 rounding step,
@@ -31,10 +42,12 @@ from paddle_tpu.framework import unique_name as junique
 from paddle_tpu.ops import fused as jfused
 from paddle_tpu.text import bert_base_pretrain_program as jbert
 import paddle_tpu_torch as tpkg
+from paddle_tpu_torch import monitor as tmonitor
 from paddle_tpu_torch.amp import decorate as tdecorate
 from paddle_tpu_torch.framework import program as tprogram
 from paddle_tpu_torch.framework import unique_name as tunique
 from paddle_tpu_torch.framework.scope import scope_from_numpy
+from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import flash_attention_bias as fab
 from paddle_tpu_torch.ops import fused as tfused
 from paddle_tpu_torch.text import bert_base_pretrain_program as tbert
@@ -50,10 +63,11 @@ PACKAGES = {"jax": (jbert, jdecorate, jprogram, junique),
             "torch": (tbert, tdecorate, tprogram, tunique)}
 
 
-def _build(which, amp=False):
+def _build(which, amp=False, fused=True):
     bert, decorate, prog_mod, unique = PACKAGES[which]
     with unique.guard():
-        main, startup, _feeds, loss, opt = bert(**CFG)
+        main, startup, _feeds, loss, opt = bert(use_fused_attention=fused,
+                                                **CFG)
         main.random_seed = 1
         with prog_mod.program_guard(main, startup):
             (decorate(opt, use_bf16=True) if amp else opt).minimize(loss)
@@ -107,8 +121,8 @@ class _flash:
         tpkg.set_flags({"FLAGS_flash_attention": "auto"})
 
 
-def _train_jax(init, amp, feed):
-    main, _startup, loss = _build("jax", amp)
+def _train_jax(init, amp, feed, fused=True):
+    main, _startup, loss = _build("jax", amp, fused)
     scope = jpkg.framework.Scope()
     for n, a in init.items():
         scope.set_var(n, a)
@@ -120,8 +134,8 @@ def _train_jax(init, amp, feed):
                     for n in init}
 
 
-def _train_torch(init, amp, feed):
-    main, _startup, loss = _build("torch", amp)
+def _train_torch(init, amp, feed, fused=True):
+    main, _startup, loss = _build("torch", amp, fused)
     scope = scope_from_numpy(init, device="cpu")
     exe = tpkg.Executor(tpkg.CPUPlace())
     losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
@@ -143,6 +157,49 @@ def test_float32_training_matches_jax(jax_init, flash):
         np.testing.assert_allclose(got_params[n], w, rtol=0, atol=F32_TOL,
                                    err_msg=n)
     assert fab.flash_attention_bias.launches == 0   # CPU tensors
+
+
+@pytest.mark.parametrize("flash", [True, False], ids=["always", "never"])
+def test_unfused_float32_training_matches_jax(jax_init, flash):
+    """The slice as a whole: the unfused chain through both pass
+    pipelines and executors, 3 steps."""
+    feed = _feed()
+    tfa.reset_launch_counts()
+    for name in ("pass_flash_attention_fused",
+                 "pass_flash_attention_grad_fused",
+                 "flash_attention_engaged"):
+        tmonitor.stat_reset(name)
+    with _flash(flash):
+        want_loss, want_params = _train_jax(jax_init, False, feed,
+                                            fused=False)
+        got_loss, got_params = _train_torch(jax_init, False, feed,
+                                            fused=False)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=0, atol=F32_TOL)
+    assert got_loss[-1] < got_loss[0]
+    for n, w in want_params.items():
+        np.testing.assert_allclose(got_params[n], w, rtol=0, atol=F32_TOL,
+                                   err_msg=n)
+    layers = CFG["n_layers"]
+    rewrites = layers if flash else 0
+    assert tmonitor.stat_get("pass_flash_attention_fused") == rewrites
+    assert tmonitor.stat_get("pass_flash_attention_grad_fused") == rewrites
+    # each step lowers the op once forward and once in its gradient's replay
+    assert tmonitor.stat_get("flash_attention_engaged") == \
+        2 * rewrites * STEPS
+    assert [f.launches for f in tfa.KERNEL_WRAPPERS] == [0, 0, 0]  # CPU
+
+
+def test_unfused_always_equals_never_and_fused(jax_init):
+    """In the port: the rewritten program (B2-B4's plain versions), the
+    chain as built, and slice 2's fused op give the same losses."""
+    feed = _feed()
+    with _flash(True):
+        always, _ = _train_torch(jax_init, False, feed, fused=False)
+    with _flash(False):
+        never, _ = _train_torch(jax_init, False, feed, fused=False)
+        fused, _ = _train_torch(jax_init, False, feed, fused=True)
+    np.testing.assert_allclose(always, never, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(fused, never, rtol=0, atol=1e-5)
 
 
 def test_bfloat16_amp_training_matches_jax(jax_init):

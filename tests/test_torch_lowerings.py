@@ -2,7 +2,9 @@
 
 One parametrised test over the op types that BERT-base pretraining under
 bfloat16 AMP runs (forward, backward and the AdamW update; the startup
-program's ``fill_constant``): each case is a one-op program, built with
+program's ``fill_constant``); the op types that the unfused attention chain
+and the graph passes add are cases of the same check in
+``test_torch_lowerings_unfused.py``.  Each case is a one-op program, built with
 each package's own IR, with the gradient op appended by the grad maker
 that ``append_backward`` would pick (the generic ``<type>_grad``, or the
 op's own: ``mean_grad``, ``dropout_grad``, ``reshape_like_grad``,
@@ -15,6 +17,7 @@ Tolerance: 1e-5 absolute plus 1e-5 relative.  Both sides compute in
 float32 and differ only in summation order and in the last bits of
 their transcendental functions, on values of order 1.  The bfloat16
 outputs of ``cast`` are exact roundings of the same float32 values.
+A case may state its own tolerance (``tol``).
 
 Random ops (``dropout`` with a nonzero rate, ``gaussian_random``) draw
 from different generators in the two packages, so they are held to
@@ -47,9 +50,11 @@ def _f(rs, *shape, lo=None):
     return np.abs(a) + lo if lo is not None else a
 
 
-def _case(op_type, inputs, outs, attrs=None, grad=("Out",), flash=False):
+def _case(op_type, inputs, outs, attrs=None, grad=("Out",), flash=False,
+          tol=None):
     return dict(type=op_type, inputs=inputs, outs=list(outs),
-                attrs=dict(attrs or {}), grad=list(grad), flash=flash)
+                attrs=dict(attrs or {}), grad=list(grad), flash=flash,
+                tol=tol or TOL)
 
 
 def _cases():
@@ -248,9 +253,9 @@ def _f32(a):
     return a.astype("f4") if a.dtype == ml_dtypes.bfloat16 else a
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_lowering_matches_jax(name):
-    case = CASES[name]
+def check_case(name, case):
+    """Run ``case`` through both packages and compare every output and
+    every input gradient (shared with test_torch_lowerings_unfused.py)."""
     with _flash(case["flash"]):
         # the outputs' shapes and types, to make their cotangents
         prog, feed, fetch = _build("torch", case)
@@ -272,8 +277,13 @@ def test_lowering_matches_jax(name):
         assert g.shape == w.shape, (n, g.shape, w.shape)
         if name.startswith("dropout") and n == "out_mask":
             g, w = g.astype("f4"), w.astype("f4")
-        np.testing.assert_allclose(g, w, err_msg=n, **TOL)
+        np.testing.assert_allclose(g, w, err_msg=n, **case["tol"])
     assert fab.flash_attention_bias.launches == 0   # CPU tensors
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_lowering_matches_jax(name):
+    check_case(name, CASES[name])
 
 
 def _one_op(op_type, inputs, outs, attrs, seed=7):
