@@ -33,7 +33,13 @@ Phases, each printing JSON lines:
                and B4 together against ``torch.autograd.grad`` through SDPA
                (one call gives dq, dk and dv); and, untimed, rows whose mask
                is -inf everywhere (denominator 0: out 0, lse -1e30, finite
-               gradients);
+               gradients); the dequant-fused matmul (B7) at the served
+               BERT's shapes (FFN up and down and the q/k/v/output
+               projections at batch 32, FFN up at batch 1, the pooler and
+               the 2-way NSP head) and a ragged one, float32 x with int8
+               and fp8 carriers and bfloat16 x, against ``torch.matmul`` on
+               the weight dequantized beforehand (what the unquantized
+               program runs); and, untimed, an all-zero output channel;
 4. serve    -- the README's serving model at full width (vocab 32000,
                d_model 512, 8 layers, 8 heads, ffn 2048, max_seq_len 1024;
                random weights from a seed) behind ``DecodeServer`` on the
@@ -89,7 +95,29 @@ Phases, each printing JSON lines:
                ``never`` (the chain on ``torch.matmul``), under ``always``
                (B2-B4), and the fused program of phase 6 under ``always``
                (B1); losses pairwise within 1e-4 relative, no B2-B4 launch
-               in the ``never`` and fused runs.
+               in the ``never`` and fused runs;
+12. infer   -- BERT-base at full width as an encoder (vocab 30522, hidden 768,
+               12 layers, 12 heads, ffn 3072, max_pos 512, seq 128, batch dim
+               -1, dropout 0, fused attention) with the pretraining program's
+               NSP head (pooler + 2-way classifier), random weights from the
+               program's seed, float32: ``fluid.io.save_inference_model`` to
+               a temporary directory, then ``inference.Predictor`` on the card
+               under ``FLAGS_flash_attention=always``, in three modes of
+               ``FLAGS_weight_quant``: '' (float32 weights on cuBLAS), int8
+               and fp8_e4m3 (the weight-quant pass rewrites all 74 matmuls to
+               ``dequant_matmul``, B7).  Requests of batch 1, 8 and 32; the
+               launch counters are zeroed just before each mode's timed runs
+               and read just after: 74 B7 (0 under '') and 12 B1 a run.  The
+               int8 sequence output is held within 0.05 * max|float32| of the
+               float32 run's (the JAX package's bound); fp8's delta is
+               reported;
+13. infer_profile -- one batch-32 int8 run under ``torch.profiler``: the
+               device's busy share, its time by kernel and B7's share;
+14. infer_oracle -- a ``Config().disable_gpu()`` Predictor over the same
+               directory runs on the CPU (every kernel's plain version): at
+               batch 2, in int8 and fp8, its carriers and scales equal the
+               card's bit for bit, and in every mode its outputs agree with
+               the card's within ``INFER_ORACLE_TOL``.
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
@@ -97,9 +125,11 @@ device it exits 1 before doing anything.
 """
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -123,6 +153,7 @@ from paddle_tpu_torch.observe import tracer  # noqa: E402
 from paddle_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops import flash_attention_bias as fab  # noqa: E402
 from paddle_tpu_torch.ops import paged_attention as pa  # noqa: E402
+from paddle_tpu_torch.ops import quant_ops as qo  # noqa: E402
 from paddle_tpu_torch.serving import (DecodeConfig, DecodeServer,  # noqa: E402
                                       TransformerLM)
 
@@ -133,6 +164,7 @@ SOURCES = {
     "flash_attention_fwd": "paddle_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dq": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd_dkv": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "dequant_matmul": "paddle_tpu_torch/csrc/dequant_matmul.cu",
 }
 REPLACES = {
     "paged_decode_attention": "paddle_tpu/ops/pallas_decode_attention.py:71",
@@ -141,6 +173,7 @@ REPLACES = {
     "flash_attention_fwd": "paddle_tpu/ops/flash_attention.py:121",
     "flash_attention_bwd_dq": "paddle_tpu/ops/flash_attention.py:215",
     "flash_attention_bwd_dkv": "paddle_tpu/ops/flash_attention.py:250",
+    "dequant_matmul": "paddle_tpu/ops/quant_ops.py:325",
 }
 # Data-sheet peaks (dense): bytes/s of device memory, and operations/s by
 # the input type the kernels compute from (float32 on the CUDA cores;
@@ -212,6 +245,38 @@ ORACLE_RTOL = 1e-4
 # (every weight moves by about lr at once) and the loss may rise before it
 # falls; the oracle's "the loss fell" check runs at a fine-tuning rate.
 ORACLE_LR = 1e-5
+# B7 (the dequant-fused matmul) against its plain version (the weight
+# dequantized in float32, then a float32 cuBLAS matmul): both multiply the
+# same float32 products, the kernel dequantizing each weight element as the
+# plain version does, so they differ in summation order over K terms only:
+# per element within DEQUANT_TOL * sum_k |x[m, k] * w[k, n]| (about 2**-20,
+# 16 float32 ulps of the largest partial sum), plus one bfloat16 step
+# (2**-7 * |plain|) where the output is bfloat16.
+DEQUANT_TOL = 2.0 ** -20
+# (label, M, K, N, x dtype, carrier); the first is the main path's largest
+# call (FFN up at batch 32)
+DEQUANT_CASES = (
+    ("ffn_up_b32_f32_int8", 4096, 768, 3072, "float32", "int8"),
+    ("ffn_up_b32_f32_fp8", 4096, 768, 3072, "float32", "fp8_e4m3"),
+    ("ffn_up_b32_bf16_int8", 4096, 768, 3072, "bfloat16", "int8"),
+    ("ffn_down_b32_f32_int8", 4096, 3072, 768, "float32", "int8"),
+    ("qkv_out_b32_f32_int8", 4096, 768, 768, "float32", "int8"),
+    ("ffn_up_b1_f32_int8", 128, 768, 3072, "float32", "int8"),
+    ("ragged_f32_int8", 100, 300, 70, "float32", "int8"),
+    ("pooler_b32_f32_int8", 32, 768, 768, "float32", "int8"),
+    ("nsp_b32_f32_fp8", 32, 768, 2, "float32", "fp8_e4m3"),
+)
+# The served model (infer phases): BERT-base's encoder and NSP head.
+INFER_BATCHES, INFER_RUNS = (1, 8, 32), 10
+INFER_MODES = ("", "int8", "fp8_e4m3")
+B7_PER_RUN, B1_PER_RUN = 74, 12   # 6 matmuls x 12 layers + pooler + nsp_out
+# int8 vs float32 sequence output: the JAX package's bound
+# (tests/test_quant_inference.py), a fraction of the output's scale
+INT8_QUALITY_BOUND = 0.05
+# The card's outputs vs the CPU's plain versions on the same saved model
+# and the same carriers: float32 summation order (cuBLAS and B7 against the
+# CPU's kernels) compounded over 12 layers of post-LayerNorm values of O(1).
+INFER_ORACLE_TOL = 1e-3
 
 
 def log(phase, **fields):
@@ -441,6 +506,9 @@ def phase_kernels(name):
     for case in TRAIN_FLASH_CASES:
         rows += run_train_flash_case(gen, dev, case, peaks, flush)
     check_dead_rows(gen, dev)
+    for case in DEQUANT_CASES:
+        rows.append(run_dequant_case(gen, dev, case, peaks, flush))
+    check_zero_channel(gen, dev)
     del l2
     log("clocks", at="kernels end", **{clocks: nvidia_smi(clocks)})
     return rows
@@ -784,6 +852,97 @@ def check_dead_rows(gen, dev):
         lse_is_minus_1e30=True, dq_is_0=True)
 
 
+# ---- B7 and the quantized inference path ------------------------------------
+
+
+def dequant_case(gen, dev, m, k, n, dtype, mode):
+    """x [M, K] and a weight [K, N] with a 30x outlier channel, quantized
+    on the card as the weight-quant pass does."""
+    x = torch.randn(m, k, generator=gen).to(getattr(torch, dtype)).to(dev)
+    w = torch.randn(k, n, generator=gen)
+    w[:, 0] *= 30.0
+    q, scale = qo.quantize_weight(w.to(dev), 1, mode)
+    return x, q, scale
+
+
+def check_dequant(label, out, ref, x, q, scale):
+    """Max abs error of B7 against its plain version; raises beyond
+    DEQUANT_TOL * sum_k |x w| (+ one bfloat16 step) per element."""
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != x.dtype:
+        raise RuntimeError(f"{label}: output {tuple(out.shape)} {out.dtype},"
+                           f" want {tuple(ref.shape)} {x.dtype}")
+    w = qo.dequantize_weight(q, scale, 1)
+    size = x.float().abs() @ w.abs()
+    diff = (out.float() - ref.float()).abs()
+    rel = REL_TOL[str(x.dtype)[6:]]
+    excess = diff - DEQUANT_TOL * size - rel * ref.float().abs()
+    err = float(diff.max())
+    if not math.isfinite(err) or float(excess.max()) > 0:
+        raise RuntimeError(f"{label}: B7 vs plain differ by {err} (max abs),"
+                           f" beyond {DEQUANT_TOL} * sum|x w| + {rel} "
+                           f"* |plain|")
+    return err, float((diff / (DEQUANT_TOL * size + rel * ref.float().abs()
+                               + 1e-30)).max())
+
+
+def dequant_bound(x, q, scale, peaks):
+    """Least time for one call: x, the carrier and the scale read once, the
+    output written once; 2*M*K*N operations at the peak of x's type."""
+    bw, ops_rate = peaks
+    m, k = x.shape
+    n = q.shape[1]
+    nbytes = (x.numel() * x.element_size() + q.numel() * q.element_size()
+              + scale.numel() * 4 + m * n * x.element_size())
+    t_bytes = nbytes / bw * 1e3
+    t_ops = 2 * m * k * n / ops_rate[str(x.dtype)[6:]] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def run_dequant_case(gen, dev, case, peaks, flush):
+    label, m, k, n, dtype, mode = case
+    x, q, scale = dequant_case(gen, dev, m, k, n, dtype, mode)
+    out = qo.dequant_matmul(x, q, scale)
+    ref = qo.dequant_matmul_reference(x, q, scale)
+    err, share = check_dequant(label, out, ref, x, q, scale)
+    w = qo.dequantize_weight(q, scale, 1, x.dtype)   # what '' mode holds
+    bound_ms, bound_by = dequant_bound(x, q, scale, peaks)
+    row = dict(case=label, kernel="dequant_matmul", x=dtype, carrier=mode,
+               shape=[m, k, n], max_abs_err=err,
+               tolerance=f"{DEQUANT_TOL} * sum|x w| + {REL_TOL[dtype]} "
+                         f"* |plain|", err_share_of_tolerance=share,
+               ms=cuda_ms(lambda: qo.dequant_matmul(x, q, scale), flush),
+               plain_ms=cuda_ms(lambda: qo.dequant_matmul_reference(
+                   x, q, scale), flush),
+               library_ms=cuda_ms(lambda: torch.matmul(x, w), flush),
+               library="torch.matmul on the weight dequantized beforehand "
+                       f"({dtype}, TF32 off)",
+               bound_ms=bound_ms, bound_by=bound_by)
+    row["tflops"] = 2 * m * k * n / row["ms"] / 1e9
+    log("kernels", **row)
+    return row
+
+
+def check_zero_channel(gen, dev):
+    """An all-zero output channel gets a clamped scale of its own and
+    dequantizes to exact zeros: B7 writes 0.0 there, in int8 and fp8."""
+    for mode in ("int8", "fp8_e4m3"):
+        x = torch.randn(64, 96, generator=gen).to(dev)
+        w = torch.randn(96, 40, generator=gen)
+        w[:, 7] = 0.0
+        q, scale = qo.quantize_weight(w.to(dev), 1, mode)
+        out = qo.dequant_matmul(x, q, scale)
+        ref = qo.dequant_matmul_reference(x, q, scale)
+        err, _ = check_dequant("zero_channel_" + mode, out, ref, x, q, scale)
+        if float(scale[7]) != float(np.float32(qo.SCALE_EPS)):
+            raise RuntimeError(f"zero channel: scale {float(scale[7])}")
+        if not bool((out[:, 7] == 0).all()):
+            raise RuntimeError(f"zero channel ({mode}): B7 wrote "
+                               f"{out[:, 7].abs().max()} where 0 is due")
+        log("kernels", case="zero_channel_" + mode, kernel="dequant_matmul",
+            shape=[64, 96, 40], max_abs_err=err, zero_channel_exact=True)
+
+
 def build_bert(batch, amp, dropout, lr=1e-4, fused=True):
     """BERT-base pretraining at full width, as bench.py builds it."""
     from paddle_tpu_torch.text import bert_base_pretrain_program
@@ -886,16 +1045,17 @@ def op_ranges():
     return lambda: setattr(executor, "get_lowering", real)
 
 
-def phase_train_profile(state, phase="train_profile",
+def phase_train_profile(run, phase="train_profile",
                         kernels=(("b1", "flash_fwd_kernel"),),
                         op_types=()):
-    """One BERT-base step under torch.profiler: the device's busy share of
-    the step's host time, its time by kernel (``kernels``: (label, name
-    part) of the hand-written kernels the step must have run), and host
-    and device time by op type (``op_types``: types reported on their
-    own).  A ``<type>_grad`` op without a lowering of its own takes the
-    generic gradient, which runs ``<type>``'s forward again under
-    autograd: the time of those forward types is what the replay repeats.
+    """One BERT-base step or inference run (``run()``) under
+    torch.profiler: the device's busy share of its host time, its time by
+    kernel (``kernels``: (label, name part) of the hand-written kernels it
+    must have run), and host and device time by op type (``op_types``:
+    types reported on their own).  A ``<type>_grad`` op without a
+    lowering of its own takes the generic gradient, which runs
+    ``<type>``'s forward again under autograd: the time of those forward
+    types is what the replay repeats.
     Kernels that ``torch.autograd.grad`` launches run on the autograd
     engine's thread, outside the op ranges: they count by kernel name
     only."""
@@ -904,14 +1064,13 @@ def phase_train_profile(state, phase="train_profile",
 
     from paddle_tpu_torch.framework.lowering import LOWERINGS
 
-    exe, main, feed, loss, scope = state
     torch.cuda.synchronize()
     undo = op_ranges()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
-            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            run()
             torch.cuda.synchronize()
             wall_us = (time.monotonic() - t0) * 1e6
     finally:
@@ -986,6 +1145,11 @@ def phase_train_oracle():
                            f" with 'always', {n_plain} (want 0) with 'never'")
     if not (flash[2] < flash[0] and plain[2] < plain[0]):
         raise RuntimeError(f"the loss did not fall: {flash}, {plain}")
+
+
+def exe_run(state):
+    exe, main, feed, loss, scope = state
+    return exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
 
 
 def copy_scope(scope):
@@ -1116,6 +1280,188 @@ def phase_train_unfused_oracle():
         raise RuntimeError(f"the loss did not fall: {losses}")
 
 
+def build_bert_inference():
+    """The served model: BERT-base's encoder with a -1 batch dim, dropout 0
+    and fused attention, plus the pretraining program's NSP head (pooler
+    and 2-way classifier, as ``text/static_models.py`` builds them)."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.framework.program import Program
+    from paddle_tpu_torch.text import static_models as sm
+
+    seq = 128
+    main, startup = Program(), Program()
+    main.random_seed = 1
+    with unique_name.guard(), program_guard(main, startup):
+        ids, types, pos = (layers.data(n, [-1, seq], dtype="int64",
+                                       append_batch_size=False)
+                           for n in INFER_FEEDS[:3])
+        mask = layers.data("input_mask", [-1, 1, 1, seq], dtype="float32",
+                           append_batch_size=False)
+        seq_out = sm.bert_encoder(ids, types, pos, mask, dropout_prob=0.0)
+        cls = layers.slice(seq_out, axes=[1], starts=[0], ends=[1])
+        cls = layers.reshape(cls, [0, 768])
+        pooled = sm._dense(cls, 768, act="tanh", name="pooler")
+        nsp_logits = sm._dense(pooled, 2, name="nsp_out")
+    return main, startup, seq_out, nsp_logits
+
+
+INFER_FEEDS = ("input_ids", "token_type_ids", "pos_ids", "input_mask")
+
+
+def infer_feed(batch, seed):
+    """Random token ids, segment ids 0/1, positions, and a key mask that
+    pads the last 16 keys of every other sequence."""
+    seq = 128
+    rng = np.random.RandomState(seed)
+    mask = np.zeros((batch, 1, 1, seq), "float32")
+    mask[::2, :, :, seq - 16:] = -1e4
+    return {"input_ids": rng.randint(0, 30522, (batch, seq)).astype("int64"),
+            "token_type_ids": (np.arange(seq)[None] >= seq // 2)
+            .repeat(batch, 0).astype("int64"),
+            "pos_ids": np.tile(np.arange(seq, dtype="int64"), (batch, 1)),
+            "input_mask": mask}
+
+
+def quant_state(scope):
+    """The carriers and scales the weight-quant pass wrote into a scope,
+    as host bytes by name."""
+    return {n: scope.get_var(n).detach().cpu().view(torch.uint8).numpy()
+            if scope.get_var(n).element_size() == 1
+            else scope.get_var(n).detach().cpu().numpy()
+            for n in scope.local_var_names() if "@WQ" in n}
+
+
+def phase_infer(model_dir):
+    """save_inference_model -> Predictor on the card, three modes."""
+    from paddle_tpu_torch import inference
+
+    flags.set_flags({"flash_attention": "always"})
+    feeds = {b: infer_feed(b, seed=b) for b in INFER_BATCHES}
+    results, outs, launches, preds = {}, {}, {}, {}
+    try:
+        for mode in INFER_MODES:
+            flags.set_flags({"weight_quant": mode})
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held_gb = torch.cuda.memory_allocated() / 1e9
+            t0 = time.monotonic()
+            pred = inference.create_predictor(inference.Config(model_dir))
+            torch.cuda.synchronize()
+            load_s = time.monotonic() - t0
+            n0 = stat_get("pass_weight_quant_ops")
+            t0 = time.monotonic()
+            pred.run(feeds[INFER_BATCHES[0]])   # the pass, once per mode
+            torch.cuda.synchronize()
+            first_s = time.monotonic() - t0
+            rewritten = stat_get("pass_weight_quant_ops") - n0
+            for b in INFER_BATCHES:             # warm every batch shape
+                pred.run(feeds[b])
+            torch.cuda.synchronize()
+            qo.reset_launch_count()     # the main path's counts start here
+            fab.reset_launch_count()
+            p50 = {}
+            for b in INFER_BATCHES:
+                ms = []
+                for _ in range(INFER_RUNS):
+                    t0 = time.perf_counter()
+                    out = pred.run(feeds[b])
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                p50[b] = float(np.median(ms))
+                outs[(mode, b)] = out
+            runs = INFER_RUNS * len(INFER_BATCHES)
+            launches[mode] = (qo.dequant_matmul.launches,
+                              fab.flash_attention_bias.launches)
+            want = ((B7_PER_RUN if mode else 0) * runs, B1_PER_RUN * runs)
+            if launches[mode] != want:
+                raise RuntimeError(f"mode {mode!r}: B7/B1 launched "
+                                   f"{launches[mode]} times in {runs} runs, "
+                                   f"want {want}")
+            if rewritten != (B7_PER_RUN if mode else 0):
+                raise RuntimeError(f"mode {mode!r}: the pass rewrote "
+                                   f"{rewritten} ops, want {B7_PER_RUN}")
+            for b in INFER_BATCHES:
+                seq, nsp = outs[(mode, b)]
+                if seq.shape != (b, 128, 768) or nsp.shape != (b, 2) or \
+                        not (np.isfinite(seq).all() and np.isfinite(nsp)
+                             .all()):
+                    raise RuntimeError(f"mode {mode!r} batch {b}: outputs "
+                                       f"{seq.shape} {nsp.shape} not finite"
+                                       f" or misshapen")
+            results[mode] = dict(
+                load_s=load_s, first_run_s=first_s, ops_rewritten=rewritten,
+                p50_ms={str(b): p50[b] for b in INFER_BATCHES},
+                sequences_per_s_b32=32 / (p50[32] / 1e3),
+                launches_b7_b1=list(launches[mode]),
+                launches_per_run=[n / runs for n in launches[mode]],
+                memory_held_before_gb=held_gb,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+            preds[mode] = pred
+    finally:
+        flags.set_flags({"weight_quant": "", "flash_attention": "auto"})
+    base = outs[("", 32)]
+    for mode in INFER_MODES[1:]:
+        seq, nsp = outs[(mode, 32)]
+        delta = float(np.abs(seq - base[0]).max())
+        scale = float(np.abs(base[0]).max())
+        results[mode]["seq_max_abs_delta_vs_f32"] = delta
+        results[mode]["seq_max_abs_f32"] = scale
+        results[mode]["nsp_quality"] = qo.quant_quality_delta(nsp, base[1])
+        if mode == "int8" and delta > INT8_QUALITY_BOUND * scale:
+            raise RuntimeError(f"int8 sequence output moved {delta} from the"
+                               f" float32 run's, beyond "
+                               f"{INT8_QUALITY_BOUND} * {scale}")
+    log("infer", model="bert-base encoder + nsp head", seq=128,
+        dtype="float32", batches=list(INFER_BATCHES), runs=INFER_RUNS,
+        int8_bound=INT8_QUALITY_BOUND, **{m or "float32": r
+                                          for m, r in results.items()})
+    return launches["int8"][0], preds
+
+
+def phase_infer_oracle(model_dir, card_preds):
+    """The same saved model on the CPU (the kernels' plain versions): equal
+    carriers and scales, outputs within INFER_ORACLE_TOL, at batch 2."""
+    from paddle_tpu_torch import inference
+
+    feed = infer_feed(2, seed=11)
+    report = {}
+    try:
+        for mode in INFER_MODES:
+            flags.set_flags({"weight_quant": mode})
+            cfg = inference.Config(model_dir)
+            cfg.disable_gpu()
+            cpu = inference.create_predictor(cfg)
+            before = qo.dequant_matmul.launches
+            got_cpu = cpu.run(feed)
+            got_card = card_preds[mode].run(feed)
+            if qo.dequant_matmul.launches - before != (B7_PER_RUN if mode
+                                                        else 0):
+                raise RuntimeError(f"mode {mode!r}: the CPU predictor "
+                                   f"launched B7 or the card's did not")
+            ours, theirs = quant_state(card_preds[mode]._scope), \
+                quant_state(cpu._scope)
+            differ = [n for n in ours
+                      if n not in theirs or not np.array_equal(ours[n],
+                                                               theirs[n])]
+            if sorted(ours) != sorted(theirs) or differ or len(ours) != \
+                    (2 * B7_PER_RUN if mode else 0):
+                raise RuntimeError(f"mode {mode!r}: the card's carriers and "
+                                   f"scales ({len(ours)}) differ from the "
+                                   f"CPU's ({len(theirs)}): {differ[:4]}")
+            errs = [float(np.abs(a - b).max())
+                    for a, b in zip(got_card, got_cpu)]
+            report[mode or "float32"] = dict(
+                max_abs_err_seq_nsp=errs, carriers_and_scales=len(ours),
+                carriers_bit_equal=True)
+            if not max(errs) <= INFER_ORACLE_TOL:
+                raise RuntimeError(f"mode {mode!r}: card vs CPU outputs "
+                                   f"differ by {errs} > {INFER_ORACLE_TOL}")
+            del cpu
+    finally:
+        flags.set_flags({"weight_quant": ""})
+    log("infer_oracle", batch=2, tolerance=INFER_ORACLE_TOL, **report)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script measures "
@@ -1131,20 +1477,53 @@ def main():
     del model
     torch.cuda.empty_cache()
     launches["flash_attention_bias"], state = phase_train()
-    phase_train_profile(state)
+    phase_train_profile(lambda: exe_run(state))
     del state
     torch.cuda.empty_cache()
     phase_train_oracle()
     unfused, state = phase_train_unfused()
     launches.update(unfused)
     phase_train_profile(
-        state, phase="train_unfused_profile",
+        lambda: exe_run(state), phase="train_unfused_profile",
         kernels=(("b2", "flash_fwd_kernel"), ("b3", "flash_bwd_dq_kernel"),
                  ("b4", "flash_bwd_dkv_kernel")),
         op_types=("flash_attention", "flash_attention_grad"))
     del state
     torch.cuda.empty_cache()
     phase_train_unfused_oracle()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = os.path.join(tmp, "bert_base")
+        t0 = time.monotonic()
+        main_prog, startup, seq_out, nsp_logits = build_bert_inference()
+        exe = pt.Executor()
+        scope = pt.framework.Scope()
+        exe.run(startup, scope=scope)
+        with pt.fluid.scope_guard(scope):
+            pt.fluid.io.save_inference_model(
+                model_dir, list(INFER_FEEDS), [seq_out, nsp_logits], exe,
+                main_prog)
+        log("infer_save", seconds=time.monotonic() - t0,
+            files=len(os.listdir(model_dir)),
+            bytes=sum(os.path.getsize(os.path.join(model_dir, f))
+                      for f in os.listdir(model_dir)))
+        del exe, scope
+        launches["dequant_matmul"], preds = phase_infer(model_dir)
+        pred = preds["int8"]
+        feed32 = infer_feed(32, seed=32)
+        flags.set_flags({"weight_quant": "int8",
+                         "flash_attention": "always"})
+        try:
+            phase_train_profile(
+                lambda: pred.run(feed32), phase="infer_profile",
+                kernels=(("b7", "dequant_matmul_kernel"),
+                         ("b1", "flash_fwd_kernel")),
+                op_types=("dequant_matmul", "fused_multihead_attention"))
+            phase_infer_oracle(model_dir, preds)
+        finally:
+            flags.set_flags({"weight_quant": "", "flash_attention": "auto"})
+        del preds, pred
+    torch.cuda.empty_cache()
     kernels = []
     main_case = TRAIN_FLASH_CASES[0][0]
     for kernel, case in (("paged_decode_attention", "decode_float32"),
@@ -1152,7 +1531,8 @@ def main():
                          ("flash_attention_bias", FLASH_CASES[0][0]),
                          ("flash_attention_fwd", main_case),
                          ("flash_attention_bwd_dq", main_case),
-                         ("flash_attention_bwd_dkv", main_case)):
+                         ("flash_attention_bwd_dkv", main_case),
+                         ("dequant_matmul", DEQUANT_CASES[0][0])):
         row = next(r for r in rows
                    if r["case"] == case and r["kernel"] == kernel)
         kernels.append({

@@ -21,22 +21,30 @@ default, ``CPUPlace()`` for the plain versions on the CPU):
 ``run_steps`` is a loop of K steps on the device with the fetches stacked
 on a leading K dimension: nothing in it waits for the device.
 
+Host I/O programs (``save``/``load``/``save_combine``/``load_combine``
+ops, built by ``fluid.io``) are interpreted on the host, as in the JAX
+package: ``framework/var_io.py`` writes and reads the files, and loaded
+values go straight to the executor's device.
+
 Not in this slice (each raises ``NotImplementedError`` when asked for):
-meshes and tensor parallelism, host I/O ops (save/load), ``use_prune``,
-``warmup``, ``run_persistent``, auto-checkpoint, localsgd, pipeline
-programs, and the NaN scan (``FLAGS_check_nan_inf``).  Runs are
-synchronous: the JAX executor's pipelined window of in-flight steps
-(``StepHandle``) is not ported either.
+meshes and tensor parallelism, ``use_prune``, ``warmup``,
+``run_persistent``, auto-checkpoint, localsgd, pipeline programs, and the
+NaN scan (``FLAGS_check_nan_inf``).  Runs are synchronous: the JAX
+executor's pipelined window of in-flight steps (``StepHandle``) is not
+ported either, so ``drain`` has nothing to wait for.
 
 Graph passes: before a program's block runs, ``_apply_graph_passes``
 hands it to the ``framework/passes.py`` pipeline (attention-chain fusion
 to ``flash_attention``, redundant-cast and dead-op elimination), which
 rewrites a clone and leaves the caller's program as built.  The result
 is cached per (fingerprint, pass list, fetch and feed names, scope, and
-the values of ``FLAGS_flash_attention`` and ``FLAGS_fuse_passes``, the
-two flags the passes read); ``FLAGS_fuse_passes=0`` runs the program as
-built.  The startup program goes through the same call, where no pass
-finds anything to do.
+the values of ``FLAGS_flash_attention``, ``FLAGS_weight_quant`` and
+``FLAGS_fuse_passes``, the flags the passes read); ``FLAGS_fuse_passes=0``
+runs the program as built.  State read from the scope reaches the device
+with its own dtype, never cast to the var's declared one: a float8
+weight-quant carrier is declared ``int8`` in the block (the IR has no
+float8 type) and the op's ``mode`` attr says what it holds.  The startup
+program goes through the same call, where no pass finds anything to do.
 """
 from __future__ import annotations
 
@@ -125,6 +133,9 @@ class Executor:
         scope = scope if scope is not None else global_scope()
         if use_prune:
             raise _later("Executor.run(use_prune=True)")
+        if any(op.type in HOST_OPS for op in program.global_block.ops):
+            return self._run_host_ops(program, scope, _names(fetch_list),
+                                      return_numpy)
         self._refuse_left_out(program)
         feeds = _feed_tensors(program.global_block, dict(feed or {}),
                               self.device)
@@ -196,14 +207,61 @@ class Executor:
     def run_persistent(self, *args, **kwargs):
         raise _later("Executor.run_persistent")
 
+    def drain(self):
+        """Wait for in-flight steps: none, since every run is
+        synchronous (kept for the JAX package's API)."""
+
     def close(self):
         self._analysis_cache.clear()
         self._pass_cache.clear()
 
     # ------------------------------------------------------------------
+    def _run_host_ops(self, program, scope, fetch_names, return_numpy):
+        """Interpret a host I/O block (save/load programs).  A block that
+        mixes compute and I/O is refused: build a separate save program,
+        as ``fluid.io`` does.  Loaded values land on this executor's
+        device."""
+        from . import var_io
+
+        for op in program.global_block.ops:
+            if op.type in PSEUDO_OPS:
+                continue
+            if op.type not in HOST_OPS:
+                raise NotImplementedError(
+                    f"op {op.type!r} cannot run in a host I/O program; "
+                    f"save/load programs must contain only save/load ops "
+                    f"(build them via fluid.io helpers)")
+            path = op.attr("file_path")
+            if op.type == "save":
+                name = op.inputs["X"][0]
+                var_io.save_var(to_numpy(scope.get_var(name)), path)
+            elif op.type == "load":
+                name = op.outputs["Out"][0]
+                scope.set_var(name, var_io.load_var(path), self.place)
+            elif op.type == "save_combine":
+                names = list(op.inputs["X"])
+                var_io.save_combine(
+                    {n: to_numpy(scope.get_var(n)) for n in names}, names,
+                    path)
+            else:  # load_combine
+                names = list(op.outputs["Out"])
+                loaded = var_io.load_combine(path)
+                missing = [n for n in names if n not in loaded]
+                if missing:
+                    raise KeyError(f"load_combine: vars {missing} not "
+                                   f"present in {path!r}")
+                for n in names:
+                    scope.set_var(n, loaded[n], self.place)
+        if not fetch_names:
+            return []
+        vals = [scope.get_var(n) for n in fetch_names]
+        return [to_numpy(v) for v in vals] if return_numpy else vals
+
+    # ------------------------------------------------------------------
     def _refuse_left_out(self, program):
         if any(op.type in HOST_OPS for op in program.global_block.ops):
-            raise _later("a host I/O program (save/load ops)")
+            raise ValueError("a host I/O program (save/load ops) runs "
+                             "through Executor.run, not run_steps")
         if getattr(program, "_localsgd", None) is not None:
             raise _later("the localsgd strategy")
         if getattr(program, "_pipeline", None) is not None:
@@ -220,14 +278,17 @@ class Executor:
         a rewritten clone, or the original object when no pass changed
         anything -- is cached per (fingerprint, pass config, fetch/feed
         names, scope serial) and the values of the flags the passes
-        read; FLAGS_fuse_passes gates the whole pipeline."""
+        read (FLAGS_weight_quant among them: flipping it back serves the
+        float program again, not a stale rewrite); FLAGS_fuse_passes
+        gates the whole pipeline."""
         if not flag("fuse_passes"):
             return program
         with otrace.span("executor/pass_pipeline"):
             pipeline = passes_mod.default_pipeline()
             key = (program.fingerprint(), pipeline.config_key(),
                    fetch_names, frozenset(feed), scope.serial,
-                   str(flag("flash_attention")), bool(flag("fuse_passes")))
+                   str(flag("flash_attention")), str(flag("weight_quant")),
+                   bool(flag("fuse_passes")))
             cached = self._pass_cache.get(key)
             if cached is not None:
                 stat_add("executor_pass_cache_hit")

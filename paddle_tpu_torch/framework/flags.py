@@ -192,3 +192,16 @@ define_flag("fuse_passes", True,
             "and dead-op elimination) on a clone of the program before "
             "the executor lowers it; off runs the program exactly as "
             "built")
+
+# ---- weight-only quantized inference (slim/quantization.py,
+# ops/quant_ops.py) --------------------------------------------------------
+define_flag("weight_quant", "",
+            "post-training weight-only quantization "
+            "(slim/quantization.py PostTrainingWeightQuantPass): rewrite "
+            "matmul-family weights to a compact carrier + per-output-"
+            "channel scales lowered through the dequant-fused "
+            "ops/quant_ops.dequant_matmul kernel.  '' = off; 'int8' = "
+            "symmetric int8; 'fp8_e4m3' = float8 e4m3 "
+            "(torch.float8_e4m3fn; a torch without it falls back to int8 "
+            "with quant_fp8_unavailable counted).  Per-program override: "
+            "slim.quantization.mark_weight_quant")

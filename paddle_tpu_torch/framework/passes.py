@@ -26,6 +26,12 @@ comments below and in ROADMAP.md):
    persistent/scope-resident state, reusing the executor's ``_prune_ops``
    backward slice (side-effect ops are always kept).
 
+``PostTrainingWeightQuantPass`` (``slim/quantization.py``) registers
+itself between 1 and 2 when the first default pipeline is built
+(``_ensure_external_passes``): gated by ``FLAGS_weight_quant`` or
+``slim.mark_weight_quant``, it rewrites matmul-family ops onto int8 /
+fp8-e4m3 carriers through ``dequant_matmul`` (``ops/quant_ops.py``).
+
 Observability (``paddle_tpu_torch.monitor``):
 ``pass_flash_attention_fused`` / ``pass_flash_attention_grad_fused``,
 ``pass_casts_removed``, ``pass_dead_ops_removed``,
@@ -126,11 +132,11 @@ _DTYPE_PRESERVING = {
     "allreduce", "mp_allreduce_sum",
 }
 
-# The JAX package's registry holds four more passes, not ported yet, at
-# these places in the order (flash_attention_fuse comes first there too):
-#   sharding_propagation, post_training_weight_quant, layer_scan,
-#   fuse_allreduce
-# all between flash_attention_fuse and redundant_cast_eliminate.
+# The JAX package's registry holds three more passes, not ported yet, in
+# this order (flash_attention_fuse comes first there too):
+#   sharding_propagation, layer_scan, fuse_allreduce
+# all between flash_attention_fuse and redundant_cast_eliminate; the
+# weight-quant pass (slim/quantization.py) sits between the first two.
 
 
 @register_pass
@@ -542,6 +548,8 @@ class PassPipeline:
     """
 
     def __init__(self, passes: Optional[Sequence[Pass]] = None):
+        if passes is None:
+            _ensure_external_passes()
         self._passes: Tuple[Pass, ...] = tuple(
             passes if passes is not None
             else (cls() for cls in PASS_REGISTRY.values()))
@@ -572,6 +580,23 @@ class PassPipeline:
                     changed = bool(p.apply(work, ctx)) or changed
         stat_add("pass_pipeline_apply")
         return work if changed else program
+
+
+_EXTERNAL_PASSES_LOADED = False
+
+
+def _ensure_external_passes():
+    """Import the modules that register passes from outside this file,
+    so that the registry is complete before a pipeline takes its snapshot.
+    Lazy (the first default pipeline, i.e. the first Executor run):
+    importing slim while this module loads would cycle through the
+    framework package."""
+    global _EXTERNAL_PASSES_LOADED
+    if _EXTERNAL_PASSES_LOADED:
+        return
+    _EXTERNAL_PASSES_LOADED = True
+    from ..slim import quantization  # noqa: F401 -- import registers
+    #                                  PostTrainingWeightQuantPass
 
 
 _default_pipeline: Optional[PassPipeline] = None

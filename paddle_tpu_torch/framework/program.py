@@ -6,8 +6,9 @@ the port runs on need not have it) builds, clones and runs programs:
 
 - ``ir_pb2`` (a byte-identical copy of the JAX package's generated
   module, so both packages share one message pool) is imported only by
-  the serialization methods: ``to_proto``/``from_proto``,
-  ``serialize_to_string``/``parse_from_string``;
+  ``to_proto``/``from_proto``; ``serialize_to_string``/
+  ``parse_from_string`` speak the same wire format through the port's
+  own codec (``ir_wire.py``), which needs no protobuf;
 - ``Program.clone()`` copies the Python objects instead of round-tripping
   through the proto, with the same result: attributes normalized as the
   proto would (tuples to lists, numpy scalars to Python ones, blocks to
@@ -482,19 +483,27 @@ class Program:
         return p
 
     def serialize_to_string(self) -> bytes:
-        return self.to_proto().SerializeToString()
+        from .ir_wire import encode_program
+
+        return encode_program(self)
 
     @staticmethod
     def parse_from_string(data: bytes) -> "Program":
-        p = _pb().ProgramDef()
-        p.ParseFromString(data)
-        return Program.from_proto(p)
+        from .ir_wire import decode_program
+
+        prog, feeds, fetches = decode_program(data)
+        if feeds or fetches:
+            prog._feed_names, prog._fetch_names = feeds, fetches
+        return prog
 
     @staticmethod
     def from_proto(p: "ir_pb2.ProgramDef") -> "Program":
         prog = Program()
         prog.blocks = [Block.from_proto(prog, bp) for bp in p.blocks]
         prog.random_seed = p.random_seed
+        if p.feed_names or p.fetch_names:   # a saved inference model
+            prog._feed_names = list(p.feed_names)
+            prog._fetch_names = list(p.fetch_names)
         prog._bump()
         return prog
 

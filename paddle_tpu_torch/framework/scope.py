@@ -34,6 +34,9 @@ def to_tensor(value, device: Optional[torch.device] = None) -> torch.Tensor:
             arr = arr.copy()
         if arr.dtype.name == "bfloat16":
             value = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        elif arr.dtype.name == "float8_e4m3fn":
+            value = torch.from_numpy(arr.view(np.uint8)).view(
+                torch.float8_e4m3fn)
         else:
             value = torch.from_numpy(arr)
     if device is not None and value.device != device:
@@ -42,7 +45,8 @@ def to_tensor(value, device: Optional[torch.device] = None) -> torch.Tensor:
 
 
 def to_numpy(value) -> np.ndarray:
-    """Host copy of a tensor (bfloat16 as ``ml_dtypes.bfloat16``)."""
+    """Host copy of a tensor (bfloat16 and float8_e4m3fn as the
+    ``ml_dtypes`` types of those names)."""
     if not isinstance(value, torch.Tensor):
         return np.asarray(value)
     t = value.detach().cpu()
@@ -50,6 +54,10 @@ def to_numpy(value) -> np.ndarray:
         import ml_dtypes
 
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    if t.dtype == torch.float8_e4m3fn:
+        import ml_dtypes
+
+        return t.view(torch.uint8).numpy().view(ml_dtypes.float8_e4m3fn)
     return t.numpy()
 
 
@@ -141,3 +149,11 @@ _global_scope = Scope()
 def global_scope() -> Scope:
     return _global_scope
 
+
+def _switch_scope(scope: Scope) -> Scope:
+    """Make ``scope`` the global scope; returns the one it replaces
+    (``fluid.scope_guard`` and the inference ``Predictor`` load into a
+    scope of their own this way)."""
+    global _global_scope
+    old, _global_scope = _global_scope, scope
+    return old

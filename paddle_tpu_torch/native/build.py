@@ -14,7 +14,8 @@ first use.
 for them together; ``load`` builds (if needed) and opens one library.
 There is no fallback: a host without ``nvcc`` raises, and only CPU
 tensors take the plain PyTorch versions (see ``ops/paged_attention``,
-``ops/flash_attention_bias`` and ``ops/flash_attention``).
+``ops/flash_attention_bias``, ``ops/flash_attention`` and
+``ops/quant_ops``).
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ from typing import Dict, Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 OUT_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd")
+SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd",
+           "dequant_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 BUILD_TIMEOUT_S = 600

@@ -337,10 +337,11 @@ def test_executor_gates_on_fuse_passes_and_caches():
 
 
 def test_registry_order_follows_the_jax_package():
+    tpasses.default_pipeline()      # loads the passes registered elsewhere
     ours = list(tpasses.PASS_REGISTRY)
-    assert ours == ["flash_attention_fuse", "redundant_cast_eliminate",
-                    "dead_op_eliminate"]
-    jpasses.default_pipeline()      # loads the passes registered elsewhere
+    assert ours == ["flash_attention_fuse", "post_training_weight_quant",
+                    "redundant_cast_eliminate", "dead_op_eliminate"]
+    jpasses.default_pipeline()
     theirs = [n for n in jpasses.PASS_REGISTRY if n in ours]
     assert theirs == ours
     assert tpasses.default_pipeline().config_key() == tuple(ours)

@@ -93,8 +93,10 @@ def test_clone_equals_the_proto_round_trip():
 
 def test_port_programs_need_no_protobuf():
     """With ``google.protobuf`` unimportable, the port builds the BERT
-    program, decorates and minimizes it, clones it and trains one step
-    on the CPU; only serialization asks for protobuf."""
+    program, decorates and minimizes it, clones it, trains one step on
+    the CPU, and serializes and parses it through its own wire codec
+    (``ir_wire.py``); only ``to_proto``/``from_proto`` ask for
+    protobuf."""
     script = textwrap.dedent("""
         import sys
         sys.modules["google.protobuf"] = None
@@ -124,8 +126,10 @@ def test_port_programs_need_no_protobuf():
         assert np.isfinite(out).all(), out
         assert not [m for m in sys.modules if m.startswith("google.protobuf")
                     and sys.modules[m] is not None]
+        again = type(main).parse_from_string(main.serialize_to_string())
+        assert again.fingerprint() == main.fingerprint()
         try:
-            main.serialize_to_string()
+            main.to_proto()
         except ImportError:
             print("OK")
     """)
