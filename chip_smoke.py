@@ -24,8 +24,11 @@ Phases, each printing JSON lines:
                dense; the biased flash-attention forward (B1) at BERT-base's
                shape (B=32, H=12, S=128, D=64, key mask) in bfloat16 and
                float32, with a full [B, H, S, S] bias, unbiased and causal,
-               at S=512 and at D=128, against ``F.scaled_dot_product_attention``
-               with the bias as ``attn_mask``; the flash-attention training
+               at S=512, at D=128 and at D=256 (bfloat16 runs the
+               tensor-core kernel, float32 the CUDA-core one), against
+               ``F.scaled_dot_product_attention`` with the bias as
+               ``attn_mask``, and, untimed, bfloat16 rows whose bias is -inf
+               everywhere (out 0); the flash-attention training
                kernels (B2 forward with lse, B3 dq, B4 dk/dv) at the unfused
                path's shape (B=32, H=12, S=128, D=64, float32, key mask) and
                in bfloat16, with a full [B, H, S, S] mask, unmasked and
@@ -39,7 +42,11 @@ Phases, each printing JSON lines:
                the 2-way NSP head) and a ragged one, float32 x with int8
                and fp8 carriers and bfloat16 x, against ``torch.matmul`` on
                the weight dequantized beforehand (what the unquantized
-               program runs); and, untimed, an all-zero output channel;
+               program runs), its bound the least work known to give the
+               product on the tensor cores (three bfloat16 products for
+               float32 x, one for bfloat16) beside the float32 CUDA-core
+               figure; and, untimed, an all-zero output channel.  Each row
+               reports its error's share of the tolerance;
 4. serve    -- the README's serving model at full width (vocab 32000,
                d_model 512, 8 layers, 8 heads, ffn 2048, max_seq_len 1024;
                random weights from a seed) behind ``DecodeServer`` on the
@@ -213,6 +220,7 @@ FLASH_CASES = (
     ("causal_no_bias_bf16", 32, 12, 128, 64, "bfloat16", "none", True),
     ("S512_bf16", 8, 12, 512, 64, "bfloat16", "key", False),
     ("D128_bf16", 32, 6, 128, 128, "bfloat16", "key", False),
+    ("D256_bf16", 32, 3, 128, 256, "bfloat16", "key", False),
 )
 # B2-B4 (the flash-attention training kernels) against their plain versions,
 # which take the same operands (B3 and B4: the kernel's lse and delta).  The
@@ -290,16 +298,26 @@ def card_peaks(name):
     raise RuntimeError(f"no data-sheet peaks for card {name!r}")
 
 
+# Cycles the card spins (torch.cuda._sleep, about 1 ms) before each timed
+# call, while the host enqueues the call: without it a call whose host work
+# (argument checks, allocation, the launch) outlasts the flush is timed at
+# the host's pace, not the card's.
+HOST_COVER_CYCLES = 2_000_000
+
+
 def cuda_ms(fn, flush, reps=30, warmup=3):
-    """Median milliseconds of ``fn`` by CUDA events, with the L2 cache
-    flushed before each timed call (in serving, the other layers' pools
-    and the weights evict a layer's pages between its calls)."""
+    """Median milliseconds of ``fn`` on the card by CUDA events, with the
+    L2 cache flushed before each timed call (in serving, the other layers'
+    pools and the weights evict a layer's pages between its calls) and the
+    card kept busy while the host enqueues it, so that the events bracket
+    the card's work only."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
         flush()
+        torch.cuda._sleep(HOST_COVER_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -440,6 +458,14 @@ def check_close(label, out, ref, want_dtype, kind, tol=None):
     return err
 
 
+def tolerance_share(out, ref, kind, tol=None):
+    """The largest |kernel - plain| over its allowance TOL + REL_TOL *
+    |plain| (``tol`` instead of TOL[kind] if given): 1 is the limit."""
+    tol = TOL[kind] if tol is None else tol
+    diff = (out.float() - ref.float()).abs()
+    return float((diff / (tol + REL_TOL[kind] * ref.float().abs())).max())
+
+
 def run_case(label, kernel, c, kv, peaks, flush):
     decode = kernel == "paged_decode_attention"
     args = dict(c)
@@ -506,6 +532,7 @@ def phase_kernels(name):
     for case in TRAIN_FLASH_CASES:
         rows += run_train_flash_case(gen, dev, case, peaks, flush)
     check_dead_rows(gen, dev)
+    check_b1_dead_rows_bf16(gen, dev)
     for case in DEQUANT_CASES:
         rows.append(run_dequant_case(gen, dev, case, peaks, flush))
     check_zero_channel(gen, dev)
@@ -707,6 +734,7 @@ def run_flash_case(gen, dev, case, peaks, flush):
     out = fab.flash_attention_bias(q, k, v, bias, **kw)
     ref = fab.flash_attention_bias_reference(q, k, v, bias, **kw)
     err = check_close(label, out, ref, q.dtype, dtype)
+    share = tolerance_share(out, ref, dtype)
     ms = cuda_ms(lambda: fab.flash_attention_bias(q, k, v, bias, **kw), flush)
     plain_ms = cuda_ms(lambda: fab.flash_attention_bias_reference(
         q, k, v, bias, **kw), flush)
@@ -717,8 +745,9 @@ def run_flash_case(gen, dev, case, peaks, flush):
     row = dict(case=label, kernel="flash_attention_bias", q=dtype,
                shape=[b, h, s, d], bias=bias_kind, causal=causal,
                max_abs_err=err, tolerance=TOL[dtype],
-               rel_tolerance=REL_TOL[dtype], ms=ms, plain_ms=plain_ms,
-               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+               rel_tolerance=REL_TOL[dtype], err_share_of_tolerance=share,
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
     log("kernels", **row)
     return row
 
@@ -852,6 +881,28 @@ def check_dead_rows(gen, dev):
         lse_is_minus_1e30=True, dq_is_0=True)
 
 
+def check_b1_dead_rows_bf16(gen, dev):
+    """B1's tensor-core kernel (bfloat16) on rows whose bias is -inf at
+    every key (softmax denominator 0): out 0 there, as the TPU kernel's
+    l == 0 guard gives, and elsewhere within B1's bfloat16 tolerance of
+    B2's plain version, which computes the same function with that guard
+    (B1's plain version, a softmax, gives NaN on such rows)."""
+    b, h, s, d, dead = 2, 2, 128, 64, [5, 77]
+    q, k, v, _ = flash_case(gen, dev, b, h, s, d, "bfloat16", "none")
+    bias = torch.zeros(b, 1, s, s, device=dev, dtype=torch.bfloat16)
+    bias[:, :, dead, :] = float("-inf")
+    scale = 1.0 / math.sqrt(d)
+    out = fab.flash_attention_bias(q, k, v, bias, sm_scale=scale)
+    ref, _lse = fa.flash_attention_fwd_reference(q, k, v, bias, scale, False)
+    err = check_close("dead_rows_bf16 out", out, ref, q.dtype, "bfloat16")
+    if not bool((out[:, :, dead] == 0).all()):
+        raise RuntimeError("B1 bf16 dead rows: out not 0")
+    log("kernels", case="dead_rows_bf16", kernel="flash_attention_bias",
+        shape=[b, h, s, d], dead_rows=dead, max_abs_err=err,
+        err_share_of_tolerance=tolerance_share(out, ref, "bfloat16"),
+        out_is_0=True)
+
+
 # ---- B7 and the quantized inference path ------------------------------------
 
 
@@ -888,15 +939,24 @@ def check_dequant(label, out, ref, x, q, scale):
 
 def dequant_bound(x, q, scale, peaks):
     """Least time for one call: x, the carrier and the scale read once, the
-    output written once; 2*M*K*N operations at the peak of x's type."""
+    output written once; the operations of the least work known to give
+    the product on this card at the bfloat16 tensor-core peak.  The 8-bit
+    carrier is exact in bfloat16; bfloat16 x needs one product (2*M*K*N
+    operations); float32 x needs three (its three bfloat16 pieces carry its
+    24 bits): 3*2*M*K*N.  Returns (ms, "bytes" or "operations", and beside
+    them the float32 CUDA-core figure: the larger of the bytes and 2*M*K*N
+    at the float32 peak)."""
     bw, ops_rate = peaks
     m, k = x.shape
     n = q.shape[1]
     nbytes = (x.numel() * x.element_size() + q.numel() * q.element_size()
               + scale.numel() * 4 + m * n * x.element_size())
     t_bytes = nbytes / bw * 1e3
-    t_ops = 2 * m * k * n / ops_rate[str(x.dtype)[6:]] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    pieces = 3 if x.dtype == torch.float32 else 1
+    t_ops = pieces * 2 * m * k * n / ops_rate["bfloat16"] * 1e3
+    t_f32 = max(t_bytes, 2 * m * k * n / ops_rate[str(x.dtype)[6:]] * 1e3)
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")) + (t_f32,)
 
 
 def run_dequant_case(gen, dev, case, peaks, flush):
@@ -906,7 +966,7 @@ def run_dequant_case(gen, dev, case, peaks, flush):
     ref = qo.dequant_matmul_reference(x, q, scale)
     err, share = check_dequant(label, out, ref, x, q, scale)
     w = qo.dequantize_weight(q, scale, 1, x.dtype)   # what '' mode holds
-    bound_ms, bound_by = dequant_bound(x, q, scale, peaks)
+    bound_ms, bound_by, f32_bound_ms = dequant_bound(x, q, scale, peaks)
     row = dict(case=label, kernel="dequant_matmul", x=dtype, carrier=mode,
                shape=[m, k, n], max_abs_err=err,
                tolerance=f"{DEQUANT_TOL} * sum|x w| + {REL_TOL[dtype]} "
@@ -917,7 +977,8 @@ def run_dequant_case(gen, dev, case, peaks, flush):
                library_ms=cuda_ms(lambda: torch.matmul(x, w), flush),
                library="torch.matmul on the weight dequantized beforehand "
                        f"({dtype}, TF32 off)",
-               bound_ms=bound_ms, bound_by=bound_by)
+               bound_ms=bound_ms, bound_by=bound_by,
+               f32_cuda_core_bound_ms=f32_bound_ms)
     row["tflops"] = 2 * m * k * n / row["ms"] / 1e9
     log("kernels", **row)
     return row
@@ -1046,7 +1107,7 @@ def op_ranges():
 
 
 def phase_train_profile(run, phase="train_profile",
-                        kernels=(("b1", "flash_fwd_kernel"),),
+                        kernels=(("b1", "flash_fwd_mma_kernel"),),
                         op_types=()):
     """One BERT-base step or inference run (``run()``) under
     torch.profiler: the device's busy share of its host time, its time by
@@ -1516,7 +1577,7 @@ def main():
         try:
             phase_train_profile(
                 lambda: pred.run(feed32), phase="infer_profile",
-                kernels=(("b7", "dequant_matmul_kernel"),
+                kernels=(("b7", "dequant_matmul_"),
                          ("b1", "flash_fwd_kernel")),
                 op_types=("dequant_matmul", "fused_multihead_attention"))
             phase_infer_oracle(model_dir, preds)

@@ -14,7 +14,11 @@ slice of the port):
   tensors it launches B7, the kernel written by hand in CUDA C++ for
   Hopper (``csrc/dequant_matmul.cu``, built by ``native/build.py``), at
   every shape: the TPU kernel's tiles leave shapes they do not divide to
-  the jnp reference, the port's kernel guards its edges instead.  Tensors
+  the jnp reference, the port's kernel guards its edges instead.  The
+  kernel multiplies on the tensor cores in bfloat16 (float32 x as three
+  bfloat16 pieces, the carrier exact) and splits K where M is small
+  (``plan_split_k``; the partial sums go to a float32 workspace this
+  module allocates).  Tensors
   on the CPU take the plain version, ``dequant_matmul_reference``, which
   keeps the JAX reference's order (dequantize in float32, then matmul);
   so does ``use_pallas="never"`` (the op attr keeps its name: op attrs
@@ -55,6 +59,10 @@ FP8_E4M3_MAX = 448.0  # largest finite float8_e4m3 magnitude
 WEIGHT_QUANT_MODES = ("int8", "fp8_e4m3")
 
 _LIB_NAME = "dequant_matmul"
+# the kernel's output tile, and the blocks that fill the card (H100: 132
+# SMs); a grid of fewer tiles splits K
+TILE_M = TILE_N = 128
+SPLIT_K_BLOCKS = 132
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound = False
 _COUNT_LOCK = threading.Lock()
@@ -145,13 +153,31 @@ def dequant_matmul_reference(x, qw, scale, out_dtype=None):
     return (x.float() @ w).to(out_dtype or x.dtype)
 
 
+def plan_split_k(m: int, k: int, n: int, x_itemsize: int = 4):
+    """How B7 cuts K: ``(splits, k_chunk)`` with ``splits * k_chunk >=
+    k`` and every split non-empty.  A grid of at least ``SPLIT_K_BLOCKS``
+    output tiles takes K whole; a smaller one cuts K into chunks, each a
+    multiple of one 16-byte copy of x (4 float32 or 8 bfloat16 values),
+    until the tiles times the splits reach ``SPLIT_K_BLOCKS`` or the
+    chunks are one copy wide."""
+    align = 16 // x_itemsize
+    tiles = -(-m // TILE_M) * -(-n // TILE_N)
+    if tiles >= SPLIT_K_BLOCKS or k <= align:
+        return 1, k
+    want = -(-SPLIT_K_BLOCKS // tiles)
+    chunk = max(align, k // want // align * align)
+    splits = -(-k // chunk)
+    return (1, k) if splits == 1 else (splits, chunk)
+
+
 def _library():
     global _bound
     lib = build.load(_LIB_NAME)
     if not _bound:
         p, i = ctypes.c_void_p, ctypes.c_int
-        # x, q, scale, out; M, K, N; x, w, out dtypes; stream
-        lib.paddle_dequant_matmul.argtypes = [p] * 4 + [i] * 6 + [p]
+        # x, q, scale, out, workspace; M, K, N; splits, k_chunk; x, w, out
+        # dtypes; stream
+        lib.paddle_dequant_matmul.argtypes = [p] * 5 + [i] * 8 + [p]
         lib.paddle_dequant_matmul.restype = i
         lib.paddle_dequant_cuda_error_string.argtypes = [i]
         lib.paddle_dequant_cuda_error_string.restype = ctypes.c_char_p
@@ -194,7 +220,7 @@ def _check_launch(x, qw, scale, out_dtype):
         raise ValueError(f"{what}: every tensor must be contiguous")
     m, k = x.shape
     n = qw.shape[1]
-    if max(m, k, n) >= 2 ** 31 or (m + 63) // 64 > 65535:
+    if max(m, k, n) >= 2 ** 31 or -(-m // TILE_M) > 65535:
         raise ValueError(f"{what}: M={m}, K={k}, N={n} beyond the "
                          f"kernel's grid")
     if x.device.type != "cuda":
@@ -210,12 +236,15 @@ def _launch(x, qw, scale, out_dtype):
     out = torch.empty(m, n, dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
+    splits, k_chunk = plan_split_k(m, k, n, x.element_size())
+    ws = None if splits == 1 else torch.empty(
+        splits, m, n, dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         rc = lib.paddle_dequant_matmul(
             x.data_ptr(), qw.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            m, k, n, _X_CODES[x.dtype], _w_codes()[qw.dtype],
-            _X_CODES[out_dtype],
+            None if ws is None else ws.data_ptr(), m, k, n, splits, k_chunk,
+            _X_CODES[x.dtype], _w_codes()[qw.dtype], _X_CODES[out_dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
