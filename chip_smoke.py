@@ -10,7 +10,9 @@ Phases, each printing JSON lines:
 1. device   -- the card's name and power limit, as ``nvidia-smi`` gives them;
 2. build    -- the CUDA kernels, compiled from ``paddle_tpu_torch/csrc`` by
                ``paddle_tpu_torch/native/build.py`` (one ``nvcc`` per source,
-               all started together);
+               all started together): registers and spills by kernel, and
+               the tensor-core instructions (HMMA, HGMMA) in each
+               tensor-core kernel's machine code;
 3. kernels  -- each kernel against its plain PyTorch version on the same
                inputs: the max abs error beside its stated tolerance, and
                CUDA-event times (L2 flushed before each call) of the kernel,
@@ -32,10 +34,13 @@ Phases, each printing JSON lines:
                kernels (B2 forward with lse, B3 dq, B4 dk/dv) at the unfused
                path's shape (B=32, H=12, S=128, D=64, float32, key mask) and
                in bfloat16, with a full [B, H, S, S] mask, unmasked and
-               causal, at S=512 and at D=128: B2 against SDPA's forward, B3
-               and B4 together against ``torch.autograd.grad`` through SDPA
-               (one call gives dq, dk and dv); and, untimed, rows whose mask
-               is -inf everywhere (denominator 0: out 0, lse -1e30, finite
+               causal, at S=512 and at D=128 (both in float32 and bfloat16)
+               and at D=256 in float32: B2 against SDPA's forward, B3 and B4
+               together against ``torch.autograd.grad`` through SDPA (one
+               call gives dq, dk and dv), their bound in float32 the tensor
+               cores' (the bfloat16 products of the split) beside the float32
+               CUDA-core figure; and, untimed, rows whose mask is -inf
+               everywhere (denominator 0: out 0, lse -1e30, finite
                gradients); the dequant-fused matmul (B7) at the served
                BERT's shapes (FFN up and down and the q/k/v/output
                projections at batch 32, FFN up at batch 1, the pooler and
@@ -45,8 +50,9 @@ Phases, each printing JSON lines:
                program runs), its bound the least work known to give the
                product on the tensor cores (three bfloat16 products for
                float32 x, one for bfloat16) beside the float32 CUDA-core
-               figure; and, untimed, an all-zero output channel.  Each row
-               reports its error's share of the tolerance;
+               figure; and, untimed, an all-zero output channel and rows of
+               x holding +-inf and NaN (the plain version's IEEE results).
+               Each row reports its error's share of the tolerance;
 4. serve    -- the README's serving model at full width (vocab 32000,
                d_model 512, 8 layers, 8 heads, ffn 2048, max_seq_len 1024;
                random weights from a seed) behind ``DecodeServer`` on the
@@ -238,6 +244,11 @@ TRAIN_FLASH_CASES = (
      True),
     ("unfused_S512_bf16", 8, 12, 512, 64, "bfloat16", "key", False),
     ("unfused_D128_bf16", 32, 6, 128, 128, "bfloat16", "key", False),
+    # the float32 split at the longest sum and at the second head width
+    ("unfused_S512_f32", 8, 12, 512, 64, "float32", "key", False),
+    ("unfused_D128_f32", 32, 6, 128, 128, "float32", "key", False),
+    # D = 256: B3 and B4 keep their CUDA-core design there
+    ("unfused_D256_f32", 32, 3, 128, 256, "float32", "key", False),
 )
 UNFUSED_STEPS = 6
 B2_PER_STEP, B3_PER_STEP, B4_PER_STEP = 24, 12, 12  # 12 layers; B2 replayed
@@ -379,7 +390,36 @@ def phase_build():
             spilling={re.sub(r"^_ZN\d+_GLOBAL__N_\w+?_cu_[0-9a-f]{8}\d+", "",
                              n): int(s)
                       for n, s, _r in entries if int(s)})
+    sass = tensor_core_instructions(paths)
+    for name, counts in sass.items():
+        report[name]["tensor_core_instructions"] = counts
+    bare = [k for k, n in sass.get("flash_attention_bwd", {}).items()
+            if "_mma_kernel" in k and not n]
+    if bare:
+        raise RuntimeError(f"tensor-core kernels without HMMA: {bare}")
     log("build", seconds=round(secs, 3), libraries=report)
+
+
+def tensor_core_instructions(paths):
+    """HMMA (mma.sync) and HGMMA (wgmma) instructions in each kernel whose
+    name says it runs on the tensor cores, from ``cuobjdump -sass`` of the
+    built libraries; {} where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    out = {}
+    for name, p in paths.items():
+        text = subprocess.run([tool, "-sass", p], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        counts = {}
+        for fn, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
+                                   text, flags=re.S):
+            short = re.sub(r"^_ZN\d+_GLOBAL__N_\w+?_cu_[0-9a-f]{8}\d+", "",
+                           fn)
+            if "mma" in short:
+                counts[short] = len(re.findall(r"\bH(?:G)?MMA\b", body))
+        out[name] = counts
+    return out
 
 
 def make_case(gen, dev, rows_per_slot, row_lengths, q_dtype, kv):
@@ -536,6 +576,7 @@ def phase_kernels(name):
     for case in DEQUANT_CASES:
         rows.append(run_dequant_case(gen, dev, case, peaks, flush))
     check_zero_channel(gen, dev)
+    check_non_finite_x(gen, dev)
     del l2
     log("clocks", at="kernels end", **{clocks: nvidia_smi(clocks)})
     return rows
@@ -752,28 +793,49 @@ def run_flash_case(gen, dev, case, peaks, flush):
     return row
 
 
+# The float32 backward (B3, B4) on the tensor cores (D = 64 and 128; D = 256
+# keeps the CUDA cores): each float32 product is taken as the bfloat16
+# products of the operands' three pieces and of P's and dS's two with
+# i + j <= 2 -- 6 for S and for dP, 5 for each second product
+# (csrc/flash_attention_bwd.cu).
+BWD_F32_PRODUCTS = {"flash_attention_bwd_dq": 6 + 6 + 5,
+                    "flash_attention_bwd_dkv": 6 + 6 + 5 + 5}
+
+
 def train_flash_bounds(q, mask, causal, peaks):
-    """Least times for B2, B3 and B4 on one call's operands.  Bytes: q, k,
-    v (and do, lse, delta for the backward) and the mask in its natural
-    shape read once, each output written once.  Operations per (query,
-    key) pair the mask leaves, multiply-add each: 4*D in B2 (QK, PV), 6*D
-    in B3 (S, dP, dQ), 8*D in B4 (S, dV, dP, dK)."""
+    """Least times for B2, B3 and B4 on one call's operands: name -> (ms,
+    "bytes" or "operations", the float32 CUDA-core figure or None).
+    Bytes: q, k, v (and do, lse, delta for the backward) and the mask in
+    its natural shape read once, each output written once.  Operations per
+    (query, key) pair the mask leaves, multiply-add each: 4*D in B2 (QK,
+    PV), 6*D in B3 (S, dP, dQ), 8*D in B4 (S, dV, dP, dK), at the peak of
+    the inputs' type.  Float32 B3 and B4 at D <= 128 run on the tensor
+    cores: their operations are the split's bfloat16 products
+    (BWD_F32_PRODUCTS, 2*D each) at the bfloat16 peak, with the float32
+    CUDA-core figure (the larger of the bytes and 6*D or 8*D at the
+    float32 peak) beside it."""
     bw, ops_rate = peaks
     b, h, s, d = q.shape
     tensor = q.numel() * q.element_size()
     stat = b * h * s * 4                      # lse or delta, float32
     mask_b = 0 if mask is None else mask.numel() * mask.element_size()
     pairs = (s * (s + 1) // 2 if causal else s * s) * b * h
-    rate = ops_rate[str(q.dtype)[6:]]
+    dtype = str(q.dtype)[6:]
     out = {}
     for name, nbytes, per_pair in (
             ("flash_attention_fwd", 4 * tensor + stat + mask_b, 4 * d),
             ("flash_attention_bwd_dq", 5 * tensor + 2 * stat + mask_b, 6 * d),
             ("flash_attention_bwd_dkv", 6 * tensor + 2 * stat + mask_b,
              8 * d)):
-        t_bytes, t_ops = nbytes / bw * 1e3, per_pair * pairs / rate * 1e3
-        out[name] = (t_bytes, "bytes") if t_bytes >= t_ops \
-            else (t_ops, "operations")
+        t_bytes = nbytes / bw * 1e3
+        t_ops = per_pair * pairs / ops_rate[dtype] * 1e3
+        f32_cuda_core = None
+        if dtype == "float32" and name in BWD_F32_PRODUCTS and d <= 128:
+            f32_cuda_core = max(t_bytes, t_ops)
+            t_ops = BWD_F32_PRODUCTS[name] * 2 * d * pairs \
+                / ops_rate["bfloat16"] * 1e3
+        out[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations")) + (f32_cuda_core,)
     return out
 
 
@@ -805,6 +867,15 @@ def run_train_flash_case(gen, dev, case, peaks, flush):
             check_close(label + " dk", dk, ref_dk, q.dtype, dtype, tol),
             check_close(label + " dv", dv, ref_dv, q.dtype, dtype, tol)),
     }
+    shares = {
+        "flash_attention_fwd": max(
+            tolerance_share(out, ref_out, dtype),
+            tolerance_share(lse, ref_lse, "float32")),
+        "flash_attention_bwd_dq": tolerance_share(dq, ref_dq, dtype, tol),
+        "flash_attention_bwd_dkv": max(
+            tolerance_share(dk, ref_dk, dtype, tol),
+            tolerance_share(dv, ref_dv, dtype, tol)),
+    }
     fns = {
         "flash_attention_fwd": (
             lambda: fa.flash_attention_fwd(*fwd_args),
@@ -829,17 +900,21 @@ def run_train_flash_case(gen, dev, case, peaks, flush):
     bounds = train_flash_bounds(q, mask, causal, peaks)
     rows = []
     for kernel, (fn, plain) in fns.items():
-        bound_ms, bound_by = bounds[kernel]
+        bound_ms, bound_by, f32_bound_ms = bounds[kernel]
         backward = kernel != "flash_attention_fwd"
         row = dict(case=label, kernel=kernel, q=dtype, shape=[b, h, s, d],
                    mask=mask_kind, causal=causal, max_abs_err=errs[kernel],
                    tolerance=tol if backward else TOL[dtype],
-                   rel_tolerance=REL_TOL[dtype], ms=cuda_ms(fn, flush),
+                   rel_tolerance=REL_TOL[dtype],
+                   err_share_of_tolerance=shares[kernel],
+                   ms=cuda_ms(fn, flush),
                    plain_ms=cuda_ms(plain, flush),
                    library_ms=lib_bwd if backward else lib_fwd,
                    library="sdpa backward (dq, dk, dv in one call)"
                    if backward else "sdpa forward",
                    bound_ms=bound_ms, bound_by=bound_by)
+        if f32_bound_ms is not None:
+            row["f32_cuda_core_bound_ms"] = f32_bound_ms
         log("kernels", **row)
         rows.append(row)
     return rows
@@ -1002,6 +1077,41 @@ def check_zero_channel(gen, dev):
                                f"{out[:, 7].abs().max()} where 0 is due")
         log("kernels", case="zero_channel_" + mode, kernel="dequant_matmul",
             shape=[64, 96, 40], max_abs_err=err, zero_channel_exact=True)
+
+
+def check_non_finite_x(gen, dev):
+    """B7 on float32 x holding +inf, -inf and NaN: the kernel splits x into
+    bfloat16 pieces, and must give what the plain float32 product gives by
+    IEEE rules -- +-inf and NaN in the same places -- and elsewhere agree
+    within the tolerance.  The carrier rows that meet those values are +-1
+    (no 0 to make inf * 0)."""
+    m, k, n = 64, 96, 40
+    x = torch.randn(m, k, generator=gen)
+    x[0, 5], x[1, 9], x[2, 11] = float("inf"), float("-inf"), float("nan")
+    q = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    q[[5, 9, 11]] = torch.where(
+        torch.rand(3, n, generator=gen) > 0.5, 1, -1).to(torch.int8)
+    scale = torch.full((n,), 1e-3)
+    x, q, scale = x.to(dev), q.to(dev), scale.to(dev)
+    out = qo.dequant_matmul(x, q, scale)
+    ref = qo.dequant_matmul_reference(x, q, scale)
+    torch.cuda.synchronize()
+    rows = [0, 1, 2]
+    same_nan = torch.equal(out.isnan(), ref.isnan())
+    same_inf = torch.equal(out.isinf(), ref.isinf()) and torch.equal(
+        out[ref.isinf()], ref[ref.isinf()])
+    kinds = [("inf" if bool(ref[r].isinf().all()) else "nan"
+              if bool(ref[r].isnan().all()) else "finite") for r in rows]
+    if not (same_nan and same_inf) or kinds != ["inf", "inf", "nan"]:
+        raise RuntimeError(f"non-finite x: B7 vs plain differ where the "
+                           f"plain version is not finite (rows {kinds})")
+    keep = [r for r in range(m) if r not in rows]
+    err, share = check_dequant("non_finite_x", out[keep], ref[keep],
+                               x[keep], q, scale)
+    log("kernels", case="non_finite_x", kernel="dequant_matmul",
+        shape=[m, k, n], rows_inf_inf_nan=kinds,
+        non_finite_match_plain=True, max_abs_err_finite_rows=err,
+        err_share_of_tolerance=share)
 
 
 def build_bert(batch, amp, dropout, lr=1e-4, fused=True):
@@ -1546,8 +1656,9 @@ def main():
     launches.update(unfused)
     phase_train_profile(
         lambda: exe_run(state), phase="train_unfused_profile",
-        kernels=(("b2", "flash_fwd_kernel"), ("b3", "flash_bwd_dq_kernel"),
-                 ("b4", "flash_bwd_dkv_kernel")),
+        kernels=(("b2", "flash_fwd_kernel"),
+                 ("b3", "flash_bwd_dq_mma_kernel"),
+                 ("b4", "flash_bwd_dkv_mma_kernel")),
         op_types=("flash_attention", "flash_attention_grad"))
     del state
     torch.cuda.empty_cache()
@@ -1601,7 +1712,8 @@ def main():
             "replaces": REPLACES[kernel], "launches": launches[kernel],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "f32_cuda_core_bound_ms": row.get("f32_cuda_core_bound_ms")})
     log("done", seconds=round(time.monotonic() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -238,14 +238,6 @@ struct MmaShape {
   static constexpr int kSmem = (BR + 4 * BC) * LD * 2;  // q, 2 x (k, v)
 };
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(
-      __ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
-}
-
 // rows x D bfloat16 from global (row stride D) into shared (row stride LD),
 // 16 bytes a copy, asynchronously.
 template <int D, int ROWS>

@@ -45,6 +45,16 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
                      __high2float(b));
 }
 
+// Two neighbouring elements as float2, through the read-only cache (8- or
+// 4-byte aligned: the bias's strides and key index are even).
+__device__ __forceinline__ float2 load2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(
+      __ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

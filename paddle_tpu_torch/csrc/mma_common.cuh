@@ -1,10 +1,12 @@
 // Tensor-core building blocks shared by the bfloat16 flash-attention forward
-// (flash_attention.cu, B1) and the dequant-fused matmul (dequant_matmul.cu,
-// B7) on Hopper (sm_90a): asynchronous global -> shared copies (cp.async),
-// 8 x 8 matrix loads from shared memory into fragments (ldmatrix), the
-// m16n8k16 bfloat16 product with float32 accumulation (mma.sync), and the
-// split of a float32 value into bfloat16 pieces.  Everything sits in an
-// anonymous namespace: each source is a library of its own.
+// (flash_attention.cu, B1), the flash-attention backward
+// (flash_attention_bwd.cu, B3 and B4) and the dequant-fused matmul
+// (dequant_matmul.cu, B7) on Hopper (sm_90a): asynchronous global -> shared
+// copies (cp.async), 8 x 8 matrix loads from shared memory into fragments
+// (ldmatrix), the m16n8k16 bfloat16 product with float32 accumulation
+// (mma.sync), and the split of a float32 value into bfloat16 pieces.
+// Everything sits in an anonymous namespace: each source is a library of its
+// own.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4), each
 // register holding two neighbouring bfloat16 values (low half first):
@@ -88,30 +90,50 @@ __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
 // Rounding to bfloat16 (8 significant bits) moves a value by at most 2^-8 of
 // it, and the difference of a float32 value and its rounding is exact in
 // float32.  The splits below work on pairs, as the fragments hold them.
-//
-// (a, b) = hi + lo + r with hi = bf16(a, b) and lo = bf16((a, b) - hi):
-// |r| <= 2^-8 |(a, b) - hi| <= 2^-16 |(a, b)| (16 significant bits).  The P
-// split of the flash-attention forward.
-__device__ __forceinline__ void split2_pack(float a, float b, uint32_t& hi,
-                                            uint32_t& lo) {
+
+constexpr float kF32Max = 3.402823466e38f;  // float32's largest finite value
+
+// A rest that is not finite becomes 0.  It is not finite exactly when the
+// head is not: +-inf or NaN, or a finite value whose bfloat16 rounding
+// passes bfloat16's largest finite value (|x| >= 3.3962e38, the top 0.2 %
+// of float32's range), which the split takes as +-inf.  So the smaller
+// pieces add nothing to such a head, and a product with the pieces follows
+// IEEE rules as the plain float32 product does: +-inf, or NaN where it meets
+// a 0 (not the NaN of inf - inf).  Two instructions a value.
+__device__ __forceinline__ float finite_or_zero(float r) {
+  return fabsf(r) <= kF32Max ? r : 0.f;
+}
+
+// hi = bf16(a, b), returned packed, and the rests (a, b) - hi.
+__device__ __forceinline__ uint32_t split_head(float a, float b, float& ra,
+                                               float& rb) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(a - hf.x, b - hf.y);
+  ra = finite_or_zero(a - hf.x);
+  rb = finite_or_zero(b - hf.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// (a, b) = hi + lo + r with hi = bf16(a, b) and lo = bf16((a, b) - hi):
+// |r| <= 2^-8 |(a, b) - hi| <= 2^-16 |(a, b)| (16 significant bits).  The P
+// split of the flash-attention forward, and of P and dS in the backward.
+__device__ __forceinline__ void split2_pack(float a, float b, uint32_t& hi,
+                                            uint32_t& lo) {
+  float ra, rb;
+  hi = split_head(a, b, ra, rb);
+  lo = pack_bf16(ra, rb);
 }
 
 // (a, b) = hi + mid + lo + r, each piece the bfloat16 rounding of what the
 // ones before leave: |r| <= 2^-24 |(a, b)|, float32's own rounding step, so
 // the three pieces carry x to float32 precision.  The x split of the
-// dequant-fused matmul.
+// dequant-fused matmul, and the operand split of the float32 backward.
 __device__ __forceinline__ void split3_pack(float a, float b, uint32_t& hi,
                                             uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const float ra = a - hf.x, rb = b - hf.y;
+  float ra, rb;
+  hi = split_head(a, b, ra, rb);
   const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
   const float2 mf = __bfloat1622float2(m);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
   mid = *reinterpret_cast<const uint32_t*>(&m);
   lo = pack_bf16(ra - mf.x, rb - mf.y);
 }

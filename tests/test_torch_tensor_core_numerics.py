@@ -11,7 +11,9 @@ the result to the tolerances ``chip_smoke.py`` holds the kernels to:
 - every int8 code and every finite float8 e4m3 value is exact in bfloat16,
   so B7's carrier widens exactly;
 - float32 x splits into three bfloat16 pieces within 2**-24 of itself (P
-  into two within 2**-16);
+  into two within 2**-16); +-inf and NaN are their own head piece with
+  nothing after it, so B7 gives the plain version's IEEE results for them;
+  a finite x beyond bfloat16's range is taken as +-inf (by design);
 - B7: three bfloat16-piece products over K steps of 64, each step's
   products summed apart and added to a float32 sum, K split as
   ``plan_split_k`` plans it, the scale applied after the K sum: within
@@ -51,13 +53,16 @@ def _bf16(t):
 
 
 def _split(x, pieces):
-    """The kernels' split: each piece the bfloat16 rounding of what the
-    ones before leave."""
+    """The kernels' split (``csrc/mma_common.cuh``): each piece the
+    bfloat16 rounding of what the ones before leave, and 0 after a piece
+    that is not finite (+-inf, NaN, or the inf a finite value beyond
+    bfloat16's range rounds to)."""
     out, rest = [], x
     for _ in range(pieces):
         p = _bf16(rest)
         out.append(p)
         rest = rest - p
+        rest = torch.where(torch.isfinite(rest), rest, torch.zeros_like(rest))
     return out
 
 
@@ -89,16 +94,37 @@ def test_bfloat16_split_reconstructs_float32(pieces, bound):
     assert float((err - bound * torch.from_numpy(np.abs(x))).max()) <= 0
 
 
-def test_infinite_x_splits_into_nan():
-    """By design (ROADMAP Queue C): an infinite x splits into +-inf and NaN
-    pieces, so B7's output is NaN where the plain version gives inf."""
-    x = torch.tensor([[float("inf"), 1.0]])
+@pytest.mark.parametrize("value", [float("inf"), float("-inf")],
+                         ids=["inf", "minus_inf"])
+def test_infinite_x_gives_the_ieee_result(value):
+    """+-inf splits into itself and zeros, so B7 gives +-inf, and NaN where
+    it meets a zero code, as the plain version and the JAX package do."""
+    x = torch.tensor([[value, 1.0], [value, 2.0]])
     hi, mid, lo = _split(x, 3)
-    assert hi[0, 0] == float("inf") and torch.isnan(mid[0, 0])
+    assert bool((hi[:, 0] == value).all())
+    assert bool((mid[:, 0] == 0).all()) and bool((lo[:, 0] == 0).all())
+    q = torch.tensor([[1, -1, 0], [1, 1, 1]], dtype=torch.int8)
+    scale = torch.tensor([0.5, 0.25, 1.0])
+    got = _emulate_b7(x, q, scale)
+    want = tq.dequant_matmul_reference(x, q, scale)
+    assert bool(want[:, :2].isinf().all()) and bool(want[:, 2].isnan().all())
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got[:, :2], want[:, :2])
+
+
+def test_x_beyond_bfloat16_range_is_taken_as_inf():
+    """By design (a guard of two instructions a value): a finite x whose
+    bfloat16 rounding overflows (|x| >= 3.3962e38, the top 0.2 % of
+    float32's range) is taken as +-inf by B7's split, where the plain
+    version's product stays finite for |w| < 1."""
+    x = torch.tensor([[3.4e38, 1.0], [-3.4e38, 1.0]])
+    assert bool(_bf16(x[:, 0]).isinf().all())
     q = torch.ones(2, 1, dtype=torch.int8)
-    scale = torch.ones(1)
-    assert torch.isnan(_emulate_b7(x, q, scale)).all()
-    assert tq.dequant_matmul_reference(x, q, scale)[0, 0] == float("inf")
+    scale = torch.tensor([0.5])
+    got = _emulate_b7(x, q, scale)
+    want = tq.dequant_matmul_reference(x, q, scale)
+    assert bool(torch.isfinite(want).all())
+    assert got[0, 0] == float("inf") and got[1, 0] == float("-inf")
 
 
 def _emulate_b7(x, q, scale, k_step=64):

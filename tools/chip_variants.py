@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Time versions of B1 and B7 side by side on one CUDA card.
+"""Time versions of B1, B3/B4 and B7 side by side on one CUDA card.
 
 Each version is a kernel source (``flash_attention.cu`` for B1,
-``dequant_matmul.cu`` for B7) in a directory of its own, built with the
-port's flags (``paddle_tpu_torch/native/build.py``) plus any ``-D`` flags
-given, into a library of its own.  The wrappers in
-``paddle_tpu_torch/ops`` are pointed at each library in turn, and every
-bfloat16 case of ``chip_smoke.FLASH_CASES`` and every case of
+``flash_attention_bwd.cu`` for B3 and B4, ``dequant_matmul.cu`` for B7) in
+a directory of its own, built with the port's flags
+(``paddle_tpu_torch/native/build.py``) plus any ``-D`` flags given, into a
+library of its own.  The wrappers in ``paddle_tpu_torch/ops`` are pointed
+at each library in turn, and every bfloat16 case of
+``chip_smoke.FLASH_CASES``, every case of ``chip_smoke.TRAIN_FLASH_CASES``
+(B3 and B4, on the operands of the checkout's B2) and every case of
 ``chip_smoke.DEQUANT_CASES`` runs through each version on the same inputs:
 checked against the plain version with ``chip_smoke``'s tolerances and
 timed by ``chip_smoke.cuda_ms`` (L2 flushed, card time only) and by
@@ -15,6 +17,7 @@ Versions compared in one run share a card, a host and inputs.
 
     python3 tools/chip_variants.py \\
         --b1 '{"parent": {"dir": "_parent/csrc"}, "change": {}}' \\
+        --bwd '{"parent": {"dir": "_parent/csrc"}, "change": {}}' \\
         --b7 '{"parent": {"dir": "_parent/csrc", "old_api": true},
                "change": {}}'
 
@@ -42,11 +45,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke as cs  # noqa: E402
 from paddle_tpu_torch.native import build  # noqa: E402
+from paddle_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops import flash_attention_bias as fab  # noqa: E402
 from paddle_tpu_torch.ops import quant_ops as qo  # noqa: E402
 
 OUT = os.path.join(build.OUT_DIR, "variants")
-SOURCE = {"b1": "flash_attention.cu", "b7": "dequant_matmul.cu"}
+SOURCE = {"b1": "flash_attention.cu", "bwd": "flash_attention_bwd.cu",
+          "b7": "dequant_matmul.cu"}
 
 
 def compile_all(versions):
@@ -87,6 +92,62 @@ def bind_b1(lib):
     lib.paddle_flash_cuda_error_string.argtypes = [i]
     lib.paddle_flash_cuda_error_string.restype = ctypes.c_char_p
     fab._library = lambda: lib
+
+
+def bind_bwd(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [i] * 5 + [i] * 3 + [f, i, i, i, p]
+    lib.paddle_flash_attention_bwd_dq.argtypes = [p] * 8 + tail
+    lib.paddle_flash_attention_bwd_dq.restype = i
+    lib.paddle_flash_attention_bwd_dkv.argtypes = [p] * 9 + tail
+    lib.paddle_flash_attention_bwd_dkv.restype = i
+    lib.paddle_flash_bwd_cuda_error_string.argtypes = [i]
+    lib.paddle_flash_bwd_cuda_error_string.restype = ctypes.c_char_p
+    fa._bwd_library = lambda: lib
+
+
+def bwd_rows(gen, dev, libs, only, flush):
+    """B3 and B4 versions on chip_smoke's training cases, beside SDPA's
+    backward (dq, dk and dv in one call)."""
+    for case in cs.TRAIN_FLASH_CASES:
+        label, b, h, s, d, dtype, mask_kind, causal = case
+        if only and label not in only:
+            continue
+        q, k, v, mask = cs.flash_case(gen, dev, b, h, s, d, dtype, mask_kind)
+        do = torch.randn(b, h, s, d, generator=gen).to(q.dtype).to(dev)
+        scale = 1.0 / math.sqrt(d)
+        out, lse = fa.flash_attention_fwd(q, k, v, mask, scale, causal)
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, mask, do, lse, delta, scale, causal)
+        ref_dq = fa.flash_attention_bwd_dq_reference(*args)
+        ref_dk, ref_dv = fa.flash_attention_bwd_dkv_reference(*args)
+        tol = cs.BWD_TOL[dtype]
+
+        def check(outs, refs):
+            """Each output within BWD_TOL of its plain version; the
+            largest share of the tolerance."""
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            for o, r in zip(outs, refs):
+                cs.check_close(label, o, r, q.dtype, dtype, tol)
+            return max(cs.tolerance_share(o, r, dtype, tol)
+                       for o, r in zip(outs, refs))
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, is_causal=causal, scale=scale)
+        sdpa = lambda: torch.autograd.grad(  # noqa: E731
+            sdpa_out, leaves, do, retain_graph=True)
+        row = {"sdpa_bwd": [cs.cuda_ms(sdpa, flush), profiler_us(sdpa)]}
+        for (kind, tag), lib in libs.items():
+            if kind == "bwd":
+                bind_bwd(lib)
+                row[tag] = {
+                    "dq": measure(lambda: fa.flash_attention_bwd_dq(*args),
+                                  lambda o: check(o, (ref_dq,)), flush),
+                    "dkv": measure(lambda: fa.flash_attention_bwd_dkv(*args),
+                                   lambda o: check(o, (ref_dk, ref_dv)),
+                                   flush)}
+        del sdpa_out, leaves
+        print(json.dumps({"bwd": label, **row}), flush=True)
 
 
 def b7_call(lib, spec, x, q, scale):
@@ -140,13 +201,15 @@ def measure(fn, check, flush):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--b1", default="{}", help="B1 versions (JSON)")
+    ap.add_argument("--bwd", default="{}", help="B3/B4 versions (JSON)")
     ap.add_argument("--b7", default="{}", help="B7 versions (JSON)")
     ap.add_argument("--only", default="", help="comma-separated cases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device", file=sys.stderr)
         return 1
-    versions = {"b1": json.loads(args.b1), "b7": json.loads(args.b7)}
+    versions = {"b1": json.loads(args.b1), "bwd": json.loads(args.bwd),
+                "b7": json.loads(args.b7)}
     only = set(filter(None, args.only.split(",")))
     cs.phase_device()
     libs = compile_all(versions)
@@ -174,6 +237,7 @@ def main():
                     lambda: fab.flash_attention_bias(q, k, v, bias, **kw),
                     check, l2.zero_)
         print(json.dumps({"b1": label, **row}), flush=True)
+    bwd_rows(gen, dev, libs, only, l2.zero_)
     for label, m, k, n, dtype, mode in cs.DEQUANT_CASES:
         if only and label not in only:
             continue
