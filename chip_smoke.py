@@ -25,21 +25,23 @@ Phases, each printing JSON lines:
                against ``F.scaled_dot_product_attention`` on K/V gathered to
                dense; the biased flash-attention forward (B1) at BERT-base's
                shape (B=32, H=12, S=128, D=64, key mask) in bfloat16 and
-               float32, with a full [B, H, S, S] bias, unbiased and causal,
-               at S=512, at D=128 and at D=256 (bfloat16 runs the
-               tensor-core kernel, float32 the CUDA-core one), against
+               float32, with a full [B, H, S, S] bias, unbiased and causal
+               (in both types), at S=512, at D=128 and at D=256 (all on the
+               tensor-core kernel but float32 at D=256), against
                ``F.scaled_dot_product_attention`` with the bias as
-               ``attn_mask``, and, untimed, bfloat16 rows whose bias is -inf
-               everywhere (out 0); the flash-attention training
+               ``attn_mask``, its float32 bound the tensor cores' (the
+               bfloat16 products of the split) beside the float32 CUDA-core
+               figure, and, untimed, bfloat16 and float32 rows whose bias is
+               -inf everywhere (out 0); the flash-attention training
                kernels (B2 forward with lse, B3 dq, B4 dk/dv) at the unfused
                path's shape (B=32, H=12, S=128, D=64, float32, key mask) and
                in bfloat16, with a full [B, H, S, S] mask, unmasked and
                causal, at S=512 and at D=128 (both in float32 and bfloat16)
                and at D=256 in float32: B2 against SDPA's forward, B3 and B4
                together against ``torch.autograd.grad`` through SDPA (one
-               call gives dq, dk and dv), their bound in float32 the tensor
-               cores' (the bfloat16 products of the split) beside the float32
-               CUDA-core figure; and, untimed, rows whose mask is -inf
+               call gives dq, dk and dv), their bound in float32 (D <= 128)
+               the tensor cores' beside the float32 CUDA-core figure; and,
+               untimed, rows whose mask is -inf
                everywhere (denominator 0: out 0, lse -1e30, finite
                gradients); the dequant-fused matmul (B7) at the served
                BERT's shapes (FFN up and down and the q/k/v/output
@@ -224,6 +226,7 @@ FLASH_CASES = (
     ("bert_f32", 32, 12, 128, 64, "float32", "key", False),
     ("full_bias_bf16", 32, 12, 128, 64, "bfloat16", "full", False),
     ("causal_no_bias_bf16", 32, 12, 128, 64, "bfloat16", "none", True),
+    ("causal_no_bias_f32", 32, 12, 128, 64, "float32", "none", True),
     ("S512_bf16", 8, 12, 512, 64, "bfloat16", "key", False),
     ("D128_bf16", 32, 6, 128, 128, "bfloat16", "key", False),
     ("D256_bf16", 32, 3, 128, 256, "bfloat16", "key", False),
@@ -393,11 +396,18 @@ def phase_build():
     sass = tensor_core_instructions(paths)
     for name, counts in sass.items():
         report[name]["tensor_core_instructions"] = counts
-    bare = [k for k, n in sass.get("flash_attention_bwd", {}).items()
-            if "_mma_kernel" in k and not n]
+    flash = {k: n for lib in ("flash_attention", "flash_attention_bwd")
+             for k, n in sass.get(lib, {}).items() if "_mma_kernel" in k}
+    bare = [k for k, n in flash.items() if not n]
     if bare:
         raise RuntimeError(f"tensor-core kernels without HMMA: {bare}")
-    log("build", seconds=round(secs, 3), libraries=report)
+    # float32 q at D = 64 and 128, both bias types, B1 and B2
+    f32_fwd = [k for k in flash if k.startswith("flash_fwd_mma_kernelIf")]
+    if sass and len(f32_fwd) != 8:
+        raise RuntimeError(f"float32 forward instances on the tensor "
+                           f"cores: {f32_fwd}, want 8")
+    log("build", seconds=round(secs, 3), libraries=report,
+        f32_forward_instances_with_hmma=len(f32_fwd))
 
 
 def tensor_core_instructions(paths):
@@ -572,7 +582,7 @@ def phase_kernels(name):
     for case in TRAIN_FLASH_CASES:
         rows += run_train_flash_case(gen, dev, case, peaks, flush)
     check_dead_rows(gen, dev)
-    check_b1_dead_rows_bf16(gen, dev)
+    check_b1_dead_rows(gen, dev)
     for case in DEQUANT_CASES:
         rows.append(run_dequant_case(gen, dev, case, peaks, flush))
     check_zero_channel(gen, dev)
@@ -752,20 +762,38 @@ def flash_case(gen, dev, b, h, s, d, dtype, bias):
     return q, k, v, None if bias_t is None else bias_t.to(dt).to(dev)
 
 
-def flash_bound(q, bias, causal, peaks):
-    """Least time for one call: q, k, v and the bias (in its natural
-    shape) read once, the output written once; 4*D operations (QK and PV,
-    multiply-add each) per (query, key) pair the mask leaves."""
+# The float32 forward (B1, B2) on the tensor cores (D = 64 and 128; D = 256
+# keeps the CUDA cores): q, k, v split into three bfloat16 pieces and P into
+# two, the piece pairs with i + j <= 2 -- 6 products for S, 5 for P V
+# (csrc/flash_attention.cu).
+FWD_F32_PRODUCTS = 6 + 5
+
+
+def flash_bound(q, bias, causal, peaks, extra_bytes=0):
+    """Least time for one forward call (B1; B2 with its lse as
+    ``extra_bytes``): q, k, v and the bias (in its natural shape) read
+    once, the output written once; 4*D operations (QK and PV, multiply-add
+    each) per (query, key) pair the mask leaves, at the peak of the
+    inputs' type.  Float32 at D <= 128 runs on the tensor cores: its
+    operations are the split's bfloat16 products (FWD_F32_PRODUCTS, 2*D
+    each) at the bfloat16 peak.  Returns (ms, "bytes" or "operations", the
+    float32 CUDA-core figure -- the larger of the bytes and 4*D a pair at
+    the float32 peak -- or None)."""
     bw, ops_rate = peaks
     b, h, s, d = q.shape
-    nbytes = 4 * q.numel() * q.element_size()
+    nbytes = 4 * q.numel() * q.element_size() + extra_bytes
     if bias is not None:
         nbytes += bias.numel() * bias.element_size()
-    pairs = s * (s + 1) // 2 if causal else s * s
-    ops = 4 * d * pairs * b * h
+    pairs = (s * (s + 1) // 2 if causal else s * s) * b * h
+    dtype = str(q.dtype)[6:]
     t_bytes = nbytes / bw * 1e3
-    t_ops = ops / ops_rate[str(q.dtype)[6:]] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = 4 * d * pairs / ops_rate[dtype] * 1e3
+    f32_cuda_core = None
+    if dtype == "float32" and d <= 128:
+        f32_cuda_core = max(t_bytes, t_ops)
+        t_ops = FWD_F32_PRODUCTS * 2 * d * pairs / ops_rate["bfloat16"] * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")) + (f32_cuda_core,)
 
 
 def run_flash_case(gen, dev, case, peaks, flush):
@@ -782,13 +810,15 @@ def run_flash_case(gen, dev, case, peaks, flush):
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=bias, is_causal=causal, scale=kw["sm_scale"]),
         flush)
-    bound_ms, bound_by = flash_bound(q, bias, causal, peaks)
+    bound_ms, bound_by, f32_bound_ms = flash_bound(q, bias, causal, peaks)
     row = dict(case=label, kernel="flash_attention_bias", q=dtype,
                shape=[b, h, s, d], bias=bias_kind, causal=causal,
                max_abs_err=err, tolerance=TOL[dtype],
                rel_tolerance=REL_TOL[dtype], err_share_of_tolerance=share,
                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                bound_ms=bound_ms, bound_by=bound_by)
+    if f32_bound_ms is not None:
+        row["f32_cuda_core_bound_ms"] = f32_bound_ms
     log("kernels", **row)
     return row
 
@@ -809,11 +839,11 @@ def train_flash_bounds(q, mask, causal, peaks):
     its natural shape read once, each output written once.  Operations per
     (query, key) pair the mask leaves, multiply-add each: 4*D in B2 (QK,
     PV), 6*D in B3 (S, dP, dQ), 8*D in B4 (S, dV, dP, dK), at the peak of
-    the inputs' type.  Float32 B3 and B4 at D <= 128 run on the tensor
+    the inputs' type.  Float32 B2, B3 and B4 at D <= 128 run on the tensor
     cores: their operations are the split's bfloat16 products
-    (BWD_F32_PRODUCTS, 2*D each) at the bfloat16 peak, with the float32
-    CUDA-core figure (the larger of the bytes and 6*D or 8*D at the
-    float32 peak) beside it."""
+    (FWD_F32_PRODUCTS, BWD_F32_PRODUCTS, 2*D each) at the bfloat16 peak,
+    with the float32 CUDA-core figure (the larger of the bytes and 4*D,
+    6*D or 8*D at the float32 peak) beside it."""
     bw, ops_rate = peaks
     b, h, s, d = q.shape
     tensor = q.numel() * q.element_size()
@@ -821,16 +851,16 @@ def train_flash_bounds(q, mask, causal, peaks):
     mask_b = 0 if mask is None else mask.numel() * mask.element_size()
     pairs = (s * (s + 1) // 2 if causal else s * s) * b * h
     dtype = str(q.dtype)[6:]
-    out = {}
+    out = {"flash_attention_fwd": flash_bound(q, mask, causal, peaks,
+                                              extra_bytes=stat)}
     for name, nbytes, per_pair in (
-            ("flash_attention_fwd", 4 * tensor + stat + mask_b, 4 * d),
             ("flash_attention_bwd_dq", 5 * tensor + 2 * stat + mask_b, 6 * d),
             ("flash_attention_bwd_dkv", 6 * tensor + 2 * stat + mask_b,
              8 * d)):
         t_bytes = nbytes / bw * 1e3
         t_ops = per_pair * pairs / ops_rate[dtype] * 1e3
         f32_cuda_core = None
-        if dtype == "float32" and name in BWD_F32_PRODUCTS and d <= 128:
+        if dtype == "float32" and d <= 128:
             f32_cuda_core = max(t_bytes, t_ops)
             t_ops = BWD_F32_PRODUCTS[name] * 2 * d * pairs \
                 / ops_rate["bfloat16"] * 1e3
@@ -956,26 +986,31 @@ def check_dead_rows(gen, dev):
         lse_is_minus_1e30=True, dq_is_0=True)
 
 
-def check_b1_dead_rows_bf16(gen, dev):
-    """B1's tensor-core kernel (bfloat16) on rows whose bias is -inf at
-    every key (softmax denominator 0): out 0 there, as the TPU kernel's
-    l == 0 guard gives, and elsewhere within B1's bfloat16 tolerance of
-    B2's plain version, which computes the same function with that guard
-    (B1's plain version, a softmax, gives NaN on such rows)."""
+def check_b1_dead_rows(gen, dev):
+    """B1 (bfloat16 and float32, both on the tensor cores) on rows whose
+    bias is -inf at every key (softmax denominator 0): out exactly 0
+    there, as the TPU kernel's l == 0 guard gives, and elsewhere within
+    B1's tolerance of B2's plain version, which computes the same function
+    with that guard (B1's plain version, a softmax, gives NaN on such
+    rows)."""
     b, h, s, d, dead = 2, 2, 128, 64, [5, 77]
-    q, k, v, _ = flash_case(gen, dev, b, h, s, d, "bfloat16", "none")
-    bias = torch.zeros(b, 1, s, s, device=dev, dtype=torch.bfloat16)
-    bias[:, :, dead, :] = float("-inf")
-    scale = 1.0 / math.sqrt(d)
-    out = fab.flash_attention_bias(q, k, v, bias, sm_scale=scale)
-    ref, _lse = fa.flash_attention_fwd_reference(q, k, v, bias, scale, False)
-    err = check_close("dead_rows_bf16 out", out, ref, q.dtype, "bfloat16")
-    if not bool((out[:, :, dead] == 0).all()):
-        raise RuntimeError("B1 bf16 dead rows: out not 0")
-    log("kernels", case="dead_rows_bf16", kernel="flash_attention_bias",
-        shape=[b, h, s, d], dead_rows=dead, max_abs_err=err,
-        err_share_of_tolerance=tolerance_share(out, ref, "bfloat16"),
-        out_is_0=True)
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q, k, v, _ = flash_case(gen, dev, b, h, s, d, dtype, "none")
+        bias = torch.zeros(b, 1, s, s, device=dev, dtype=dt)
+        bias[:, :, dead, :] = float("-inf")
+        scale = 1.0 / math.sqrt(d)
+        out = fab.flash_attention_bias(q, k, v, bias, sm_scale=scale)
+        ref, _lse = fa.flash_attention_fwd_reference(q, k, v, bias, scale,
+                                                     False)
+        label = f"dead_rows_b1_{dtype}"
+        err = check_close(label + " out", out, ref, dt, dtype)
+        if not bool((out[:, :, dead] == 0).all()):
+            raise RuntimeError(f"B1 {dtype} dead rows: out not 0")
+        log("kernels", case=label, kernel="flash_attention_bias",
+            shape=[b, h, s, d], dead_rows=dead, max_abs_err=err,
+            err_share_of_tolerance=tolerance_share(out, ref, dtype),
+            out_is_0=True)
 
 
 # ---- B7 and the quantized inference path ------------------------------------
@@ -1248,10 +1283,11 @@ def phase_train_profile(run, phase="train_profile",
         undo()
     by_name = device_time_by_kernel(prof)
     busy_us = sum(by_name.values())
-    ours = {}
+    ours, matched = {}, {}
     for label, part in kernels:
-        ours[label] = sum(t for k, t in by_name.items() if part in k)
-        if not ours[label]:
+        matched[label] = sorted(k for k in by_name if part in k)
+        ours[label] = sum(by_name[k] for k in matched[label])
+        if not matched[label] or not ours[label]:
             raise RuntimeError(f"the profiled step ran no {part}")
     host, dev, count = {}, {}, {}
     for e in prof.events():   # the ranges on the host's timeline
@@ -1270,6 +1306,7 @@ def phase_train_profile(run, phase="train_profile",
         **{f"{label}_device_ms": t / 1e3 for label, t in ours.items()},
         **{f"{label}_share_of_busy": t / busy_us
            for label, t in ours.items()},
+        kernels_matched=matched,
         **{f"op_{t}_count_host_ms_device_ms": by_type.get(t)
            for t in op_types},
         **{f"op_{t}_share_of_busy": dev.get(t, 0.0) * 1e3 / busy_us
@@ -1656,7 +1693,7 @@ def main():
     launches.update(unfused)
     phase_train_profile(
         lambda: exe_run(state), phase="train_unfused_profile",
-        kernels=(("b2", "flash_fwd_kernel"),
+        kernels=(("b2", "flash_fwd_mma_kernel"),
                  ("b3", "flash_bwd_dq_mma_kernel"),
                  ("b4", "flash_bwd_dkv_mma_kernel")),
         op_types=("flash_attention", "flash_attention_grad"))
@@ -1689,7 +1726,7 @@ def main():
             phase_train_profile(
                 lambda: pred.run(feed32), phase="infer_profile",
                 kernels=(("b7", "dequant_matmul_"),
-                         ("b1", "flash_fwd_kernel")),
+                         ("b1", "flash_fwd_mma_kernel")),
                 op_types=("dequant_matmul", "fused_multihead_attention"))
             phase_infer_oracle(model_dir, preds)
         finally:

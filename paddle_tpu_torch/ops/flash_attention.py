@@ -25,9 +25,12 @@ blocks stream past resident dk/dv tiles).  ``delta = rowsum(do * out)``
 is one O(N*D) pass in plain torch, as the JAX package takes it in jnp.
 
 The three kernels are written by hand in CUDA C++ for Hopper
-(``csrc/flash_attention.cu``: ``flash_fwd_kernel`` with its lse store;
-``csrc/flash_attention_bwd.cu``: ``flash_bwd_dq_kernel`` and
-``flash_bwd_dkv_kernel``; built by ``native/build.py``).  Each wrapper
+(``csrc/flash_attention.cu``: ``flash_fwd_mma_kernel`` with its lse
+store; ``csrc/flash_attention_bwd.cu``: ``flash_bwd_dq_mma_kernel`` and
+``flash_bwd_dkv_mma_kernel``, all on the tensor cores; at head dim 256 in
+float32, ``flash_fwd_kernel``, ``flash_bwd_dq_kernel`` and
+``flash_bwd_dkv_kernel`` on the CUDA cores; built by
+``native/build.py``).  Each wrapper
 (``flash_attention_fwd``, ``flash_attention_bwd_dq``,
 ``flash_attention_bwd_dkv``) launches its kernel when its tensors lie on
 a CUDA device and raises when it cannot: there is no fallback on the

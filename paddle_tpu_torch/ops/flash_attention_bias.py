@@ -16,10 +16,11 @@ Counterpart of ``paddle_tpu/ops/pallas_attention.py``
 ``flash_attention_bias`` launches the forward kernel written by hand in
 CUDA C++ for Hopper (``csrc/flash_attention.cu``, built by
 ``native/build.py``) when its tensors lie on a CUDA device, and raises
-when it cannot: there is no fallback on the card.  bfloat16 q runs on the
-tensor cores (``flash_fwd_mma_kernel``: the probabilities split into two
-bfloat16 pieces for P V, so the result keeps the float32 contract),
-float32 q on the CUDA cores.  Tensors on the CPU
+when it cannot: there is no fallback on the card.  q runs on the tensor
+cores (``flash_fwd_mma_kernel``: the probabilities split into two
+bfloat16 pieces for P V, and float32 q, k, v into three, so the result
+keeps the float32 contract), but float32 at head dim 256 on the CUDA
+cores (``flash_fwd_kernel``).  Tensors on the CPU
 take the plain PyTorch version beside it,
 ``flash_attention_bias_reference``.  ``flash_attention_bias.launches``
 counts the kernel launches.

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""Time versions of B1, B3/B4 and B7 side by side on one CUDA card.
+"""Time versions of B1/B2, B3/B4 and B7 side by side on one CUDA card.
 
-Each version is a kernel source (``flash_attention.cu`` for B1,
+Each version is a kernel source (``flash_attention.cu`` for B1 and B2,
 ``flash_attention_bwd.cu`` for B3 and B4, ``dequant_matmul.cu`` for B7) in
 a directory of its own, built with the port's flags
 (``paddle_tpu_torch/native/build.py``) plus any ``-D`` flags given, into a
 library of its own.  The wrappers in ``paddle_tpu_torch/ops`` are pointed
-at each library in turn, and every bfloat16 case of
-``chip_smoke.FLASH_CASES``, every case of ``chip_smoke.TRAIN_FLASH_CASES``
-(B3 and B4, on the operands of the checkout's B2) and every case of
+at each library in turn, and every case of ``chip_smoke.FLASH_CASES`` (B1),
+every case of ``chip_smoke.TRAIN_FLASH_CASES`` (B2; and B3 and B4, on the
+operands of the checkout's B2) and every case of
 ``chip_smoke.DEQUANT_CASES`` runs through each version on the same inputs:
 checked against the plain version with ``chip_smoke``'s tolerances and
 timed by ``chip_smoke.cuda_ms`` (L2 flushed, card time only) and by
@@ -25,8 +25,8 @@ where ``_parent/csrc`` holds the earlier sources, e.g. from
 ``git archive HEAD~1 paddle_tpu_torch/csrc``.  ``{}`` is the checkout's
 own source; ``"defs": ["-DNAME=1"]`` adds compiler flags; ``"old_api"``
 calls B7's entry point as it was before it took a split-K workspace.
-Prints one JSON line per case: ``[cuda_ms, profiler_us, share of the
-tolerance]`` per version.
+Prints one JSON line per case and kernel: ``[cuda_ms, profiler_us, share
+of the tolerance]`` per version.
 """
 import argparse
 import ctypes
@@ -94,6 +94,16 @@ def bind_b1(lib):
     fab._library = lambda: lib
 
 
+def bind_b2(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.paddle_flash_attention_fwd_lse.argtypes = \
+        [p] * 6 + [i] * 5 + [i] * 3 + [f, i, i, i, p]
+    lib.paddle_flash_attention_fwd_lse.restype = i
+    lib.paddle_flash_cuda_error_string.argtypes = [i]
+    lib.paddle_flash_cuda_error_string.restype = ctypes.c_char_p
+    fa._fwd_lse_library = lambda: lib
+
+
 def bind_bwd(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [i] * 5 + [i] * 3 + [f, i, i, i, p]
@@ -106,9 +116,11 @@ def bind_bwd(lib):
     fa._bwd_library = lambda: lib
 
 
-def bwd_rows(gen, dev, libs, only, flush):
-    """B3 and B4 versions on chip_smoke's training cases, beside SDPA's
-    backward (dq, dk and dv in one call)."""
+def train_rows(gen, dev, libs, only, flush):
+    """B2 versions on chip_smoke's training cases, beside SDPA's forward;
+    B3 and B4 versions on the same cases, on the operands of the
+    checkout's B2, beside SDPA's backward (dq, dk and dv in one call)."""
+    own_b2 = fa._fwd_lse_library
     for case in cs.TRAIN_FLASH_CASES:
         label, b, h, s, d, dtype, mask_kind, causal = case
         if only and label not in only:
@@ -116,7 +128,29 @@ def bwd_rows(gen, dev, libs, only, flush):
         q, k, v, mask = cs.flash_case(gen, dev, b, h, s, d, dtype, mask_kind)
         do = torch.randn(b, h, s, d, generator=gen).to(q.dtype).to(dev)
         scale = 1.0 / math.sqrt(d)
-        out, lse = fa.flash_attention_fwd(q, k, v, mask, scale, causal)
+        fwd_args = (q, k, v, mask, scale, causal)
+        ref_out, ref_lse = fa.flash_attention_fwd_reference(*fwd_args)
+
+        def check_fwd(got):
+            cs.check_close(label, got[0], ref_out, q.dtype, dtype)
+            cs.check_close(label + " lse", got[1], ref_lse, torch.float32,
+                           "float32")
+            return max(cs.tolerance_share(got[0], ref_out, dtype),
+                       cs.tolerance_share(got[1], ref_lse, "float32"))
+        sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask, is_causal=causal, scale=scale)
+        if any(kind == "b1" for kind, _tag in libs):
+            row = {"sdpa": [cs.cuda_ms(sdpa_fwd, flush),
+                            profiler_us(sdpa_fwd)]}
+            for (kind, tag), lib in libs.items():
+                if kind == "b1":
+                    bind_b2(lib)
+                    row[tag] = measure(
+                        lambda: fa.flash_attention_fwd(*fwd_args), check_fwd,
+                        flush)
+            print(json.dumps({"b2": label, **row}), flush=True)
+            fa._fwd_lse_library = own_b2
+        out, lse = fa.flash_attention_fwd(*fwd_args)
         delta = (do.float() * out.float()).sum(-1)
         args = (q, k, v, mask, do, lse, delta, scale, causal)
         ref_dq = fa.flash_attention_bwd_dq_reference(*args)
@@ -200,7 +234,7 @@ def measure(fn, check, flush):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--b1", default="{}", help="B1 versions (JSON)")
+    ap.add_argument("--b1", default="{}", help="B1/B2 versions (JSON)")
     ap.add_argument("--bwd", default="{}", help="B3/B4 versions (JSON)")
     ap.add_argument("--b7", default="{}", help="B7 versions (JSON)")
     ap.add_argument("--only", default="", help="comma-separated cases")
@@ -218,7 +252,7 @@ def main():
     cs.warm_card(dev)
     gen = torch.Generator().manual_seed(0)
     for label, b, h, s, d, dtype, bias_kind, causal in cs.FLASH_CASES:
-        if dtype != "bfloat16" or (only and label not in only):
+        if only and label not in only:
             continue
         q, k, v, bias = cs.flash_case(gen, dev, b, h, s, d, dtype, bias_kind)
         kw = dict(sm_scale=1.0 / math.sqrt(d), causal=causal)
@@ -237,7 +271,7 @@ def main():
                     lambda: fab.flash_attention_bias(q, k, v, bias, **kw),
                     check, l2.zero_)
         print(json.dumps({"b1": label, **row}), flush=True)
-    bwd_rows(gen, dev, libs, only, l2.zero_)
+    train_rows(gen, dev, libs, only, l2.zero_)
     for label, m, k, n, dtype, mode in cs.DEQUANT_CASES:
         if only and label not in only:
             continue
