@@ -21,9 +21,16 @@ Phases, each printing JSON lines:
                least time the card could take (bytes or operations over the
                data-sheet peak of the named card).  The paged decode and chunk
                kernels (B5, B6) at the serving path's shapes (S=8 slots, H=8
-               heads, D=64, page 16, 64 pages a slot, shuffled page ids),
-               against ``F.scaled_dot_product_attention`` on K/V gathered to
-               dense; the biased flash-attention forward (B1) at BERT-base's
+               heads, D=64, page 16, 64 pages a slot, shuffled page ids;
+               ``paged_cases``: the decode burst in each pool, one slot,
+               every slot full; a 16-row chunk, the whole-prompt buckets
+               R=128..1024, a 128-row chunk at 512, verify 8x4, R=512 in
+               each pool), against ``F.scaled_dot_product_attention`` on
+               K/V gathered to dense, B6's bound the tensor cores' (the
+               design's bfloat16 products) beside the float32 CUDA-core
+               figure, and, untimed (``check_paged_edges``), zero-length
+               rows (exactly 0) in split grids, page-boundary and clamped
+               lengths; the biased flash-attention forward (B1) at BERT-base's
                shape (B=32, H=12, S=128, D=64, key mask) in bfloat16 and
                float32, with a full [B, H, S, S] bias, unbiased and causal
                (in both types), at S=512, at D=128 and at D=256 (all on the
@@ -66,7 +73,8 @@ Phases, each printing JSON lines:
                just after; streamed logits are held against
                ``recompute_logits``;
 5. profile  -- 8 requests under ``torch.profiler``: the device's busy share of
-               the window and its time by kernel;
+               the window, its time by kernel, and B5's, B6's and their
+               merge's device time and share of busy;
 6. train    -- BERT-base pretraining at full width (vocab 30522, hidden 768,
                12 layers, 12 heads, ffn 3072, max_pos 512, seq 128, 20
                predictions a sequence; random weights from the program's
@@ -396,18 +404,25 @@ def phase_build():
     sass = tensor_core_instructions(paths)
     for name, counts in sass.items():
         report[name]["tensor_core_instructions"] = counts
-    flash = {k: n for lib in ("flash_attention", "flash_attention_bwd")
+    flash = {k: n for lib in ("flash_attention", "flash_attention_bwd",
+                              "paged_attention")
              for k, n in sass.get(lib, {}).items() if "_mma_kernel" in k}
     bare = [k for k, n in flash.items() if not n]
     if bare:
         raise RuntimeError(f"tensor-core kernels without HMMA: {bare}")
+    # B6: 2 q dtypes x 3 pools x D = 32, 64, 128 x 4 or 8 warps
+    paged = [k for k in flash if k.startswith("paged_chunk_mma_kernel")]
+    if sass and len(paged) != 36:
+        raise RuntimeError(f"paged chunk instances on the tensor cores: "
+                           f"{paged}, want 36")
     # float32 q at D = 64 and 128, both bias types, B1 and B2
     f32_fwd = [k for k in flash if k.startswith("flash_fwd_mma_kernelIf")]
     if sass and len(f32_fwd) != 8:
         raise RuntimeError(f"float32 forward instances on the tensor "
                            f"cores: {f32_fwd}, want 8")
     log("build", seconds=round(secs, 3), libraries=report,
-        f32_forward_instances_with_hmma=len(f32_fwd))
+        f32_forward_instances_with_hmma=len(f32_fwd),
+        paged_chunk_instances_with_hmma=len(paged))
 
 
 def tensor_core_instructions(paths):
@@ -456,23 +471,50 @@ def make_case(gen, dev, rows_per_slot, row_lengths, q_dtype, kv):
                 v_scales=to(vs))
 
 
-def case_bound(c, kv, peaks):
+def piece_products(a, b):
+    """bfloat16 products of one float32-exact product on the tensor cores
+    (csrc/mma_common.cuh mma_pieces): the piece pairs (i, j) of a's ``a``
+    and b's ``b`` pieces with i + j < max(a, b)."""
+    return sum(1 for i in range(a) for j in range(b) if i + j < max(a, b))
+
+
+def chunk_products(q_dtype, kv):
+    """B6's bfloat16 products a (row, position) pair (paged_chunk_mma_kernel):
+    S over q's pieces (3 float32, 1 bfloat16) and K's (3 for a float32
+    pool, 1 for bfloat16 and int8), P V over P's two and V's."""
+    pq = 3 if q_dtype == torch.float32 else 1
+    pk = 3 if kv == "float32" else 1
+    return piece_products(pq, pk) + piece_products(2, pk)
+
+
+def case_bound(c, kv, peaks, chunk=False):
     """Least time for the work of one call: each input read once (q, the
     live K/V -- and scales -- of each slot up to its widest row, the live
     page-table entries, the lengths), the output written once; operations
-    4*H*D per live (row, position) pair (QK and PV, multiply-add each)."""
+    4*H*D per live (row, position) pair (QK and PV, multiply-add each) at
+    the peak of the pool's type.  B6 (``chunk``) runs on the tensor cores:
+    its operations are the design's bfloat16 products (chunk_products, 2*D
+    each) at the bfloat16 peak, and the float32 CUDA-core figure (the
+    larger of the bytes and 4*H*D a pair at the float32 peak) comes third.
+    Returns (ms, "bytes" or "operations", the CUDA-core figure or None)."""
     bw, ops_rate = peaks
-    q, lens = c["q"], c["row_lengths"].long().clamp(max=PAGE * PPS)
+    q, lens = c["q"], c["row_lengths"].long().clamp(min=0, max=PAGE * PPS)
     widest = lens.max(dim=1).values
     kv_elt = c["k_pages"].element_size()
     per_pos = 2 * H * D * kv_elt + (2 * H * 4 if kv == "int8" else 0)
     nbytes = (2 * q.numel() * q.element_size() + int(widest.sum()) * per_pos
               + int(((widest + PAGE - 1) // PAGE).sum()) * 4
               + lens.numel() * 4)
-    ops = 4 * H * D * int(lens.sum())
+    pairs = H * int(lens.sum())
     t_bytes = nbytes / bw * 1e3
-    t_ops = ops / ops_rate[kv] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = 4 * D * pairs / ops_rate[kv] * 1e3
+    f32_cuda_core = None
+    if chunk:
+        f32_cuda_core = max(t_bytes, 4 * D * pairs / ops_rate["float32"] * 1e3)
+        t_ops = chunk_products(q.dtype, kv) * 2 * D * pairs \
+            / ops_rate["bfloat16"] * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")) + (f32_cuda_core,)
 
 
 def sdpa_inputs(c, kv):
@@ -533,6 +575,7 @@ def run_case(label, kernel, c, kv, peaks, flush):
     ref = plain(q, args["k_pages"], args["v_pages"], args["page_table"], lens,
                 k_scales=args["k_scales"], v_scales=args["v_scales"])
     err = check_close(label, out, ref, q.dtype, kv)
+    share = tolerance_share(out, ref, kv)
     kw = dict(k_scales=args["k_scales"], v_scales=args["v_scales"])
     ms = cuda_ms(lambda: fn(q, args["k_pages"], args["v_pages"],
                             args["page_table"], lens, **kw), flush)
@@ -541,14 +584,110 @@ def run_case(label, kernel, c, kv, peaks, flush):
     sq, sk, sv, mask = sdpa_inputs(c, kv)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         sq, sk, sv, attn_mask=mask), flush)
-    bound_ms, bound_by = case_bound(c, kv, peaks)
+    bound_ms, bound_by, f32_bound_ms = case_bound(c, kv, peaks,
+                                                  chunk=not decode)
     row = dict(case=label, kernel=kernel, pool=kv, q=str(q.dtype)[6:],
                shape=list(c["q"].shape), max_abs_err=err, tolerance=TOL[kv],
-               rel_tolerance=REL_TOL[kv],
+               rel_tolerance=REL_TOL[kv], err_share_of_tolerance=share,
                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                bound_ms=bound_ms, bound_by=bound_by)
+    if f32_bound_ms is not None:
+        row["f32_cuda_core_bound_ms"] = f32_bound_ms
     log("kernels", **row)
     return row
+
+
+def paged_cases(gen, dev):
+    """B5's and B6's cases at the serving path's shapes, made in turn from
+    ``gen``: (label, kernel, inputs, pool dtype).  Decode: the serve
+    burst's 8 slots of mixed lengths in each pool, one request alone, every
+    slot at the table's width.  Chunk: a 16-row chunk, the whole-prompt
+    buckets (causal rows 1..R, R = 128 .. 1024; 512 in each pool),
+    speculative verify (8 slots x 4 rows), the chunked prefill's 128-row
+    chunk at offset 512."""
+    decode_lens = torch.tensor([1, 15, 16, 17, 500, 1024, 250, 777])
+    for kv, qd in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
+                   ("int8", torch.float32)):
+        yield (f"decode_{kv}", "paged_decode_attention",
+               make_case(gen, dev, 1, decode_lens[:, None], qd, kv), kv)
+    chunk16 = (496 + torch.arange(1, 17))[None]          # one chunk
+    verify = decode_lens.clamp(max=1020)[:, None] + torch.arange(4)[None]
+
+    def prefill(r):                                       # whole prompt
+        return torch.arange(1, r + 1)[None]
+    for label, lens, kv, qd in (
+            ("chunk_S1_R16", chunk16, "float32", torch.float32),
+            ("chunk_S1_R1024", prefill(1024), "float32", torch.float32),
+            ("chunk_S8_R4", verify, "float32", torch.float32),
+            ("chunk_S8_R4_int8", verify, "int8", torch.float32)):
+        yield (label, "paged_chunk_attention",
+               make_case(gen, dev, lens.shape[1], lens, qd, kv), kv)
+    for label, lens in (("decode_S1", torch.tensor([[777]])),
+                        ("decode_all1024", torch.full((8, 1), 1024))):
+        yield (label, "paged_decode_attention",
+               make_case(gen, dev, 1, lens, torch.float32, "float32"),
+               "float32")
+    for label, lens, kv, qd in (
+            ("chunk_S1_R128", prefill(128), "float32", torch.float32),
+            ("chunk_S1_R256", prefill(256), "float32", torch.float32),
+            ("chunk_S1_R512", prefill(512), "float32", torch.float32),
+            ("chunk_S1_R128_at512", 512 + prefill(128), "float32",
+             torch.float32),
+            ("chunk_S1_R512_bf16", prefill(512), "bfloat16", torch.bfloat16),
+            ("chunk_S1_R512_int8", prefill(512), "int8", torch.float32)):
+        yield (label, "paged_chunk_attention",
+               make_case(gen, dev, lens.shape[1], lens, qd, kv), kv)
+
+
+def check_paged_edges(gen, dev):
+    """Untimed, in split grids: rows of length 0 give exactly 0 (a zero-
+    length slot beside a 1024-length one, zero-length rows among live
+    ones), lengths that end on a page boundary, and lengths past the
+    table's width (clamped), in B5 and in B6 over each pool (B6 also
+    with float32 q over a bfloat16 pool); each within its tolerance of
+    the plain version."""
+    width = PAGE * PPS
+    dec = torch.tensor([0, width, PAGE, 2 * PAGE, width + 976, 0, 1, 512])
+    rows_a = torch.tensor([0, width] * 8)                 # slot 0
+    rows_b = torch.tensor([PAGE * (i + 1) for i in range(15)] +
+                          [width + 500])                  # slot 1
+    chunk = torch.stack([rows_a, rows_b])
+    chunk[0, 3] = 0
+    errs = {}
+    for label, kernel, lens, kv, qd in (
+            ("edges_decode_f32", "paged_decode_attention", dec[:, None],
+             "float32", torch.float32),
+            ("edges_decode_int8", "paged_decode_attention", dec[:, None],
+             "int8", torch.float32),
+            ("edges_chunk_f32", "paged_chunk_attention", chunk, "float32",
+             torch.float32),
+            ("edges_chunk_bf16", "paged_chunk_attention", chunk, "bfloat16",
+             torch.bfloat16),
+            ("edges_chunk_f32q_bf16", "paged_chunk_attention", chunk,
+             "bfloat16", torch.float32),
+            ("edges_chunk_int8", "paged_chunk_attention", chunk, "int8",
+             torch.float32)):
+        c = make_case(gen, dev, lens.shape[1], lens, qd, kv)
+        q, lv = c["q"], c["row_lengths"]
+        if kernel == "paged_decode_attention":
+            q, lv = q[:, 0].contiguous(), lv[:, 0].contiguous()
+            fn, plain = pa.paged_decode_attention, \
+                pa.paged_decode_attention_reference
+        else:
+            fn, plain = pa.paged_chunk_attention, \
+                pa.paged_chunk_attention_reference
+        args = (q, c["k_pages"], c["v_pages"], c["page_table"], lv)
+        kw = dict(k_scales=c["k_scales"], v_scales=c["v_scales"])
+        out, ref = fn(*args, **kw), plain(*args, **kw)
+        # float32 q over a bfloat16 pool: a float32 result from the same
+        # bfloat16 K/V, held to the float32 rule
+        kind = "float32" if qd == torch.float32 and kv == "bfloat16" else kv
+        errs[label] = check_close(label, out, ref, q.dtype, kind)
+        dead = lv == 0
+        if not bool((out[dead] == 0).all()):
+            raise RuntimeError(f"{label}: a row of length 0 is not 0")
+    log("kernels", case="paged_edges", zero_rows_exactly_0=True,
+        max_abs_err=errs)
 
 
 def phase_kernels(name):
@@ -560,23 +699,9 @@ def phase_kernels(name):
     warm_card(dev)
     clocks = "clocks.sm,power.draw,temperature.gpu"
     log("clocks", at="kernels start", **{clocks: nvidia_smi(clocks)})
-    decode_lens = torch.tensor([1, 15, 16, 17, 500, 1024, 250, 777])
-    rows = []
-    for kv, qd in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
-                   ("int8", torch.float32)):
-        c = make_case(gen, dev, 1, decode_lens[:, None], qd, kv)
-        rows.append(run_case(f"decode_{kv}", "paged_decode_attention", c,
-                             kv, peaks, flush))
-    chunk16 = (496 + torch.arange(1, 17))[None]          # one chunk
-    prefill = torch.arange(1, 1025)[None]                # whole prompt
-    verify = decode_lens.clamp(max=1020)[:, None] + torch.arange(4)[None]
-    for label, lens, kv in (("chunk_S1_R16", chunk16, "float32"),
-                            ("chunk_S1_R1024", prefill, "float32"),
-                            ("chunk_S8_R4", verify, "float32"),
-                            ("chunk_S8_R4_int8", verify, "int8")):
-        c = make_case(gen, dev, lens.shape[1], lens, torch.float32, kv)
-        rows.append(run_case(label, "paged_chunk_attention", c, kv, peaks,
-                             flush))
+    rows = [run_case(label, kernel, c, kv, peaks, flush)
+            for label, kernel, c, kv in paged_cases(gen, dev)]
+    check_paged_edges(gen, dev)
     for case in FLASH_CASES:
         rows.append(run_flash_case(gen, dev, case, peaks, flush))
     for case in TRAIN_FLASH_CASES:
@@ -712,6 +837,12 @@ def device_time_by_kernel(prof):
     return by_name
 
 
+# (label, name part) of the paged kernels in a serving profile
+PAGED_PROFILE_KERNELS = (("b5", "paged_decode_kernel"),
+                         ("b6", "paged_chunk_mma_kernel"),
+                         ("combine", "paged_combine_kernel"))
+
+
 def phase_profile(model):
     """Where a decode-heavy window's time goes: 8 requests (300-token
     prompts, 24 new tokens) under torch.profiler; the device's busy time
@@ -739,9 +870,20 @@ def phase_profile(model):
     by_name = device_time_by_kernel(prof)
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ours, matched = {}, {}
+    for label, part in PAGED_PROFILE_KERNELS:
+        matched[label] = sorted(k for k in by_name if part in k)
+        ours[label] = sum(by_name[k] for k in matched[label])
+        if not ours[label]:
+            raise RuntimeError(f"the profiled window ran no {part}")
     log("profile", window_ms=wall_us / 1e3, tokens=8 * 24,
         device_busy_ms=busy_us / 1e3 if busy_us else None,
         device_busy_share=busy_us / wall_us if busy_us else None,
+        **{f"{label}_device_ms": t / 1e3 for label, t in ours.items()},
+        **{f"{label}_share_of_busy": t / busy_us
+           for label, t in ours.items()},
+        b5_b6_combine_device_ms=sum(ours.values()) / 1e3,
+        kernels_matched=matched,
         top_device_ms={k: v / 1e3 for k, v in top})
 
 

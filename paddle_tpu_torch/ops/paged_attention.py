@@ -28,6 +28,11 @@ Contract details shared by kernels and plain versions:
   guard; the JAX ``decode_attention_reference`` returns the mean of V
   there instead, and the engine never asks for such a row);
 - the output has q's dtype, every sum is taken in float32.
+
+Both kernels split a row's positions over blocks where the grid would
+otherwise leave the card's SMs idle (:func:`plan_split`, from shapes
+only: no length is read on the host, so a call never waits for the
+card), into a float32 workspace that a second small kernel merges.
 """
 from __future__ import annotations
 
@@ -45,6 +50,25 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 128)
 _LIB_NAME = "paged_attention"
+# The split plan (csrc/paged_attention.cu): the card's SMs, B6's positions
+# a key block, and the most page ids one B5 block keeps in shared memory.
+_SMS = 132
+CHUNK_KEY_BLOCK = 32
+DECODE_MAX_SPLIT_PAGES = 64
+# B6's query rows a block: 64 (4 warps, two blocks an SM) up to
+# CHUNK_WIDE_ROWS rows a call, else 128 (8 warps, one block an SM: the
+# staged key block serves twice the rows).
+CHUNK_WIDE_ROWS = 64
+# Blocks a call should offer before its walk is left whole: B5 four an SM;
+# B6 three rounds of the blocks an SM holds.  The shortest range a B6
+# block takes: one key block where a call has at most CHUNK_FEW_ROWS rows
+# (one warp's products), else two, so that a block's fixed work (the q
+# tile, the partials) is spread over more positions.  Chosen on the H100
+# among 1-8 blocks an SM (PERF.md, section 6).
+DECODE_TARGET_BLOCKS = 4 * _SMS
+CHUNK_ROUNDS = 3
+CHUNK_FEW_ROWS = 16
+_WS_PAD = 4  # a partial is (acc[D], m, l), padded to 16 bytes
 _bound = False
 _COUNT_LOCK = threading.Lock()  # engine threads of several replicas
 
@@ -94,6 +118,65 @@ def paged_decode_attention_reference(q, k_pages, v_pages, page_table,
         sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales)[:, 0]
 
 
+# -- the split plan -------------------------------------------------------
+
+
+def plan_split(blocks, pps, page, *, target_blocks, min_positions,
+               max_pages=None):
+    """How a kernel cuts each row's walk over the page table: ``(nsplit,
+    chunk)``, ``nsplit`` ranges of ``chunk`` positions (whole pages)
+    that together cover the table's width ``pps * page``; range ``i`` is
+    ``[i * chunk, (i + 1) * chunk)``.  ``blocks`` is the grid without a
+    split (slots x heads x row tiles).  No split (``nsplit == 1``,
+    ``chunk`` the whole width) when that grid already offers
+    ``target_blocks``; otherwise enough ranges to offer them, each at
+    least ``min_positions`` long, a multiple of B6's key block where
+    whole pages allow it, and at most ``max_pages`` pages.  A function
+    of shapes only: the lengths stay on the device."""
+    pps = max(int(pps), 1)
+    want = 1 if blocks >= target_blocks else -(-target_blocks // blocks)
+    align = max(CHUNK_KEY_BLOCK // page, 1) \
+        if CHUNK_KEY_BLOCK % page == 0 else 1
+    pages = max(-(-pps // want), -(-min_positions // page))
+    pages = -(-pages // align) * align
+    if max_pages is not None:
+        pages = min(pages, max_pages)
+    pages = max(1, min(pages, pps))
+    return -(-pps // pages), pages * page
+
+
+def plan_decode(s, h, pps, page):
+    """B5's plan: ``(nsplit, chunk)`` for ``s`` slots and ``h`` heads."""
+    return plan_split(s * h, pps, page, target_blocks=DECODE_TARGET_BLOCKS,
+                      min_positions=CHUNK_KEY_BLOCK,
+                      max_pages=DECODE_MAX_SPLIT_PAGES)
+
+
+def chunk_tile_rows(r):
+    """B6's query rows a block for a call of ``r`` rows a slot."""
+    return 64 if r <= CHUNK_WIDE_ROWS else 128
+
+
+def plan_chunk(s, r, h, pps, page):
+    """B6's plan: ``(nsplit, chunk)`` for ``s`` slots of ``r`` rows and
+    ``h`` heads, a block per tile of :func:`chunk_tile_rows` rows."""
+    rows = chunk_tile_rows(r)
+    resident = 2 if rows == 64 else 1      # blocks an SM holds
+    min_positions = CHUNK_KEY_BLOCK * (1 if r <= CHUNK_FEW_ROWS else 2)
+    return plan_split(s * h * -(-r // rows), pps, page,
+                      target_blocks=CHUNK_ROUNDS * resident * _SMS,
+                      min_positions=min_positions)
+
+
+def _workspace(rows, h, d, nsplit, device):
+    """The splits' partials, float32 ``[rows, h, nsplit, d + 4]``: none
+    without a split."""
+    if nsplit == 1:
+        return None
+    return torch.empty(rows * h * nsplit * (d + _WS_PAD),
+                       dtype=torch.float32, device=device)
+
+
 # -- kernel wrappers ------------------------------------------------------
 
 
@@ -103,10 +186,10 @@ def _library():
     if not _bound:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paddle_paged_decode_attention.argtypes = \
-            [p] * 8 + [i] * 5 + [f, i, i, p]
+            [p] * 9 + [i] * 7 + [f, i, i, p]
         lib.paddle_paged_decode_attention.restype = i
         lib.paddle_paged_chunk_attention.argtypes = \
-            [p] * 8 + [i] * 6 + [f, i, i, p]
+            [p] * 9 + [i] * 9 + [f, i, i, p]
         lib.paddle_paged_chunk_attention.restype = i
         lib.paddle_cuda_error_string.argtypes = [i]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
@@ -185,13 +268,13 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _launch(fn_name, q, k_pages, v_pages, page_table, lengths, k_scales,
-            v_scales, out, dims, sm_scale):
+            v_scales, out, ws, dims, sm_scale):
     lib = _library()
     with torch.cuda.device(q.device):
         rc = getattr(lib, fn_name)(
             _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scales),
             _ptr(v_scales), _ptr(page_table), _ptr(lengths), _ptr(out),
-            *dims, float(sm_scale), _DTYPE_CODES[q.dtype],
+            _ptr(ws), *dims, float(sm_scale), _DTYPE_CODES[q.dtype],
             _DTYPE_CODES[k_pages.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
@@ -224,9 +307,11 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         return out
     s, h, d = q.shape
     page, pps = k_pages.shape[1], page_table.shape[1]
+    nsplit, chunk = plan_decode(s, h, pps, page)
     _launch("paddle_paged_decode_attention", q, k_pages, v_pages,
             page_table, lengths, k_scales, v_scales, out,
-            (s, h, d, page, pps), sm_scale)
+            _workspace(s, h, d, nsplit, q.device),
+            (s, h, d, page, pps, nsplit, chunk), sm_scale)
     with _COUNT_LOCK:
         paged_decode_attention.launches += 1
     return out
@@ -260,9 +345,12 @@ def paged_chunk_attention(q, k_pages, v_pages, page_table, row_lengths, *,
         return out
     s, r, h, d = q.shape
     page, pps = k_pages.shape[1], page_table.shape[1]
+    nsplit, chunk = plan_chunk(s, r, h, pps, page)
     _launch("paddle_paged_chunk_attention", q, k_pages, v_pages,
             page_table, row_lengths, k_scales, v_scales, out,
-            (s, r, h, d, page, pps), sm_scale)
+            _workspace(s * r, h, d, nsplit, q.device),
+            (s, r, h, d, page, pps, nsplit, chunk, chunk_tile_rows(r)),
+            sm_scale)
     with _COUNT_LOCK:
         paged_chunk_attention.launches += 1
     return out

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Time versions of B1/B2, B3/B4 and B7 side by side on one CUDA card.
+"""Time versions of B1/B2, B3/B4, B5/B6 and B7 side by side on one CUDA card.
 
 Each version is a kernel source (``flash_attention.cu`` for B1 and B2,
-``flash_attention_bwd.cu`` for B3 and B4, ``dequant_matmul.cu`` for B7) in
+``flash_attention_bwd.cu`` for B3 and B4, ``paged_attention.cu`` for B5
+and B6, ``dequant_matmul.cu`` for B7) in
 a directory of its own, built with the port's flags
 (``paddle_tpu_torch/native/build.py``) plus any ``-D`` flags given, into a
 library of its own.  The wrappers in ``paddle_tpu_torch/ops`` are pointed
 at each library in turn, and every case of ``chip_smoke.FLASH_CASES`` (B1),
 every case of ``chip_smoke.TRAIN_FLASH_CASES`` (B2; and B3 and B4, on the
-operands of the checkout's B2) and every case of
-``chip_smoke.DEQUANT_CASES`` runs through each version on the same inputs:
+operands of the checkout's B2), every case of ``chip_smoke.paged_cases``
+(B5, B6) and every case of ``chip_smoke.DEQUANT_CASES`` runs through each
+version on the same inputs:
 checked against the plain version with ``chip_smoke``'s tolerances and
 timed by ``chip_smoke.cuda_ms`` (L2 flushed, card time only) and by
 ``torch.profiler`` (kernel time, L2 warm), beside the library call.
@@ -19,12 +21,19 @@ Versions compared in one run share a card, a host and inputs.
         --b1 '{"parent": {"dir": "_parent/csrc"}, "change": {}}' \\
         --bwd '{"parent": {"dir": "_parent/csrc"}, "change": {}}' \\
         --b7 '{"parent": {"dir": "_parent/csrc", "old_api": true},
-               "change": {}}'
+               "change": {}}' \
+        --paged '{"parent": {"dir": "_parent/csrc", "old_api": true},
+                  "change": {}}'
 
 where ``_parent/csrc`` holds the earlier sources, e.g. from
 ``git archive HEAD~1 paddle_tpu_torch/csrc``.  ``{}`` is the checkout's
 own source; ``"defs": ["-DNAME=1"]`` adds compiler flags; ``"old_api"``
-calls B7's entry point as it was before it took a split-K workspace.
+calls B7's entry point as it was before it took a split-K workspace, and
+B5's and B6's as they were before they took a workspace and a split plan;
+``"plan": {"CHUNK_ROUNDS": 2}`` sets constants of
+``ops/paged_attention.py``'s split plan while that version runs;
+``"check": false`` times a B5/B6 version without holding it to the plain
+version (an ablation that computes something else).
 Prints one JSON line per case and kernel: ``[cuda_ms, profiler_us, share
 of the tolerance]`` per version.
 """
@@ -47,11 +56,12 @@ import chip_smoke as cs  # noqa: E402
 from paddle_tpu_torch.native import build  # noqa: E402
 from paddle_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.ops import flash_attention_bias as fab  # noqa: E402
+from paddle_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from paddle_tpu_torch.ops import quant_ops as qo  # noqa: E402
 
 OUT = os.path.join(build.OUT_DIR, "variants")
 SOURCE = {"b1": "flash_attention.cu", "bwd": "flash_attention_bwd.cu",
-          "b7": "dequant_matmul.cu"}
+          "paged": "paged_attention.cu", "b7": "dequant_matmul.cu"}
 
 
 def compile_all(versions):
@@ -211,8 +221,89 @@ def b7_call(lib, spec, x, q, scale):
     return call
 
 
-def profiler_us(fn, reps=10):
-    """Mean device microseconds of fn's kernels, L2 warm."""
+def paged_call(lib, spec, kernel, args, kw):
+    """A call of one B5/B6 version (``kernel``) on ``args``: through the
+    checkout's wrapper, or (``old_api``) through the entry points that
+    took no workspace and no split plan."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.paddle_cuda_error_string.argtypes = [i]
+    lib.paddle_cuda_error_string.restype = ctypes.c_char_p
+    decode = kernel == "paged_decode_attention"
+    if not spec.get("old_api"):
+        lib.paddle_paged_decode_attention.argtypes = \
+            [p] * 9 + [i] * 7 + [f, i, i, p]
+        lib.paddle_paged_chunk_attention.argtypes = \
+            [p] * 9 + [i] * 9 + [f, i, i, p]
+        pa._library = lambda: lib
+        fn = pa.paged_decode_attention if decode else pa.paged_chunk_attention
+        plan = spec.get("plan", {})
+
+        def call():
+            saved = {k: getattr(pa, k) for k in plan}
+            for k, v in plan.items():
+                setattr(pa, k, v)
+            try:
+                return fn(*args, **kw)
+            finally:
+                for k, v in saved.items():
+                    setattr(pa, k, v)
+        return call
+    entry = (lib.paddle_paged_decode_attention if decode
+             else lib.paddle_paged_chunk_attention)
+    entry.argtypes = [p] * 8 + [i] * (5 if decode else 6) + [f, i, i, p]
+    q, kp, vp, table, lens = args
+
+    def call():
+        out = torch.empty_like(q)
+        ptr = (lambda t: None if t is None else t.data_ptr())
+        rc = entry(ptr(q), ptr(kp), ptr(vp), ptr(kw["k_scales"]),
+                   ptr(kw["v_scales"]), ptr(table), ptr(lens), ptr(out),
+                   *q.shape, kp.shape[1], table.shape[1],
+                   1.0 / math.sqrt(q.shape[-1]), pa._DTYPE_CODES[q.dtype],
+                   pa._DTYPE_CODES[kp.dtype],
+                   torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+        return out
+    return call
+
+
+def paged_rows(gen, dev, libs, versions, only, flush):
+    """B5 and B6 versions on chip_smoke's paged cases, beside SDPA on K/V
+    gathered to dense."""
+    for label, kernel, c, kv in cs.paged_cases(gen, dev):
+        if only and label not in only:
+            continue
+        q, lens = c["q"], c["row_lengths"]
+        decode = kernel == "paged_decode_attention"
+        if decode:
+            q, lens = q[:, 0].contiguous(), lens[:, 0].contiguous()
+            plain = pa.paged_decode_attention_reference
+        else:
+            plain = pa.paged_chunk_attention_reference
+        args = (q, c["k_pages"], c["v_pages"], c["page_table"], lens)
+        kw = dict(k_scales=c["k_scales"], v_scales=c["v_scales"])
+        ref = plain(*args, **kw)
+
+        def check(out):
+            cs.check_close(label, out, ref, q.dtype, kv)
+            return cs.tolerance_share(out, ref, kv)
+        sq, sk, sv, mask = cs.sdpa_inputs(c, kv)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            sq, sk, sv, attn_mask=mask)
+        row = {"sdpa": [cs.cuda_ms(sdpa, flush), profiler_us(sdpa)]}
+        for (kind, tag), lib in libs.items():
+            if kind == "paged":
+                spec = versions["paged"][tag]
+                row[tag] = measure(paged_call(lib, spec, kernel, args, kw),
+                                   check if spec.get("check", True)
+                                   else (lambda _out: None),
+                                   flush, by_kernel=True)
+        print(json.dumps({"paged": label, **row}), flush=True)
+
+
+def profiler_by_kernel(fn, reps=10):
+    """Mean device microseconds of fn's kernels by name, L2 warm."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -221,14 +312,26 @@ def profiler_us(fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(cs.device_time_by_kernel(prof).values()) / reps
+    return {k: v / reps for k, v in cs.device_time_by_kernel(prof).items()}
 
 
-def measure(fn, check, flush):
+def profiler_us(fn, reps=10):
+    """Mean device microseconds of fn's kernels, L2 warm."""
+    return sum(profiler_by_kernel(fn, reps).values())
+
+
+def measure(fn, check, flush, by_kernel=False):
+    """[cuda_ms, profiler µs, share of the tolerance] of one version (and
+    its profiler µs by kernel name); a failed version is reported, not
+    fatal."""
     try:
         share = check(fn())
-        return [cs.cuda_ms(fn, flush), profiler_us(fn), share]
-    except Exception as e:  # a failed version is reported, not fatal
+        row = [cs.cuda_ms(fn, flush), profiler_us(fn), share]
+        if by_kernel:
+            row.append({re.sub(r"^void |<.*", "", k): v
+                        for k, v in profiler_by_kernel(fn).items()})
+        return row
+    except Exception as e:  # noqa: BLE001
         return "FAIL " + repr(e)[:300]
 
 
@@ -236,6 +339,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--b1", default="{}", help="B1/B2 versions (JSON)")
     ap.add_argument("--bwd", default="{}", help="B3/B4 versions (JSON)")
+    ap.add_argument("--paged", default="{}", help="B5/B6 versions (JSON)")
     ap.add_argument("--b7", default="{}", help="B7 versions (JSON)")
     ap.add_argument("--only", default="", help="comma-separated cases")
     args = ap.parse_args()
@@ -243,7 +347,7 @@ def main():
         print("chip_variants: no CUDA device", file=sys.stderr)
         return 1
     versions = {"b1": json.loads(args.b1), "bwd": json.loads(args.bwd),
-                "b7": json.loads(args.b7)}
+                "paged": json.loads(args.paged), "b7": json.loads(args.b7)}
     only = set(filter(None, args.only.split(",")))
     cs.phase_device()
     libs = compile_all(versions)
@@ -251,6 +355,8 @@ def main():
     l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     cs.warm_card(dev)
     gen = torch.Generator().manual_seed(0)
+    if versions["paged"]:
+        paged_rows(gen, dev, libs, versions, only, l2.zero_)
     for label, b, h, s, d, dtype, bias_kind, causal in cs.FLASH_CASES:
         if only and label not in only:
             continue
