@@ -140,12 +140,40 @@ Phases, each printing JSON lines:
                directory runs on the CPU (every kernel's plain version): at
                batch 2, in int8 and fp8, its carriers and scales equal the
                card's bit for bit, and in every mode its outputs agree with
-               the card's within ``INFER_ORACLE_TOL``.
+               the card's within ``INFER_ORACLE_TOL``;
+15. resnet  -- ResNet-50 training as ``bench.py``'s ``bench_resnet`` drives it,
+               through the port at full width (224x224x3, the v1.5 trunk,
+               1000 classes; random weights from the program's seed):
+               ``vision.resnet50_train_program(lr=0.1, momentum=0.9)``,
+               ``decorate(opt, use_bf16=True).minimize(loss)``,
+               ``Executor()`` on the card, the startup program, a warm
+               ``run_steps(steps=3)``, then 10 synced steps at batch 128
+               (halved while it does not fit, logged as ``reduced``), the
+               feed on the card beforehand.  Convolutions, pooling and batch
+               norm run on cuDNN / ATen (``cudnn.benchmark`` off): no
+               hand-written kernel is on this path, and the launch counters
+               of B1-B7, zeroed just before, must read 0 just after.  Step
+               p50, images/s, peak memory, the losses (finite);
+16. resnet_profile -- one such step under ``torch.profiler``: the device's
+               busy share, its 15 largest kernels by name, and host and
+               device time by op type (``conv2d``, ``conv2d_grad``,
+               ``batch_norm``, ``batch_norm_grad``, ``relu``, ``cast``,
+               ``momentum``, ``sum`` on their own; the generic gradients'
+               replayed forwards: ``relu`` and ``pool2d``);
+17. resnet_oracle -- float32 (no AMP), batch 4, full width, lr 1e-3: one
+               startup on the card copied to a CPU scope, 3 steps on the card
+               and 3 through ``Executor(CPUPlace())`` (the path the tier-1
+               tests hold to the JAX package), TF32 off for cuBLAS and cuDNN
+               (set below), ``cudnn.benchmark`` off: per-step losses within
+               1e-4 relative, the 106 running statistics and 161 parameters
+               within 1e-4 of each tensor's largest magnitude, and the loss
+               fell.
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
 device it exits 1 before doing anything.
 """
+import gc
 import json
 import math
 import os
@@ -296,6 +324,21 @@ DEQUANT_CASES = (
     ("pooler_b32_f32_int8", 32, 768, 768, "float32", "int8"),
     ("nsp_b32_f32_fp8", 32, 768, 2, "float32", "fp8_e4m3"),
 )
+# ResNet-50 training (bench.py's bench_resnet, BASELINE configs 2/4) at full
+# width: 224x224x3, the v1.5 trunk, 1000 classes, bf16 AMP, momentum 0.9,
+# lr 0.1, the benchmark's batch; a batch that does not fit beside the eager
+# executor's kept values is halved until it does (logged as reduced).
+RESNET_BATCH, RESNET_STEPS, RESNET_IMG = 128, 10, (3, 224, 224)
+# The op types the ResNet profile reports on their own.
+RESNET_OP_TYPES = ("conv2d", "conv2d_grad", "batch_norm", "batch_norm_grad",
+                   "relu", "relu_grad", "cast", "momentum", "sum")
+# ResNet oracle: float32 at batch 4, the card against the port's CPU path
+# (the path the tier-1 tests hold to the JAX package): each op of a step on
+# the card's inputs, and the first step's loss, within 1e-4 of the largest
+# magnitude (float32 summation order on cuDNN and on the CPU's kernels; the
+# largest seen on an H100, 2e-5, is cuDNN's float32 3x3 filter gradient).
+# lr 1e-3, where 3 momentum steps on one batch do not overshoot.
+RESNET_ORACLE_BATCH, RESNET_ORACLE_LR, RESNET_ORACLE_RTOL = 4, 1e-3, 1e-4
 # The served model (infer phases): BERT-base's encoder and NSP head.
 INFER_BATCHES, INFER_RUNS = (1, 8, 32), 10
 INFER_MODES = ("", "int8", "fp8_e4m3")
@@ -1395,11 +1438,12 @@ def op_ranges():
 
 def phase_train_profile(run, phase="train_profile",
                         kernels=(("b1", "flash_fwd_mma_kernel"),),
-                        op_types=()):
+                        op_types=(), top_kernels=10):
     """One BERT-base step or inference run (``run()``) under
     torch.profiler: the device's busy share of its host time, its time by
     kernel (``kernels``: (label, name part) of the hand-written kernels it
-    must have run), and host and device time by op type (``op_types``:
+    must have run; none on a path without them), the ``top_kernels``
+    largest by name, and host and device time by op type (``op_types``:
     types reported on their own).  A ``<type>_grad`` op without a
     lowering of its own takes the generic gradient, which runs
     ``<type>``'s forward again under autograd: the time of those forward
@@ -1442,7 +1486,7 @@ def phase_train_profile(run, phase="train_profile",
                 if t.endswith("_grad") and t not in LOWERINGS}
     by_type = {t: [count[t], host[t], dev[t]]
                for t in sorted(host, key=lambda t: -host[t])}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_kernels]
     log(phase, step_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
         device_busy_share=busy_us / wall_us,
         **{f"{label}_device_ms": t / 1e3 for label, t in ours.items()},
@@ -1812,6 +1856,283 @@ def phase_infer_oracle(model_dir, card_preds):
     log("infer_oracle", batch=2, tolerance=INFER_ORACLE_TOL, **report)
 
 
+# ---- ResNet-50 static training (no hand-written kernel on its path) ---------
+
+
+def build_resnet(amp, lr=0.1):
+    """ResNet-50 training as bench.py's ``bench_resnet`` builds it."""
+    from paddle_tpu_torch.vision import resnet50_train_program
+
+    with unique_name.guard():
+        main, startup, _feeds, loss, opt = resnet50_train_program(
+            lr=lr, momentum=0.9, img_shape=RESNET_IMG)
+        main.random_seed = 1
+        with program_guard(main, startup):
+            (decorate(opt, use_bf16=True) if amp else opt).minimize(loss)
+    return main, startup, loss
+
+
+def resnet_feed(batch, seed=0):
+    """bench_resnet's synthetic batch: float32 images, int32 labels."""
+    rng = np.random.RandomState(seed)
+    return {"image": rng.randn(batch, *RESNET_IMG).astype("float32"),
+            "label": rng.randint(0, 1000, (batch, 1)).astype("int32")}
+
+
+# (label, wrapper) of every hand-written kernel
+KERNEL_WRAPPERS = (("b1", fab.flash_attention_bias),
+                   ("b2", fa.flash_attention_fwd),
+                   ("b3", fa.flash_attention_bwd_dq),
+                   ("b4", fa.flash_attention_bwd_dkv),
+                   ("b5", pa.paged_decode_attention),
+                   ("b6", pa.paged_chunk_attention),
+                   ("b7", qo.dequant_matmul))
+
+
+def kernel_launches():
+    return {label: fn.launches for label, fn in KERNEL_WRAPPERS}
+
+
+def zero_kernel_launches():
+    fab.reset_launch_count()
+    fa.reset_launch_counts()
+    pa.reset_launch_counts()
+    qo.dequant_matmul.launches = 0
+
+
+def conv_flops(main, batch):
+    """Multiply-adds x 2 of one training step's convolutions, from the
+    program's shapes: each forward, its filter gradient and, where the
+    program asks for one, its input gradient."""
+    block = main.global_block
+    wants_dx = {op.inputs["Input"][0] for op in block.ops
+                if op.type == "conv2d_grad"
+                and any(op.outputs.get("Input@GRAD", []))}
+    cast_from = {op.outputs["Out"][0]: op.inputs["X"][0]
+                 for op in block.ops if op.type == "cast"}   # AMP's casts
+    total = 0
+    for op in block.ops:
+        if op.type != "conv2d":
+            continue
+        out = block.var(op.outputs["Output"][0]).shape
+        w = op.inputs["Filter"][0]
+        w = block.var(cast_from.get(w, w)).shape
+        fwd = 2 * batch * math.prod(out[1:]) * math.prod(w[1:])
+        total += fwd * (3 if op.inputs["Input"][0] in wants_dx else 2)
+    return total
+
+
+def resnet_train(batch):
+    """Startup, a warm ``run_steps(steps=3)``, then RESNET_STEPS synced
+    steps at ``batch`` on the card, the feed on the card beforehand (as
+    bench_resnet puts it there once)."""
+    main, startup, loss = build_resnet(amp=True)
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.monotonic() - t0
+    feed = {k: torch.from_numpy(v).to(exe.device)
+            for k, v in resnet_feed(batch).items()}
+    zero_kernel_launches()      # the path's counts start here
+    before = kernel_launches()
+    t0 = time.monotonic()
+    warm = exe.run_steps(main, feed=feed, fetch_list=[loss], scope=scope,
+                         steps=3)[0]
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    step_ms, losses = [], []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      return_numpy=False)[0]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.ravel()[0]))
+    losses = [float(x) for x in warm.float().cpu().ravel()] + losses
+    report = dict(program_ops=len(main.global_block.ops),
+                  startup_s=startup_s, warm_run_steps_3_s=warm_s,
+                  step_ms=step_ms, losses=losses,
+                  launches_before=before, launches_after=kernel_launches(),
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return report, (exe, main, feed, loss, scope)
+
+
+def phase_resnet():
+    """bench_resnet's configuration through the port, at the largest
+    power-of-two batch up to RESNET_BATCH that fits."""
+    batch, reduced = RESNET_BATCH, []
+    while True:
+        try:
+            report, state = resnet_train(batch)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            reason = f"batch {batch} ran out of device memory: " \
+                     f"{str(e).splitlines()[0][:300]}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        reduced.append(reason)
+        batch //= 2
+        if batch < 8:
+            raise RuntimeError(f"ResNet-50 does not fit: {reduced}")
+    losses = report["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"ResNet-50 losses not finite: {losses}")
+    if any(report["launches_after"].values()):
+        raise RuntimeError(f"the ResNet path launched hand-written kernels: "
+                           f"{report['launches_after']}")
+    p50 = float(np.median(report["step_ms"]))
+    flops = conv_flops(state[1], batch)
+    _bw, peaks = card_peaks(torch.cuda.get_device_name(0))
+    log("resnet", model="resnet50_v1.5", batch=batch, image=RESNET_IMG,
+        classes=1000, amp="bfloat16", optimizer="momentum 0.9, lr 0.1",
+        steps=RESNET_STEPS, step_ms_p50=p50,
+        images_per_s=batch / (p50 / 1e3), reduced=reduced,
+        conv_tflop_per_step=flops / 1e12,
+        conv_bf16_bound_ms=flops / peaks["bfloat16"] * 1e3,
+        cudnn_benchmark=torch.backends.cudnn.benchmark, **report)
+    return state
+
+
+def rel_err(a, b):
+    """Largest |a - b| over ``a``'s largest magnitude, in float64."""
+    if not a.numel():
+        return 0.0
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
+
+
+def replay_step(exe, main, feed, fetch, scope):
+    """One step of ``main`` on the card, op by op as ``Executor.run`` runs
+    it, with each op's lowering run again on the CPU from host copies of
+    the same inputs; the step's state is written back to ``scope``.
+    Returns the fetch's value and [(op type, output, rel_err)] of every
+    floating output."""
+    from paddle_tpu_torch.framework.executor import _feed_tensors
+    from paddle_tpu_torch.framework.lowering import (LoweringContext,
+                                                     PSEUDO_OPS, get_lowering)
+
+    feeds = _feed_tensors(main.global_block, feed, exe.device)
+    main = exe._apply_graph_passes(main, (fetch,), feeds, scope)
+    block = main.global_block
+    state_in, state_out = exe._analysis(main, set(feeds), scope)
+    env = {n: scope.get_var(n) for n in state_in}
+    env.update(feeds)
+    ctx = LoweringContext(block, env, exe.device,
+                          exe._generator(scope, main))
+    cpu, errs = torch.device("cpu"), []
+    with torch.no_grad():
+        for op in block.ops:
+            if op.type in PSEUDO_OPS:
+                continue
+            host = {n: env[n].cpu() for n in op.input_arg_names()}
+            get_lowering(op.type)(ctx, op)
+            get_lowering(op.type)(LoweringContext(block, host, cpu), op)
+            for n in dict.fromkeys(op.output_arg_names()):
+                if env[n].is_floating_point():
+                    errs.append((op.type, n, rel_err(env[n], host[n])))
+    for n in state_out:
+        scope.set_var(n, env[n])
+    return env[fetch], errs
+
+
+def host_copy(scope):
+    out = pt.framework.Scope()
+    for n in scope.local_var_names():
+        v = scope.get_var(n)
+        if isinstance(v, torch.Tensor):
+            out.set_var(n, v.cpu().clone())
+    return out
+
+
+def phase_resnet_oracle():
+    """float32, batch 4, full width: one startup on the card, copied to
+    CPU scopes.  Step 1 on the card is replayed op by op on the CPU (the
+    kernels' plain versions and ATen's CPU convolutions, the path the
+    tier-1 tests hold to the JAX package), from the card's inputs: every
+    output within RESNET_ORACLE_RTOL, the 106 running statistics and the
+    161 parameters among them.  Then steps 2-3 on the card, and 3 steps
+    on the CPU from the startup's copy: the step-1 losses within the
+    tolerance, the loss falls on both.  The later steps' gaps are
+    reported beside the CPU's own gap when its image moves by one float32
+    ulp: a ReLU network's float32 gradient is not continuous at that
+    scale (ReLU masks flip near 0), so no two float32 runs follow one
+    trajectory to 1e-4 (``tools/resnet_divergence.py`` measures how far
+    one step's gradients part, card against CPU and CPU against itself)."""
+    main, startup, loss = build_resnet(amp=False, lr=RESNET_ORACLE_LR)
+    exe = pt.Executor()
+    card = pt.framework.Scope()
+    exe.run(startup, scope=card)
+    host, host_ulp = host_copy(card), host_copy(card)
+    feed = resnet_feed(RESNET_ORACLE_BATCH, seed=1)
+    feed_ulp = dict(feed, image=np.nextafter(feed["image"],
+                                             np.float32(np.inf)))
+    t0 = time.monotonic()
+    first, errs = replay_step(exe, main, feed, loss.name, card)
+    replay_s = time.monotonic() - t0
+    later = exe.run_steps(main, feed=feed, fetch_list=[loss], scope=card,
+                          steps=2, return_numpy=True)[0]
+    card_l = [float(first.ravel()[0])] + [float(x) for x in later.ravel()]
+    cpu_exe = pt.Executor(pt.CPUPlace())
+    t0 = time.monotonic()
+    cpu_l, ulp_l = ([float(x) for x in cpu_exe.run_steps(
+        main, feed=fd, fetch_list=[loss], scope=sc, steps=3,
+        return_numpy=True)[0].ravel()]
+        for fd, sc in ((feed, host), (feed_ulp, host_ulp)))
+    cpu_s = time.monotonic() - t0
+    block = main.global_block
+    stats = {n for op in block.ops if op.type == "batch_norm"
+             for n in op.outputs["MeanOut"] + op.outputs["VarianceOut"]}
+    params = {p.name for p in main.all_parameters()}
+    by_type = {}
+    for t, _n, e in errs:
+        by_type[t] = max(by_type.get(t, 0.0), e)
+    worst = max(errs, key=lambda r: r[2])
+    stat_errs = [e for t, n, e in errs if t == "batch_norm" and n in stats]
+    param_errs = [e for t, n, e in errs if t == "momentum" and n in params]
+
+    def gaps(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    def state_gap(a, b, names):
+        return max(rel_err(a.get_var(n), b.get_var(n)) for n in names)
+
+    log("resnet_oracle", batch=RESNET_ORACLE_BATCH, dtype="float32",
+        steps=3, lr=RESNET_ORACLE_LR, tf32=torch.backends.cuda.matmul.
+        allow_tf32, cudnn_tf32=torch.backends.cudnn.allow_tf32,
+        cudnn_benchmark=torch.backends.cudnn.benchmark,
+        replayed_outputs=len(errs), replay_max_rel_err=list(worst),
+        replay_max_rel_err_by_type=by_type,
+        running_stats=len(stat_errs), running_stats_max_rel_err=max(
+            stat_errs), parameters=len(param_errs),
+        parameters_max_rel_err=max(param_errs), tolerance=RESNET_ORACLE_RTOL,
+        losses_card=card_l, losses_cpu=cpu_l, losses_cpu_image_ulp=ulp_l,
+        loss_rel_gaps_card_cpu=gaps(card_l, cpu_l),
+        loss_rel_gaps_cpu_ulp=gaps(ulp_l, cpu_l),
+        step3_state_max_rel_gap_card_cpu=[
+            state_gap(card, host, stats), state_gap(card, host, params)],
+        step3_state_max_rel_gap_cpu_ulp=[
+            state_gap(host_ulp, host, stats),
+            state_gap(host_ulp, host, params)],
+        replay_s=replay_s, cpu_trajectories_s=cpu_s)
+    if (len(stat_errs), len(param_errs)) != (106, 161):
+        raise RuntimeError(f"{len(stat_errs)} running statistics and "
+                           f"{len(param_errs)} parameters replayed, want "
+                           f"106 and 161")
+    if worst[2] > RESNET_ORACLE_RTOL:
+        raise RuntimeError(f"the card's {worst[0]} output {worst[1]} is "
+                           f"{worst[2]} from the CPU's on the same inputs "
+                           f"(> {RESNET_ORACLE_RTOL})")
+    if not all(math.isfinite(x) for x in card_l + cpu_l) \
+            or gaps(card_l, cpu_l)[0] > RESNET_ORACLE_RTOL:
+        raise RuntimeError(f"card vs CPU losses {card_l} vs {cpu_l}: step 1 "
+                           f"apart by more than {RESNET_ORACLE_RTOL}")
+    if not (card_l[2] < card_l[0] and cpu_l[2] < cpu_l[0]):
+        raise RuntimeError(f"the loss did not fall: {card_l}, {cpu_l}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script measures "
@@ -1875,6 +2196,12 @@ def main():
             flags.set_flags({"weight_quant": "", "flash_attention": "auto"})
         del preds, pred
     torch.cuda.empty_cache()
+    state = phase_resnet()
+    phase_train_profile(lambda: exe_run(state), phase="resnet_profile",
+                        kernels=(), op_types=RESNET_OP_TYPES, top_kernels=15)
+    del state
+    torch.cuda.empty_cache()
+    phase_resnet_oracle()
     kernels = []
     main_case = TRAIN_FLASH_CASES[0][0]
     for kernel, case in (("paged_decode_attention", "decode_float32"),

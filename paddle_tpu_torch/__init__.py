@@ -20,7 +20,11 @@ imports), ported slice by slice:
    then ``inference.create_predictor(inference.Config(dir))``, with
    ``FLAGS_weight_quant`` (or ``slim.mark_weight_quant``) arming the
    weight-quant pass, whose ``dequant_matmul`` ops run the dequant-fused
-   matmul kernel of ``ops/quant_ops.py`` (``csrc/dequant_matmul.cu``).
+   matmul kernel of ``ops/quant_ops.py`` (``csrc/dequant_matmul.cu``);
+5. static-graph ResNet-50 training (``vision.resnet50_train_program``,
+   SGD with momentum, bf16 AMP): convolution, pooling and batch norm on
+   cuDNN / ATen with explicit convolution and batch-norm gradients
+   (``ops/nn_ops.py``); no hand-written kernel runs on this path.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, ``CPUPlace()``); importing the package builds no

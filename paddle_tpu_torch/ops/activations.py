@@ -1,7 +1,8 @@
-"""Activation ops: ``tanh`` and ``gelu``.
+"""Activation ops: ``relu``, ``tanh`` and ``gelu``.
 
 Counterpart of ``paddle_tpu/ops/activations.py``, limited to the op
-types the static BERT program emits (the rest come with later slices).
+types the static BERT and ResNet programs emit (the rest come with later
+slices).  ``relu_grad`` takes the generic gradient.
 ``gelu`` takes ``approximate`` from the op's attribute: the tanh form
 when set, the exact erf form otherwise (``jax.nn.gelu`` and
 ``torch.nn.functional.gelu`` agree on both).
@@ -12,6 +13,11 @@ import torch
 import torch.nn.functional as F
 
 from ..framework.lowering import register_lower
+
+
+@register_lower("relu")
+def _relu(ctx, op):
+    ctx.set_out(op, "Out", torch.relu(ctx.in1(op, "X")))
 
 
 @register_lower("tanh")

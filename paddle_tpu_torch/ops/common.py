@@ -11,9 +11,12 @@ torch is not jax:
   promotion would give.  torch lets a 0-dim tensor's type lose against a
   dimensioned one (``bf16[B,S] + f32[]`` is bf16 in torch, f32 in jax);
   the programs' dtypes were decided under jax's rule.
+
+``adaptive_windows`` is the JAX module's, unchanged (numpy only).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..framework import dtypes
@@ -64,3 +67,15 @@ def as_scalar(x):
     """Ops like adam receive the learning rate as a [1] tensor."""
     return x.reshape(()) if isinstance(x, torch.Tensor) and x.numel() == 1 \
         else x
+
+
+def adaptive_windows(size: int, out_size: int):
+    """Adaptive-pool window indices (reference AdaptiveStartIndex/
+    AdaptiveEndIndex: cell i covers [floor(i*S/O), ceil((i+1)*S/O))):
+    returns (idx [out, maxw] clipped, valid mask, maxw)."""
+    starts = (np.arange(out_size) * size) // out_size
+    ends = -(-(np.arange(1, out_size + 1) * size) // out_size)  # ceil
+    maxw = int((ends - starts).max())
+    idx = starts[:, None] + np.arange(maxw)[None, :]
+    valid = idx < ends[:, None]
+    return np.minimum(idx, size - 1), valid, maxw

@@ -1,8 +1,9 @@
 """Creation and random ops: ``fill_constant``, ``assign``,
-``gaussian_random``, ``dropout`` (+ grad).
+``gaussian_random``, ``uniform_random``, ``dropout`` (+ grad).
 
 Counterpart of ``paddle_tpu/ops/creation.py``, limited to the op types
-the static BERT program and its startup program emit, and ``assign``,
+the static BERT and ResNet programs and their startup programs emit
+(``uniform_random`` initializes ResNet's fc weight), and ``assign``,
 which the redundant-cast pass leaves where a cast was (the rest come
 with later slices).  Random ops draw from the executor's
 ``torch.Generator`` (``ops/common.op_generator``); the JAX package draws
@@ -47,6 +48,16 @@ def _gaussian_random(ctx, op):
     z = torch.randn(shape, generator=op_generator(ctx, op),
                     dtype=torch.float32, device=ctx.device)
     ctx.set_out(op, "Out", (mean + std * z).to(attr_dtype(op)))
+
+
+@register_lower("uniform_random")
+def _uniform_random(ctx, op):
+    shape = [int(s) for s in op.attr("shape", [])]
+    lo = float(op.attr("min", -1.0))
+    hi = float(op.attr("max", 1.0))
+    u = torch.rand(shape, generator=op_generator(ctx, op),
+                   dtype=torch.float32, device=ctx.device)
+    ctx.set_out(op, "Out", (lo + (hi - lo) * u).to(attr_dtype(op)))
 
 
 @register_lower("dropout")

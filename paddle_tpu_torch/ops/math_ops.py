@@ -1,12 +1,13 @@
-"""Math ops: ``mul``, ``matmul``, the elementwise family, ``sum``,
-reductions.
+"""Math ops: ``mul``, ``matmul``, the elementwise family, ``scale``,
+``sum``, reductions.
 
 Counterpart of ``paddle_tpu/ops/math_ops.py``, limited to the op types
-the static BERT program emits, fused or unfused (the rest come with later
-slices).  Reference parity: operators/mul_op.cc, matmul_op.cc,
-elementwise/*, sum_op.cc, reduce_ops/*, mean_op.cc.  ``mul`` and
-``matmul`` are one ``torch.matmul`` each: large matrix products outside
-any kernel of the port.  ``matmul_grad`` takes the generic gradient.
+the static BERT program emits, fused or unfused, and ``scale`` (the
+``uint8_input`` head of the ResNet program); the rest come with later
+slices.  Reference parity: operators/mul_op.cc, matmul_op.cc,
+elementwise/*, scale_op.cc, sum_op.cc, reduce_ops/*, mean_op.cc.  ``mul``
+and ``matmul`` are one ``torch.matmul`` each: large matrix products
+outside any kernel of the port.  ``matmul_grad`` takes the generic gradient.
 """
 from __future__ import annotations
 
@@ -88,6 +89,24 @@ def _make_binary(fn):
 
 for _name, _fn in _BINARY.items():
     register_lower(_name)(_make_binary(_fn))
+
+
+@register_lower("scale")
+def _scale(ctx, op):
+    """``x * scale + bias`` (or ``(x + bias) * scale``), computed in the
+    type jax's promotion gives (a ``ScaleTensor`` is float32) and
+    returned in ``x.dtype``."""
+    x = ctx.in1(op, "X")
+    s_in = ctx.in_list(op, "ScaleTensor")
+    scale = s_in[0].reshape(()) if s_in else float(op.attr("scale", 1.0))
+    bias = torch.tensor(float(op.attr("bias", 0.0)), dtype=x.dtype,
+                        device=x.device)
+    xs = promote(x, scale)[0] if s_in else x
+    if bool(op.attr("bias_after_scale", True)):
+        out = xs * scale + bias
+    else:
+        out = (xs + bias) * scale
+    ctx.set_out(op, "Out", out.to(x.dtype))
 
 
 @register_lower("sum")

@@ -1,13 +1,30 @@
-"""NN ops: ``softmax``, ``softmax_with_cross_entropy`` (+ grad) and
-``layer_norm``.
+"""NN ops: ``conv2d`` / ``depthwise_conv2d`` (+ grad), ``pool2d``,
+``batch_norm`` / ``sync_batch_norm`` (+ grad), ``softmax``,
+``softmax_with_cross_entropy`` (+ grad) and ``layer_norm``.
 
 Counterpart of ``paddle_tpu/ops/nn_ops.py``, limited to the op types the
-static BERT program emits, fused or unfused (the rest come with later
-slices).  Reference parity: operators/softmax_op.cc (``softmax_grad``
-takes the generic gradient), softmax_with_cross_entropy_op.h (``ignore_index``
-positions carry zero loss and zero gradient, whatever its sign) and
-layer_norm_op.cc (``begin_norm_axis``; ``Mean``/``Variance`` outputs
-flattened to the leading dims).
+static BERT and ResNet programs emit (the rest come with later slices).
+Reference parity: operators/conv_op.cc, pool_op.cc, batch_norm_op.cc,
+softmax_op.cc (``softmax_grad`` takes the generic gradient),
+softmax_with_cross_entropy_op.h (``ignore_index`` positions carry zero
+loss and zero gradient, whatever its sign) and layer_norm_op.cc
+(``begin_norm_axis``; ``Mean``/``Variance`` outputs flattened to the
+leading dims).
+
+Convolution and pooling run on cuDNN / ATen (``F.conv2d``,
+``F.max_pool2d``; the JAX package's are XLA ops, not Pallas kernels), in
+NCHW with OIHW filters; NHWC inputs are transposed in and out, as the JAX
+lowering does.  Both pad symmetrically only, so an asymmetric pair
+(``SAME`` on even sizes, 4-element ``paddings``) is padded with ``F.pad``
+first.  ``pool2d`` ignores ``ceil_mode``, as the JAX lowering does.
+
+The JAX package differentiates conv and batch norm with ``jax.vjp`` of
+these lowerings inside one XLA computation.  Run eagerly, the generic
+gradient would replay each forward (``grad_generic.py``), so
+``conv2d_grad`` is one ``aten.convolution_backward`` call (cuDNN's data
+and filter gradients) and ``batch_norm_grad`` the reference's closed
+form; both compute the function ``jax.vjp`` gives.  ``pool2d_grad``
+takes the generic gradient.
 """
 from __future__ import annotations
 
@@ -15,6 +32,293 @@ import torch
 import torch.nn.functional as F
 
 from ..framework.lowering import register_lower
+from .common import adaptive_windows
+
+# ---------------------------------------------------------------------------
+# convolution
+# ---------------------------------------------------------------------------
+
+
+def _conv_paddings(paddings, padding_algorithm, ksize, strides, dilations,
+                   in_hw):
+    """Resolve reference padding semantics -> ((lo, hi), ...) pairs."""
+    nd = len(ksize)
+    if padding_algorithm == "VALID":
+        return [(0, 0)] * nd
+    if padding_algorithm == "SAME":
+        pads = []
+        for i in range(nd):
+            eff = (ksize[i] - 1) * dilations[i] + 1
+            out = -(-in_hw[i] // strides[i])
+            total = max(0, (out - 1) * strides[i] + eff - in_hw[i])
+            pads.append((total // 2, total - total // 2))
+        return pads
+    paddings = [int(p) for p in paddings]
+    if len(paddings) == nd:
+        return [(p, p) for p in paddings]
+    if len(paddings) == 2 * nd:
+        return [(paddings[2 * i], paddings[2 * i + 1]) for i in range(nd)]
+    raise ValueError(f"bad paddings {paddings}")
+
+
+def _torch_pad(pads):
+    """((h_lo, h_hi), (w_lo, w_hi)) as ``F.pad``'s last-dim-first list."""
+    (h_lo, h_hi), (w_lo, w_hi) = pads
+    return [w_lo, w_hi, h_lo, h_hi]
+
+
+def _conv_geometry(op, x, w):
+    """(x in NCHW, padded first where its padding is asymmetric; the
+    ``F.conv2d`` arguments; the (lo, hi) pads; whether x was NHWC)."""
+    strides = [int(s) for s in op.attr("strides", [1, 1])]
+    dilations = [int(d) for d in op.attr("dilations", [1, 1])]
+    groups = int(op.attr("groups", 1) or 1)
+    nhwc = (op.attr("data_format", "NCHW") or "NCHW") in ("NHWC", "NDHWC")
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    if op.type.startswith("depthwise_conv2d"):
+        groups = x.shape[1]
+    pads = _conv_paddings(op.attr("paddings", [0, 0]),
+                          op.attr("padding_algorithm", "EXPLICIT"),
+                          w.shape[2:], strides, dilations, x.shape[2:])
+    if all(lo == hi for lo, hi in pads):
+        padding = [lo for lo, _ in pads]
+    else:
+        x, padding = F.pad(x, _torch_pad(pads)), [0, 0]
+    return x, dict(stride=strides, padding=padding, dilation=dilations,
+                   groups=groups), pads, nhwc
+
+
+@register_lower("conv2d", "depthwise_conv2d")
+def _conv2d(ctx, op):
+    w = ctx.in1(op, "Filter")  # OIHW
+    x, conv, _pads, nhwc = _conv_geometry(op, ctx.in1(op, "Input"), w)
+    out = F.conv2d(x, w, **conv)
+    ctx.set_out(op, "Output", out.permute(0, 2, 3, 1) if nhwc else out)
+
+
+@register_lower("conv2d_grad", "depthwise_conv2d_grad")
+def _conv2d_grad(ctx, op):
+    """Input@GRAD and Filter@GRAD from one ``convolution_backward`` call,
+    in the forward's dtypes; an asymmetric pad is applied to x first and
+    cropped off its gradient."""
+    x0 = ctx.in1(op, "Input")
+    w = ctx.in1(op, "Filter")
+    dy = ctx.in1(op, "Output@GRAD")
+    x, conv, pads, nhwc = _conv_geometry(op, x0, w)
+    if nhwc:
+        dy = dy.permute(0, 3, 1, 2)
+    want_x = bool(ctx.out_name(op, "Input@GRAD"))
+    want_w = bool(ctx.out_name(op, "Filter@GRAD"))
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        dy.to(x.dtype).contiguous(), x.contiguous(), w, None, conv["stride"],
+        conv["padding"], conv["dilation"], False, [0, 0], conv["groups"],
+        [want_x, want_w, False])
+    if want_x:
+        if conv["padding"] == [0, 0] and any(map(any, pads)):
+            (h_lo, h_hi), (w_lo, w_hi) = pads
+            dx = dx[:, :, h_lo:dx.shape[2] - h_hi, w_lo:dx.shape[3] - w_hi]
+        if nhwc:
+            dx = dx.permute(0, 2, 3, 1)
+        ctx.set_out(op, "Input@GRAD", dx.to(x0.dtype))
+    if want_w:
+        ctx.set_out(op, "Filter@GRAD", dw.to(w.dtype))
+
+
+# ---------------------------------------------------------------------------
+# pooling
+# ---------------------------------------------------------------------------
+
+
+def _lowest(dtype):
+    return float("-inf") if dtype.is_floating_point \
+        else torch.iinfo(dtype).min
+
+
+def _adaptive_pool_1d(x, axis, out_size, ptype):
+    """Adaptive pooling along one axis with arbitrary output size: gather
+    each cell's window (fixed max width) and reduce under a validity
+    mask.  Dtype-preserving like the divisible-size branch."""
+    ih = int(x.shape[axis])
+    idx, valid, maxw = adaptive_windows(ih, out_size)
+    g = torch.index_select(x, axis, torch.as_tensor(idx.ravel(),
+                                                    device=x.device))
+    new_shape = x.shape[:axis] + (out_size, maxw) + x.shape[axis + 1:]
+    g = g.reshape(new_shape)
+    mshape = [1] * len(new_shape)
+    mshape[axis], mshape[axis + 1] = out_size, maxw
+    m = torch.as_tensor(valid, device=x.device).reshape(mshape)
+    if ptype == "max":
+        return torch.where(m, g, torch.full((), _lowest(g.dtype),
+                                            dtype=g.dtype, device=g.device)
+                           ).amax(dim=axis + 1)
+    counts = torch.as_tensor(valid.sum(1), device=x.device).to(g.dtype)
+    counts = counts.reshape([out_size if i == axis else 1
+                             for i in range(len(new_shape) - 1)])
+    return torch.where(m, g, torch.zeros((), dtype=g.dtype, device=g.device)
+                       ).sum(dim=axis + 1) / counts
+
+
+def _window_pool(x, ptype, ksize, strides, pads, exclusive):
+    """A windowed max or average over NCHW ``x`` with ((lo, hi), (lo, hi))
+    padding; the average divides by the count of real elements
+    (``exclusive``) or by the window's size."""
+    small = all(lo == hi and lo <= k // 2 for (lo, hi), k in zip(pads, ksize))
+    if ptype == "max":
+        if small and x.is_floating_point():
+            return F.max_pool2d(x, ksize, strides, [lo for lo, _ in pads])
+        xp = F.pad(x, _torch_pad(pads), value=_lowest(x.dtype))
+        if x.is_floating_point():
+            return F.max_pool2d(xp, ksize, strides)
+        # integers: ATen's max pooling takes floating types only
+        return xp.unfold(2, ksize[0], strides[0]).unfold(
+            3, ksize[1], strides[1]).amax(dim=(-2, -1))
+    if small:
+        return F.avg_pool2d(x, ksize, strides, [lo for lo, _ in pads],
+                            count_include_pad=not exclusive)
+    s = F.avg_pool2d(F.pad(x, _torch_pad(pads)), ksize, strides,
+                     divisor_override=1)
+    if not exclusive:
+        return s / float(ksize[0] * ksize[1])
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    cnt = F.avg_pool2d(F.pad(ones, _torch_pad(pads)), ksize, strides,
+                       divisor_override=1)
+    return s / cnt
+
+
+@register_lower("pool2d")
+def _pool2d(ctx, op):
+    x = ctx.in1(op, "X")
+    ptype = op.attr("pooling_type", "max")
+    ksize = [int(k) for k in op.attr("ksize", [1, 1])]
+    strides = [int(s) for s in op.attr("strides", [1, 1])]
+    adaptive = bool(op.attr("adaptive", False))
+    nhwc = (op.attr("data_format", "NCHW") or "NCHW") == "NHWC"
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+
+    if bool(op.attr("global_pooling", False)) or (adaptive
+                                                  and ksize == [1, 1]):
+        out = x.amax(dim=(2, 3), keepdim=True) if ptype == "max" \
+            else x.mean(dim=(2, 3), keepdim=True)
+    elif adaptive:
+        oh, ow = ksize
+        ih, iw = x.shape[2:]
+        if ih % oh == 0 and iw % ow == 0:
+            x6 = x.reshape(x.shape[0], x.shape[1], oh, ih // oh, ow,
+                           iw // ow)
+            out = x6.amax(dim=(3, 5)) if ptype == "max" \
+                else x6.mean(dim=(3, 5))
+        else:
+            # non-divisible windows (reference AdaptivePool: cell i pools
+            # [floor(i*I/O), ceil((i+1)*I/O))), separable per axis
+            out = _adaptive_pool_1d(x, 2, oh, ptype)
+            out = _adaptive_pool_1d(out, 3, ow, ptype)
+    else:
+        pads = _conv_paddings(op.attr("paddings", [0, 0]),
+                              op.attr("padding_algorithm", "EXPLICIT"),
+                              ksize, strides, [1, 1], x.shape[2:])
+        out = _window_pool(x, ptype, ksize, strides, pads,
+                           bool(op.attr("exclusive", True)))
+    if nhwc:
+        out = out.permute(0, 2, 3, 1)
+    ctx.set_out(op, "Out", out)
+
+
+# ---------------------------------------------------------------------------
+# normalization
+# ---------------------------------------------------------------------------
+
+
+def _bn_axes(op, x):
+    """(channel axis, reduced axes, broadcast shape of a [C] vector)."""
+    layout = op.attr("data_layout", "NCHW") or "NCHW"
+    caxis = 1 if layout == "NCHW" else x.dim() - 1
+    red = tuple(i for i in range(x.dim()) if i != caxis)
+    bshape = [1] * x.dim()
+    bshape[caxis] = x.shape[caxis]
+    return caxis, red, bshape
+
+
+def _bn_global(op):
+    return bool(op.attr("use_global_stats", False)) \
+        or bool(op.attr("is_test", False))
+
+
+@register_lower("batch_norm", "sync_batch_norm")
+def _batch_norm(ctx, op):
+    """The JAX lowering's arithmetic: statistics in float32 from one-pass
+    moments (``E[x^2] - E[x]^2`` clamped at 0), Y in ``x.dtype`` (bf16
+    under AMP), the running statistics moved with the reference's
+    momentum convention (``momentum * running + (1 - momentum) * batch``,
+    the biased batch variance), ``SavedVariance`` the inverse std.  One
+    process: ``sync_batch_norm`` is ``batch_norm``."""
+    x = ctx.in1(op, "X")
+    scale = ctx.in1(op, "Scale")
+    bias = ctx.in1(op, "Bias")
+    mean = ctx.in1(op, "Mean")
+    var = ctx.in1(op, "Variance")
+    eps = float(op.attr("epsilon", 1e-5))
+    momentum = float(op.attr("momentum", 0.9))
+    _caxis, red, bshape = _bn_axes(op, x)
+    xf = x.float()
+    if _bn_global(op):
+        m, v = mean.float(), var.float()
+        ctx.set_out(op, "MeanOut", mean)
+        ctx.set_out(op, "VarianceOut", var)
+    else:
+        m = xf.mean(dim=red)
+        v = (xf.square().mean(dim=red) - m.square()).clamp_min(0.0)
+        ctx.set_out(op, "MeanOut",
+                    momentum * mean + (1 - momentum) * m.to(mean.dtype))
+        ctx.set_out(op, "VarianceOut",
+                    momentum * var + (1 - momentum) * v.to(var.dtype))
+    inv = torch.rsqrt(v + eps)
+    y = (xf - m.reshape(bshape)) * inv.reshape(bshape) \
+        * scale.float().reshape(bshape) + bias.float().reshape(bshape)
+    ctx.set_out(op, "Y", y.to(x.dtype))
+    ctx.set_out(op, "SavedMean", m)
+    ctx.set_out(op, "SavedVariance", inv)
+
+
+@register_lower("batch_norm_grad", "sync_batch_norm_grad")
+def _batch_norm_grad(ctx, op):
+    """The reference's closed form (batch_norm_op.cc, BatchNormGradKernel)
+    from X, Scale, SavedMean, SavedVariance (the inverse std) and
+    Y@GRAD, in float32: dBias = sum(dy), dScale = sum(dy * x_hat),
+    dX = scale * inv / N * (N * dy - dBias - x_hat * dScale), or
+    scale * inv * dy under global statistics; dX in x's dtype.  The
+    running statistics enter Y only under global statistics, and only
+    there have a gradient (zeros in training, where one is asked for)."""
+    x = ctx.in1(op, "X")
+    scale = ctx.in1(op, "Scale")
+    dy = ctx.in1(op, "Y@GRAD").float()
+    _caxis, red, bshape = _bn_axes(op, x)
+    m = ctx.in1(op, "SavedMean").float().reshape(bshape)
+    inv = ctx.in1(op, "SavedVariance").float().reshape(bshape)
+    x_hat = (x.float() - m) * inv
+    d_bias = dy.sum(dim=red)
+    d_scale = (dy * x_hat).sum(dim=red)
+    k = scale.float().reshape(bshape) * inv
+    if _bn_global(op):
+        dx = k * dy
+    else:
+        n = x.numel() // x.shape[_caxis]
+        dx = k * (dy - (d_bias.reshape(bshape)
+                        + x_hat * d_scale.reshape(bshape)) / n)
+    ctx.set_out(op, "X@GRAD", dx.to(x.dtype))
+    ctx.set_out(op, "Scale@GRAD", d_scale.to(scale.dtype))
+    ctx.set_out(op, "Bias@GRAD", d_bias.to(ctx.in1(op, "Bias").dtype))
+    mean, var = ctx.in1(op, "Mean"), ctx.in1(op, "Variance")
+    if _bn_global(op):
+        s_inv = scale.float() * inv.reshape(-1)
+        d_mean = -s_inv * d_bias
+        d_var = -0.5 * s_inv * inv.reshape(-1) * d_scale
+    else:
+        d_mean, d_var = torch.zeros_like(mean), torch.zeros_like(var)
+    ctx.set_out(op, "Mean@GRAD", d_mean.to(mean.dtype))
+    ctx.set_out(op, "Variance@GRAD", d_var.to(var.dtype))
 
 
 @register_lower("softmax")

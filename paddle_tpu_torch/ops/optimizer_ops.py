@@ -1,14 +1,16 @@
-"""Optimizer update op: ``adamw``.
+"""Optimizer update ops: ``sgd``, ``momentum`` and ``adamw``.
 
-Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` (``_adam``), limited
-to the update the static BERT program emits (``adam`` and the other
-updates come with later slices).  The update runs in
-float32 whatever the parameter's type, and writes the parameter, both
-moments and both beta powers back under their own names (the executor
-stores them into the scope).  The JAX package wraps the gradient in an
-``optimization_barrier`` that keeps XLA from fusing the weight-gradient
-matmul into the update on the TPU; eager torch fuses nothing, so the
-barrier has no counterpart here.
+Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` (``_sgd``,
+``_momentum``, ``_adam``), limited to the updates the static BERT and
+ResNet programs emit (``adam`` and the other updates come with later
+slices).  Reference parity: sgd_op.cc, momentum_op.cc (``use_nesterov``,
+``regularization_method == "l2_decay"``), adam_op.cc.  ``sgd`` and
+``momentum`` update in the parameter's type; AdamW runs in float32
+whatever the parameter's type.  Each writes its outputs back under their
+own names (the executor stores them into the scope).  The JAX package
+wraps AdamW's gradient in an ``optimization_barrier`` that keeps XLA from
+fusing the weight-gradient matmul into the update on the TPU; eager torch
+fuses nothing, so the barrier has no counterpart here.
 """
 from __future__ import annotations
 
@@ -16,6 +18,33 @@ import torch
 
 from ..framework.lowering import register_lower
 from .common import as_scalar
+
+
+@register_lower("sgd")
+def _sgd(ctx, op):
+    p = ctx.in1(op, "Param")
+    g = ctx.in1(op, "Grad").to(p.dtype)
+    lr = as_scalar(ctx.in1(op, "LearningRate")).to(p.dtype)
+    ctx.set_out(op, "ParamOut", p - lr * g)
+
+
+@register_lower("momentum")
+def _momentum(ctx, op):
+    p = ctx.in1(op, "Param")
+    g = ctx.in1(op, "Grad").to(p.dtype)
+    v = ctx.in1(op, "Velocity")
+    lr = as_scalar(ctx.in1(op, "LearningRate")).to(p.dtype)
+    mu = float(op.attr("mu", 0.9))
+    rd = float(op.attr("regularization_coeff", 0.0))
+    if op.attr("regularization_method", "") == "l2_decay" and rd:
+        g = g + rd * p
+    v_new = mu * v + g
+    if bool(op.attr("use_nesterov", False)):
+        p_new = p - lr * (g + mu * v_new)
+    else:
+        p_new = p - lr * v_new
+    ctx.set_out(op, "ParamOut", p_new)
+    ctx.set_out(op, "VelocityOut", v_new)
 
 
 @register_lower("adamw")
