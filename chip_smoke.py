@@ -62,7 +62,24 @@ Phases, each printing JSON lines:
                figure; and, untimed, an all-zero output channel and rows of
                x holding +-inf and NaN (the plain version's IEEE results).
                Each row reports its error's share of the tolerance;
-4. serve    -- the README's serving model at full width (vocab 32000,
+Every path runs its timed steps captured: the executor's compiled step
+and the decode engine's step are CUDA graphs (``framework/graphs.py``), and
+each path's timed steps are checked to be replays (``cuda_graph_replays``).
+Beside each path's captured steps the same steps run through the eager
+block (``Executor._run_block`` / ``DecodeEngine._decode_forward``, called
+directly): step p50, device busy share and peak memory of both, and the
+largest gap between a replay's outputs and an eager step's from one state,
+held to the path's tolerance (serve 1e-3, training 1e-4 relative, infer
+1e-3, ResNet 1e-4 relative).  Each path logs ``capture_reason`` (null: no
+reason in its op list to run eagerly).  ``release`` lines give each phase's
+peak memory once its executors and graphs are dropped.
+
+4. dropout  -- a dropout program (p 0.1, 4M elements) through ``Executor.run``:
+               the warm-up, the capture and 4 replays; the last two replays'
+               masks differ and each keeps 1 - p of the elements within
+               3 sigma (the program's generator is registered with the
+               graph);
+5. serve    -- the README's serving model at full width (vocab 32000,
                d_model 512, 8 layers, 8 heads, ffn 2048, max_seq_len 1024;
                random weights from a seed) behind ``DecodeServer`` on the
                card: 8 greedy requests of 100-600 prompt tokens, the second
@@ -71,35 +88,41 @@ Phases, each printing JSON lines:
                engine (``prefill_chunk_pages=8``) on a 700-token prompt.  The
                paged kernels' launch counters are zeroed just before and read
                just after; streamed logits are held against
-               ``recompute_logits``;
-5. profile  -- 8 requests under ``torch.profiler``: the device's busy share of
-               the window, its time by kernel, and B5's, B6's and their
-               merge's device time and share of busy;
-6. train    -- BERT-base pretraining at full width (vocab 30522, hidden 768,
+               ``recompute_logits``; every engine captured its decode step;
+6. profile  -- 8 requests (300-token prompts, 24 new tokens) on fresh servers,
+               captured and eager, each timed (decode step p50, peak memory,
+               8 B5 launches a decode step) and under ``torch.profiler`` (the
+               device's busy share of the window, its time by kernel, B5's,
+               B6's and their merge's device time and share of busy); the two
+               modes' streamed logits within 1e-3;
+7. train    -- BERT-base pretraining at full width (vocab 30522, hidden 768,
                12 layers, 12 heads, ffn 3072, max_pos 512, seq 128, 20
                predictions a sequence; random weights from the program's
                seed) as ``bench.py``'s ``bench_bert`` drives it, through the
                port: ``bert_base_pretrain_program``, ``decorate(opt,
                use_bf16=True).minimize(loss)``, ``Executor()`` on the card,
-               the startup program, a warm ``run_steps(steps=3)``, then timed
-               steps, each synced.  Batch 32 (the benchmark's 256 is cut to
-               the script's time limit), dropout 0.1, AdamW (lr 1e-4, weight
-               decay 0.01), ``FLAGS_flash_attention=always`` so that the fused
-               attention op runs B1.  B1's launch counter is zeroed just
-               before the timed steps and read just after: 24 a step (12
-               attention layers, each run again by its generic gradient);
-7. train_profile -- one such step under ``torch.profiler``: the device's busy
-               share and its time by kernel, B1's share included, and host
-               and device time by op type (each op's lowering in a range of
-               its own), which prices the forward that generic gradients
-               run again;
-8. train_oracle -- float32 (no AMP), dropout 0, batch 8, full width: one
-               startup copied into two scopes, 3 steps with B1
-               (``FLAGS_flash_attention=always``) and 3 with the plain
-               composition (``never``); the per-step losses agree within
-               1e-4 relative, B1 ran only in the first, and the loss fell
-               (AdamW at lr 1e-5 here, where the steps do not overshoot);
-9. train_unfused -- the same model built with the unfused attention chain
+               the startup program, the warm-up step and the capture, a
+               ``run_steps(steps=2)``, then timed steps, each synced.  Batch
+               32 (the benchmark's 256 is cut to the script's time limit),
+               dropout 0.1, AdamW (lr 1e-4, weight decay 0.01),
+               ``FLAGS_flash_attention=always`` so that the fused attention
+               op runs B1.  B1's launch counter is zeroed just before the
+               timed steps and read just after: 24 a step (12 attention
+               layers, each run again by its generic gradient); then 5 eager
+               steps;
+8. train_profile -- one such step captured and one eager under
+               ``torch.profiler``: the device's busy share and its time by
+               kernel, B1's included, and, for the eager step, host and device
+               time by op type (each op's lowering in a range of its own),
+               which prices the forward that generic gradients run again;
+9. train_oracle -- float32 (no AMP), dropout 0, batch 8, full width: one
+               startup copied into two scopes, ``Executor.warmup`` and then 3
+               replayed steps with B1 (``FLAGS_flash_attention=always``) and
+               3 with the plain composition (``never``); the per-step losses
+               agree within 1e-4 relative, B1 ran only in the first, and the
+               loss fell (AdamW at lr 1e-5 here, where the steps do not
+               overshoot);
+10. train_unfused -- the same model built with the unfused attention chain
                (``use_fused_attention=False``: matmul, mask add, softmax,
                matmul per layer), float32, dropout 0, batch 32, as
                ``bench.py``'s ``bench_flash_attention`` builds it, under
@@ -109,17 +132,19 @@ Phases, each printing JSON lines:
                lowering runs B2 forward and B3 + B4 backward.  The three
                launch counters are zeroed just before the timed steps and
                read just after: 24 / 12 / 12 a step (the generic gradient
-               replays the forward);
-10. train_unfused_profile -- one such step under ``torch.profiler``: device
-               time of B2, B3 and B4 and of the ``flash_attention`` /
-               ``flash_attention_grad`` op ranges, and their share of busy;
-11. train_unfused_oracle -- float32, dropout 0, batch 8, lr 1e-5: one startup
-               in three scopes, 3 steps each: the unfused program under
-               ``never`` (the chain on ``torch.matmul``), under ``always``
-               (B2-B4), and the fused program of phase 6 under ``always``
-               (B1); losses pairwise within 1e-4 relative, no B2-B4 launch
-               in the ``never`` and fused runs;
-12. infer   -- BERT-base at full width as an encoder (vocab 30522, hidden 768,
+               replays the forward); then 5 eager steps;
+11. train_unfused_profile -- one such step captured and one eager under
+               ``torch.profiler``: device time of B2, B3 and B4 and, eager, of
+               the ``flash_attention`` / ``flash_attention_grad`` op ranges,
+               and their share of busy;
+12. train_unfused_oracle -- float32, dropout 0, batch 8, lr 1e-5: one startup
+               in three scopes, 3 replayed steps each after a warmup: the
+               unfused program under ``never`` (the chain on
+               ``torch.matmul``), under ``always`` (B2-B4), and the fused
+               program of phase 7 under ``always`` (B1); losses pairwise
+               within 1e-4 relative, no B2-B4 launch in the ``never`` and
+               fused runs;
+13. infer   -- BERT-base at full width as an encoder (vocab 30522, hidden 768,
                12 layers, 12 heads, ffn 3072, max_pos 512, seq 128, batch dim
                -1, dropout 0, fused attention) with the pretraining program's
                NSP head (pooler + 2-way classifier), random weights from the
@@ -128,46 +153,53 @@ Phases, each printing JSON lines:
                under ``FLAGS_flash_attention=always``, in three modes of
                ``FLAGS_weight_quant``: '' (float32 weights on cuBLAS), int8
                and fp8_e4m3 (the weight-quant pass rewrites all 74 matmuls to
-               ``dequant_matmul``, B7).  Requests of batch 1, 8 and 32; the
-               launch counters are zeroed just before each mode's timed runs
-               and read just after: 74 B7 (0 under '') and 12 B1 a run.  The
-               int8 sequence output is held within 0.05 * max|float32| of the
-               float32 run's (the JAX package's bound); fp8's delta is
-               reported;
-13. infer_profile -- one batch-32 int8 run under ``torch.profiler``: the
-               device's busy share, its time by kernel and B7's share;
-14. infer_oracle -- a ``Config().disable_gpu()`` Predictor over the same
+               ``dequant_matmul``, B7).  Requests of batch 1, 8 and 32, each
+               batch warmed and captured first (one entry per batch and
+               mode); the launch counters are zeroed just before each mode's
+               timed runs and read just after: 74 B7 (0 under '') and 12 B1 a
+               run; batch 32 beside 10 eager runs.  The int8 sequence output
+               is held within 0.05 * max|float32| of the float32 run's (the
+               JAX package's bound); fp8's delta is reported;
+14. infer_profile -- one batch-32 int8 run captured and one eager under
+               ``torch.profiler``: the device's busy share, its time by kernel
+               and B7's share;
+15. infer_oracle -- a ``Config().disable_gpu()`` Predictor over the same
                directory runs on the CPU (every kernel's plain version): at
-               batch 2, in int8 and fp8, its carriers and scales equal the
-               card's bit for bit, and in every mode its outputs agree with
-               the card's within ``INFER_ORACLE_TOL``;
-15. resnet  -- ResNet-50 training as ``bench.py``'s ``bench_resnet`` drives it,
+               batch 2 (the card's run a replay after ``warmup``), in int8 and
+               fp8, its carriers and scales equal the card's bit for bit, and
+               in every mode its outputs agree with the card's within
+               ``INFER_ORACLE_TOL``;
+16. resnet  -- ResNet-50 training as ``bench.py``'s ``bench_resnet`` drives it,
                through the port at full width (224x224x3, the v1.5 trunk,
                1000 classes; random weights from the program's seed):
                ``vision.resnet50_train_program(lr=0.1, momentum=0.9)``,
                ``decorate(opt, use_bf16=True).minimize(loss)``,
-               ``Executor()`` on the card, the startup program, a warm
-               ``run_steps(steps=3)``, then 10 synced steps at batch 128
-               (halved while it does not fit, logged as ``reduced``), the
-               feed on the card beforehand.  Convolutions, pooling and batch
-               norm run on cuDNN / ATen (``cudnn.benchmark`` off): no
-               hand-written kernel is on this path, and the launch counters
-               of B1-B7, zeroed just before, must read 0 just after.  Step
-               p50, images/s, peak memory, the losses (finite);
-16. resnet_profile -- one such step under ``torch.profiler``: the device's
-               busy share, its 15 largest kernels by name, and host and
-               device time by op type (``conv2d``, ``conv2d_grad``,
-               ``batch_norm``, ``batch_norm_grad``, ``relu``, ``cast``,
-               ``momentum``, ``sum`` on their own; the generic gradients'
-               replayed forwards: ``relu`` and ``pool2d``);
-17. resnet_oracle -- float32 (no AMP), batch 4, full width, lr 1e-3: one
-               startup on the card copied to a CPU scope, 3 steps on the card
-               and 3 through ``Executor(CPUPlace())`` (the path the tier-1
-               tests hold to the JAX package), TF32 off for cuBLAS and cuDNN
-               (set below), ``cudnn.benchmark`` off: per-step losses within
-               1e-4 relative, the 106 running statistics and 161 parameters
-               within 1e-4 of each tensor's largest magnitude, and the loss
-               fell.
+               ``Executor()`` on the card, the startup program, the warm-up
+               and the capture, a ``run_steps(steps=2)``, then 10 synced
+               replays at batch 128 and 5 eager steps (the batch halved while
+               it does not fit, logged as ``reduced``), the feed on the card
+               beforehand.  Convolutions, pooling and batch norm run on cuDNN
+               / ATen (``cudnn.benchmark`` off): no hand-written kernel is on
+               this path, and the launch counters of B1-B7, zeroed just
+               before, must read 0 just after.  Step p50, images/s, peak
+               memory, the losses (finite);
+17. resnet_profile -- one such step captured and one eager under
+               ``torch.profiler``: the device's busy share, its 15 largest
+               kernels by name, and, eager, host and device time by op type
+               (``conv2d``, ``conv2d_grad``, ``batch_norm``,
+               ``batch_norm_grad``, ``relu``, ``cast``, ``momentum``, ``sum``
+               on their own; the generic gradients' replayed forwards:
+               ``relu`` and ``pool2d``);
+18. resnet_oracle -- float32 (no AMP), batch 4, full width, lr 1e-3: one
+               startup on the card copied to a CPU scope, ``warmup`` on the
+               card, one replayed step whose loss is held to the CPU's first
+               within 1e-4 relative, then from the same state 3 steps on the
+               card (the first op by op, the next two replays) and 3 through
+               ``Executor(CPUPlace())`` (the path the tier-1 tests hold to the
+               JAX package), TF32 off for cuBLAS and cuDNN (set below),
+               ``cudnn.benchmark`` off: per-step losses within 1e-4 relative,
+               the 106 running statistics and 161 parameters within 1e-4 of
+               each tensor's largest magnitude, and the loss fell.
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
@@ -197,6 +229,7 @@ import paddle_tpu_torch as pt  # noqa: E402
 from paddle_tpu_torch.amp import decorate  # noqa: E402
 from paddle_tpu_torch.framework import (flags, passes,  # noqa: E402
                                         unique_name)
+from paddle_tpu_torch.framework import executor as executor_mod  # noqa: E402
 from paddle_tpu_torch.framework.program import program_guard  # noqa: E402
 from paddle_tpu_torch.native import build  # noqa: E402
 from paddle_tpu_torch.monitor import stat_get, stat_reset  # noqa: E402
@@ -295,6 +328,9 @@ B2_PER_STEP, B3_PER_STEP, B4_PER_STEP = 24, 12, 12  # 12 layers; B2 replayed
 # width; the batch is cut from the benchmark's 256 to the time limit.
 BERT_PREDS, TRAIN_BATCH, ORACLE_BATCH = 20, 32, 8
 TRAIN_STEPS = 10
+# Eager steps timed beside the captured ones on each training path (the
+# eager block, ``Executor._run_block``, called directly).
+EAGER_STEPS = 5
 B1_PER_STEP = 24   # 12 fused attention ops, each replayed by its gradient
 # train oracle: the float32 losses of B1 and of the plain composition, per
 # step, within this relative gap (summation order over 3 steps)
@@ -326,8 +362,8 @@ DEQUANT_CASES = (
 )
 # ResNet-50 training (bench.py's bench_resnet, BASELINE configs 2/4) at full
 # width: 224x224x3, the v1.5 trunk, 1000 classes, bf16 AMP, momentum 0.9,
-# lr 0.1, the benchmark's batch; a batch that does not fit beside the eager
-# executor's kept values is halved until it does (logged as reduced).
+# lr 0.1, the benchmark's batch; a batch whose captured graph and eager
+# steps do not fit side by side is halved until they do (logged as reduced).
 RESNET_BATCH, RESNET_STEPS, RESNET_IMG = 128, 10, (3, 224, 224)
 # The op types the ResNet profile reports on their own.
 RESNET_OP_TYPES = ("conv2d", "conv2d_grad", "batch_norm", "batch_norm_grad",
@@ -813,6 +849,11 @@ def phase_serve():
                 "paged_chunk_attention": pa.paged_chunk_attention.launches}
     flags.set_flags({"enable_tracer": False})
 
+    captured = [e._step is not None and e._step.graph is not None
+                for e in srv.replicas + chunked.replicas]
+    if not all(captured):
+        raise RuntimeError(f"a serving engine did not capture its decode "
+                           f"step: {captured}")
     if stats["cache_hit_rate"] <= 0 or chunked_stats["prefill_chunks"] < 2:
         raise RuntimeError(f"a path was not taken: prefix hit rate "
                            f"{stats['cache_hit_rate']}, prefill chunks "
@@ -859,8 +900,8 @@ def phase_serve():
         prefix_hit_rate=stats["cache_hit_rate"],
         prefill_chunks=chunked_stats["prefill_chunks"],
         logits_vs_oracle_max_abs=oracle_err, tolerance=LOGIT_TOL,
-        oracle_logits_max_abs=logit_scale,
-        launches=launches)
+        oracle_logits_max_abs=logit_scale, decode_step_captured=captured,
+        capture_reason=None, launches=launches)
     return launches, model
 
 
@@ -886,48 +927,113 @@ PAGED_PROFILE_KERNELS = (("b5", "paged_decode_kernel"),
                          ("combine", "paged_combine_kernel"))
 
 
-def phase_profile(model):
-    """Where a decode-heavy window's time goes: 8 requests (300-token
-    prompts, 24 new tokens) under torch.profiler; the device's busy time
-    is the sum of its kernel and copy intervals, against the host clock
-    around the window."""
-    from torch.profiler import ProfilerActivity, profile
+def serve_window(model, eager, profiled):
+    """8 requests (300-token prompts, 24 new tokens, greedy) through a
+    fresh ``DecodeServer`` on the card, after a short warm-up request
+    (whose first two decode steps are the warm-up and the capture).
+    ``eager``: the engine's step calls the eager block
+    (``_decode_forward``) directly instead of replaying its graph.
+    Returns the window's report, the requests, and with ``profiled`` the
+    profile and the window's host microseconds."""
+    from paddle_tpu_torch.framework import graphs
 
     rng = np.random.RandomState(2)
     prompts = [rng.randint(1, 32000, 300).tolist() for _ in range(8)]
     srv = DecodeServer(model, None, DecodeConfig(
         slots=8, max_seq_len=1024, page_size=16)).start()
+    eng = srv.replicas[0]
+    if eager:
+        eng._decode_step = lambda *a: eng._decode_forward(*eng._upload(*a))
+    prof = wall_us = None
     try:
-        srv.submit(prompts[0][:64], max_new_tokens=2).result(timeout=600)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            reqs = [srv.submit(p, max_new_tokens=24) for p in prompts]
+        _r, peak = peak_gb(lambda: srv.submit(
+            prompts[0][:64], max_new_tokens=4).result(timeout=600))
+        flags.set_flags({"enable_tracer": True})
+        tracer.clear()
+        before = graphs.launch_counts()
+
+        def window():
+            reqs = [srv.submit(p, max_new_tokens=24, record_logits=True)
+                    for p in prompts]
             for r in reqs:
                 r.result(timeout=600)
-            torch.cuda.synchronize()
-            wall_us = (time.monotonic() - t0) * 1e6
+            return reqs
+        if profiled:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.monotonic()
+                reqs = window()
+                torch.cuda.synchronize()
+                wall_us = (time.monotonic() - t0) * 1e6
+        else:
+            reqs, window_peak = peak_gb(window)
+            peak = max(peak, window_peak)
+        spans = tracer.snapshot()
+        after = graphs.launch_counts()
     finally:
+        flags.set_flags({"enable_tracer": False})
         srv.stop()
-    by_name = device_time_by_kernel(prof)
-    busy_us = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    ours, matched = {}, {}
-    for label, part in PAGED_PROFILE_KERNELS:
-        matched[label] = sorted(k for k in by_name if part in k)
-        ours[label] = sum(by_name[k] for k in matched[label])
-        if not ours[label]:
-            raise RuntimeError(f"the profiled window ran no {part}")
-    log("profile", window_ms=wall_us / 1e3, tokens=8 * 24,
-        device_busy_ms=busy_us / 1e3 if busy_us else None,
-        device_busy_share=busy_us / wall_us if busy_us else None,
-        **{f"{label}_device_ms": t / 1e3 for label, t in ours.items()},
-        **{f"{label}_share_of_busy": t / busy_us
-           for label, t in ours.items()},
-        b5_b6_combine_device_ms=sum(ours.values()) / 1e3,
-        kernels_matched=matched,
-        top_device_ms={k: v / 1e3 for k, v in top})
+    steps = [1e3 * sp.duration for sp in spans
+             if sp.name == "serving/decode_step"]
+    b5 = after[4] - before[4]
+    captured = eng._step is not None and eng._step.graph is not None
+    if captured == eager or b5 != 8 * len(steps):
+        raise RuntimeError(f"serve window (eager={eager}): captured "
+                           f"{captured}, {b5} B5 launches in {len(steps)} "
+                           f"decode steps, want 8 a step")
+    report = dict(decode_step_p50_ms=float(np.median(steps)),
+                  decode_steps=len(steps), b5_launches_per_step=b5 /
+                  len(steps), peak_memory_gb=None if profiled else peak)
+    return report, reqs, prof, wall_us
+
+
+def logit_gap(a, b):
+    """Largest |a - b| over two windows' streamed logits, each request up
+    to its first token that differs."""
+    gap = 0.0
+    for ra, rb in zip(a, b):
+        for i, (la, lb) in enumerate(zip(ra.logits_trace, rb.logits_trace)):
+            gap = max(gap, float(np.abs(la - lb).max()))
+            if ra.generated[i] != rb.generated[i]:
+                break
+    return gap
+
+
+def phase_profile(model):
+    """Where a decode-heavy window's time goes, captured and eager: the
+    window of ``serve_window`` timed (decode step p50, peak memory) and
+    under torch.profiler (the device's busy time, the sum of its kernel
+    and copy intervals, against the host clock around the window; its
+    time by kernel; B5's, B6's and their merge's device time and share of
+    busy), and the two modes' streamed logits against each other."""
+    out, reqs = {}, {}
+    for mode in ("captured", "eager"):
+        report, reqs[mode], _p, _w = serve_window(model, mode == "eager",
+                                                  False)
+        _r, _q, prof, wall_us = serve_window(model, mode == "eager", True)
+        by_name = device_time_by_kernel(prof)
+        busy_us = sum(by_name.values())
+        ours, matched = kernel_share(by_name, PAGED_PROFILE_KERNELS,
+                                     f"{mode} serving window")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        out[mode] = dict(
+            report, window_ms=wall_us / 1e3,
+            device_busy_ms=busy_us / 1e3,
+            device_busy_share=busy_us / wall_us,
+            **{f"{label}_device_ms": t / 1e3 for label, t in ours.items()},
+            **{f"{label}_share_of_busy": t / busy_us
+               for label, t in ours.items()},
+            b5_b6_combine_device_ms=sum(ours.values()) / 1e3,
+            kernels_matched=matched,
+            top_device_ms={k: v / 1e3 for k, v in top})
+    gap = logit_gap(reqs["captured"], reqs["eager"])
+    log("profile", tokens=8 * 24, capture_reason=None,
+        logits_captured_vs_eager_max_abs=gap, tolerance=LOGIT_TOL, **out)
+    if not gap <= LOGIT_TOL:
+        raise RuntimeError(f"captured vs eager decode logits apart by {gap}"
+                           f" > {LOGIT_TOL}")
 
 
 # ---- B1 and the static-graph training path ----------------------------------
@@ -1369,6 +1475,18 @@ def bert_feed(batch, seed, padded_keys=0):
             "nsp_labels": rng.randint(0, 2, (batch, 1)).astype("int64")}
 
 
+def warm_and_capture(exe, main, feed, fetch_list, scope):
+    """A key's first run (eager, the warm-up), then its capture and
+    first replay; returns the capture's peak device memory in GB."""
+    exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope)
+    captures = stat_get("cuda_graph_captures")
+    _out, gb = peak_gb(lambda: exe.run(main, feed=feed, fetch_list=fetch_list,
+                                       scope=scope, return_numpy=False))
+    if stat_get("cuda_graph_captures") != captures + 1:
+        raise RuntimeError("the second run of a key did not capture it")
+    return gb
+
+
 def phase_train():
     flags.set_flags({"flash_attention": "always"})
     t0 = time.monotonic()
@@ -1376,18 +1494,19 @@ def phase_train():
     build_s = time.monotonic() - t0
     exe = pt.Executor()
     scope = pt.framework.Scope()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     exe.run(startup, scope=scope)
     torch.cuda.synchronize()
     startup_s = time.monotonic() - t0
     feed = bert_feed(TRAIN_BATCH, seed=0)
     t0 = time.monotonic()
+    captured_gb = warm_and_capture(exe, main, feed, [loss], scope)
     warm = exe.run_steps(main, feed=feed, fetch_list=[loss], scope=scope,
-                         steps=3)[0]
+                         steps=2)[0]
     torch.cuda.synchronize()
     warm_s = time.monotonic() - t0
     fab.reset_launch_count()    # the main path's count starts here
+    replays = stat_get("cuda_graph_replays")
     step_ms, losses = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1396,21 +1515,27 @@ def phase_train():
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(out.ravel()[0]))
     launches = fab.flash_attention_bias.launches
+    replays = stat_get("cuda_graph_replays") - replays
     losses = [float(x) for x in warm.float().cpu().ravel()] + losses
     if not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"BERT losses not finite: {losses}")
-    if launches != B1_PER_STEP * TRAIN_STEPS:
+    if launches != B1_PER_STEP * TRAIN_STEPS or replays != TRAIN_STEPS:
         raise RuntimeError(f"B1 launched {launches} times in {TRAIN_STEPS} "
-                           f"steps, want {B1_PER_STEP} a step")
+                           f"steps ({replays} replays), want {B1_PER_STEP} "
+                           f"a step, each a replay")
+    graph = eager_vs_captured("train", exe, main, feed, [loss], scope,
+                              EAGER_STEPS, ORACLE_RTOL, True, step_ms,
+                              captured_gb)
     p50 = float(np.median(step_ms))
     log("train", model="bert-base", batch=TRAIN_BATCH, seq=128,
         amp="bfloat16", dropout=0.1, steps=TRAIN_STEPS,
         step_ms_p50=p50, step_ms=step_ms,
         tokens_per_s=TRAIN_BATCH * 128 / (p50 / 1e3),
         program_ops=len(main.global_block.ops), build_s=build_s,
-        startup_s=startup_s, warm_run_steps_3_s=warm_s, losses=losses,
+        startup_s=startup_s, warm_eager_capture_replay_s=warm_s,
+        losses=losses, replays=replays,
         b1_launches=launches, b1_launches_per_step=launches / TRAIN_STEPS,
-        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        **graph)
     return launches, (exe, main, feed, loss, scope)
 
 
@@ -1436,45 +1561,66 @@ def op_ranges():
     return lambda: setattr(executor, "get_lowering", real)
 
 
-def phase_train_profile(run, phase="train_profile",
-                        kernels=(("b1", "flash_fwd_mma_kernel"),),
-                        op_types=(), top_kernels=10):
-    """One BERT-base step or inference run (``run()``) under
-    torch.profiler: the device's busy share of its host time, its time by
-    kernel (``kernels``: (label, name part) of the hand-written kernels it
-    must have run; none on a path without them), the ``top_kernels``
-    largest by name, and host and device time by op type (``op_types``:
-    types reported on their own).  A ``<type>_grad`` op without a
-    lowering of its own takes the generic gradient, which runs
-    ``<type>``'s forward again under autograd: the time of those forward
-    types is what the replay repeats.
-    Kernels that ``torch.autograd.grad`` launches run on the autograd
-    engine's thread, outside the op ranges: they count by kernel name
-    only."""
-    from torch.autograd import DeviceType
+def profile_window(run):
+    """``run()`` under torch.profiler: the profile and its host
+    microseconds."""
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.framework.lowering import LOWERINGS
-
     torch.cuda.synchronize()
-    undo = op_ranges()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            run()
-            torch.cuda.synchronize()
-            wall_us = (time.monotonic() - t0) * 1e6
-    finally:
-        undo()
-    by_name = device_time_by_kernel(prof)
-    busy_us = sum(by_name.values())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    return prof, wall_us
+
+
+def kernel_share(by_name, kernels, what):
+    """Device microseconds of each (label, name part) in ``kernels``;
+    fails when one matched nothing."""
     ours, matched = {}, {}
     for label, part in kernels:
         matched[label] = sorted(k for k in by_name if part in k)
         ours[label] = sum(by_name[k] for k in matched[label])
         if not matched[label] or not ours[label]:
-            raise RuntimeError(f"the profiled step ran no {part}")
+            raise RuntimeError(f"the profiled {what} ran no {part}")
+    return ours, matched
+
+
+def phase_train_profile(eager, captured, phase="train_profile",
+                        kernels=(("b1", "flash_fwd_mma_kernel"),),
+                        op_types=(), top_kernels=10):
+    """One BERT-base step or inference run, captured (``captured()``, a
+    replay: the device's busy share of its host time, its time by kernel)
+    and eager (``eager()``, the eager block: the same, plus host and
+    device time by op type, each op's lowering in a range of its own).
+    ``kernels``: (label, name part) of the hand-written kernels both must
+    have run (none on a path without them); ``op_types``: types reported
+    on their own.  A ``<type>_grad`` op without a lowering of its own
+    takes the generic gradient, which runs ``<type>``'s forward again
+    under autograd: the time of those forward types is what the replay
+    repeats.  Kernels that ``torch.autograd.grad`` launches run on the
+    autograd engine's thread, outside the op ranges: they count by kernel
+    name only.  A replay has no op ranges."""
+    from torch.autograd import DeviceType
+
+    from paddle_tpu_torch.framework.lowering import LOWERINGS
+
+    captured()   # a steady replay: the state rebound since, copied in
+    prof, cap_us = profile_window(captured)
+    cap_by_name = device_time_by_kernel(prof)
+    cap_busy = sum(cap_by_name.values())
+    cap_ours, _ = kernel_share(cap_by_name, kernels, "replay")
+    cap_top = sorted(cap_by_name.items(), key=lambda kv: -kv[1])[:top_kernels]
+    undo = op_ranges()
+    try:
+        prof, wall_us = profile_window(eager)
+    finally:
+        undo()
+    by_name = device_time_by_kernel(prof)
+    busy_us = sum(by_name.values())
+    ours, matched = kernel_share(by_name, kernels, "eager step")
     host, dev, count = {}, {}, {}
     for e in prof.events():   # the ranges on the host's timeline
         if e.device_type == DeviceType.CPU and e.name.startswith("op/"):
@@ -1487,7 +1633,14 @@ def phase_train_profile(run, phase="train_profile",
     by_type = {t: [count[t], host[t], dev[t]]
                for t in sorted(host, key=lambda t: -host[t])}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_kernels]
-    log(phase, step_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+    log(phase, captured_step_ms=cap_us / 1e3,
+        captured_device_busy_ms=cap_busy / 1e3,
+        captured_device_busy_share=cap_busy / cap_us,
+        **{f"captured_{label}_device_ms": t / 1e3
+           for label, t in cap_ours.items()},
+        captured_kernels=len(cap_by_name),
+        captured_top_device_ms={k: v / 1e3 for k, v in cap_top},
+        step_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
         device_busy_share=busy_us / wall_us,
         **{f"{label}_device_ms": t / 1e3 for label, t in ours.items()},
         **{f"{label}_share_of_busy": t / busy_us
@@ -1519,9 +1672,13 @@ def phase_train_oracle():
     try:
         for mode, scope in (("always", first), ("never", second)):
             flags.set_flags({"flash_attention": mode})
+            exe.warmup(main, [feed], [loss], scope)    # the 3 are replays
+            replays = stat_get("cuda_graph_replays")
             before = fab.flash_attention_bias.launches
             out = exe.run_steps(main, feed=feed, fetch_list=[loss],
                                 scope=scope, steps=3, return_numpy=True)[0]
+            if stat_get("cuda_graph_replays") - replays != 3:
+                raise RuntimeError("the oracle's steps were not replays")
             runs[mode] = ([float(x) for x in out.ravel()],
                           fab.flash_attention_bias.launches - before)
     finally:
@@ -1546,6 +1703,11 @@ def exe_run(state):
     return exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
 
 
+def exe_eager(state):
+    exe, main, feed, loss, scope = state
+    return eager_run(exe, main, feed, [loss], scope)
+
+
 def copy_scope(scope):
     out = pt.framework.Scope()
     for n in scope.local_var_names():
@@ -1559,6 +1721,119 @@ def unfused_launches():
     return [f.launches for f in fa.KERNEL_WRAPPERS]
 
 
+# ---- the captured step against the eager block ------------------------------
+
+
+def eager_run(exe, program, feed, fetch_list, scope):
+    """One step of ``program`` as ``Executor.run`` keys it (the pass
+    pipeline's rewrite), through the eager block: every lowering called
+    op by op, each value freed after its last use.  The state it writes
+    rebinds the scope's vars, which the next replay copies back into the
+    graph's buffers."""
+    from paddle_tpu_torch.framework.executor import _feed_tensors, _names
+
+    feeds = _feed_tensors(program.global_block, feed, exe.device)
+    names = _names(fetch_list)
+    program = exe._apply_graph_passes(program, names, feeds, scope)
+    return exe._run_block(program, feeds, names, scope)
+
+
+def snapshot(scope):
+    """Copies of a scope's tensors and its generators' states."""
+    return {k: (v.clone() if isinstance(v, torch.Tensor) else
+                v.get_state() if isinstance(v, torch.Generator) else v)
+            for k, v in scope._vars.items()}
+
+
+def restore(scope, snap):
+    """Back to ``snap``: tensors rebound to fresh copies (the graph finds
+    them by identity and copies them in), generators reset in place."""
+    for k, v in snap.items():
+        held = scope._vars.get(k)
+        if isinstance(held, torch.Generator):
+            held.set_state(v)
+        else:
+            scope._vars[k] = v.clone() if isinstance(v, torch.Tensor) else v
+
+
+def synced_ms(fn, n):
+    """Host milliseconds of ``n`` calls of ``fn``, each synced."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def peak_gb(fn):
+    """``fn()``'s result and the most device memory allocated while it
+    ran, in GB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 1e9
+
+
+def max_gap(a, b, relative):
+    """Largest |a - b| over two lists of arrays (over |b|'s largest
+    magnitude when ``relative``), in float64."""
+    gap = 0.0
+    for x, y in zip(a, b):
+        x = np.asarray(x, np.float64)
+        y = np.asarray(y, np.float64)
+        d = float(np.abs(x - y).max()) if x.size else 0.0
+        if relative:
+            d /= max(float(np.abs(y).max()), 1e-30)
+        gap = max(gap, d)
+    return gap
+
+
+def to_host(vals):
+    return [v.float().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v, np.float64) for v in vals]
+
+
+def eager_vs_captured(path, exe, program, feed, fetch_list, scope, steps,
+                      tol, relative, captured_ms, captured_peak_gb):
+    """The path's step through the eager block beside its captured
+    replays, in one process: from one state, a replay's and an eager
+    step's fetches (their largest gap, held to the path's tolerance), then
+    ``steps`` eager steps timed, and the eager block's peak memory.
+    Fails unless the program has no reason to run eagerly and the timed
+    captured steps were replays."""
+    reason = executor_mod.capture_reason(program)
+    if reason is not None:
+        raise RuntimeError(f"{path}: runs eagerly: {reason[1]}")
+    snap = snapshot(scope)
+    replays = stat_get("cuda_graph_replays")
+    captured = to_host(exe.run(program, feed=feed, fetch_list=fetch_list,
+                               scope=scope, return_numpy=False))
+    if stat_get("cuda_graph_replays") != replays + 1:
+        raise RuntimeError(f"{path}: Executor.run did not replay a graph")
+    restore(scope, snap)
+    eager = to_host(eager_run(exe, program, feed, fetch_list, scope))
+    restore(scope, snap)
+    gap = max_gap(captured, eager, relative)
+    ms, eager_peak = peak_gb(lambda: synced_ms(lambda: eager_run(
+        exe, program, feed, fetch_list, scope), steps))
+    restore(scope, snap)
+    report = dict(capture_reason=None, eager_steps=steps,
+                  step_ms_p50_captured=float(np.median(captured_ms)),
+                  step_ms_p50_eager=float(np.median(ms)),
+                  step_ms_eager=ms,
+                  peak_memory_gb_captured=captured_peak_gb,
+                  peak_memory_gb_eager=eager_peak,
+                  captured_vs_eager_max_gap=gap,
+                  gap_relative=relative, tolerance=tol)
+    if not gap <= tol:
+        raise RuntimeError(f"{path}: captured vs eager outputs apart by "
+                           f"{gap} > {tol}")
+    return report
+
+
 def phase_train_unfused():
     """The main path of the unfused slice: float32, dropout 0, the unfused
     chain rewritten by the graph passes, B2-B4 in every layer."""
@@ -1569,13 +1844,13 @@ def phase_train_unfused():
     build_s = time.monotonic() - t0
     exe = pt.Executor()
     scope = pt.framework.Scope()
-    torch.cuda.reset_peak_memory_stats()
     exe.run(startup, scope=scope)
     feed = bert_feed(TRAIN_BATCH, seed=0, padded_keys=16)
     for name in ("pass_flash_attention_fused",
                  "pass_flash_attention_grad_fused"):
         stat_reset(name)
     t0 = time.monotonic()
+    captured_gb = warm_and_capture(exe, main, feed, [loss], scope)
     warm = exe.run_steps(main, feed=feed, fetch_list=[loss], scope=scope,
                          steps=2)[0]
     torch.cuda.synchronize()
@@ -1583,6 +1858,7 @@ def phase_train_unfused():
     rewritten = [stat_get("pass_flash_attention_fused"),
                  stat_get("pass_flash_attention_grad_fused")]
     fa.reset_launch_counts()    # the main path's counts start here
+    replays = stat_get("cuda_graph_replays")
     step_ms, losses = [], []
     for _ in range(UNFUSED_STEPS):
         t0 = time.perf_counter()
@@ -1590,6 +1866,7 @@ def phase_train_unfused():
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(out.ravel()[0]))
+    replays = stat_get("cuda_graph_replays") - replays
     launches = unfused_launches()
     losses = [float(x) for x in warm.float().cpu().ravel()] + losses
     if not all(math.isfinite(x) for x in losses):
@@ -1599,9 +1876,13 @@ def phase_train_unfused():
                            f"and grad chains, want [12, 12]")
     want = [n * UNFUSED_STEPS
             for n in (B2_PER_STEP, B3_PER_STEP, B4_PER_STEP)]
-    if launches != want:
+    if launches != want or replays != UNFUSED_STEPS:
         raise RuntimeError(f"B2/B3/B4 launched {launches} times in "
-                           f"{UNFUSED_STEPS} steps, want {want}")
+                           f"{UNFUSED_STEPS} steps ({replays} replays), "
+                           f"want {want}, each step a replay")
+    graph = eager_vs_captured("train_unfused", exe, main, feed, [loss],
+                              scope, EAGER_STEPS, ORACLE_RTOL, True, step_ms,
+                              captured_gb)
     rewritten_ops = len(passes.apply_passes(
         main, fetch_names=(loss.name,), feed_names=tuple(feed),
         scope=scope).global_block.ops)
@@ -1611,10 +1892,9 @@ def phase_train_unfused():
         step_ms=step_ms, tokens_per_s=TRAIN_BATCH * 128 / (p50 / 1e3),
         program_ops=len(main.global_block.ops),
         program_ops_after_passes=rewritten_ops, chains_rewritten=rewritten,
-        build_s=build_s, warm_run_steps_2_s=warm_s, losses=losses,
-        launches_b2_b3_b4=launches,
-        launches_per_step=[n / UNFUSED_STEPS for n in launches],
-        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        build_s=build_s, warm_eager_capture_replay_s=warm_s, losses=losses,
+        replays=replays, launches_b2_b3_b4=launches,
+        launches_per_step=[n / UNFUSED_STEPS for n in launches], **graph)
     return dict(zip(("flash_attention_fwd", "flash_attention_bwd_dq",
                      "flash_attention_bwd_dkv"), launches)), \
         (exe, main, feed, loss, scope)
@@ -1639,10 +1919,14 @@ def phase_train_unfused_oracle():
                 ("always", "always", unfused, u_loss, copy_scope(first)),
                 ("fused", "always", fused, f_loss, first)):
             flags.set_flags({"flash_attention": mode})
+            exe.warmup(prog, [feed], [loss], scope)    # the 3 are replays
             fa.reset_launch_counts()
+            replays = stat_get("cuda_graph_replays")
             b1_before = fab.flash_attention_bias.launches
             out = exe.run_steps(prog, feed=feed, fetch_list=[loss],
                                 scope=scope, steps=3, return_numpy=True)[0]
+            if stat_get("cuda_graph_replays") - replays != 3:
+                raise RuntimeError("the oracle's steps were not replays")
             runs[label] = ([float(x) for x in out.ravel()],
                            unfused_launches(),
                            fab.flash_attention_bias.launches - b1_before)
@@ -1731,12 +2015,11 @@ def phase_infer(model_dir):
 
     flags.set_flags({"flash_attention": "always"})
     feeds = {b: infer_feed(b, seed=b) for b in INFER_BATCHES}
-    results, outs, launches, preds = {}, {}, {}, {}
+    results, outs, launches, preds, step_ms = {}, {}, {}, {}, {}
     try:
         for mode in INFER_MODES:
             flags.set_flags({"weight_quant": mode})
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
             held_gb = torch.cuda.memory_allocated() / 1e9
             t0 = time.monotonic()
             pred = inference.create_predictor(inference.Config(model_dir))
@@ -1748,11 +2031,13 @@ def phase_infer(model_dir):
             torch.cuda.synchronize()
             first_s = time.monotonic() - t0
             rewritten = stat_get("pass_weight_quant_ops") - n0
-            for b in INFER_BATCHES:             # warm every batch shape
+            for b in INFER_BATCHES[1:]:         # every batch's warm-up
                 pred.run(feeds[b])
-            torch.cuda.synchronize()
+            _out, captured_gb = peak_gb(lambda: [pred.run(feeds[b])
+                                                 for b in INFER_BATCHES])
             qo.reset_launch_count()     # the main path's counts start here
             fab.reset_launch_count()
+            replays = stat_get("cuda_graph_replays")
             p50 = {}
             for b in INFER_BATCHES:
                 ms = []
@@ -1763,14 +2048,21 @@ def phase_infer(model_dir):
                     ms.append((time.perf_counter() - t0) * 1e3)
                 p50[b] = float(np.median(ms))
                 outs[(mode, b)] = out
+                step_ms[(mode, b)] = ms
             runs = INFER_RUNS * len(INFER_BATCHES)
             launches[mode] = (qo.dequant_matmul.launches,
                               fab.flash_attention_bias.launches)
             want = ((B7_PER_RUN if mode else 0) * runs, B1_PER_RUN * runs)
-            if launches[mode] != want:
+            replays = stat_get("cuda_graph_replays") - replays
+            if launches[mode] != want or replays != runs:
                 raise RuntimeError(f"mode {mode!r}: B7/B1 launched "
-                                   f"{launches[mode]} times in {runs} runs, "
-                                   f"want {want}")
+                                   f"{launches[mode]} times in {runs} runs "
+                                   f"({replays} replays), want {want}, each "
+                                   f"run a replay")
+            graph = eager_vs_captured(
+                f"infer {mode or 'float32'}", pred._exe, pred._program,
+                feeds[32], pred._fetch_targets, pred._scope, INFER_RUNS,
+                INFER_ORACLE_TOL, False, step_ms[(mode, 32)], captured_gb)
             if rewritten != (B7_PER_RUN if mode else 0):
                 raise RuntimeError(f"mode {mode!r}: the pass rewrote "
                                    f"{rewritten} ops, want {B7_PER_RUN}")
@@ -1788,8 +2080,8 @@ def phase_infer(model_dir):
                 sequences_per_s_b32=32 / (p50[32] / 1e3),
                 launches_b7_b1=list(launches[mode]),
                 launches_per_run=[n / runs for n in launches[mode]],
-                memory_held_before_gb=held_gb,
-                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+                memory_held_before_gb=held_gb, replays=replays,
+                batch_32=graph)
             preds[mode] = pred
     finally:
         flags.set_flags({"weight_quant": "", "flash_attention": "auto"})
@@ -1825,9 +2117,16 @@ def phase_infer_oracle(model_dir, card_preds):
             cfg = inference.Config(model_dir)
             cfg.disable_gpu()
             cpu = inference.create_predictor(cfg)
+            card = card_preds[mode]
+            card._exe.warmup(card._program, [feed], card._fetch_targets,
+                             card._scope)   # the card's run is a replay
+            replays = stat_get("cuda_graph_replays")
             before = qo.dequant_matmul.launches
             got_cpu = cpu.run(feed)
-            got_card = card_preds[mode].run(feed)
+            got_card = card.run(feed)
+            if stat_get("cuda_graph_replays") != replays + 1:
+                raise RuntimeError(f"mode {mode!r}: the card's run was not "
+                                   f"a replay")
             if qo.dequant_matmul.launches - before != (B7_PER_RUN if mode
                                                         else 0):
                 raise RuntimeError(f"mode {mode!r}: the CPU predictor "
@@ -1923,13 +2222,13 @@ def conv_flops(main, batch):
 
 
 def resnet_train(batch):
-    """Startup, a warm ``run_steps(steps=3)``, then RESNET_STEPS synced
-    steps at ``batch`` on the card, the feed on the card beforehand (as
-    bench_resnet puts it there once)."""
+    """Startup, the warm-up and capture, a ``run_steps(steps=2)`` of
+    replays, then RESNET_STEPS synced replays at ``batch`` on the card
+    (the feed on the card beforehand, as bench_resnet puts it there once),
+    then the eager block beside them."""
     main, startup, loss = build_resnet(amp=True)
     exe = pt.Executor()
     scope = pt.framework.Scope()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     exe.run(startup, scope=scope)
     torch.cuda.synchronize()
@@ -1939,10 +2238,12 @@ def resnet_train(batch):
     zero_kernel_launches()      # the path's counts start here
     before = kernel_launches()
     t0 = time.monotonic()
+    captured_gb = warm_and_capture(exe, main, feed, [loss], scope)
     warm = exe.run_steps(main, feed=feed, fetch_list=[loss], scope=scope,
-                         steps=3)[0]
+                         steps=2)[0]
     torch.cuda.synchronize()
     warm_s = time.monotonic() - t0
+    replays = stat_get("cuda_graph_replays")
     step_ms, losses = [], []
     for _ in range(RESNET_STEPS):
         t0 = time.perf_counter()
@@ -1951,12 +2252,20 @@ def resnet_train(batch):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(out.ravel()[0]))
+    replays = stat_get("cuda_graph_replays") - replays
+    launches_after = kernel_launches()
+    if replays != RESNET_STEPS:
+        raise RuntimeError(f"{replays} of {RESNET_STEPS} ResNet steps were "
+                           f"replays")
+    graph = eager_vs_captured("resnet", exe, main, feed, [loss], scope,
+                              EAGER_STEPS, RESNET_ORACLE_RTOL, True, step_ms,
+                              captured_gb)
     losses = [float(x) for x in warm.float().cpu().ravel()] + losses
     report = dict(program_ops=len(main.global_block.ops),
-                  startup_s=startup_s, warm_run_steps_3_s=warm_s,
-                  step_ms=step_ms, losses=losses,
-                  launches_before=before, launches_after=kernel_launches(),
-                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+                  startup_s=startup_s, warm_eager_capture_replay_s=warm_s,
+                  step_ms=step_ms, losses=losses, replays=replays,
+                  launches_before=before, launches_after=launches_after,
+                  **graph)
     return report, (exe, main, feed, loss, scope)
 
 
@@ -2069,11 +2378,20 @@ def phase_resnet_oracle():
     feed = resnet_feed(RESNET_ORACLE_BATCH, seed=1)
     feed_ulp = dict(feed, image=np.nextafter(feed["image"],
                                              np.float32(np.inf)))
+    exe.warmup(main, [feed], [loss], card)   # the card's steps replay
+    snap = snapshot(card)
+    captured_first = float(exe.run(main, feed=feed, fetch_list=[loss],
+                                   scope=card)[0].ravel()[0])
+    restore(card, snap)
+    del snap
     t0 = time.monotonic()
     first, errs = replay_step(exe, main, feed, loss.name, card)
     replay_s = time.monotonic() - t0
+    replays = stat_get("cuda_graph_replays")
     later = exe.run_steps(main, feed=feed, fetch_list=[loss], scope=card,
                           steps=2, return_numpy=True)[0]
+    if stat_get("cuda_graph_replays") - replays != 2:
+        raise RuntimeError("the oracle's card steps were not replays")
     card_l = [float(first.ravel()[0])] + [float(x) for x in later.ravel()]
     cpu_exe = pt.Executor(pt.CPUPlace())
     t0 = time.monotonic()
@@ -2108,7 +2426,9 @@ def phase_resnet_oracle():
         running_stats=len(stat_errs), running_stats_max_rel_err=max(
             stat_errs), parameters=len(param_errs),
         parameters_max_rel_err=max(param_errs), tolerance=RESNET_ORACLE_RTOL,
-        losses_card=card_l, losses_cpu=cpu_l, losses_cpu_image_ulp=ulp_l,
+        losses_card=card_l, loss_step1_card_captured=captured_first,
+        loss_step1_rel_gap_captured_cpu=gaps([captured_first], cpu_l)[0],
+        losses_cpu=cpu_l, losses_cpu_image_ulp=ulp_l,
         loss_rel_gaps_card_cpu=gaps(card_l, cpu_l),
         loss_rel_gaps_cpu_ulp=gaps(ulp_l, cpu_l),
         step3_state_max_rel_gap_card_cpu=[
@@ -2126,11 +2446,67 @@ def phase_resnet_oracle():
                            f"{worst[2]} from the CPU's on the same inputs "
                            f"(> {RESNET_ORACLE_RTOL})")
     if not all(math.isfinite(x) for x in card_l + cpu_l) \
-            or gaps(card_l, cpu_l)[0] > RESNET_ORACLE_RTOL:
-        raise RuntimeError(f"card vs CPU losses {card_l} vs {cpu_l}: step 1 "
-                           f"apart by more than {RESNET_ORACLE_RTOL}")
+            or gaps(card_l, cpu_l)[0] > RESNET_ORACLE_RTOL \
+            or gaps([captured_first], cpu_l)[0] > RESNET_ORACLE_RTOL:
+        raise RuntimeError(f"card vs CPU losses {card_l} (captured step 1 "
+                           f"{captured_first}) vs {cpu_l}: step 1 apart by "
+                           f"more than {RESNET_ORACLE_RTOL}")
     if not (card_l[2] < card_l[0] and cpu_l[2] < cpu_l[0]):
         raise RuntimeError(f"the loss did not fall: {card_l}, {cpu_l}")
+
+
+def release(phase):
+    """Drop a phase's executors and graphs (their ``close()`` ran, or
+    they went with the phase's objects) and give the cached blocks back;
+    log the phase's peak and what stays allocated."""
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log("release", after=phase, peak_memory_gb_since_last_release=peak,
+        allocated_gb=torch.cuda.memory_allocated() / 1e9,
+        reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    torch.cuda.reset_peak_memory_stats()
+
+
+# Dropout under capture: elements of the checked tensor, and its rate.
+DROPOUT_N, DROPOUT_P = 1 << 22, 0.1
+
+
+def phase_dropout():
+    """A dropout program through ``Executor.run`` on the card: the
+    warm-up, the capture and its replay, then two more replays.  The
+    program's generator is registered with the graph, so every replay
+    draws a fresh mask: the last two replays' masks differ, and each
+    keeps a share of the elements within 3 sigma of 1 - p."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.framework.program import Program
+
+    main, startup = Program(), Program()
+    main.random_seed = 3
+    with unique_name.guard(), program_guard(main, startup):
+        x = layers.data("x", [DROPOUT_N], append_batch_size=False)
+        y = layers.dropout(x, DROPOUT_P,
+                           dropout_implementation="upscale_in_train")
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    feed = {"x": np.ones(DROPOUT_N, "float32")}
+    replays = stat_get("cuda_graph_replays")
+    masks = [exe.run(main, feed=feed, fetch_list=[y], scope=scope,
+                     return_numpy=False)[0] != 0 for _ in range(5)]
+    replays = stat_get("cuda_graph_replays") - replays
+    kept = [float(m.float().mean()) for m in masks]
+    sigma = math.sqrt(DROPOUT_P * (1 - DROPOUT_P) / DROPOUT_N)
+    differ = bool((masks[-1] != masks[-2]).any())
+    log("dropout", elements=DROPOUT_N, p=DROPOUT_P, replays=replays,
+        kept_share=kept, three_sigma=3 * sigma, last_replays_differ=differ,
+        capture_reason=executor_mod.capture_reason(main))
+    exe.close()
+    if replays != 4 or not differ or \
+            any(abs(k - (1 - DROPOUT_P)) > 3 * sigma for k in kept[1:]):
+        raise RuntimeError(f"dropout under capture: {replays} replays, "
+                           f"kept shares {kept} (3 sigma {3 * sigma}), "
+                           f"last two masks differ: {differ}")
 
 
 def main():
@@ -2143,27 +2519,30 @@ def main():
     name = phase_device()
     phase_build()
     rows = phase_kernels(name)
+    phase_dropout()
     launches, model = phase_serve()
     phase_profile(model)
     del model
-    torch.cuda.empty_cache()
+    release("serve")
     launches["flash_attention_bias"], state = phase_train()
-    phase_train_profile(lambda: exe_run(state))
+    phase_train_profile(lambda: exe_eager(state), lambda: exe_run(state))
     del state
-    torch.cuda.empty_cache()
+    release("train")
     phase_train_oracle()
+    release("train_oracle")
     unfused, state = phase_train_unfused()
     launches.update(unfused)
     phase_train_profile(
-        lambda: exe_run(state), phase="train_unfused_profile",
+        lambda: exe_eager(state), lambda: exe_run(state),
+        phase="train_unfused_profile",
         kernels=(("b2", "flash_fwd_mma_kernel"),
                  ("b3", "flash_bwd_dq_mma_kernel"),
                  ("b4", "flash_bwd_dkv_mma_kernel")),
         op_types=("flash_attention", "flash_attention_grad"))
     del state
-    torch.cuda.empty_cache()
+    release("train_unfused")
     phase_train_unfused_oracle()
-    torch.cuda.empty_cache()
+    release("train_unfused_oracle")
     with tempfile.TemporaryDirectory() as tmp:
         model_dir = os.path.join(tmp, "bert_base")
         t0 = time.monotonic()
@@ -2187,6 +2566,8 @@ def main():
                          "flash_attention": "always"})
         try:
             phase_train_profile(
+                lambda: eager_run(pred._exe, pred._program, feed32,
+                                  pred._fetch_targets, pred._scope),
                 lambda: pred.run(feed32), phase="infer_profile",
                 kernels=(("b7", "dequant_matmul_"),
                          ("b1", "flash_fwd_mma_kernel")),
@@ -2194,14 +2575,18 @@ def main():
             phase_infer_oracle(model_dir, preds)
         finally:
             flags.set_flags({"weight_quant": "", "flash_attention": "auto"})
+        for p in preds.values():
+            p._exe.close()
         del preds, pred
-    torch.cuda.empty_cache()
+    release("infer")
     state = phase_resnet()
-    phase_train_profile(lambda: exe_run(state), phase="resnet_profile",
-                        kernels=(), op_types=RESNET_OP_TYPES, top_kernels=15)
+    phase_train_profile(lambda: exe_eager(state), lambda: exe_run(state),
+                        phase="resnet_profile", kernels=(),
+                        op_types=RESNET_OP_TYPES, top_kernels=15)
     del state
-    torch.cuda.empty_cache()
+    release("resnet")
     phase_resnet_oracle()
+    release("resnet_oracle")
     kernels = []
     main_case = TRAIN_FLASH_CASES[0][0]
     for kernel, case in (("paged_decode_attention", "decode_float32"),

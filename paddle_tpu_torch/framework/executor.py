@@ -1,11 +1,49 @@
-"""Executor: runs a program's global block op by op on one device.
+"""Executor: runs a program's global block on one device, compiled once
+per shape and replayed.
 
 Counterpart of ``paddle_tpu/framework/executor.py``, with the same
-``run(program, feed, fetch_list, scope, return_numpy)`` and
-``run_steps(..., steps)`` contract.  The JAX executor traces the block
-once into one jitted XLA computation; this one runs the lowering rules
-eagerly, every step, over a dict of tensors on its device (the card by
-default, ``CPUPlace()`` for the plain versions on the CPU):
+``run(program, feed, fetch_list, scope, return_numpy)``,
+``run_steps(..., steps)``, ``warmup(program, feed_specs, fetch_list,
+scope)`` and ``run_persistent(fn, state_names, args, scope)`` contract.
+The JAX executor traces the block once into one jitted XLA computation
+per key; this one keeps one compiled step (``_Entry``, the counterpart
+of ``_Compiled``) per key, and on the card that step is a CUDA graph
+(``framework/graphs.py``):
+
+- **The key** is the pass-rewritten program's fingerprint, the feeds'
+  shapes and dtypes, the fetch names, the state's shapes and dtypes, the
+  scope, the device and the lowering flags (``FLAGS_flash_attention``,
+  ``FLAGS_weight_quant``, ``FLAGS_fuse_passes``).  The scope joins the
+  key because the graph's state buffers are that scope's tensors.
+  ``executor_compile``, ``executor_cache_hit`` and ``executor_run`` move
+  as in the JAX package.
+- **On the card**, a key's first run is eager (the warm-up torch needs
+  before a capture, the JAX package's "first call traces"); its second
+  captures the block into a graph and replays it once; every later run
+  copies the feeds into the graph's static buffers and replays.
+- **State** is the port's form of donation: the scope holds the graph's
+  state tensors, and the graph writes each new state value back into
+  them in place.  A scope var that was rebound since (``set_var``, a
+  load, the startup, an eager run) is found by identity and copied into
+  its buffer before the replay; the RNG generator likewise.  A caller
+  who keeps a state tensor across a step sees it change, as a donated
+  JAX array is gone.
+- **Fetches** are copies: the next replay rewrites the graph's outputs.
+- **Eager for a reason.**  A program runs eagerly only for a reason
+  found in its op list (``capture_reason``): a random op with a fixed
+  nonzero ``seed`` (it seeds a fresh generator on each call, which a
+  replay could not repeat) or host I/O.  Each such run counts
+  ``executor_eager_<kind>`` and runs in an ``executor/eager`` span that
+  names the reason.  A capture or replay that fails raises; nothing
+  falls back.
+- **Last-use frees.**  The block drops each value from its environment
+  after the op that uses it last (not a feed, not state written back,
+  not a fetch), as the reference's eager garbage collection and XLA's
+  buffer reuse do: eagerly the memory returns to the allocator, under
+  capture to the graph's private pool.  On the CPU (``CPUPlace()``, the
+  kernels' plain versions) an entry is the plan without a graph.
+
+Other behaviour, as in the JAX package:
 
 - feeds are coerced to their declared dtypes (int64 stays int64);
 - a static use/def walk finds the state the block reads from the scope
@@ -18,38 +56,34 @@ default, ``CPUPlace()`` for the plain versions on the CPU):
   first time a program runs in that scope (a nonzero ``seed`` attr wins,
   see ``ops/common.op_generator``).
 
-``run_steps`` is a loop of K steps on the device with the fetches stacked
-on a leading K dimension: nothing in it waits for the device.
+``run_steps`` runs the entry K times, with the fetches stacked on a
+leading K dimension.  Host I/O programs (``save``/``load``/
+``save_combine``/``load_combine`` ops, built by ``fluid.io``) are
+interpreted on the host: ``framework/var_io.py`` writes and reads the
+files, and loaded values go straight to the executor's device.
 
-Host I/O programs (``save``/``load``/``save_combine``/``load_combine``
-ops, built by ``fluid.io``) are interpreted on the host, as in the JAX
-package: ``framework/var_io.py`` writes and reads the files, and loaded
-values go straight to the executor's device.
-
-Not in this slice (each raises ``NotImplementedError`` when asked for):
-meshes and tensor parallelism, ``use_prune``, ``warmup``,
-``run_persistent``, auto-checkpoint, localsgd, pipeline programs, and the
-NaN scan (``FLAGS_check_nan_inf``).  Runs are synchronous: the JAX
-executor's pipelined window of in-flight steps (``StepHandle``) is not
-ported either, so ``drain`` has nothing to wait for.
+Not in the port yet (each raises ``NotImplementedError`` when asked for):
+meshes and tensor parallelism, ``use_prune``, auto-checkpoint, localsgd,
+pipeline programs, and the NaN scan (``FLAGS_check_nan_inf``).  Runs are
+synchronous: the JAX executor's pipelined window of in-flight steps
+(``StepHandle``) is not ported, so ``drain`` has nothing to wait for.
 
 Graph passes: before a program's block runs, ``_apply_graph_passes``
 hands it to the ``framework/passes.py`` pipeline (attention-chain fusion
 to ``flash_attention``, redundant-cast and dead-op elimination), which
-rewrites a clone and leaves the caller's program as built.  The result
-is cached per (fingerprint, pass list, fetch and feed names, scope, and
-the values of ``FLAGS_flash_attention``, ``FLAGS_weight_quant`` and
-``FLAGS_fuse_passes``, the flags the passes read); ``FLAGS_fuse_passes=0``
-runs the program as built.  State read from the scope reaches the device
-with its own dtype, never cast to the var's declared one: a float8
-weight-quant carrier is declared ``int8`` in the block (the IR has no
-float8 type) and the op's ``mode`` attr says what it holds.  The startup
-program goes through the same call, where no pass finds anything to do.
+rewrites a clone and leaves the caller's program as built, cached per
+(fingerprint, pass list, fetch and feed names, scope, and the pass
+flags); ``FLAGS_fuse_passes=0`` runs the program as built.  State read
+from the scope reaches the device with its own dtype, never cast to the
+var's declared one: a float8 weight-quant carrier is declared ``int8``
+in the block (the IR has no float8 type) and the op's ``mode`` attr says
+what it holds.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Sequence
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +93,7 @@ from ..monitor import stat_add
 from ..observe import tracer as otrace
 from . import passes as passes_mod
 from .flags import flag
+from .graphs import StepGraph
 from .lowering import PSEUDO_OPS, LoweringContext, get_lowering
 from .place import Place, _default_place
 from .program import Program, Variable, default_main_program
@@ -105,6 +140,80 @@ def _feed_tensors(block, feed: Dict, device: torch.device):
     return out
 
 
+def capture_reason(program: Program) -> Optional[Tuple[str, str]]:
+    """Why ``program`` cannot run as a captured graph, from its op list
+    alone: ``(kind, text)``, or None when it can.  ``kind`` names the
+    ``executor_eager_<kind>`` counter its runs move."""
+    for op in program.global_block.ops:
+        if op.type in HOST_OPS:
+            return ("host_io", f"op {op.type!r} reads or writes files on "
+                               f"the host")
+        seed = int(op.attr("seed", 0) or 0)
+        if seed:
+            return ("seeded_random",
+                    f"op {op.type!r} has seed={seed}: it draws from a "
+                    f"generator seeded afresh at each call, which a replay "
+                    f"cannot repeat")
+    return None
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+@dataclass
+class _Entry:
+    """One compiled step (the JAX package's ``_Compiled``): the block's
+    state analysis and free plan, the reason it runs eagerly if it must,
+    and on the card its graph once captured."""
+    program: Program
+    fetch_names: Tuple[str, ...]
+    state_in: Tuple[str, ...]
+    state_out: Tuple[str, ...]
+    frees: Tuple[Tuple[str, ...], ...]
+    eager_reason: Optional[Tuple[str, str]]
+    step: Optional[StepGraph] = None      # on the card, from the 1st run
+    graph: Optional["_GraphStep"] = None  # from the 2nd run
+
+
+class _GraphStep:
+    """An entry's captured graph and its static buffers: the feeds, the
+    state it reads (the scope's own tensors), the state it only writes
+    and the fetches (tensors of the graph's pool)."""
+
+    def __init__(self, step: StepGraph, feeds, state, generator, seed):
+        self.step = step
+        self.feeds: Dict[str, torch.Tensor] = feeds
+        self.state: Dict[str, torch.Tensor] = state
+        self.generator = generator
+        self.seed = seed
+        self.written: Dict[str, torch.Tensor] = {}
+
+    def bind(self, feeds, scope) -> None:
+        """Copy the run's feeds, and every scope var rebound since the
+        last run, into the graph's buffers."""
+        for n, t in feeds.items():
+            self.feeds[n].copy_(t)
+        for n, buf in self.state.items():
+            v = scope.get_var(n)
+            if v is not buf:
+                buf.copy_(v)
+                scope.set_var(n, buf)
+        gen = scope.get_var(RNG_VAR) if scope.has_var(RNG_VAR) else None
+        if gen is None:   # the scope's first run: the program's seed
+            self.generator.manual_seed(self.seed)
+            scope.set_var(RNG_VAR, self.generator)
+        elif gen is not self.generator:
+            self.generator.set_state(gen.get_state())
+            scope.set_var(RNG_VAR, self.generator)
+
+    def replay(self, scope) -> List[torch.Tensor]:
+        self.step.replay()
+        for n, t in self.written.items():
+            scope.set_var(n, t)
+        return self.step.outputs
+
+
 class Executor:
     def __init__(self, place: Optional[Place] = None, mesh=None):
         if mesh is not None:
@@ -113,10 +222,19 @@ class Executor:
         self.device = self.place.torch_device()
         # (program fingerprint, feed names, scope serial) -> (in, out)
         self._analysis_cache: Dict[tuple, tuple] = {}
+        # (program fingerprint, feed and fetch names, scope serial) ->
+        # per-op names dropped after it
+        self._free_cache: Dict[tuple, tuple] = {}
         # (program fingerprint, pass config, fetch/feed names, scope
         # serial, pass flags) -> pass-rewritten program (or the original
         # when no pass applied)
         self._pass_cache: Dict[tuple, Program] = {}
+        # the compiled-step cache (see the module docstring for the key)
+        self._cache: Dict[tuple, _Entry] = {}
+        # most values the last eager or captured block held at once
+        self.env_peak = 0
+        # entries become graphs on the card; on the CPU they stay plans
+        self._captures = self.device.type == "cuda"
 
     # ------------------------------------------------------------------
     def run(
@@ -136,14 +254,24 @@ class Executor:
         if any(op.type in HOST_OPS for op in program.global_block.ops):
             return self._run_host_ops(program, scope, _names(fetch_list),
                                       return_numpy)
+        fetches, entry = self._run(program, feed, _names(fetch_list), scope)
+        if return_numpy:
+            return [to_numpy(v) for v in fetches]
+        return [v.clone() for v in fetches] if self._owns(entry) \
+            else fetches
+
+    def _run(self, program, feed, fetch_names, scope):
+        """One step: the pass pipeline, the entry's lookup, its run.
+        Returns the fetches (the graph's own buffers when the entry is
+        captured) and the entry."""
         self._refuse_left_out(program)
         feeds = _feed_tensors(program.global_block, dict(feed or {}),
                               self.device)
-        fetch_names = _names(fetch_list)
         program = self._apply_graph_passes(program, fetch_names, feeds,
                                            scope)
-        fetches = self._run_block(program, feeds, fetch_names, scope)
-        return [to_numpy(v) for v in fetches] if return_numpy else fetches
+        entry = self._entry(program, feeds, fetch_names, scope)
+        stat_add("executor_run")
+        return self._run_entry(entry, feeds, scope), entry
 
     # ------------------------------------------------------------------
     def run_steps(
@@ -163,8 +291,10 @@ class Executor:
         - ``steps=K``: feeds are single-step shaped and the same batch is
           reused for all K steps.
 
-        The feeds reach the device once, before the loop; each fetch
-        comes back stacked with a leading K dim, as tensors by default.
+        The feeds reach the device once, before the loop; the K steps
+        are K runs of one entry (replays, once it is captured); each
+        fetch comes back stacked with a leading K dim, as tensors by
+        default.
         """
         program = program if program is not None else default_main_program()
         feed = dict(feed or {})
@@ -190,30 +320,133 @@ class Executor:
         program = self._apply_graph_passes(program, fetch_names, feeds,
                                            scope)
         per_step: List[List[torch.Tensor]] = [[] for _ in fetch_names]
+        entry = None
         for i in range(n_steps):
             step_feed = feeds if steps is not None else \
                 {n: t[i] for n, t in feeds.items()}
+            if entry is None:
+                entry = self._entry(program, step_feed, fetch_names, scope)
+                stat_add("executor_run")
             for acc, v in zip(per_step,
-                              self._run_block(program, step_feed,
-                                              fetch_names, scope)):
-                acc.append(v)
+                              self._run_entry(entry, step_feed, scope)):
+                acc.append(v.clone() if self._owns(entry) else v)
         fetches = [torch.stack(vs) for vs in per_step]
         return [to_numpy(v) for v in fetches] if return_numpy else fetches
 
     # ------------------------------------------------------------------
-    def warmup(self, *args, **kwargs):
-        raise _later("Executor.warmup")
+    def warmup(
+        self,
+        program: Optional[Program] = None,
+        feed_specs: Optional[Sequence[Dict]] = None,
+        fetch_list: Optional[Sequence] = None,
+        scope: Optional[Scope] = None,
+    ) -> int:
+        """Compile one step per feed spec before traffic arrives (the
+        serving layer's warm start).
 
-    def run_persistent(self, *args, **kwargs):
-        raise _later("Executor.run_persistent")
+        ``feed_specs`` is an iterable of feed descriptions: each one a
+        dict mapping feed name -> ``(shape, dtype)`` (or a concrete
+        array used as-is).  Every spec runs on zero-filled feeds through
+        the normal cache path, on the card until its graph is captured,
+        so later ``run`` calls with the same shapes replay.  The whole
+        scope chain, the RNG generator's state included, is restored
+        afterwards, even when a run raises: warmup is state-neutral.
+        Returns the number of entries freshly compiled (0 if every spec
+        was already cached).
+        """
+        program = program if program is not None else default_main_program()
+        scope = scope if scope is not None else global_scope()
+        if fetch_list is None:
+            names = getattr(program, "_fetch_names", None)
+            if not names:
+                raise ValueError(
+                    "warmup needs fetch_list= (or a program that records "
+                    "its fetch contract, e.g. via load_inference_model)")
+            fetch_list = list(names)
+        fetch_names = _names(fetch_list)
+        n0 = len(self._cache)
+        snapshots = []
+        s = scope
+        while s is not None:
+            snapshots.append((s, dict(s._vars), {
+                k: (v.clone() if isinstance(v, torch.Tensor) else
+                    v.get_state() if isinstance(v, torch.Generator) else v)
+                for k, v in s._vars.items()}))
+            s = s._parent
+        try:
+            for spec in (feed_specs or []):
+                feed = {}
+                for name, sd in spec.items():
+                    if isinstance(sd, (np.ndarray, torch.Tensor)):
+                        feed[name] = sd
+                    else:
+                        shape, dtype = sd
+                        feed[name] = np.zeros(
+                            tuple(int(d) for d in shape), dtype)
+                while True:
+                    entry = self._run(program, feed, fetch_names, scope)[1]
+                    if entry.eager_reason is not None or \
+                            not self._captures or entry.graph is not None:
+                        break
+        finally:
+            for s, held, snap in snapshots:
+                s._vars.clear()
+                for k, v in snap.items():
+                    if isinstance(held[k], torch.Generator):
+                        held[k].set_state(v)
+                        v = held[k]
+                    s._vars[k] = v
+        return len(self._cache) - n0
+
+    # ------------------------------------------------------------------
+    def run_persistent(
+        self,
+        fn,
+        state_names: Sequence[str],
+        args: Sequence = (),
+        scope: Optional[Scope] = None,
+    ):
+        """Run one step of an externally built function whose persistent
+        state lives in ``scope`` as device tensors.
+
+        ``fn(state_tuple, *args) -> (outputs, new_state_tuple)`` where
+        ``state_tuple`` is the current value of every name in
+        ``state_names`` (in order).  The caller owns capture, as the JAX
+        caller owns ``jit`` (``framework/graphs.StepGraph`` captures a
+        fixed-shape step).  After the call the scope holds the new state,
+        and ``executor_run``, ``executor_steps_dispatched`` and
+        ``executor_steps_drained`` move as for any other step.
+        """
+        scope = scope if scope is not None else global_scope()
+        missing = [n for n in state_names if not scope.has_var(n)]
+        if missing:
+            raise KeyError(
+                f"run_persistent state vars not in scope: {missing}")
+        state = tuple(scope.get_var(n) for n in state_names)
+        with otrace.span("executor/persistent", state=len(state)):
+            outputs, new_state = fn(state, *args)
+        if len(new_state) != len(state):
+            raise ValueError(
+                f"run_persistent fn returned {len(new_state)} state "
+                f"values for {len(state)} state vars")
+        for n, v in zip(state_names, new_state):
+            scope.set_var(n, v)
+        stat_add("executor_run")
+        stat_add("executor_steps_dispatched")
+        stat_add("executor_steps_drained")
+        return outputs
 
     def drain(self):
         """Wait for in-flight steps: none, since every run is
         synchronous (kept for the JAX package's API)."""
 
     def close(self):
+        """Drop every cache, the captured graphs with them (their pools
+        go once the scopes let go of the state they hold)."""
         self._analysis_cache.clear()
+        self._free_cache.clear()
         self._pass_cache.clear()
+        self._cache.clear()
 
     # ------------------------------------------------------------------
     def _run_host_ops(self, program, scope, fetch_names, return_numpy):
@@ -223,35 +456,38 @@ class Executor:
         device."""
         from . import var_io
 
-        for op in program.global_block.ops:
-            if op.type in PSEUDO_OPS:
-                continue
-            if op.type not in HOST_OPS:
-                raise NotImplementedError(
-                    f"op {op.type!r} cannot run in a host I/O program; "
-                    f"save/load programs must contain only save/load ops "
-                    f"(build them via fluid.io helpers)")
-            path = op.attr("file_path")
-            if op.type == "save":
-                name = op.inputs["X"][0]
-                var_io.save_var(to_numpy(scope.get_var(name)), path)
-            elif op.type == "load":
-                name = op.outputs["Out"][0]
-                scope.set_var(name, var_io.load_var(path), self.place)
-            elif op.type == "save_combine":
-                names = list(op.inputs["X"])
-                var_io.save_combine(
-                    {n: to_numpy(scope.get_var(n)) for n in names}, names,
-                    path)
-            else:  # load_combine
-                names = list(op.outputs["Out"])
-                loaded = var_io.load_combine(path)
-                missing = [n for n in names if n not in loaded]
-                if missing:
-                    raise KeyError(f"load_combine: vars {missing} not "
-                                   f"present in {path!r}")
-                for n in names:
-                    scope.set_var(n, loaded[n], self.place)
+        kind, why = capture_reason(program)
+        stat_add("executor_eager_" + kind)
+        with otrace.span("executor/eager", reason=why):
+            for op in program.global_block.ops:
+                if op.type in PSEUDO_OPS:
+                    continue
+                if op.type not in HOST_OPS:
+                    raise NotImplementedError(
+                        f"op {op.type!r} cannot run in a host I/O program; "
+                        f"save/load programs must contain only save/load "
+                        f"ops (build them via fluid.io helpers)")
+                path = op.attr("file_path")
+                if op.type == "save":
+                    name = op.inputs["X"][0]
+                    var_io.save_var(to_numpy(scope.get_var(name)), path)
+                elif op.type == "load":
+                    name = op.outputs["Out"][0]
+                    scope.set_var(name, var_io.load_var(path), self.place)
+                elif op.type == "save_combine":
+                    names = list(op.inputs["X"])
+                    var_io.save_combine(
+                        {n: to_numpy(scope.get_var(n)) for n in names},
+                        names, path)
+                else:  # load_combine
+                    names = list(op.outputs["Out"])
+                    loaded = var_io.load_combine(path)
+                    missing = [n for n in names if n not in loaded]
+                    if missing:
+                        raise KeyError(f"load_combine: vars {missing} not "
+                                       f"present in {path!r}")
+                    for n in names:
+                        scope.set_var(n, loaded[n], self.place)
         if not fetch_names:
             return []
         vals = [scope.get_var(n) for n in fetch_names]
@@ -307,7 +543,106 @@ class Executor:
             scope.set_var(RNG_VAR, gen)
         return gen
 
+    # -- the compiled-step cache ----------------------------------------
+    def _entry(self, program, feeds, fetch_names, scope) -> _Entry:
+        state_in, state_out = self._analysis(program, set(feeds), scope)
+        key = (program.fingerprint(),
+               tuple((n, tuple(t.shape), t.dtype) for n, t in feeds.items()),
+               fetch_names,
+               tuple((tuple(v.shape), v.dtype) for v in
+                     (scope.get_var(n) for n in state_in)),
+               scope.serial, self.device,
+               str(flag("flash_attention")), str(flag("weight_quant")),
+               bool(flag("fuse_passes")))
+        entry = self._cache.get(key)
+        if entry is not None:
+            stat_add("executor_cache_hit")
+            return entry
+        stat_add("executor_compile")
+        entry = self._cache[key] = _Entry(
+            program, fetch_names, state_in, state_out,
+            self._frees(program, feeds, fetch_names, scope),
+            capture_reason(program))
+        return entry
+
+    def _owns(self, entry) -> bool:
+        """Whether ``entry``'s fetches may be buffers a later replay
+        rewrites (the graph's outputs, or state that becomes the graph's
+        input), so that the caller gets copies."""
+        return self._captures and entry.eager_reason is None
+
+    def _run_entry(self, entry, feeds, scope) -> List[torch.Tensor]:
+        if entry.eager_reason is not None:
+            kind, why = entry.eager_reason
+            stat_add("executor_eager_" + kind)
+            with otrace.span("executor/eager", reason=why):
+                return self._run_block(entry.program, feeds,
+                                       entry.fetch_names, scope)
+        if not self._captures:
+            return self._run_block(entry.program, feeds, entry.fetch_names,
+                                   scope)
+        if entry.graph is not None:
+            entry.graph.bind(feeds, scope)
+        elif entry.step is None:   # the first run: eager, the warm-up
+            entry.step = StepGraph(self.device)
+            return entry.step.on_side_stream(lambda: self._run_block(
+                entry.program, feeds, entry.fetch_names, scope))
+        else:
+            entry.graph = self._capture(entry, feeds, scope)
+        with otrace.span("executor/replay"):
+            return entry.graph.replay(scope)
+
+    def _capture(self, entry, feeds, scope) -> _GraphStep:
+        """Record the entry's block into a graph over static copies of
+        ``feeds`` and the scope's state tensors; the state the block
+        writes back lands in those tensors in place."""
+        block = entry.program.global_block
+        gen = self._generator(scope, entry.program)
+        static_feeds = {n: t.clone() for n, t in feeds.items()}
+        state, held = {}, set()
+        for n in entry.state_in:
+            v = scope.get_var(n)
+            if v.device != self.device or _storage(v) in held:
+                # each state buffer its own: an update in place must not
+                # reach a second name that shared the tensor
+                v = v.to(self.device, copy=True)
+                scope.set_var(n, v)
+            held.add(_storage(v))
+            state[n] = v
+        inputs = held | {_storage(t) for t in static_feeds.values()}
+        graph = _GraphStep(entry.step, static_feeds, state, gen,
+                           int(entry.program.random_seed or 0))
+
+        def step():
+            env = dict(state)
+            env.update(static_feeds)
+            self._run_ops(LoweringContext(block, env, self.device, gen),
+                          entry.frees)
+            _check_fetches(entry.fetch_names, env)
+            copies = []
+            for n in entry.state_out:
+                v = env[n]
+                if n in state and v is state[n]:
+                    continue
+                if _storage(v) in inputs:  # an alias of an input buffer
+                    v = v.clone()          # (assign): take the value now
+                if n in state:
+                    copies.append((state[n], v))
+                else:
+                    graph.written[n] = v
+            for buf, v in copies:
+                buf.copy_(v)
+            return [env[n] for n in entry.fetch_names]
+
+        with otrace.span("executor/capture", ops=len(block.ops)):
+            entry.step.capture(step, generators=(gen,))
+        return graph
+
+    # -- the eager block --------------------------------------------------
     def _run_block(self, program, feeds, fetch_names, scope):
+        """Run the block op by op (every lowering called eagerly), each
+        value dropped after its last use; write the state back to the
+        scope and return the fetches."""
         block = program.global_block
         state_in, state_out = self._analysis(program, set(feeds), scope)
         env = {}
@@ -317,8 +652,20 @@ class Executor:
         env.update(feeds)
         ctx = LoweringContext(block, env, self.device,
                               self._generator(scope, program))
+        self._run_ops(ctx, self._frees(program, feeds, fetch_names, scope))
+        _check_fetches(fetch_names, env)
+        for n in state_out:
+            scope.set_var(n, env[n])
+        return [env[n] for n in fetch_names]
+
+    def _run_ops(self, ctx, frees):
+        """Every op of the block through its lowering, raising with the
+        op's type and build site; ``frees[i]`` names the values dropped
+        after op i."""
+        env = ctx.env
+        peak = len(env)
         with torch.no_grad():
-            for op in block.ops:
+            for i, op in enumerate(ctx.block.ops):
                 if op.type in PSEUDO_OPS:
                     continue
                 try:
@@ -332,12 +679,10 @@ class Executor:
                     except Exception:  # noqa: BLE001 - odd constructors
                         err = RuntimeError(msg)
                     raise err from e
-        missing = [n for n in fetch_names if n not in env]
-        if missing:
-            raise KeyError(f"fetch vars not produced by program: {missing}")
-        for n in state_out:
-            scope.set_var(n, env[n])
-        return [env[n] for n in fetch_names]
+                peak = max(peak, len(env))
+                for n in frees[i]:
+                    env.pop(n, None)
+        self.env_peak = peak
 
     def _analysis(self, program, feed_names, scope):
         key = (program.fingerprint(), frozenset(feed_names), scope.serial)
@@ -347,6 +692,46 @@ class Executor:
         cached = self._analysis_cache[key] = _analyze_state(
             program, feed_names, scope)
         return cached
+
+    def _frees(self, program, feeds, fetch_names, scope):
+        key = (program.fingerprint(), frozenset(feeds), fetch_names,
+               scope.serial)
+        cached = self._free_cache.get(key)
+        if cached is None:
+            state_out = self._analysis(program, set(feeds), scope)[1]
+            cached = self._free_cache[key] = _free_plan(
+                program, set(feeds) | set(state_out) | set(fetch_names))
+        return cached
+
+
+def _check_fetches(fetch_names, env):
+    missing = [n for n in fetch_names if n not in env]
+    if missing:
+        raise KeyError(f"fetch vars not produced by program: {missing}")
+
+
+def _free_plan(program, keep) -> Tuple[Tuple[str, ...], ...]:
+    """For each op of the global block, the names whose last use (read
+    or write) it is, ``keep`` (feeds, state written back, fetches)
+    excepted: the block drops them after the op.  Gradient ops read the
+    forward values they need through their inputs, so those count.  A
+    block with an op that owns a sub-block frees nothing (its reads are
+    not all in its op's slots)."""
+    ops = program.global_block.ops
+    frees: List[List[str]] = [[] for _ in ops]
+    if any(op.has_attr(a) for op in ops
+           for a in ("sub_block", "sub_block_t", "sub_block_f")):
+        return tuple(tuple(f) for f in frees)
+    last = {}
+    for i, op in enumerate(ops):
+        if op.type in PSEUDO_OPS:
+            continue
+        for n in op.input_arg_names() + op.output_arg_names():
+            last[n] = i
+    for n, i in last.items():
+        if n not in keep:
+            frees[i].append(n)
+    return tuple(tuple(f) for f in frees)
 
 
 def _names(fetch_list) -> tuple:

@@ -99,8 +99,8 @@ def _scale(ctx, op):
     x = ctx.in1(op, "X")
     s_in = ctx.in_list(op, "ScaleTensor")
     scale = s_in[0].reshape(()) if s_in else float(op.attr("scale", 1.0))
-    bias = torch.tensor(float(op.attr("bias", 0.0)), dtype=x.dtype,
-                        device=x.device)
+    bias = torch.full((), float(op.attr("bias", 0.0)), dtype=x.dtype,
+                      device=x.device)
     xs = promote(x, scale)[0] if s_in else x
     if bool(op.attr("bias_after_scale", True)):
         out = xs * scale + bias

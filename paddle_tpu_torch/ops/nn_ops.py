@@ -138,21 +138,27 @@ def _lowest(dtype):
 def _adaptive_pool_1d(x, axis, out_size, ptype):
     """Adaptive pooling along one axis with arbitrary output size: gather
     each cell's window (fixed max width) and reduce under a validity
-    mask.  Dtype-preserving like the divisible-size branch."""
+    mask.  Dtype-preserving like the divisible-size branch.  The windows
+    (``adaptive_windows``'s) are built on x's device, with no host copy
+    that a captured step could not hold."""
     ih = int(x.shape[axis])
-    idx, valid, maxw = adaptive_windows(ih, out_size)
-    g = torch.index_select(x, axis, torch.as_tensor(idx.ravel(),
-                                                    device=x.device))
+    maxw = adaptive_windows(ih, out_size)[2]
+    cell = torch.arange(out_size, device=x.device)
+    starts = torch.div(cell * ih, out_size, rounding_mode="floor")
+    ends = -torch.div(-(cell + 1) * ih, out_size, rounding_mode="floor")
+    idx = starts[:, None] + torch.arange(maxw, device=x.device)[None, :]
+    valid = idx < ends[:, None]
+    g = torch.index_select(x, axis, idx.clamp(max=ih - 1).ravel())
     new_shape = x.shape[:axis] + (out_size, maxw) + x.shape[axis + 1:]
     g = g.reshape(new_shape)
     mshape = [1] * len(new_shape)
     mshape[axis], mshape[axis + 1] = out_size, maxw
-    m = torch.as_tensor(valid, device=x.device).reshape(mshape)
+    m = valid.reshape(mshape)
     if ptype == "max":
         return torch.where(m, g, torch.full((), _lowest(g.dtype),
                                             dtype=g.dtype, device=g.device)
                            ).amax(dim=axis + 1)
-    counts = torch.as_tensor(valid.sum(1), device=x.device).to(g.dtype)
+    counts = valid.sum(1).to(g.dtype)
     counts = counts.reshape([out_size if i == axis else 1
                              for i in range(len(new_shape) - 1)])
     return torch.where(m, g, torch.zeros((), dtype=g.dtype, device=g.device)

@@ -10,12 +10,21 @@ boundary, streamed tokens, and per-request deterministic sampling.
 
 What the port changes:
 
-- **Eager PyTorch, no executor.**  Each step runs as plain torch ops on
-  the engine's device; the page pools live on the ``PagedKVCache`` and
-  the steps update them in place (``kv_cache.write_*_layer``), where
-  the JAX engine threads them through ``Executor.run_persistent`` with
-  donation.  The engine thread's one per-step sync is the ``.cpu()`` of
-  the sampled tokens.
+- **A captured decode step, no executor.**  The page pools live on the
+  ``PagedKVCache`` and the steps update them in place
+  (``kv_cache.write_*_layer``), where the JAX engine threads them
+  through ``Executor.run_persistent`` with donation.  The engine does
+  not call ``run_persistent``: it replays its step directly.  On the
+  card the decode step (``_decode_forward``: every layer's LayerNorm,
+  projections, two page writes, B5 and MLP, then the head) has fixed
+  shapes (S slots, the page-table width), so its first run is eager,
+  its second is captured into a CUDA graph (``framework/graphs.py``)
+  and every later one is a replay, fed by the one host-to-device copy
+  of ``_upload`` into the graph's static input buffer.  B5's split plan
+  reads shapes only, and the pools keep their addresses.  Sampling runs
+  after the replay (sampled rows draw from host-made generators); the
+  engine thread's one per-step sync is the ``.cpu()`` of the sampled
+  tokens.  Prefill (B6, one shape per prompt bucket) runs eagerly.
 - **Attention through the hand-written kernels.**  Decode steps call
   ``ops.paged_attention.paged_decode_attention`` (B5); the whole-prompt
   prefill, the prefix-hit suffix prefill and chunked prefill call
@@ -56,6 +65,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..framework.graphs import StepGraph
 from ..framework.place import DeviceLike, default_device, device_of
 from ..monitor import stat_add, stat_get, stat_max, stat_set
 from ..observe import tracer as otrace
@@ -489,6 +499,10 @@ class DecodeEngine:
         self._prompt_pages = 0
         self._cow_copies = 0
         self._prefill_chunk_count = 0
+        # the captured decode step (framework/graphs.py) and its static
+        # input buffer, from the first and second decode steps on the card
+        self._step: Optional[StepGraph] = None
+        self._step_inputs: Optional[torch.Tensor] = None
 
     # -- per-request tracing helpers -------------------------------------
     @staticmethod
@@ -512,12 +526,13 @@ class DecodeEngine:
                       **attrs)
 
     # -- device work: the model over the page pools ----------------------
-    def _upload(self, *arrays):
+    def _upload(self, *arrays, into: Optional[torch.Tensor] = None):
         """Host int arrays -> int32 device tensors of the same shapes, in
-        ONE host-to-device copy (views into one contiguous buffer)."""
-        flat = np.concatenate([np.asarray(a, np.int32).ravel()
-                               for a in arrays])
-        buf = torch.from_numpy(flat).to(self.device)
+        ONE host-to-device copy (views into one contiguous buffer:
+        ``into`` when given, else a new one)."""
+        flat = torch.from_numpy(np.concatenate(
+            [np.asarray(a, np.int32).ravel() for a in arrays]))
+        buf = flat.to(self.device) if into is None else into.copy_(flat)
         out, o = [], 0
         for a in arrays:
             n = int(np.prod(np.shape(a)))
@@ -554,6 +569,30 @@ class DecodeEngine:
             x = x + model._attn_out(lw, ctx)
             x = x + model._mlp(lw, model._ln(x, lw.ln2_g, lw.ln2_b))
         return model._head(x)                             # [S, V]
+
+    def _decode_step(self, *arrays):
+        """The decode step's logits [S, V] from its host inputs
+        (``_decode_forward``'s, before ``_upload``).  On the card: the
+        first step eager on the step's side stream, the second captured,
+        then replays into the same output buffer, which the caller reads
+        before the next step."""
+        if self.device.type != "cuda":
+            return self._decode_forward(*self._upload(*arrays))
+        step = self._step
+        if step is None:
+            step = self._step = StepGraph(self.device, "thread_local")
+            return step.on_side_stream(
+                lambda: self._decode_forward(*self._upload(*arrays)))
+        if step.graph is None:
+            self._step_inputs = torch.empty(
+                sum(np.size(a) for a in arrays), dtype=torch.int32,
+                device=self.device)
+            inputs = self._upload(*arrays, into=self._step_inputs)
+            step.capture(lambda: self._decode_forward(*inputs))
+        else:
+            self._upload(*arrays, into=self._step_inputs)
+        step.replay()
+        return step.outputs
 
     def _rows_forward(self, tokens, positions, page_table, write):
         """R query rows per slot (``tokens``/``positions`` [S, R]):
@@ -1156,10 +1195,9 @@ class DecodeEngine:
         t0 = time.monotonic()
         try:
             with otrace.span("serving/decode_step", live=len(live_idx)):
-                tok_d, pos_d, table, wp, wo = self._upload(
-                    tokens, positions, self._cache.page_table, write_page,
-                    write_off)
-                logits = self._decode_forward(tok_d, pos_d, table, wp, wo)
+                logits = self._decode_step(tokens, positions,
+                                           self._cache.page_table,
+                                           write_page, write_off)
                 nxt = sample_tokens(gens, logits, temp, top_k, top_p)
                 nxt = nxt.cpu().numpy()  # THE per-step sync point
         except Exception as e:  # noqa: BLE001 — fail the batch loudly,
