@@ -200,6 +200,38 @@ peak memory once its executors and graphs are dropped.
                ``cudnn.benchmark`` off: per-step losses within 1e-4 relative,
                the 106 running statistics and 161 parameters within 1e-4 of
                each tensor's largest magnitude, and the loss fell.
+19. dygraph_resnet -- BASELINE config 2 at bench_resnet's shape through the
+               2.0 API: ``set_device("gpu:0")``, ``vision.models.resnet50()``,
+               ``optimizer.Momentum(0.1, 0.9)``, ``amp.auto_cast(bfloat16)``,
+               ``F.cross_entropy``, ``loss.backward()``, ``opt.step()``,
+               ``opt.clear_grad()``; batch 128 (halved while it does not fit,
+               logged as ``reduced``), random data from a seed on the card;
+               3 warm-up steps, then 10 synced steps: step p50, images/s,
+               finite losses, the eager ops dispatched a step (by type), peak
+               memory after step 3 and after the last (within 5 %: state that
+               held autograd's graph would grow it), B1-B7 launching 0 times,
+               then one step under ``torch.profiler``: the device's busy
+               share, its 15 largest kernels, device and host ms of the top
+               op types (each eager op in a range of its own; the backward
+               runs on autograd's thread, outside them), beside the same
+               call's static ResNet step (phase 16);
+20. dygraph_resnet_oracle -- batch 4, full width: one set of weights on
+               the card and on the CPU, one float32 forward and backward
+               each: the loss within 1e-4 relative, the 106 running
+               statistics within 1e-4 of each tensor's largest magnitude,
+               the 161 gradients within DY_ORACLE_GRAD_TOL norm-wise; then
+               both in float64 from the same weights: loss, running
+               statistics and gradients within DY_ORACLE_F64_TOL;
+21. capture_concurrency -- two decode replicas of the serving model (8
+               layers) serve 8 requests (200-token prompts, 300 new tokens)
+               while the executor captures a new step key (128 fc layers)
+               on the main thread, all under ``torch.profiler``: every
+               request completes, the capture succeeds in ``thread_local``
+               mode and credits none of the replicas' launches (decode steps
+               ran during it), the B5 / B6 wrapper counts over the window
+               equal the layers times the decode steps / prefills the
+               engines counted, and the ``paged_decode_kernel`` /
+               ``paged_chunk_mma_kernel`` launches the profiler saw.
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
@@ -2295,6 +2327,8 @@ def phase_resnet():
     p50 = float(np.median(report["step_ms"]))
     flops = conv_flops(state[1], batch)
     _bw, peaks = card_peaks(torch.cuda.get_device_name(0))
+    STATIC_RESNET.update(batch=batch, captured_p50=p50,
+                         eager_p50=report["step_ms_p50_eager"])
     log("resnet", model="resnet50_v1.5", batch=batch, image=RESNET_IMG,
         classes=1000, amp="bfloat16", optimizer="momentum 0.9, lr 0.1",
         steps=RESNET_STEPS, step_ms_p50=p50,
@@ -2455,6 +2489,450 @@ def phase_resnet_oracle():
         raise RuntimeError(f"the loss did not fall: {card_l}, {cpu_l}")
 
 
+# -- dygraph (the 2.0 API) --------------------------------------------------
+
+DY_BATCH, DY_WARM, DY_STEPS = 128, 3, 10
+DY_PEAK_RTOL = 0.05            # peak memory after step 3 vs the last step
+DY_ORACLE_BATCH, DY_ORACLE_LR, DY_ORACLE_RTOL = 4, 1e-3, 1e-4
+# Norm-wise relative error of each parameter's gradient, card vs CPU
+# after one step.  In float32 the gradient of this randomly initialized
+# ResNet-50 at batch 4 is not stable to better than a few percent: the CPU
+# against itself, its image moved by one float32 ulp, parts by about as
+# much as the card parts from the CPU, and so does the CPU in float64 for
+# the same one-ulp move of the image (the phase logs both gaps; PERF.md
+# section 6 has the readings), so the gap is the gradient's own
+# sensitivity to a float32-sized change, not one op's rounding.  A dropped
+# term of batch norm's backward is off by order 1 and fails the float32
+# bound (tools/dygraph_oracle_faults.py plants such faults on the card).
+# Smaller errors show in float64, where the card parts from the CPU by
+# about 1e-13 (PERF.md): there the loss, the running statistics and every
+# gradient are held to DY_ORACLE_F64_TOL, a few hundred times that; a mean
+# term of batch norm's backward divided by N - 1 for N reads 3.6e-2 there.
+DY_ORACLE_GRAD_TOL = 0.1
+DY_ORACLE_F64_TOL = 1e-10
+STATIC_RESNET = {}             # the same call's static step, for beside
+
+
+def dygraph_resnet50(batch, seed, lr, device="gpu:0"):
+    """``vision.models.resnet50()`` on ``device`` with
+    ``optimizer.Momentum(lr, 0.9)``, and one seeded batch on it."""
+    pt.set_device(device)
+    pt.seed(seed)
+    model = pt.vision.models.resnet50()
+    opt = pt.optimizer.Momentum(lr, 0.9, parameters=model.parameters())
+    rng = np.random.RandomState(seed)
+    x = pt.to_tensor(rng.randn(batch, *RESNET_IMG).astype("float32"))
+    y = pt.to_tensor(rng.randint(0, 1000, (batch, 1)).astype("int64"))
+    return model, opt, x, y
+
+
+def dygraph_step(model, opt, x, y, amp=True):
+    """One training step as a user writes it: auto_cast forward, loss,
+    backward, the optimizer's step, clear_grad."""
+    with pt.amp.auto_cast(enable=amp, dtype="bfloat16"):
+        loss = pt.nn.functional.cross_entropy(model(x), y)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def counted_ops(step):
+    """``step()`` with every eager op it dispatches counted by type."""
+    from paddle_tpu_torch.dygraph import eager
+
+    real, counts = eager.run_op, {}
+
+    def run_op(op_type, *a, **kw):
+        counts[op_type] = counts.get(op_type, 0) + 1
+        return real(op_type, *a, **kw)
+
+    eager.run_op = run_op
+    try:
+        step()
+    finally:
+        eager.run_op = real
+    return counts
+
+
+def dygraph_op_ranges():
+    """Every eager op in a profiler range ``op/<type>``; returns the undo."""
+    from torch.profiler import record_function
+
+    from paddle_tpu_torch.dygraph import eager
+
+    real = eager.run_op
+
+    def run_op(op_type, *a, **kw):
+        with record_function("op/" + op_type):
+            return real(op_type, *a, **kw)
+
+    eager.run_op = run_op
+    return lambda: setattr(eager, "run_op", real)
+
+
+def dygraph_train(batch):
+    model, opt, x, y = dygraph_resnet50(batch, seed=0, lr=0.1)
+    torch.cuda.synchronize()
+    zero_kernel_launches()      # the path's counts start here
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.monotonic()
+    for _ in range(DY_WARM):
+        losses.append(float(dygraph_step(model, opt, x, y)))
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    peak_step3 = torch.cuda.max_memory_allocated()
+    step_ms = []
+    for _ in range(DY_STEPS):
+        t0 = time.perf_counter()
+        loss = dygraph_step(model, opt, x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    peak_last = torch.cuda.max_memory_allocated()
+    launches = kernel_launches()
+    ops = counted_ops(lambda: dygraph_step(model, opt, x, y))
+    return dict(step_ms=step_ms, losses=losses, warm_s=warm_s,
+                peak_step3_gb=peak_step3 / 1e9, peak_last_gb=peak_last / 1e9,
+                launches_after=launches, ops_per_step=sum(ops.values()),
+                ops_by_type=dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+                ), (model, opt, x, y)
+
+
+def phase_dygraph_resnet():
+    """BASELINE config 2 at bench_resnet's shape through the 2.0 API:
+    ``set_device("gpu:0")``, ``resnet50()``, ``Momentum(0.1, 0.9)``,
+    ``auto_cast(bfloat16)``, ``F.cross_entropy``, ``backward``, ``step``,
+    ``clear_grad``; batch 128 (halved while it does not fit, logged as
+    ``reduced``).  Then one step profiled."""
+    from torch.autograd import DeviceType
+
+    batch, reduced = DY_BATCH, []
+    while True:
+        try:
+            report, state = dygraph_train(batch)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            reason = f"batch {batch} ran out of device memory: " \
+                     f"{str(e).splitlines()[0][:300]}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        reduced.append(reason)
+        batch //= 2
+        if batch < 8:
+            raise RuntimeError(f"dygraph ResNet-50 does not fit: {reduced}")
+    losses = report["losses"]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"dygraph ResNet-50 losses not finite: {losses}")
+    if any(report["launches_after"].values()):
+        raise RuntimeError(f"the dygraph ResNet path launched hand-written "
+                           f"kernels: {report['launches_after']}")
+    growth = report["peak_last_gb"] / report["peak_step3_gb"] - 1.0
+    undo = dygraph_op_ranges()
+    try:
+        prof, wall_us = profile_window(lambda: dygraph_step(*state))
+    finally:
+        undo()
+    by_name = device_time_by_kernel(prof)
+    busy_us = sum(by_name.values())
+    dev, host, count = {}, {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("op/"):
+            t = e.name[3:]
+            dev[t] = dev.get(t, 0.0) + e.device_time_total / 1e3
+            host[t] = host.get(t, 0.0) + e.cpu_time_total / 1e3
+            count[t] = count.get(t, 0) + 1
+    top_types = sorted(dev, key=lambda t: -dev[t])[:12]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    p50 = float(np.median(report["step_ms"]))
+    log("dygraph_resnet", model="resnet50_v1.5", api="dygraph",
+        batch=batch, image=RESNET_IMG, classes=1000, amp="bfloat16",
+        optimizer="Momentum(0.1, 0.9)", steps=DY_STEPS, step_ms_p50=p50,
+        images_per_s=batch / (p50 / 1e3), reduced=reduced,
+        peak_memory_gb_step3=report["peak_step3_gb"],
+        peak_memory_gb_last=report["peak_last_gb"],
+        peak_memory_growth=growth, peak_memory_tolerance=DY_PEAK_RTOL,
+        profiled_step_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+        device_busy_share=busy_us / wall_us,
+        forward_and_step_ops_device_ms=sum(dev.values()),
+        forward_and_step_ops_host_ms=sum(host.values()),
+        backward_device_ms=busy_us / 1e3 - sum(dev.values()),
+        top_op_types_count_host_ms_device_ms={
+            t: [count[t], host[t], dev[t]] for t in top_types},
+        top_kernels_device_ms={k: v / 1e3 for k, v in top},
+        static_captured_step_ms_p50=STATIC_RESNET.get("captured_p50"),
+        static_eager_step_ms_p50=STATIC_RESNET.get("eager_p50"),
+        static_batch=STATIC_RESNET.get("batch"),
+        cudnn_benchmark=torch.backends.cudnn.benchmark, **report)
+    if abs(growth) > DY_PEAK_RTOL:
+        raise RuntimeError(f"peak memory after step 3 "
+                           f"{report['peak_step3_gb']} GB and after the "
+                           f"last step {report['peak_last_gb']} GB differ by "
+                           f"{growth:.3f} (> {DY_PEAK_RTOL}): state kept a "
+                           f"graph alive")
+    if not all(b._value.grad_fn is None for b in state[0].buffers()):
+        raise RuntimeError("a running statistic holds an autograd graph")
+
+
+def grad_rel_err(a, b):
+    """Norm-wise relative error ||a - b|| / ||b|| in float64."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def one_step(model, x, y):
+    """(loss, {parameter: gradient}, {buffer: value}) after one forward
+    and backward; the gradients cleared again."""
+    loss = pt.nn.functional.cross_entropy(model(x), y)
+    loss.backward()
+    out = (float(loss), {n: p.grad._value.clone() for n, p in
+                         model.named_parameters()},
+           {n: b._value.clone() for n, b in model.named_buffers()})
+    model.clear_gradients()
+    return out
+
+
+def in_float64(model, weights):
+    """``weights`` loaded into ``model``, then every parameter and
+    buffer made float64 (batch norm then accumulates in float64)."""
+    pt.dygraph.state_dict_from_numpy(model, weights)
+    for t in list(model.parameters()) + list(model.buffers()):
+        t._set_raw(t._value.double())
+    return model
+
+
+def step_gaps(got, want):
+    """(loss gap, {buffer: error}, {parameter: norm-wise gradient error})
+    of one ``one_step`` result against another."""
+    return (abs(got[0] - want[0]) / abs(want[0]),
+            {n: rel_err(want[2][n], got[2][n]) for n in want[2]},
+            {n: grad_rel_err(got[1][n], want[1][n]) for n in want[1]})
+
+
+def worst(errs):
+    name = max(errs, key=errs.get)
+    return [name, errs[name]]
+
+
+def median(errs):
+    return float(np.median(list(errs.values())))
+
+
+def phase_dygraph_resnet_oracle():
+    """Batch 4, full width: one set of weights (the card's
+    initialization, copied) on the card and on the CPU, one forward and
+    backward each (the CPU runs every op's lowering on ATen's CPU kernels,
+    the path the tier-1 tests hold to the JAX package), in float32 and
+    again in float64.  float32: the loss within 1e-4 relative, the 106
+    running statistics within 1e-4 of each tensor's largest magnitude,
+    every parameter's gradient within DY_ORACLE_GRAD_TOL norm-wise,
+    beside the CPU's own gradient gap when its image moves by one ulp.
+    float64: the loss, the running statistics and every gradient within
+    DY_ORACLE_F64_TOL, beside the CPU's float64 gradient gap for the
+    float32 ulp."""
+    card, _opt, c_x, c_y = dygraph_resnet50(DY_ORACLE_BATCH, seed=1,
+                                            lr=DY_ORACLE_LR)
+    weights = {k: v.numpy() for k, v in card.state_dict().items()}
+    host, _opt, h_x, h_y = dygraph_resnet50(DY_ORACLE_BATCH, seed=1,
+                                            lr=DY_ORACLE_LR, device="cpu")
+    pt.dygraph.state_dict_from_numpy(host, weights)
+    pt.set_device("gpu:0")
+    t0 = time.monotonic()
+    ulp = pt.to_tensor(np.nextafter(h_x.numpy(), np.float32(np.inf)),
+                       place="cpu")
+    cpu_ulp = one_step(host, ulp, h_y)
+    cpu = one_step(pt.dygraph.state_dict_from_numpy(host, weights), h_x, h_y)
+    f32, cpu_ulp = step_gaps(one_step(card, c_x, c_y), cpu), \
+        step_gaps(cpu_ulp, cpu)[2]
+    f64 = one_step(in_float64(host, weights), h_x.astype("float64"), h_y)
+    cpu64_ulp = step_gaps(one_step(in_float64(host, weights),
+                                   ulp.astype("float64"), h_y), f64)[2]
+    f64 = step_gaps(one_step(in_float64(card, weights),
+                             c_x.astype("float64"), c_y), f64)
+    seconds = time.monotonic() - t0
+    log("dygraph_resnet_oracle", batch=DY_ORACLE_BATCH,
+        tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_tf32=torch.backends.cudnn.allow_tf32,
+        loss_rel_gap=f32[0], loss_tolerance=DY_ORACLE_RTOL,
+        running_stats=len(f32[1]), running_stats_max_rel_err=worst(f32[1]),
+        gradients=len(f32[2]), grad_max_normwise_rel_err=worst(f32[2]),
+        grad_median_normwise_rel_err=median(f32[2]),
+        grad_tolerance=DY_ORACLE_GRAD_TOL,
+        cpu_image_ulp_grad_max_normwise_rel_err=worst(cpu_ulp)[1],
+        cpu_image_ulp_grad_median_normwise_rel_err=median(cpu_ulp),
+        f64_loss_rel_gap=f64[0],
+        f64_running_stats_max_rel_err=worst(f64[1]),
+        f64_grad_max_normwise_rel_err=worst(f64[2]),
+        f64_grad_median_normwise_rel_err=median(f64[2]),
+        f64_tolerance=DY_ORACLE_F64_TOL,
+        cpu_f64_image_f32_ulp_grad_max_normwise_rel_err=worst(cpu64_ulp)[1],
+        cpu_f64_image_f32_ulp_grad_median_normwise_rel_err=median(cpu64_ulp),
+        seconds=seconds)
+    if (len(f32[1]), len(f32[2])) != (106, 161):
+        raise RuntimeError(f"{len(f32[1])} running statistics and "
+                           f"{len(f32[2])} gradients, want 106 and 161")
+    if not f32[0] <= DY_ORACLE_RTOL or worst(f32[1])[1] > DY_ORACLE_RTOL \
+            or worst(f32[2])[1] > DY_ORACLE_GRAD_TOL:
+        raise RuntimeError(
+            f"float32 card vs CPU after one step: loss gap {f32[0]}, "
+            f"running statistic {worst(f32[1])}, gradient {worst(f32[2])}")
+    if not f64[0] <= DY_ORACLE_F64_TOL \
+            or worst(f64[1])[1] > DY_ORACLE_F64_TOL \
+            or worst(f64[2])[1] > DY_ORACLE_F64_TOL:
+        raise RuntimeError(
+            f"float64 card vs CPU after one step: loss gap {f64[0]}, "
+            f"running statistic {worst(f64[1])}, gradient {worst(f64[2])}")
+
+
+# -- two decode replicas beside an executor's first capture --------------
+
+# the serving model (phase_serve's 8 layers)
+CONC_REQUESTS, CONC_PROMPT, CONC_NEW, CONC_LAYERS = 8, 200, 300, 8
+# The profiler stays open this long after the card went idle.  Closed at
+# once, 3 of 14 windows came back 1 to 16 B5 records short of the exact
+# counts, and the card's last records can end milliseconds after the
+# host's last sync on the profiler's clock; with the pause, 0 of 11
+# (tools/profiler_tail.py, PERF.md).
+PROFILER_TAIL_S = 0.5
+
+
+def concurrency_program():
+    """A new step key for the executor: 128 fc layers of width 512
+    (forward only), long enough a capture to overlap decode steps."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.framework.program import Program
+
+    main, startup = Program(), Program()
+    with unique_name.guard(), program_guard(main, startup):
+        h = layers.data("x", [512])
+        for _ in range(128):
+            h = layers.fc(h, 512, act="relu")
+        out = layers.mean(h)
+    return main, startup, out
+
+
+def phase_capture_concurrency():
+    """Two decode replicas serve a burst while the executor captures a
+    new key on the main thread, all under ``torch.profiler``: every
+    request completes, the capture succeeds and credits none of the
+    replicas' launches, and the B5 / B6 wrapper counts over the window
+    equal both the layers times the decode steps / prefill dispatches the
+    engines counted (one B5 a layer a step, one B6 a layer a prefill) and
+    the ``paged_decode_kernel`` / ``paged_chunk_mma_kernel`` launches the
+    profiler saw, so a record the profiler lost shows apart from a
+    miscount."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.manual_seed(0)
+    dev = torch.device("cuda", 0)
+    model = TransformerLM(vocab_size=32000, d_model=512,
+                          num_layers=CONC_LAYERS, num_heads=8, ffn_dim=2048,
+                          max_seq_len=1024, device=dev)
+    weights = model.init_weights(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(6)
+    srv = DecodeServer(model, weights, DecodeConfig(
+        slots=8, max_seq_len=1024, page_size=16), replicas=2).start()
+    main, startup, out = concurrency_program()
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    exe.run(startup, scope=scope)
+    feed = {"x": rng.randn(64, 512).astype("float32")}
+    try:
+        # each replica's decode step: its warm-up and its capture
+        for eng in srv.replicas:
+            eng.submit(rng.randint(1, 32000, 32).tolist(),
+                       max_new_tokens=4).result(timeout=600)
+        eager = exe.run(main, feed=feed, fetch_list=[out], scope=scope)[0]
+        torch.cuda.synchronize()
+        prompts = [rng.randint(1, 32000, CONC_PROMPT).tolist()
+                   for _ in range(CONC_REQUESTS)]
+        captures = stat_get("cuda_graph_captures")
+        engine_counts = ("decode_steps", "decode_prefills", "prefill_chunks")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            before = kernel_launches()
+            engine_before = {k: stat_get(k) for k in engine_counts}
+            reqs = [srv.submit(p, max_new_tokens=CONC_NEW) for p in prompts]
+            t0 = time.monotonic()
+            while pa.paged_decode_attention.launches - before["b5"] < 32:
+                if time.monotonic() - t0 > 120:
+                    raise RuntimeError("the burst did not start decoding")
+                time.sleep(0.001)
+            at_capture = kernel_launches()
+            t_cap = time.monotonic()
+            with record_function("executor_capture"):
+                captured = exe.run(main, feed=feed, fetch_list=[out],
+                                   scope=scope)[0]
+            capture_s = time.monotonic() - t_cap
+            after_capture = kernel_launches()
+            for r in reqs:
+                r.result(timeout=600)
+            torch.cuda.synchronize()
+            after = kernel_launches()
+            engine = {k: stat_get(k) - engine_before[k]
+                      for k in engine_counts}
+            time.sleep(PROFILER_TAIL_S)
+        in_flight = [r for r in reqs if len(r.generated) != CONC_NEW]
+        entry = next(e for e in exe._cache.values()
+                     if e.program is main)
+        seen = {"b5": 0, "b6": 0}
+        window = [(e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.name == "executor_capture"
+                  and e.device_type == DeviceType.CPU]
+        b5_starts = []
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                kind = "b5" if "paged_decode_kernel" in e.name else \
+                    "b6" if "paged_chunk_mma_kernel" in e.name else None
+                if kind is None:
+                    continue
+                seen[kind] += 1
+                if kind == "b5":
+                    b5_starts.append(e.time_range.start)
+        seen_in_capture = sum(window[0][0] <= t <= window[0][1]
+                              for t in b5_starts) if window else None
+        counted = {k: after[k] - before[k] for k in ("b5", "b6")}
+        expected = {"b5": CONC_LAYERS * engine["decode_steps"],
+                    "b6": CONC_LAYERS * engine["decode_prefills"]}
+        during = {k: after_capture[k] - at_capture[k] for k in ("b5", "b6")}
+        log("capture_concurrency", replicas=2, layers=CONC_LAYERS,
+            requests=CONC_REQUESTS, prompt_tokens=CONC_PROMPT,
+            new_tokens=CONC_NEW,
+            capture_mode=entry.step.error_mode, capture_s=capture_s,
+            executor_captures=stat_get("cuda_graph_captures") - captures,
+            executor_capture_launches=list(entry.step.launches),
+            launches_during_capture=during, engine_counts=engine,
+            expected_counts=expected, wrapper_counts=counted,
+            profiler_counts=seen, profiler_b5_in_capture=seen_in_capture,
+            capture_window_us=window[0][1] - window[0][0] if window
+            else None, requests_incomplete=len(in_flight),
+            captured_vs_eager_max_abs=float(np.abs(captured - eager).max()))
+        if in_flight:
+            raise RuntimeError(f"{len(in_flight)} requests did not finish")
+        if entry.graph is None or stat_get("cuda_graph_captures") \
+                != captures + 1 or any(entry.step.launches):
+            raise RuntimeError(f"the executor's capture: graph "
+                               f"{entry.graph is not None}, launches "
+                               f"{entry.step.launches}")
+        if not during["b5"]:
+            raise RuntimeError("no decode step ran during the capture: the "
+                               "window proves nothing")
+        if engine["prefill_chunks"] or counted != expected:
+            raise RuntimeError(f"B5/B6 wrapper counts {counted} != "
+                               f"{CONC_LAYERS} layers times the engines' "
+                               f"steps and prefills {engine}")
+        if counted != seen:
+            raise RuntimeError(f"B5/B6 wrapper counts {counted} != the "
+                               f"profiler's kernel counts {seen}")
+        if not np.allclose(captured, eager, rtol=1e-5, atol=0):
+            raise RuntimeError(f"captured {captured} vs eager {eager}")
+    finally:
+        srv.stop()
+        exe.close()
+
+
 def release(phase):
     """Drop a phase's executors and graphs (their ``close()`` ran, or
     they went with the phase's objects) and give the cached blocks back;
@@ -2587,6 +3065,12 @@ def main():
     release("resnet")
     phase_resnet_oracle()
     release("resnet_oracle")
+    phase_dygraph_resnet()
+    release("dygraph_resnet")
+    phase_dygraph_resnet_oracle()
+    release("dygraph_resnet_oracle")
+    phase_capture_concurrency()
+    release("capture_concurrency")
     kernels = []
     main_case = TRAIN_FLASH_CASES[0][0]
     for kernel, case in (("paged_decode_attention", "decode_float32"),

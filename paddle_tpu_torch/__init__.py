@@ -24,7 +24,15 @@ imports), ported slice by slice:
 5. static-graph ResNet-50 training (``vision.resnet50_train_program``,
    SGD with momentum, bf16 AMP): convolution, pooling and batch norm on
    cuDNN / ATen with explicit convolution and batch-norm gradients
-   (``ops/nn_ops.py``); no hand-written kernel runs on this path.
+   (``ops/nn_ops.py``); no hand-written kernel runs on this path;
+6. the executor's compiled step: CUDA-graph capture
+   (``framework/graphs.py``);
+7. dygraph and the 2.0 API: ``set_device``, ``to_tensor`` and the
+   ``tensor`` functions, ``nn`` layers and ``nn.functional``,
+   ``optimizer.Momentum(...).step()``, ``amp.auto_cast``, ``autograd``
+   (``PyLayer``, ``grad``) and ``vision.models`` (LeNet, ResNet), run
+   eagerly by the same lowerings, ``torch.autograd`` as the tape
+   (``dygraph/``); no hand-written kernel runs on dygraph ResNet-50.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, ``CPUPlace()``); importing the package builds no
@@ -32,10 +40,51 @@ kernel.  ``ROADMAP.md`` lists what is still to be ported.
 """
 from . import framework, ops  # noqa: F401
 from . import initializer, layers, optimizer, regularizer  # noqa: F401
+from . import dygraph  # noqa: F401
+from .dygraph import grad, no_grad, to_variable  # noqa: F401
+from .dygraph.base import (  # noqa: F401
+    disable_static,
+    enable_static,
+    get_device,
+    in_dygraph_mode,
+    seed,
+    set_device,
+)
+from .dygraph.tensor import Tensor  # noqa: F401
+
+# 2.0 flat namespace (reference python/paddle/__init__.py)
+from . import tensor  # noqa: F401
+from . import nn  # noqa: F401
+from . import vision  # noqa: F401
+from .tensor import (  # noqa: F401
+    abs, add, add_n, all, allclose, any, arange, argmax, argmin, argsort,
+    assign, bmm, broadcast_to, cast, ceil, chunk, clip, concat, cos, cumsum,
+    diag, divide, dot, equal, equal_all, exp, expand, expand_as, eye, flatten,
+    flip, floor, floor_divide, full, full_like, gather, gather_nd,
+    greater_equal, greater_than, increment, index_select, isfinite, isinf,
+    isnan, less_equal, less_than, linspace, log, log1p, log2, log10,
+    logical_and, logical_not, logical_or, logical_xor, logsumexp, masked_select,
+    matmul, max, maximum, mean, meshgrid, min, minimum, mm, mod, multinomial,
+    multiply, nonzero, norm, normal, not_equal, numel, ones, ones_like, pow,
+    prod, rand, randint, randn, randperm, reciprocal, remainder, reshape,
+    roll, round, rsqrt, scale, scatter, scatter_nd_add, sign, sin, slice,
+    sort, split, sqrt, square, squeeze, stack, std, subtract, sum, t,
+    tanh, tile, to_tensor, topk, trace, transpose, tril, triu, uniform,
+    unsqueeze, unstack, var, where, zeros, zeros_like,
+)
+from .tensor.math import kron, neg, stanh  # noqa: F401
+from .tensor.search import index_sample  # noqa: F401
 from . import fluid, inference, slim  # noqa: F401
+from . import amp, autograd  # noqa: F401
 from .framework.executor import Executor  # noqa: F401
 from .framework.flags import get_flags, set_flags  # noqa: F401
 from .framework.place import CPUPlace, CUDAPlace  # noqa: F401
+from .framework.program import (  # noqa: F401
+    Program,
+    default_main_program,
+    default_startup_program,
+    program_guard,
+)
 from .param_attr import ParamAttr  # noqa: F401
 
 __version__ = "0.2.0"

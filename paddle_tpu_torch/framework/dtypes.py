@@ -71,5 +71,12 @@ def to_torch(dtype) -> torch.dtype:
     return getattr(torch, to_str(dtype))
 
 
+def to_np(dtype) -> np.dtype:
+    """IR enum/str/numpy/torch dtype -> numpy dtype (bfloat16, which
+    numpy lacks, as float32)."""
+    name = to_str(dtype)
+    return np.dtype("float32" if name == "bfloat16" else name)
+
+
 def is_floating(dtype) -> bool:
     return to_str(dtype) in _FLOATING

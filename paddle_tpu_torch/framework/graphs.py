@@ -15,13 +15,31 @@ failed when the step's own code raised.
 
 Launch counters.  Each hand-written kernel's wrapper counts its launches
 in Python (``<wrapper>.launches``), so a captured kernel would count once,
-at the capture, and never again.  ``StepGraph.capture`` records each
-wrapper's count before and after the capture, takes the capture's own
-counts back out, and ``replay`` adds them at every replay: the counts
-stay those of what the card ran.
+at the capture, and never again.  While ``StepGraph.capture`` is open,
+each wrapper also credits its launch to the tally of the capture whose
+stream it was enqueued on (``count_launch``): a graph records exactly the
+work queued on its capture stream, whichever thread queued it.  Inside
+``torch.cuda.graph`` the capturing thread's current stream is the capture
+stream; the autograd engine runs a backward on a worker thread of its
+own, on the stream its forward ran on, so a kernel launched by a backward
+inside an executor capture lands on the capture's stream too.  A decode
+replica launching on its own stream in the same window is credited to no
+capture and counts once, as it ran.
+The capture takes its tally back out of the counters, and ``replay`` adds
+it at every replay: the counts stay those of what the card ran.
+
+Capture mode.  Every capture is ``"thread_local"``: CUDA then forbids the
+unsafe calls (a synchronization, an event query) only on the capturing
+thread, so a decode replica's host sync or another ``Predictor``'s
+allocation on a thread of its own goes on during an executor's capture
+(under ``"global"`` such a call on any thread fails, and the capture with
+it).  The autograd engine's worker is another thread too: its launches go
+to the capture's stream as above, and the capture of a backward needs no
+more than that (``chip_smoke.py`` captures every training path's step).
 """
 from __future__ import annotations
 
+import collections
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -56,18 +74,36 @@ def add_launches(counts: Sequence[int], sign: int = 1) -> None:
                 fn.launches += sign * n
 
 
+# the tallies of the captures open now, by their streams' handles
+_BY_STREAM = {}
+
+
+def _stream_handle(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def count_launch(fn, lock, device) -> None:
+    """One launch of wrapper ``fn`` (its ``launches`` guarded by
+    ``lock``) on ``device``'s current stream: counted, and credited to
+    the capture recording that stream, if one is."""
+    with lock:
+        fn.launches += 1
+    if _BY_STREAM:
+        tally = _BY_STREAM.get(_stream_handle(device))
+        if tally is not None:
+            tally[fn] += 1
+
+
 class StepGraph:
     """One step of fixed shapes: an eager warm-up, a capture, replays.
 
-    ``error_mode`` is ``torch.cuda.graph``'s ``capture_error_mode``: the
-    executor captures in ``"global"`` mode (an unsafe CUDA call from any
-    thread, the autograd engine's included, breaks the capture loudly);
-    the decode engine, whose replicas run on threads of their own, in
-    ``"thread_local"``."""
+    Every capture is made in ``torch.cuda.graph``'s
+    ``capture_error_mode="thread_local"`` (see the module's docstring)."""
 
-    def __init__(self, device: torch.device, error_mode: str = "global"):
+    error_mode = "thread_local"
+
+    def __init__(self, device: torch.device):
         self.device = device
-        self.error_mode = error_mode
         self.stream = torch.cuda.Stream(device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs = None
@@ -96,7 +132,7 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
             graph.register_generator_state(gen)
-        before = launch_counts()
+        tally = _BY_STREAM[self.stream.cuda_stream] = collections.Counter()
         raised = []
 
         def body():
@@ -111,13 +147,14 @@ class StepGraph:
                                   capture_error_mode=self.error_mode):
                 out = body()
         except BaseException:
-            add_launches([a - b for a, b in zip(launch_counts(), before)],
-                         sign=-1)
             if raised:   # the step's own error names the op; the
                 raise raised[0]   # capture's end only fails after it
             raise
-        self.launches = tuple(a - b for a, b in zip(launch_counts(), before))
-        add_launches(self.launches, sign=-1)
+        finally:
+            del _BY_STREAM[self.stream.cuda_stream]
+            # the capture ran nothing: its launches run at the replays
+            add_launches([tally[fn] for _mod, fn in _wrappers()], sign=-1)
+        self.launches = tuple(tally[fn] for _mod, fn in _wrappers())
         self.graph, self.outputs = graph, out
         stat_add("cuda_graph_captures")
 

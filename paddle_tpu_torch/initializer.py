@@ -1,7 +1,12 @@
-"""Parameter initializers — append init ops to the startup program.
+"""Parameter initializers — append init ops to the startup program, or
+make a dygraph parameter's value directly (``eager_value``).
 
-Copy of ``paddle_tpu/initializer.py`` without the ``eager_value``
-rules, which drew dygraph parameters with ``jax.random``.
+Counterpart of ``paddle_tpu/initializer.py``.  ``eager_value(shape,
+dtype, generator)`` draws from the ``torch.Generator`` it is given (the
+place's, ``dygraph/base.py``) on that generator's device, where the JAX
+package's drew from a threefry key: the two agree in distribution, not
+in bits.  The truncated normal draws by inverting the normal's CDF over
+[-2, 2] standard deviations (``jax.random.truncated_normal``'s support).
 
 Role parity: reference python/paddle/fluid/initializer.py (Constant, Uniform,
 Normal, TruncatedNormal, Xavier, MSRA, NumpyArrayInitializer).
@@ -11,21 +16,26 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from .framework import dtypes
+
+
+def _uniform(gen, shape, lo, hi):
+    u = torch.rand(tuple(shape), generator=gen, dtype=torch.float32,
+                   device=gen.device)
+    return lo + (hi - lo) * u
 
 
 class Initializer:
     def __call__(self, var, block):
         raise NotImplementedError
 
-    def eager_value(self, shape, dtype, key):
+    def eager_value(self, shape, dtype, generator):
         """Produce the initial value directly (dygraph parameter
-        creation): dygraph mode is a later slice of the port."""
+        creation), on ``generator``'s device."""
         raise NotImplementedError(
-            f"{type(self).__name__}.eager_value: dygraph parameter "
-            f"creation comes with the dygraph slice, a later slice of the "
-            f"port; static programs initialize through the startup program")
+            f"{type(self).__name__} has no eager-mode value rule")
 
 
 class ConstantInitializer(Initializer):
@@ -39,6 +49,11 @@ class ConstantInitializer(Initializer):
             {"Out": var.name},
             {"shape": list(var.shape), "dtype": var.dtype, "value": float(self.value)},
         )
+
+    def eager_value(self, shape, dtype, generator):
+        return torch.full(tuple(shape), float(self.value),
+                          dtype=dtypes.to_torch(dtype),
+                          device=generator.device)
 
 
 class UniformInitializer(Initializer):
@@ -59,6 +74,10 @@ class UniformInitializer(Initializer):
             },
         )
 
+    def eager_value(self, shape, dtype, generator):
+        return _uniform(generator, shape, float(self.low),
+                        float(self.high)).to(dtypes.to_torch(dtype))
+
 
 class NormalInitializer(Initializer):
     def __init__(self, loc=0.0, scale=1.0, seed=0):
@@ -78,6 +97,11 @@ class NormalInitializer(Initializer):
             },
         )
 
+    def eager_value(self, shape, dtype, generator):
+        z = torch.randn(tuple(shape), generator=generator,
+                        dtype=torch.float32, device=generator.device)
+        return (self.loc + self.scale * z).to(dtypes.to_torch(dtype))
+
 
 class TruncatedNormalInitializer(Initializer):
     def __init__(self, loc=0.0, scale=1.0, seed=0):
@@ -96,6 +120,18 @@ class TruncatedNormalInitializer(Initializer):
                 "seed": self.seed,
             },
         )
+
+    def eager_value(self, shape, dtype, generator):
+        return (self.loc + self.scale * truncated_normal(
+            generator, shape)).to(dtypes.to_torch(dtype))
+
+
+def truncated_normal(generator, shape):
+    """Standard normal draws restricted to [-2, 2], by inverting the
+    CDF of uniform draws between Phi(-2) and Phi(2)."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = _uniform(generator, shape, lo, 1.0 - lo)
+    return (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp(-2.0, 2.0)
 
 
 def _shape_fans(shape):
@@ -130,6 +166,18 @@ class XavierInitializer(Initializer):
             std = math.sqrt(2.0 / (fi + fo))
             NormalInitializer(0.0, std, self.seed)(var, block)
 
+    def eager_value(self, shape, dtype, generator):
+        fi, fo = _shape_fans(shape)
+        fi = self.fan_in if self.fan_in is not None else fi
+        fo = self.fan_out if self.fan_out is not None else fo
+        if self.uniform:
+            limit = math.sqrt(6.0 / (fi + fo))
+            return UniformInitializer(-limit, limit, self.seed).eager_value(
+                shape, dtype, generator)
+        std = math.sqrt(2.0 / (fi + fo))
+        return NormalInitializer(0.0, std, self.seed).eager_value(
+            shape, dtype, generator)
+
 
 class MSRAInitializer(Initializer):
     def __init__(self, uniform=True, fan_in=None, seed=0):
@@ -144,6 +192,17 @@ class MSRAInitializer(Initializer):
         else:
             std = math.sqrt(2.0 / fi)
             NormalInitializer(0.0, std, self.seed)(var, block)
+
+    def eager_value(self, shape, dtype, generator):
+        fi, _ = _shape_fans(shape)
+        fi = self.fan_in if self.fan_in is not None else fi
+        if self.uniform:
+            limit = math.sqrt(6.0 / fi)
+            return UniformInitializer(-limit, limit, self.seed).eager_value(
+                shape, dtype, generator)
+        std = math.sqrt(2.0 / fi)
+        return NormalInitializer(0.0, std, self.seed).eager_value(
+            shape, dtype, generator)
 
 
 class NumpyArrayInitializer(Initializer):
@@ -165,6 +224,11 @@ class NumpyArrayInitializer(Initializer):
             {"Out": var.name},
             {"shape": list(self.value.shape), "dtype": var.dtype, key: vals},
         )
+
+    def eager_value(self, shape, dtype, generator):
+        return torch.as_tensor(
+            self.value.reshape(tuple(shape)), device=generator.device).to(
+                dtypes.to_torch(dtype))
 
 
 # reference-compatible aliases

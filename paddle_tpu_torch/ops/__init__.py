@@ -1,10 +1,11 @@
 """Ops of the PyTorch port.
 
-- The static-graph lowerings (``math_ops``, ``tensor_ops``, ``nn_ops``,
-  ``activations``, ``creation``, ``embedding_ops``, ``optimizer_ops``,
-  ``fused``, ``flash_attention``, ``grad_generic``, ``quant_ops``):
-  importing this package registers them with ``framework.lowering``, as
-  importing ``paddle_tpu.ops`` does.
+- The lowerings (``math_ops``, ``tensor_ops``, ``linalg_ops``,
+  ``nn_ops``, ``activations``, ``creation``, ``embedding_ops``,
+  ``optimizer_ops``, ``fused``, ``flash_attention``, ``grad_generic``,
+  ``quant_ops``), which the static executor and dygraph's ``run_op``
+  both run: importing this package registers them with
+  ``framework.lowering``, as importing ``paddle_tpu.ops`` does.
 - The kernels' wrappers and plain versions: paged attention
   (``paged_attention``, B5/B6), flash attention with a streamed bias
   (``flash_attention_bias``, B1), the flash-attention training op
@@ -22,6 +23,7 @@ from . import (  # noqa: F401
     flash_attention,
     fused,
     grad_generic,
+    linalg_ops,
     math_ops,
     nn_ops,
     optimizer_ops,

@@ -1,13 +1,13 @@
-"""Creation and random ops: ``fill_constant``, ``assign``,
-``gaussian_random``, ``uniform_random``, ``dropout`` (+ grad).
+"""Creation and random ops: ``fill_constant``, ``fill_any_like``,
+``assign``, ``assign_value``, ``range``, ``linspace``, ``eye``,
+``gaussian_random``, ``truncated_gaussian_random``, ``uniform_random``,
+``randint``, ``randperm``, ``dropout`` (+ grad).
 
-Counterpart of ``paddle_tpu/ops/creation.py``, limited to the op types
-the static BERT and ResNet programs and their startup programs emit
-(``uniform_random`` initializes ResNet's fc weight), and ``assign``,
-which the redundant-cast pass leaves where a cast was (the rest come
-with later slices).  Random ops draw from the executor's
-``torch.Generator`` (``ops/common.op_generator``); the JAX package draws
-from threefry, so the two agree in distribution, not in bits.
+Counterpart of ``paddle_tpu/ops/creation.py``.  Random ops draw from the
+executor's ``torch.Generator`` (``ops/common.op_generator``), or in
+dygraph from the place's; the JAX package draws from threefry, so the
+two agree in distribution, not in bits.  ``range`` and ``linspace`` read
+their bounds on the host, as the JAX rules read them at trace time.
 
 Dropout keeps the reference's default ``downgrade_in_infer``: training
 zeroes dropped elements without rescaling the kept ones, inference
@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..framework.lowering import register_lower
+from ..initializer import truncated_normal
 from .common import attr_dtype, op_generator
 
 
@@ -94,3 +95,78 @@ def _dropout_grad(ctx, op):
     else:
         dx = dy * keep
     ctx.set_out(op, "X@GRAD", dx)
+
+
+@register_lower("fill_any_like", "fill_zeros_like")
+def _fill_any_like(ctx, op):
+    x = ctx.in1(op, "X")
+    dt = op.attr("dtype", -1)
+    dtype = x.dtype if dt in (-1, 0, None) else attr_dtype(op)
+    ctx.set_out(op, "Out", torch.full(tuple(x.shape), op.attr("value", 0.0),
+                                      dtype=dtype, device=x.device))
+
+
+@register_lower("truncated_gaussian_random")
+def _truncated_gaussian_random(ctx, op):
+    shape = [int(s) for s in op.attr("shape", [])]
+    z = truncated_normal(op_generator(ctx, op), shape)
+    out = float(op.attr("mean", 0.0)) + float(op.attr("std", 1.0)) * z
+    ctx.set_out(op, "Out", out.to(attr_dtype(op)))
+
+
+@register_lower("randint")
+def _randint(ctx, op):
+    shape = [int(s) for s in op.attr("shape", [])]
+    gen = op_generator(ctx, op)
+    out = torch.randint(int(op.attr("low", 0)), int(op.attr("high", 1)),
+                        shape, generator=gen, device=gen.device)
+    ctx.set_out(op, "Out", out.to(attr_dtype(op, default="int64")))
+
+
+@register_lower("randperm")
+def _randperm(ctx, op):
+    gen = op_generator(ctx, op)
+    out = torch.randperm(int(op.attr("n")), generator=gen, device=gen.device)
+    ctx.set_out(op, "Out", out.to(attr_dtype(op, default="int64")))
+
+
+def _host(t):
+    return t.reshape(-1)[0].item()
+
+
+@register_lower("range")
+def _range(ctx, op):
+    start = ctx.in1(op, "Start")
+    vals = [_host(ctx.in1(op, s)) for s in ("Start", "End", "Step")]
+    ctx.set_out(op, "Out", torch.arange(*vals, dtype=start.dtype,
+                                        device=start.device))
+
+
+@register_lower("linspace")
+def _linspace(ctx, op):
+    start = ctx.in1(op, "Start")
+    ctx.set_out(op, "Out", torch.linspace(
+        _host(start), _host(ctx.in1(op, "Stop")),
+        int(_host(ctx.in1(op, "Num"))), dtype=attr_dtype(op),
+        device=start.device))
+
+
+@register_lower("eye")
+def _eye(ctx, op):
+    n = int(op.attr("num_rows"))
+    m = int(op.attr("num_columns", -1))
+    ctx.set_out(op, "Out", torch.eye(n, n if m in (-1, 0) else m,
+                                     dtype=attr_dtype(op), device=ctx.device))
+
+
+@register_lower("assign_value")
+def _assign_value(ctx, op):
+    dtype = attr_dtype(op)
+    shape = [int(s) for s in op.attr("shape", [])]
+    for key in ("fp32_values", "int32_values", "int64_values", "bool_values"):
+        vals = op.attr(key, None)
+        if vals:
+            ctx.set_out(op, "Out", torch.tensor(
+                vals, dtype=dtype, device=ctx.device).reshape(shape))
+            return
+    ctx.set_out(op, "Out", torch.zeros(shape, dtype=dtype, device=ctx.device))

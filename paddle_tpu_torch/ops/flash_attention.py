@@ -49,6 +49,7 @@ import math
 
 import torch
 
+from ..framework import graphs
 from ..framework.lowering import register_lower
 from ..monitor import stat_add
 from ..native import build
@@ -198,9 +199,8 @@ def _raise_on(rc, what, error_string):
                            f"({error_string(rc).decode()})")
 
 
-def _count(fn):
-    with _COUNT_LOCK:
-        fn.launches += 1
+def _count(fn, device):
+    graphs.count_launch(fn, _COUNT_LOCK, device)
 
 
 def flash_attention_fwd(q, k, v, mask, sm_scale, causal):
@@ -219,7 +219,7 @@ def flash_attention_fwd(q, k, v, mask, sm_scale, causal):
             *_launch_args(q, k, mask, sm_scale, causal))
     _raise_on(rc, "flash_attention forward",
               lib.paddle_flash_cuda_error_string)
-    _count(flash_attention_fwd)
+    _count(flash_attention_fwd, q.device)
     return out, lse
 
 
@@ -240,7 +240,7 @@ def flash_attention_bwd_dq(q, k, v, mask, do, lse, delta, sm_scale, causal):
             *_launch_args(q, k, mask, sm_scale, causal))
     _raise_on(rc, "flash_attention dq backward",
               lib.paddle_flash_bwd_cuda_error_string)
-    _count(flash_attention_bwd_dq)
+    _count(flash_attention_bwd_dq, q.device)
     return dq
 
 
@@ -261,7 +261,7 @@ def flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta, sm_scale, causal):
             dv.data_ptr(), *_launch_args(q, k, mask, sm_scale, causal))
     _raise_on(rc, "flash_attention dk/dv backward",
               lib.paddle_flash_bwd_cuda_error_string)
-    _count(flash_attention_bwd_dkv)
+    _count(flash_attention_bwd_dkv, q.device)
     return dk, dv
 
 

@@ -38,6 +38,7 @@ import threading
 
 import torch
 
+from ..framework import graphs
 from ..native import build
 
 _NEG_INF = -1e30
@@ -236,8 +237,7 @@ def _forward(q, k, v, bias, sm_scale, causal):
         raise RuntimeError(
             f"flash_attention_bias launch failed: CUDA error {rc} "
             f"({lib.paddle_flash_cuda_error_string(rc).decode()})")
-    with _COUNT_LOCK:
-        flash_attention_bias.launches += 1
+    graphs.count_launch(flash_attention_bias, _COUNT_LOCK, q.device)
     return out
 
 

@@ -1,9 +1,12 @@
 """NN ops: ``conv2d`` / ``depthwise_conv2d`` (+ grad), ``pool2d``,
 ``batch_norm`` / ``sync_batch_norm`` (+ grad), ``softmax``,
-``softmax_with_cross_entropy`` (+ grad) and ``layer_norm``.
+``log_softmax``, ``softmax_with_cross_entropy`` (+ grad), the losses
+``cross_entropy`` / ``cross_entropy2``,
+``sigmoid_cross_entropy_with_logits``, ``square_error_cost`` and
+``huber_loss``, and ``layer_norm``.
 
-Counterpart of ``paddle_tpu/ops/nn_ops.py``, limited to the op types the
-static BERT and ResNet programs emit (the rest come with later slices).
+Counterpart of ``paddle_tpu/ops/nn_ops.py``; ``conv2d_transpose``,
+``group_norm`` and ``instance_norm`` come with a later slice.
 Reference parity: operators/conv_op.cc, pool_op.cc, batch_norm_op.cc,
 softmax_op.cc (``softmax_grad`` takes the generic gradient),
 softmax_with_cross_entropy_op.h (``ignore_index`` positions carry zero
@@ -252,14 +255,80 @@ def _bn_global(op):
         or bool(op.attr("is_test", False))
 
 
-@register_lower("batch_norm", "sync_batch_norm")
-def _batch_norm(ctx, op):
-    """The JAX lowering's arithmetic: statistics in float32 from one-pass
-    moments (``E[x^2] - E[x]^2`` clamped at 0), Y in ``x.dtype`` (bf16
-    under AMP), the running statistics moved with the reference's
-    momentum convention (``momentum * running + (1 - momentum) * batch``,
-    the biased batch variance), ``SavedVariance`` the inverse std.  One
-    process: ``sync_batch_norm`` is ``batch_norm``."""
+def _bn_acc(x):
+    """The statistics' dtype: float32, float64 for float64 input (the
+    reference's accumulation type)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _bn_moments(x, red, eps):
+    """One-pass moments (``E[x^2] - E[x]^2`` clamped at 0) in
+    ``_bn_acc(x)``, and the inverse std."""
+    xf = x.to(_bn_acc(x))
+    m = xf.mean(dim=red)
+    v = (xf.square().mean(dim=red) - m.square()).clamp_min(0.0)
+    return m, v, torch.rsqrt(v + eps)
+
+
+def _bn_normalize(x, scale, bias, m, inv, bshape):
+    acc = m.dtype
+    return ((x.to(acc) - m.reshape(bshape)) * inv.reshape(bshape)
+            * scale.to(acc).reshape(bshape)
+            + bias.to(acc).reshape(bshape)).to(x.dtype)
+
+
+def _bn_train_grads(x, scale, dy, m, inv, red, bshape):
+    """The reference's closed form under batch statistics, in
+    ``_bn_acc(x)``: dBias = sum(dy), dScale = sum(dy * x_hat), dX = scale
+    * inv * (dy - (dBias + x_hat * dScale) / N); dX in x's dtype."""
+    acc = _bn_acc(x)
+    dy = dy.to(acc)
+    m, inv = m.to(acc).reshape(bshape), inv.to(acc).reshape(bshape)
+    x_hat = (x.to(acc) - m) * inv
+    d_bias = dy.sum(dim=red)
+    d_scale = (dy * x_hat).sum(dim=red)
+    n = x.numel() // d_bias.numel()
+    dx = scale.to(acc).reshape(bshape) * inv * (
+        dy - (d_bias.reshape(bshape) + x_hat * d_scale.reshape(bshape)) / n)
+    return dx.to(x.dtype), d_scale, d_bias
+
+
+def _bn_batch_stats(x, scale, bias, eps, red, bshape):
+    """(y, mean, var, inv std) under batch statistics, every step plain
+    ATen code (autograd differentiates the one-pass moments)."""
+    m, v, inv = _bn_moments(x, red, eps)
+    return _bn_normalize(x, scale, bias, m, inv, bshape), m, v, inv
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """``_bn_batch_stats`` with the closed form (``_bn_train_grads``) as
+    its backward: the eager (dygraph) rule's batch statistics, bound by
+    ``batch_norm_eager``.  Autograd through the one-pass moments keeps
+    every float32 intermediate of the forward alive until the backward
+    and differentiates them pass by pass; ``tools/dygraph_bn_ab.py`` times
+    both on a dygraph ResNet-50 step.  The statistics it returns are not
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, red, bshape):
+        m, v, inv = _bn_moments(x, red, eps)
+        ctx.save_for_backward(x, scale, m, inv)
+        ctx.red, ctx.bshape, ctx.bias_dtype = red, bshape, bias.dtype
+        ctx.mark_non_differentiable(m, v, inv)
+        return _bn_normalize(x, scale, bias, m, inv, bshape), m, v, inv
+
+    @staticmethod
+    def backward(ctx, dy, _dm, _dv, _dinv):
+        x, scale, m, inv = ctx.saved_tensors
+        dx, d_scale, d_bias = _bn_train_grads(x, scale, dy, m, inv,
+                                              ctx.red, ctx.bshape)
+        return (dx, d_scale.to(scale.dtype), d_bias.to(ctx.bias_dtype),
+                None, None, None)
+
+
+def _bn_apply(ctx, op, batch_stats):
+    """The batch-norm op's outputs, ``batch_stats`` giving (y, mean, var,
+    inv std) under batch statistics."""
     x = ctx.in1(op, "X")
     scale = ctx.in1(op, "Scale")
     bias = ctx.in1(op, "Bias")
@@ -268,61 +337,76 @@ def _batch_norm(ctx, op):
     eps = float(op.attr("epsilon", 1e-5))
     momentum = float(op.attr("momentum", 0.9))
     _caxis, red, bshape = _bn_axes(op, x)
-    xf = x.float()
     if _bn_global(op):
-        m, v = mean.float(), var.float()
+        acc = _bn_acc(x)
+        m, inv = mean.to(acc), torch.rsqrt(var.to(acc) + eps)
+        y = _bn_normalize(x, scale, bias, m, inv, bshape)
         ctx.set_out(op, "MeanOut", mean)
         ctx.set_out(op, "VarianceOut", var)
     else:
-        m = xf.mean(dim=red)
-        v = (xf.square().mean(dim=red) - m.square()).clamp_min(0.0)
+        y, m, v, inv = batch_stats(x, scale, bias, eps, red, bshape)
         ctx.set_out(op, "MeanOut",
                     momentum * mean + (1 - momentum) * m.to(mean.dtype))
         ctx.set_out(op, "VarianceOut",
                     momentum * var + (1 - momentum) * v.to(var.dtype))
-    inv = torch.rsqrt(v + eps)
-    y = (xf - m.reshape(bshape)) * inv.reshape(bshape) \
-        * scale.float().reshape(bshape) + bias.float().reshape(bshape)
-    ctx.set_out(op, "Y", y.to(x.dtype))
+    ctx.set_out(op, "Y", y)
     ctx.set_out(op, "SavedMean", m)
     ctx.set_out(op, "SavedVariance", inv)
+
+
+@register_lower("batch_norm", "sync_batch_norm")
+def _batch_norm(ctx, op):
+    """The JAX lowering's arithmetic: statistics in float32 (float64 for
+    float64 input, which the JAX package does not run) from one-pass
+    moments (``E[x^2] - E[x]^2`` clamped at 0), Y in ``x.dtype`` (bf16
+    under AMP), the running statistics moved with the reference's
+    momentum convention (``momentum * running + (1 - momentum) * batch``,
+    the biased batch variance), ``SavedVariance`` the inverse std.  One
+    process: ``sync_batch_norm`` is ``batch_norm``."""
+    _bn_apply(ctx, op, _bn_batch_stats)
+
+
+def batch_norm_eager(ctx, op):
+    """Dygraph's rule for ``batch_norm`` / ``sync_batch_norm``
+    (``dygraph/eager.py``): the lowering's arithmetic, with batch
+    statistics through ``_BatchNormTrain``, whose backward is the closed
+    form the static ``batch_norm_grad`` runs."""
+    _bn_apply(ctx, op, _BatchNormTrain.apply)
 
 
 @register_lower("batch_norm_grad", "sync_batch_norm_grad")
 def _batch_norm_grad(ctx, op):
     """The reference's closed form (batch_norm_op.cc, BatchNormGradKernel)
     from X, Scale, SavedMean, SavedVariance (the inverse std) and
-    Y@GRAD, in float32: dBias = sum(dy), dScale = sum(dy * x_hat),
-    dX = scale * inv / N * (N * dy - dBias - x_hat * dScale), or
-    scale * inv * dy under global statistics; dX in x's dtype.  The
-    running statistics enter Y only under global statistics, and only
-    there have a gradient (zeros in training, where one is asked for)."""
+    Y@GRAD, in ``_bn_acc(x)`` (``_bn_train_grads``), or scale * inv * dy
+    under global statistics; dX in x's dtype.  The running statistics enter Y
+    only under global statistics, and only there have a gradient (zeros
+    in training, where one is asked for)."""
     x = ctx.in1(op, "X")
     scale = ctx.in1(op, "Scale")
-    dy = ctx.in1(op, "Y@GRAD").float()
+    dy = ctx.in1(op, "Y@GRAD")
     _caxis, red, bshape = _bn_axes(op, x)
-    m = ctx.in1(op, "SavedMean").float().reshape(bshape)
-    inv = ctx.in1(op, "SavedVariance").float().reshape(bshape)
-    x_hat = (x.float() - m) * inv
-    d_bias = dy.sum(dim=red)
-    d_scale = (dy * x_hat).sum(dim=red)
-    k = scale.float().reshape(bshape) * inv
-    if _bn_global(op):
-        dx = k * dy
-    else:
-        n = x.numel() // x.shape[_caxis]
-        dx = k * (dy - (d_bias.reshape(bshape)
-                        + x_hat * d_scale.reshape(bshape)) / n)
-    ctx.set_out(op, "X@GRAD", dx.to(x.dtype))
-    ctx.set_out(op, "Scale@GRAD", d_scale.to(scale.dtype))
-    ctx.set_out(op, "Bias@GRAD", d_bias.to(ctx.in1(op, "Bias").dtype))
+    m = ctx.in1(op, "SavedMean")
+    acc = _bn_acc(x)
+    inv = ctx.in1(op, "SavedVariance").to(acc)
     mean, var = ctx.in1(op, "Mean"), ctx.in1(op, "Variance")
     if _bn_global(op):
-        s_inv = scale.float() * inv.reshape(-1)
+        dyf = dy.to(acc)
+        x_hat = (x.to(acc) - m.to(acc).reshape(bshape)) * inv.reshape(bshape)
+        d_bias = dyf.sum(dim=red)
+        d_scale = (dyf * x_hat).sum(dim=red)
+        dx = (scale.to(acc).reshape(bshape) * inv.reshape(bshape) * dyf
+              ).to(x.dtype)
+        s_inv = scale.to(acc) * inv
         d_mean = -s_inv * d_bias
-        d_var = -0.5 * s_inv * inv.reshape(-1) * d_scale
+        d_var = -0.5 * s_inv * inv * d_scale
     else:
+        dx, d_scale, d_bias = _bn_train_grads(x, scale, dy, m, inv, red,
+                                              bshape)
         d_mean, d_var = torch.zeros_like(mean), torch.zeros_like(var)
+    ctx.set_out(op, "X@GRAD", dx)
+    ctx.set_out(op, "Scale@GRAD", d_scale.to(scale.dtype))
+    ctx.set_out(op, "Bias@GRAD", d_bias.to(ctx.in1(op, "Bias").dtype))
     ctx.set_out(op, "Mean@GRAD", d_mean.to(mean.dtype))
     ctx.set_out(op, "Variance@GRAD", d_var.to(var.dtype))
 
@@ -409,3 +493,60 @@ def _layer_norm(ctx, op):
     ctx.set_out(op, "Y", y.to(x.dtype))
     ctx.set_out(op, "Mean", m.reshape(-1))
     ctx.set_out(op, "Variance", v.reshape(-1))
+
+
+@register_lower("log_softmax")
+def _log_softmax(ctx, op):
+    ctx.set_out(op, "Out", torch.log_softmax(ctx.in1(op, "X"),
+                                             dim=int(op.attr("axis", -1))))
+
+
+@register_lower("cross_entropy", "cross_entropy2")
+def _cross_entropy(ctx, op):
+    """X holds probabilities: the loss is -log of the label's, clipped
+    at 1e-12."""
+    x = ctx.in1(op, "X")
+    label = ctx.in1(op, "Label")
+    logp = torch.log(torch.clamp(x, 1e-12, 1.0))
+    if bool(op.attr("soft_label", False)):
+        loss = -torch.sum(label * logp, dim=-1, keepdim=True)
+    else:
+        lbl = label.squeeze(-1) if label.dim() == x.dim() \
+            and label.shape[-1] == 1 else label
+        loss = -torch.gather(logp, -1, lbl.long().unsqueeze(-1))
+    ctx.set_out(op, "Y", loss)
+    if op.outputs.get("XShape"):
+        ctx.set_out(op, "XShape", x.new_zeros((0,) + tuple(x.shape)))
+
+
+@register_lower("sigmoid_cross_entropy_with_logits")
+def _bce_logits(ctx, op):
+    """max(x, 0) - x z + log(1 + e^-|x|), zero where the label is
+    ``ignore_index`` (when one is set), over the kept count when
+    ``normalize``."""
+    x = ctx.in1(op, "X")
+    label = ctx.in1(op, "Label")
+    loss = torch.clamp_min(x, 0) - x * label + torch.log1p(
+        torch.exp(-torch.abs(x)))
+    ignore_index = int(op.attr("ignore_index", -100))
+    if ignore_index != -100:
+        loss = torch.where(label == ignore_index, torch.zeros_like(loss),
+                           loss)
+    if bool(op.attr("normalize", False)):
+        loss = loss / torch.clamp_min(
+            (label != ignore_index).to(x.dtype).sum(), 1.0)
+    ctx.set_out(op, "Out", loss)
+
+
+@register_lower("square_error_cost")
+def _square_error_cost(ctx, op):
+    ctx.set_out(op, "Out", torch.square(ctx.in1(op, "X") - ctx.in1(op, "Y")))
+
+
+@register_lower("huber_loss")
+def _huber_loss(ctx, op):
+    r = ctx.in1(op, "Y") - ctx.in1(op, "X")
+    d = float(op.attr("delta", 1.0))
+    a = torch.abs(r)
+    ctx.set_out(op, "Out", torch.where(a <= d, 0.5 * r * r, d * (a - 0.5 * d)))
+    ctx.set_out(op, "Residual", r)

@@ -1,11 +1,11 @@
-"""Optimizer update ops: ``sgd``, ``momentum`` and ``adamw``.
+"""Optimizer update ops: ``sgd``, ``momentum``, ``adam`` and ``adamw``.
 
 Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` (``_sgd``,
-``_momentum``, ``_adam``), limited to the updates the static BERT and
-ResNet programs emit (``adam`` and the other updates come with later
-slices).  Reference parity: sgd_op.cc, momentum_op.cc (``use_nesterov``,
-``regularization_method == "l2_decay"``), adam_op.cc.  ``sgd`` and
-``momentum`` update in the parameter's type; AdamW runs in float32
+``_momentum``, ``_adam``); the other updates (``adagrad``, ``adamax``,
+``rmsprop``, ``lamb``, ...) come with a later slice.  Reference parity:
+sgd_op.cc, momentum_op.cc (``use_nesterov``, ``regularization_method ==
+"l2_decay"``), adam_op.cc.  ``sgd`` and
+``momentum`` update in the parameter's type; Adam and AdamW run in float32
 whatever the parameter's type.  Each writes its outputs back under their
 own names (the executor stores them into the scope).  The JAX package
 wraps AdamW's gradient in an ``optimization_barrier`` that keeps XLA from
@@ -47,8 +47,8 @@ def _momentum(ctx, op):
     ctx.set_out(op, "VelocityOut", v_new)
 
 
-@register_lower("adamw")
-def _adamw(ctx, op):
+@register_lower("adam", "adamw")
+def _adam(ctx, op):
     p = ctx.in1(op, "Param")
     g = ctx.in1(op, "Grad").float()
     m1 = ctx.in1(op, "Moment1")
@@ -61,7 +61,7 @@ def _adamw(ctx, op):
     eps = float(op.attr("epsilon", 1e-8))
 
     pf = p.float()
-    if bool(op.attr("with_decay", True)):
+    if op.type == "adamw" and bool(op.attr("with_decay", True)):
         coeff = float(op.attr("coeff", op.attr("weight_decay", 0.01)))
         pf = pf * (1.0 - lr * coeff)
     m1n = b1 * m1 + (1 - b1) * g

@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from ..framework import graphs
 from ..native import build
 
 _NEG_INF = -1e30
@@ -312,8 +313,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
             page_table, lengths, k_scales, v_scales, out,
             _workspace(s, h, d, nsplit, q.device),
             (s, h, d, page, pps, nsplit, chunk), sm_scale)
-    with _COUNT_LOCK:
-        paged_decode_attention.launches += 1
+    graphs.count_launch(paged_decode_attention, _COUNT_LOCK, q.device)
     return out
 
 
@@ -351,8 +351,7 @@ def paged_chunk_attention(q, k_pages, v_pages, page_table, row_lengths, *,
             _workspace(s * r, h, d, nsplit, q.device),
             (s, r, h, d, page, pps, nsplit, chunk, chunk_tile_rows(r)),
             sm_scale)
-    with _COUNT_LOCK:
-        paged_chunk_attention.launches += 1
+    graphs.count_launch(paged_chunk_attention, _COUNT_LOCK, q.device)
     return out
 
 

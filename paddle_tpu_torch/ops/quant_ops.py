@@ -43,6 +43,7 @@ import threading
 import numpy as np
 import torch
 
+from ..framework import graphs
 from ..framework.lowering import register_lower
 from ..framework.scope import to_numpy, to_tensor
 from ..native import build
@@ -250,8 +251,7 @@ def _launch(x, qw, scale, out_dtype):
         raise RuntimeError(
             f"dequant_matmul launch failed: CUDA error {rc} "
             f"({lib.paddle_dequant_cuda_error_string(rc).decode()})")
-    with _COUNT_LOCK:
-        dequant_matmul.launches += 1
+    graphs.count_launch(dequant_matmul, _COUNT_LOCK, x.device)
     return out
 
 

@@ -580,7 +580,7 @@ class DecodeEngine:
             return self._decode_forward(*self._upload(*arrays))
         step = self._step
         if step is None:
-            step = self._step = StepGraph(self.device, "thread_local")
+            step = self._step = StepGraph(self.device)
             return step.on_side_stream(
                 lambda: self._decode_forward(*self._upload(*arrays)))
         if step.graph is None:
