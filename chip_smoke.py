@@ -231,7 +231,46 @@ peak memory once its executors and graphs are dropped.
                ran during it), the B5 / B6 wrapper counts over the window
                equal the layers times the decode steps / prefills the
                engines counted, and the ``paged_decode_kernel`` /
-               ``paged_chunk_mma_kernel`` launches the profiler saw.
+               ``paged_chunk_mma_kernel`` launches the profiler saw;
+22. hapi_dygraph -- the 2.0 high-level API's loop at full width:
+               ``Model(vision.models.mobilenet_v2(num_classes=1000))``
+               (scale 1.0, 3x224x224, float32) prepared with
+               ``Momentum(CosineAnnealingDecay(0.1, T_max=steps), 0.9,
+               weight_decay=4e-5)``, ``CrossEntropyLoss`` and
+               ``Accuracy(topk=(1, 5))``; ``fit`` for one epoch over
+               ``io.DataLoader(FakeData(128 * 24, 1000 classes, random
+               flip, ImageNet normalization), batch_size=128,
+               shuffle=True, drop_last=True, num_workers=4,
+               device_prefetch=True)`` (batch halved while it does not fit,
+               logged as ``reduced``) with ``LRScheduler``,
+               ``BenchmarkCallback`` (FLOPs of the static train program,
+               the float32 peak) and ``EarlyStopping``, then ``evaluate``
+               over 4 batches of 3x256x256 through ``CenterCrop(224)`` and
+               ``predict`` over 2.  Step p50 (the first 2 steps and the
+               profiled ones left out), images/s, the loader's wait per
+               step (p50 and share), the loader alone at 0 and 4 workers
+               (and at 4 with batches pickled through the queue instead
+               of shared memory), its workers' start-up seconds, the busy share of a profiled
+               5-step window (the union of kernels and copies on any
+               stream, the profiler open 0.5 s after the last sync), peak
+               memory after step 3 vs the last (within 5 %), finite
+               losses, evaluate's top-1 / top-5, ``[256, 1000]`` finite
+               predictions, B1-B7 at 0 launches;
+23. hapi_static -- the same under ``enable_static()`` with image and label
+               ``InputSpec``s: the train, eval and predict programs run
+               through the executor, their steps after the first two
+               CUDA-graph replays (``cuda_graph_replays`` grows by the
+               fit's steps - 1 and the evaluate's batches - 1 unless
+               ``capture_reason`` names why not); the same numbers, and
+               the MFU of the executor's step timer;
+24. hapi_oracle -- float32, batch 8, full width, one seeded set of weights
+               carried by ``state_dict``, one batch: the dygraph
+               ``train_batch`` on the card against the CPU (loss within
+               1e-4 relative; Accuracy's rows equal but at top-k ties
+               within 1e-5; the step's update within 5e-3 norm-wise, the
+               CPU's own gap for a nudged image beside it), and the static
+               adapter's step-1 loss against the dygraph one's on the
+               card within 1e-4.
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
@@ -2933,6 +2972,446 @@ def phase_capture_concurrency():
         exe.close()
 
 
+# -- the 2.0 high-level API: Model.fit / evaluate / predict ----------------
+
+# One epoch of FakeData(128 * 24) through MobileNetV2 at full width; its
+# first HAPI_SKIP steps (the warm-up, and in static mode the capture) are
+# left out of the step p50, and so are the HAPI_PROFILE steps run under
+# torch.profiler.
+HAPI_BATCH, HAPI_STEPS, HAPI_SKIP, HAPI_WORKERS = 128, 24, 2, 4
+HAPI_IMAGE, HAPI_EVAL_IMAGE = 224, 256   # train and eval images' sides
+HAPI_PROFILE = (14, 5)             # (first step, steps) of the profiled window
+HAPI_EVAL_BATCHES, HAPI_PREDICT_BATCHES = 4, 2
+# The loader alone, nothing consuming: (workers, shared memory) and the
+# batches timed after its first; the dygraph phase times each, the static
+# one the main path's.
+HAPI_LOADERS = {(0, True): 3, (HAPI_WORKERS, True): 12,
+                (HAPI_WORKERS, False): 6}
+HAPI_PEAK_RTOL = 0.05              # peak memory after step 3 vs the last
+IMAGENET_MEAN, IMAGENET_STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+# hapi_oracle: float32 MobileNetV2 at full width, batch 8, one step from
+# one set of weights.  Losses within 1e-4 relative (card vs CPU, and the
+# static adapter vs the dygraph one on the card); Accuracy's rows equal but
+# where two logits at the top-k boundary lie within HAPI_TIE; the step's
+# update (every parameter and running statistic together, norm-wise) within
+# HAPI_UPDATE_TOL.  Measured (PERF.md, NVIDIA H100 80GB HBM3, 700 W): card
+# vs CPU 5.8e-4, the CPU against itself for an image nudged by 1e-7
+# relative 7.0e-4 (logged beside in every run), a batch-norm backward
+# that drops a term 2.9e-2 (tools/hapi_oracle_faults.py).  5e-3 sits 8x
+# above the first and 6x below the fault.
+HAPI_ORACLE_BATCH, HAPI_ORACLE_RTOL, HAPI_TIE = 8, 1e-4, 1e-5
+HAPI_UPDATE_TOL = 5e-3
+HAPI_DATA = {}                     # the phases' datasets, built once
+HAPI_FLOPS = {}                    # the static train program's FLOPs a step
+
+
+def hapi_datasets():
+    """(train, eval) FakeData: 1000 classes of 3x224x224 through a random
+    flip and the ImageNet normalization; 3x256x256 through a center crop
+    to 224 and the same normalization."""
+    from paddle_tpu_torch.vision import datasets, transforms as tf
+
+    if not HAPI_DATA:
+        t0 = time.monotonic()
+        HAPI_DATA["train"] = datasets.FakeData(
+            num_samples=HAPI_BATCH * HAPI_STEPS,
+            image_shape=(3, HAPI_IMAGE, HAPI_IMAGE),
+            num_classes=1000, transform=tf.Compose([
+                tf.RandomHorizontalFlip(),
+                tf.Normalize(mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                             data_format="CHW")]))
+        HAPI_DATA["eval"] = datasets.FakeData(
+            num_samples=HAPI_BATCH * HAPI_EVAL_BATCHES,
+            image_shape=(3, HAPI_EVAL_IMAGE, HAPI_EVAL_IMAGE),
+            num_classes=1000, seed=1, transform=tf.Compose([
+                tf.CenterCrop(HAPI_IMAGE),
+                tf.Normalize(mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                             data_format="CHW")]))
+        HAPI_DATA["build_s"] = time.monotonic() - t0
+    return HAPI_DATA["train"], HAPI_DATA["eval"]
+
+
+def hapi_model(static, steps, dropout=0.2, weights=None, device="gpu:0",
+               lr=0.1):
+    """``Model(mobilenet_v2(num_classes=1000))`` prepared as the 2.0 API's
+    users write it: Momentum(CosineAnnealingDecay(lr, T_max=steps), 0.9,
+    weight_decay=4e-5), CrossEntropyLoss, Accuracy(topk=(1, 5)); in
+    static mode with image and label InputSpecs."""
+    pt.set_device(device)
+    pt.seed(0)
+    net = pt.vision.models.mobilenet_v2(num_classes=1000)
+    net.classifier._sub_layers["0"].p = dropout
+    if weights is not None:
+        pt.dygraph.state_dict_from_numpy(net, weights)
+    if static:
+        pt.enable_static()
+    try:
+        model = pt.Model(net, **(dict(
+            inputs=[pt.InputSpec([None, 3, HAPI_IMAGE, HAPI_IMAGE],
+                                 "float32", "image")],
+            labels=[pt.InputSpec([None, 1], "int64", "label")])
+            if static else {}))
+        model.prepare(pt.optimizer.Momentum(
+            learning_rate=pt.optimizer.lr.CosineAnnealingDecay(lr, T_max=steps),
+            momentum=0.9, weight_decay=4e-5, parameters=model.parameters()),
+            pt.nn.CrossEntropyLoss(), pt.metric.Accuracy(topk=(1, 5)))
+    finally:
+        pt.disable_static()
+    return model
+
+
+def hapi_train_flops(batch):
+    """FLOPs of one step of the static train program at ``batch``
+    (``model_stat.program_flops``: convolutions and matmuls with their
+    gradients, elementwise ops one a element)."""
+    from paddle_tpu_torch.hapi.model_stat import program_flops
+
+    if batch not in HAPI_FLOPS:
+        model = hapi_model(True, HAPI_STEPS)
+        HAPI_FLOPS[batch] = program_flops(model._st["train"]) * batch
+        model._st["exe"].close()
+    return HAPI_FLOPS[batch]
+
+
+def device_busy_us(prof):
+    """Microseconds in which the card ran a kernel or a copy, any stream:
+    the union of their intervals (device prefetch copies on a side stream
+    beside the step's kernels)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+class HapiProbe(pt.hapi.callbacks.Callback):
+    """Each train step's wall time from ``on_train_batch_begin`` to its end
+    (``train_batch`` alone) and from the last step's end (the loader's
+    wait included), its loss, the peak memory after step 3 and after the
+    last, and one torch.profiler window over HAPI_PROFILE's steps (their
+    periods: from the first one's begin to the begin of the step after
+    the last), kept open PROFILER_TAIL_S after its last sync.  First in
+    the callback list: the profiler starts and stops in begin hooks, before
+    ``BenchmarkCallback`` starts its clock."""
+
+    def __init__(self):
+        super().__init__()
+        self.step_ms, self.period_ms, self.losses = [], [], []
+        self.prof = self.prof_wall_us = None
+        self.peak_step3 = self.peak_last = None
+
+    def on_train_begin(self, logs=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.t_prev = time.perf_counter()
+
+    def on_train_batch_begin(self, step, logs=None):
+        from torch.profiler import ProfilerActivity, profile
+
+        if step == HAPI_PROFILE[0]:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t_prof = time.perf_counter()
+        elif step == sum(HAPI_PROFILE):
+            torch.cuda.synchronize()
+            self.prof_wall_us = (time.perf_counter() - self.t_prof) * 1e6
+            time.sleep(PROFILER_TAIL_S)
+            self.prof.__exit__(None, None, None)
+        self.t0 = time.perf_counter()
+
+    def on_train_batch_end(self, step, logs=None):
+        self.losses.append(float(logs["loss"]))   # the step's own sync
+        t = time.perf_counter()
+        self.step_ms.append((t - self.t0) * 1e3)
+        self.period_ms.append((t - self.t_prev) * 1e3)
+        if step == 2:
+            self.peak_step3 = torch.cuda.max_memory_allocated()
+        self.peak_last = torch.cuda.max_memory_allocated()
+        self.t_prev = time.perf_counter()
+
+    def timed(self, values):
+        """The steps after HAPI_SKIP but the profiled window's (and the
+        step after it, whose period holds the profiler's stop)."""
+        lo, n = HAPI_PROFILE
+        return [v for i, v in enumerate(values)
+                if i >= HAPI_SKIP and not lo <= i <= lo + n]
+
+
+def loader_alone(dataset, workers, shared):
+    """The training loader with nothing consuming: seconds to its first
+    batch (the workers' start-up within it) and images/s over the next
+    batches; the iterator is closed and its workers reaped."""
+    from paddle_tpu_torch import io
+
+    loader = io.DataLoader(dataset, batch_size=HAPI_BATCH, shuffle=True,
+                           drop_last=True, num_workers=workers,
+                           use_shared_memory=shared)
+    t0 = time.perf_counter()
+    it = iter(loader)
+    next(it)
+    t1 = time.perf_counter()
+    n = HAPI_LOADERS[workers, shared]
+    for _ in range(n):
+        next(it)
+    t2 = time.perf_counter()
+    it.close()
+    it._thread.join(timeout=60)
+    if it._thread.is_alive():
+        raise RuntimeError("the loader's fill thread did not stop")
+    return {"workers": workers, "shared_memory": shared,
+            "first_batch_s": t1 - t0,
+            "worker_start_s": loader.worker_start_seconds,
+            "images_per_s": n * HAPI_BATCH / (t2 - t1)}
+
+
+def hapi_fit(static, batch):
+    """The main path at ``batch``: ``fit`` over the 4-worker,
+    device-prefetched loader with LRScheduler, BenchmarkCallback and
+    EarlyStopping, then evaluate and predict; B1-B7's counts zeroed just
+    before fit and read after predict."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.hapi import callbacks as cb
+    from paddle_tpu_torch.observe import step_stats
+    from paddle_tpu_torch.observe.histogram import histogram
+
+    train_ds, eval_ds = hapi_datasets()
+    loader = io.DataLoader(train_ds, batch_size=batch, shuffle=True,
+                           drop_last=True, num_workers=HAPI_WORKERS,
+                           device_prefetch=True)
+    flops = hapi_train_flops(batch)
+    model = hapi_model(static, len(loader))
+    peak = card_peaks(torch.cuda.get_device_name(0))[1]["float32"] / 1e12
+    probe = HapiProbe()
+    bench = cb.BenchmarkCallback(batch_size=batch, peak_tflops=peak,
+                                 **({} if static else
+                                    {"flops_per_step": flops}))
+    histogram("input_wait_seconds").reset()
+    step_stats.reset_step_stats()
+    replays = stat_get("cuda_graph_replays")
+    eager_seeded = stat_get("executor_eager_seeded_random")
+    torch.cuda.synchronize()
+    zero_kernel_launches()          # the path's counts start here
+    t0 = time.monotonic()
+    hist = model.fit(loader, epochs=1, verbose=0, callbacks=[
+        probe, cb.LRScheduler(), bench, cb.EarlyStopping()])
+    fit_s = time.monotonic() - t0
+    fit_replays = stat_get("cuda_graph_replays") - replays
+    wait = histogram("input_wait_seconds").summary()
+    timer = step_stats.step_timer().summary(peak)
+    replays = stat_get("cuda_graph_replays")
+    t0 = time.monotonic()
+    ev = model.evaluate(io.DataLoader(eval_ds, batch_size=batch,
+                                      device_prefetch=True), verbose=0)
+    eval_s = time.monotonic() - t0
+    eval_replays = stat_get("cuda_graph_replays") - replays
+    preds = model.predict(io.DataLoader(
+        io.Subset(eval_ds, range(batch * HAPI_PREDICT_BATCHES)),
+        batch_size=batch, device_prefetch=True), stack_outputs=True)[0]
+    launches = kernel_launches()
+    return dict(model=model, loader=loader, probe=probe, bench=bench,
+                hist=hist, fit_s=fit_s, fit_replays=fit_replays, wait=wait,
+                timer=timer, eval=ev, eval_s=eval_s,
+                eval_replays=eval_replays, preds=preds, launches=launches,
+                flops=flops, peak_tflops=peak, eager_seeded=stat_get(
+                    "executor_eager_seeded_random") - eager_seeded)
+
+
+def phase_hapi(static):
+    """``hapi_dygraph`` / ``hapi_static``: the 2.0 high-level API's loop at
+    full width (see the module docstring), batch 128 halved while it does
+    not fit (logged as ``reduced``)."""
+    phase = "hapi_static" if static else "hapi_dygraph"
+    batch, reduced = HAPI_BATCH, []
+    while True:
+        try:
+            r = hapi_fit(static, batch)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            reason = f"batch {batch} ran out of device memory: " \
+                     f"{str(e).splitlines()[0][:300]}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        reduced.append(reason)
+        batch //= 2
+        if batch < 8:
+            raise RuntimeError(f"MobileNetV2 does not fit: {reduced}")
+    probe, model = r["probe"], r["model"]
+    steps = len(probe.losses)
+    step = float(np.median(probe.timed(probe.step_ms)))
+    periods = probe.timed(probe.period_ms)
+    period = float(np.median(periods))
+    waits = [p - s for p, s in zip(probe.period_ms, probe.step_ms)]
+    wait = float(np.median(probe.timed(waits)))
+    busy = device_busy_us(probe.prof)
+    by_name = device_time_by_kernel(probe.prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    growth = probe.peak_last / probe.peak_step3 - 1.0
+    loaders = [loader_alone(HAPI_DATA["train"], w, shm)
+               for w, shm in HAPI_LOADERS
+               if not static or (w, shm) == (HAPI_WORKERS, True)]
+    reason = None
+    if static:
+        st = model._st
+        reason = executor_mod.capture_reason(st["train"]) or \
+            executor_mod.capture_reason(st["eval"])
+    log(phase, model="mobilenet_v2", scale=1.0,
+        image=[3, HAPI_IMAGE, HAPI_IMAGE],
+        classes=1000, dtype="float32", api="static" if static else "dygraph",
+        batch=batch, reduced=reduced, steps=steps,
+        workers=HAPI_WORKERS, device_prefetch=True,
+        optimizer="Momentum(CosineAnnealingDecay(0.1, T_max=steps), 0.9, "
+                  "weight_decay=4e-5)",
+        step_ms_p50=step, step_period_ms_p50=period,
+        images_per_s=batch / (period / 1e3),
+        images_per_s_mean=batch * len(periods) / (sum(periods) / 1e3),
+        images_per_s_train_batch=batch / (step / 1e3),
+        loader_wait_ms_p50=wait, loader_wait_share=wait / period,
+        input_wait_seconds=r["wait"],
+        loader_worker_start_s=r["loader"].worker_start_seconds,
+        loader_alone=loaders, dataset_build_s=HAPI_DATA["build_s"],
+        fit_s=r["fit_s"], profiled_steps=HAPI_PROFILE[1],
+        profiled_window_ms=probe.prof_wall_us / 1e3,
+        device_busy_ms=busy / 1e3,
+        device_busy_share=busy / probe.prof_wall_us,
+        top_kernels_device_ms={k: v / 1e3 for k, v in top},
+        peak_memory_gb_step3=probe.peak_step3 / 1e9,
+        peak_memory_gb_last=probe.peak_last / 1e9,
+        peak_memory_growth=growth, peak_memory_tolerance=HAPI_PEAK_RTOL,
+        losses=probe.losses, step_ms=probe.step_ms,
+        step_period_ms=probe.period_ms, flops_per_step=r["flops"],
+        peak_tflops_float32=r["peak_tflops"],
+        benchmark=r["bench"].last_summary, step_timer=r["timer"],
+        cuda_graph_replays_fit=r["fit_replays"],
+        cuda_graph_replays_eval=r["eval_replays"],
+        capture_reason=reason,
+        executor_eager_seeded_random=r["eager_seeded"],
+        eval_batches=HAPI_EVAL_BATCHES, eval_s=r["eval_s"],
+        eval_top1=r["eval"]["acc_top1"], eval_top5=r["eval"]["acc_top5"],
+        eval_loss=r["eval"]["loss"], predict_shape=list(r["preds"].shape),
+        launches_after=r["launches"])
+    if not all(math.isfinite(v) for v in probe.losses):
+        raise RuntimeError(f"{phase}: losses not finite: {probe.losses}")
+    if any(r["launches"].values()):
+        raise RuntimeError(f"{phase} launched hand-written kernels: "
+                           f"{r['launches']}")
+    if abs(growth) > HAPI_PEAK_RTOL:
+        raise RuntimeError(f"{phase}: peak memory grew by {growth:.3f} "
+                           f"from step 3 to the last")
+    n_pred = batch * HAPI_PREDICT_BATCHES
+    if r["preds"].shape != (n_pred, 1000) or \
+            not np.isfinite(r["preds"]).all():
+        raise RuntimeError(f"{phase}: predictions {r['preds'].shape}, "
+                           f"finite {np.isfinite(r['preds']).all()}")
+    if static and reason is None and (
+            r["fit_replays"] != steps - 1
+            or r["eval_replays"] != HAPI_EVAL_BATCHES - 1):
+        raise RuntimeError(f"{phase}: {r['fit_replays']} replays in fit "
+                           f"({steps} steps), {r['eval_replays']} in "
+                           f"evaluate ({HAPI_EVAL_BATCHES} batches)")
+    if static:
+        model._st["exe"].close()
+
+
+class RowsAccuracy(pt.metric.Accuracy):
+    """Accuracy that keeps each batch's correct-rows and logits."""
+
+    def compute(self, pred, label):
+        self.logits = np.asarray(pred.numpy())
+        self.rows = super().compute(pred, label)
+        return self.rows
+
+
+def hapi_oracle_step(model, x, y, device):
+    """One ``train_batch`` on ``device`` (the place its inputs go to):
+    (loss, Accuracy rows, logits, state after it)."""
+    pt.set_device(device)
+    acc = model._metrics[0] = RowsAccuracy(topk=(1, 5))
+    loss = model.train_batch([x], [y])["loss"]
+    state = {k: v.numpy() for k, v in model.network.state_dict().items()}
+    pt.set_device("gpu:0")
+    return float(loss), acc.rows, acc.logits, state
+
+
+def update_gap(init, a, b):
+    """||(a - init) - (b - init)|| / ||a - init||, every parameter and
+    running statistic together, in float64."""
+    da = np.concatenate([(a[k].astype("f8") - init[k]).ravel()
+                         for k in init])
+    db = np.concatenate([(b[k].astype("f8") - init[k]).ravel()
+                         for k in init])
+    return float(np.linalg.norm(da - db) / np.linalg.norm(da))
+
+
+def tied_rows(rows_a, rows_b, logits, topk=(1, 5)):
+    """Rows whose correctness differs, each with whether the logits at its
+    top-k boundary lie within HAPI_TIE (the only case allowed)."""
+    out = []
+    for r in np.nonzero((rows_a != rows_b).any(axis=1))[0]:
+        srt = np.sort(logits[r])[::-1]
+        tie = any(srt[k - 1] - srt[k] <= HAPI_TIE for k in topk)
+        out.append({"row": int(r), "tie": bool(tie)})
+    return out
+
+
+def phase_hapi_oracle():
+    """float32, batch 8, full width, one seeded set of weights carried by
+    ``state_dict``, one batch: the dygraph ``train_batch`` on the card
+    against the CPU (loss, Accuracy rows, the step's update), and the
+    static adapter against the dygraph one on the card (loss)."""
+    pt.set_device("gpu:0")
+    pt.seed(1)
+    init = {k: v.numpy() for k, v in pt.vision.models.mobilenet_v2(
+        num_classes=1000).state_dict().items()}
+    rng = np.random.RandomState(7)
+    x = rng.randn(HAPI_ORACLE_BATCH, 3, HAPI_IMAGE,
+                  HAPI_IMAGE).astype("float32")
+    y = rng.randint(0, 1000, (HAPI_ORACLE_BATCH, 1)).astype("int64")
+    nudged = (x * (1 + 1e-7 * rng.randn(*x.shape))).astype("float32")
+    t0 = time.monotonic()
+    card = hapi_oracle_step(hapi_model(False, 1, 0.0, init), x, y, "gpu:0")
+    cpu = hapi_oracle_step(hapi_model(False, 1, 0.0, init, "cpu"), x, y,
+                           "cpu")
+    cpu_nudged = hapi_oracle_step(hapi_model(False, 1, 0.0, init, "cpu"),
+                                  nudged, y, "cpu")
+    static = hapi_model(True, 1, 0.0, init)
+    static_loss = float(static.train_batch([x], [y])["loss"])
+    static._st["exe"].close()
+    seconds = time.monotonic() - t0
+    loss_gap = abs(card[0] - cpu[0]) / abs(cpu[0])
+    static_gap = abs(static_loss - card[0]) / abs(card[0])
+    rows = tied_rows(card[1], cpu[1], cpu[2])
+    gap = update_gap(init, cpu[3], card[3])
+    own = update_gap(init, cpu[3], cpu_nudged[3])
+    log("hapi_oracle", batch=HAPI_ORACLE_BATCH, dtype="float32",
+        tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_tf32=torch.backends.cudnn.allow_tf32,
+        card_loss=card[0], cpu_loss=cpu[0], loss_rel_gap=loss_gap,
+        static_loss=static_loss, static_vs_dygraph_rel_gap=static_gap,
+        loss_tolerance=HAPI_ORACLE_RTOL, accuracy_rows_differing=rows,
+        tie_tolerance=HAPI_TIE, update_normwise_rel_gap=gap,
+        update_tolerance=HAPI_UPDATE_TOL,
+        cpu_nudged_image_update_normwise_rel_gap=own, seconds=seconds)
+    if not loss_gap <= HAPI_ORACLE_RTOL or \
+            not static_gap <= HAPI_ORACLE_RTOL:
+        raise RuntimeError(f"hapi step-1 loss: card {card[0]} vs CPU "
+                           f"{cpu[0]}, static {static_loss}")
+    if not all(r["tie"] for r in rows):
+        raise RuntimeError(f"Accuracy rows differ without a tie: {rows}")
+    if not gap <= HAPI_UPDATE_TOL:
+        raise RuntimeError(f"the step's update, card vs CPU, parts by "
+                           f"{gap} (> {HAPI_UPDATE_TOL}; the CPU against "
+                           f"itself for a nudged image: {own})")
+
+
 def release(phase):
     """Drop a phase's executors and graphs (their ``close()`` ran, or
     they went with the phase's objects) and give the cached blocks back;
@@ -3071,6 +3550,12 @@ def main():
     release("dygraph_resnet_oracle")
     phase_capture_concurrency()
     release("capture_concurrency")
+    phase_hapi(static=False)
+    release("hapi_dygraph")
+    phase_hapi(static=True)
+    release("hapi_static")
+    phase_hapi_oracle()
+    release("hapi_oracle")
     kernels = []
     main_case = TRAIN_FLASH_CASES[0][0]
     for kernel, case in (("paged_decode_attention", "decode_float32"),

@@ -32,7 +32,15 @@ imports), ported slice by slice:
    ``optimizer.Momentum(...).step()``, ``amp.auto_cast``, ``autograd``
    (``PyLayer``, ``grad``) and ``vision.models`` (LeNet, ResNet), run
    eagerly by the same lowerings, ``torch.autograd`` as the tape
-   (``dygraph/``); no hand-written kernel runs on dygraph ResNet-50.
+   (``dygraph/``); no hand-written kernel runs on dygraph ResNet-50;
+8. the 2.0 high-level API: ``Model(network).prepare(optimizer, loss,
+   metrics)`` then ``fit`` / ``evaluate`` / ``predict`` over
+   ``io.DataLoader`` (spawned worker processes with no card, device
+   prefetch), in dygraph and, under ``enable_static()``, through the
+   executor's captured programs; ``metric``, ``hapi.callbacks``,
+   ``flops``/``summary`` over programs, ``vision.datasets`` /
+   ``transforms`` and MobileNet / VGG; no hand-written kernel runs on
+   this path either.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, ``CPUPlace()``); importing the package builds no
@@ -55,7 +63,14 @@ from .dygraph.tensor import Tensor  # noqa: F401
 # 2.0 flat namespace (reference python/paddle/__init__.py)
 from . import tensor  # noqa: F401
 from . import nn  # noqa: F401
+from . import io  # noqa: F401
+from . import metric  # noqa: F401
 from . import vision  # noqa: F401
+from . import hapi  # noqa: F401
+from .hapi import Model  # noqa: F401
+from .hapi.model import InputSpec  # noqa: F401
+from .hapi import callbacks  # noqa: F401
+from .hapi.model_stat import flops, summary  # noqa: F401
 from .tensor import (  # noqa: F401
     abs, add, add_n, all, allclose, any, arange, argmax, argmin, argsort,
     assign, bmm, broadcast_to, cast, ceil, chunk, clip, concat, cos, cumsum,

@@ -56,6 +56,14 @@ Other behaviour, as in the JAX package:
   first time a program runs in that scope (a nonzero ``seed`` attr wins,
   see ``ops/common.op_generator``).
 
+Step telemetry: each ``run`` and ``run_steps`` call records its wall time,
+steps, examples (the first feed's leading dim) and the program's FLOPs
+(``hapi/model_stat.program_flops``, scaled by that batch when the
+program's batch dim is -1) into ``observe/step_stats.step_timer()``, as
+the JAX executor's ``record_run`` calls do; a key's warm-up run and its
+capture count as compiles.  ``run`` returns after its fetches reached the
+host (``return_numpy=True``), so its recorded time is the step's.
+
 ``run_steps`` runs the entry K times, with the fetches stacked on a
 leading K dimension.  Host I/O programs (``save``/``load``/
 ``save_combine``/``load_combine`` ops, built by ``fluid.io``) are
@@ -82,6 +90,7 @@ what it holds.
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -90,6 +99,7 @@ import torch
 
 from . import dtypes
 from ..monitor import stat_add
+from ..observe import step_stats
 from ..observe import tracer as otrace
 from . import passes as passes_mod
 from .flags import flag
@@ -172,6 +182,9 @@ class _Entry:
     state_out: Tuple[str, ...]
     frees: Tuple[Tuple[str, ...], ...]
     eager_reason: Optional[Tuple[str, str]]
+    batch: int = 0                        # the first feed's leading dim
+    flops_per_step: float = 0.0           # program_flops at that batch
+    runs: int = 0                         # warmup's included
     step: Optional[StepGraph] = None      # on the card, from the 1st run
     graph: Optional["_GraphStep"] = None  # from the 2nd run
 
@@ -254,11 +267,15 @@ class Executor:
         if any(op.type in HOST_OPS for op in program.global_block.ops):
             return self._run_host_ops(program, scope, _names(fetch_list),
                                       return_numpy)
+        t0 = time.perf_counter()
         fetches, entry = self._run(program, feed, _names(fetch_list), scope)
         if return_numpy:
-            return [to_numpy(v) for v in fetches]
-        return [v.clone() for v in fetches] if self._owns(entry) \
-            else fetches
+            out = [to_numpy(v) for v in fetches]
+        else:
+            out = [v.clone() for v in fetches] if self._owns(entry) \
+                else fetches
+        self._record(entry, time.perf_counter() - t0, 1)
+        return out
 
     def _run(self, program, feed, fetch_names, scope):
         """One step: the pass pipeline, the entry's lookup, its run.
@@ -302,6 +319,7 @@ class Executor:
             raise ValueError("run_steps requires at least one feed")
         scope = scope if scope is not None else global_scope()
         self._refuse_left_out(program)
+        t0 = time.perf_counter()
         if steps is None:
             step_dims = {int(np.shape(v)[0]) for v in feed.values()}
             if len(step_dims) != 1:
@@ -331,7 +349,9 @@ class Executor:
                               self._run_entry(entry, step_feed, scope)):
                 acc.append(v.clone() if self._owns(entry) else v)
         fetches = [torch.stack(vs) for vs in per_step]
-        return [to_numpy(v) for v in fetches] if return_numpy else fetches
+        out = [to_numpy(v) for v in fetches] if return_numpy else fetches
+        self._record(entry, time.perf_counter() - t0, n_steps)
+        return out
 
     # ------------------------------------------------------------------
     def warmup(
@@ -562,8 +582,18 @@ class Executor:
         entry = self._cache[key] = _Entry(
             program, fetch_names, state_in, state_out,
             self._frees(program, feeds, fetch_names, scope),
-            capture_reason(program))
+            capture_reason(program), *_batch_flops(program, feeds))
         return entry
+
+    def _record(self, entry, seconds, n_steps):
+        """One call into the step timer: the runs before the entry's
+        first replay (its warm-up and capture; its first run on the CPU)
+        count as compiles."""
+        warm_runs = 2 if self._owns(entry) else 1
+        compiled = entry.runs - n_steps < warm_runs
+        step_stats.step_timer().record_run(
+            seconds, steps=n_steps, examples=entry.batch * n_steps,
+            compiled=compiled, flops_per_step=entry.flops_per_step)
 
     def _owns(self, entry) -> bool:
         """Whether ``entry``'s fetches may be buffers a later replay
@@ -572,6 +602,7 @@ class Executor:
         return self._captures and entry.eager_reason is None
 
     def _run_entry(self, entry, feeds, scope) -> List[torch.Tensor]:
+        entry.runs += 1
         if entry.eager_reason is not None:
             kind, why = entry.eager_reason
             stat_add("executor_eager_" + kind)
@@ -702,6 +733,24 @@ class Executor:
             cached = self._free_cache[key] = _free_plan(
                 program, set(feeds) | set(state_out) | set(fetch_names))
         return cached
+
+
+def _batch_flops(program, feeds) -> Tuple[int, float]:
+    """(the first feed's leading dim, FLOPs of one run at it).
+    ``program_flops`` counts a -1 dim as 1, so a program whose first
+    feed has a symbolic batch is priced per sample and scaled by the
+    feed's, as the JAX executor does."""
+    from ..hapi.model_stat import program_flops
+
+    flops = float(program_flops(program))
+    if not feeds:
+        return 0, flops
+    name, val = next(iter(feeds.items()))
+    batch = int(val.shape[0]) if val.dim() else 1
+    var = program.global_block._find_var_recursive(name)
+    if var is not None and var.shape and int(var.shape[0]) <= 0:
+        flops *= batch
+    return batch, flops
 
 
 def _check_fetches(fetch_names, env):

@@ -171,6 +171,13 @@ define_flag("decode_kv_quant", False,
             "page per head; the attention kernels dequantize pages "
             "inline")
 
+# ---- step telemetry (observe/step_stats.py) -------------------------------
+define_flag("device_peak_tflops", 0.0,
+            "per-card peak TFLOP/s used by the MFU estimate "
+            "(observe/step_stats.py, hapi BenchmarkCallback); 0 (the "
+            "default) leaves MFU null: set it to your part's peak for the "
+            "dtype the step runs in")
+
 # ---- static-graph executor and its lowerings (framework/executor.py,
 # ops/fused.py) ------------------------------------------------------------
 define_flag("check_nan_inf", False,

@@ -2,12 +2,17 @@
 
 Counterpart of ``paddle_tpu/nn/__init__.py``, with the layers of
 ``layer/{common,container,conv,norm,pooling,activation,loss}.py``, the
-functional API and the 2.0 initializers.  Gradient clipping, ``utils``,
-the recurrent and transformer layers come with a later slice of the port.
+functional API, the 2.0 initializers, gradient clipping (``clip``) and
+``utils`` (weight and spectral norm, parameter vectors).  The recurrent
+and transformer layers come with a later slice of the port.
 """
 from ..dygraph.layers import Layer  # noqa: F401
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
+from . import utils  # noqa: F401
+from .clip import (  # noqa: F401
+    ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+)
 from .layer.activation import (  # noqa: F401
     CELU, ELU, GELU, SELU, Hardshrink, Hardsigmoid, Hardswish, Hardtanh,
     LeakyReLU, LogSigmoid, LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6,

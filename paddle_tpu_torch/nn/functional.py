@@ -234,18 +234,49 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05, name=
 
 def batch_norm(x, running_mean, running_var, weight, bias, training=False,
                momentum=0.9, epsilon=1e-05, data_format="NCHW", name=None):
+    """Batch norm over ``x``.  Eagerly the running statistics' tensors
+    take the op's new values; in a static program whose running
+    statistics are graph variables (the hapi static adapter makes them
+    persistable vars) the op writes them in place, as
+    ``layers.batch_norm`` does.  The JAX package's function handles only
+    the eager case (a graph ``MeanOut`` fails there)."""
+    from ..framework.program import Variable
+
+    attrs = {"momentum": float(momentum), "epsilon": float(epsilon),
+             "is_test": not training, "data_layout": data_format,
+             "use_global_stats": not training}
+    if isinstance(running_mean, Variable):
+        return _static_batch_norm(x, running_mean, running_var, weight, bias,
+                                  attrs, name)
     outs = op_call("batch_norm",
                    {"X": x, "Scale": weight, "Bias": bias,
                     "Mean": running_mean, "Variance": running_var},
-                   {"momentum": float(momentum), "epsilon": float(epsilon),
-                    "is_test": not training, "data_layout": data_format,
-                    "use_global_stats": not training},
+                   attrs,
                    outs=("Y", "MeanOut", "VarianceOut", "SavedMean", "SavedVariance"),
                    name=name)
     y, mean_out, var_out = outs[0], outs[1], outs[2]
-    if training and hasattr(running_mean, "_set_raw") and mean_out is not None:
+    if training and hasattr(running_mean, "_set_raw") \
+            and hasattr(mean_out, "_value"):
         running_mean._set_raw(mean_out._value.detach())
         running_var._set_raw(var_out._value.detach())
+    return y
+
+
+def _static_batch_norm(x, mean, variance, weight, bias, attrs, name):
+    from ..layer_helper import LayerHelper
+
+    helper = LayerHelper("batch_norm", name=name)
+    y = helper.create_variable_for_type_inference(x.dtype_str)
+    y.shape = tuple(x.shape)
+    saved = [helper.create_variable_for_type_inference(
+        x.dtype_str, stop_gradient=True) for _ in range(2)]
+    helper.append_op(
+        "batch_norm",
+        {"X": x, "Scale": weight, "Bias": bias, "Mean": mean,
+         "Variance": variance},
+        {"Y": y, "MeanOut": mean, "VarianceOut": variance,
+         "SavedMean": saved[0], "SavedVariance": saved[1]},
+        attrs)
     return y
 
 
@@ -284,11 +315,14 @@ def _full_like_scalar(x, v):
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train", name=None):
+    """Dropout; the op's ``Mask`` is an output too, since a static
+    program's ``dropout_grad`` reads it (the JAX package asks for
+    ``Out`` alone)."""
     impl = "upscale_in_train" if mode == "upscale_in_train" else "downgrade_in_infer"
     return op_call("dropout", {"X": x},
                    {"dropout_prob": float(p), "is_test": not training,
                     "dropout_implementation": impl},
-                   outs=("Out",), name=name)
+                   outs=("Out", "Mask"), name=name)[0]
 
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):

@@ -2,8 +2,8 @@
 
 - The lowerings (``math_ops``, ``tensor_ops``, ``linalg_ops``,
   ``nn_ops``, ``activations``, ``creation``, ``embedding_ops``,
-  ``optimizer_ops``, ``fused``, ``flash_attention``, ``grad_generic``,
-  ``quant_ops``), which the static executor and dygraph's ``run_op``
+  ``optimizer_ops``, ``misc``, ``fused``, ``flash_attention``,
+  ``grad_generic``, ``quant_ops``), which the static executor and dygraph's ``run_op``
   both run: importing this package registers them with
   ``framework.lowering``, as importing ``paddle_tpu.ops`` does.
 - The kernels' wrappers and plain versions: paged attention
@@ -25,6 +25,7 @@ from . import (  # noqa: F401
     grad_generic,
     linalg_ops,
     math_ops,
+    misc,
     nn_ops,
     optimizer_ops,
     quant_ops,

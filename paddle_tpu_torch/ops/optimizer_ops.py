@@ -1,12 +1,14 @@
-"""Optimizer update ops: ``sgd``, ``momentum``, ``adam`` and ``adamw``.
+"""Optimizer update ops: ``sgd``, ``momentum``, ``adam``, ``adamw``,
+``adamax``, ``adagrad``, ``adadelta``, ``rmsprop`` and ``lamb``.
 
-Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` (``_sgd``,
-``_momentum``, ``_adam``); the other updates (``adagrad``, ``adamax``,
-``rmsprop``, ``lamb``, ...) come with a later slice.  Reference parity:
-sgd_op.cc, momentum_op.cc (``use_nesterov``, ``regularization_method ==
-"l2_decay"``), adam_op.cc.  ``sgd`` and
-``momentum`` update in the parameter's type; Adam and AdamW run in float32
-whatever the parameter's type.  Each writes its outputs back under their
+Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` (``_sgd`` through
+``_lamb``); ``lars_momentum``, ``ftrl``, ``dpsgd`` and the AMP loss-scaling
+ops come with a later slice.  Reference parity: sgd_op.cc, momentum_op.cc
+(``use_nesterov``, ``regularization_method == "l2_decay"``), adam_op.cc,
+adamax_op.cc, adagrad_op.cc, adadelta_op.cc, rmsprop_op.cc (``centered``),
+lamb_op.cc.  ``sgd``, ``momentum``, ``adamax``, ``adagrad``, ``adadelta``
+and ``rmsprop`` update in the parameter's type; Adam, AdamW and LAMB run
+in float32 whatever the parameter's type.  Each writes its outputs back under their
 own names (the executor stores them into the scope).  The JAX package
 wraps AdamW's gradient in an ``optimization_barrier`` that keeps XLA from
 fusing the weight-gradient matmul into the update on the TPU; eager torch
@@ -71,6 +73,106 @@ def _adam(ctx, op):
     lr_t = lr * torch.sqrt(1 - as_scalar(b2p)) / (1 - as_scalar(b1p))
     pn = pf - lr_t * m1n / (torch.sqrt(m2n) + eps)
     ctx.set_out(op, "ParamOut", pn.to(p.dtype))
+    ctx.set_out(op, "Moment1Out", m1n)
+    ctx.set_out(op, "Moment2Out", m2n)
+    ctx.set_out(op, "Beta1PowOut", b1p * b1)
+    ctx.set_out(op, "Beta2PowOut", b2p * b2)
+
+
+@register_lower("adamax")
+def _adamax(ctx, op):
+    p = ctx.in1(op, "Param")
+    g = ctx.in1(op, "Grad")
+    m = ctx.in1(op, "Moment")
+    inf_norm = ctx.in1(op, "InfNorm")
+    b1p = ctx.in1(op, "Beta1Pow")
+    lr = as_scalar(ctx.in1(op, "LearningRate"))
+    b1 = float(op.attr("beta1", 0.9))
+    b2 = float(op.attr("beta2", 0.999))
+    eps = float(op.attr("epsilon", 1e-8))
+    mn = b1 * m + (1 - b1) * g
+    inf_n = torch.maximum(b2 * inf_norm, g.abs() + eps)
+    pn = p - (lr / (1 - as_scalar(b1p))) * (mn / inf_n)
+    ctx.set_out(op, "ParamOut", pn)
+    ctx.set_out(op, "MomentOut", mn)
+    ctx.set_out(op, "InfNormOut", inf_n)
+
+
+@register_lower("adagrad")
+def _adagrad(ctx, op):
+    p = ctx.in1(op, "Param")
+    g = ctx.in1(op, "Grad")
+    mom = ctx.in1(op, "Moment")
+    lr = as_scalar(ctx.in1(op, "LearningRate"))
+    eps = float(op.attr("epsilon", 1e-6))
+    mn = mom + g.square()
+    ctx.set_out(op, "ParamOut", p - lr * g / (torch.sqrt(mn) + eps))
+    ctx.set_out(op, "MomentOut", mn)
+
+
+@register_lower("adadelta")
+def _adadelta(ctx, op):
+    p = ctx.in1(op, "Param")
+    g = ctx.in1(op, "Grad")
+    avg_sq = ctx.in1(op, "AvgSquaredGrad")
+    avg_upd = ctx.in1(op, "AvgSquaredUpdate")
+    rho = float(op.attr("rho", 0.95))
+    eps = float(op.attr("epsilon", 1e-6))
+    asq = rho * avg_sq + (1 - rho) * g.square()
+    upd = torch.sqrt(avg_upd + eps) / torch.sqrt(asq + eps) * g
+    ctx.set_out(op, "ParamOut", p - upd)
+    ctx.set_out(op, "AvgSquaredGradOut", asq)
+    ctx.set_out(op, "AvgSquaredUpdateOut",
+                rho * avg_upd + (1 - rho) * upd.square())
+
+
+@register_lower("rmsprop")
+def _rmsprop(ctx, op):
+    p = ctx.in1(op, "Param")
+    g = ctx.in1(op, "Grad")
+    ms = ctx.in1(op, "MeanSquare")
+    mom = ctx.in1(op, "Moment")
+    lr = as_scalar(ctx.in1(op, "LearningRate"))
+    eps = float(op.attr("epsilon", 1e-10))
+    rho = float(op.attr("decay", 0.9))
+    momentum = float(op.attr("momentum", 0.0))
+    msn = rho * ms + (1 - rho) * g.square()
+    if bool(op.attr("centered", False)):
+        mgn = rho * ctx.in1(op, "MeanGrad") + (1 - rho) * g
+        denom = msn - mgn.square() + eps
+        ctx.set_out(op, "MeanGradOut", mgn)
+    else:
+        denom = msn + eps
+    momn = momentum * mom + lr * g / torch.sqrt(denom)
+    ctx.set_out(op, "ParamOut", p - momn)
+    ctx.set_out(op, "MeanSquareOut", msn)
+    ctx.set_out(op, "MomentOut", momn)
+
+
+@register_lower("lamb")
+def _lamb(ctx, op):
+    p = ctx.in1(op, "Param")
+    g = ctx.in1(op, "Grad").float()
+    m1 = ctx.in1(op, "Moment1")
+    m2 = ctx.in1(op, "Moment2")
+    b1p = ctx.in1(op, "Beta1Pow")
+    b2p = ctx.in1(op, "Beta2Pow")
+    lr = as_scalar(ctx.in1(op, "LearningRate")).float()
+    b1 = float(op.attr("beta1", 0.9))
+    b2 = float(op.attr("beta2", 0.999))
+    eps = float(op.attr("epsilon", 1e-6))
+    wd = float(op.attr("weight_decay", 0.01))
+    pf = p.float()
+    m1n = b1 * m1 + (1 - b1) * g
+    m2n = b2 * m2 + (1 - b2) * g.square()
+    mhat = m1n / (1 - as_scalar(b1p))
+    vhat = m2n / (1 - as_scalar(b2p))
+    r = mhat / (torch.sqrt(vhat) + eps) + wd * pf
+    w_norm = torch.linalg.vector_norm(pf)
+    r_norm = torch.linalg.vector_norm(r)
+    trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                        torch.ones_like(w_norm))
+    ctx.set_out(op, "ParamOut", (pf - lr * trust * r).to(p.dtype))
     ctx.set_out(op, "Moment1Out", m1n)
     ctx.set_out(op, "Moment2Out", m2n)
     ctx.set_out(op, "Beta1PowOut", b1p * b1)

@@ -6,11 +6,10 @@ lowering rules eagerly over (param, param.grad), under ``no_grad``, and
 writes each new value into its parameter in place (the leaf keeps its
 identity and its address); in static graph `minimize()` delegates to the
 fluid-style program builders in static_opt.py.  One numerical
-implementation per optimizer either way.  ``SGD``, ``Momentum``,
-``Adam`` and ``AdamW`` have their update's lowering; ``Lamb``,
-``Adagrad``, ``Adamax`` and ``RMSProp`` raise at ``step`` until theirs
-come with a later slice of the port (their static builders work).  The
-pipeline optimizer comes with the distributed slices.
+implementation per optimizer either way: ``SGD``, ``Momentum``, ``Adam``,
+``AdamW``, ``Lamb``, ``Adagrad``, ``Adamax`` and ``RMSProp`` all have
+their update's lowering (``ops/optimizer_ops.py``).  The pipeline
+optimizer comes with the distributed slices.
 """
 from __future__ import annotations
 
