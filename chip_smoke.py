@@ -270,7 +270,49 @@ peak memory once its executors and graphs are dropped.
                within 1e-5; the step's update within 5e-3 norm-wise, the
                CPU's own gap for a nudged image beside it), and the static
                adapter's step-1 loss against the dygraph one's on the
-               card within 1e-4.
+               card within 1e-4;
+25. text_transformer -- Transformer-base NMT through ``Model.fit`` in
+               dygraph, float32: ``nn.Transformer`` at its defaults (d_model
+               512, 8 heads, 6 + 6 layers, FFN 2048, dropout 0.1), a shared
+               37,000-token vocabulary scaled by sqrt(d_model) plus
+               sinusoidal positions, the output projection tied to the
+               embedding; 64 synthetic pairs of 64 tokens a batch (the
+               target the reversed source behind BOS, a causal decoder
+               mask); ``CrossEntropyLoss(soft_label=True)`` on
+               ``label_smooth(one_hot(label), 0.1)``; Adam(0.9, 0.98, 1e-9)
+               under NoamDecay(512, 4000); a 0-worker loader; 20 steps.
+               ``train_batch`` p50, target tokens/s, eager ops a step, the
+               busy share of a profiled 5-step window, its top kernels, peak
+               memory after step 3 vs the last (within 5 %), the first and
+               last loss, B1-B7 at 0 launches;
+26. text_decode -- ``text.decode.beam_search`` with the trained model: 8
+               sentences, beam 4, length penalty 0.6, 64 steps, the decoder
+               run over the whole prefix each step; ms a decode, tokens/s,
+               B1-B7 at 0;
+27. text_lstm -- the PTB language model (Zaremba et al. 2014 "large":
+               vocabulary 10,000, embedding and 2 LSTM layers of 1,500,
+               dropout 0.65 on the embedding, between the layers and on the
+               output) through ``Model.fit`` in dygraph, float32, over
+               ``text.datasets.Imikolov(NGRAM, window 36)`` windows of a
+               synthetic ``simple-examples`` tarball (about 1M tokens, a
+               10,000-word vocabulary at min_word_freq 50), 20 windows of
+               35 steps, SGD at lr 1.0 under ClipGradByGlobalNorm(10); the
+               numbers of phase 25, and whether cuDNN copies the layer's
+               weights at each call, with the op's ms beside the same
+               weights in cuDNN's flat buffer;
+28. text_oracle -- the card against the port's CPU path from the same
+               weights: both models' step-1 loss with dropout 0 within 1e-4
+               relative; one float64 ``rnn`` op (LSTM and GRU, 2 layers,
+               bidirectional) forward and backward within 1e-10; each beam
+               hypothesis of phase 26 re-scored by a teacher-forced CPU pass
+               within 1e-3 of the card's score, and the CPU's own beam
+               search no better than the card's best beam by more than 1e-3;
+29. nn_extras -- ``conv2d_transpose`` (512 -> 256, 4x4, stride 2, pad 1 on
+               [64, 512, 8, 8]), ``group_norm`` (32 groups on [32, 256, 56,
+               56]) and ``instance_norm`` ([16, 64, 128, 128]): the card
+               against the CPU, forward and every gradient, within 1e-4 of
+               the largest magnitude (float32, TF32 off), and the card's
+               forward + backward ms.
 
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
@@ -3095,14 +3137,15 @@ class HapiProbe(pt.hapi.callbacks.Callback):
     """Each train step's wall time from ``on_train_batch_begin`` to its end
     (``train_batch`` alone) and from the last step's end (the loader's
     wait included), its loss, the peak memory after step 3 and after the
-    last, and one torch.profiler window over HAPI_PROFILE's steps (their
+    last, and one torch.profiler window over ``window``'s steps (their
     periods: from the first one's begin to the begin of the step after
     the last), kept open PROFILER_TAIL_S after its last sync.  First in
     the callback list: the profiler starts and stops in begin hooks, before
     ``BenchmarkCallback`` starts its clock."""
 
-    def __init__(self):
+    def __init__(self, window=HAPI_PROFILE, skip=HAPI_SKIP):
         super().__init__()
+        self.window, self.skip = window, skip
         self.step_ms, self.period_ms, self.losses = [], [], []
         self.prof = self.prof_wall_us = None
         self.peak_step3 = self.peak_last = None
@@ -3115,13 +3158,13 @@ class HapiProbe(pt.hapi.callbacks.Callback):
     def on_train_batch_begin(self, step, logs=None):
         from torch.profiler import ProfilerActivity, profile
 
-        if step == HAPI_PROFILE[0]:
+        if step == self.window[0]:
             torch.cuda.synchronize()
             self.prof = profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA])
             self.prof.__enter__()
             self.t_prof = time.perf_counter()
-        elif step == sum(HAPI_PROFILE):
+        elif step == sum(self.window):
             torch.cuda.synchronize()
             self.prof_wall_us = (time.perf_counter() - self.t_prof) * 1e6
             time.sleep(PROFILER_TAIL_S)
@@ -3139,11 +3182,11 @@ class HapiProbe(pt.hapi.callbacks.Callback):
         self.t_prev = time.perf_counter()
 
     def timed(self, values):
-        """The steps after HAPI_SKIP but the profiled window's (and the
+        """The steps after ``skip`` but the profiled window's (and the
         step after it, whose period holds the profiler's stop)."""
-        lo, n = HAPI_PROFILE
+        lo, n = self.window
         return [v for i, v in enumerate(values)
-                if i >= HAPI_SKIP and not lo <= i <= lo + n]
+                if i >= self.skip and not lo <= i <= lo + n]
 
 
 def loader_alone(dataset, workers, shared):
@@ -3412,6 +3455,664 @@ def phase_hapi_oracle():
                            f"itself for a nudged image: {own})")
 
 
+# ---------------------------------------------------------------------------
+# text: Transformer-base NMT, beam search, the PTB LSTM language model
+# ---------------------------------------------------------------------------
+
+# Transformer-base NMT (Vaswani et al. 2017): ``nn.Transformer`` at its
+# defaults (d_model 512, 8 heads, 6 + 6 layers, FFN 2048, dropout 0.1), a
+# shared source / target vocabulary of 37,000 (the paper's EN-DE BPE size),
+# 64 pairs of 64 tokens (4,096 target tokens, the token batch of Paddle's
+# Transformer-base configuration), Adam(0.9, 0.98, 1e-9) under
+# NoamDecay(512, 4000); float32.  The first NMT_SKIP steps and the profiled
+# window are left out of the step p50.
+NMT_VOCAB, NMT_D, NMT_BATCH, NMT_LEN, NMT_MAX_POS = 37000, 512, 64, 64, 256
+NMT_HEADS, NMT_LAYERS, NMT_FFN = 8, 6, 2048     # nn.Transformer's defaults
+NMT_BOS, NMT_EOS, NMT_WARMUP, NMT_SMOOTH = 1, 2, 4000, 0.1
+NMT_STEPS, NMT_SKIP, NMT_PROFILE = 20, 2, (10, 5)
+# Beam search with the trained model: 8 source sentences, beam 4, GNMT
+# length penalty 0.6, 64 new tokens, the decoder run over the prefix at
+# every step (the JAX package's decoder takes no cache).
+DECODE_SENTENCES, DECODE_BEAM, DECODE_ALPHA, DECODE_MAX_LEN = 8, 4, 0.6, 64
+# The PTB language model, Zaremba et al. 2014 "large": vocabulary 10,000,
+# embedding and 2 LSTM layers of 1,500, dropout 0.65 on the embedding,
+# between the layers and on the output, 20 windows of 35 steps, SGD at lr
+# 1.0 under ClipGradByGlobalNorm(10); float32.  The corpus is a synthetic
+# ``simple-examples`` tarball of about 1M tokens whose vocabulary after
+# min_word_freq=50 is 9,999 words and ``<unk>``.
+PTB_VOCAB, PTB_HIDDEN, PTB_LAYERS, PTB_DROPOUT = 10000, 1500, 2, 0.65
+PTB_BATCH, PTB_BPTT, PTB_MIN_FREQ, PTB_CLIP = 20, 35, 50, 10.0
+PTB_STEPS, PTB_SKIP, PTB_PROFILE = 30, 2, (15, 5)
+PTB_RARE_WORDS, PTB_RARE_COUNT, PTB_ZIPF_TOKENS = 4000, 25, 400_000
+TEXT_PEAK_RTOL = 0.05              # peak memory after step 3 vs the last
+# text_oracle: the card against the port's CPU path from the same weights.
+# Step-1 losses (float32, dropout 0, through Model.eval_batch): summation
+# order over 6 + 6 layers or 2 LSTM layers of 35 steps, and a 37,000- or
+# 10,000-way log-softmax.  The rnn op in float64: 1e-10 of the largest
+# magnitude (the ResNet oracle's float64 bound; a float64 op is exact to
+# about 1e-16 an operation).  Beam scores: sums of 64 float32 log-probs
+# after 6 + 6 layers, divided by the length penalty.
+TEXT_ORACLE_BATCH, TEXT_ORACLE_RTOL = 4, 1e-4
+RNN_ORACLE_TOL, BEAM_SCORE_TOL = 1e-10, 1e-3
+RNN_ORACLE_SHAPE = (35, 8, 256, 256)    # T, B, input, hidden
+# nn_extras: the new lowerings, card against CPU, forward and gradient,
+# float32 with TF32 off: 1e-4 of the largest magnitude (sums over 64 x 16
+# window terms, or over a group's 100,352 values).
+NN_EXTRAS_RTOL = 1e-4
+NN_EXTRAS_CASES = (   # (label, op, input shapes, attrs)
+    ("conv2d_transpose_dcgan", "conv2d_transpose",
+     dict(Input=(64, 512, 8, 8), Filter=(512, 256, 4, 4)),
+     dict(strides=[2, 2], paddings=[1, 1], dilations=[1, 1], groups=1,
+          data_format="NCHW", output_padding=[], output_size=[])),
+    ("group_norm_32", "group_norm",
+     dict(X=(32, 256, 56, 56), Scale=(256,), Bias=(256,)),
+     dict(groups=32, epsilon=1e-5)),
+    ("instance_norm", "instance_norm",
+     dict(X=(16, 64, 128, 128), Scale=(64,), Bias=(64,)),
+     dict(epsilon=1e-5)),
+)
+TEXT_STATE = {}                     # what the text phases hand on
+
+
+def sinusoid_table(max_len, d_model):
+    pos = np.arange(max_len)[:, None]
+    i = np.arange(d_model)[None, :]
+    angle = pos / np.power(10000.0, (2 * (i // 2)) / d_model)
+    return np.where(i % 2 == 0, np.sin(angle), np.cos(angle)).astype("f4")
+
+
+class Seq2Seq(pt.nn.Layer):
+    """Transformer NMT: one embedding for source and target, scaled by
+    sqrt(d_model), plus fixed sinusoidal positions (an embedding that does
+    not train, as Paddle's Transformer example feeds them);
+    ``nn.Transformer`` at its defaults with a causal decoder mask; the
+    output projection tied to the embedding."""
+
+    def __init__(self, dropout=0.1):
+        super().__init__()
+        self.emb = pt.nn.Embedding(NMT_VOCAB, NMT_D)
+        self.pos = pt.nn.Embedding(NMT_MAX_POS, NMT_D, weight_attr=pt.ParamAttr(
+            initializer=pt.initializer.NumpyArrayInitializer(
+                sinusoid_table(NMT_MAX_POS, NMT_D)), trainable=False))
+        self.transformer = pt.nn.Transformer(
+            NMT_D, NMT_HEADS, NMT_LAYERS, NMT_LAYERS, NMT_FFN, dropout)
+
+    def embed(self, ids):
+        pos = self.pos(pt.arange(ids.shape[1], dtype="int64"))
+        return self.emb(ids) * float(np.sqrt(NMT_D)) + pos
+
+    def logits(self, h):
+        return pt.matmul(h, self.emb.weight, transpose_y=True)
+
+    def forward(self, src, tgt):
+        mask = self.transformer.generate_square_subsequent_mask(tgt.shape[1])
+        return self.logits(self.transformer(self.embed(src), self.embed(tgt),
+                                            tgt_mask=mask))
+
+
+class SmoothedCrossEntropy(pt.nn.Layer):
+    """``CrossEntropyLoss(soft_label=True)`` on
+    ``label_smooth(one_hot(label, vocabulary), epsilon)``, as Paddle's
+    Transformer example computes its loss."""
+
+    def __init__(self, vocab, epsilon):
+        super().__init__()
+        self.vocab, self.epsilon = vocab, epsilon
+        self.ce = pt.nn.CrossEntropyLoss(soft_label=True)
+
+    def forward(self, logits, label):
+        return self.ce(logits, pt.nn.functional.label_smooth(
+            pt.nn.functional.one_hot(label, self.vocab),
+            epsilon=self.epsilon))
+
+
+class LanguageModel(pt.nn.Layer):
+    """The PTB LSTM language model: embedding, dropout, ``nn.LSTM`` with
+    dropout between its layers, dropout, a vocabulary-wide ``Linear``."""
+
+    def __init__(self, dropout=PTB_DROPOUT):
+        super().__init__()
+        self.emb = pt.nn.Embedding(PTB_VOCAB, PTB_HIDDEN)
+        self.drop = pt.nn.Dropout(dropout)
+        self.lstm = pt.nn.LSTM(PTB_HIDDEN, PTB_HIDDEN, num_layers=PTB_LAYERS,
+                               dropout=dropout)
+        self.out = pt.nn.Linear(PTB_HIDDEN, PTB_VOCAB)
+
+    def forward(self, ids):
+        h, _ = self.lstm(self.drop(self.emb(ids)))
+        return self.out(self.drop(h))
+
+
+class Windows(pt.io.Dataset):
+    """``Imikolov`` NGRAM windows as (ids[:-1], ids[1:, None]): the input
+    and its next-token labels."""
+
+    def __init__(self, ngrams):
+        self.ngrams = ngrams
+
+    def __getitem__(self, i):
+        w = self.ngrams[i]
+        return w[:-1], w[1:, None]
+
+    def __len__(self):
+        return len(self.ngrams)
+
+
+def nmt_pairs(n, seed):
+    """(source, target input, label) [n, 64]: tokens above EOS, the label
+    the reversed source, the target input the label behind BOS."""
+    rs = np.random.RandomState(seed)
+    src = rs.randint(NMT_EOS + 1, NMT_VOCAB, (n, NMT_LEN)).astype("int64")
+    label = np.ascontiguousarray(src[:, ::-1])
+    tgt = np.concatenate([np.full((n, 1), NMT_BOS, "int64"), label[:, :-1]],
+                         axis=1)
+    return src, tgt, label
+
+
+def write_ptb(path, seed=0):
+    """A ``simple-examples`` tarball: ptb.train.txt holds 9,999 words
+    w0..w9998 seen 50 times each plus a Zipf share of PTB_ZIPF_TOKENS, and
+    PTB_RARE_WORDS words seen PTB_RARE_COUNT times (below min_word_freq,
+    so ``<unk>``), shuffled into lines of 36 to 70 words; ptb.valid.txt
+    2,000 of the same tokens.  Returns the number of training tokens."""
+    import io as _io
+    import tarfile
+
+    rs = np.random.RandomState(seed)
+    n = PTB_VOCAB - 1
+    zipf = 1.0 / np.arange(1, n + 1)
+    counts = PTB_MIN_FREQ + np.floor(PTB_ZIPF_TOKENS * zipf / zipf.sum())
+    words = np.array([f"w{i}" for i in range(n)]
+                     + [f"r{i}" for i in range(PTB_RARE_WORDS)])
+    reps = np.concatenate([counts.astype("int64"),
+                           np.full(PTB_RARE_WORDS, PTB_RARE_COUNT)])
+    tokens = words[rs.permutation(np.repeat(np.arange(len(words)), reps))]
+    cuts = np.cumsum(rs.randint(36, 71, len(tokens) // 36))
+    cuts = cuts[cuts < len(tokens)]
+    lines = [" ".join(seg) for seg in np.split(tokens, cuts)]
+    train = ("".join(" " + ln + " \n" for ln in lines)).encode()
+    valid = ("".join(" " + ln + " \n" for ln in lines[:40])).encode()
+    with tarfile.open(path, "w:gz", compresslevel=1) as tf:
+        for split, data in (("train", train), ("valid", valid)):
+            info = tarfile.TarInfo(f"./simple-examples/data/ptb.{split}.txt")
+            info.size = len(data)
+            tf.addfile(info, _io.BytesIO(data))
+    return len(tokens)
+
+
+def text_model(kind, device="gpu:0", dropout=None, weights=None):
+    """The NMT or LM network on ``device`` (seeded), with ``weights``
+    (a state dict of numpy arrays) when given."""
+    pt.set_device(device)
+    pt.seed(0)
+    if kind == "nmt":
+        net = Seq2Seq(0.1 if dropout is None else dropout)
+    else:
+        net = LanguageModel(PTB_DROPOUT if dropout is None else dropout)
+    if weights is not None:
+        pt.dygraph.state_dict_from_numpy(net, weights)
+    return net
+
+
+def text_prepare(kind, net):
+    if kind == "nmt":
+        opt = pt.optimizer.Adam(
+            learning_rate=pt.optimizer.lr.NoamDecay(NMT_D, NMT_WARMUP),
+            beta1=0.9, beta2=0.98, epsilon=1e-9,
+            parameters=net.parameters())
+        loss = SmoothedCrossEntropy(NMT_VOCAB, NMT_SMOOTH)
+    else:
+        opt = pt.optimizer.SGD(
+            learning_rate=1.0, parameters=net.parameters(),
+            grad_clip=pt.nn.ClipGradByGlobalNorm(PTB_CLIP))
+        loss = pt.nn.CrossEntropyLoss()
+    model = pt.Model(net)
+    model.prepare(opt, loss)
+    return model
+
+
+def text_fit(kind, dataset, batch, window, skip):
+    """``Model.fit`` for one epoch over a 0-worker loader of ``dataset``
+    with the LRScheduler callback; B1-B7's counts zeroed just before and
+    read just after; then one more step with its ops counted."""
+    from paddle_tpu_torch.hapi import callbacks as cb
+
+    net = text_model(kind)
+    model = text_prepare(kind, net)
+    loader = pt.io.DataLoader(dataset, batch_size=batch, shuffle=True,
+                              drop_last=True, num_workers=0)
+    probe = HapiProbe(window, skip)
+    torch.cuda.synchronize()
+    zero_kernel_launches()          # the path's counts start here
+    t0 = time.monotonic()
+    model.fit(loader, epochs=1, verbose=0,
+              callbacks=[probe, cb.LRScheduler()])
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches = kernel_launches()
+    xs, ys = model._split_batch(next(iter(loader)))
+    ops = counted_ops(lambda: model.train_batch(xs, ys))
+    return dict(net=net, model=model, probe=probe, fit_s=fit_s,
+                launches=launches, ops=ops)
+
+
+def log_text_fit(phase, r, tokens, card, **fields):
+    """The fit's numbers (the HapiProbe ones) and its checks."""
+    probe = r["probe"]
+    step = float(np.median(probe.timed(probe.step_ms)))
+    period = float(np.median(probe.timed(probe.period_ms)))
+    busy = device_busy_us(probe.prof)
+    top = sorted(device_time_by_kernel(probe.prof).items(),
+                 key=lambda kv: -kv[1])[:12]
+    growth = probe.peak_last / probe.peak_step3 - 1.0
+    ops = r["ops"]
+    log(phase, card=card, api="dygraph", dtype="float32",
+        steps=len(probe.losses), step_ms_p50=step,
+        step_period_ms_p50=period,
+        target_tokens_per_s=tokens / (period / 1e3),
+        target_tokens_per_s_train_batch=tokens / (step / 1e3),
+        fit_s=r["fit_s"], ops_per_step=sum(ops.values()),
+        ops_by_type=dict(sorted(ops.items(), key=lambda kv: -kv[1])[:15]),
+        profiled_steps=probe.window[1],
+        profiled_window_ms=probe.prof_wall_us / 1e3,
+        device_busy_ms=busy / 1e3,
+        device_busy_share=busy / probe.prof_wall_us,
+        top_kernels_device_ms={k: v / 1e3 for k, v in top},
+        peak_memory_gb_step3=probe.peak_step3 / 1e9,
+        peak_memory_gb_last=probe.peak_last / 1e9,
+        peak_memory_growth=growth, peak_memory_tolerance=TEXT_PEAK_RTOL,
+        loss_first=probe.losses[0], loss_last=probe.losses[-1],
+        losses=probe.losses, step_ms=probe.step_ms,
+        launches_after=r["launches"], **fields)
+    if not all(math.isfinite(v) for v in probe.losses):
+        raise RuntimeError(f"{phase}: losses not finite: {probe.losses}")
+    if any(r["launches"].values()):
+        raise RuntimeError(f"{phase} launched hand-written kernels: "
+                           f"{r['launches']}")
+    if abs(growth) > TEXT_PEAK_RTOL:
+        raise RuntimeError(f"{phase}: peak memory grew by {growth:.3f} "
+                           f"from step 3 to the last")
+
+
+def phase_text_transformer():
+    """Transformer-base NMT through ``Model.fit`` in dygraph (see the
+    constants above)."""
+    card = nvidia_smi("name,power.limit")
+    t0 = time.monotonic()
+    data = pt.io.TensorDataset(nmt_pairs(NMT_BATCH * NMT_STEPS, seed=0))
+    data_s = time.monotonic() - t0
+    r = text_fit("nmt", data, NMT_BATCH, NMT_PROFILE, NMT_SKIP)
+    n_params = sum(p._value.numel() for p in r["net"].parameters())
+    log_text_fit(
+        "text_transformer", r, NMT_BATCH * NMT_LEN, card,
+        model="transformer_base", vocab=NMT_VOCAB, d_model=NMT_D,
+        heads=NMT_HEADS, layers=[NMT_LAYERS, NMT_LAYERS], ffn=NMT_FFN,
+        dropout=0.1, batch=NMT_BATCH,
+        seq_len=NMT_LEN, parameters=n_params, label_smooth=NMT_SMOOTH,
+        optimizer=f"Adam(0.9, 0.98, 1e-9) under NoamDecay({NMT_D}, "
+                  f"{NMT_WARMUP})", loader_workers=0, dataset_build_s=data_s)
+    TEXT_STATE["nmt"] = r["net"]
+
+
+def nmt_step_fn(net):
+    """``beam_search``'s step: the decoder over the whole prefix (the
+    state's second item, to which each step appends its token) and the
+    encoder's memory; the logits of the last position."""
+    def step(tok, state):
+        memory, prefix = state
+        prefix = torch.cat([prefix, tok[:, None]], dim=1)
+        mask = net.transformer.generate_square_subsequent_mask(
+            prefix.shape[1])
+        h = net.transformer.decoder(net.embed(pt.Tensor(prefix)),
+                                    pt.Tensor(memory), tgt_mask=mask)
+        return net.logits(h[:, -1]), (memory, prefix)
+
+    return step
+
+
+def nmt_beam_search(net, src):
+    """``text.decode.beam_search`` over ``src`` [B, S] (numpy) with the
+    net in eval mode, on the net's device: (ids [B, K, T], scores [B, K])."""
+    net.eval()
+    dev = net.emb.weight._value.device
+    with pt.no_grad():
+        memory = net.transformer.encoder(net.embed(pt.Tensor(
+            torch.from_numpy(src).to(dev))))._value
+    b = src.shape[0]
+    state = (memory, torch.zeros((b, 0), dtype=torch.long, device=dev))
+    return pt.text.decode.beam_search(
+        nmt_step_fn(net), state,
+        torch.full((b,), NMT_BOS, dtype=torch.long, device=dev),
+        DECODE_BEAM, DECODE_MAX_LEN, NMT_EOS, length_penalty=DECODE_ALPHA)
+
+
+def phase_text_decode():
+    """Beam search with the trained Transformer: one warm-up decode, then
+    two timed, each synced; B1-B7 at 0 launches."""
+    card = nvidia_smi("name,power.limit")
+    net = TEXT_STATE["nmt"]
+    src = nmt_pairs(DECODE_SENTENCES, seed=5)[0]
+    nmt_beam_search(net, src)
+    torch.cuda.synchronize()
+    zero_kernel_launches()
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ids, scores = nmt_beam_search(net, src)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = kernel_launches()
+    ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
+    decode_ms = float(np.median(ms))
+    hyp_tokens = DECODE_SENTENCES * DECODE_BEAM * DECODE_MAX_LEN
+    log("text_decode", card=card, sentences=DECODE_SENTENCES,
+        beam=DECODE_BEAM, length_penalty=DECODE_ALPHA,
+        max_len=DECODE_MAX_LEN, decode_ms=ms, decode_ms_p50=decode_ms,
+        generated_tokens_per_s=DECODE_SENTENCES * DECODE_MAX_LEN
+        / (decode_ms / 1e3),
+        hypothesis_tokens_per_s=hyp_tokens / (decode_ms / 1e3),
+        decoder_positions_per_decode=DECODE_SENTENCES * DECODE_BEAM
+        * DECODE_MAX_LEN * (DECODE_MAX_LEN + 1) // 2,
+        ids_shape=list(ids.shape), best_scores=scores[:, 0].tolist(),
+        eos_emitted=int((ids == NMT_EOS).sum()), launches_after=launches)
+    if ids.shape != (DECODE_SENTENCES, DECODE_BEAM, DECODE_MAX_LEN) or \
+            not np.isfinite(scores).all() or \
+            (np.diff(scores, axis=1) > 0).any():
+        raise RuntimeError(f"beam search: ids {ids.shape}, scores {scores}")
+    if any(launches.values()):
+        raise RuntimeError(f"text_decode launched hand-written kernels: "
+                           f"{launches}")
+    TEXT_STATE["decode"] = (src, ids, scores)
+
+
+def rnn_weight_copies(lstm, dev):
+    """Whether the fused route copies the layer's weights on each call
+    (cuDNN warns that they are not one contiguous chunk), and its forward
+    and backward ms beside torch.nn.LSTM holding the same weights in
+    cuDNN's flat buffer, at the path's shape of one layer's op (the path
+    runs one op a layer: dropout between them)."""
+    import warnings
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(PTB_BPTT, PTB_BATCH, PTB_HIDDEN, device=dev,
+                    generator=gen)
+    h0 = torch.zeros(1, PTB_BATCH, PTB_HIDDEN, device=dev)
+    gout = torch.randn(PTB_BPTT, PTB_BATCH, PTB_HIDDEN, device=dev,
+                       generator=gen)
+    weights = [p._value for p in lstm._layer_weights(0)]   # the op's order
+    ref = torch.nn.LSTM(PTB_HIDDEN, PTB_HIDDEN).to(dev)
+    with torch.no_grad():
+        for dst, src in zip(ref._flat_weights, weights):
+            dst.copy_(src)
+    ref.flatten_parameters()
+    flat = ref._flat_weights
+
+    def fwd(params):
+        return lambda: torch._VF.lstm(x, (h0, h0), params, True, 1, 0.0,
+                                      True, False, False)[0]
+
+    def fwd_bwd(params):
+        return lambda: torch.autograd.grad(fwd(params)(), params, gout)
+
+    def copy_warnings(params):
+        """(the op's output, cuDNN's warnings that it copies weights)."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with torch.no_grad():
+                out = fwd(params)()
+            torch.cuda.synchronize()
+        return out, [str(w.message) for w in caught
+                     if "contiguous" in str(w.message)]
+
+    out_layer, layer_warned = copy_warnings(weights)
+    out_flat, flat_warned = copy_warnings(flat)
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        times = {"fwd_layer_params_ms": cuda_ms(fwd(weights), l2.zero_),
+                 "fwd_flat_buffer_ms": cuda_ms(fwd(flat), l2.zero_),
+                 "fwd_bwd_layer_params_ms": cuda_ms(fwd_bwd(weights),
+                                                    l2.zero_),
+                 "fwd_bwd_flat_buffer_ms": cuda_ms(fwd_bwd(flat), l2.zero_)}
+    return dict(copies_each_call=bool(layer_warned),
+                flat_buffer_copies=bool(flat_warned),
+                warning=(layer_warned or [None])[0],
+                layer_vs_flat_max_abs_gap=float(
+                    (out_layer - out_flat).abs().max()),
+                weight_mb=sum(w.numel() for w in weights) * 4 / 1e6,
+                **times)
+
+
+def phase_text_lstm():
+    """The PTB language model through ``Model.fit`` in dygraph over
+    ``text.datasets.Imikolov`` windows of a synthetic tarball (see the
+    constants above)."""
+    card = nvidia_smi("name,power.limit")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "simple-examples.tgz")
+        t0 = time.monotonic()
+        n_tokens = write_ptb(path)
+        write_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        ngrams = pt.text.datasets.Imikolov(
+            path, data_type="NGRAM", window_size=PTB_BPTT + 1,
+            min_word_freq=PTB_MIN_FREQ)
+        read_s = time.monotonic() - t0
+    if len(ngrams.word_idx) != PTB_VOCAB:
+        raise RuntimeError(f"the synthetic corpus's vocabulary is "
+                           f"{len(ngrams.word_idx)}, not {PTB_VOCAB}")
+    windows = Windows(ngrams)
+    order = np.random.RandomState(1).permutation(len(windows))
+    data = pt.io.Subset(windows, order[:PTB_BATCH * PTB_STEPS].tolist())
+    r = text_fit("lm", data, PTB_BATCH, PTB_PROFILE, PTB_SKIP)
+    copies = rnn_weight_copies(r["net"].lstm, torch.device("cuda", 0))
+    log_text_fit(
+        "text_lstm", r, PTB_BATCH * PTB_BPTT, card, model="ptb_lstm_large",
+        vocab=PTB_VOCAB, embedding=PTB_HIDDEN, hidden=PTB_HIDDEN,
+        layers=PTB_LAYERS, dropout=PTB_DROPOUT, batch=PTB_BATCH,
+        bptt=PTB_BPTT, optimizer=f"SGD(1.0), ClipGradByGlobalNorm({PTB_CLIP})",
+        corpus_tokens=n_tokens, windows=len(windows),
+        corpus_write_s=write_s, imikolov_read_s=read_s, loader_workers=0,
+        rnn_weight_copy=copies)
+    TEXT_STATE["ptb_windows"] = windows
+
+
+def text_loss(kind, weights, device, xs, ys):
+    """Step 1's loss through ``Model.eval_batch`` with dropout 0."""
+    model = text_prepare(kind, text_model(kind, device, 0.0, weights))
+    loss = float(model.eval_batch(xs, ys)["loss"])
+    pt.set_device("gpu:0")
+    return loss
+
+
+def rnn_op_pair(mode, card="cuda"):
+    """One ``rnn`` op (2 layers, bidirectional) in float64, forward and
+    backward on the card and on the CPU from the same inputs: the largest
+    gap over the outputs and every input's gradient, each relative to the
+    CPU value's largest magnitude."""
+    from paddle_tpu_torch.dygraph.eager import run_op
+
+    t, b, i, h = RNN_ORACLE_SHAPE
+    g = {"LSTM": 4, "GRU": 3}[mode]
+    rs = np.random.RandomState(4)
+    arrays = [rs.randn(t, b, i)] + [rs.randn(4, b, h) * 0.5
+                                    for _ in range(2 if mode == "LSTM"
+                                                   else 1)]
+    ws, bs = [], []
+    for layer in range(2):
+        for _ in range(2):
+            in_sz = i if layer == 0 else 2 * h
+            ws += [rs.randn(g * h, in_sz) / np.sqrt(h),
+                   rs.randn(g * h, h) / np.sqrt(h)]
+            bs += [rs.randn(g * h) * 0.1, rs.randn(g * h) * 0.1]
+    arrays += ws + bs
+    n_state = len(arrays) - len(ws) - len(bs) - 1
+    results = []
+    for dev in (card, "cpu"):
+        vals = [torch.tensor(a, dtype=torch.float64, device=dev,
+                             requires_grad=True) for a in arrays]
+        res = run_op("rnn", {"Input": vals[0],
+                             "PreState": vals[1:1 + n_state],
+                             "WeightList": vals[1 + n_state:]},
+                     {"mode": mode, "num_layers": 2, "is_bidirec": True,
+                      "hidden_size": h},
+                     out_slots=("Out", "State"),
+                     out_counts={"State": n_state})
+        outs = [res["Out"]._value] + [
+            s._value for s in (res["State"] if n_state > 1
+                               else [res["State"]])]
+        cots = [torch.from_numpy(np.random.RandomState(9 + k).randn(
+            *o.shape)).to(dev) for k, o in enumerate(outs)]
+        grads = torch.autograd.grad(outs, vals, cots)
+        results.append([o.detach().cpu() for o in outs]
+                       + [gr.cpu() for gr in grads])
+    return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+               for a, b in zip(*results))
+
+
+def rescore(net, src, ids):
+    """Each hypothesis of ``ids`` [B, K, T] scored by one teacher-forced
+    pass of ``net`` (on its device) over [BOS] + hypothesis: the summed
+    log-probs of its tokens up to and including the first EOS, divided by
+    the GNMT length penalty, as ``beam_search`` scores it."""
+    b, k, t = ids.shape
+    dev = net.emb.weight._value.device
+    hyp = torch.from_numpy(ids.reshape(b * k, t)).long().to(dev)
+    tgt = torch.cat([torch.full((b * k, 1), NMT_BOS, dtype=torch.long,
+                                device=dev), hyp[:, :-1]], dim=1)
+    srcs = torch.from_numpy(np.repeat(src, k, axis=0)).to(dev)
+    net.eval()
+    with pt.no_grad():
+        logits = net(pt.Tensor(srcs), pt.Tensor(tgt))._value
+    lp = torch.log_softmax(logits.float(), dim=-1).gather(
+        2, hyp[:, :, None])[:, :, 0]
+    is_eos = hyp == NMT_EOS
+    length = torch.where(is_eos.any(1), is_eos.int().argmax(1) + 1, t)
+    keep = torch.arange(t, device=dev)[None, :] < length[:, None]
+    score = (lp * keep).sum(1) / ((5.0 + length.float()) / 6.0) ** DECODE_ALPHA
+    return score.reshape(b, k).cpu().numpy()
+
+
+def phase_text_oracle():
+    """The card against the port's CPU path from the same weights: both
+    models' step-1 loss (dropout 0), one float64 ``rnn`` op (LSTM and
+    GRU) forward and backward, and the card's beam hypotheses re-scored
+    on the CPU, whose own beam search finds no better best beam."""
+    card = nvidia_smi("name,power.limit")
+    t0 = time.monotonic()
+    nmt = {k: v.numpy() for k, v in TEXT_STATE["nmt"].state_dict().items()}
+    src, tgt, label = nmt_pairs(TEXT_ORACLE_BATCH, seed=7)
+    nmt_losses = [text_loss("nmt", nmt, dev, [src, tgt], [label])
+                  for dev in ("gpu:0", "cpu")]
+    lm = {k: v.numpy() for k, v in text_model(
+        "lm", dropout=0.0).state_dict().items()}
+    win = TEXT_STATE["ptb_windows"]
+    items = [win[i] for i in range(TEXT_ORACLE_BATCH)]
+    xs, ys = [np.stack([a for a, _ in items])], [np.stack([b for _, b in
+                                                            items])]
+    lm_losses = [text_loss("lm", lm, dev, xs, ys)
+                 for dev in ("gpu:0", "cpu")]
+    losses_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    rnn_gaps = {mode: rnn_op_pair(mode) for mode in ("LSTM", "GRU")}
+    rnn_s = time.monotonic() - t0
+    src_d, ids, scores = TEXT_STATE["decode"]
+    t0 = time.monotonic()
+    cpu_net = text_model("nmt", "cpu", 0.1, nmt)
+    rescored = rescore(cpu_net, src_d, ids)
+    rescore_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    cpu_ids, cpu_scores = nmt_beam_search(cpu_net, src_d)
+    cpu_beam_s = time.monotonic() - t0
+    pt.set_device("gpu:0")
+    cpu_scores = cpu_scores.numpy()
+    rescore_gap = float(np.abs(rescored - scores).max())
+    best_gain = float((cpu_scores[:, 0] - scores[:, 0]).max())
+    gaps = [abs(a - b) / abs(b) for a, b in (nmt_losses, lm_losses)]
+    log("text_oracle", card=card, dtype="float32",
+        tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_tf32=torch.backends.cudnn.allow_tf32,
+        batch=TEXT_ORACLE_BATCH, nmt_card_cpu_loss=nmt_losses,
+        lm_card_cpu_loss=lm_losses, loss_rel_gaps=gaps,
+        loss_tolerance=TEXT_ORACLE_RTOL, rnn_op_shape=RNN_ORACLE_SHAPE,
+        rnn_float64_rel_gap=rnn_gaps, rnn_tolerance=RNN_ORACLE_TOL,
+        beam_rescore_max_gap=rescore_gap,
+        cpu_best_minus_card_best_max=best_gain,
+        same_best_ids=int((cpu_ids.numpy()[:, 0] == ids[:, 0]).all(1).sum()),
+        beam_tolerance=BEAM_SCORE_TOL, losses_s=losses_s, rnn_s=rnn_s,
+        rescore_s=rescore_s, cpu_beam_search_s=cpu_beam_s)
+    if not max(gaps) <= TEXT_ORACLE_RTOL:
+        raise RuntimeError(f"text step-1 losses, card vs CPU: NMT "
+                           f"{nmt_losses}, LM {lm_losses}")
+    if not max(rnn_gaps.values()) <= RNN_ORACLE_TOL:
+        raise RuntimeError(f"float64 rnn op, card vs CPU: {rnn_gaps}")
+    if not rescore_gap <= BEAM_SCORE_TOL:
+        raise RuntimeError(f"the card's beam scores against a CPU "
+                           f"teacher-forced pass: {rescore_gap}")
+    if not best_gain <= BEAM_SCORE_TOL:
+        raise RuntimeError(f"the CPU's beam search beat the card's best "
+                           f"beam by {best_gain}")
+
+
+def nn_extras_rows(dev, cases):
+    """Each case's op on ``dev`` and on the CPU from the same inputs and
+    cotangent: the gaps of its output and every input's gradient, each
+    relative to the CPU value's largest magnitude, and ``dev``'s forward
+    + backward ms."""
+    from paddle_tpu_torch.dygraph.eager import run_op
+
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for label, op, shapes, attrs in cases:
+        rs = np.random.RandomState(len(label))
+        arrays = {k: rs.randn(*s).astype("f4") for k, s in shapes.items()}
+        out_slot = "Output" if op == "conv2d_transpose" else "Y"
+        results, fb = [], None
+        for d in (dev, torch.device("cpu")):
+            vals = {k: torch.from_numpy(a).to(d).requires_grad_(True)
+                    for k, a in arrays.items()}
+
+            def run(vals=vals):
+                y = run_op(op, vals, attrs, out_slots=(out_slot,))[
+                    out_slot]._value
+                cot = torch.sin(0.37 * torch.arange(
+                    y.numel(), dtype=y.dtype, device=y.device)).reshape(
+                        y.shape)
+                return [y] + list(torch.autograd.grad(
+                    y, list(vals.values()), cot))
+
+            results.append([r.detach().cpu() for r in run()])
+            if fb is None:
+                fb = cuda_ms(run, l2.zero_, reps=10)
+        gaps = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(*results)]
+        rows.append({"case": label, "op": op, "shapes": shapes,
+                     "rel_gaps_out_then_grads": gaps,
+                     "card_fwd_bwd_ms": fb})
+    return rows
+
+
+def phase_nn_extras():
+    """``conv2d_transpose``, ``group_norm`` and ``instance_norm`` on the
+    card against the CPU from the same inputs, forward and gradient
+    (``NN_EXTRAS_CASES``), with the card's forward + backward ms."""
+    card = nvidia_smi("name,power.limit")
+    zero_kernel_launches()
+    rows = nn_extras_rows(torch.device("cuda", 0), NN_EXTRAS_CASES)
+    launches = kernel_launches()
+    log("nn_extras", card=card, dtype="float32",
+        tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_tf32=torch.backends.cudnn.allow_tf32,
+        tolerance=NN_EXTRAS_RTOL, cases=rows, launches_after=launches)
+    bad = [r for r in rows if max(r["rel_gaps_out_then_grads"])
+           > NN_EXTRAS_RTOL]
+    if bad:
+        raise RuntimeError(f"nn_extras, card vs CPU: {bad}")
+    if any(launches.values()):
+        raise RuntimeError(f"nn_extras launched hand-written kernels: "
+                           f"{launches}")
+
+
 def release(phase):
     """Drop a phase's executors and graphs (their ``close()`` ran, or
     they went with the phase's objects) and give the cached blocks back;
@@ -3556,6 +4257,17 @@ def main():
     release("hapi_static")
     phase_hapi_oracle()
     release("hapi_oracle")
+    phase_text_transformer()
+    release("text_transformer")
+    phase_text_decode()
+    release("text_decode")
+    phase_text_lstm()
+    release("text_lstm")
+    phase_text_oracle()
+    TEXT_STATE.clear()
+    release("text_oracle")
+    phase_nn_extras()
+    release("nn_extras")
     kernels = []
     main_case = TRAIN_FLASH_CASES[0][0]
     for kernel, case in (("paged_decode_attention", "decode_float32"),

@@ -40,7 +40,13 @@ imports), ported slice by slice:
    executor's captured programs; ``metric``, ``hapi.callbacks``,
    ``flops``/``summary`` over programs, ``vision.datasets`` /
    ``transforms`` and MobileNet / VGG; no hand-written kernel runs on
-   this path either.
+   this path either;
+9. the rest of ``nn`` (``LSTM`` / ``GRU`` / ``SimpleRNN`` over the
+   ``rnn`` op on torch's fused recurrent ops, ``MultiHeadAttention`` and
+   the ``Transformer`` stacks, the ``conv2d_transpose`` / ``group_norm``
+   / ``instance_norm`` lowerings) and ``text`` (``datasets``, greedy and
+   beam-search ``decode``): text models train through ``Model.fit`` in
+   dygraph; no hand-written kernel runs on these paths.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, ``CPUPlace()``); importing the package builds no
@@ -65,7 +71,7 @@ from . import tensor  # noqa: F401
 from . import nn  # noqa: F401
 from . import io  # noqa: F401
 from . import metric  # noqa: F401
-from . import vision  # noqa: F401
+from . import text, vision  # noqa: F401
 from . import hapi  # noqa: F401
 from .hapi import Model  # noqa: F401
 from .hapi.model import InputSpec  # noqa: F401

@@ -13,6 +13,7 @@ accumulated ``_value.grad`` (it accumulates over ``backward`` calls until
 """
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
@@ -381,6 +382,18 @@ class Parameter(Tensor):
         self.optimize_attr = {"learning_rate": 1.0}
         self.regularizer = None
         self.need_clip = True
+
+    def __deepcopy__(self, memo):
+        """A new leaf holding a copy of the value, under a name of its own
+        (reference ParamBase.__deepcopy__): ``copy.deepcopy`` of a layer
+        gives it parameters of its own."""
+        new = Parameter.__new__(Parameter)
+        memo[id(self)] = new
+        for k, v in self.__dict__.items():
+            if k != "_grad_tensor":
+                new.__dict__[k] = copy.deepcopy(v, memo)
+        new._name = unique_name.generate(self.name + "_deepcopy")
+        return new
 
     def _set_raw(self, value):
         v = self._value

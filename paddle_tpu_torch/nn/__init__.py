@@ -1,10 +1,12 @@
 """`paddle.nn` equivalent (reference python/paddle/nn/__init__.py).
 
-Counterpart of ``paddle_tpu/nn/__init__.py``, with the layers of
-``layer/{common,container,conv,norm,pooling,activation,loss}.py``, the
-functional API, the 2.0 initializers, gradient clipping (``clip``) and
-``utils`` (weight and spectral norm, parameter vectors).  The recurrent
-and transformer layers come with a later slice of the port.
+Counterpart of ``paddle_tpu/nn/__init__.py``, every name of it: the
+layers of ``layer/{common,container,conv,norm,pooling,activation,loss,
+rnn,transformer}.py``, the functional API, the 2.0 initializers,
+gradient clipping (``clip``) and ``utils`` (weight and spectral norm,
+parameter vectors).  The recurrent layers run the ``rnn`` op on torch's
+fused recurrent ops (cuDNN on the card); the transformer's attention is
+a plain matmul and softmax.
 """
 from ..dygraph.layers import Layer  # noqa: F401
 from . import functional  # noqa: F401
@@ -25,6 +27,7 @@ from .layer.common import (  # noqa: F401
 )
 from .layer.container import LayerList, ParameterList, Sequential  # noqa: F401
 from .layer.conv import Conv2D, Conv2DTranspose  # noqa: F401
+from .layer.rnn import GRU, LSTM, RNNBase, SimpleRNN  # noqa: F401
 from .layer.loss import (  # noqa: F401
     BCEWithLogitsLoss, CrossEntropyLoss, KLDivLoss, L1Loss, MSELoss, NLLLoss,
     SmoothL1Loss,
@@ -35,6 +38,10 @@ from .layer.norm import (  # noqa: F401
 )
 from .layer.pooling import (  # noqa: F401
     AdaptiveAvgPool2D, AdaptiveMaxPool2D, AvgPool2D, MaxPool2D,
+)
+from .layer.transformer import (  # noqa: F401
+    MultiHeadAttention, Transformer, TransformerDecoder, TransformerDecoderLayer,
+    TransformerEncoder, TransformerEncoderLayer,
 )
 
 from ..dygraph.tensor import Parameter  # noqa: F401

@@ -2,9 +2,7 @@
 
 Counterpart of ``paddle_tpu/nn/functional.py``, ported whole.  Dual-mode:
 every function runs eagerly on Tensors or appends IR ops for Variables
-(see dispatch.op_call).  A function whose op has no lowering in the port
-yet (``conv2d_transpose``, ``group_norm``, ``instance_norm``) raises
-``get_lowering``'s "later slice" error when it runs.  ``unfold``,
+(see dispatch.op_call).  ``unfold``,
 ``interpolate`` and ``sequence_mask``, which have no IR op, run torch
 directly (``dygraph.eager.apply_torch``), eager only; ``interpolate``'s
 bilinear and bicubic resize take half-pixel centres and no antialiasing,

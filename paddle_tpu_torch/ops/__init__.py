@@ -1,7 +1,7 @@
 """Ops of the PyTorch port.
 
 - The lowerings (``math_ops``, ``tensor_ops``, ``linalg_ops``,
-  ``nn_ops``, ``activations``, ``creation``, ``embedding_ops``,
+  ``nn_ops``, ``rnn_ops``, ``activations``, ``creation``, ``embedding_ops``,
   ``optimizer_ops``, ``misc``, ``fused``, ``flash_attention``,
   ``grad_generic``, ``quant_ops``), which the static executor and dygraph's ``run_op``
   both run: importing this package registers them with
@@ -29,5 +29,6 @@ from . import (  # noqa: F401
     nn_ops,
     optimizer_ops,
     quant_ops,
+    rnn_ops,
     tensor_ops,
 )

@@ -1,10 +1,11 @@
-"""Norms: ``p_norm`` and ``frobenius_norm``.
+"""Norms (``p_norm``, ``frobenius_norm``) and the beam-search ancestry
+walk (``backtrack_beams``, the ``gather_tree`` op).
 
 Counterpart of the norm rules of ``paddle_tpu/ops/misc.py`` (the tensor
 API's ``norm`` reaches them; the JAX package's ``linalg_ops.py`` holds
 ops the tensor API runs through ``apply_jax`` instead, and those run
 torch directly here, ``tensor/linalg.py``).  Reference parity:
-p_norm_op.cc (``porder`` +-inf: the largest / smallest magnitude;
+gather_tree_op.cc, p_norm_op.cc (``porder`` +-inf: the largest / smallest magnitude;
 ``asvector`` or no axis: over every element), frobenius_norm_op.cc.
 """
 from __future__ import annotations
@@ -43,3 +44,25 @@ def _frobenius_norm(ctx, op):
         dims = tuple(range(x.dim()))
     ctx.set_out(op, "Out", torch.sqrt(torch.sum(
         torch.square(x), dim=dims, keepdim=bool(op.attr("keep_dim", False)))))
+
+
+def backtrack_beams(ids, parents):
+    """The beam ancestry walk shared by ``gather_tree`` and
+    ``text.decode.beam_search``: ids / parents [T, B, W] (parents local to
+    each batch's beam group) -> the beams re-threaded from the last step
+    backwards, [T, B, W], chronological."""
+    t, b, w = ids.shape
+    parents = parents.long()
+    rows = torch.arange(b, device=ids.device)[:, None]
+    beam = torch.arange(w, device=ids.device).expand(b, w)
+    outs = []
+    for i in range(t - 1, -1, -1):
+        outs.append(ids[i][rows, beam])
+        beam = parents[i][rows, beam]
+    return torch.stack(outs[::-1]) if outs else ids.clone()
+
+
+@register_lower("gather_tree")
+def _gather_tree(ctx, op):
+    ctx.set_out(op, "Out", backtrack_beams(ctx.in1(op, "Ids"),
+                                           ctx.in1(op, "Parents")))

@@ -5,8 +5,9 @@
 ``sigmoid_cross_entropy_with_logits``, ``square_error_cost`` and
 ``huber_loss``, and ``layer_norm``.
 
-Counterpart of ``paddle_tpu/ops/nn_ops.py``; ``conv2d_transpose``,
-``group_norm`` and ``instance_norm`` come with a later slice.
+Counterpart of ``paddle_tpu/ops/nn_ops.py``, with ``conv2d_transpose``,
+``instance_norm`` and ``group_norm`` (their gradients are the generic
+one, ``grad_generic.py``).
 Reference parity: operators/conv_op.cc, pool_op.cc, batch_norm_op.cc,
 softmax_op.cc (``softmax_grad`` takes the generic gradient),
 softmax_with_cross_entropy_op.h (``ignore_index`` positions carry zero
@@ -20,6 +21,14 @@ NCHW with OIHW filters; NHWC inputs are transposed in and out, as the JAX
 lowering does.  Both pad symmetrically only, so an asymmetric pair
 (``SAME`` on even sizes, 4-element ``paddings``) is padded with ``F.pad``
 first.  ``pool2d`` ignores ``ceil_mode``, as the JAX lowering does.
+``conv2d_transpose`` runs ``F.conv_transpose2d`` with the JAX lowering's
+arithmetic: its pads are those of the forward convolution (``paddings``
+or ``padding_algorithm``, SAME sized from the input), taken off a full
+transposed convolution (an asymmetric pair is cropped), and
+``output_padding`` appends zeros; like the JAX lowering it reads no
+``output_size``.  It transposes NHWC in and out, which the JAX lowering
+does not (it reads no ``data_format``: the tests hold NHWC to its NCHW
+result, transposed).
 
 The JAX package differentiates conv and batch norm with ``jax.vjp`` of
 these lowerings inside one XLA computation.  Run eagerly, the generic
@@ -126,6 +135,35 @@ def _conv2d_grad(ctx, op):
         ctx.set_out(op, "Input@GRAD", dx.to(x0.dtype))
     if want_w:
         ctx.set_out(op, "Filter@GRAD", dw.to(w.dtype))
+
+
+@register_lower("conv2d_transpose")
+def _conv2d_transpose(ctx, op):
+    x = ctx.in1(op, "Input")
+    w = ctx.in1(op, "Filter")  # [in, out / groups, kh, kw]
+    strides = [int(s) for s in op.attr("strides", [1, 1])]
+    dilations = [int(d) for d in op.attr("dilations", [1, 1])]
+    groups = int(op.attr("groups", 1) or 1)
+    nhwc = (op.attr("data_format", "NCHW") or "NCHW") in ("NHWC", "NDHWC")
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    # the forward convolution's pads; the transposed convolution pads its
+    # dilated input by (k - 1) * d - pad, i.e. a full transposed
+    # convolution (torch's padding 0) with `pad` cropped off each side
+    pads = _conv_paddings(op.attr("paddings", [0, 0]),
+                          op.attr("padding_algorithm", "EXPLICIT"),
+                          w.shape[2:], strides, dilations, x.shape[2:])
+    sym = all(lo == hi for lo, hi in pads)
+    out = F.conv_transpose2d(
+        x, w, stride=strides, padding=[lo for lo, _ in pads] if sym else 0,
+        groups=groups, dilation=dilations)
+    if not sym:
+        (h_lo, h_hi), (w_lo, w_hi) = pads
+        out = out[:, :, h_lo:out.shape[2] - h_hi, w_lo:out.shape[3] - w_hi]
+    output_padding = [int(p) for p in op.attr("output_padding", []) or []]
+    if any(output_padding):
+        out = F.pad(out, [0, output_padding[1], 0, output_padding[0]])
+    ctx.set_out(op, "Output", out.permute(0, 2, 3, 1) if nhwc else out)
 
 
 # ---------------------------------------------------------------------------
@@ -493,6 +531,47 @@ def _layer_norm(ctx, op):
     ctx.set_out(op, "Y", y.to(x.dtype))
     ctx.set_out(op, "Mean", m.reshape(-1))
     ctx.set_out(op, "Variance", v.reshape(-1))
+
+
+@register_lower("instance_norm")
+def _instance_norm(ctx, op):
+    x = ctx.in1(op, "X")
+    scale = ctx.in1(op, "Scale")
+    bias = ctx.in1(op, "Bias")
+    eps = float(op.attr("epsilon", 1e-5))
+    red = tuple(range(2, x.dim()))
+    m = x.mean(dim=red, keepdim=True)
+    v = x.var(dim=red, keepdim=True, unbiased=False)
+    inv = torch.rsqrt(v + eps)
+    shape = [1, x.shape[1]] + [1] * (x.dim() - 2)
+    y = (x - m) * inv * scale.reshape(shape) + bias.reshape(shape)
+    ctx.set_out(op, "Y", y)
+    ctx.set_out(op, "SavedMean", m.squeeze())
+    # the JAX package's SavedVariance is the inverse deviation
+    ctx.set_out(op, "SavedVariance", inv.squeeze())
+
+
+@register_lower("group_norm")
+def _group_norm(ctx, op):
+    x = ctx.in1(op, "X")  # NCHW
+    scale = ctx.get_opt((op.inputs.get("Scale") or [None])[0])
+    bias = ctx.get_opt((op.inputs.get("Bias") or [None])[0])
+    eps = float(op.attr("epsilon", 1e-5))
+    groups = int(op.attr("groups", 1))
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    red = tuple(range(2, xg.dim()))
+    m = xg.mean(dim=red, keepdim=True)
+    v = xg.var(dim=red, keepdim=True, unbiased=False)
+    y = ((xg - m) * torch.rsqrt(v + eps)).reshape(x.shape)
+    shape = [1, c] + [1] * (x.dim() - 2)
+    if scale is not None:
+        y = y * scale.reshape(shape)
+    if bias is not None:
+        y = y + bias.reshape(shape)
+    ctx.set_out(op, "Y", y)
+    ctx.set_out(op, "Mean", m.reshape(n, groups))
+    ctx.set_out(op, "Variance", v.reshape(n, groups))
 
 
 @register_lower("log_softmax")
