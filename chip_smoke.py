@@ -23,9 +23,10 @@ Phases, each printing JSON lines:
                kernels (B5, B6) at the serving path's shapes (S=8 slots, H=8
                heads, D=64, page 16, 64 pages a slot, shuffled page ids;
                ``paged_cases``: the decode burst in each pool, one slot,
-               every slot full; a 16-row chunk, the whole-prompt buckets
-               R=128..1024, a 128-row chunk at 512, verify 8x4, R=512 in
-               each pool), against ``F.scaled_dot_product_attention`` on
+               every slot full, 64 slots; a 16-row chunk, the whole-prompt
+               buckets R=128..1024, a 128-row chunk at 512, verify 8x4,
+               the ragged prefill's 64 one-row lanes, R=512 in each
+               pool), against ``F.scaled_dot_product_attention`` on
                K/V gathered to dense, B6's bound the tensor cores' (the
                design's bfloat16 products) beside the float32 CUDA-core
                figure, and, untimed (``check_paged_edges``), zero-length
@@ -314,6 +315,48 @@ peak memory once its executors and graphs are dropped.
                the largest magnitude (float32, TF32 off), and the card's
                forward + backward ms.
 
+Slice 14's phases run after ``profile`` (the first three, on the serving
+model, the launch counters zeroed before each timed window and read after
+it) and after ``infer_oracle`` (the last two, on its saved directory).
+Greedy tokens of two paths are compared up to the first position whose
+top-2 logit margin is under MARGIN_TOL (the paths' logits agree to
+summation order only); a divergence at a larger margin fails the phase.
+
+30. spec    -- speculative decoding at the serving width: 8 slots, spec_k
+               3 (verification is ``chunk_S8_R4``), 8 greedy requests of
+               128-token prompts and 256 new tokens, without a draft, with
+               the accurate draft (the target's layer 0 sharing its
+               embeddings and head; the target's layers 1-7 with ``wo``
+               and ``w2`` scaled by 0.05) and with a random 1-layer draft:
+               tokens/s, acceptance, rounds, tokens a slot-round, the
+               proposal burst's and the verification's p50 ms (replays),
+               captures and replays; B5 launches (k + 1) x draft layers x
+               rounds + 8 a normal step, B6 8 x rounds + the prefills';
+               the emitted tokens are the verify logits' argmaxes and the
+               streamed logits agree with ``recompute_logits``;
+31. ragged  -- 16 requests (prompts of 100-600 tokens, 32 new tokens) on a
+               seeded Poisson schedule (mean gap 5 ms), one-page chunks,
+               padded and packed into 64 one-row lanes: the pad waste (it
+               must drop), wall, ttft p50/p99, dispatches, B6 launches;
+32. disagg  -- a 1 + 1 ``DisaggServer`` against a local engine (kv_quant
+               off and on; greedy and seeded sampled requests): tokens,
+               logits within LOGIT_TOL, migrated pages, bytes and install
+               seconds; a prefill replica killed mid-prefill with zero
+               drops; short chats among 900-token adversaries through the
+               1 + 1 server and a 2-replica chunked ``DecodeServer`` (ttft
+               p50/p99, the chats' TPOT p50/p99; both replicas share one
+               card's SMs, so nothing is required of the comparison);
+33. preflight -- ``preflight_device(attempts=1)`` on the card (a CUDA add in
+               a child process): the verdict and its seconds;
+34. oneshot_server -- the saved BERT-base + NSP model, int8 and
+               ``FLAGS_flash_attention=always``, behind ``serving.Server``
+               (batch buckets 1-32, a 2 ms window): warmup captures one
+               graph per bucket, 8 client threads send 256 requests of 1-4
+               rows, every batch a replay launching 74 B7 and 12 B1; rows/s
+               beside the same requests one at a time through the bare
+               warmed ``Predictor``, whose outputs each request's agree
+               with within INFER_ORACLE_TOL.
+
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
 device it exits 1 before doing anything.
@@ -326,6 +369,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -639,12 +683,17 @@ def tensor_core_instructions(paths):
     return out
 
 
-def make_case(gen, dev, rows_per_slot, row_lengths, q_dtype, kv):
-    """Random q [S, R, H, D], pools of S*PPS+1 pages with shuffled ids."""
+def make_case(gen, dev, rows_per_slot, row_lengths, q_dtype, kv,
+              lanes_per_row=1):
+    """Random q [S, R, H, D], pools of S/lanes_per_row*PPS+1 pages with
+    shuffled ids; each page-table row is repeated over ``lanes_per_row``
+    consecutive slots, as the ragged prefill gives each of a request's
+    lanes its own copy of the request's row."""
     s = row_lengths.shape[0]
-    n_pages = s * PPS + 1
+    n_pages = s // lanes_per_row * PPS + 1
     table = (torch.randperm(n_pages - 1, generator=gen) + 1) \
-        .reshape(s, PPS).to(torch.int32)
+        .reshape(s // lanes_per_row, PPS) \
+        .repeat_interleave(lanes_per_row, dim=0).to(torch.int32)
     q = torch.randn(s, rows_per_slot, H, D, generator=gen).to(q_dtype)
     kf = torch.randn(n_pages, PAGE, H, D, generator=gen)
     vf = torch.randn(n_pages, PAGE, H, D, generator=gen)
@@ -681,8 +730,9 @@ def chunk_products(q_dtype, kv):
 
 def case_bound(c, kv, peaks, chunk=False):
     """Least time for the work of one call: each input read once (q, the
-    live K/V -- and scales -- of each slot up to its widest row, the live
-    page-table entries, the lengths), the output written once; operations
+    live K/V -- and scales -- of each distinct page, as far as the widest
+    row that reads it, the live page-table entries, the lengths), the
+    output written once; operations
     4*H*D per live (row, position) pair (QK and PV, multiply-add each) at
     the peak of the pool's type.  B6 (``chunk``) runs on the tensor cores:
     its operations are the design's bfloat16 products (chunk_products, 2*D
@@ -692,9 +742,17 @@ def case_bound(c, kv, peaks, chunk=False):
     bw, ops_rate = peaks
     q, lens = c["q"], c["row_lengths"].long().clamp(min=0, max=PAGE * PPS)
     widest = lens.max(dim=1).values
+    # positions read from each page: slots that share a page (the ragged
+    # lanes of one request) read it once
+    used = (widest[:, None] - PAGE * torch.arange(
+        PPS, device=widest.device)[None]).clamp(0, PAGE)
+    page_pos = torch.zeros(c["k_pages"].shape[0], dtype=used.dtype,
+                           device=used.device).scatter_reduce(
+        0, c["page_table"].long().flatten(), used.flatten(), "amax")
     kv_elt = c["k_pages"].element_size()
     per_pos = 2 * H * D * kv_elt + (2 * H * 4 if kv == "int8" else 0)
-    nbytes = (2 * q.numel() * q.element_size() + int(widest.sum()) * per_pos
+    nbytes = (2 * q.numel() * q.element_size()
+              + int(page_pos.sum()) * per_pos
               + int(((widest + PAGE - 1) // PAGE).sum()) * 4
               + lens.numel() * 4)
     pairs = H * int(lens.sum())
@@ -793,10 +851,11 @@ def paged_cases(gen, dev):
     """B5's and B6's cases at the serving path's shapes, made in turn from
     ``gen``: (label, kernel, inputs, pool dtype).  Decode: the serve
     burst's 8 slots of mixed lengths in each pool, one request alone, every
-    slot at the table's width.  Chunk: a 16-row chunk, the whole-prompt
-    buckets (causal rows 1..R, R = 128 .. 1024; 512 in each pool),
-    speculative verify (8 slots x 4 rows), the chunked prefill's 128-row
-    chunk at offset 512."""
+    slot at the table's width, and 64 slots at the ragged lanes' lengths.
+    Chunk: a 16-row chunk, the whole-prompt buckets (causal rows 1..R,
+    R = 128 .. 1024; 512 in each pool), speculative verify (8 slots x 4
+    rows), the ragged prefill's 64 one-row lanes (``chunk_S64_R1``), the
+    chunked prefill's 128-row chunk at offset 512."""
     decode_lens = torch.tensor([1, 15, 16, 17, 500, 1024, 250, 777])
     for kv, qd in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
                    ("int8", torch.float32)):
@@ -814,10 +873,19 @@ def paged_cases(gen, dev):
             ("chunk_S8_R4_int8", verify, "int8", torch.float32)):
         yield (label, "paged_chunk_attention",
                make_case(gen, dev, lens.shape[1], lens, qd, kv), kv)
+    # the ragged prefill's 64 one-row lanes: 4 prompts' 16-lane shares,
+    # each lane with its own copy of its request's page-table row
+    lanes = (torch.tensor([0, 112, 256, 496]).repeat_interleave(16)
+             + torch.arange(16).repeat(4) + 1)[:, None]
     for label, lens in (("decode_S1", torch.tensor([[777]])),
                         ("decode_all1024", torch.full((8, 1), 1024))):
         yield (label, "paged_decode_attention",
                make_case(gen, dev, 1, lens, torch.float32, "float32"),
+               "float32")
+    for label, kernel in (("decode_S64", "paged_decode_attention"),
+                          ("chunk_S64_R1", "paged_chunk_attention")):
+        yield (label, kernel, make_case(gen, dev, 1, lanes, torch.float32,
+                                        "float32", lanes_per_row=16),
                "float32")
     for label, lens, kv, qd in (
             ("chunk_S1_R128", prefill(128), "float32", torch.float32),
@@ -1056,7 +1124,8 @@ def serve_window(model, eager, profiled):
         slots=8, max_seq_len=1024, page_size=16)).start()
     eng = srv.replicas[0]
     if eager:
-        eng._decode_step = lambda *a: eng._decode_forward(*eng._upload(*a))
+        eng._decode_step = lambda *a: eng._decode_forward(
+            eng.model, eng._cache.target, *eng._upload(*a))
     prof = wall_us = None
     try:
         _r, peak = peak_gb(lambda: srv.submit(
@@ -4113,6 +4182,585 @@ def phase_nn_extras():
                            f"{launches}")
 
 
+# ---- slice 14: the rest of serving --------------------------------------------
+
+# runs of the packed ragged schedule (phase_ragged): its pad waste
+# depends on the arrivals' timing, so the median is compared
+RAGGED_RUNS = 3
+SERVE_MODEL = dict(vocab_size=32000, d_model=512, num_layers=8, num_heads=8,
+                   ffn_dim=2048, max_seq_len=1024)
+# Greedy tokens of two paths (speculative vs not, ragged vs padded,
+# migrated vs local) are compared up to the first position whose top-2
+# logit margin is under MARGIN_TOL: there the paths' logits, which agree
+# only to summation order (B6 rows vs B5 rows), may rank the two tokens
+# either way.  A divergence at a larger margin is a fault.
+MARGIN_TOL = 1e-3
+SPEC_K = 3
+SPEC_STATS = ("decode_spec_rounds", "decode_spec_proposed",
+              "decode_spec_accepted", "decode_steps", "decode_prefills",
+              "cuda_graph_captures", "cuda_graph_replays")
+
+
+def top2_margin(logits):
+    top = np.sort(np.asarray(logits, np.float64))[-2:]
+    return float(top[1] - top[0])
+
+
+def margin_rule(label, pairs, logits_at):
+    """``pairs``: (got tokens, want tokens) per request; ``logits_at(i,
+    pos)``: the reference logits of request i at position pos.  Returns
+    the requests cut at a near-tie; raises on a divergence at a margin of
+    MARGIN_TOL or more."""
+    cut = []
+    for i, (got, want) in enumerate(pairs):
+        if len(got) != len(want):
+            raise RuntimeError(f"{label}: request {i} gave {len(got)} "
+                               f"tokens, the reference {len(want)}")
+        pos = next((j for j, (a, b) in enumerate(zip(got, want))
+                    if a != b), None)
+        if pos is None:
+            continue
+        margin = top2_margin(logits_at(i, pos))
+        if margin >= MARGIN_TOL:
+            raise RuntimeError(f"{label}: request {i} diverges at token "
+                               f"{pos} where the top-2 margin is {margin}"
+                               f" >= {MARGIN_TOL}")
+        cut.append({"request": i, "position": pos, "margin": margin})
+    return cut
+
+
+def recompute_at(eng, prompts, tokens, quantized=False):
+    return lambda i, pos: eng.recompute_logits(
+        prompts[i] + tokens[i][:pos], quantized=quantized)
+
+
+def spec_weights(model):
+    """bench.py's accurate-draft construction at the serving width: the
+    draft is the target's layer 0 sharing its embeddings, final LayerNorm
+    and head; the target's layers 1-7 write a small residual (``wo`` and
+    ``w2`` scaled by 0.05), so the draft's proposals usually match."""
+    w = model.init_weights(torch.Generator().manual_seed(0))
+    for lw in w["layers"][1:]:
+        lw["wo"], lw["w2"] = lw["wo"] * 0.05, lw["w2"] * 0.05
+    dw = {k: w[k] for k in ("tok_emb", "pos_emb", "lm_head", "lnf_g",
+                            "lnf_b")}
+    dw["layers"] = [w["layers"][0]]
+    return w, dw
+
+
+def span_ms(spans, name):
+    return [1e3 * sp.duration for sp in spans if sp.name == name]
+
+
+def p50(xs):
+    return float(np.median(xs)) if len(xs) else None
+
+
+def pct(xs, q):
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def timed_window(run, stats=SPEC_STATS):
+    """``run()`` with the tracer on and the kernel launch counters zeroed
+    just before: its result, wall seconds, spans, launches and the deltas
+    of ``stats``."""
+    torch.cuda.synchronize()
+    flags.set_flags({"enable_tracer": True})
+    tracer.clear()
+    zero_kernel_launches()
+    s0 = {n: stat_get(n) for n in stats}
+    t0 = time.monotonic()
+    try:
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        spans = tracer.snapshot()
+    finally:
+        flags.set_flags({"enable_tracer": False})
+    return (out, wall, spans, kernel_launches(),
+            {n: stat_get(n) - s0[n] for n in stats})
+
+
+def phase_spec(model):
+    """Speculative decoding at the serving model's full width: 8 greedy
+    requests (128-token prompts, 256 new tokens) through a ``DecodeServer``
+    with 8 slots, without a draft, with the accurate 1-layer draft and
+    with an independent random 1-layer draft (spec_k 3: verification is
+    ``chunk_S8_R4``)."""
+    dev = model.device
+    # the servers below load the damped target into the shared model;
+    # the later phases serve its own full-scale weights again
+    own = {k: t.clone() for k, t in model.state_dict().items()}
+    w, dw = spec_weights(model)
+    one_layer = dict(SERVE_MODEL, num_layers=1)
+    accurate = TransformerLM(**one_layer, device=dev)
+    rand = TransformerLM(**one_layer, device=dev)
+    rw = rand.init_weights(torch.Generator().manual_seed(5))
+    rng = np.random.RandomState(14)
+    prompts = [rng.randint(1, 32000, 128).tolist() for _ in range(8)]
+    warm = rng.randint(1, 32000, 64).tolist()
+    out, base_eng = {}, None
+    for label, draft, dweights in (("baseline", None, None),
+                                   ("accurate", accurate, dw),
+                                   ("random", rand, rw)):
+        srv = DecodeServer(model, w, DecodeConfig(
+            slots=8, max_seq_len=1024, page_size=16, prefix_cache=False,
+            spec_k=SPEC_K if draft is not None else 0),
+            draft_model=draft, draft_weights=dweights).start()
+        eng = srv.replicas[0]
+        try:
+            # warm-up: every step's eager run and capture (a speculative
+            # request and one that opts out, for the normal step)
+            ws = [srv.submit(warm, max_new_tokens=24),
+                  srv.submit(warm[:40], max_new_tokens=6,
+                             speculative=False)]
+            for r in ws:
+                r.result(timeout=600)
+
+            def run():
+                reqs = [srv.submit(p, max_new_tokens=256) for p in prompts]
+                for r in reqs:
+                    r.result(timeout=600)
+                return reqs
+            reqs, wall, spans, launches, d = timed_window(run)
+            check = None
+            if label == "accurate":
+                # the contract on the card: every emitted token is the
+                # target's argmax in the verify logits, and the streamed
+                # logits agree with the recompute oracle
+                cr = [srv.submit(p, max_new_tokens=64, record_logits=True)
+                      for p in prompts[:2]]
+                err, argmax_ok = 0.0, True
+                for p, r in zip(prompts[:2], cr):
+                    r.result(timeout=600)
+                    for i, lg in enumerate(r.logits_trace):
+                        argmax_ok &= int(np.argmax(lg)) == r.generated[i]
+                    for i in (0, 31, 63):
+                        want = eng.recompute_logits(p + r.generated[:i])
+                        err = max(err, float(np.abs(
+                            r.logits_trace[i] - want).max()))
+                check = dict(logits_vs_oracle_max_abs=err,
+                             emitted_are_verify_argmax=bool(argmax_ok))
+                if err > LOGIT_TOL or not argmax_ok:
+                    raise RuntimeError(f"spec: {check}")
+        finally:
+            srv.stop()
+        tokens = [r.generated for r in reqs]
+        n_tok = sum(len(t) for t in tokens)
+        draft_layers = 1 if draft is not None else 0
+        layers = model.num_layers
+        want_b5 = (SPEC_K + 1) * draft_layers * d["decode_spec_rounds"] \
+            + layers * d["decode_steps"]
+        want_b6 = layers * d["decode_spec_rounds"] \
+            + (layers + draft_layers) * d["decode_prefills"]
+        got = (launches["b5"], launches["b6"])
+        row = dict(tokens=n_tok, tokens_per_s=n_tok / wall, wall_s=wall,
+                   rounds=d["decode_spec_rounds"],
+                   normal_steps=d["decode_steps"],
+                   prefills=d["decode_prefills"],
+                   proposed=d["decode_spec_proposed"],
+                   accepted=d["decode_spec_accepted"],
+                   accept_rate=d["decode_spec_accepted"]
+                   / max(d["decode_spec_proposed"], 1),
+                   tokens_per_slot_round=1 + d["decode_spec_accepted"]
+                   / max(d["decode_spec_proposed"] / SPEC_K, 1),
+                   propose_p50_ms=p50(span_ms(spans,
+                                              "serving/decode_propose")),
+                   verify_p50_ms=p50(span_ms(spans,
+                                             "serving/decode_verify")),
+                   decode_step_p50_ms=p50(span_ms(spans,
+                                                  "serving/decode_step")),
+                   captures=d["cuda_graph_captures"],
+                   replays=d["cuda_graph_replays"],
+                   launches_b5_b6=list(got), want_b5_b6=[want_b5, want_b6],
+                   graphs={k: g.graph is not None
+                           for k, g in eng._graphs.items()})
+        if check:
+            row.update(check)
+        if got != (want_b5, want_b6) or d["cuda_graph_captures"]:
+            raise RuntimeError(f"spec {label}: B5/B6 launched {got}, want "
+                               f"{(want_b5, want_b6)}; captures in the "
+                               f"window {d['cuda_graph_captures']}")
+        if draft is not None and not (d["decode_spec_rounds"] and all(
+                row["graphs"].get(k) for k in ("propose", "verify"))):
+            raise RuntimeError(f"spec {label}: no replayed speculative "
+                               f"round: {row}")
+        out[label] = (row, tokens)
+        if label == "baseline":
+            base_eng = eng
+    base = out["baseline"][1]
+    for label in ("accurate", "random"):
+        out[label][0]["cut_at_near_tie"] = margin_rule(
+            f"spec {label}", list(zip(out[label][1], base)),
+            recompute_at(base_eng, prompts, base))
+    log("spec", model="serving 8-layer", slots=8, spec_k=SPEC_K,
+        prompt_tokens=128, new_tokens=256, margin_tol=MARGIN_TOL,
+        **{k: v[0] for k, v in out.items()},
+        speedup_accurate=out["accurate"][0]["tokens_per_s"]
+        / out["baseline"][0]["tokens_per_s"],
+        speedup_random=out["random"][0]["tokens_per_s"]
+        / out["baseline"][0]["tokens_per_s"])
+    model.load_state_dict(own)
+
+
+def open_loop(submit, schedule):
+    """Submit ``(prompt, new tokens, gap s)`` arrivals on their schedule;
+    wait for all."""
+    reqs = []
+    for prompt, n_new, gap in schedule:
+        time.sleep(gap)
+        reqs.append(submit(prompt, max_new_tokens=n_new))
+    for r in reqs:
+        r.result(timeout=600)
+    return reqs
+
+
+def phase_ragged(model):
+    """Ragged prefill packing at full width: 16 requests (prompts of
+    100-600 tokens, 32 new tokens) on one seeded Poisson schedule (mean
+    gap 5 ms), chunked prefill of one page (16 rows), padded
+    (``ragged_prefill_rows`` 0) and packed into 64 one-row lanes.
+
+    The padded path's pad waste is fixed by the prompts (each one's last
+    chunk); the packed path's depends on how many prompts prefill at
+    once, which the arrivals' timing against the engine's iterations
+    decides: most runs pack 5,411 rows into 86 dispatches, some into 87
+    (64 more dead lanes).  So the packed schedule runs RAGGED_RUNS times
+    and the median of its waste is held below the padded waste; every
+    run's waste, dispatches and tokens are reported and checked."""
+    rng = np.random.RandomState(15)
+    schedule = [(rng.randint(1, 32000, int(n)).tolist(), 32,
+                 float(rng.exponential(0.005)))
+                for n in rng.randint(100, 601, 16)]
+    prompts = [p for p, _n, _g in schedule]
+    stats = ("prefill_padded_tokens_total", "prefill_live_tokens_total",
+             "decode_ragged_dispatches", "prefill_chunks",
+             "cuda_graph_replays")
+    runs, toks, eng0 = [], [], None
+    for rows in (0,) + (64,) * RAGGED_RUNS:
+        srv = DecodeServer(model, None, DecodeConfig(
+            slots=8, max_seq_len=1024, page_size=16, prefix_cache=False,
+            prefill_chunk_pages=1, ragged_prefill_rows=rows)).start()
+        try:
+            srv.submit(schedule[0][0][:40], max_new_tokens=4).result(
+                timeout=600)
+            reqs, wall, spans, launches, d = timed_window(
+                lambda: open_loop(srv.submit, schedule), stats)
+        finally:
+            srv.stop()
+        pad, live = d["prefill_padded_tokens_total"], \
+            d["prefill_live_tokens_total"]
+        ttft = [1e3 * (r.t_first_token - r.t_enqueue) for r in reqs]
+        runs.append(dict(
+            prefill_pad_waste=pad / (pad + live), padded_rows=pad,
+            live_rows=live, wall_s=wall, ttft_p50_ms=p50(ttft),
+            ttft_p99_ms=pct(ttft, 99), dispatches=d["prefill_chunks"],
+            ragged_dispatches=d["decode_ragged_dispatches"],
+            b6_launches=launches["b6"], b5_launches=launches["b5"],
+            prefill_dispatch_p50_ms=p50(span_ms(
+                spans, "serving/decode_prefill_ragged" if rows
+                else "serving/decode_prefill_chunk"))))
+        toks.append([r.generated for r in reqs])
+        eng0 = eng0 or srv.replicas[0]
+    padded, packed = runs[0], runs[1:]
+    cut = [margin_rule(f"ragged run {i}", list(zip(t, toks[0])),
+                       recompute_at(eng0, prompts, toks[0]))
+           for i, t in enumerate(toks[1:])]
+    waste = sorted(r["prefill_pad_waste"] for r in packed)
+    median = waste[len(waste) // 2]
+    log("ragged", requests=16, new_tokens=32, chunk_rows=16, lanes=64,
+        mean_gap_ms=5, margin_tol=MARGIN_TOL, cut_at_near_tie=cut,
+        padded=padded, ragged_64=packed[0], ragged_64_runs=packed,
+        ragged_64_median_pad_waste=median,
+        ragged_runs_above_padded=sum(
+            w >= padded["prefill_pad_waste"] for w in waste))
+    for r in packed:
+        if not r["ragged_dispatches"] or \
+                r["b6_launches"] != model.num_layers * r["dispatches"]:
+            raise RuntimeError(f"ragged: the packed path did not run as "
+                               f"counted: {r}")
+    if not median < padded["prefill_pad_waste"]:
+        raise RuntimeError(f"ragged packing did not lower the pad waste: "
+                           f"median {median} of {waste}, padded "
+                           f"{padded['prefill_pad_waste']}")
+
+
+def disagg_oracle(model, kv_quant):
+    """Migrated vs local, greedy and sampled: the requests' tokens and
+    recorded logits, and the migration's pages, bytes and seconds."""
+    from paddle_tpu_torch.observe.histogram import export_histograms
+    from paddle_tpu_torch.serving import (DecodeEngine, DisaggConfig,
+                                          DisaggServer)
+
+    rng = np.random.RandomState(16)
+    prompts = [rng.randint(1, 32000, n).tolist() for n in (100, 200, 333,
+                                                           500)]
+    cfg = DecodeConfig(slots=8, max_seq_len=1024, page_size=16,
+                       prefix_cache=False, kv_quant=kv_quant)
+    kws = [dict(temperature=t, seed=60 + i)
+           for t in (0.0, 1.0) for i in range(len(prompts))]
+    allp = prompts * 2
+    s0 = {n: stat_get(n) for n in ("migrate_pages_total",
+                                   "migrate_bytes_total",
+                                   "migrate_device_copies_total")}
+    h0 = export_histograms().get("migrate_seconds", {})
+    srv = DisaggServer(model, None, config=cfg, disagg=DisaggConfig(
+        prefill_replicas=1, decode_replicas=1))
+    with srv:
+        dreqs = [srv.submit(p, max_new_tokens=32, record_logits=True, **kw)
+                 for p, kw in zip(allp, kws)]
+        douts = [r.result(timeout=600) for r in dreqs]
+    eng = DecodeEngine(model, None, cfg)
+    with eng:
+        lreqs = [eng.submit(p, max_new_tokens=32, record_logits=True, **kw)
+                 for p, kw in zip(allp, kws)]
+        louts = [r.result(timeout=600) for r in lreqs]
+    hist = export_histograms().get("migrate_seconds", {})
+    gaps, sampled_diffs = [], []
+    for i, (dr, lr) in enumerate(zip(dreqs, lreqs)):
+        dl = dr.decode_request.logits_trace
+        first = next((j for j, (a, b) in enumerate(zip(douts[i], louts[i]))
+                      if a != b), len(louts[i]))
+        for j in range(min(first + 1, len(dl))):
+            gaps.append(float(np.abs(dl[j] - lr.logits_trace[j]).max()))
+        if first < len(louts[i]) and kws[i]["temperature"] > 0:
+            sampled_diffs.append({"request": i, "position": first,
+                                  "logit_gap": gaps[-1]})
+    cut = margin_rule(f"disagg kv_quant={kv_quant}",
+                      list(zip(douts[:4], louts[:4])),
+                      lambda i, pos: lreqs[i].logits_trace[pos])
+    report = dict(
+        migrated_pages=stat_get("migrate_pages_total")
+        - s0["migrate_pages_total"],
+        migrated_bytes=stat_get("migrate_bytes_total")
+        - s0["migrate_bytes_total"],
+        device_copies=stat_get("migrate_device_copies_total")
+        - s0["migrate_device_copies_total"],
+        installs=hist.get("count", 0) - h0.get("count", 0),
+        migrate_seconds_mean=(hist.get("sum", 0.0) - h0.get("sum", 0.0))
+        / max(hist.get("count", 0) - h0.get("count", 0), 1),
+        logits_max_abs_gap=max(gaps), tolerance=LOGIT_TOL,
+        greedy_cut_at_near_tie=cut, sampled_divergences=sampled_diffs,
+        sampled_equal=sum(d == l for d, l in zip(douts[4:], louts[4:])))
+    if max(gaps) > LOGIT_TOL:
+        raise RuntimeError(f"disagg kv_quant={kv_quant}: migrated vs local"
+                           f" logits apart by {max(gaps)}: {report}")
+    return report
+
+
+def disagg_chaos(model):
+    """A prefill replica killed mid-prefill (the fault armed before the
+    requests, the victim's prefill held until the router's kill): zero
+    requests dropped, the orphaned legs re-dispatched."""
+    from paddle_tpu_torch.distributed.fleet.elastic import chaos
+    from paddle_tpu_torch.serving import DisaggConfig, DisaggServer
+
+    srv = DisaggServer(model, None, config=DecodeConfig(
+        slots=8, max_seq_len=1024, page_size=16, prefix_cache=False),
+        disagg=DisaggConfig(prefill_replicas=2, decode_replicas=1))
+    victim = srv.replicas[0]
+    killed = threading.Event()
+    kill, service = srv._kill_replica, victim.engine._service_prefills
+
+    def kill_and_release(rep):
+        killed.set()
+        kill(rep)
+
+    def held_prefill():
+        killed.wait()
+        if not victim.dead:
+            service()
+    srv._kill_replica = kill_and_release
+    victim.engine._service_prefills = held_prefill
+    d0, r0, x0 = stat_get("disagg_replica_deaths"), \
+        stat_get("disagg_redispatches_total"), \
+        stat_get("disagg_dropped_requests")
+    rng = np.random.RandomState(17)
+    chaos.clear()
+    chaos.inject("kill_prefill_replica", count=1, replica=0)
+    try:
+        with srv:
+            reqs = [srv.submit(rng.randint(1, 32000, 150).tolist(),
+                               max_new_tokens=16, seed=i) for i in range(8)]
+            outs = [r.result(timeout=600) for r in reqs]
+    finally:
+        chaos.clear()
+    report = dict(requests=8, completed=sum(len(o) == 16 for o in outs),
+                  dropped=stat_get("disagg_dropped_requests") - x0,
+                  deaths=stat_get("disagg_replica_deaths") - d0,
+                  redispatches=stat_get("disagg_redispatches_total") - r0,
+                  dead=[r.dead for r in srv.replicas])
+    if report["completed"] != 8 or report["deaths"] != 1 or \
+            report["dropped"] or not report["redispatches"]:
+        raise RuntimeError(f"disagg chaos: {report}")
+    return report
+
+
+def disagg_stream(model):
+    """bench.py's ``bench_disagg`` leg 2 at the serving width: short chats
+    (32-64-token prompts, 64 new tokens) among 900-token adversaries (8 new
+    tokens) on one seeded Poisson schedule (mean gap 20 ms), through a 1 +
+    1 ``DisaggServer`` and a 2-replica ``DecodeServer`` with chunked
+    prefill (4 pages)."""
+    from paddle_tpu_torch.serving import DisaggConfig, DisaggServer
+
+    rng = np.random.RandomState(23)
+    schedule = []
+    for i in range(16):
+        if i % 2 == 0:
+            prompt, n_new = rng.randint(1, 32000, 900).tolist(), 8
+        else:
+            prompt, n_new = rng.randint(
+                1, 32000, int(rng.randint(32, 65))).tolist(), 64
+        schedule.append((prompt, n_new, float(rng.exponential(0.02))))
+
+    def cfg(chunk):
+        return DecodeConfig(slots=8, max_seq_len=1024, page_size=16,
+                            prefix_cache=False, prefill_chunk_pages=chunk)
+
+    def metrics(reqs):
+        ttft = [1e3 * (r.t_first_token - r.t_enqueue) for r in reqs]
+        tpot = []
+        for (_p, n_new, _g), r in zip(schedule, reqs):
+            dr = getattr(r, "decode_request", None) or r
+            if n_new == 64:
+                tpot.append(1e3 * (dr.t_last_token - dr.t_first_token)
+                            / (len(dr.generated) - 1))
+        return dict(ttft_p50_ms=p50(ttft), ttft_p99_ms=pct(ttft, 99),
+                    short_tpot_p50_ms=p50(tpot),
+                    short_tpot_p99_ms=pct(tpot, 99))
+
+    out = {}
+    usrv = DecodeServer(model, None, cfg(4), replicas=2).start()
+    try:
+        for e in usrv.replicas:
+            e.generate(schedule[0][0], max_new_tokens=2)
+            e.generate(schedule[1][0], max_new_tokens=4)
+        reqs, wall, _s, _l, _d = timed_window(
+            lambda: open_loop(usrv.submit, schedule), ())
+        out["unified_2_chunked"] = dict(metrics(reqs), wall_s=wall)
+    finally:
+        usrv.stop()
+    dsrv = DisaggServer(model, None, config=cfg(0), disagg=DisaggConfig(
+        prefill_replicas=1, decode_replicas=1))
+    with dsrv:
+        dsrv.generate(schedule[0][0], max_new_tokens=2)
+        dsrv.generate(schedule[1][0], max_new_tokens=4)
+        reqs, wall, _s, _l, d = timed_window(
+            lambda: open_loop(dsrv.submit, schedule),
+            ("disagg_handoffs_total",))
+        out["disagg_1p_1d"] = dict(metrics(reqs), wall_s=wall,
+                                   handoffs=d["disagg_handoffs_total"])
+    return out
+
+
+def phase_disagg(model):
+    report = {f"oracle_kv_quant_{q}": disagg_oracle(model, q)
+              for q in (False, True)}
+    report["chaos"] = disagg_chaos(model)
+    report["mixed_stream"] = disagg_stream(model)
+    log("disagg", model="serving 8-layer", margin_tol=MARGIN_TOL,
+        note="both replicas share one card's SMs", **report)
+
+
+def phase_preflight():
+    from paddle_tpu_torch.distributed.fleet.elastic import preflight_device
+
+    t0 = time.monotonic()
+    v = preflight_device(attempts=1)
+    log("preflight", seconds=time.monotonic() - t0, **v.to_dict())
+    if not v.ok:
+        raise RuntimeError(f"preflight on the card: {v}")
+
+
+ONESHOT_BATCHES = (1, 2, 4, 8, 16, 32)
+ONESHOT_REQUESTS, ONESHOT_CLIENTS = 256, 8
+
+
+def phase_oneshot_server(model_dir):
+    """The saved BERT-base + NSP model behind ``serving.Server`` on the card
+    (int8 weight-quant, ``FLAGS_flash_attention=always``: B7 and B1
+    float32): ``warmup`` captures one graph per batch bucket, 8 client
+    threads send 256 requests of 1-4 rows (seq 128, every other row's last
+    16 keys masked), every batch a replay; then the same requests one at a
+    time through the bare, warmed ``Predictor``."""
+    from paddle_tpu_torch import inference, serving
+
+    rng = np.random.RandomState(18)
+    feeds = [infer_feed(int(n), seed=1000 + i)
+             for i, n in enumerate(rng.randint(1, 5, ONESHOT_REQUESTS))]
+    flags.set_flags({"weight_quant": "int8", "flash_attention": "always"})
+    try:
+        cfg = inference.Config(model_dir)
+        cfg.enable_tpu(0)
+        srv = serving.Server(cfg, serving.ServingConfig(
+            batch_sizes=ONESHOT_BATCHES, batch_window_ms=2,
+            max_queue=ONESHOT_REQUESTS))
+        c0 = stat_get("cuda_graph_captures")
+        t0 = time.monotonic()
+        n_warm = srv.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+        captures = stat_get("cuda_graph_captures") - c0
+        srv.start(warmup=False)
+        results = [None] * len(feeds)
+
+        def client(k):
+            for i in range(k, len(feeds), ONESHOT_CLIENTS):
+                results[i] = srv.infer(feeds[i])
+
+        def run():
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(ONESHOT_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        stats = ("serving_batches", "serving_batched_rows",
+                 "serving_padded_rows", "serving_batched_requests",
+                 "cuda_graph_replays", "cuda_graph_captures")
+        try:
+            (_r, peak), wall, _s, launches, d = timed_window(
+                lambda: peak_gb(run), stats)
+        finally:
+            srv.stop()
+        pred = srv._predictor       # the bare, warmed Predictor
+        pred._exe.warmup(pred._program, [infer_feed(3, seed=0)],
+                         pred._fetch_targets, pred._scope)
+        base, bwall, _s, _l, bd = timed_window(
+            lambda: [pred.run(f) for f in feeds], stats)
+    finally:
+        flags.set_flags({"weight_quant": "", "flash_attention": "auto"})
+    rows = sum(f["input_ids"].shape[0] for f in feeds)
+    if any(r is None for r in results):
+        raise RuntimeError("oneshot_server: a request got no result")
+    err = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+              for got, want in zip(results, base) for a, b in zip(got, want))
+    batches = d["serving_batches"]
+    report = dict(
+        model="bert-base encoder + nsp head, int8", seq=128,
+        requests=len(feeds), rows=rows, clients=ONESHOT_CLIENTS,
+        batch_buckets=list(ONESHOT_BATCHES), warmup_entries=n_warm,
+        warmup_captures=captures, warmup_s=warm_s,
+        server_rows_per_s=rows / wall, server_wall_s=wall,
+        predictor_rows_per_s=rows / bwall, predictor_wall_s=bwall,
+        batches=batches, replays=d["cuda_graph_replays"],
+        captures_in_window=d["cuda_graph_captures"],
+        batch_occupancy=d["serving_batched_requests"] / max(batches, 1),
+        padding_fraction=d["serving_padded_rows"]
+        / max(d["serving_padded_rows"] + d["serving_batched_rows"], 1),
+        peak_memory_gb=peak, launches_b7_b1=[launches["b7"],
+                                             launches["b1"]],
+        want_b7_b1=[B7_PER_RUN * batches, B1_PER_RUN * batches],
+        predictor_replays=bd["cuda_graph_replays"],
+        outputs_vs_predictor_max_abs=err, tolerance=INFER_ORACLE_TOL)
+    log("oneshot_server", **report)
+    if d["cuda_graph_replays"] != batches or d["cuda_graph_captures"] or \
+            [launches["b7"], launches["b1"]] != report["want_b7_b1"] or \
+            captures != len(ONESHOT_BATCHES) or err > INFER_ORACLE_TOL:
+        raise RuntimeError(f"oneshot_server: {report}")
+
+
 def release(phase):
     """Drop a phase's executors and graphs (their ``close()`` ran, or
     they went with the phase's objects) and give the cached blocks back;
@@ -4180,8 +4828,14 @@ def main():
     phase_dropout()
     launches, model = phase_serve()
     phase_profile(model)
+    release("profile")
+    phase_spec(model)
+    release("spec")
+    phase_ragged(model)
+    release("ragged")
+    phase_disagg(model)
     del model
-    release("serve")
+    release("disagg")
     launches["flash_attention_bias"], state = phase_train()
     phase_train_profile(lambda: exe_eager(state), lambda: exe_run(state))
     del state
@@ -4236,7 +4890,10 @@ def main():
         for p in preds.values():
             p._exe.close()
         del preds, pred
-    release("infer")
+        release("infer")
+        phase_preflight()
+        phase_oneshot_server(model_dir)
+    release("oneshot_server")
     state = phase_resnet()
     phase_train_profile(lambda: exe_eager(state), lambda: exe_run(state),
                         phase="resnet_profile", kernels=(),

@@ -371,8 +371,11 @@ class Executor:
         so later ``run`` calls with the same shapes replay.  The whole
         scope chain, the RNG generator's state included, is restored
         afterwards, even when a run raises: warmup is state-neutral.
-        Returns the number of entries freshly compiled (0 if every spec
-        was already cached).
+        The graph passes run first, outside that window: what they write
+        into the scope (the weight-quant pass's carriers and scales) is
+        part of the cached rewritten program, not of a step's state, and
+        stays.  Returns the number of entries freshly compiled (0 if
+        every spec was already cached).
         """
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
@@ -385,6 +388,10 @@ class Executor:
             fetch_list = list(names)
         fetch_names = _names(fetch_list)
         n0 = len(self._cache)
+        for spec in (feed_specs or []):
+            # the pass cache is keyed by the feed names, not their values
+            self._apply_graph_passes(program, fetch_names,
+                                     dict.fromkeys(spec), scope)
         snapshots = []
         s = scope
         while s is not None:

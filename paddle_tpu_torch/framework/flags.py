@@ -160,16 +160,74 @@ define_flag("decode_prefill_chunk_pages", 0,
             "pages fills them across several step boundaries instead of "
             "stalling the slot batch on one long prefill; 0 = off")
 define_flag("decode_ragged_prefill", 0,
-            "ragged prefill packing; any value above 0 raises until a "
-            "later slice of the port brings it")
+            "ragged prefill packing -- pack up to this many query rows "
+            "of several requests' chunk tails into ONE fixed-width "
+            "dispatch of one-row lanes (each lane its own page-table "
+            "row and (page, offset) write coords), instead of padding "
+            "each prompt's chunk; needs decode_prefill_chunk_pages > 0; "
+            "0 = off (per-request padded dispatches)")
 define_flag("decode_spec_k", 0,
-            "speculative decoding window; any value above 0 raises "
-            "until a later slice of the port brings it")
+            "speculative decoding window -- a draft model "
+            "(DecodeEngine(draft_model=, draft_weights=)) proposes this "
+            "many tokens per round and the target verifies them in ONE "
+            "batched step; every emitted token is the target's argmax in "
+            "the verify logits; 0 = off, ignored unless a draft model is "
+            "configured")
 define_flag("decode_kv_quant", False,
             "store KV-cache pages int8 with a parallel per-page scale "
             "pool (serving/kv_cache.py) — scales are per position-in-"
             "page per head; the attention kernels dequantize pages "
             "inline")
+
+# ---- disaggregated serving (serving/disagg.py) -----------------------------
+define_flag("disagg_prefill_replicas", 1,
+            "replicas in the PREFILL set of a DisaggServer -- they run "
+            "only (chunked) prefill + first-token sampling, then hand the "
+            "request's KV pages off to a decode replica")
+define_flag("disagg_decode_replicas", 1,
+            "replicas in the DECODE set -- they admit requests by "
+            "INSTALLING migrated KV pages (no prefill compute) and emit "
+            "from the first decode step")
+define_flag("disagg_migrate_host_bounce", False,
+            "force KV-page migration through host memory (.cpu() out, "
+            ".to(device) in) even when prefill and decode replicas share "
+            "a device; off = device-to-device pool-slice copy when "
+            "possible")
+define_flag("disagg_handoff_timeout_s", 120.0,
+            "how long the router waits for a prefill replica to finish "
+            "one request's prefill leg before treating the replica as "
+            "failed and re-dispatching the request")
+define_flag("disagg_redispatch_retries", 2,
+            "how many times the router re-dispatches one request after a "
+            "prefill-replica failure before failing it to the client")
+define_flag("disagg_autoscale_interval_s", 1.0,
+            "seconds between policy ticks of the background Autoscaler "
+            "thread; each tick may re-role at most one replica")
+define_flag("disagg_autoscale_cooldown_s", 30.0,
+            "minimum seconds between two re-roles (the anti-flap floor); "
+            "a trigger inside the window is counted "
+            "(autoscale_cooldown_skips_total) and dropped")
+define_flag("disagg_autoscale_burn_high", 1.0,
+            "ttft-objective SLO burn rate at/above which a decode "
+            "replica is re-roled into the prefill set")
+define_flag("disagg_autoscale_burn_low", 0.25,
+            "ttft burn rate at/below which a prefill replica may be "
+            "given up to the decode set (the lower half of the "
+            "hysteresis band)")
+define_flag("disagg_autoscale_queue_high", 4,
+            "mean decode-replica queue depth at/above which (with burn "
+            "under burn_low) a prefill replica is re-roled into the "
+            "decode set")
+
+# ---- device preflight (distributed/fleet/elastic/preflight.py) -------------
+define_flag("elastic_preflight_timeout_s", 240.0,
+            "deadline for ONE subprocess-isolated device preflight probe "
+            "(fleet.elastic.preflight_device: a CUDA add and a "
+            "synchronize in a CHILD process, so a wedged device can never "
+            "hang the caller)")
+define_flag("elastic_backoff_s", 10.0,
+            "base backoff between preflight attempts; attempt k sleeps "
+            "backoff * 2^(k-1)")
 
 # ---- step telemetry (observe/step_stats.py) -------------------------------
 define_flag("device_peak_tflops", 0.0,

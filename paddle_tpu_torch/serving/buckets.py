@@ -1,19 +1,19 @@
 """Shape bucketing for the serving layer.
 
 PyTorch port: a copy of ``paddle_tpu/serving/buckets.py`` (no JAX in
-it) without the batcher's feed planning (``feed_plans``,
-``plan_request``, ``assemble``, ``bucket_feed_specs``), which waits for
-the static-graph slice.  The decode engine uses the bucket grid to pad
-prompts, so the set of prefill shapes stays small, and the errors.
+it).  The decode engine uses the bucket grid to pad prompts, so the set
+of prefill shapes stays small; the one-shot ``Server``'s batcher uses the
+feed planning (``feed_plans``, ``plan_request``, ``assemble``,
+``bucket_feed_specs``).
 
-The Executor's compile cache holds one XLA executable per distinct feed
-shape, so a variable-length request stream compiles an executable per
-length — a compile storm that leaves the chip idle exactly when traffic
-arrives.  A ``BucketSpec`` pins the shape universe up front: every
+The Executor's compiled-step cache holds one entry -- one captured CUDA
+graph on the card -- per distinct feed shape, so a variable-length
+request stream would capture a graph per length, with the first request
+of each length paying the eager run and the capture.  A ``BucketSpec`` pins the shape universe up front: every
 request is padded UP to the smallest configured (batch-size,
 sequence-length) bucket that holds it, so the cache holds exactly
-``len(batch_sizes) * len(seq_lens)`` executables and the serving warmup
-can pre-compile all of them before the first request.
+``len(batch_sizes) * len(seq_lens)`` entries and the serving warmup
+can capture all of them before the first request.
 
 Padding contract: the pad value (default 0) must be semantically inert
 for the model — true for row-wise inference nets whose padded positions
@@ -27,7 +27,9 @@ or mask such dims in-model, or slice client-side.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
 
 
 class ServingError(RuntimeError):
@@ -105,6 +107,144 @@ class BucketSpec:
         raise RequestTooLargeError(
             f"sequence length {length} exceeds the largest configured "
             f"seq bucket {self.seq_lens[-1]}")
+
+
+def feed_plans(program, feed_names) -> Dict[str, tuple]:
+    """The model's feed contract: name -> (declared shape, np dtype).
+
+    Serving requires every feed's leading dim to be the dynamic batch
+    dim (that is what gets coalesced); a model exported with a static
+    batch cannot be micro-batched and is rejected loudly here rather
+    than producing shape errors under traffic.
+    """
+    from ..framework import dtypes
+
+    block = program.global_block
+    plans: Dict[str, tuple] = {}
+    for name in feed_names:
+        var = block._find_var_recursive(name)
+        if var is None:
+            raise KeyError(f"feed var {name!r} not found in program")
+        shape = tuple(int(s) for s in (var.shape or ()))
+        if not shape or shape[0] not in (-1, 0):
+            raise ValueError(
+                f"feed {name!r} declares shape {shape}: serving needs a "
+                f"dynamic (-1) leading batch dim to coalesce requests")
+        plans[name] = (shape, dtypes.to_np(var.dtype))
+    return plans
+
+
+def plan_request(feeds: Dict[str, np.ndarray], plans: Dict[str, tuple],
+                 spec: BucketSpec):
+    """Validate one request against the feed contract and compute its
+    coalescing key.
+
+    Returns ``(arrays, nrows, key)`` where ``key`` is the tuple of
+    per-feed padded inner shapes -- two requests coalesce iff their keys
+    are equal (they pad to the same captured step).  Every array comes
+    out cast to its declared dtype (an int64 feed of an int32 input
+    stays on the warmed key).  Raises ``RequestTooLargeError`` when any
+    dim exceeds the bucket grid, and plain ``KeyError``/``ValueError``
+    for contract violations.
+    """
+    missing = [n for n in plans if n not in feeds]
+    if missing:
+        raise KeyError(f"missing inputs: {missing}")
+    arrays: Dict[str, np.ndarray] = {}
+    nrows = None
+    key: List[tuple] = []
+    for name in sorted(plans):
+        shape, np_dtype = plans[name]
+        arr = np.asarray(feeds[name])
+        if arr.dtype != np_dtype:
+            arr = arr.astype(np_dtype)
+        if arr.ndim != len(shape):
+            raise ValueError(
+                f"feed {name!r}: rank {arr.ndim} != declared rank "
+                f"{len(shape)} {shape}")
+        if arr.shape[0] < 1:
+            raise ValueError(f"feed {name!r} has an empty batch dim")
+        if nrows is None:
+            nrows = int(arr.shape[0])
+        elif int(arr.shape[0]) != nrows:
+            raise ValueError(
+                f"feeds disagree on the batch dim: {name!r} has "
+                f"{arr.shape[0]} rows, earlier feeds have {nrows}")
+        if nrows > spec.max_batch:
+            raise RequestTooLargeError(
+                f"request batch {nrows} exceeds the largest configured "
+                f"batch bucket {spec.max_batch}")
+        inner = []
+        for d_decl, d_act in zip(shape[1:], arr.shape[1:]):
+            if d_decl in (-1, 0):
+                inner.append(spec.seq_bucket(int(d_act)))
+            elif int(d_decl) != int(d_act):
+                raise ValueError(
+                    f"feed {name!r}: shape {tuple(arr.shape)} does not "
+                    f"match declared {shape}")
+            else:
+                inner.append(int(d_act))
+        arrays[name] = arr
+        key.append((name, tuple(inner)))
+    return arrays, nrows, tuple(key)
+
+
+def assemble(requests, key, spec: BucketSpec, pad_value=0):
+    """Coalesce same-key requests into one padded bucket batch.
+
+    Rows concatenate in request order; dynamic inner dims pad to the
+    key's bucketed extents; the batch dim pads up to its batch bucket.
+    Returns ``(feed dict, total live rows, bucket batch)`` -- callers
+    slice results back out with the per-request row counts.
+    """
+    total = sum(r.nrows for r in requests)
+    bucket_rows = spec.batch_bucket(total)
+    feeds: Dict[str, np.ndarray] = {}
+    for name, inner in key:
+        parts = []
+        for r in requests:
+            a = r.feeds[name]
+            widths = [(0, 0)] + [(0, t - s)
+                                 for t, s in zip(inner, a.shape[1:])]
+            if any(w[1] for w in widths):
+                a = np.pad(a, widths, constant_values=pad_value)
+            parts.append(a)
+        if bucket_rows > total:
+            parts.append(np.full((bucket_rows - total,) + tuple(inner),
+                                 pad_value, parts[0].dtype))
+        feeds[name] = parts[0] if len(parts) == 1 \
+            else np.concatenate(parts, axis=0)
+    return feeds, total, bucket_rows
+
+
+def bucket_feed_specs(plans: Dict[str, tuple], spec: BucketSpec):
+    """Enumerate the warmup grid: one Executor feed spec per bucket.
+
+    Models with no dynamic inner dims collapse the seq axis (the grid
+    de-duplicates); models WITH dynamic inner dims but ``seq_lens=None``
+    have an open-ended shape universe and return only what is closed --
+    the caller should warn that warmup cannot cover exact-shape mode.
+    """
+    specs = []
+    seen = set()
+    open_ended = spec.seq_lens is None and any(
+        any(d in (-1, 0) for d in shape[1:])
+        for shape, _ in plans.values())
+    if open_ended:
+        return [], True
+    for b in spec.batch_sizes:
+        for s in (spec.seq_lens or (None,)):
+            fs = {}
+            for name, (shape, np_dtype) in plans.items():
+                dims = [b] + [s if d in (-1, 0) else int(d)
+                              for d in shape[1:]]
+                fs[name] = (tuple(dims), np_dtype)
+            fp = tuple(sorted((n, v[0], str(np.dtype(v[1])))
+                              for n, v in fs.items()))
+            if fp not in seen:
+                seen.add(fp)
+                specs.append(fs)
+    return specs, False
 
 
 def prefill_bucket_grid(max_seq_len: int, page_size: int):

@@ -1,5 +1,6 @@
 """KV-cache autoregressive decode engine with continuous batching,
-prefix-cache page sharing and chunked prefill -- PyTorch port.
+prefix-cache page sharing, chunked prefill, ragged prefill packing,
+speculative decoding and KV-page migration -- PyTorch port.
 
 Counterpart of ``paddle_tpu/serving/decode.py``, whose module docstring
 describes the design: a fixed slot batch decoding jointly one token per
@@ -10,27 +11,31 @@ boundary, streamed tokens, and per-request deterministic sampling.
 
 What the port changes:
 
-- **A captured decode step, no executor.**  The page pools live on the
+- **Captured steps, no executor.**  The page pools live on the
   ``PagedKVCache`` and the steps update them in place
   (``kv_cache.write_*_layer``), where the JAX engine threads them
-  through ``Executor.run_persistent`` with donation.  The engine does
-  not call ``run_persistent``: it replays its step directly.  On the
-  card the decode step (``_decode_forward``: every layer's LayerNorm,
-  projections, two page writes, B5 and MLP, then the head) has fixed
-  shapes (S slots, the page-table width), so its first run is eager,
-  its second is captured into a CUDA graph (``framework/graphs.py``)
-  and every later one is a replay, fed by the one host-to-device copy
-  of ``_upload`` into the graph's static input buffer.  B5's split plan
-  reads shapes only, and the pools keep their addresses.  Sampling runs
-  after the replay (sampled rows draw from host-made generators); the
-  engine thread's one per-step sync is the ``.cpu()`` of the sampled
-  tokens.  Prefill (B6, one shape per prompt bucket) runs eagerly.
+  through ``Executor.run_persistent`` with donation.  On the card each
+  fixed-shape step -- the decode step (``_decode_forward``: every
+  layer's LayerNorm, projections, two page writes, B5 and MLP, then the
+  head), the draft's proposal burst (``_propose_forward``: k + 1 draft
+  decode steps, a greedy argmax feeding the next on the card) and the
+  speculative verification (``_verify_forward``: the target's
+  ``_rows_forward`` at S slots x R = k + 1 rows through B6) -- runs
+  eagerly once, is captured into a CUDA graph (``framework/graphs.py``)
+  the second time and replayed after that, fed by the one host-to-device
+  copy of ``_upload`` into the graph's static input buffer.  B5's and
+  B6's split plans read shapes only, and the pools keep their addresses.
+  Sampling runs after the replay (sampled rows draw from host-made
+  generators); the per-step sync is the ``.cpu()`` of the tokens (a
+  speculative round has two: the proposals, which the verify's write
+  coordinates need, and the verified argmaxes).  Prefill (B6, one shape
+  per prompt bucket or chunk, and the ragged lanes) runs eagerly.
 - **Attention through the hand-written kernels.**  Decode steps call
   ``ops.paged_attention.paged_decode_attention`` (B5); the whole-prompt
-  prefill, the prefix-hit suffix prefill and chunked prefill call
-  ``paged_chunk_attention`` (B6) over the slot's page table.  The JAX
-  whole-prompt prefill attends over a locally built full-width K/V
-  with the plain formulation instead; ported literally that would
+  prefill, the prefix-hit suffix, chunked prefill, ragged lanes and
+  verification call ``paged_chunk_attention`` (B6) over the page table.
+  The JAX whole-prompt prefill attends over a locally built full-width
+  K/V with the plain formulation instead; ported literally that would
   materialize ``[t_pad, max_seq, H, D]`` per layer, so the port writes
   the prompt's pages first and reads them back through B6 -- the same
   function on the same bytes.  On CPU tensors both wrappers take their
@@ -41,15 +46,24 @@ What the port changes:
   in other orders at other row counts, so ``recompute_logits`` (plain
   attention over the whole sequence, no pools) agrees with streamed
   decode to a float tolerance, which the tests and ``chip_smoke.py``
-  state.
+  state.  The same holds across paths: speculative verification (B6 at
+  R = k + 1) and the decode step (B5) agree only to a tolerance, so the
+  port's speculative contract is that every emitted token is the
+  target's argmax in the verify logits; greedy speculative output equals
+  non-speculative output wherever the top-2 margin of the logits exceeds
+  that tolerance.  A migrated request's first token comes from the first
+  decode step (B5) over installed pages, a local one's from the
+  prefill's last row (B6): again equal up to that tolerance.
 - **Sampling** draws each token with its own ``torch.Generator`` seeded
   from (request seed, token index) (``ops/sampling_ops.py``), so a
   request's tokens stay independent of its slot, neighbours and
   replica.
+- **Migration** (``submit(extract_kv=True)`` / ``submit(kv_import=)``):
+  the payload is a ``kv_cache.KVPageExport`` of torch tensors; on one
+  card it moves device to device.
 
-Speculative decoding, ragged prefill packing, KV-page import/export
-(disaggregated serving) and MoE serving wait for later slices of the
-port; asking for any of them raises ``NotImplementedError``.
+MoE serving (``moe_experts``) waits for a later slice of the port;
+asking for it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -72,7 +86,7 @@ from ..observe import tracer as otrace
 from ..observe.histogram import stat_time
 from ..ops.paged_attention import (paged_chunk_attention,
                                    paged_decode_attention)
-from ..ops.sampling_ops import sample_tokens, token_generator
+from ..ops.sampling_ops import greedy_sample, sample_tokens, token_generator
 from . import kv_cache
 from .batcher import _UNSET, RequestBase
 from .buckets import (BucketSpec, DeadlineExceededError, QueueFullError,
@@ -87,8 +101,7 @@ _NEG_INF = -1e30
 def _later_slice(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} waits for a later slice of the PyTorch port (ROADMAP.md, "
-        f"Queue A: the rest of serving); the JAX package "
-        f"(paddle_tpu.serving) serves it today")
+        f"Queue A); the JAX package (paddle_tpu.serving) serves it today")
 
 
 # ---------------------------------------------------------------------------
@@ -269,18 +282,28 @@ class DecodeRequest(RequestBase):
     ``result()`` for the completed id list.  ``generated`` always
     holds the ids produced so far (partial output survives a deadline
     reap).  With ``record_logits`` each token's logits (float32 numpy)
-    land on ``logits_trace``."""
+    land on ``logits_trace``.
+
+    Disaggregated serving (serving/disagg.py): an ``extract_kv`` request
+    is the internal prefill leg -- on success its slot's prompt pages are
+    gathered into ``kv_export`` (a ``kv_cache.KVPageExport``) before the
+    slot releases, and it stays out of the client-facing SLO plane (the
+    logical request's first token is the decode replica's).
+    ``kv_import`` carries such a payload into an engine: admission
+    installs the pages and starts at the first decode step."""
 
     __slots__ = ("prompt", "max_new_tokens", "temperature", "top_k",
                  "top_p", "seed", "on_token", "generated", "_stream",
                  "t_first_token", "t_last_token", "record_logits",
-                 "logits_trace", "finish_reason")
+                 "logits_trace", "speculative", "finish_reason",
+                 "extract_kv", "kv_import", "kv_export")
 
     _deadline_stat = "decode_deadline_exceeded"
     _outcome_prefix = "decode"
 
     def __init__(self, prompt, max_new_tokens, deadline, temperature,
-                 top_k, top_p, seed, on_token, record_logits=False):
+                 top_k, top_p, seed, on_token, record_logits=False,
+                 speculative=None, extract_kv=False, kv_import=None):
         super().__init__(deadline)
         self.prompt = list(prompt)
         self.max_new_tokens = int(max_new_tokens)
@@ -295,7 +318,11 @@ class DecodeRequest(RequestBase):
         self.t_last_token: Optional[float] = None
         self.record_logits = bool(record_logits)
         self.logits_trace: List[np.ndarray] = []
+        self.speculative = speculative  # None=auto, False=opt out
         self.finish_reason: Optional[str] = None
+        self.extract_kv = bool(extract_kv)
+        self.kv_import = kv_import
+        self.kv_export = None
 
     # terminal accounting (RequestBase._on_terminal hooks) ---------------
     def _finish_stats(self, outcome, latency):
@@ -322,6 +349,10 @@ class DecodeRequest(RequestBase):
         }
 
     def _slo_check(self, summary):
+        if self.extract_kv:
+            # internal disagg prefill leg: the logical request is observed
+            # once, by its decode-side request
+            return ()
         from ..observe import slo as _slo
 
         return _slo.observe_request(summary)
@@ -331,7 +362,9 @@ class DecodeRequest(RequestBase):
         now = time.monotonic()
         if self.t_first_token is None:
             self.t_first_token = now
-            stat_time("ttft_seconds", self.t_first_token - self.t_enqueue)
+            if not self.extract_kv:
+                stat_time("ttft_seconds",
+                          self.t_first_token - self.t_enqueue)
         self.t_last_token = now
         self.generated.append(int(token))
         self._stream.put(int(token))
@@ -372,7 +405,8 @@ class DecodeRequest(RequestBase):
 
 class _SlotState:
     __slots__ = ("req", "n_generated", "last_token", "t_last", "phase",
-                 "prefill_pos", "write_trash_once", "chunks", "t_admit")
+                 "prefill_pos", "write_trash_once", "spec", "draft_lag",
+                 "chunks", "t_admit")
 
     def __init__(self, req):
         self.req = req
@@ -385,6 +419,10 @@ class _SlotState:
         self.prefill_pos = 0        # next prompt position to prefill
         self.write_trash_once = False  # cache-hit path: first decode
         # write re-derives a position the shared pages already hold
+        self.spec = False           # speculative-decode eligible
+        self.draft_lag = 0          # trailing positions written by the
+        # normal step (target-only) on a spec slot -- the draft pool is
+        # stale there, so registration excludes them
 
 
 # ---------------------------------------------------------------------------
@@ -393,8 +431,9 @@ class _SlotState:
 
 class DecodeConfig:
     """Engine knobs; defaults come from the ``FLAGS_decode_*`` flags.
-    ``ragged_prefill_rows`` and ``spec_k`` above 0 raise: ragged packing
-    and speculative decoding wait for a later slice."""
+    ``ragged_prefill_rows`` (with ``prefill_chunk_pages`` > 0) packs that
+    many one-row lanes per prefill dispatch; ``spec_k`` (with a draft
+    model) is the speculative window."""
 
     def __init__(self, slots: Optional[int] = None,
                  max_seq_len: Optional[int] = None,
@@ -439,11 +478,6 @@ class DecodeConfig:
                           else flags.flag("decode_spec_k"))
         self.kv_quant = bool(kv_quant if kv_quant is not None
                              else flags.flag("decode_kv_quant"))
-        if self.ragged_prefill_rows > 0:
-            raise _later_slice("ragged prefill packing "
-                               "(ragged_prefill_rows > 0)")
-        if self.spec_k > 0:
-            raise _later_slice("speculative decoding (spec_k > 0)")
 
 
 class DecodeEngine:
@@ -453,14 +487,18 @@ class DecodeEngine:
     one-shot group mode (a new group only starts when EVERY slot is
     free).  Runs on the model's device; ``weights`` (the JAX layout, see
     ``TransformerLM.load_weights``) are loaded into the model unless
-    None, which serves the parameters the model already holds."""
+    None, which serves the parameters the model already holds.
+
+    ``draft_model``/``draft_weights`` arm speculative decoding (with
+    ``spec_k > 0``): the draft's page pools are indexed by the SAME page
+    ids as the target's, so prefix sharing, reservation accounting and
+    copy-on-write cover both."""
 
     def __init__(self, model: TransformerLM, weights: Optional[Dict] = None,
                  config: Optional[DecodeConfig] = None,
                  name: str = "replica-0", continuous: bool = True,
-                 draft_model=None, draft_weights=None):
-        if draft_model is not None or draft_weights is not None:
-            raise _later_slice("speculative decoding (draft_model=)")
+                 draft_model: Optional[TransformerLM] = None,
+                 draft_weights: Optional[Dict] = None):
         self.model = model
         self.config = config or DecodeConfig()
         self.name = name
@@ -470,8 +508,31 @@ class DecodeEngine:
             raise ValueError(
                 f"DecodeConfig.max_seq_len {c.max_seq_len} exceeds the "
                 f"model's positional table ({model.max_seq_len})")
+        self._draft_model = draft_model
+        if draft_model is not None:
+            if draft_weights is None:
+                raise ValueError(
+                    "draft_model needs draft_weights for speculative "
+                    "decoding")
+            if int(draft_model.vocab_size) != int(model.vocab_size):
+                raise ValueError(
+                    f"speculative draft/target vocab mismatch: draft "
+                    f"{draft_model.vocab_size} vs target "
+                    f"{model.vocab_size} -- the draft's proposals would "
+                    f"index a different token space; re-export the "
+                    f"draft with the target's vocabulary")
+            if int(draft_model.max_seq_len) < c.max_seq_len:
+                raise ValueError(
+                    f"draft positional table ({draft_model.max_seq_len})"
+                    f" is shorter than max_seq_len ({c.max_seq_len})")
+            if draft_model.device != model.device:
+                raise ValueError(
+                    f"draft model on {draft_model.device}, target on "
+                    f"{model.device}: both must share the device")
         if weights is not None:
             model.load_weights(weights)
+        if draft_model is not None:
+            draft_model.load_weights(draft_weights)
         self.device = model.device
         self._cache = PagedKVCache(
             CacheConfig(model.num_layers, model.num_heads, model.head_dim,
@@ -479,6 +540,12 @@ class DecodeEngine:
                         num_pages=c.num_pages, dtype=c.cache_dtype,
                         quantized=c.kv_quant),
             self.device, prefix_cache=c.prefix_cache)
+        if draft_model is not None:
+            # freed-page scale resets, copy-on-write and the audit cover
+            # the draft pools too (same page ids)
+            self._cache.add_draft_pools(draft_model.num_layers,
+                                        draft_model.num_heads,
+                                        draft_model.head_dim)
         # per-request timeline hook: claim/CoW/register/evict events
         # from the cache land on the owning request's trace
         self._cache.on_event = self._on_cache_event
@@ -499,10 +566,23 @@ class DecodeEngine:
         self._prompt_pages = 0
         self._cow_copies = 0
         self._prefill_chunk_count = 0
-        # the captured decode step (framework/graphs.py) and its static
-        # input buffer, from the first and second decode steps on the card
-        self._step: Optional[StepGraph] = None
-        self._step_inputs: Optional[torch.Tensor] = None
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        # the captured fixed-shape steps (framework/graphs.py) by name --
+        # "decode", "propose", "verify" -- and their static input buffers
+        self._graphs: Dict[str, StepGraph] = {}
+        self._graph_inputs: Dict[str, torch.Tensor] = {}
+        self._captures = self.device.type == "cuda"
+
+    @property
+    def spec_enabled(self) -> bool:
+        return self._draft_model is not None and self.config.spec_k > 0
+
+    @property
+    def _step(self) -> Optional[StepGraph]:
+        """The decode step's graph (None before the first step on the
+        card)."""
+        return self._graphs.get("decode")
 
     # -- per-request tracing helpers -------------------------------------
     @staticmethod
@@ -540,69 +620,62 @@ class DecodeEngine:
             o += n
         return out
 
-    def _scales(self, layer):
-        c = self._cache
-        if c.k_scales is None:
-            return None, None
-        return c.k_scales[layer], c.v_scales[layer]
+    @staticmethod
+    def _token_writer(pools, write_page, write_off):
+        """Per-layer writer of one position per row: the rows' K/V
+        (``[..., H, D]``, flattened) at ``(write_page, write_off)``."""
+        def write(l, k, v):
+            kv_cache.write_token_layer(pools.k_pages, pools.k_scales, l,
+                                       k.reshape(-1, *k.shape[-2:]),
+                                       write_page, write_off)
+            kv_cache.write_token_layer(pools.v_pages, pools.v_scales, l,
+                                       v.reshape(-1, *v.shape[-2:]),
+                                       write_page, write_off)
+        return write
 
-    def _decode_forward(self, tokens, positions, page_table, write_page,
-                        write_off):
-        """One single-token step of the model over the page pools:
-        embed -> per layer (write K/V at (write_page, write_off) in
-        place, attend over each slot's live history with B5) -> logits
-        [S, V]."""
-        model, c = self.model, self._cache
+    @staticmethod
+    def _prompt_writer(pools, page_ids):
+        """Per-layer writer of one slot's padded prompt, page-wholesale
+        into ``page_ids``."""
+        def write(l, k, v):
+            kv_cache.write_prompt_layer(pools.k_pages, pools.k_scales, l,
+                                        k[0], page_ids)
+            kv_cache.write_prompt_layer(pools.v_pages, pools.v_scales, l,
+                                        v[0], page_ids)
+        return write
+
+    def _decode_forward(self, model, pools, tokens, positions, page_table,
+                        write_page, write_off):
+        """One single-token step of ``model`` over ``pools`` (the target's
+        or the draft's): embed -> per layer (write K/V at (write_page,
+        write_off) in place, attend over each slot's live history with
+        B5) -> logits [S, V].  Shared by the target's decode step and the
+        draft's proposal burst."""
         x = model._embed(tokens, positions)               # [S, Dm]
         lengths = positions + 1  # the token written THIS step included
+        write = self._token_writer(pools, write_page, write_off)
         for l, lw in enumerate(model.layers):
             h = model._ln(x, lw.ln1_g, lw.ln1_b)
             q, k, v = model._qkv(lw, h)                   # [S, H, D]
-            kv_cache.write_token_layer(c.k_pages, c.k_scales, l, k,
-                                       write_page, write_off)
-            kv_cache.write_token_layer(c.v_pages, c.v_scales, l, v,
-                                       write_page, write_off)
-            ks, vs = self._scales(l)
-            ctx = paged_decode_attention(q, c.k_pages[l], c.v_pages[l],
-                                         page_table, lengths, k_scales=ks,
-                                         v_scales=vs)
+            write(l, k, v)
+            ks, vs = pools.scales(l)
+            ctx = paged_decode_attention(q, pools.k_pages[l],
+                                         pools.v_pages[l], page_table,
+                                         lengths, k_scales=ks, v_scales=vs)
             x = x + model._attn_out(lw, ctx)
             x = x + model._mlp(lw, model._ln(x, lw.ln2_g, lw.ln2_b))
         return model._head(x)                             # [S, V]
 
-    def _decode_step(self, *arrays):
-        """The decode step's logits [S, V] from its host inputs
-        (``_decode_forward``'s, before ``_upload``).  On the card: the
-        first step eager on the step's side stream, the second captured,
-        then replays into the same output buffer, which the caller reads
-        before the next step."""
-        if self.device.type != "cuda":
-            return self._decode_forward(*self._upload(*arrays))
-        step = self._step
-        if step is None:
-            step = self._step = StepGraph(self.device)
-            return step.on_side_stream(
-                lambda: self._decode_forward(*self._upload(*arrays)))
-        if step.graph is None:
-            self._step_inputs = torch.empty(
-                sum(np.size(a) for a in arrays), dtype=torch.int32,
-                device=self.device)
-            inputs = self._upload(*arrays, into=self._step_inputs)
-            step.capture(lambda: self._decode_forward(*inputs))
-        else:
-            self._upload(*arrays, into=self._step_inputs)
-        step.replay()
-        return step.outputs
-
-    def _rows_forward(self, tokens, positions, page_table, write):
-        """R query rows per slot (``tokens``/``positions`` [S, R]):
-        per layer ``write(layer, k, v)`` stores the rows' K/V in place,
-        then B6 attends each row over its slot's page table with the
-        row's causal length.  Serves the whole-prompt prefill, the
-        prefix-hit suffix and chunked prefill.  Returns the last hidden
-        states [S, R, Dm]; the caller runs the head on the rows it
-        needs."""
-        model, c = self.model, self._cache
+    def _rows_forward(self, model, pools, tokens, positions, page_table,
+                      write):
+        """R query rows per slot (``tokens``/``positions`` [S, R]) of
+        ``model`` over ``pools``: per layer ``write(layer, k, v)`` stores
+        the rows' K/V in place, then B6 attends each row over its slot's
+        page table with the row's causal length.  Serves the whole-prompt
+        prefill, the prefix-hit suffix, chunked prefill, ragged lanes
+        (S = lanes, R = 1) and verification (S = slots, R = k + 1).
+        Returns the last hidden states [S, R, Dm]; the caller runs the
+        head on the rows it needs."""
         # clip keeps padded rows inside the positional table; live rows
         # are in range by the reservation accounting
         x = model._embed(tokens, positions.clamp(0, model.max_seq_len - 1))
@@ -611,13 +684,88 @@ class DecodeEngine:
             h = model._ln(x, lw.ln1_g, lw.ln1_b)
             q, k, v = model._qkv(lw, h)                   # [S, R, H, D]
             write(l, k, v)
-            ks, vs = self._scales(l)
-            ctx = paged_chunk_attention(q, c.k_pages[l], c.v_pages[l],
-                                        page_table, row_lengths,
-                                        k_scales=ks, v_scales=vs)
+            ks, vs = pools.scales(l)
+            ctx = paged_chunk_attention(q, pools.k_pages[l],
+                                        pools.v_pages[l], page_table,
+                                        row_lengths, k_scales=ks,
+                                        v_scales=vs)
             x = x + model._attn_out(lw, ctx)
             x = x + model._mlp(lw, model._ln(x, lw.ln2_g, lw.ln2_b))
         return x
+
+    def _propose_forward(self, tok0, start, live, trash_first, page_table):
+        """The draft's proposal burst: k + 1 single-token draft steps over
+        the draft pools (the + 1 keeps the draft's cache synced through
+        the bonus position when every proposal is accepted), each step's
+        greedy argmax the next step's token, on the card.  Write coords
+        come from the page table; dead slots, positions past the slot
+        capacity and the trash-first position aim at page 0.  Returns the
+        proposals [S, k + 1]."""
+        model, pools = self._draft_model, self._cache.draft
+        cc = self._cache.config
+        p = cc.page_size
+        live = live != 0
+        cur, props = tok0, []
+        for j in range(self.config.spec_k + 1):
+            pos = start + j                                  # [S]
+            idx = (pos // p).clamp(0, cc.pages_per_slot - 1)
+            pid = torch.gather(page_table, 1, idx[:, None].long())[:, 0]
+            pid = torch.where(live & (pos < cc.max_seq_len), pid, 0)
+            if j == 0:
+                pid = torch.where(trash_first != 0, 0, pid)
+            logits = self._decode_forward(
+                model, pools, cur, pos.clamp(0, model.max_seq_len - 1),
+                page_table, pid, pos % p)
+            cur = greedy_sample(logits)                      # [S]
+            props.append(cur)
+        return torch.stack(props, dim=1)
+
+    def _verify_forward(self, tokens, start, page_table, write_page,
+                        write_off):
+        """Speculative verification: the target over R = k + 1 rows a
+        slot (the last token and the k proposals) at positions ``start +
+        r``, rows written at ``(write_page, write_off)`` (page 0 for rows
+        that must not land), through B6.  Returns the target's argmax and
+        logits [S, R(, V)]."""
+        r = tokens.shape[1]
+        positions = start[:, None] + torch.arange(
+            r, dtype=torch.int32, device=tokens.device)[None]
+        x = self._rows_forward(
+            self.model, self._cache.target, tokens, positions, page_table,
+            self._token_writer(self._cache.target, write_page.reshape(-1),
+                               write_off.reshape(-1)))
+        logits = self.model._head(x)                          # [S, R, V]
+        return greedy_sample(logits), logits
+
+    def _graph_step(self, key: str, fn, *arrays):
+        """``fn``'s outputs from its host int inputs (``arrays``, before
+        ``_upload``).  On the card, per ``key``: the first run eager on
+        the step's side stream, the second captured, then replays into
+        the same output buffers, which the caller reads before the next
+        run."""
+        if not self._captures:
+            return fn(*self._upload(*arrays))
+        step = self._graphs.get(key)
+        if step is None:
+            step = self._graphs[key] = StepGraph(self.device)
+            return step.on_side_stream(lambda: fn(*self._upload(*arrays)))
+        if step.graph is None:
+            buf = self._graph_inputs[key] = torch.empty(
+                sum(np.size(a) for a in arrays), dtype=torch.int32,
+                device=self.device)
+            inputs = self._upload(*arrays, into=buf)
+            step.capture(lambda: fn(*inputs))
+        else:
+            self._upload(*arrays, into=self._graph_inputs[key])
+        step.replay()
+        return step.outputs
+
+    def _decode_step(self, *arrays):
+        """The target's decode step's logits [S, V] from its host inputs
+        (``_decode_forward``'s after the model and pools)."""
+        return self._graph_step(
+            "decode", lambda *t: self._decode_forward(
+                self.model, self._cache.target, *t), *arrays)
 
     def _sample_one(self, req, logits, index: int) -> int:
         """Sample one token for ``req`` from its logits [V]."""
@@ -684,11 +832,55 @@ class DecodeEngine:
         c = self.config
         if not prompt:
             raise ValueError("prompt must hold at least one token id")
+        if kv_import is not None:
+            # migrated admission (serving/disagg.py): validate the payload
+            # against THIS engine's pool geometry at submit time -- a
+            # mismatch must reject loudly, never corrupt pools
+            cc = self._cache.config
+            if extract_kv:
+                raise ValueError(
+                    "kv_import and extract_kv are mutually exclusive (a "
+                    "request is either the prefill leg or the decode leg "
+                    "of a disagg handoff, not both)")
+            if speculative:
+                raise ValueError(
+                    "kv_import cannot be speculative: the migration "
+                    "payload carries the target pools only -- the draft "
+                    "pools never saw the prompt K/V")
+            if bool(kv_import.quantized) != bool(cc.quantized):
+                raise ValueError(
+                    f"kv_import quantized={kv_import.quantized} but this "
+                    f"engine's cache quantized={cc.quantized} -- prefill "
+                    f"and decode replicas must agree on "
+                    f"FLAGS_decode_kv_quant")
+            if int(kv_import.page_size) != cc.page_size:
+                raise ValueError(
+                    f"kv_import page_size {kv_import.page_size} != "
+                    f"engine page_size {cc.page_size}")
+            if int(kv_import.n_tokens) != len(prompt):
+                raise ValueError(
+                    f"kv_import covers {kv_import.n_tokens} tokens but "
+                    f"the prompt has {len(prompt)}")
+            if int(kv_import.n_pages) != cc.pages_for(len(prompt)):
+                raise ValueError(
+                    f"kv_import carries {kv_import.n_pages} pages but "
+                    f"the prompt needs {cc.pages_for(len(prompt))}")
         if speculative:
-            raise _later_slice("speculative decoding (speculative=True)")
-        if extract_kv or kv_import is not None:
-            raise _later_slice("KV-page export/import (disaggregated "
-                               "serving)")
+            # a request that ASKS for speculative decoding must get it or
+            # fail, never silently degrade
+            if self._draft_model is None:
+                raise ValueError(
+                    "speculative=True but the engine has no draft model "
+                    "(DecodeEngine(draft_model=, draft_weights=))")
+            if c.spec_k <= 0:
+                raise ValueError(
+                    "speculative=True but FLAGS_decode_spec_k / "
+                    "DecodeConfig.spec_k is 0")
+            if float(temperature) > 0.0:
+                raise ValueError(
+                    "speculative decoding is greedy-only (every emitted "
+                    "token is the target's argmax); submit with "
+                    "temperature=0")
         if max_new_tokens is None:
             max_new_tokens = c.max_new_tokens
         if len(prompt) + int(max_new_tokens) > c.max_seq_len:
@@ -723,7 +915,10 @@ class DecodeEngine:
             self._seq += 1
             req = DecodeRequest(prompt, max_new_tokens, deadline,
                                 temperature, top_k, top_p, seed,
-                                on_token, record_logits=record_logits)
+                                on_token, record_logits=record_logits,
+                                speculative=speculative,
+                                extract_kv=extract_kv,
+                                kv_import=kv_import)
             req.trace = trace
             self._queue.append(req)
             trace.event("enqueue", queue_depth=len(self._queue),
@@ -757,7 +952,9 @@ class DecodeEngine:
                        max_seq_len=self.config.max_seq_len,
                        page_size=self.config.page_size,
                        prefix_cache=self.config.prefix_cache,
-                       kv_quant=self.config.kv_quant)
+                       kv_quant=self.config.kv_quant,
+                       spec_k=self.config.spec_k
+                       if self.spec_enabled else 0)
         stat_set("decode_kv_quant_enabled",
                  1 if self.config.kv_quant else 0)
         stat_set("decode_kv_page_bytes", self._cache.config.page_bytes())
@@ -846,7 +1043,12 @@ class DecodeEngine:
             need = len(req.prompt) + req.max_new_tokens
             self._admitting = req
             try:
-                info = self._cache.claim(slot, need, prompt=req.prompt)
+                # a migrated admission claims ALL-FRESH pages (no prefix
+                # lookup): the installed pages must be solely owned
+                info = self._cache.claim(
+                    slot, need,
+                    prompt=None if req.kv_import is not None
+                    else req.prompt)
             finally:
                 self._admitting = None
             if info is None:
@@ -857,11 +1059,42 @@ class DecodeEngine:
                 break  # FIFO head-of-line: wait for pages to free
             self._queue.popleft()
             st = _SlotState(req)
-            self._account_claim(slot, st, info)
+            st.spec = (self.spec_enabled and req.temperature <= 0.0
+                       and req.speculative is not False
+                       and req.kv_import is None)
+            if req.kv_import is not None:
+                self._account_migrated(slot, st, req)
+            else:
+                self._account_claim(slot, st, info)
             self._slots[slot] = st
             admitted.append((slot, req))
         stat_set("decode_queue_depth", len(self._queue))
         return admitted
+
+    def _account_migrated(self, slot: int, st: _SlotState, req) -> None:
+        """Admit a request whose prompt K/V arrives as a migration payload
+        (disaggregated serving): install the pages into the slot's fresh
+        claim, then start the slot like a full-prefix-cache hit -- the
+        pages hold prompt positions ``0..n-1``, so the first decode step
+        re-derives the last prompt position's logits (its own K/V write
+        aims at trash) and samples the first token with token index 0,
+        the generator a local prefill's first token draws from."""
+        n = len(req.prompt)
+        self._cache.install_pages(slot, req.kv_import)
+        st.phase = "decode"
+        st.write_trash_once = True
+        st.last_token = req.prompt[-1]
+        st.prefill_pos = n
+        self._cache.lengths[slot] = n - 1
+        stat_add("decode_migrated_admissions")
+        self._tev(req, "admit", slot=slot,
+                  queue_wait_ms=round(
+                      (st.t_admit - req.t_enqueue) * 1e3, 3),
+                  migrated_pages=req.kv_import.n_pages,
+                  migrated_bytes=req.kv_import.nbytes,
+                  prefill_skipped=True)
+        # drop the payload reference: the bytes live in the pools now
+        req.kv_import = None
 
     def _account_claim(self, slot: int, st: _SlotState, info) -> None:
         """Fold one admission's prefix-cache outcome into the slot's
@@ -908,12 +1141,16 @@ class DecodeEngine:
         st = self._slots[slot]
         register = None
         if st is not None and self._cache.prefix is not None \
-                and st.phase == "decode":
-            # register this slot's pages for future prefix hits:
-            # content = prompt + generated, truncated to the positions
-            # actually written
+                and st.phase == "decode" \
+                and (not self.spec_enabled or st.spec):
+            # register this slot's pages for future prefix hits -- only
+            # when the draft pools are synced too (a non-speculative slot
+            # on a spec engine never wrote draft K/V).  Content = prompt +
+            # generated, truncated to the positions actually written,
+            # minus any trailing positions a spec slot wrote through the
+            # normal step (target-only: the draft bytes there are stale)
             seq = st.req.prompt + st.req.generated
-            register = seq[:int(self._cache.lengths[slot])]
+            register = seq[:int(self._cache.lengths[slot]) - st.draft_lag]
         # release BEFORE clearing the slot so the cache's register/
         # evict events can still be attributed to the owning request
         self._cache.release(slot, register_tokens=register)
@@ -921,8 +1158,39 @@ class DecodeEngine:
         stat_set("decode_free_pages", self._cache.allocator.num_free)
         stat_set("decode_shared_pages", self._cache.shared_pages)
 
+    def _export_slot_kv(self, slot: int) -> None:
+        """Gather the slot's prompt-covering pages into a migration
+        payload on ``req.kv_export`` -- the disagg prefill->decode
+        handoff.  Runs on the engine thread right before the slot
+        releases, so the pages still hold positions ``0..n-1``."""
+        st = self._slots[slot]
+        req = st.req
+        cc = self._cache.config
+        n = len(req.prompt)
+        if int(self._cache.lengths[slot]) < n - 1:
+            return  # prefill never covered the prompt; router re-runs
+        n_pages = cc.pages_for(n)
+        pages = self._cache.slot_pages(slot)[:n_pages]
+        with otrace.span("serving/migrate_export", slot=slot,
+                         pages=n_pages):
+            arrays = self._cache.export_pages(pages)
+        req.kv_export = kv_cache.KVPageExport(
+            n_tokens=n, n_pages=n_pages, src_pages=pages, arrays=arrays,
+            quantized=cc.quantized, page_size=cc.page_size)
+        stat_add("decode_kv_exports")
+        self._tev(req, "kv_export", pages=n_pages,
+                  bytes=req.kv_export.nbytes)
+
     def _finish_slot(self, slot: int, error=None):
         st = self._slots[slot]
+        if error is None and st.req.extract_kv and st.phase == "decode":
+            # export BEFORE _finish: the handoff thread wakes on the
+            # request's completion and must find the payload attached
+            try:
+                self._export_slot_kv(slot)
+            except Exception as e:  # noqa: BLE001 -- a failed export fails
+                # the REQUEST (the router re-dispatches), not the engine
+                error = e
         if error is None:
             if st.req._finish():
                 stat_add("decode_completed")
@@ -980,34 +1248,39 @@ class DecodeEngine:
     def _service_prefills(self):
         """Advance prefill-phase slots.  Chunked mode dispatches ONE
         chunk per engine-loop iteration (round-robin across prefilling
-        slots) so the decoding slots keep stepping between chunks;
-        unchunked mode completes each prefill in one dispatch."""
+        slots) so the decoding slots keep stepping between chunks --
+        or, with ragged packing, one fixed-width dispatch of one-row
+        lanes dealt across every prefilling slot; unchunked mode
+        completes each prefill in one dispatch."""
         pre = [i for i, st in enumerate(self._slots)
                if st is not None and st.phase == "prefill"]
         if not pre:
             return
         chunk = self.config.prefill_chunk_pages
-        if chunk > 0:
+        if chunk > 0 and self.config.ragged_prefill_rows > 0:
+            self._run_prefill_ragged(pre)
+        elif chunk > 0:
             pick = min(pre, key=lambda i:
                        (i - self._prefill_rr) % self.config.slots)
             self._prefill_rr = (pick + 1) % self.config.slots
             self._run_prefill_rows(pick, chunk * self.config.page_size)
-            return
-        for i in pre:
-            st = self._slots[i]
-            if st.prefill_pos == 0:
-                self._run_prefill_full(i)
-            else:
-                # prefix-cache suffix: only the unmatched tail of the
-                # prompt is computed, in one dispatch
-                rows = self._buckets.seq_bucket(
-                    len(st.req.prompt) - st.prefill_pos)
-                self._run_prefill_rows(i, rows)
+        else:
+            for i in pre:
+                st = self._slots[i]
+                if st.prefill_pos == 0:
+                    self._run_prefill_full(i)
+                else:
+                    # prefix-cache suffix: only the unmatched tail of the
+                    # prompt is computed, in one dispatch
+                    rows = self._buckets.seq_bucket(
+                        len(st.req.prompt) - st.prefill_pos)
+                    self._run_prefill_rows(i, rows)
 
     def _run_prefill_full(self, slot: int):
         """The whole-prompt prefill (no cache hit, chunking off): write
         the padded prompt's K/V page-wholesale into the slot's pages,
-        then attend every row through B6 over the slot's page table."""
+        then attend every row through B6 over the slot's page table; a
+        speculative slot mirrors the prompt into the draft's pools."""
         st = self._slots[slot]
         req = st.req
         c = self._cache
@@ -1024,16 +1297,17 @@ class DecodeEngine:
                                             c.page_table[slot:slot + 1])
                 positions = torch.arange(t_pad, dtype=torch.int32,
                                          device=self.device)[None]
-
-                def write(l, k, v):
-                    kv_cache.write_prompt_layer(c.k_pages, c.k_scales, l,
-                                                k[0], table[0, :n_bp])
-                    kv_cache.write_prompt_layer(c.v_pages, c.v_scales, l,
-                                                v[0], table[0, :n_bp])
-
-                x = self._rows_forward(tok_d, positions, table, write)
+                x = self._rows_forward(
+                    self.model, c.target, tok_d, positions, table,
+                    self._prompt_writer(c.target, table[0, :n_bp]))
                 last = self.model._head(x[0, n - 1])          # [V]
                 tok = self._sample_one(req, last, 0)
+                if st.spec:
+                    # mirror the prefill into the draft's pools (same page
+                    # ids) so proposals can read the prompt
+                    self._rows_forward(
+                        self._draft_model, c.draft, tok_d, positions,
+                        table, self._prompt_writer(c.draft, table[0, :n_bp]))
             stat_time("decode_prefill_seconds", time.monotonic() - t0)
             self._tev(req, "prefill", slot=slot, bucket=t_pad, tokens=n,
                       dur_ms=round((time.monotonic() - t0) * 1e3, 3))
@@ -1080,17 +1354,16 @@ class DecodeEngine:
                     write_off)
                 positions = start + torch.arange(
                     rows, dtype=torch.int32, device=self.device)[None]
-
-                def write(l, k, v):
-                    kv_cache.write_token_layer(c.k_pages, c.k_scales, l,
-                                               k[0], wp, wo)
-                    kv_cache.write_token_layer(c.v_pages, c.v_scales, l,
-                                               v[0], wp, wo)
-
-                x = self._rows_forward(tok_d, positions, table, write)
+                x = self._rows_forward(
+                    self.model, c.target, tok_d, positions, table,
+                    self._token_writer(c.target, wp, wo))
                 if final:
                     last = self.model._head(x[0, n - 1 - start])  # [V]
                     tok = self._sample_one(req, last, 0)
+                if st.spec:
+                    self._rows_forward(
+                        self._draft_model, c.draft, tok_d, positions,
+                        table, self._token_writer(c.draft, wp, wo))
             stat_time("decode_prefill_seconds", time.monotonic() - t0)
             stat_add("prefill_chunks")
             record_pad_waste(n_live, rows)
@@ -1110,6 +1383,124 @@ class DecodeEngine:
         except Exception as e:  # noqa: BLE001 — fault isolation per req
             stat_add("decode_prefill_errors")
             self._finish_slot(slot, e)
+
+    def _ragged_picks(self, pre: List[int]):
+        """The lane deal of one ragged dispatch: round-robin over the
+        prefilling slots in chunk-sized shares -- every slot gets a fair
+        share first, then further rounds deal the leftover lanes out
+        (all of a prompt's pages are reserved at admission, so one slot
+        absorbing several chunks in one dispatch is sound).  Returns
+        ``[(slot, start, lanes)]`` and the live lane count; dead lanes
+        only remain when the outstanding prefill work is smaller than
+        the dispatch."""
+        L = self.config.ragged_prefill_rows
+        per_slot_cap = self.config.prefill_chunk_pages \
+            * self._cache.config.page_size
+        order = sorted(pre, key=lambda i:
+                       (i - self._prefill_rr) % self.config.slots)
+        assigned = {i: 0 for i in order}
+        lanes_left = L
+        progress = True
+        while lanes_left > 0 and progress:
+            progress = False
+            for i in order:
+                st = self._slots[i]
+                t = min(len(st.req.prompt) - st.prefill_pos - assigned[i],
+                        per_slot_cap, lanes_left)
+                if t <= 0:
+                    continue
+                assigned[i] += t
+                lanes_left -= t
+                progress = True
+        picks = [(i, self._slots[i].prefill_pos, assigned[i])
+                 for i in order if assigned[i] > 0]
+        return picks, L - lanes_left
+
+    def _run_prefill_ragged(self, pre: List[int]):
+        """Pack several prompts' tails into ONE fixed-width dispatch of
+        ``ragged_prefill_rows`` one-row lanes: each lane is one (slot,
+        position) query row with its own copy of its slot's page-table
+        row, its start and its (page, offset) write coords, so the one
+        shape per dispatch is kept while the dead rows of padding each
+        prompt's chunk are shared across requests.  Lanes of the SAME
+        request at consecutive positions are sound because every layer
+        writes all rows' K/V before its attention reads
+        (``_rows_forward``); dead lanes write to the trash page (page 0)
+        and are ignored.  The packed dispatch is shared, so a fault fails
+        every packed request."""
+        picks, live = self._ragged_picks(pre)
+        if not picks:
+            return
+        L = self.config.ragged_prefill_rows
+        c = self._cache
+        p = c.config.page_size
+        self._prefill_rr = (picks[-1][0] + 1) % self.config.slots
+        tokens = np.zeros((L, 1), np.int32)
+        start = np.zeros((L, 1), np.int32)
+        page_table = np.zeros((L, c.config.pages_per_slot), np.int32)
+        write_page = np.zeros((L,), np.int32)
+        write_off = np.zeros((L,), np.int32)
+        lane = 0
+        spec_any = False
+        for i, s0, t in picks:
+            st = self._slots[i]
+            spec_any = spec_any or st.spec
+            pos = s0 + np.arange(t)
+            tokens[lane:lane + t, 0] = st.req.prompt[s0:s0 + t]
+            start[lane:lane + t, 0] = pos
+            page_table[lane:lane + t] = c.page_table[i]
+            write_page[lane:lane + t] = c.page_table[i][pos // p]
+            write_off[lane:lane + t] = pos % p
+            lane += t
+        try:
+            t0 = time.monotonic()
+            with otrace.span("serving/decode_prefill_ragged", lanes=L,
+                             live=live, slots=len(picks)):
+                tok_d, pos_d, table, wp, wo = self._upload(
+                    tokens, start, page_table, write_page, write_off)
+                x = self._rows_forward(
+                    self.model, c.target, tok_d, pos_d, table,
+                    self._token_writer(c.target, wp, wo))
+                if spec_any:
+                    self._rows_forward(
+                        self._draft_model, c.draft, tok_d, pos_d, table,
+                        self._token_writer(c.draft, wp, wo))
+                firsts = {}
+                lane = 0
+                for i, s0, t in picks:
+                    lane += t
+                    req = self._slots[i].req
+                    if s0 + t >= len(req.prompt):
+                        last = self.model._head(x[lane - 1, 0])   # [V]
+                        firsts[i] = (last, self._sample_one(req, last, 0))
+            stat_time("decode_prefill_seconds", time.monotonic() - t0)
+            stat_add("prefill_chunks")
+            stat_add("decode_ragged_dispatches")
+            record_pad_waste(live, L)
+            self._prefill_chunk_count += 1
+            dur = round((time.monotonic() - t0) * 1e3, 3)
+            for i, s0, t in picks:
+                st = self._slots[i]
+                req = st.req
+                final = i in firsts
+                st.chunks += 1
+                self._tev(req, "prefill_chunk", slot=i, start=s0, rows=t,
+                          live=t, final=final, ragged=True, dur_ms=dur)
+                st.prefill_pos += t
+                if final:
+                    stat_add("decode_prefills")
+                    st.phase = "decode"
+                    c.lengths[i] = len(req.prompt)
+                    last, tok = firsts[i]
+                    if req.record_logits:
+                        req.logits_trace.append(last.float().cpu().numpy())
+                    self._deliver(i, tok)
+        except Exception as e:  # noqa: BLE001 — the packed dispatch is
+            # shared: fail every packed request, not just one
+            stat_add("decode_prefill_errors")
+            for i, _s, _t in picks:
+                if self._slots[i] is not None:
+                    self._finish_slot(i, e)
 
     # -- device work: decode ----------------------------------------------
     def _deliver(self, slot: int, token: int):
@@ -1156,7 +1547,16 @@ class DecodeEngine:
         if not decoding:
             return
         stat_max("decode_slot_occupancy_max", len(decoding))
-        self._run_step(decoding)
+        spec = [i for i in decoding
+                if self._slots[i].spec
+                and (self._slots[i].req.max_new_tokens
+                     - self._slots[i].n_generated) >= 2]
+        if spec:
+            self._run_spec(spec)
+        normal = [i for i in decoding
+                  if self._slots[i] is not None and i not in set(spec)]
+        if normal:
+            self._run_step(normal)
 
     def _run_step(self, live_idx):
         c = self._cache.config
@@ -1211,6 +1611,8 @@ class DecodeEngine:
         for i in live_idx:
             st = self._slots[i]
             st.write_trash_once = False
+            if st.spec:
+                st.draft_lag += 1  # target-only write: draft is stale
             self._cache.lengths[i] += 1
             if st.req.record_logits:
                 if logits_np is None:
@@ -1219,6 +1621,106 @@ class DecodeEngine:
             self._deliver(i, int(nxt[i]))
         stat_set("decode_slot_occupancy", self.live_slots)
         stat_add("decode_steps")
+
+    def _run_spec(self, spec_idx):
+        """One speculative round for the greedy slots: the draft's k-token
+        proposal burst (one captured step) then ONE captured target step
+        verifying all k + 1 positions through B6.  Every emitted token is
+        the TARGET's argmax at its position in the verify logits;
+        proposals only decide how many tokens this round yields (1 to
+        k + 1).  The proposals come to the host (the round's first sync)
+        to build the verify's tokens and write coords."""
+        c = self._cache.config
+        s = c.num_slots
+        k = self.config.spec_k
+        rows = k + 1
+        k_live = {}
+        for i in spec_idx:
+            st = self._slots[i]
+            rem = st.req.max_new_tokens - st.n_generated
+            k_live[i] = min(k, rem - 1)
+            # CoW the pages this round's window writes (skip the
+            # trash-aimed first position on the cache-hit path)
+            n = int(self._cache.lengths[i])
+            lo = n + (1 if st.write_trash_once else 0)
+            self._perform_cow(i, self._cache.plan_cow(
+                i, range(lo, n + k_live[i] + 1)))
+        tok0 = np.zeros((s,), np.int32)
+        start = np.zeros((s,), np.int32)
+        live = np.zeros((s,), np.int32)
+        trash_first = np.zeros((s,), np.int32)
+        for i in spec_idx:
+            st = self._slots[i]
+            tok0[i] = st.last_token
+            start[i] = self._cache.lengths[i]
+            live[i] = 1
+            trash_first[i] = 1 if st.write_trash_once else 0
+        t0 = time.monotonic()
+        try:
+            with otrace.span("serving/decode_spec", live=len(spec_idx),
+                             k=k):
+                with otrace.span("serving/decode_propose"):
+                    props = self._graph_step(
+                        "propose", self._propose_forward, tok0, start, live,
+                        trash_first, self._cache.page_table)
+                    props = props.cpu().numpy()           # [S, k+1]
+                tokens = np.zeros((s, rows), np.int32)
+                write_page = np.zeros((s, rows), np.int32)
+                write_off = np.zeros((s, rows), np.int32)
+                for i in spec_idx:
+                    tokens[i, 0] = tok0[i]
+                    tokens[i, 1:] = props[i, :k]
+                    r0 = 1 if trash_first[i] else 0  # row 0 stays trash
+                    pos = int(start[i]) + np.arange(r0, k_live[i] + 1)
+                    write_page[i, r0:k_live[i] + 1] = \
+                        self._cache.page_table[i][pos // c.page_size]
+                    write_off[i, r0:k_live[i] + 1] = pos % c.page_size
+                with otrace.span("serving/decode_verify"):
+                    greedy, logits = self._graph_step(
+                        "verify", self._verify_forward, tokens, start,
+                        self._cache.page_table, write_page, write_off)
+                    greedy = greedy.cpu().numpy()         # [S, k+1]
+                    logits_np = None
+                    if any(self._slots[i].req.record_logits
+                           for i in spec_idx):
+                        logits_np = logits.float().cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — batch fault isolation
+            stat_add("decode_step_errors")
+            for i in spec_idx:
+                if self._slots[i] is not None:
+                    self._finish_slot(i, e)
+            return
+        stat_time("decode_step_seconds", time.monotonic() - t0)
+        proposed = accepted = 0
+        for i in spec_idx:
+            st = self._slots[i]
+            a = 0
+            while a < k_live[i] and int(props[i, a]) == int(greedy[i, a]):
+                a += 1
+            proposed += k_live[i]
+            accepted += a
+            self._tev(st.req, "spec_round", slot=i, proposed=k_live[i],
+                      accepted=a)
+            st.write_trash_once = False
+            for j in range(a + 1):
+                self._cache.lengths[i] += 1
+                if st.req.record_logits:
+                    st.req.logits_trace.append(logits_np[i, j].copy())
+                self._deliver(i, int(greedy[i, j]))
+                if self._slots[i] is None:
+                    break  # finished (EOS/budget) mid-emission
+        self._spec_proposed += proposed
+        self._spec_accepted += accepted
+        stat_add("decode_spec_proposed", proposed)
+        stat_add("decode_spec_accepted", accepted)
+        stat_add("decode_spec_rounds")
+        total = stat_get("decode_spec_proposed")
+        if total:
+            acc = stat_get("decode_spec_accepted")
+            # integer percent + the float-precision _ppm companion
+            stat_set("spec_accept_rate", int(100 * acc / total))
+            stat_set("spec_accept_rate_ppm", int(1e6 * acc / total))
+        stat_set("decode_slot_occupancy", self.live_slots)
 
     # -- oracle / observability ------------------------------------------
     def recompute_logits(self, tokens: Sequence[int],
@@ -1288,6 +1790,7 @@ class DecodeEngine:
                 "pages": len(self._cache.slot_pages(i)),
                 "tokens": st.n_generated,
                 "max_new_tokens": req.max_new_tokens,
+                "speculative": st.spec,
                 "deadline_in_ms": None if req.deadline is None
                 else round((req.deadline - now) * 1e3, 3),
             })
@@ -1315,6 +1818,7 @@ class DecodeEngine:
         with self._cond:
             depth = len(self._queue)
         hp, pp = self._hit_pages, self._prompt_pages
+        sp, sa = self._spec_proposed, self._spec_accepted
         return {
             "name": self.name,
             "device": str(self.device),
@@ -1336,5 +1840,11 @@ class DecodeEngine:
             "shared_pages": self._cache.shared_pages,
             "cow_copies": self._cow_copies,
             "prefill_chunks": self._prefill_chunk_count,
+            "ragged_prefill_rows": self.config.ragged_prefill_rows,
+            "ragged_dispatches": stat_get("decode_ragged_dispatches"),
             "prefill_pad_waste": stat_get("prefill_pad_waste") / 1e6,
+            "spec_enabled": self.spec_enabled,
+            "spec_proposed": sp,
+            "spec_accepted": sa,
+            "spec_accept_rate": round(sa / sp, 4) if sp else 0.0,
         }

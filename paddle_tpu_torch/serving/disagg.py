@@ -1,0 +1,670 @@
+"""Disaggregated prefill/decode serving: phase-aware routing, KV-page
+migration, and SLO-driven replica re-roling -- PyTorch port of
+``paddle_tpu/serving/disagg.py``.
+
+What the port changes: the payload is a ``KVPageExport`` of torch
+tensors, so migration between two replicas on one card is a
+device-to-device copy (``_same_backend`` compares the payload's device
+with the destination pools'); the host bounce (``.cpu()`` out,
+``.to(device)`` in) runs under ``FLAGS_disagg_migrate_host_bounce`` or
+across devices.  Both replicas of a 1 + 1 server share the card's SMs,
+so on one card the split cannot isolate prefill from decode as separate
+cards do.  The chaos hook reads the port's own
+``paddle_tpu_torch.distributed.fleet.elastic.chaos``.  Tokens of a
+migrated request equal a local request's up to the float tolerance
+between B6 (the local prefill's last row) and B5 (the migrated first
+decode step), as ``decode.py``'s docstring states.
+
+Prefill is compute-bound (one big batched matmul pass over the prompt)
+and decode is memory-bound (one token per step, bandwidth-limited page
+reads); a replica serving both phases wastes both resources and lets
+one long prompt's prefill steal step time from every decoding request
+beside it — the observation behind DistServe (OSDI'24) and Mooncake.
+This module splits one model's replica fleet into two ROLES over the
+existing :class:`~paddle_tpu.serving.decode.DecodeEngine`:
+
+- **Prefill replicas** run only (chunked) prefill: the router submits
+  each request with ``max_new_tokens=1, extract_kv=True``, so the
+  engine prefills all prompt positions, samples (and discards) the
+  first token, and gathers the prompt-covering KV pages into a
+  :class:`~paddle_tpu.serving.kv_cache.KVPageExport` before the slot
+  releases.
+- **Decode replicas** admit by INSTALLING the migrated pages
+  (``submit(kv_import=...)``): admission claims all-fresh pages,
+  scatters the payload into every pool (data pages AND the quantized
+  scale planes), and starts the slot exactly like a full-prefix-cache
+  hit -- lengths begin at ``len(prompt) - 1`` and the first decode step
+  samples with token index 0, the generator a local prefill's first
+  token draws from.
+
+**Migration** is a device-to-device pool-slice copy when the replicas
+share a device (the gather result feeds the destination scatter
+directly), with a host bounce (``.cpu()`` out, ``.to(device)`` in) when
+they do not or when ``FLAGS_disagg_migrate_host_bounce`` forces it.  A migrated-in page is
+a FRESH page owned by its admitting slot — refcount exactly 1, never
+in the destination's :class:`~paddle_tpu.serving.kv_cache.PrefixIndex`
+while slot-owned (``PagedKVCache.debug_check()`` audits exactly that)
+— so refcounts never cross engine boundaries.  Telemetry:
+``migrate_pages_total`` / ``migrate_bytes_total`` / ``migrate_seconds``
+plus a ``serving/migrate`` tracer span per handoff.
+
+**Fault tolerance**: the router watches each prefill leg; a replica
+that dies mid-stream (the ``kill_prefill_replica`` chaos fault, a
+crash, a handoff timeout) fails only that leg — the router re-dispatches
+the request to a surviving prefill replica
+(``disagg_redispatches_total``), falling back to a decode replica's
+local prefill when no prefill capacity remains
+(``disagg_local_fallbacks``), so a replica death drops zero requests.
+
+**Autoscaling** (:class:`Autoscaler`): a policy loop re-roles replicas
+between the two sets at step boundaries — ttft-objective SLO burn
+(``observe/slo.py``) above ``FLAGS_disagg_autoscale_burn_high`` moves
+a decode replica to the prefill set (prefill capacity is what ttft
+burn starves); mean decode queue depth above
+``FLAGS_disagg_autoscale_queue_high`` while burn sits under
+``FLAGS_disagg_autoscale_burn_low`` moves one back.  The split
+thresholds are hysteresis and ``FLAGS_disagg_autoscale_cooldown_s`` is
+the anti-flap floor (a trigger inside the window is counted and
+dropped).  A re-role drains the replica (no new dispatch, in-flight
+work finishes), runs the elastic supervisor's device preflight before
+the replica rejoins, and aborts (undrains) on preflight failure.
+"""
+from __future__ import annotations
+
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, List, Optional, Sequence
+
+from ..framework import flags as _flags
+from ..monitor import stat_add, stat_set
+from ..observe import tracer as otrace
+from .batcher import _UNSET
+from .buckets import QueueFullError, ServerClosedError
+from .kv_cache import KVPageExport
+from .server import least_loaded_order
+
+__all__ = ["Autoscaler", "DisaggConfig", "DisaggRequest", "DisaggServer"]
+
+
+class DisaggConfig:
+    """Static knobs of one :class:`DisaggServer` (defaults from the
+    ``FLAGS_disagg_*`` family; see framework/flags.py for the long
+    rationale of each)."""
+
+    def __init__(self, prefill_replicas: Optional[int] = None,
+                 decode_replicas: Optional[int] = None,
+                 host_bounce: Optional[bool] = None,
+                 handoff_timeout_s: Optional[float] = None,
+                 redispatch_retries: Optional[int] = None,
+                 autoscale_interval_s: Optional[float] = None,
+                 autoscale_cooldown_s: Optional[float] = None,
+                 autoscale_burn_high: Optional[float] = None,
+                 autoscale_burn_low: Optional[float] = None,
+                 autoscale_queue_high: Optional[int] = None,
+                 burn_objective: str = "ttft",
+                 min_prefill: int = 1, min_decode: int = 1,
+                 drain_timeout_s: float = 60.0):
+        def pick(v, default):
+            return default if v is None else v
+
+        self.prefill_replicas = int(pick(
+            prefill_replicas,
+            _flags.flag("disagg_prefill_replicas")))
+        self.decode_replicas = int(pick(
+            decode_replicas,
+            _flags.flag("disagg_decode_replicas")))
+        self.host_bounce = bool(pick(
+            host_bounce,
+            _flags.flag("disagg_migrate_host_bounce")))
+        self.handoff_timeout_s = float(pick(
+            handoff_timeout_s,
+            _flags.flag("disagg_handoff_timeout_s")))
+        self.redispatch_retries = int(pick(
+            redispatch_retries,
+            _flags.flag("disagg_redispatch_retries")))
+        self.autoscale_interval_s = float(pick(
+            autoscale_interval_s,
+            _flags.flag("disagg_autoscale_interval_s")))
+        self.autoscale_cooldown_s = float(pick(
+            autoscale_cooldown_s,
+            _flags.flag("disagg_autoscale_cooldown_s")))
+        self.autoscale_burn_high = float(pick(
+            autoscale_burn_high,
+            _flags.flag("disagg_autoscale_burn_high")))
+        self.autoscale_burn_low = float(pick(
+            autoscale_burn_low,
+            _flags.flag("disagg_autoscale_burn_low")))
+        self.autoscale_queue_high = int(pick(
+            autoscale_queue_high,
+            _flags.flag("disagg_autoscale_queue_high")))
+        self.burn_objective = str(burn_objective)
+        self.min_prefill = int(min_prefill)
+        self.min_decode = int(min_decode)
+        self.drain_timeout_s = float(drain_timeout_s)
+        if self.prefill_replicas < 1 or self.decode_replicas < 1:
+            raise ValueError(
+                "a DisaggServer needs at least one replica per role")
+        if self.autoscale_burn_low > self.autoscale_burn_high:
+            raise ValueError(
+                f"autoscale_burn_low ({self.autoscale_burn_low}) must "
+                f"not exceed autoscale_burn_high "
+                f"({self.autoscale_burn_high}) — the hysteresis band "
+                f"would invert and the autoscaler could flap")
+
+
+class _Replica:
+    """One engine plus its routing state (role/draining/dead are the
+    ROUTER's bookkeeping — the engine itself is role-agnostic)."""
+
+    __slots__ = ("index", "engine", "role", "draining", "dead")
+
+    def __init__(self, index: int, engine, role: str):
+        self.index = index
+        self.engine = engine
+        self.role = role          # "prefill" | "decode"
+        self.draining = False     # autoscaler: no NEW dispatch
+        self.dead = False         # failed mid-stream; never picked again
+
+
+class DisaggRequest:
+    """Client-facing handle for one disaggregated request.
+
+    The request exists before its decode leg does (the prefill +
+    handoff happen first), so this object owns the logical enqueue
+    time and proxies everything else to the decode-side
+    :class:`~paddle_tpu.serving.decode.DecodeRequest` once the handoff
+    binds it.  ``result()`` / ``tokens()`` block through the handoff
+    transparently; a handoff that exhausts its retries fails the
+    request with the underlying error."""
+
+    def __init__(self, prompt: Sequence[int]):
+        self.prompt = [int(t) for t in prompt]
+        self.t_enqueue = time.monotonic()
+        self._bound = threading.Event()
+        self._decode_req = None
+        self._err: Optional[BaseException] = None
+
+    # router side --------------------------------------------------------
+    def _bind(self, decode_req) -> None:
+        self._decode_req = decode_req
+        self._bound.set()
+
+    def _fail(self, err: BaseException) -> None:
+        self._err = err
+        self._bound.set()
+
+    # client side --------------------------------------------------------
+    @property
+    def decode_request(self):
+        """The bound decode-side request (None until the handoff
+        completes)."""
+        return self._decode_req
+
+    @property
+    def error(self) -> Optional[BaseException]:
+        if self._err is not None:
+            return self._err
+        r = self._decode_req
+        return r._error if r is not None else None
+
+    @property
+    def generated(self) -> List[int]:
+        r = self._decode_req
+        return list(r.generated) if r is not None else []
+
+    @property
+    def t_first_token(self) -> Optional[float]:
+        r = self._decode_req
+        return r.t_first_token if r is not None else None
+
+    def done(self) -> bool:
+        if not self._bound.is_set():
+            return False
+        return self._decode_req is None or self._decode_req.done()
+
+    def _wait_bound(self, timeout: Optional[float]) -> float:
+        t0 = time.monotonic()
+        if not self._bound.wait(timeout):
+            raise TimeoutError(
+                "disagg handoff did not complete within the wait "
+                "budget")
+        if self._decode_req is None:
+            raise self._err
+        if timeout is None:
+            return None
+        return max(timeout - (time.monotonic() - t0), 0.0)
+
+    def result(self, timeout: Optional[float] = None) -> List[int]:
+        rem = self._wait_bound(timeout)
+        return self._decode_req.result(timeout=rem)
+
+    def tokens(self, timeout: Optional[float] = None):
+        rem = self._wait_bound(timeout)
+        yield from self._decode_req.tokens(timeout=rem)
+
+
+class DisaggServer:
+    """Phase-aware router over a prefill replica set and a decode
+    replica set of :class:`~paddle_tpu.serving.decode.DecodeEngine`
+    (module docstring has the full mechanics).  Construction mirrors
+    :class:`~paddle_tpu.serving.server.DecodeServer`: every replica is
+    a full engine over the one model's parameters (loaded once from
+    ``weights``, or the ones the model holds when None), on the model's
+    device; roles (and the autoscaler's re-roling) are pure router
+    bookkeeping."""
+
+    def __init__(self, model, weights, config=None,
+                 disagg: Optional[DisaggConfig] = None,
+                 autoscale: bool = False,
+                 autoscaler_kw: Optional[dict] = None):
+        from .decode import DecodeConfig, DecodeEngine
+
+        self.config = config or DecodeConfig()
+        self.disagg = disagg or DisaggConfig()
+        d = self.disagg
+        if weights is not None:
+            model.load_weights(weights)
+        total = d.prefill_replicas + d.decode_replicas
+        self._replicas: List[_Replica] = []
+        for i in range(total):
+            role = "prefill" if i < d.prefill_replicas else "decode"
+            eng = DecodeEngine(model, None, self.config,
+                               name=f"disagg-{i}")
+            self._replicas.append(_Replica(i, eng, role))
+        self._lock = threading.Lock()
+        self._seq = 0  # router-level seed counter: both legs of one
+        # request must sample from the SAME seed
+        self._pool = ThreadPoolExecutor(
+            max_workers=max(4, 2 * total),
+            thread_name_prefix="disagg-handoff")
+        self._started = False
+        self.autoscaler = Autoscaler(self, **(autoscaler_kw or {})) \
+            if autoscale else None
+
+    # -- replica sets -----------------------------------------------------
+    @property
+    def replicas(self) -> List[_Replica]:
+        return list(self._replicas)
+
+    def role_replicas(self, role: str) -> List[_Replica]:
+        """Live, dispatchable replicas of ``role`` (dead and draining
+        excluded)."""
+        with self._lock:
+            return [r for r in self._replicas
+                    if r.role == role and not r.dead and not r.draining]
+
+    def _role_counts(self):
+        with self._lock:
+            pre = sum(1 for r in self._replicas
+                      if r.role == "prefill" and not r.dead)
+            dec = sum(1 for r in self._replicas
+                      if r.role == "decode" and not r.dead)
+        stat_set("disagg_prefill_replicas", pre)
+        stat_set("disagg_decode_replicas", dec)
+        return pre, dec
+
+    def _pick(self, role: str) -> List[_Replica]:
+        """Deterministic least-loaded order over one role set — the
+        same (free_slots, queue_depth, index) order as
+        :func:`~paddle_tpu.serving.server.least_loaded_order`."""
+        reps = self.role_replicas(role)
+        engines = least_loaded_order([r.engine for r in reps])
+        by_eng = {id(r.engine): r for r in reps}
+        return [by_eng[id(e)] for e in engines]
+
+    # -- lifecycle --------------------------------------------------------
+    def start(self) -> "DisaggServer":
+        if self._started:
+            return self
+        for r in self._replicas:
+            r.engine.start()
+        self._started = True
+        self._role_counts()
+        if self.autoscaler is not None:
+            self.autoscaler.start()
+        from ..observe import flight as _flight
+
+        _flight.record("serving/disagg_start",
+                       prefill=self.disagg.prefill_replicas,
+                       decode=self.disagg.decode_replicas)
+        return self
+
+    def stop(self, drain: bool = True):
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
+        self._pool.shutdown(wait=drain)
+        for r in self._replicas:
+            if not r.dead:
+                r.engine.stop(drain=drain)
+        self._started = False
+
+    def __enter__(self) -> "DisaggServer":
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop(drain=exc[0] is None)
+        return False
+
+    # -- request path -----------------------------------------------------
+    def submit(self, prompt, max_new_tokens=None, temperature: float = 0.0,
+               top_k: int = 0, top_p: float = 1.0,
+               seed: Optional[int] = None, deadline_ms=_UNSET,
+               on_token: Optional[Callable[[int], None]] = None,
+               record_logits: bool = False) -> DisaggRequest:
+        if not self._started:
+            raise ServerClosedError("DisaggServer is not started")
+        with self._lock:
+            if seed is None:
+                seed = self._seq
+            self._seq += 1
+        kw = {"max_new_tokens": max_new_tokens,
+              "temperature": float(temperature), "top_k": int(top_k),
+              "top_p": float(top_p), "seed": int(seed),
+              "deadline_ms": deadline_ms, "on_token": on_token,
+              "record_logits": bool(record_logits)}
+        dreq = DisaggRequest(prompt)
+        stat_add("disagg_requests_total")
+        self._dispatch_prefill(dreq, kw, attempt=0)
+        return dreq
+
+    def generate(self, prompt, **kw) -> List[int]:
+        return self.submit(prompt, **kw).result()
+
+    def _kill_replica(self, rep: _Replica) -> None:
+        """Hard-stop one replica (chaos / observed failure): its
+        in-flight requests die with ServerClosedError and the router
+        never picks it again."""
+        with self._lock:
+            if rep.dead:
+                return
+            rep.dead = True
+        stat_add("disagg_replica_deaths")
+        from ..observe import flight as _flight
+
+        _flight.record("serving/disagg_replica_death",
+                       replica=rep.index, role=rep.role)
+        rep.engine.stop(drain=False)
+        self._role_counts()
+
+    def _dispatch_prefill(self, dreq: DisaggRequest, kw: dict,
+                          attempt: int) -> None:
+        """Submit the prefill leg to the least-loaded live prefill
+        replica and hand the future to a handoff worker.  With no
+        prefill capacity left, degrade to a decode replica's LOCAL
+        prefill — a dead prefill fleet slows requests down but never
+        drops them."""
+        for rep in self._pick("prefill"):
+            try:
+                preq = rep.engine.submit(
+                    dreq.prompt, max_new_tokens=1,
+                    temperature=kw["temperature"], top_k=kw["top_k"],
+                    top_p=kw["top_p"], seed=kw["seed"],
+                    deadline_ms=None, extract_kv=True)
+            except (QueueFullError, ServerClosedError):
+                continue
+            self._pool.submit(self._handoff, dreq, preq, rep, kw,
+                              attempt)
+            return
+        stat_add("disagg_local_fallbacks")
+        self._submit_decode(dreq, kw, kv_import=None)
+
+    def _submit_decode(self, dreq: DisaggRequest, kw: dict,
+                       kv_import) -> None:
+        """Bind the decode leg (migrated when ``kv_import`` is given,
+        local-prefill fallback otherwise) on the least-loaded decode
+        replica, falling through on full queues like DecodeServer."""
+        last_err: Optional[BaseException] = None
+        for rep in self._pick("decode"):
+            try:
+                r = rep.engine.submit(
+                    dreq.prompt, max_new_tokens=kw["max_new_tokens"],
+                    deadline_ms=kw["deadline_ms"],
+                    temperature=kw["temperature"], top_k=kw["top_k"],
+                    top_p=kw["top_p"], seed=kw["seed"],
+                    on_token=kw["on_token"],
+                    record_logits=kw["record_logits"],
+                    kv_import=kv_import)
+            except (QueueFullError, ServerClosedError) as e:
+                last_err = e
+                continue
+            dreq._bind(r)
+            return
+        stat_add("disagg_dropped_requests")
+        dreq._fail(last_err if last_err is not None else
+                   ServerClosedError("no live decode replicas"))
+
+    @staticmethod
+    def _same_backend(export: KVPageExport, engine) -> bool:
+        """True when the payload's tensors already live on the
+        destination engine's device (the install is then a
+        device-to-device scatter)."""
+        return export.device == engine._cache.target.k_pages.device
+
+    def _handoff(self, dreq: DisaggRequest, preq, rep: _Replica,
+                 kw: dict, attempt: int) -> None:
+        """One handoff worker: wait for the prefill leg, migrate its
+        pages, bind the decode leg.  Any prefill-side failure
+        re-dispatches (up to ``disagg_redispatch_retries``) instead of
+        surfacing to the client."""
+        d = self.disagg
+        # chaos hook: kill the named prefill replica while its prefill
+        # is in flight — the recovery path below must finish the
+        # request on a survivor (the module is only consulted when
+        # something already imported it, the chaos-armory idiom)
+        ch = sys.modules.get(
+            "paddle_tpu_torch.distributed.fleet.elastic.chaos")
+        if ch is not None and ch.take("kill_prefill_replica",
+                                      replica=rep.index) is not None:
+            self._kill_replica(rep)
+        err: Optional[BaseException] = None
+        try:
+            preq.result(timeout=d.handoff_timeout_s)
+        except Exception as e:  # noqa: BLE001 — every failure of the
+            err = e             # leg routes the same way: re-dispatch
+        export = preq.kv_export
+        if err is None and export is None:
+            err = RuntimeError(
+                "prefill leg completed without a KV export")
+        if err is not None:
+            stat_add("disagg_prefill_failures")
+            if isinstance(err, (ServerClosedError, TimeoutError)):
+                # the replica itself is gone/wedged, not the request
+                self._kill_replica(rep)
+            if attempt < d.redispatch_retries:
+                stat_add("disagg_redispatches_total")
+                self._dispatch_prefill(dreq, kw, attempt + 1)
+            else:
+                stat_add("disagg_dropped_requests")
+                dreq._fail(err)
+            return
+        with otrace.span("serving/migrate", replica=rep.index,
+                         pages=export.n_pages, bytes=export.nbytes):
+            dst_order = self._pick("decode")
+            bounce = d.host_bounce or not (
+                dst_order and self._same_backend(
+                    export, dst_order[0].engine))
+            if bounce:
+                # host-bounce transport: materialize on the host; the
+                # destination's install copies into its pools
+                export = KVPageExport(
+                    n_tokens=export.n_tokens, n_pages=export.n_pages,
+                    src_pages=export.src_pages,
+                    arrays={k: v.cpu() for k, v in export.arrays.items()},
+                    quantized=export.quantized,
+                    page_size=export.page_size)
+                stat_add("migrate_host_bounce_total")
+            else:
+                stat_add("migrate_device_copies_total")
+            self._submit_decode(dreq, kw, kv_import=export)
+        stat_add("disagg_handoffs_total")
+
+    # -- observability ----------------------------------------------------
+    def stats(self) -> dict:
+        from ..monitor import stat_get
+
+        pre, dec = self._role_counts()
+        out = {
+            "prefill_replicas": pre,
+            "decode_replicas": dec,
+            "handoffs_total": stat_get("disagg_handoffs_total"),
+            "redispatches_total":
+                stat_get("disagg_redispatches_total"),
+            "local_fallbacks": stat_get("disagg_local_fallbacks"),
+            "replica_deaths": stat_get("disagg_replica_deaths"),
+            "migrate_pages_total": stat_get("migrate_pages_total"),
+            "migrate_bytes_total": stat_get("migrate_bytes_total"),
+            "replicas": [
+                {"index": r.index, "role": r.role, "dead": r.dead,
+                 "draining": r.draining,
+                 "free_slots": 0 if r.dead else r.engine.free_slots,
+                 "queue_depth": 0 if r.dead else r.engine.queue_depth}
+                for r in self._replicas],
+        }
+        return out
+
+
+class Autoscaler:
+    """SLO-driven re-roling between the prefill and decode sets (see
+    the module docstring for the policy).  Every signal is injectable
+    — ``burn_fn`` (ttft-objective SLO burn), ``queue_fn`` (mean decode
+    queue depth), ``preflight`` (the elastic supervisor's device
+    probe), ``clock``/``sleep`` — so tests pin the policy without real
+    traffic; the defaults read the live SLO plane and run the real
+    subprocess preflight."""
+
+    def __init__(self, server: DisaggServer,
+                 burn_fn: Optional[Callable[[], float]] = None,
+                 queue_fn: Optional[Callable[[], float]] = None,
+                 preflight: Optional[Callable[[], bool]] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 sleep: Callable[[float], None] = time.sleep):
+        self._server = server
+        self._cfg = server.disagg
+        self._burn_fn = burn_fn or self._default_burn
+        self._queue_fn = queue_fn or self._default_queue
+        self._preflight = preflight or self._default_preflight
+        self._clock = clock
+        self._sleep = sleep
+        self._last_rerole = -float("inf")
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- default signals --------------------------------------------------
+    def _default_burn(self) -> float:
+        """Max burn rate (across windows) of every SLO objective whose
+        name contains the configured ``burn_objective`` substring
+        (default ``ttft``)."""
+        from ..observe import slo as _slo
+
+        best = 0.0
+        for name, rates in _slo.snapshot().get("burn_rates",
+                                               {}).items():
+            if self._cfg.burn_objective not in name:
+                continue
+            best = max(best, max(rates.values(), default=0.0))
+        return best
+
+    def _default_queue(self) -> float:
+        reps = self._server.role_replicas("decode")
+        if not reps:
+            return 0.0
+        return sum(r.engine.queue_depth for r in reps) / len(reps)
+
+    def _default_preflight(self) -> bool:
+        from ..distributed.fleet.elastic.preflight import \
+            preflight_device
+
+        return preflight_device(attempts=1).ok
+
+    # -- policy -----------------------------------------------------------
+    def tick(self) -> Optional[str]:
+        """One policy evaluation; returns the re-role performed
+        (``"decode->prefill"`` / ``"prefill->decode"``) or None."""
+        cfg = self._cfg
+        burn = float(self._burn_fn())
+        queue = float(self._queue_fn())
+        stat_set("autoscale_burn_ppm", int(burn * 1e6))
+        stat_set("autoscale_decode_queue_depth_micro",
+                 int(queue * 1e6))
+        pre = self._server.role_replicas("prefill")
+        dec = self._server.role_replicas("decode")
+        self._server._role_counts()
+        if burn >= cfg.autoscale_burn_high \
+                and len(dec) > cfg.min_decode:
+            want, src, dst = "decode->prefill", "decode", "prefill"
+        elif queue >= cfg.autoscale_queue_high \
+                and burn <= cfg.autoscale_burn_low \
+                and len(pre) > cfg.min_prefill:
+            want, src, dst = "prefill->decode", "prefill", "decode"
+        else:
+            return None
+        now = self._clock()
+        if now - self._last_rerole < cfg.autoscale_cooldown_s:
+            # anti-flap: inside the cooldown a trigger is counted and
+            # DROPPED (never queued — the signal will still be there
+            # next tick if it is real)
+            stat_add("autoscale_cooldown_skips_total")
+            return None
+        if not self._rerole(src, dst):
+            return None
+        self._last_rerole = self._clock()
+        return want
+
+    def _rerole(self, src_role: str, dst_role: str) -> bool:
+        """Drain the least-loaded ``src_role`` replica, preflight it,
+        and move it to ``dst_role``.  Aborts (undrains, False) on
+        drain timeout or preflight failure."""
+        order = self._server._pick(src_role)
+        if not order:
+            return False
+        rep = order[0]
+        rep.draining = True  # router skips it from here on
+        from ..observe import flight as _flight
+
+        _flight.record("serving/autoscale_drain", replica=rep.index,
+                       src=src_role, dst=dst_role)
+        t0 = self._clock()
+        while rep.engine.live_slots or rep.engine.queue_depth:
+            if self._clock() - t0 > self._cfg.drain_timeout_s:
+                rep.draining = False
+                stat_add("autoscale_drain_timeouts")
+                return False
+            self._sleep(0.01)
+        # a replica rejoining a set must prove its device works FIRST
+        if not self._preflight():
+            rep.draining = False
+            stat_add("autoscale_preflight_failures")
+            return False
+        with self._server._lock:
+            rep.role = dst_role
+            rep.draining = False
+        stat_add("autoscale_reroles_total")
+        self._server._role_counts()
+        _flight.record("serving/autoscale_rerole", replica=rep.index,
+                       src=src_role, dst=dst_role)
+        return True
+
+    # -- background loop --------------------------------------------------
+    def start(self) -> "Autoscaler":
+        if self._thread is not None:
+            return self
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name="disagg-autoscaler")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._cfg.autoscale_interval_s):
+            try:
+                self.tick()
+            except Exception:  # noqa: BLE001 — the policy loop must
+                stat_add("autoscale_tick_errors")  # outlive any signal

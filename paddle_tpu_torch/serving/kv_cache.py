@@ -19,13 +19,22 @@ are torch tensors on the cache's device, held as attributes of the
 page: dead rows write there, with duplicate indices whose winner does
 not matter, and reads are always masked by length.
 
-The migration payload (``KVPageExport``, ``export_pages``,
-``install_pages``) of disaggregated serving waits for a later slice.
+Two more sets of pools share the page ids: a speculative engine's draft
+pools (``add_draft_pools``: ``[draft_layers, num_pages, page_size,
+draft_heads, draft_head_dim]``, plus their scale planes when quantized),
+which copy-on-write (``copy_page``), the freed-page scale reset and
+``debug_check`` cover as the JAX package's ``scale_vars`` list does; and
+the migration payload of disaggregated serving (``KVPageExport``), which
+``export_pages`` gathers out of the target pools and ``install_pages``
+scatters into a slot's fresh pages.  A migrated-in page is audited by
+``debug_check``: refcount 1 and never in the ``PrefixIndex`` while its
+slot owns it.
 """
 from __future__ import annotations
 
 import math
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +42,7 @@ import torch
 
 from ..framework.place import DeviceLike, default_device
 from ..monitor import stat_add
+from ..observe.histogram import stat_time
 from ..ops.quant_ops import SCALE_EPS
 
 KV_QMAX = 127.0  # symmetric int8 grid for quantized pages
@@ -54,6 +64,73 @@ def torch_dtype(dtype) -> torch.dtype:
 
 class CacheExhaustedError(RuntimeError):
     """The page pool cannot cover a request's worst-case reservation."""
+
+
+class KVPageExport:
+    """A self-describing export of one slot's leading KV pages -- the
+    disaggregated-serving migration payload (serving/disagg.py).
+
+    ``arrays`` maps every target pool's name (``k_pages``, ``v_pages``
+    and, when quantized, ``k_scales``, ``v_scales``) to a ``[layers,
+    n_pages, ...]`` slice gathered out of the source pool.  The slices
+    are fresh tensors (an index gather never aliases the pool), so a
+    payload stays valid after the source engine's next step; ``.cpu()``
+    each for the host-bounce transport.  ``quantized`` and ``page_size``
+    let the destination reject a geometry-mismatched install before
+    touching its pools."""
+
+    __slots__ = ("n_tokens", "n_pages", "src_pages", "arrays",
+                 "quantized", "page_size", "nbytes")
+
+    def __init__(self, n_tokens: int, n_pages: int,
+                 src_pages: Sequence[int], arrays: Dict[str, torch.Tensor],
+                 quantized: bool, page_size: int):
+        self.n_tokens = int(n_tokens)
+        self.n_pages = int(n_pages)
+        self.src_pages = list(src_pages)
+        self.arrays = dict(arrays)
+        self.quantized = bool(quantized)
+        self.page_size = int(page_size)
+        self.nbytes = sum(a.numel() * a.element_size()
+                          for a in self.arrays.values())
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.arrays.values())).device
+
+
+class PoolSet:
+    """One model's page pools over the cache's page ids: K/V pages
+    ``[layers, num_pages, page_size, heads, head_dim]`` and, quantized,
+    their scale planes ``[layers, num_pages, page_size, heads]``."""
+
+    __slots__ = ("k_pages", "v_pages", "k_scales", "v_scales")
+
+    def __init__(self, config: "CacheConfig", num_layers, num_heads,
+                 head_dim, device):
+        c = config
+        shape = (num_layers, c.num_pages, c.page_size, num_heads, head_dim)
+        self.k_pages = torch.zeros(shape, dtype=c.store_dtype, device=device)
+        self.v_pages = torch.zeros(shape, dtype=c.store_dtype, device=device)
+        self.k_scales: Optional[torch.Tensor] = None
+        self.v_scales: Optional[torch.Tensor] = None
+        if c.quantized:
+            self.k_scales = torch.full(shape[:-1], SCALE_EPS,
+                                       dtype=c.scale_dtype, device=device)
+            self.v_scales = torch.full(shape[:-1], SCALE_EPS,
+                                       dtype=c.scale_dtype, device=device)
+
+    def named(self) -> Dict[str, torch.Tensor]:
+        """Every pool by name: pages, then scale planes when present."""
+        out = {"k_pages": self.k_pages, "v_pages": self.v_pages}
+        if self.k_scales is not None:
+            out.update(k_scales=self.k_scales, v_scales=self.v_scales)
+        return out
+
+    def scales(self, layer):
+        if self.k_scales is None:
+            return None, None
+        return self.k_scales[layer], self.v_scales[layer]
 
 
 class CacheConfig:
@@ -368,33 +445,49 @@ class PagedKVCache:
         # reserved CoW target for a borrowed partial page (at most one)
         self._cow_spare: List[List[int]] = [[] for _ in range(c.num_slots)]
         self._refs = [0] * c.num_pages
-        shape = (c.num_layers, c.num_pages, c.page_size, c.num_heads,
-                 c.head_dim)
-        self.k_pages = torch.zeros(shape, dtype=c.store_dtype,
-                                   device=self.device)
-        self.v_pages = torch.zeros(shape, dtype=c.store_dtype,
-                                   device=self.device)
-        # quantized mode: parallel per-page scale pools (one scale per
-        # head per position-in-page), plus the freed-page reset queue
-        # the scale audit relies on
-        self.k_scales: Optional[torch.Tensor] = None
-        self.v_scales: Optional[torch.Tensor] = None
+        self.target = PoolSet(c, c.num_layers, c.num_heads, c.head_dim,
+                              self.device)
+        # a speculative engine's draft pools (add_draft_pools): same page
+        # ids, so copy-on-write, scale resets and the audit cover them
+        self.draft: Optional[PoolSet] = None
+        # quantized mode: the freed-page reset queue the scale audit
+        # relies on
         self._pending_scale_resets: List[int] = []
-        if c.quantized:
-            sshape = shape[:-1]
-            self.k_scales = torch.full(sshape, SCALE_EPS,
-                                       dtype=c.scale_dtype,
-                                       device=self.device)
-            self.v_scales = torch.full(sshape, SCALE_EPS,
-                                       dtype=c.scale_dtype,
-                                       device=self.device)
+        # pages installed by a disagg migration, while owned by their
+        # admitting slot: page id -> slot.  An installed page is a FRESH
+        # page (refcount exactly 1, never index-registered) until its
+        # slot releases -- debug_check audits exactly that.
+        self._migrated_in: Dict[int, int] = {}
+
+    def add_draft_pools(self, num_layers: int, num_heads: int,
+                        head_dim: int) -> PoolSet:
+        """Allocate a draft model's pools over this cache's page ids (the
+        speculative decode engine's; the JAX engine's ``DRAFT_*`` scope
+        vars)."""
+        c = self.config
+        self.draft = PoolSet(c, num_layers, num_heads, head_dim,
+                             self.device)
+        return self.draft
+
+    def _pool_sets(self) -> List[PoolSet]:
+        return [self.target] + ([self.draft] if self.draft else [])
 
     def pools(self) -> Tuple[torch.Tensor, ...]:
-        """Every pool indexed by page id: K/V pages, plus the scale
-        pools when quantized (what a copy-on-write must copy)."""
-        if self.config.quantized:
-            return self.k_pages, self.v_pages, self.k_scales, self.v_scales
-        return self.k_pages, self.v_pages
+        """Every pool indexed by page id -- target and draft K/V pages,
+        plus their scale pools when quantized (what a copy-on-write must
+        copy)."""
+        return tuple(t for ps in self._pool_sets()
+                     for t in ps.named().values())
+
+    def scale_pools(self) -> Dict[str, torch.Tensor]:
+        """Every scale pool by name (``draft_`` prefixed for the draft's):
+        what the freed-page reset and the audit cover."""
+        out = {}
+        for prefix, ps in zip(("", "draft_"), self._pool_sets()):
+            if ps.k_scales is not None:
+                out[prefix + "k_scales"] = ps.k_scales
+                out[prefix + "v_scales"] = ps.v_scales
+        return out
 
     def _fire(self, slot, name, **attrs) -> None:
         hook = self.on_event
@@ -418,6 +511,7 @@ class PagedKVCache:
                 f"held")
         if r == 0:
             self.allocator.free([pid])
+            self._migrated_in.pop(pid, None)
             if self.config.quantized:
                 # hygiene + auditability: a freed page's scale plane is
                 # reset to SCALE_EPS (flushed in one batched device op
@@ -429,14 +523,15 @@ class PagedKVCache:
                 self._pending_scale_resets.append(pid)
 
     def flush_scale_resets(self) -> None:
-        """Apply pending freed-page scale resets to both scale pools, in
-        place.  Runs on the owner thread between step dispatches."""
+        """Apply pending freed-page scale resets to every scale pool (the
+        target's and the draft's), in place.  Runs on the owner thread
+        between step dispatches."""
         if not self._pending_scale_resets:
             return
         pids = torch.as_tensor(sorted(set(self._pending_scale_resets)),
                                dtype=torch.int64, device=self.device)
         self._pending_scale_resets = []
-        for arr in (self.k_scales, self.v_scales):
+        for arr in self.scale_pools().values():
             arr[:, pids] = SCALE_EPS
 
     def refcount(self, pid: int) -> int:
@@ -539,6 +634,11 @@ class PagedKVCache:
         hold), those pages are first registered in the prefix index —
         the index takes its own reference, so registered pages survive
         the release for future prompts to share."""
+        # a migrated-in page's owned-fresh invariant ends with its slot:
+        # from here it is an ordinary page (registrable, sharable,
+        # freeable)
+        for pid in self._slot_pages[slot]:
+            self._migrated_in.pop(pid, None)
         if register_tokens and self.prefix is not None:
             n_pages = self.config.pages_for(len(register_tokens))
             new = self.prefix.register(
@@ -558,6 +658,59 @@ class PagedKVCache:
 
     def slot_pages(self, slot: int) -> List[int]:
         return list(self._slot_pages[slot])
+
+    # -- disaggregated-serving page migration -----------------------------
+    def export_pages(self, pages: Sequence[int]) -> Dict[str, torch.Tensor]:
+        """Gather the given page ids out of every target pool (data pages
+        + scale planes when quantized) into fresh tensors, keyed by pool
+        name.  Runs on the engine thread between steps; the gather is a
+        copy, so the payload survives the source's next step."""
+        idx = torch.as_tensor([int(p) for p in pages], dtype=torch.int64,
+                              device=self.device)
+        return {name: pool[:, idx]
+                for name, pool in self.target.named().items()}
+
+    def install_pages(self, slot: int, export: KVPageExport) -> None:
+        """Scatter a migrated payload into the slot's leading
+        ``export.n_pages`` table pages (claimed fresh -- a migrated
+        admission never prefix-shares, so every destination page is
+        solely owned).  Covers every pool the payload carries; a payload
+        on another device is copied in (the host bounce).  Records
+        ``migrate_pages_total`` / ``migrate_bytes_total`` /
+        ``migrate_seconds``.  Engine-thread-only, like every pool
+        mutation."""
+        t0 = time.monotonic()
+        pools = self.target.named()
+        if set(export.arrays) != set(pools):
+            raise ValueError(
+                f"migration payload pools {sorted(export.arrays)} do "
+                f"not match destination pools {sorted(pools)} -- "
+                f"source/destination kv_quant configs disagree")
+        if export.page_size != self.config.page_size:
+            raise ValueError(
+                f"migration payload page_size {export.page_size} != "
+                f"destination page_size {self.config.page_size}")
+        dst = self._slot_pages[slot][:export.n_pages]
+        if len(dst) < export.n_pages:
+            raise ValueError(
+                f"slot {slot} holds {len(dst)} pages but the payload "
+                f"carries {export.n_pages}")
+        idx = torch.as_tensor(dst, dtype=torch.int64, device=self.device)
+        for name, pool in pools.items():
+            arr = export.arrays[name]
+            want = (pool.shape[0], export.n_pages) + tuple(pool.shape[2:])
+            if tuple(arr.shape) != want:
+                raise ValueError(
+                    f"migration payload {name} shape "
+                    f"{tuple(arr.shape)} != expected {want}")
+            pool[:, idx] = arr.to(pool.device, pool.dtype)
+        for pid in dst:
+            self._migrated_in[pid] = slot
+        stat_add("migrate_pages_total", export.n_pages)
+        stat_add("migrate_bytes_total", export.nbytes)
+        stat_time("migrate_seconds", time.monotonic() - t0)
+        self._fire(slot, "migrate_install", pages=list(dst),
+                   bytes=export.nbytes)
 
     # -- copy-on-write ----------------------------------------------------
     def writable(self, slot: int, position: int) -> bool:
@@ -616,7 +769,8 @@ class PagedKVCache:
 
     def copy_page(self, src: int, dst: int) -> None:
         """The device half of copy-on-write: page ``src`` onto page
-        ``dst`` in every pool (all layers), in place."""
+        ``dst`` in every pool (all layers; target and draft, scale planes
+        included), in place."""
         for pool in self.pools():
             pool[:, dst] = pool[:, src]
 
@@ -649,14 +803,29 @@ class PagedKVCache:
             assert in_free == (self._refs[pid] == 0), (
                 f"page {pid}: refcount {self._refs[pid]} but "
                 f"{'on' if in_free else 'not on'} the free list")
+        # migrated-in pages (disagg): while owned by their admitting slot
+        # an installed page is FRESH -- exactly one reference (the
+        # slot's), never pinned by the prefix index, and (quantized)
+        # carrying the live scale plane the source wrote
+        for pid, slot in self._migrated_in.items():
+            assert self._refs[pid] == 1, (
+                f"migrated-in page {pid} (slot {slot}): refcount "
+                f"{self._refs[pid]} != 1 -- a migrated page leaked into "
+                f"sharing before its slot released")
+            assert self.prefix is None or \
+                not self.prefix.is_registered(pid), (
+                    f"migrated-in page {pid} (slot {slot}) is registered "
+                    f"in the prefix index while still slot-owned")
+            assert pid in self._slot_pages[slot], (
+                f"migrated-in page {pid} not in slot {slot}'s table")
         if not self.config.quantized:
             return
         free_idx = np.asarray(sorted(free), np.int64)
-        for name, pool in (("k_scales", self.k_scales),
-                           ("v_scales", self.v_scales)):
+        mig_idx = np.asarray(sorted(self._migrated_in), np.int64)
+        for name, pool in self.scale_pools().items():
             arr = pool.cpu().numpy()
             assert np.isfinite(arr).all(), (
-                f"scale pool {name} holds non-finite scales — a write "
+                f"scale pool {name} holds non-finite scales -- a write "
                 f"path stored an unclamped/overflowed scale")
             assert (arr > 0).all(), (
                 f"scale pool {name} holds non-positive scales")
@@ -665,8 +834,14 @@ class PagedKVCache:
                 bad = np.any(stale != np.float32(SCALE_EPS), axis=(0, 2, 3))
                 assert not bad.any(), (
                     f"scale pool {name}: freed pages "
-                    f"{free_idx[bad].tolist()} kept live scales — a free "
+                    f"{free_idx[bad].tolist()} kept live scales -- a free "
                     f"path skipped the reset")
+            if len(mig_idx) and not name.startswith("draft_"):
+                plane = arr[:, mig_idx]
+                assert np.isfinite(plane).all() and (plane > 0).all(), (
+                    f"scale pool {name}: migrated-in pages "
+                    f"{mig_idx.tolist()} hold non-finite/non-positive "
+                    f"scales -- the migration dropped a scale plane")
 
 
 # -- device-side helpers (update the page pools IN PLACE) ------------------

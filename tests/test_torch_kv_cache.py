@@ -167,6 +167,7 @@ def test_in_place_writes_match_jax(quant):
 
     rs = np.random.RandomState(2)
     jc, tc = _caches(quantized=quant)
+    tp = tc.target
     jk = jc.scope.get_var(jkv.K_PAGES_VAR)
     js = jc.scope.get_var(jkv.K_SCALES_VAR) if quant else None
     tok = rs.randn(3, H, D).astype("f4")
@@ -175,37 +176,38 @@ def test_in_place_writes_match_jax(quant):
     tok[2] = tok[1]  # duplicate trash writes carry identical values
     jk, js = jkv.write_token_layer(jk, js, 1, jnp.asarray(tok),
                                    jnp.asarray(page_id), jnp.asarray(off))
-    ptr = tc.k_pages.data_ptr()
-    tkv.write_token_layer(tc.k_pages, tc.k_scales, 1, torch.from_numpy(tok),
+    ptr = tp.k_pages.data_ptr()
+    tkv.write_token_layer(tp.k_pages, tp.k_scales, 1, torch.from_numpy(tok),
                           torch.from_numpy(page_id), torch.from_numpy(off))
     prompt = rs.randn(2 * PAGE, H, D).astype("f4")
     pages = np.array([7, 3], "i4")
     jk, js = jkv.write_prompt_layer(jk, js, 0, jnp.asarray(prompt),
                                     jnp.asarray(pages))
-    tkv.write_prompt_layer(tc.k_pages, tc.k_scales, 0,
+    tkv.write_prompt_layer(tp.k_pages, tp.k_scales, 0,
                            torch.from_numpy(prompt), torch.from_numpy(pages))
-    assert tc.k_pages.data_ptr() == ptr      # updated in place
-    np.testing.assert_array_equal(tc.k_pages.numpy(), np.asarray(jk))
+    assert tp.k_pages.data_ptr() == ptr      # updated in place
+    np.testing.assert_array_equal(tp.k_pages.numpy(), np.asarray(jk))
     if quant:
-        np.testing.assert_array_equal(tc.k_scales.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(tp.k_scales.numpy(), np.asarray(js))
 
 
 def test_copy_page_and_freed_scale_reset():
     _, tc = _caches(quantized=True)
+    tp = tc.target
     info = tc.claim(0, 8, prompt=[1, 2, 3, 4, 5])
     assert info.fresh_pages == 2
     src, dst = tc.slot_pages(0)
     val = torch.randn(2, H, D)
-    tkv.write_token_layer(tc.k_pages, tc.k_scales, 1, val,
+    tkv.write_token_layer(tp.k_pages, tp.k_scales, 1, val,
                           torch.tensor([src, src]), torch.tensor([0, 1]))
     tc.copy_page(src, dst)
     for pool in tc.pools():
         assert torch.equal(pool[:, dst], pool[:, src])
     tc.release(0)
     # both freed pages: scale planes back to SCALE_EPS, audit passes
-    assert torch.all(tc.k_scales[:, [src, dst]] == SCALE_EPS)
+    assert torch.all(tp.k_scales[:, [src, dst]] == SCALE_EPS)
     tc.debug_check()
-    tc.k_scales[0, src, 0, 0] = 2.0          # a stale live scale
+    tp.k_scales[0, src, 0, 0] = 2.0          # a stale live scale
     with pytest.raises(AssertionError, match="freed pages"):
         tc.debug_check()
 
