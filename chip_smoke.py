@@ -357,6 +357,56 @@ summation order only); a divergence at a larger margin fails the phase.
                warmed ``Predictor``, whose outputs each request's agree
                with within INFER_ORACLE_TOL.
 
+Slice 15's phases run after ``train_profile`` (the first five, on phase
+7's fused bf16 BERT-base at batch 32, built once; every timed step a
+replay launching B1 24 times, checked around each run) and after
+``nn_extras`` (the last).  ``max_inflight_steps`` is the default 2 but
+where a phase sets it.
+
+35. pipelined -- one startup state copied with ``snapshot_scope`` /
+               ``restore_scope``; ``warmup``; 30 steps at
+               ``max_inflight_steps`` 0, then 30 at 2 (four feeds cycled
+               by step): losses and the final state (parameters, AdamW
+               moments, the generator) bit-equal; step p50 of each,
+               ``fetch_sync_seconds`` and the in-flight gauge's maximum
+               (2); then 20 steps at each window with a feed that sleeps
+               40 ms a batch (a loader's host time): ms a step;
+36. ckpt_resume -- 200 steps at window 2 with ``CheckpointManager(keep_n=2,
+               async_save=True)`` saving every 50: each save's blocking
+               seconds, the writer's seconds (copy wait, serialize +
+               write, fsync, SHA-256, commit), bytes, the coalesced saves,
+               the step p50 of the 5 steps after each save against the
+               run's; a second run whose commit of step 150 crashes
+               (``set_fault_hook``): ``step_150.tmp`` on disk, 100 the
+               newest intact step; a fresh ``Executor`` and ``Scope``
+               restore it and run 101-200: losses and final state
+               bit-equal to the first run; a byte flipped in the newest
+               shard falls back to 50 (``ckpt_restore_fallbacks``); a
+               bfloat16 var round-trips bit-equal and ``ml_dtypes`` was
+               never imported;
+37. nan_scan -- ``FLAGS_check_nan_inf=1``: still captured (replays
+               counted), step p50 with the scan beside without; layer 0's
+               query weight set to inf: the next run raises naming the
+               first op that reads it (its type, build site and index in
+               the compiled block), and ``snapshot_scope`` refuses the
+               scope after it;
+38. prune   -- ``run(main, fetch_list=[loss], use_prune=True)``: every
+               parameter and moment bit-unchanged, the loss within 1e-6
+               of an unpruned run's from the same state and generator
+               state; the pruned step's ms;
+39. auto_checkpoint -- ``PADDLE_RUNNING_ENV=PADDLE_EDL_AUTO_CHECKPOINT``,
+               a local checkpoint path, ``configure(every_n_steps=10)``:
+               ``train_epoch_range("bert", 3)`` of 10 steps an epoch stops
+               after epoch 1; a fresh executor and scope skip epoch 0,
+               the executor's hook restores before their first fed run,
+               and their epoch is bit-equal to the first run's
+               continuation;
+40. model_checkpoint -- MobileNetV2 through ``Model.fit`` in dygraph, 2
+               epochs of 4 batches of 128 (FakeData, 0 workers), with
+               ``ModelCheckpoint(keep_n=1, async_save=True)``:
+               ``restore_latest`` into a fresh ``Model`` predicts
+               bit-equal on one batch; only ``step_1`` survives.
+
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
 device it exits 1 before doing anything.
@@ -4815,6 +4865,487 @@ def phase_dropout():
                            f"last two masks differ: {differ}")
 
 
+# ---- slice 15: the pipelined window, checkpoints, the NaN scan, pruning --
+
+# pipelined: steps a mode, and the slow feed's host seconds a batch and its
+# steps a mode; ckpt_resume: the run's length, its save steps and the crash
+CKPT_WINDOW_STEPS, SLOW_FEED_S, SLOW_FEED_STEPS = 30, 0.040, 20
+CKPT_STEPS, CKPT_EVERY, CKPT_CRASH = 200, 50, 150
+CKPT_AFTER_SAVE = 5            # steps timed after each save
+NAN_STEPS, PRUNE_STEPS, PRUNE_RTOL = 10, 5, 1e-6
+ACP_EPOCHS, ACP_STEPS = 3, 10  # auto_checkpoint: epochs of steps
+BERT15 = {}                    # the slice's BERT-base program, built once
+# model_checkpoint: MobileNetV2 through Model.fit, epochs of batches
+MC_EPOCHS, MC_BATCHES = 2, 4
+
+
+def bert15():
+    """The fused bf16 BERT-base training program of phase 7, with four
+    feeds that the slice's phases cycle through by step."""
+    if not BERT15:
+        flags.set_flags({"flash_attention": "always"})
+        main, startup, loss = build_bert(TRAIN_BATCH, amp=True, dropout=0.1)
+        BERT15.update(main=main, startup=startup, loss=loss,
+                      feeds=[bert_feed(TRAIN_BATCH, seed=s) for s in range(4)])
+    return BERT15
+
+
+def bert15_scope(exe):
+    """A scope after the startup program, on the card."""
+    scope = pt.framework.Scope()
+    exe.run(bert15()["startup"], scope=scope)
+    return scope
+
+
+def bert15_steps(exe, scope, first, last, window, handles=None, sleep=0.0,
+                 save=None):
+    """Steps ``first``..``last`` (1-based; step k reads feed k % 4) at
+    ``window``: (losses, ms between dispatch returns).  ``save(k)`` runs
+    after step k when given."""
+    b = bert15()
+    flags.set_flags({"max_inflight_steps": window})
+    handles = [] if handles is None else handles
+    ms, t_prev = [], time.perf_counter()
+    for k in range(first, last + 1):
+        if sleep:
+            time.sleep(sleep)      # a loader's host time for the batch
+        out = exe.run(b["main"], feed=b["feeds"][k % 4],
+                      fetch_list=[b["loss"]], scope=scope)
+        if window == 0:
+            float(out[0].ravel()[0])
+        handles.append(out)
+        if save is not None:
+            save(k)
+        t = time.perf_counter()
+        ms.append((t - t_prev) * 1e3)
+        t_prev = t
+    exe.drain()
+    flags.set_flags({"max_inflight_steps": 2})
+    return [float(h[0].ravel()[0]) for h in handles], ms
+
+
+def device_state(scope):
+    """Device copies of a scope's tensors and its generator's state."""
+    return {n: (v.clone() if isinstance(v, torch.Tensor) else
+                v.get_state().clone() if isinstance(v, torch.Generator)
+                else None) for n, v in scope._vars.items()}
+
+
+def state_diff(a, b):
+    """Names whose values differ bit for bit (or are missing)."""
+    return sorted(n for n in set(a) | set(b)
+                  if n not in a or n not in b or (a[n] is None) !=
+                  (b[n] is None) or (a[n] is not None and not torch.equal(
+                      a[n], b[n].to(a[n].device))))
+
+
+def check_replays_and_b1(label, fn, steps):
+    """``fn()`` with the replay and B1 counters read around it: every
+    step a replay, 24 B1 launches a step."""
+    replays = stat_get("cuda_graph_replays")
+    fab.reset_launch_count()
+    out = fn()
+    got = (stat_get("cuda_graph_replays") - replays,
+           fab.flash_attention_bias.launches)
+    if got != (steps, B1_PER_STEP * steps):
+        raise RuntimeError(f"{label}: {got[0]} replays and {got[1]} B1 "
+                           f"launches in {steps} steps, want {steps} and "
+                           f"{B1_PER_STEP * steps}")
+    return out
+
+
+def phase_pipelined():
+    """One startup state, copied with ``snapshot_scope``/``restore_scope``:
+    CKPT_WINDOW_STEPS steps at ``max_inflight_steps`` 0, then at 2, every
+    step a replay launching B1 24 times; losses and the final state
+    (parameters, AdamW moments, the generator) bit-equal.  Then both with
+    a feed that spends SLOW_FEED_S of host time a batch."""
+    from paddle_tpu_torch.ckpt import restore_scope, snapshot_scope
+    from paddle_tpu_torch.monitor import stat_set
+    from paddle_tpu_torch.observe.histogram import histogram
+
+    b = bert15()
+    exe = pt.Executor()
+    scope = bert15_scope(exe)
+    t0 = time.perf_counter()
+    start = snapshot_scope(scope)
+    snapshot_s = time.perf_counter() - t0
+    exe.warmup(b["main"], [b["feeds"][0]], [b["loss"]], scope)
+    runs = {}
+    for window in (0, 2):
+        restore_scope(scope, start)
+        histogram("fetch_sync_seconds").reset()
+        stat_set("executor_inflight_steps_max", 0)
+        losses, ms = check_replays_and_b1(
+            f"pipelined window {window}",
+            lambda w=window: bert15_steps(exe, scope, 1, CKPT_WINDOW_STEPS,
+                                          w), CKPT_WINDOW_STEPS)
+        runs[window] = dict(losses=losses, ms=ms, state=device_state(scope),
+                            sync=histogram("fetch_sync_seconds").summary(),
+                            inflight_max=stat_get(
+                                "executor_inflight_steps_max"))
+    diff = state_diff(runs[0]["state"], runs[2]["state"])
+    slow = {}
+    for window in (0, 2):
+        restore_scope(scope, start)
+        _l, ms = bert15_steps(exe, scope, 1, SLOW_FEED_STEPS, window,
+                              sleep=SLOW_FEED_S)
+        slow[window] = float(np.median(ms[2:]))
+    report = dict(
+        steps=CKPT_WINDOW_STEPS, state_vars=len(start),
+        state_bytes=sum(v.numel() * v.element_size() for v in start.values()
+                        if isinstance(v, torch.Tensor)),
+        snapshot_s=snapshot_s, state_diff=diff[:5],
+        losses_equal=runs[0]["losses"] == runs[2]["losses"],
+        losses=runs[2]["losses"][:5],
+        slow_feed_s=SLOW_FEED_S, slow_feed_steps=SLOW_FEED_STEPS,
+        slow_feed_ms_a_step_window0=slow[0],
+        slow_feed_ms_a_step_window2=slow[2])
+    for window in (0, 2):
+        r = runs[window]
+        report[f"window{window}"] = dict(
+            step_ms_p50=float(np.median(r["ms"][2:])),
+            fetch_sync_seconds=r["sync"], inflight_max=r["inflight_max"])
+    log("pipelined", **report)
+    if diff or not report["losses_equal"] or runs[2]["inflight_max"] != 2:
+        raise RuntimeError(f"pipelined: window 0 and 2 differ: {report}")
+    exe.close()
+
+
+def phase_ckpt_resume():
+    """200 pipelined steps saving asynchronously every 50 through
+    ``CheckpointManager(keep_n=2)``; a second run whose commit of step 150
+    crashes; a fresh Executor and Scope restore the newest intact step
+    (100) and run to 200, bit-equal to the first run in losses and final
+    state; then a corrupt shard falls back to the step before it, and a
+    bfloat16 var round-trips without ``ml_dtypes``."""
+    import shutil
+
+    from paddle_tpu_torch.ckpt import CheckpointError, CheckpointManager
+
+    b = bert15()
+    root = tempfile.mkdtemp(prefix="ckpt_resume_")
+    try:
+        stat_reset("ckpt_saves_coalesced")
+        exe = pt.Executor()
+        scope = bert15_scope(exe)
+        exe.warmup(b["main"], [b["feeds"][0]], [b["loss"]], scope)
+        m = CheckpointManager(os.path.join(root, "full"), keep_n=2,
+                              async_save=True)
+        saves = lambda k: k % CKPT_EVERY == 0 and m.save(  # noqa: E731
+            k, scope=scope)
+        full, ms = check_replays_and_b1(
+            "ckpt_resume", lambda: bert15_steps(
+                exe, scope, 1, CKPT_STEPS, 2, save=saves), CKPT_STEPS)
+        m.wait()
+        final = device_state(scope)
+        p50 = float(np.median(ms))
+        after = {s["step"]: float(np.median(
+            ms[s["step"]:s["step"] + CKPT_AFTER_SAVE]))
+            for s in m.stats if s["step"] < CKPT_STEPS}
+        stats, kept = m.stats, m.all_steps()
+        m.close()
+        exe.close()
+        del scope
+
+        crash_dir = os.path.join(root, "crash")
+        exe = pt.Executor()
+        scope = bert15_scope(exe)
+        exe.warmup(b["main"], [b["feeds"][0]], [b["loss"]], scope)
+        m = CheckpointManager(crash_dir, keep_n=2, async_save=True)
+
+        def crash(phase, step):
+            if phase == "pre_commit" and step == CKPT_CRASH:
+                raise RuntimeError("injected crash in the commit")
+
+        m.set_fault_hook(crash)
+
+        def save_and_commit(k):
+            if k % CKPT_EVERY == 0:
+                m.save(k, scope=scope)
+                if k < CKPT_CRASH:
+                    m.wait()    # the steps before the crash are on disk
+
+        bert15_steps(exe, scope, 1, CKPT_CRASH, 2, save=save_and_commit)
+        try:
+            m.wait()
+            raise RuntimeError("the injected crash did not fail the save")
+        except CheckpointError:
+            pass
+        m.close()
+        exe.close()
+        del scope
+        torn = sorted(os.listdir(crash_dir))
+        probe = CheckpointManager(crash_dir)
+        intact = probe.latest_intact_step()
+
+        exe = pt.Executor()
+        scope = pt.framework.Scope()
+        t0 = time.perf_counter()
+        meta = probe.restore(scope=scope)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        exe.warmup(b["main"], [b["feeds"][0]], [b["loss"]], scope)
+        resumed, _ms = check_replays_and_b1(
+            "ckpt_resume (resumed)", lambda: bert15_steps(
+                exe, scope, meta["step"] + 1, CKPT_STEPS, 2),
+            CKPT_STEPS - meta["step"])
+        diff = state_diff(final, device_state(scope))
+        exe.close()
+
+        # a corrupt byte in the newest committed shard falls back
+        newest = probe.all_steps()[-1]
+        shard = os.path.join(crash_dir, f"step_{newest}", "shard_r0.npz")
+        with open(shard, "r+b") as f:
+            f.seek(os.path.getsize(shard) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        fallbacks = stat_get("ckpt_restore_fallbacks")
+        fell = probe.restore(scope=pt.framework.Scope())["step"]
+        fallbacks = stat_get("ckpt_restore_fallbacks") - fallbacks
+        probe.close()
+
+        # bfloat16 through the manager with ml_dtypes out of the picture
+        bf = pt.framework.Scope()
+        bf.set_var("halfp", torch.randn(1024, 768, device="cuda").to(
+            torch.bfloat16))
+        bm = CheckpointManager(os.path.join(root, "bf16"), async_save=True)
+        bm.save(0, scope=bf, wait=True)
+        back = pt.framework.Scope()
+        bm.restore(scope=back)
+        bm.close()
+        bf16_equal = torch.equal(back.get_var("halfp"), bf.get_var("halfp"))
+        no_ml_dtypes = "ml_dtypes" not in sys.modules
+        usage = shutil.disk_usage(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rows = [{k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in s.items()} for s in stats]
+    report = dict(
+        steps=CKPT_STEPS, every=CKPT_EVERY, keep_n=2, saves=rows,
+        kept=kept, saves_coalesced=stat_get("ckpt_saves_coalesced"),
+        step_ms_p50=p50, step_ms_p50_after_save=after,
+        crash_at=CKPT_CRASH, crash_dir=torn, latest_intact=intact,
+        restore_s=restore_s, resumed_from=meta["step"],
+        resumed_losses_equal=resumed == full[meta["step"]:],
+        state_diff=diff[:5], corrupt_fell_back_to=fell,
+        restore_fallbacks=fallbacks, bf16_bit_equal=bf16_equal,
+        ml_dtypes_imported=not no_ml_dtypes,
+        disk_free_gb=usage.free / 1e9)
+    log("ckpt_resume", **report)
+    want_torn = f"step_{CKPT_CRASH}.tmp"
+    if intact != CKPT_CRASH - CKPT_EVERY or want_torn not in torn or \
+            f"step_{CKPT_CRASH}" in torn or meta["step"] != intact or \
+            not report["resumed_losses_equal"] or diff or \
+            fell != newest - CKPT_EVERY or fallbacks < 1 or \
+            not bf16_equal or not no_ml_dtypes:
+        raise RuntimeError(f"ckpt_resume: {report}")
+
+
+def phase_nan_scan():
+    """``FLAGS_check_nan_inf=1``: the BERT step is still captured (every
+    timed step a replay); step p50 with and without the scan; then one
+    attention weight set to inf makes the next run raise naming the first
+    op that reads it and its build site, and ``snapshot_scope`` refuses
+    the scope after it."""
+    from paddle_tpu_torch.ckpt import CheckpointError, snapshot_scope
+
+    b = bert15()
+    exe = pt.Executor()
+    scope = bert15_scope(exe)
+    feed = b["feeds"][0]
+    ms = {}
+    try:
+        for scan in (False, True):
+            flags.set_flags({"check_nan_inf": scan, "max_inflight_steps": 0})
+            exe.warmup(b["main"], [feed], [b["loss"]], scope)
+            ms[scan] = check_replays_and_b1(
+                f"nan_scan {scan}", lambda: synced_ms(lambda: exe.run(
+                    b["main"], feed=feed, fetch_list=[b["loss"]],
+                    scope=scope), NAN_STEPS), NAN_STEPS)
+        entry = next(e for e in exe._cache.values() if e.nan_scan)
+        flags.set_flags({"max_inflight_steps": 2})
+        # the compiled block: the pass pipeline's rewrite of the program
+        prog = exe._apply_graph_passes(
+            b["main"], (b["loss"].name,), executor_mod._feed_tensors(
+                b["main"].global_block, feed, exe.device), scope)
+        ops = [op for op in prog.global_block.ops
+               if op.type not in executor_mod.PSEUDO_OPS]
+        weight = next(p.name for p in b["main"].all_parameters()
+                      if p.name.endswith("_attn_q.w_0"))
+        first = next(i for i, op in enumerate(ops)
+                     if weight in op.input_arg_names())
+        w = scope.get_var(weight)
+        scope.set_var(weight, torch.full_like(w, float("inf")))
+        try:
+            exe.run(b["main"], feed=feed, fetch_list=[b["loss"]],
+                    scope=scope)
+            raise RuntimeError("nan_scan: an inf weight did not raise")
+        except RuntimeError as e:
+            msg = str(e)
+        try:
+            snapshot_scope(scope)
+            refused = False
+        except CheckpointError:
+            refused = True
+    finally:
+        flags.set_flags({"check_nan_inf": False, "max_inflight_steps": 2})
+    want = f"op {ops[first].type!r} (built at {ops[first].callstack[-1]})"
+    report = dict(steps=NAN_STEPS, scanned_outputs=len(entry.nan_ops),
+                  step_ms_p50_without=float(np.median(ms[False])),
+                  step_ms_p50_with=float(np.median(ms[True])),
+                  step_ms_with=ms[True], weight=weight, message=msg,
+                  expected=want, snapshot_refused=refused)
+    log("nan_scan", **report)
+    exe.close()
+    if want not in msg or f"op #{first} " not in msg or not refused:
+        raise RuntimeError(f"nan_scan: {report}")
+
+
+def phase_prune():
+    """``run(main, fetch_list=[loss], use_prune=True)`` on the training
+    program leaves every parameter and AdamW moment bit-unchanged; its
+    loss equals an unpruned run's from the same state (the generator's
+    included) within PRUNE_RTOL; the pruned step's ms."""
+    b = bert15()
+    exe = pt.Executor()
+    scope = bert15_scope(exe)
+    feed = b["feeds"][1]
+    exe.warmup(b["main"], [feed], [b["loss"]], scope)
+    before = device_state(scope)
+    gen = scope.get_var(executor_mod.RNG_VAR)
+    prune = lambda: exe.run(b["main"], feed=feed,  # noqa: E731
+                            fetch_list=[b["loss"]], scope=scope,
+                            use_prune=True)
+    prune(), prune()                     # the pruned key's warm-up, capture
+    ms = synced_ms(prune, PRUNE_STEPS)
+    changed = [n for n in state_diff(before, device_state(scope))
+               if n != executor_mod.RNG_VAR]
+    gen.set_state(before[executor_mod.RNG_VAR])
+    pruned = float(prune()[0].ravel()[0])
+    gen.set_state(before[executor_mod.RNG_VAR])
+    whole = float(exe.run(b["main"], feed=feed, fetch_list=[b["loss"]],
+                          scope=scope)[0].ravel()[0])
+    rel = abs(pruned - whole) / abs(whole)
+    kept = len(exe._pruned(b["main"], (b["loss"].name,)).global_block.ops)
+    report = dict(ops=len(b["main"].global_block.ops), pruned_ops=kept,
+                  state_changed=changed, loss_pruned=pruned,
+                  loss_unpruned=whole, rel_gap=rel, tolerance=PRUNE_RTOL,
+                  step_ms_p50_pruned=float(np.median(ms)), step_ms=ms)
+    log("prune", **report)
+    exe.close()
+    if changed or not rel <= PRUNE_RTOL:
+        raise RuntimeError(f"prune: {report}")
+
+
+def phase_auto_checkpoint():
+    """``PADDLE_RUNNING_ENV=PADDLE_EDL_AUTO_CHECKPOINT`` with a local
+    checkpoint path and ``configure(every_n_steps=ACP_STEPS)``:
+    ``train_epoch_range("bert", 3)`` of ACP_STEPS steps an epoch stops
+    after epoch 1; a fresh executor and scope resume (the executor's hook
+    restores before the first fed run), skip epoch 0, and their next
+    epoch is bit-equal to the first run's continuation."""
+    import shutil
+
+    from paddle_tpu_torch.incubate.checkpoint import auto_checkpoint as acp
+
+    b = bert15()
+    root = tempfile.mkdtemp(prefix="auto_ckpt_")
+    env = {"PADDLE_RUNNING_ENV": "PADDLE_EDL_AUTO_CHECKPOINT",
+           "PADDLE_EDL_HDFS_CHECKPOINT_PATH": root}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    runs = {}
+    try:
+        for run in ("first", "second"):
+            acp.configure(root, every_n_steps=ACP_STEPS, async_save=True)
+            exe = pt.Executor()
+            scope = bert15_scope(exe)
+            exe.warmup(b["main"], [b["feeds"][0]], [b["loss"]], scope)
+            epochs, losses = [], []
+            for epoch in acp.train_epoch_range("bert", ACP_EPOCHS):
+                epochs.append(epoch)
+                losses.append(bert15_steps(exe, scope, 1, ACP_STEPS, 2)[0])
+                if run == "first" and epoch == 1:
+                    break       # the takeover after epoch 1
+            step = acp._cfg.step
+            acp.wait()
+            acp.disable()
+            if run == "first":
+                # the first run's continuation from its last checkpoint
+                os.environ.pop("PADDLE_RUNNING_ENV")
+                losses.append(bert15_steps(exe, scope, 1, ACP_STEPS, 2)[0])
+                os.environ.update(env)
+            runs[run] = dict(epochs=epochs, losses=losses, step=step,
+                             saved=sorted(os.listdir(
+                                 os.path.join(root, "auto_ckpt"))))
+            exe.close()
+    finally:
+        acp.disable()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    first, second = runs["first"], runs["second"]
+    report = dict(epochs_first=first["epochs"], epochs_second=second["epochs"],
+                  steps_first=first["step"], steps_second=second["step"],
+                  saved=second["saved"],
+                  resumed_epoch_bit_equal=second["losses"][0] ==
+                  first["losses"][-1], losses=second["losses"][0][:3])
+    log("auto_checkpoint", **report)
+    if first["epochs"] != [0, 1] or second["epochs"] != [1, 2] or \
+            not report["resumed_epoch_bit_equal"]:
+        raise RuntimeError(f"auto_checkpoint: {report}")
+
+
+def phase_model_checkpoint():
+    """MobileNetV2 through ``Model.fit`` in dygraph, MC_EPOCHS epochs of
+    MC_BATCHES batches (FakeData, 0 workers, batch HAPI_BATCH), with
+    ``ModelCheckpoint(keep_n=1, async_save=True)``; ``restore_latest``
+    into a fresh ``Model`` predicts bit-equal on one batch, and only the
+    newest epoch's step directory survives."""
+    import shutil
+
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.hapi.callbacks import ModelCheckpoint
+
+    train_ds, eval_ds = hapi_datasets()
+    root = tempfile.mkdtemp(prefix="model_ckpt_")
+    try:
+        loader = io.DataLoader(io.Subset(train_ds, range(
+            HAPI_BATCH * MC_BATCHES)), batch_size=HAPI_BATCH, shuffle=True,
+            drop_last=True, num_workers=0)
+        model = hapi_model(False, MC_EPOCHS * MC_BATCHES)
+        cb = ModelCheckpoint(save_dir=root, keep_n=1, async_save=True)
+        t0 = time.monotonic()
+        model.fit(loader, epochs=MC_EPOCHS, verbose=0, callbacks=[cb])
+        fit_s = time.monotonic() - t0
+        x = np.stack([eval_ds[i][0][:, :HAPI_IMAGE, :HAPI_IMAGE]
+                      for i in range(8)]).astype("float32")
+        want = model.predict_batch([x])[0]
+        fresh = hapi_model(False, MC_EPOCHS * MC_BATCHES)
+        epoch = cb.restore_latest(fresh)
+        got = fresh.predict_batch([x])[0]
+        kept = sorted(e for e in os.listdir(root) if e.startswith("step_"))
+        stats = cb._manager.stats
+        cb._manager.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report = dict(epochs=MC_EPOCHS, batches=MC_BATCHES, batch=HAPI_BATCH,
+                  fit_s=fit_s, restored_epoch=epoch, kept=kept,
+                  saves=[{k: (round(v, 4) if isinstance(v, float) else v)
+                          for k, v in s.items()} for s in stats],
+                  predictions_bit_equal=bool(np.array_equal(want, got)))
+    log("model_checkpoint", **report)
+    if epoch != MC_EPOCHS - 1 or kept != [f"step_{MC_EPOCHS - 1}"] or \
+            not report["predictions_bit_equal"]:
+        raise RuntimeError(f"model_checkpoint: {report}")
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script measures "
@@ -4840,6 +5371,17 @@ def main():
     phase_train_profile(lambda: exe_eager(state), lambda: exe_run(state))
     del state
     release("train")
+    phase_pipelined()
+    release("pipelined")
+    phase_ckpt_resume()
+    release("ckpt_resume")
+    phase_nan_scan()
+    release("nan_scan")
+    phase_prune()
+    release("prune")
+    phase_auto_checkpoint()
+    BERT15.clear()
+    release("auto_checkpoint")
     phase_train_oracle()
     release("train_oracle")
     unfused, state = phase_train_unfused()
@@ -4925,6 +5467,8 @@ def main():
     release("text_oracle")
     phase_nn_extras()
     release("nn_extras")
+    phase_model_checkpoint()
+    release("model_checkpoint")
     kernels = []
     main_case = TRAIN_FLASH_CASES[0][0]
     for kernel, case in (("paged_decode_attention", "decode_float32"),

@@ -1,0 +1,31 @@
+"""``paddle_tpu_torch.ckpt`` -- asynchronous, atomic checkpointing.
+
+Counterpart of ``paddle_tpu.ckpt``, for one process:
+
+- :class:`CheckpointManager` -- async background writes, atomic
+  tmp+manifest+rename commits, SHA-256 integrity, retention GC,
+  pending-save coalescing; the JAX package's on-disk layout.
+- :func:`snapshot_scope` / :func:`restore_scope` -- the scope's state to
+  host tensors on the step boundary and back onto the card;
+  :class:`GeneratorState` carries the scope's ``torch.Generator``.
+- :class:`ResumableIterator` -- data-iterator position as checkpoint
+  state, so resume continues the exact batch sequence.
+- :func:`wait_all` -- drain every live manager (``Executor.close()`` and
+  interpreter exit call this).
+
+``KVBarrier`` and several-process checkpoints (``LocalShard`` blocks
+written by each rank) come with the distributed slices of the port.
+``distributed.checkpoint`` (``save_sharded``/``load_sharded``),
+``incubate.checkpoint.auto_checkpoint`` and
+``hapi.callbacks.ModelCheckpoint`` are built on this manager.
+"""
+from .data import ResumableIterator
+from .manager import CheckpointError, CheckpointManager, KVBarrier, wait_all
+from .state import (GeneratorState, LocalShard, restore_scope,
+                    snapshot_scope)
+
+__all__ = [
+    "CheckpointManager", "CheckpointError", "KVBarrier", "wait_all",
+    "LocalShard", "GeneratorState", "snapshot_scope", "restore_scope",
+    "ResumableIterator",
+]

@@ -56,13 +56,34 @@ Other behaviour, as in the JAX package:
   first time a program runs in that scope (a nonzero ``seed`` attr wins,
   see ``ops/common.op_generator``).
 
-Step telemetry: each ``run`` and ``run_steps`` call records its wall time,
-steps, examples (the first feed's leading dim) and the program's FLOPs
-(``hapi/model_stat.program_flops``, scaled by that batch when the
-program's batch dim is -1) into ``observe/step_stats.step_timer()``, as
-the JAX executor's ``record_run`` calls do; a key's warm-up run and its
-capture count as compiles.  ``run`` returns after its fetches reached the
-host (``return_numpy=True``), so its recorded time is the step's.
+Pipelined dispatch (``FLAGS_max_inflight_steps``, default 2), as in the
+JAX package: ``run`` and ``run_steps`` return a lazy :class:`StepHandle`
+(a ``list``) and up to that many steps stay in flight; a dispatch at the
+cap drains the oldest.  A step's fetches are its own copies (the next
+replay rewrites the graph's outputs); with ``return_numpy=True`` their
+device-to-host copies are issued without blocking into pinned memory,
+and a ``torch.cuda.Event`` recorded after them marks the step's end.  A
+drain waits on that event only (never ``torch.cuda.synchronize()``,
+which would also wait for other work of the process, a decode replica's
+stream included), records the step into ``observe/step_stats`` with the
+wall time since the previous drain, moves ``executor_steps_drained``
+and ``fetch_sync_seconds``, and checks the NaN scan's flags.  Reading an
+item of a handle drains through its step; ``drain``, ``close``,
+``warmup``, host I/O programs and checkpoint snapshots drain everything
+first.  ``FLAGS_max_inflight_steps=0`` keeps the synchronous path, where
+``run`` returns after its fetches reached the host and records its step
+there; a key's warm-up run and its capture count as compiles either way.
+
+The rest of ``run``, as in the JAX package: ``use_prune=True`` runs only
+the ops the fetches need (``_prune_ops``, cached per fingerprint and
+fetches; the pruned program's fingerprint keys its compiled step);
+``FLAGS_benchmark`` syncs every run; ``FLAGS_check_nan_inf`` computes one
+finite flag per floating op output on the device, inside the captured
+step, fetched as one tensor (``NAN_FLAGS_VAR``) and checked at the
+drain, which raises naming the op; auto-checkpoint
+(``PADDLE_RUNNING_ENV=PADDLE_EDL_AUTO_CHECKPOINT`` or
+``incubate.checkpoint.auto_checkpoint.configure``) resumes before and
+saves after each fed run.
 
 ``run_steps`` runs the entry K times, with the fetches stacked on a
 leading K dimension.  Host I/O programs (``save``/``load``/
@@ -71,10 +92,9 @@ interpreted on the host: ``framework/var_io.py`` writes and reads the
 files, and loaded values go straight to the executor's device.
 
 Not in the port yet (each raises ``NotImplementedError`` when asked for):
-meshes and tensor parallelism, ``use_prune``, auto-checkpoint, localsgd,
-pipeline programs, and the NaN scan (``FLAGS_check_nan_inf``).  Runs are
-synchronous: the JAX executor's pipelined window of in-flight steps
-(``StepHandle``) is not ported, so ``drain`` has nothing to wait for.
+meshes and tensor parallelism, localsgd and pipeline programs.  The JAX
+executor's drain also feeds ``observe/phases.py`` and
+``observe/profiler_capture.py``, which the port does not have yet.
 
 Graph passes: before a program's block runs, ``_apply_graph_passes``
 hands it to the ``framework/passes.py`` pipeline (attention-chain fusion
@@ -89,8 +109,12 @@ what it holds.
 """
 from __future__ import annotations
 
+import collections
 import os
+import sys
+import threading
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -98,7 +122,7 @@ import numpy as np
 import torch
 
 from . import dtypes
-from ..monitor import stat_add
+from ..monitor import stat_add, stat_max, stat_set
 from ..observe import step_stats
 from ..observe import tracer as otrace
 from . import passes as passes_mod
@@ -110,6 +134,7 @@ from .program import Program, Variable, default_main_program
 from .scope import Scope, global_scope, to_numpy, to_tensor
 
 RNG_VAR = "@RNG_KEY@"
+NAN_FLAGS_VAR = "@NAN_FLAGS@"
 
 # ops the JAX executor runs host-side (file I/O)
 HOST_OPS = {"save", "load", "save_combine", "load_combine"}
@@ -185,6 +210,10 @@ class _Entry:
     batch: int = 0                        # the first feed's leading dim
     flops_per_step: float = 0.0           # program_flops at that batch
     runs: int = 0                         # warmup's included
+    nan_scan: bool = False                # FLAGS_check_nan_inf at compile
+    # (op type, build site, index in the block) per scanned op, in the
+    # order of the NAN_FLAGS_VAR fetch
+    nan_ops: Tuple[Tuple[str, str, int], ...] = ()
     step: Optional[StepGraph] = None      # on the card, from the 1st run
     graph: Optional["_GraphStep"] = None  # from the 2nd run
 
@@ -227,6 +256,274 @@ class _GraphStep:
         return self.step.outputs
 
 
+class _InflightStep:
+    """One dispatched step of the window: its fetches on the device, their
+    pinned host copies (``return_numpy=True`` on the card), the NaN
+    scan's flags, and the event recorded after all of it."""
+
+    __slots__ = ("fetches", "host", "nan_flags", "nan_ops", "event",
+                 "t_dispatch", "steps", "examples", "compiled",
+                 "flops_per_step", "scope", "drained")
+
+    def __init__(self, fetches, host, nan_flags, nan_ops, event,
+                 t_dispatch, steps, examples, compiled, flops_per_step,
+                 scope=None):
+        self.fetches = fetches
+        self.host = host
+        self.nan_flags = nan_flags
+        self.nan_ops = nan_ops
+        self.event = event
+        self.t_dispatch = t_dispatch
+        self.steps = steps
+        self.examples = examples
+        self.compiled = compiled
+        self.flops_per_step = flops_per_step
+        self.scope = scope
+        self.drained = False
+
+
+class _InflightWindow:
+    """Bounded FIFO of in-flight steps (``FLAGS_max_inflight_steps``).
+
+    Dispatch pushes; ``backpressure`` drains the oldest entries until the
+    window is under the cap.  A drain waits on the step's event (the
+    ``dispatch/drain`` span, ``fetch_sync_seconds``), feeds the step
+    timer with the wall time since the previous drain (the loop's period
+    in steady state), checks the NaN scan's flags and updates the
+    ``executor_inflight_steps`` gauge.  A failure met on a drain that
+    must not raise (``StepTimer.summary``'s) is parked and re-raised at
+    the next raising drain point.  One re-entrant lock guards it all:
+    the one-shot ``Server`` runs a ``Predictor`` on its batcher's
+    thread."""
+
+    def __init__(self):
+        self._entries = collections.deque()
+        self._lock = threading.RLock()
+        self._last_drain: Optional[float] = None
+        self._failed: Optional[BaseException] = None
+
+    def __len__(self):
+        with self._lock:
+            return len(self._entries)
+
+    def push(self, entry: _InflightStep):
+        with self._lock:
+            self._entries.append(entry)
+        _update_inflight_gauge()
+
+    def _raise_pending(self):
+        if self._failed is not None:
+            e, self._failed = self._failed, None
+            raise e
+
+    def backpressure(self, cap: int):
+        """Block until fewer than ``cap`` steps are in flight."""
+        with self._lock:
+            self._raise_pending()
+            while len(self._entries) >= max(cap, 1):
+                self._drain_oldest()
+
+    def drain_through(self, entry: _InflightStep):
+        """Drain, in order, every entry up to and including ``entry``."""
+        with self._lock:
+            self._raise_pending()
+            while not entry.drained and self._entries:
+                self._drain_oldest()
+
+    def drain_all(self, raise_errors: bool = True):
+        """Drain everything; ``raise_errors=False`` parks a failure."""
+        with self._lock:
+            if raise_errors:
+                self._raise_pending()
+            while self._entries:
+                self._drain_oldest(raise_errors=raise_errors)
+
+    def _drain_oldest(self, raise_errors: bool = True):
+        from ..observe.histogram import stat_time
+
+        # the entry stays in the deque while its drain blocks
+        e = self._entries[0]
+        t0 = time.perf_counter()
+        try:
+            with otrace.span("dispatch/drain", steps=e.steps,
+                             n=len(e.fetches)):
+                if e.event is not None:
+                    e.event.synchronize()
+        except BaseException as err:
+            # a drain that raises is still progress: the step is gone
+            if raise_errors:
+                raise
+            if self._failed is None:
+                self._failed = err
+            return
+        finally:
+            self._entries.popleft()
+            e.drained = True
+            stat_add("executor_steps_drained", e.steps)
+            _update_inflight_gauge()
+        now = time.perf_counter()
+        stat_time("fetch_sync_seconds", now - t0)
+        start = e.t_dispatch if self._last_drain is None \
+            else max(self._last_drain, e.t_dispatch)
+        self._last_drain = now
+        step_stats.step_timer().record_run(
+            max(now - start, 0.0), steps=e.steps, examples=e.examples,
+            compiled=e.compiled, flops_per_step=e.flops_per_step)
+        if e.nan_flags is not None:
+            try:
+                _raise_on_nan(e.nan_flags, e.nan_ops, e.scope)
+            except BaseException as err:
+                if raise_errors:
+                    raise
+                if self._failed is None:
+                    self._failed = err
+
+
+def _raise_on_nan(nan_flags, nan_ops, scope=None):
+    """Host check of the NaN scan's flags (one per scanned op output,
+    stacked on a leading step dimension by ``run_steps``): raise naming
+    the first op whose output was not finite.  The scope that step wrote is marked,
+    so no checkpoint is taken of it (``ckpt.snapshot_scope``) until a
+    restore replaces its state."""
+    if not nan_ops:
+        return
+    flags = to_numpy(nan_flags).astype(bool)
+    ok = flags.reshape(-1, len(nan_ops)).all(axis=0)
+    if not ok.all():
+        op_type, site, i = min((nan_ops[j] for j in np.flatnonzero(~ok)),
+                               key=lambda o: o[2])
+        msg = (f"FLAGS_check_nan_inf: op {op_type!r} (built at {site}) "
+               f"produced NaN/Inf (op #{i} of the compiled block)")
+        if scope is not None:
+            scope._nan_poisoned = msg
+        raise RuntimeError(msg)
+
+
+class StepHandle(list):
+    """Lazy fetch list of one pipelined ``Executor.run``/``run_steps``.
+
+    A ``list`` subclass, so indexing, iteration, unpacking and ``len``
+    work as before, but the wait for the step is deferred: reading an
+    item drains the executor's window through this step.  With
+    ``materialize=True`` (``run(return_numpy=True)``) an item reads as a
+    cached ``np.ndarray``; otherwise it is the step's device tensor.
+    ``numpy()`` materializes everything; ``block_until_ready()`` waits
+    without converting; ``device_arrays()`` returns the device tensors
+    without waiting."""
+
+    def __init__(self, fetches, window=None, entry=None, materialize=True):
+        list.__init__(self, fetches)
+        self._window = window
+        self._entry = entry
+        self._materialize = materialize
+
+    def block_until_ready(self):
+        """Wait for this step (and every older one in flight)."""
+        if self._window is not None and self._entry is not None:
+            self._window.drain_through(self._entry)
+        return self
+
+    def numpy(self):
+        """Every fetch as host numpy (one wait); a plain list."""
+        return [self._host(i) for i in range(list.__len__(self))]
+
+    def device_arrays(self):
+        """The stored values, no wait (device tensors until an item has
+        been materialized through access)."""
+        return list(list.__iter__(self))
+
+    def _host(self, i):
+        v = list.__getitem__(self, i)
+        if isinstance(v, np.ndarray):
+            return v
+        self.block_until_ready()
+        host = self._entry.host if self._entry is not None else None
+        with otrace.span("executor/fetch", n=1):
+            arr = to_numpy(host[i] if host is not None else v)
+        if self._materialize:
+            list.__setitem__(self, i, arr)
+        return arr
+
+    def _resolve(self, i):
+        if self._materialize:
+            return self._host(i)
+        self.block_until_ready()
+        return list.__getitem__(self, i)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return [self._resolve(i)
+                    for i in range(*idx.indices(list.__len__(self)))]
+        return self._resolve(idx)
+
+    def __iter__(self):
+        for i in range(list.__len__(self)):
+            yield self._resolve(i)
+
+    def __array__(self, dtype=None, copy=None):
+        arr = np.asarray(self.numpy())
+        return arr.astype(dtype) if dtype is not None else arr
+
+
+# every constructed Executor, for the process-wide drain points
+# (checkpoint snapshots, StepTimer.summary)
+_LIVE_EXECUTORS: "weakref.WeakSet[Executor]" = weakref.WeakSet()
+
+
+def _update_inflight_gauge():
+    """``executor_inflight_steps`` = in-flight steps over every live
+    Executor (deque lengths read without their locks: a gauge)."""
+    try:
+        total = sum(len(exe._window._entries)
+                    for exe in list(_LIVE_EXECUTORS))
+    except RuntimeError:  # the WeakSet changed under a construction
+        return
+    stat_set("executor_inflight_steps", total)
+    stat_max("executor_inflight_steps_max", total)
+
+
+def drain_all(raise_errors: bool = True):
+    """Drain the window of every live Executor (a checkpoint snapshot and
+    a telemetry summary only ever see completed steps);
+    ``raise_errors=False`` parks a failure for the next raising drain."""
+    for exe in list(_LIVE_EXECUTORS):
+        exe._window.drain_all(raise_errors=raise_errors)
+
+
+def quiesce_all(raise_errors: bool = True):
+    """Drain every live Executor's window and every pending asynchronous
+    checkpoint save."""
+    drain_all(raise_errors=raise_errors)
+    from ..ckpt import wait_all as _ckpt_wait_all
+
+    _ckpt_wait_all(raise_errors=raise_errors)
+
+
+def close_all() -> int:
+    """Close every live Executor (drain, then drop its caches); returns
+    how many were closed."""
+    n = 0
+    for exe in list(_LIVE_EXECUTORS):
+        try:
+            exe.close()
+        except Exception:  # noqa: BLE001 - a failing drain must not
+            pass           # stop the others from closing
+        _LIVE_EXECUTORS.discard(exe)
+        n += 1
+    _update_inflight_gauge()
+    return n
+
+
+def _acp_on() -> bool:
+    """Whether auto-checkpoint hooks run: the environment asks for them,
+    or ``auto_checkpoint.configure`` was called."""
+    if os.environ.get("PADDLE_RUNNING_ENV") == "PADDLE_EDL_AUTO_CHECKPOINT":
+        return True
+    acp = sys.modules.get(
+        "paddle_tpu_torch.incubate.checkpoint.auto_checkpoint")
+    return acp is not None and acp._cfg is not None
+
+
 class Executor:
     def __init__(self, place: Optional[Place] = None, mesh=None):
         if mesh is not None:
@@ -246,8 +543,13 @@ class Executor:
         self._cache: Dict[tuple, _Entry] = {}
         # most values the last eager or captured block held at once
         self.env_peak = 0
+        # (program fingerprint, fetch names) -> the pruned program
+        self._prune_cache: Dict[tuple, Program] = {}
         # entries become graphs on the card; on the CPU they stay plans
         self._captures = self.device.type == "cuda"
+        # the steps dispatched and not yet drained
+        self._window = _InflightWindow()
+        _LIVE_EXECUTORS.add(self)
 
     # ------------------------------------------------------------------
     def run(
@@ -262,30 +564,94 @@ class Executor:
     ):
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
-        if use_prune:
-            raise _later("Executor.run(use_prune=True)")
+        fetch_names = _names(fetch_list)
         if any(op.type in HOST_OPS for op in program.global_block.ops):
-            return self._run_host_ops(program, scope, _names(fetch_list),
+            return self._run_host_ops(program, scope, fetch_names,
                                       return_numpy)
-        t0 = time.perf_counter()
-        fetches, entry = self._run(program, feed, _names(fetch_list), scope)
-        if return_numpy:
-            out = [to_numpy(v) for v in fetches]
-        else:
-            out = [v.clone() for v in fetches] if self._owns(entry) \
-                else fetches
-        self._record(entry, time.perf_counter() - t0, 1)
+        acp = _acp_on()
+        if acp:
+            from ..incubate.checkpoint import auto_checkpoint as _acp
+
+            _acp.maybe_resume(self, program, scope, fed=bool(feed))
+        out = self._dispatch(program, feed, fetch_names, scope,
+                             return_numpy, use_prune)
+        if acp:
+            _acp.on_executor_run(self, program, scope, fed=bool(feed))
         return out
 
-    def _run(self, program, feed, fetch_names, scope):
-        """One step: the pass pipeline, the entry's lookup, its run.
-        Returns the fetches (the graph's own buffers when the entry is
-        captured) and the entry."""
+    def _dispatch(self, program, feed, fetch_names, scope, return_numpy,
+                  use_prune):
+        """One step of ``run``: pipelined into the window (a
+        ``StepHandle``) when ``FLAGS_max_inflight_steps`` > 0, else
+        synchronous (a list)."""
+        cap = int(flag("max_inflight_steps"))
+        if cap > 0:
+            self._window.backpressure(cap)
+        t0 = time.perf_counter()
+        fetches, entry = self._run(program, feed, fetch_names, scope,
+                                   use_prune)
+        if self._owns(entry):
+            fetches = [v.clone() for v in fetches]
+        return self._finish(entry, fetches, scope, return_numpy, t0, 1,
+                            cap)
+
+    def _finish(self, entry, fetches, scope, return_numpy, t0, n_steps,
+                cap):
+        """The dispatched step's fetches: into the window and a handle
+        (``cap`` > 0), or waited for and recorded here."""
+        nan_flags = None
+        if entry.nan_scan:
+            nan_flags, fetches = fetches[-1], fetches[:-1]
+        compiled = self._compiled(entry, n_steps)
+        if cap > 0:
+            host = None
+            on_card = self.device.type == "cuda"
+            if on_card and return_numpy:
+                host = [_pinned_copy(v) for v in fetches]
+            if on_card and nan_flags is not None:
+                nan_flags = _pinned_copy(nan_flags)
+            event = None
+            if on_card:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+            inflight = _InflightStep(
+                fetches, host, nan_flags, entry.nan_ops, event, t0,
+                n_steps, entry.batch * n_steps, compiled,
+                entry.flops_per_step, scope)
+            self._window.push(inflight)
+            stat_add("executor_steps_dispatched", n_steps)
+            if flag("benchmark") or entry.nan_scan:
+                # per-call semantics: the recorded time is the step's,
+                # and the scan raises inside the offending run
+                self._window.drain_through(inflight)
+            return StepHandle(fetches, window=self._window, entry=inflight,
+                              materialize=return_numpy)
+        if return_numpy:
+            with otrace.span("executor/fetch", n=len(fetches)):
+                fetches = [to_numpy(v) for v in fetches]
+        elif flag("benchmark") and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        stat_add("executor_steps_dispatched", n_steps)
+        stat_add("executor_steps_drained", n_steps)
+        step_stats.step_timer().record_run(
+            time.perf_counter() - t0, steps=n_steps,
+            examples=entry.batch * n_steps, compiled=compiled,
+            flops_per_step=entry.flops_per_step)
+        if nan_flags is not None:
+            _raise_on_nan(nan_flags, entry.nan_ops, scope)
+        return list(fetches)
+
+    def _run(self, program, feed, fetch_names, scope, use_prune=False):
+        """One step: the pass pipeline, the pruning, the entry's lookup,
+        its run.  Returns the fetches (the graph's own buffers when the
+        entry is captured) and the entry."""
         self._refuse_left_out(program)
         feeds = _feed_tensors(program.global_block, dict(feed or {}),
                               self.device)
         program = self._apply_graph_passes(program, fetch_names, feeds,
                                            scope)
+        if use_prune and fetch_names:
+            program = self._pruned(program, fetch_names)
         entry = self._entry(program, feeds, fetch_names, scope)
         stat_add("executor_run")
         return self._run_entry(entry, feeds, scope), entry
@@ -319,6 +685,9 @@ class Executor:
             raise ValueError("run_steps requires at least one feed")
         scope = scope if scope is not None else global_scope()
         self._refuse_left_out(program)
+        cap = int(flag("max_inflight_steps"))
+        if cap > 0:
+            self._window.backpressure(cap)
         t0 = time.perf_counter()
         if steps is None:
             step_dims = {int(np.shape(v)[0]) for v in feed.values()}
@@ -337,7 +706,6 @@ class Executor:
         fetch_names = _names(fetch_list)
         program = self._apply_graph_passes(program, fetch_names, feeds,
                                            scope)
-        per_step: List[List[torch.Tensor]] = [[] for _ in fetch_names]
         entry = None
         for i in range(n_steps):
             step_feed = feeds if steps is not None else \
@@ -345,13 +713,15 @@ class Executor:
             if entry is None:
                 entry = self._entry(program, step_feed, fetch_names, scope)
                 stat_add("executor_run")
+                # the entry's fetches: the NaN flags last when it scans
+                per_step: List[List[torch.Tensor]] = \
+                    [[] for _ in entry.fetch_names]
             for acc, v in zip(per_step,
                               self._run_entry(entry, step_feed, scope)):
                 acc.append(v.clone() if self._owns(entry) else v)
         fetches = [torch.stack(vs) for vs in per_step]
-        out = [to_numpy(v) for v in fetches] if return_numpy else fetches
-        self._record(entry, time.perf_counter() - t0, n_steps)
-        return out
+        return self._finish(entry, fetches, scope, return_numpy, t0,
+                            n_steps, cap)
 
     # ------------------------------------------------------------------
     def warmup(
@@ -387,6 +757,9 @@ class Executor:
                     "its fetch contract, e.g. via load_inference_model)")
             fetch_list = list(names)
         fetch_names = _names(fetch_list)
+        # in-flight steps write the state in place: let them finish
+        # before the scope is snapshotted
+        self.drain()
         n0 = len(self._cache)
         for spec in (feed_specs or []):
             # the pass cache is keyed by the feed names, not their values
@@ -464,12 +837,20 @@ class Executor:
         return outputs
 
     def drain(self):
-        """Wait for in-flight steps: none, since every run is
-        synchronous (kept for the JAX package's API)."""
+        """Block until every in-flight step has completed: its telemetry
+        recorded, its NaN flags checked, the scope quiescent.  A no-op
+        when nothing is in flight."""
+        self._window.drain_all()
 
     def close(self):
-        """Drop every cache, the captured graphs with them (their pools
-        go once the scopes let go of the state they hold)."""
+        """Drain the window and pending checkpoint saves, then drop every
+        cache, the captured graphs with them (their pools go once the
+        scopes let go of the state they hold)."""
+        self.drain()
+        from ..ckpt import wait_all as _ckpt_wait_all
+
+        _ckpt_wait_all(raise_errors=False)
+        self._prune_cache.clear()
         self._analysis_cache.clear()
         self._free_cache.clear()
         self._pass_cache.clear()
@@ -483,6 +864,9 @@ class Executor:
         device."""
         from . import var_io
 
+        # a save must see a quiescent pipeline (in-flight steps' NaN
+        # checks fire before any file is written)
+        self.drain()
         kind, why = capture_reason(program)
         stat_add("executor_eager_" + kind)
         with otrace.span("executor/eager", reason=why):
@@ -529,11 +913,25 @@ class Executor:
             raise _later("the localsgd strategy")
         if getattr(program, "_pipeline", None) is not None:
             raise _later("a pipeline program")
-        if os.environ.get("PADDLE_RUNNING_ENV") == \
-                "PADDLE_EDL_AUTO_CHECKPOINT":
-            raise _later("auto-checkpoint (PADDLE_RUNNING_ENV)")
-        if flag("check_nan_inf"):
-            raise _later("the NaN/Inf scan (FLAGS_check_nan_inf)")
+
+    def _pruned(self, program, fetch_names) -> Program:
+        """``program`` with only the ops the fetches need (a clone whose
+        fingerprint keys its compiled step), cached per (fingerprint,
+        fetches)."""
+        key = (program.fingerprint(), fetch_names)
+        pruned = self._prune_cache.get(key)
+        if pruned is not None:
+            stat_add("executor_prune_cache_hit")
+            return pruned
+        keep = {id(op) for op in _prune_ops(program, fetch_names)}
+        pruned = program._copy()
+        pruned.global_block.ops = [
+            nop for op, nop in zip(program.global_block.ops,
+                                   pruned.global_block.ops)
+            if id(op) in keep or op.type in PSEUDO_OPS]
+        pruned._bump()
+        self._prune_cache[key] = pruned
+        return pruned
 
     def _apply_graph_passes(self, program, fetch_names, feed, scope):
         """Run the framework.passes pipeline over ``program`` before
@@ -573,6 +971,9 @@ class Executor:
     # -- the compiled-step cache ----------------------------------------
     def _entry(self, program, feeds, fetch_names, scope) -> _Entry:
         state_in, state_out = self._analysis(program, set(feeds), scope)
+        scan = bool(flag("check_nan_inf"))
+        if scan:   # the flags ride as the last fetch
+            fetch_names = fetch_names + (NAN_FLAGS_VAR,)
         key = (program.fingerprint(),
                tuple((n, tuple(t.shape), t.dtype) for n, t in feeds.items()),
                fetch_names,
@@ -589,18 +990,16 @@ class Executor:
         entry = self._cache[key] = _Entry(
             program, fetch_names, state_in, state_out,
             self._frees(program, feeds, fetch_names, scope),
-            capture_reason(program), *_batch_flops(program, feeds))
+            capture_reason(program), *_batch_flops(program, feeds),
+            nan_scan=scan)
         return entry
 
-    def _record(self, entry, seconds, n_steps):
-        """One call into the step timer: the runs before the entry's
-        first replay (its warm-up and capture; its first run on the CPU)
-        count as compiles."""
+    def _compiled(self, entry, n_steps) -> bool:
+        """Whether the last ``n_steps`` runs of ``entry`` count as
+        compiles in the step timer: the runs before its first replay
+        (its warm-up and capture; its first run on the CPU)."""
         warm_runs = 2 if self._owns(entry) else 1
-        compiled = entry.runs - n_steps < warm_runs
-        step_stats.step_timer().record_run(
-            seconds, steps=n_steps, examples=entry.batch * n_steps,
-            compiled=compiled, flops_per_step=entry.flops_per_step)
+        return entry.runs - n_steps < warm_runs
 
     def _owns(self, entry) -> bool:
         """Whether ``entry``'s fetches may be buffers a later replay
@@ -615,16 +1014,16 @@ class Executor:
             stat_add("executor_eager_" + kind)
             with otrace.span("executor/eager", reason=why):
                 return self._run_block(entry.program, feeds,
-                                       entry.fetch_names, scope)
+                                       entry.fetch_names, scope, entry)
         if not self._captures:
             return self._run_block(entry.program, feeds, entry.fetch_names,
-                                   scope)
+                                   scope, entry)
         if entry.graph is not None:
             entry.graph.bind(feeds, scope)
         elif entry.step is None:   # the first run: eager, the warm-up
             entry.step = StepGraph(self.device)
             return entry.step.on_side_stream(lambda: self._run_block(
-                entry.program, feeds, entry.fetch_names, scope))
+                entry.program, feeds, entry.fetch_names, scope, entry))
         else:
             entry.graph = self._capture(entry, feeds, scope)
         with otrace.span("executor/replay"):
@@ -655,7 +1054,7 @@ class Executor:
             env = dict(state)
             env.update(static_feeds)
             self._run_ops(LoweringContext(block, env, self.device, gen),
-                          entry.frees)
+                          entry.frees, entry)
             _check_fetches(entry.fetch_names, env)
             copies = []
             for n in entry.state_out:
@@ -677,10 +1076,11 @@ class Executor:
         return graph
 
     # -- the eager block --------------------------------------------------
-    def _run_block(self, program, feeds, fetch_names, scope):
+    def _run_block(self, program, feeds, fetch_names, scope, entry=None):
         """Run the block op by op (every lowering called eagerly), each
         value dropped after its last use; write the state back to the
-        scope and return the fetches."""
+        scope and return the fetches (``entry``'s NaN flags last when it
+        scans)."""
         block = program.global_block
         state_in, state_out = self._analysis(program, set(feeds), scope)
         env = {}
@@ -690,22 +1090,31 @@ class Executor:
         env.update(feeds)
         ctx = LoweringContext(block, env, self.device,
                               self._generator(scope, program))
-        self._run_ops(ctx, self._frees(program, feeds, fetch_names, scope))
+        self._run_ops(ctx, self._frees(program, feeds, fetch_names, scope),
+                      entry)
         _check_fetches(fetch_names, env)
         for n in state_out:
             scope.set_var(n, env[n])
         return [env[n] for n in fetch_names]
 
-    def _run_ops(self, ctx, frees):
+    def _run_ops(self, ctx, frees, entry=None):
         """Every op of the block through its lowering, raising with the
         op's type and build site; ``frees[i]`` names the values dropped
-        after op i."""
+        after op i.  When ``entry`` scans for NaN/Inf, each floating
+        output adds one flag, computed on the device (whether all its
+        elements are finite), and the flags land in the environment as
+        one tensor, ``NAN_FLAGS_VAR``; ``entry.nan_ops`` names the op of
+        each flag, in the flags' order."""
         env = ctx.env
         peak = len(env)
+        scan = entry is not None and entry.nan_scan
+        groups = {}   # dtype -> ([min, max, ...], [(type, site, index)])
+        k = -1                      # the op's index among non-pseudo ops
         with torch.no_grad():
             for i, op in enumerate(ctx.block.ops):
                 if op.type in PSEUDO_OPS:
                     continue
+                k += 1
                 try:
                     get_lowering(op.type)(ctx, op)
                 except Exception as e:
@@ -717,9 +1126,29 @@ class Executor:
                     except Exception:  # noqa: BLE001 - odd constructors
                         err = RuntimeError(msg)
                     raise err from e
+                if scan:
+                    site = op.callstack[-1] if op.callstack else "?"
+                    for n in op.output_arg_names():
+                        v = env.get(n)
+                        if isinstance(v, torch.Tensor) \
+                                and v.is_floating_point() and v.numel():
+                            # one reduction an output, no copy of it: its
+                            # min and max (NaN propagates) are finite
+                            # exactly when every element is
+                            vals, ops = groups.setdefault(v.dtype, ([], []))
+                            vals.extend(torch.aminmax(v))
+                            ops.append((op.type, site, k))
                 peak = max(peak, len(env))
                 for n in frees[i]:
                     env.pop(n, None)
+            if scan:
+                # one flag an output, grouped by dtype (a stack needs one)
+                env[NAN_FLAGS_VAR] = torch.cat(
+                    [torch.isfinite(torch.stack(vals)).view(-1, 2).all(1)
+                     for vals, _ in groups.values()]) if groups else \
+                    torch.ones((0,), dtype=torch.bool, device=ctx.device)
+                entry.nan_ops = tuple(o for _, ops in groups.values()
+                                      for o in ops)
         self.env_peak = peak
 
     def _analysis(self, program, feed_names, scope):
@@ -788,6 +1217,14 @@ def _free_plan(program, keep) -> Tuple[Tuple[str, ...], ...]:
         if n not in keep:
             frees[i].append(n)
     return tuple(tuple(f) for f in frees)
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of card tensor ``t`` into pinned memory, issued
+    without blocking on the current stream (ready at the step's event)."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
 
 
 def _names(fetch_list) -> tuple:

@@ -240,9 +240,28 @@ define_flag("device_peak_tflops", 0.0,
 # ops/fused.py) ------------------------------------------------------------
 define_flag("check_nan_inf", False,
             "scan every op output for NaN/Inf after each executor run "
-            "(reference operator.cc:1129); the port's executor raises "
-            "NotImplementedError when it is set: the scan comes with a "
-            "later slice of the port")
+            "(reference operator.cc:1129): one finite flag per floating "
+            "op output is computed on the device inside the step (the "
+            "captured graph included) and fetched as one tensor; the "
+            "host checks it when the step drains and raises RuntimeError "
+            "naming the "
+            "first non-finite op's type, build site and index.  Every "
+            "run drains through itself while it is set, so the raise "
+            "happens inside the offending run")
+define_flag("benchmark", False,
+            "sync + time each executor call: a pipelined run drains "
+            "through itself, a synchronous one waits for its step's "
+            "event, so the recorded time is the step's")
+define_flag("max_inflight_steps", 2,
+            "pipelined step dispatch (framework/executor.py): Executor."
+            "run returns a lazy StepHandle and up to this many steps may "
+            "be in flight on the device before dispatch backpressures "
+            "(drains the oldest step).  0 = legacy synchronous fetch "
+            "(every run blocks on device->host transfer of its fetch "
+            "list).  NaN-scan, FLAGS_benchmark sync, and StepTimer "
+            "accounting all happen at window-drain points; "
+            "FLAGS_benchmark / FLAGS_check_nan_inf force an immediate "
+            "drain per step so their semantics stay per-call")
 define_flag("flash_attention", "auto",
             "fused attention kernel engagement: 'auto' (the flash kernel "
             "only on CUDA tensors whose float32 score tensor would pass "
@@ -270,3 +289,20 @@ define_flag("weight_quant", "",
             "(torch.float8_e4m3fn; a torch without it falls back to int8 "
             "with quant_fp8_unavailable counted).  Per-program override: "
             "slim.quantization.mark_weight_quant")
+
+# ---- checkpoints (ckpt/manager.py) -----------------------------------------
+define_flag("ckpt_async_save", True,
+            "CheckpointManager default (paddle_tpu_torch.ckpt): hand "
+            "serialization + shard writes to the background writer "
+            "thread so save() blocks only for the device snapshot")
+define_flag("ckpt_keep_n", 5,
+            "checkpoint retention default: keep the N newest committed "
+            "steps (0 = keep everything); keep_every_n_steps multiples "
+            "survive GC regardless")
+define_flag("ckpt_fsync", True,
+            "fsync shard/manifest files and directories at commit -- the "
+            "atomicity guarantee against power loss; disable only for "
+            "tests/benchmarks on throwaway dirs")
+define_flag("ckpt_verify_restore", True,
+            "verify the SHA-256 of every shard against the manifest "
+            "before restoring (off: existence+size checks only)")

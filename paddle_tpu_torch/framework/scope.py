@@ -98,6 +98,9 @@ class Scope:
         # monotone id for executor caches: id() of a GC'd scope can be
         # recycled by a new scope and silently serve stale analysis
         self.serial = next(_scope_serial)
+        # the NaN scan's message when a step that wrote this scope failed
+        # it: ckpt.snapshot_scope refuses such a scope until a restore
+        self._nan_poisoned: Optional[str] = None
 
     # -- core -------------------------------------------------------------
     def has_var(self, name: str) -> bool:

@@ -1,11 +1,10 @@
 """High-level API callbacks (reference python/paddle/hapi/callbacks.py).
 
-Counterpart of ``paddle_tpu/hapi/callbacks.py``.  ``ModelCheckpoint``'s
-default route saves through ``paddle_tpu.ckpt`` (atomic epoch commits,
-retention, async writes), which comes with ROADMAP Queue A item 4: the
-port's raises ``NotImplementedError`` naming it unless
-``legacy_format=True`` (synchronous ``Model.save`` per epoch, the
-reference's layout).  ``BenchmarkCallback`` reads the port's
+Counterpart of ``paddle_tpu/hapi/callbacks.py``.  ``ModelCheckpoint``
+saves through ``paddle_tpu_torch.ckpt`` (atomic epoch commits,
+retention, async writes), or with ``legacy_format=True`` through
+synchronous ``Model.save`` per epoch (the reference's layout).
+``BenchmarkCallback`` reads the port's
 ``observe`` histograms and, in static mode, the executor's step timer
 (``observe/step_stats.py``).
 """
@@ -120,53 +119,138 @@ class ProgBarLogger(Callback):
 
 
 class ModelCheckpoint(Callback):
-    """Epoch checkpointing.  ``legacy_format=True`` saves
-    ``save_dir/{epoch}`` through ``Model.save`` (synchronous, the
-    reference's per-epoch layout) and ``save_dir/final`` at the end of
-    training; ``restore_latest(model)`` loads the newest such epoch.
-    The default route (the JAX package's ``CheckpointManager``: atomic
-    commits, ``keep_n`` retention, ``async_save``) comes with ROADMAP
-    Queue A item 4 and raises ``NotImplementedError`` here."""
+    """Epoch checkpointing through ``paddle_tpu_torch.ckpt``: commits are
+    atomic (manifest + rename: a killed run can't leave a torn epoch
+    dir), ``keep_n`` retention-GCs old epochs, and ``async_save=True``
+    hands serialization + writes to the background writer so the train
+    loop only blocks for the state capture.  ``on_train_end`` drains
+    pending saves and still writes the ``final`` export via
+    ``Model.save``.  ``restore_latest(model)`` reloads the newest intact
+    epoch (falling back past corrupt ones).
+
+    On-disk layout: epochs land as manager ``step_<epoch>`` dirs (npz
+    shards + manifest), not the reference's ``save_dir/{epoch}``
+    ``Model.save`` files.  ``legacy_format=True`` keeps that per-epoch
+    layout (synchronous ``Model.save``, no atomicity or retention)."""
 
     def __init__(self, save_freq=1, save_dir=None, keep_n=0,
                  async_save=None, legacy_format=False):
         super().__init__()
-        if not legacy_format:
-            raise NotImplementedError(
-                "ModelCheckpoint's default route saves through the "
-                "checkpoint manager (paddle_tpu.ckpt), which comes with "
-                "ROADMAP Queue A item 4 in a later slice of the port; pass "
-                "legacy_format=True for synchronous Model.save epochs")
         self.save_freq = save_freq
         self.save_dir = save_dir
         self.keep_n = keep_n
         self.async_save = async_save
         self.legacy_format = legacy_format
+        self._manager = None
+
+    def _mgr(self):
+        if self._manager is None:
+            from ..ckpt import CheckpointManager
+
+            self._manager = CheckpointManager(
+                self.save_dir, keep_n=self.keep_n,
+                async_save=self.async_save)
+        return self._manager
+
+    def _capture(self):
+        """Host copies of the network's parameters and buffers and the
+        optimizer's state, prefixed so one flat dict carries both;
+        dict-valued optimizer entries (the LR scheduler's state) return
+        apart, to ride the checkpoint's JSON host state."""
+        import json
+        import logging
+
+        model = self.model
+        if getattr(model, "_static_mode", False) and model._st is not None:
+            model._sync_scope_to_network()
+        state = {"param/" + k: _host_tensor(v)
+                 for k, v in model.network.state_dict().items()}
+        opt_json = {}
+        opt = getattr(model, "_optimizer", None)
+        if opt is not None and hasattr(opt, "state_dict"):
+            for k, v in opt.state_dict().items():
+                if isinstance(v, dict):
+                    # numpy scalars -> floats: this rides the JSON host
+                    # state; an entry JSON cannot hold is dropped with a
+                    # warning rather than ending training at an epoch
+                    try:
+                        opt_json[k] = json.loads(
+                            json.dumps(v, default=float))
+                    except (TypeError, ValueError):
+                        logging.getLogger(__name__).warning(
+                            "ModelCheckpoint: optimizer state %r is not "
+                            "JSON-serializable; it will not ride the "
+                            "checkpoint", k)
+                else:
+                    state["opt/" + k] = _host_tensor(v)
+        return state, opt_json
 
     def on_epoch_end(self, epoch, logs=None):
         if self.save_dir and (epoch + 1) % self.save_freq == 0:
-            self.model.save(os.path.join(self.save_dir, f"{epoch}"))
+            if self.legacy_format:
+                self.model.save(os.path.join(self.save_dir, f"{epoch}"))
+            else:
+                state, opt_json = self._capture()
+                self._mgr().save(epoch, state=state,
+                                 host_state={"epoch": epoch,
+                                             "opt_json": opt_json})
 
     def on_train_end(self, logs=None):
         if self.save_dir:
+            if self._manager is not None:
+                self._manager.wait()
             self.model.save(os.path.join(self.save_dir, "final"))
 
     def restore_latest(self, model=None):
-        """Load the newest ``save_dir/{epoch}`` ``Model.save`` files into
-        ``model`` (or the attached one).  Returns the epoch number, or
-        None when the directory holds none."""
+        """Load the newest intact epoch checkpoint into ``model`` (or the
+        attached one).  Returns the epoch number, or None when the
+        directory holds no committed checkpoint.  With
+        ``legacy_format=True`` this loads the newest ``save_dir/{epoch}``
+        ``Model.save`` files instead."""
+        from ..dygraph.tensor import Tensor
+
         model = model or self.model
-        try:
-            entries = os.listdir(self.save_dir)
-        except OSError:
+        if self.legacy_format:
+            try:
+                entries = os.listdir(self.save_dir)
+            except OSError:
+                return None
+            epochs = sorted(int(e[:-len(".pdparams")]) for e in entries
+                            if e.endswith(".pdparams")
+                            and e[:-len(".pdparams")].isdigit())
+            if not epochs:
+                return None
+            model.load(os.path.join(self.save_dir, str(epochs[-1])))
+            return epochs[-1]
+        meta = self._mgr().restore(device="cpu")
+        if meta is None:
             return None
-        epochs = sorted(int(e[:-len(".pdparams")]) for e in entries
-                        if e.endswith(".pdparams")
-                        and e[:-len(".pdparams")].isdigit())
-        if not epochs:
-            return None
-        model.load(os.path.join(self.save_dir, str(epochs[-1])))
-        return epochs[-1]
+        state = meta["state"]
+        model.network.set_state_dict(
+            {k[len("param/"):]: Tensor(v) for k, v in state.items()
+             if k.startswith("param/")})
+        if getattr(model, "_static_mode", False) and model._st is not None:
+            scope = model._st["scope"]
+            for p in model.network.parameters():
+                scope.set_var(p.name, p._value.detach().clone())
+        opt = getattr(model, "_optimizer", None)
+        od = {k[len("opt/"):]: v for k, v in state.items()
+              if k.startswith("opt/")}
+        od.update(meta["host_state"].get("opt_json") or {})
+        if od and opt is not None and hasattr(opt, "set_state_dict"):
+            opt.set_state_dict(od)
+        return int(meta["host_state"].get("epoch", meta["step"]))
+
+
+def _host_tensor(v):
+    """A host copy of a dygraph Tensor, tensor or array value."""
+    import numpy as np
+    import torch
+
+    t = getattr(v, "_value", v)
+    if isinstance(t, torch.Tensor):
+        return t.detach().to("cpu", copy=True)
+    return np.array(v, copy=True)
 
 
 class EarlyStopping(Callback):
@@ -326,7 +410,7 @@ def config_callbacks(callbacks=None, model=None, epochs=None, steps=None,
     if not any(isinstance(c, ProgBarLogger) for c in cbks) and verbose:
         cbks.append(ProgBarLogger(log_freq, verbose=verbose))
     if save_dir and not any(isinstance(c, ModelCheckpoint) for c in cbks):
-        cbks.append(ModelCheckpoint(save_freq, save_dir))  # raises: item 4
+        cbks.append(ModelCheckpoint(save_freq, save_dir))
     cl = CallbackList(cbks)
     cl.set_model(model)
     cl.set_params({"epochs": epochs, "steps": steps, "verbose": verbose,

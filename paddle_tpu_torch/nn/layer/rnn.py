@@ -10,7 +10,7 @@ A static program gives the 2.0 layers' outputs no shape, so a layer that
 reads its input's batch size (the zero initial state) raises there,
 naming the shape it lacks; the JAX package fails at the same place with
 an ``IndexError``.  Static text models wait for shape tensors and
-``jit`` (ROADMAP Queue A items 4 and 6).
+``jit`` (ROADMAP Queue A item 6).
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ def known_shape(x, rank, who):
             f"{who}: input {getattr(x, 'name', '?')!r} has no known shape "
             f"({shape}, {rank} dims needed): the 2.0 layers' outputs in a "
             "static program carry none; static text models wait for shape "
-            "tensors and jit (ROADMAP Queue A items 4 and 6)")
+            "tensors and jit (ROADMAP Queue A item 6)")
     return shape
 
 
@@ -101,7 +101,7 @@ class RNNBase(Layer):
             raise NotImplementedError(
                 f"{type(self).__name__}: a zero initial state in a static "
                 "program needs the batch size as a shape tensor (ROADMAP "
-                "Queue A item 4); pass initial_states")
+                "Queue A item 6); pass initial_states")
         batch = shape[1] if self.time_major else shape[0]
         v = x._value
         return Tensor(torch.zeros(

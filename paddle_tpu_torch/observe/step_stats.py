@@ -12,15 +12,18 @@ Out the other end:
   **MFU estimate** = achieved FLOP/s / ``peak_tflops`` (or
   ``FLAGS_device_peak_tflops``; with neither set, MFU is null).
 
-Timing: the port's ``Executor.run`` is synchronous.  With
-``return_numpy=True`` (the default, and the high-level API's use) it
-returns after its fetches were copied to the host, which waits for the
-step's kernels, so the recorded wall time is the step's.  A run that
-returns device tensors (``return_numpy=False``, ``run_steps``'s default)
-records the time to enqueue the step, not to finish it.  A key's first
-run (eager on the card) and, on the card, its second (the CUDA-graph
-capture) are charged to the compile side, so the steady numbers are
-replays.
+Timing: with the pipelined window (``FLAGS_max_inflight_steps`` > 0,
+the default) the Executor records a step when it drains, with the wall
+time since the previous drain: in a steady loop, where each dispatch at
+the cap drains the oldest step, that is the loop's period, input wait
+included.  ``summary()`` and ``reset()`` drain every live Executor first
+(``raise_errors=False``: a failure met there is parked and raised at the
+next raising drain point), so a summary counts only completed steps and
+a reset drops the steps dispatched before it.  With the window at 0,
+``run`` records its call when it returns, after its fetches reached the
+host (``return_numpy=True``).  A key's first run (eager on the card)
+and, on the card, its second (the CUDA-graph capture) are charged to the
+compile side, so the steady numbers are replays.
 """
 from __future__ import annotations
 
@@ -92,6 +95,7 @@ class StepTimer:
             stat_time(self._hist_name, duration_s / steps)
 
     def summary(self, peak_tflops: Optional[float] = None) -> Dict:
+        _drain_executors()
         with self._lock:
             runs, steps, examples = self.runs, self.steps, self.examples
             compiles = self.compiles
@@ -120,9 +124,17 @@ class StepTimer:
         return out
 
     def reset(self) -> None:
+        _drain_executors()
         with self._lock:
             self._zero()
         histogram(self._hist_name).reset()
+
+
+def _drain_executors() -> None:
+    """Drain every live Executor's window, parking failures."""
+    from ..framework.executor import drain_all
+
+    drain_all(raise_errors=False)
 
 
 _STEP_TIMER = StepTimer()

@@ -1,9 +1,12 @@
 """Optimizer update ops: ``sgd``, ``momentum``, ``adam``, ``adamw``,
-``adamax``, ``adagrad``, ``adadelta``, ``rmsprop`` and ``lamb``.
+``adamax``, ``adagrad``, ``adadelta``, ``rmsprop`` and ``lamb``, and the
+AMP dynamic loss scaling's ``check_finite_and_unscale`` and
+``update_loss_scaling``.
 
 Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` (``_sgd`` through
-``_lamb``); ``lars_momentum``, ``ftrl``, ``dpsgd`` and the AMP loss-scaling
-ops come with a later slice.  Reference parity: sgd_op.cc, momentum_op.cc
+``_lamb``, and its loss-scaling ops, computed on the device with no
+host branch, so a captured step keeps them); ``lars_momentum``,
+``ftrl`` and ``dpsgd`` come with a later slice.  Reference parity: sgd_op.cc, momentum_op.cc
 (``use_nesterov``, ``regularization_method == "l2_decay"``), adam_op.cc,
 adamax_op.cc, adagrad_op.cc, adadelta_op.cc, rmsprop_op.cc (``centered``),
 lamb_op.cc.  ``sgd``, ``momentum``, ``adamax``, ``adagrad``, ``adadelta``
@@ -177,3 +180,52 @@ def _lamb(ctx, op):
     ctx.set_out(op, "Moment2Out", m2n)
     ctx.set_out(op, "Beta1PowOut", b1p * b1)
     ctx.set_out(op, "Beta2PowOut", b2p * b2)
+
+
+@register_lower("check_finite_and_unscale")
+def _check_finite_and_unscale(ctx, op):
+    """Each gradient over the loss scale; ``FoundInfinite`` [1] is set
+    when any of them holds a non-finite value (reference
+    check_finite_and_unscale_op.cc)."""
+    scale = as_scalar(ctx.in1(op, "Scale")).float()
+    found = torch.zeros((), dtype=torch.bool, device=ctx.device)
+    for name_in, name_out in zip(op.inputs.get("X", []),
+                                 op.outputs.get("Out", [])):
+        x = ctx.get(name_in)
+        xs = x.float() / scale
+        found = found | ~torch.isfinite(xs).all()
+        ctx.set(name_out, xs if x.dtype == torch.float16 else xs.to(x.dtype))
+    ctx.set_out(op, "FoundInfinite", found.reshape(1))
+
+
+@register_lower("update_loss_scaling")
+def _update_loss_scaling(ctx, op):
+    """The dynamic loss scale's step (reference update_loss_scaling_op.cc):
+    grow by ``incr_ratio`` after ``incr_every_n_steps`` finite steps,
+    shrink by ``decr_ratio`` (not below 1) after
+    ``decr_every_n_nan_or_inf`` non-finite ones, and zero the gradients
+    of a non-finite step so its update is skipped."""
+    found = ctx.in1(op, "FoundInfinite").reshape(())
+    scale = as_scalar(ctx.in1(op, "PrevLossScaling"))
+    good = as_scalar(ctx.in1(op, "InGoodSteps"))
+    bad = as_scalar(ctx.in1(op, "InBadSteps"))
+    incr_every = op.attr("incr_every_n_steps", 1000)
+    decr_every = op.attr("decr_every_n_nan_or_inf", 2)
+    incr_ratio = op.attr("incr_ratio", 2.0)
+    decr_ratio = op.attr("decr_ratio", 0.5)
+    new_bad = torch.where(found, bad + 1, torch.zeros_like(bad))
+    new_good = torch.where(found, torch.zeros_like(good), good + 1)
+    shrink = new_bad >= decr_every
+    grow = new_good >= incr_every
+    new_scale = torch.where(
+        shrink, torch.clamp(scale * decr_ratio, min=1.0),
+        torch.where(grow, scale * incr_ratio, scale))
+    new_bad = torch.where(shrink, torch.zeros_like(new_bad), new_bad)
+    new_good = torch.where(grow, torch.zeros_like(new_good), new_good)
+    ctx.set_out(op, "LossScaling", new_scale.reshape(1))
+    ctx.set_out(op, "OutGoodSteps", new_good.reshape(1).to(torch.int32))
+    ctx.set_out(op, "OutBadSteps", new_bad.reshape(1).to(torch.int32))
+    for name_in, name_out in zip(op.inputs.get("X", []),
+                                 op.outputs.get("Out", [])):
+        x = ctx.get(name_in)
+        ctx.set(name_out, torch.where(found, torch.zeros_like(x), x))

@@ -26,9 +26,9 @@ mode, its callbacks and ``model_stat``, against the JAX package's
   examples/s and an MFU from ``flops_per_step``.
 - A batch already on the device reaches ``to_variable`` as a tensor.
 - The later-slice features raise ``NotImplementedError`` naming their
-  ROADMAP Queue A item: ``ModelCheckpoint``'s default route (item 4),
-  ``save(training=False)``, ``flops(layer)`` and ``summary(layer,
-  input_size=...)`` (item 6).
+  ROADMAP Queue A item: ``save(training=False)``, ``flops(layer)`` and
+  ``summary(layer, input_size=...)`` (item 6); ``ModelCheckpoint``'s
+  default route (item 4) is ported and commits a step an epoch.
 """
 import numpy as np
 import pytest
@@ -288,11 +288,10 @@ def test_later_slice_features_raise_naming_their_item(tmp_path):
     m = T.Model(_mlp(T))
     m.prepare(T.optimizer.SGD(0.1, parameters=m.parameters()),
               T.nn.CrossEntropyLoss())
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        T.callbacks.ModelCheckpoint(save_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        m.fit(_tiny_data(T), batch_size=8, verbose=0,
-              save_dir=str(tmp_path))
+    # ModelCheckpoint's default route (Queue A item 4) is ported: fit's
+    # save_dir commits a checkpoint step an epoch
+    m.fit(_tiny_data(T), batch_size=8, verbose=0, save_dir=str(tmp_path))
+    assert (tmp_path / "step_0" / "MANIFEST.json").is_file()
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         m.save(str(tmp_path / "infer"), training=False)
     with pytest.raises(NotImplementedError, match="Queue A item 6"):

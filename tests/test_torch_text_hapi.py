@@ -173,7 +173,7 @@ def test_port_static_adapter_names_the_missing_shape(kind, ptb):
         net, model = _static_model(T, kind, ptb)
         with pytest.raises(NotImplementedError,
                            match=rf"{who}: input .* has no known shape"
-                                 r".*Queue A items 4 and 6"):
+                                 r".*Queue A item 6"):
             _static_prepare(T, net, model, kind)
     finally:
         T.disable_static()
