@@ -407,6 +407,41 @@ where a phase sets it.
                ``restore_latest`` into a fresh ``Model`` predicts
                bit-equal on one batch; only ``step_1`` survives.
 
+Slice 16's phases run after ``model_checkpoint``: BASELINE config 5, an
+ERNIE-1.0 sentence-classification finetune at ERNIE 1.0's published widths
+(``ernie_config.json`` of PaddlePaddle/ERNIE: 12 layers, hidden 768, 12
+heads, FFN 3072, vocab 18000, max_pos 513, two segment types) over
+``text.static_models.bert_encoder`` with fused attention (gelu in the
+FFN, where ERNIE 1.0 has relu: the repo's encoder layer fixes gelu), the
+first token -> ``fc(768, tanh)`` -> dropout 0.1 -> ``fc(2)`` -> softmax
+cross entropy -> mean, batch 32 at seq 128, dropout 0.1, AdamW (lr 5e-5,
+weight decay 0.01), built through ``fleet.init(is_collective=True,
+strategy=s)``, ``fleet.distributed_optimizer(opt)``,
+``fleet.minimize(loss)``; synthetic ids, segments, key masks and labels
+from a seed, one batch repeated.
+
+41. ernie_fleet -- ``s.amp`` (bf16) + ``s.recompute`` checkpointed at every
+               layer's ``_ln2`` output: the applied meta-optimizer chain,
+               op counts (casts, recompute barriers, re-emitted forward
+               ops), 30 steps (the eager warm-up, the capture, 28 replays
+               with B1's launches counted: 36 a step), step p50 captured
+               and eager, the peak memory over the warm-up and the
+               capture and the graph pools' size; then the amp-only chain
+               from the same startup values, the same numbers (24 B1
+               launches a step).  Fails unless the chain holds casts and
+               barriers, every loss is finite, the last loss is below the
+               first, recompute's peak is below amp-only's, and the two
+               trajectories are bit-equal or within 1e-3 relative;
+42. ernie_gm -- the same model with ``s.amp`` + ``s.gradient_merge``
+               (k_steps 4, avg), 8 steps captured and 8 through the eager
+               block from one startup: every parameter bit-equal to its
+               previous value on the steps that do not update, and the
+               two runs bit-equal;
+43. ernie_oracle -- step 1 of ``ernie_fleet``'s chain with dropout 0 (the
+               card's and the CPU's generators draw other masks), run on
+               the card and replayed on the CPU from the card's startup
+               values and feed: the loss within ERNIE_ORACLE_RTOL.
+
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
 device it exits 1 before doing anything.
@@ -5346,6 +5381,321 @@ def phase_model_checkpoint():
 
 
 
+# ---- slice 16: fleet at one process, BASELINE config 5 (ERNIE-1.0) -------
+
+# ERNIE 1.0's published widths (ernie_config.json of PaddlePaddle/ERNIE),
+# the finetune's batch, sequence, dropout and AdamW settings
+ERNIE = dict(batch=32, seq=128, vocab=18000, hidden=768, layers=12, heads=12,
+             ffn=3072, max_pos=513, type_vocab=2, dropout=0.1, lr=5e-5,
+             weight_decay=0.01)
+ERNIE_STEPS, ERNIE_GM_STEPS, ERNIE_GM_K = 30, 8, 4
+ERNIE_TRAJ_RTOL = 1e-3   # amp-only vs amp + recompute when not bit-equal
+# step 1's loss, card against CPU, both in bf16 AMP: each side rounds
+# ~100 bfloat16 values on the path to the loss (8-bit mantissas), in its
+# own summation orders
+ERNIE_ORACLE_RTOL = 1e-2
+B1_PER_RECOMPUTE_STEP = 36   # forward, recomputed forward, gradient replay
+
+
+def ernie_program(amp=True, recompute=True, gradient_merge=0,
+                  dropout=ERNIE["dropout"]):
+    """The finetune through ``fleet``: main, startup, loss and the
+    applied chain's class names."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import chain_names
+    from paddle_tpu_torch.optimizer import AdamWOptimizer
+    from paddle_tpu_torch.text.static_models import _dense, bert_encoder
+
+    c = ERNIE
+    b, s, h = c["batch"], c["seq"], c["hidden"]
+    main, startup = pt.framework.Program(), pt.framework.Program()
+    main.random_seed = 7
+    with unique_name.guard(), program_guard(main, startup):
+        def data(name, shape, dtype="int64"):
+            return layers.data(name, shape, dtype=dtype,
+                               append_batch_size=False)
+        seq_out = bert_encoder(
+            data("src_ids", [b, s]), data("sent_ids", [b, s]),
+            data("pos_ids", [b, s]),
+            data("input_mask", [b, 1, 1, s], "float32"),
+            vocab_size=c["vocab"], hidden=h, n_layers=c["layers"],
+            n_heads=c["heads"], ffn_size=c["ffn"], max_pos=c["max_pos"],
+            type_vocab=c["type_vocab"], dropout_prob=dropout,
+            use_fused_attention=True)
+        cls = layers.reshape(layers.slice(seq_out, axes=[1], starts=[0],
+                                          ends=[1]), [0, h])
+        pooled = _dense(cls, h, act="tanh", name="pooled_fc")
+        if dropout:
+            pooled = layers.dropout(pooled, dropout, name="cls_drop")
+        loss = layers.mean(layers.softmax_with_cross_entropy(
+            _dense(pooled, 2, name="cls_out"), data("labels", [b, 1])))
+        ckpts = [op.outputs["Y"][0] for op in main.global_block.ops
+                 if op.type == "layer_norm"
+                 and "_ln2" in op.outputs["Y"][0]]
+        strategy = fleet.DistributedStrategy()
+        strategy.amp = amp
+        if recompute:
+            strategy.recompute = True
+            strategy.recompute_configs = {"checkpoints": ckpts}
+        if gradient_merge:
+            strategy.gradient_merge = True
+            strategy.gradient_merge_configs = {"k_steps": gradient_merge,
+                                               "avg": True}
+        fleet.init(is_collective=True, strategy=strategy)
+        fleet.distributed_optimizer(AdamWOptimizer(
+            learning_rate=c["lr"], weight_decay=c["weight_decay"]))
+        fleet.minimize(loss)
+    chain = chain_names(fleet._fleet_singleton.applied_chain)
+    return dict(main=main, startup=startup, loss=loss, chain=chain)
+
+
+def ernie_feed(seed=0):
+    """Token ids over the vocabulary, two segments, every other sequence
+    with its last 32 keys padded, labels from the ids."""
+    c = ERNIE
+    b, s = c["batch"], c["seq"]
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, c["vocab"], (b, s)).astype("int64")
+    sent = np.zeros((b, s), "int64")
+    sent[:, s // 2:] = 1
+    mask = np.zeros((b, 1, 1, s), "float32")
+    mask[::2, :, :, s - 32:] = -1e4
+    return {"src_ids": ids, "sent_ids": sent,
+            "pos_ids": np.tile(np.arange(s, dtype="int64"), (b, 1)),
+            "input_mask": mask,
+            "labels": (ids[:, :4].sum(1, keepdims=True) % 2).astype("int64")}
+
+
+def ernie_op_counts(main):
+    ops = main.global_block.ops
+    return {"ops": len(ops),
+            "cast": sum(op.type == "cast" for op in ops),
+            "recompute_barrier": sum(op.type == "recompute_barrier"
+                                     for op in ops),
+            "re_emitted_forward": sum(
+                any(n.endswith("@RECOMPUTE") for n in op.output_arg_names())
+                for op in ops),
+            "fused_multihead_attention": sum(
+                op.type == "fused_multihead_attention" for op in ops)}
+
+
+def graph_pools_gb():
+    """The memory the allocator holds in CUDA graphs' private pools (the
+    segments of every pool but the default one), in GB."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory._snapshot()[
+        "segments"] if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)
+    ) / 1e9
+
+
+def ernie_train(prog, init, feed, steps, b1_per_step, label):
+    """``steps`` steps of ``prog`` from the host state ``init``: the
+    eager warm-up and the capture (peak memory over both, and the graph
+    pools' size after the capture), then replays with B1's launches
+    counted; the eager block's p50 beside."""
+    main, loss = prog["main"], prog["loss"]
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    for n, v in init.items():
+        scope.set_var(n, v.to(exe.device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    captures = stat_get("cuda_graph_captures")
+    t0 = time.perf_counter()
+    second = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pool = graph_pools_gb()
+    if stat_get("cuda_graph_captures") != captures + 1:
+        raise RuntimeError(f"{label}: the second run did not capture")
+    losses = [float(first.ravel()[0]), float(second.ravel()[0])]
+    replays = stat_get("cuda_graph_replays")
+    fab.reset_launch_count()    # this path's count starts here
+    step_ms = []
+    for _ in range(steps - 2):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        losses.append(float(out.ravel()[0]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = fab.flash_attention_bias.launches
+    replays = stat_get("cuda_graph_replays") - replays
+    if replays != steps - 2:
+        raise RuntimeError(f"{label}: {replays} replays in {steps - 2} "
+                           f"steps")
+    if launches != b1_per_step * (steps - 2):
+        raise RuntimeError(f"{label}: B1 launched {launches} times in "
+                           f"{steps - 2} steps, want {b1_per_step} a step")
+    graph = eager_vs_captured(label, exe, main, feed, [loss], scope,
+                              EAGER_STEPS, ORACLE_RTOL, True, step_ms, peak)
+    exe.close()
+    return dict(losses=losses, step_ms_p50=float(np.median(step_ms)),
+                step_ms=step_ms, warm_ms=warm_ms, capture_ms=capture_ms,
+                peak_memory_gb=peak, peak_memory_gb_eager_warmup=eager_peak,
+                graph_pool_gb=pool, b1_launches=launches,
+                b1_launches_per_step=launches / (steps - 2),
+                replays=replays, **graph), launches
+
+
+def phase_ernie_fleet():
+    flags.set_flags({"flash_attention": "always"})
+    feed = ernie_feed()
+    t0 = time.monotonic()
+    prog = ernie_program(amp=True, recompute=True)
+    build_s = time.monotonic() - t0
+    counts = ernie_op_counts(prog["main"])
+    if not counts["cast"] or not counts["recompute_barrier"]:
+        raise RuntimeError(f"ernie_fleet: the chain {prog['chain']} lacks "
+                           f"the amp or the recompute rewrite: {counts}")
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    exe.run(prog["startup"], scope=scope)
+    init = {n: v.detach().cpu() for n, v in scope._vars.items()
+            if isinstance(v, torch.Tensor)}
+    exe.close()
+    del exe, scope
+    release("ernie_startup")
+    rc, launches = ernie_train(prog, init, feed, ERNIE_STEPS,
+                               B1_PER_RECOMPUTE_STEP, "ernie_fleet")
+    rc_chain = prog["chain"]
+    del prog
+    release("ernie_recompute")
+    amp_prog = ernie_program(amp=True, recompute=False)
+    amp_counts = ernie_op_counts(amp_prog["main"])
+    amp, _ = ernie_train(amp_prog, init, feed, ERNIE_STEPS, B1_PER_STEP,
+                         "ernie_amp_only")
+    chain = amp_prog["chain"]
+    del amp_prog
+    a, b = rc["losses"], amp["losses"]
+    bit_equal = a == b
+    first_apart = next((i + 1 for i, (x, y) in enumerate(zip(a, b))
+                        if x != y), None)
+    gap = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    log("ernie_fleet", model="ernie-1.0 finetune", **{
+        k: v for k, v in ERNIE.items()}, ffn_act="gelu",
+        steps=ERNIE_STEPS, build_s=build_s,
+        recompute=dict(chain=rc_chain, **rc),
+        amp_only=dict(chain=chain, **amp), op_counts=counts,
+        op_counts_amp_only=amp_counts, trajectories_bit_equal=bit_equal,
+        first_step_apart=first_apart, max_rel_gap=gap,
+        tolerance=ERNIE_TRAJ_RTOL,
+        peak_fall_gb=amp["peak_memory_gb"] - rc["peak_memory_gb"])
+    for label, r in (("recompute", rc), ("amp_only", amp)):
+        losses = r["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"ernie_fleet {label}: a loss is not "
+                               f"finite: {losses}")
+        if not losses[-1] < losses[0]:
+            raise RuntimeError(f"ernie_fleet {label}: the loss did not "
+                               f"fall on the repeated batch: {losses}")
+    if not rc["peak_memory_gb"] < amp["peak_memory_gb"]:
+        raise RuntimeError(f"ernie_fleet: recompute's peak "
+                           f"{rc['peak_memory_gb']} GB is not below "
+                           f"amp-only's {amp['peak_memory_gb']} GB")
+    if not (bit_equal or gap <= ERNIE_TRAJ_RTOL):
+        raise RuntimeError(f"ernie_fleet: amp + recompute and amp-only "
+                           f"part by {gap} > {ERNIE_TRAJ_RTOL} (first "
+                           f"at step {first_apart})")
+    return launches
+
+
+def phase_ernie_gm():
+    """amp + gradient merge (k 4): 8 steps captured, 8 through the eager
+    block, from one startup."""
+    flags.set_flags({"flash_attention": "always"})
+    feeds = [ernie_feed(seed=s) for s in range(4)]
+    prog = ernie_program(amp=True, recompute=False,
+                         gradient_merge=ERNIE_GM_K)
+    main, loss = prog["main"], prog["loss"]
+    params = [p.name for p in main.all_parameters()]
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    exe.run(prog["startup"], scope=scope)
+    init = {n: v.clone() for n, v in scope._vars.items()
+            if isinstance(v, torch.Tensor)}
+    del scope
+    runs = {}
+    for mode in ("captured", "eager"):
+        exe._captures = mode == "captured"
+        sc = pt.framework.Scope()
+        for n, v in init.items():
+            sc.set_var(n, v.clone())
+        replays = stat_get("cuda_graph_replays")
+        losses, states, frozen_ok = [], [], True
+        prev = {n: sc.get_var(n).clone() for n in params}
+        for k in range(ERNIE_GM_STEPS):
+            out = exe.run(main, feed=feeds[k % 4], fetch_list=[loss],
+                          scope=sc)[0]
+            losses.append(float(out.ravel()[0]))
+            now = {n: sc.get_var(n).clone() for n in params}
+            update = (k + 1) % ERNIE_GM_K == 0
+            same = all(torch.equal(now[n], prev[n]) for n in params)
+            frozen_ok &= same != update
+            states.append(now)
+            prev = now
+        runs[mode] = dict(losses=losses, states=states, frozen_ok=frozen_ok,
+                          replays=stat_get("cuda_graph_replays") - replays)
+        exe.drain()
+    exe.close()
+    cap, eag = runs["captured"], runs["eager"]
+    apart = [k + 1 for k in range(ERNIE_GM_STEPS)
+             if not all(torch.equal(cap["states"][k][n],
+                                    eag["states"][k][n]) for n in params)]
+    log("ernie_gm", k_steps=ERNIE_GM_K, steps=ERNIE_GM_STEPS,
+        chain=prog["chain"], params=len(params),
+        losses_captured=cap["losses"], losses_eager=eag["losses"],
+        replays_captured=cap["replays"], replays_eager=eag["replays"],
+        frozen_between_updates=[cap["frozen_ok"], eag["frozen_ok"]],
+        steps_apart=apart)
+    if not (cap["frozen_ok"] and eag["frozen_ok"]):
+        raise RuntimeError("ernie_gm: parameters moved on a step that does "
+                           "not update, or stayed on one that does")
+    if apart or cap["losses"] != eag["losses"]:
+        raise RuntimeError(f"ernie_gm: captured and eager part at steps "
+                           f"{apart}: {cap['losses']} vs {eag['losses']}")
+    if cap["replays"] != ERNIE_GM_STEPS - 1 or eag["replays"]:
+        raise RuntimeError(f"ernie_gm: {cap['replays']} / {eag['replays']}"
+                           f" replays captured / eager")
+
+
+def phase_ernie_oracle():
+    """Step 1 of the amp + recompute chain (dropout 0) on the card and on
+    the CPU from the card's startup values and feed."""
+    from paddle_tpu_torch.framework.scope import scope_from_numpy, to_numpy
+
+    flags.set_flags({"flash_attention": "always"})
+    prog = ernie_program(amp=True, recompute=True, dropout=0.0)
+    feed = ernie_feed(seed=1)
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    exe.run(prog["startup"], scope=scope)
+    host = {n: to_numpy(v) for n, v in scope._vars.items()
+            if isinstance(v, torch.Tensor)}
+    card = float(exe.run(prog["main"], feed=feed, fetch_list=[prog["loss"]],
+                         scope=scope)[0].ravel()[0])
+    exe.close()
+    t0 = time.monotonic()
+    cpu_scope = scope_from_numpy(host, device="cpu")
+    cpu = float(pt.Executor(pt.CPUPlace()).run(
+        prog["main"], feed=feed, fetch_list=[prog["loss"]],
+        scope=cpu_scope)[0].ravel()[0])
+    cpu_s = time.monotonic() - t0
+    gap = abs(card - cpu) / abs(cpu)
+    log("ernie_oracle", dropout=0.0, loss_card=card, loss_cpu=cpu,
+        rel_gap=gap, tolerance=ERNIE_ORACLE_RTOL, cpu_seconds=cpu_s,
+        cpu_threads=torch.get_num_threads())
+    if not (math.isfinite(card) and gap <= ERNIE_ORACLE_RTOL):
+        raise RuntimeError(f"ernie_oracle: step 1's loss {card} on the card"
+                           f" against {cpu} on the CPU: {gap} > "
+                           f"{ERNIE_ORACLE_RTOL}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script measures "
@@ -5469,6 +5819,12 @@ def main():
     release("nn_extras")
     phase_model_checkpoint()
     release("model_checkpoint")
+    phase_ernie_fleet()
+    release("ernie_fleet")
+    phase_ernie_gm()
+    release("ernie_gm")
+    phase_ernie_oracle()
+    release("ernie_oracle")
     kernels = []
     main_case = TRAIN_FLASH_CASES[0][0]
     for kernel, case in (("paged_decode_attention", "decode_float32"),

@@ -54,7 +54,13 @@ imports), ported slice by slice:
    ``snapshot_scope`` / ``restore_scope``, ``ResumableIterator``),
    ``save`` / ``load``, ``incubate.checkpoint.auto_checkpoint``,
    ``distributed.checkpoint`` at one process and ``ModelCheckpoint``'s
-   default route; fused BERT-base trains through it with B1 on its path.
+   default route; fused BERT-base trains through it with B1 on its path;
+11. ``distributed`` at one process: ``fleet.init``,
+   ``DistributedStrategy`` and ``fleet.distributed_optimizer(opt)
+   .minimize(loss)`` over the single-process meta-optimizer chain (amp,
+   recompute, gradient merge, LARS, LAMB, DGC), the collective functions
+   and ``DataParallel`` at world size 1; an ERNIE-1.0-width finetune
+   trains through amp + recompute with B1 on its path.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, ``CPUPlace()``); importing the package builds no
@@ -105,7 +111,9 @@ from .tensor.math import kron, neg, stanh  # noqa: F401
 from .tensor.search import index_sample  # noqa: F401
 from . import fluid, inference, slim  # noqa: F401
 from . import amp, autograd  # noqa: F401
-from .framework.executor import Executor  # noqa: F401
+from .framework.executor import Executor, StepHandle  # noqa: F401
+from .framework.backward import append_backward, calc_gradient  # noqa: F401
+from .framework.scope import global_scope  # noqa: F401
 from .framework.flags import get_flags, set_flags  # noqa: F401
 from .framework.place import CPUPlace, CUDAPlace  # noqa: F401
 from .framework.program import (  # noqa: F401
@@ -117,5 +125,6 @@ from .framework.program import (  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from . import ckpt, incubate  # noqa: F401
 from .serialization import load, save  # noqa: F401
+from . import distributed, serving  # noqa: F401
 
 __version__ = "0.2.0"

@@ -5,6 +5,8 @@ waits for a later slice of the port (ROADMAP.md, Queue A item 8)."""
 from __future__ import annotations
 
 from . import chaos
+from .chaos import RankKilled, TornCheckpoint
 from .preflight import PreflightVerdict, preflight_device
 
-__all__ = ["PreflightVerdict", "chaos", "preflight_device"]
+__all__ = ["PreflightVerdict", "RankKilled", "TornCheckpoint", "chaos",
+           "preflight_device"]

@@ -1,7 +1,15 @@
 """Graph autodiff: append_backward over program blocks.
 
 Copy of ``paddle_tpu/framework/backward.py`` (the JAX package's
-module imports no JAX); the program it builds is the same, op for op.
+module imports no JAX); the program it builds holds the same ops.  One
+order differs by design: with ``checkpoints`` (activation recompute),
+each re-emitted forward op is placed just before the first gradient op
+that reads what it recomputes, so the segments are rebuilt one at a
+time, last segment first, as the reference's
+``_append_backward_ops_with_checkpoints_`` places them.  The JAX package
+emits them all at the backward's start and leaves the schedule to XLA;
+the port runs ops in program order and frees each value at its last
+use, so only this order keeps a single segment's activations alive.
 
 Role parity: reference python/paddle/fluid/backward.py (`append_backward`
 :1275 — reverse walk, per-op grad-op makers, sum-op insertion on fan-out,
@@ -254,6 +262,45 @@ def _emit_recompute_segments(bctx, block, fwd_ops, checkpoints, keep_names):
     return rc_map
 
 
+def _recompute_emitter(block, rc_ops, rc_map):
+    """``emit(names)`` appends the re-emitted ops (in ``rc_ops``, forward
+    order) that produce ``names``, with whatever of ``rc_ops`` they read
+    in turn, each op once and in forward order; ``emit(None)`` appends
+    the ones left.  Only the names recompute made (``rc_map``'s values and
+    the barriers' outputs) count as produced: a re-emitted op also
+    rewrites the kept names among its outputs (a checkpoint, with the
+    same value), and those are read from the forward."""
+    fresh = set(rc_map.values())
+    producer = {}
+    for i, op in enumerate(rc_ops):
+        for n in op.output_arg_names():
+            if n in fresh or op.type == "recompute_barrier":
+                producer[n] = i
+    done = set()
+
+    def emit(names):
+        if names is None:
+            need = [i for i in range(len(rc_ops)) if i not in done]
+            done.update(need)
+        else:
+            need = []
+            stack = [producer[n] for n in names if n in producer]
+            while stack:
+                i = stack.pop()
+                if i in done:
+                    continue
+                done.add(i)
+                need.append(i)
+                stack.extend(producer[n] for n in rc_ops[i].input_arg_names()
+                             if n in producer)
+        for i in sorted(need):
+            block.ops.append(rc_ops[i])
+        if need:
+            block.program._bump()
+
+    return emit
+
+
 def append_backward(
     loss: Variable,
     parameter_list=None,
@@ -291,11 +338,16 @@ def append_backward(
     # activation recompute: re-emit forward segments behind a CSE fence and
     # point grad ops at the recomputed copies (reference backward.py:689)
     rc_map: Dict[str, str] = {}
+    emit_rc = None
     if checkpoints:
         keep = {p.name for p in program.all_parameters()}
+        mark = len(block.ops)
         rc_map = _emit_recompute_segments(
             bctx, block, fwd_ops, [getattr(c, "name", c) for c in checkpoints],
             keep)
+        # held back, then placed before the first gradient op reading them
+        emit_rc = _recompute_emitter(block, block.ops[mark:], rc_map)
+        del block.ops[mark:]
 
     for op in reversed(fwd_ops):
         if op.type in NO_GRAD_OPS:
@@ -334,8 +386,12 @@ def append_backward(
                     else:
                         resolved.append("")
                 g.outputs[slot] = [r for r in resolved]
+            if emit_rc is not None:
+                emit_rc(g.input_arg_names())
             block.ops.append(g)
             program._bump()
+    if emit_rc is not None:
+        emit_rc(None)
 
     # collect (param, grad) pairs
     if parameter_list is not None:

@@ -306,3 +306,12 @@ define_flag("ckpt_fsync", True,
 define_flag("ckpt_verify_restore", True,
             "verify the SHA-256 of every shard against the manifest "
             "before restoring (off: existence+size checks only)")
+
+# ---- distributed (distributed/parallel_env.py) -----------------------------
+define_flag("pp_degree", 0,
+            "default pipeline-parallel degree for a mesh built without a "
+            "shape; the port runs one process on one card and refuses a "
+            "degree above 1 (parallel_env.init_parallel_env)")
+define_flag("ep_degree", 0,
+            "default expert-parallel degree for a mesh built without a "
+            "shape; the port refuses a degree above 1, as for pp_degree")

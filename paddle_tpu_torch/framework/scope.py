@@ -95,6 +95,7 @@ class Scope:
     def __init__(self, parent: Optional["Scope"] = None):
         self._vars: Dict[str, object] = {}
         self._parent = parent
+        self._kids = []
         # monotone id for executor caches: id() of a GC'd scope can be
         # recycled by a new scope and silently serve stale analysis
         self.serial = next(_scope_serial)
@@ -123,8 +124,21 @@ class Scope:
                               else place.torch_device())
         self._vars[name] = value
 
+    def erase(self, name: str):
+        self._vars.pop(name, None)
+
     def local_var_names(self):
         return list(self._vars)
+
+    def new_scope(self) -> "Scope":
+        """A child scope: it reads its parent's vars and keeps what it
+        sets to itself."""
+        kid = Scope(self)
+        self._kids.append(kid)
+        return kid
+
+    def drop_kids(self):
+        self._kids.clear()
 
     # -- reference-api compatibility --------------------------------------
     def var(self, name: str) -> _VarView:

@@ -1,10 +1,12 @@
-"""Metric ops: ``accuracy``.
+"""Metric ops: ``accuracy``; and ``clip_by_norm``.
 
 Counterpart of ``paddle_tpu/ops/misc.py`` ``_accuracy`` (reference
 operators/metrics/accuracy_op.cc): the share of rows whose label is among
-the top-k indices, with the count of such rows and of all rows.  The
-other ops of that module live in ``math_ops`` (``increment``, ``sum``,
-``clip``) or come with later slices of the port.
+the top-k indices, with the count of such rows and of all rows; and of
+its ``_clip_by_norm`` (reference clip_by_norm_op.h), which
+``layers.clip_by_norm`` builds.  The other ops of that module live in
+``math_ops`` (``increment``, ``sum``, ``clip``) or come with later slices
+of the port.
 """
 from __future__ import annotations
 
@@ -26,3 +28,16 @@ def _accuracy(ctx, op):
     ctx.set_out(op, "Correct", num_correct.to(torch.int32).reshape(1))
     ctx.set_out(op, "Total", torch.full((1,), n, dtype=torch.int32,
                                         device=pred_idx.device))
+
+
+@register_lower("clip_by_norm")
+def _clip_by_norm(ctx, op):
+    """``x`` scaled by ``max_norm / ||x||_2`` when its norm exceeds
+    ``max_norm``, else unchanged."""
+    x = ctx.in1(op, "X")
+    max_norm = float(op.attr("max_norm"))
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    factor = torch.where(norm > max_norm,
+                         max_norm / torch.clamp(norm, min=1e-12),
+                         torch.ones_like(norm))
+    ctx.set_out(op, "Out", x * factor.to(x.dtype))

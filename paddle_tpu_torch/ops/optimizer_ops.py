@@ -1,15 +1,18 @@
 """Optimizer update ops: ``sgd``, ``momentum``, ``adam``, ``adamw``,
-``adamax``, ``adagrad``, ``adadelta``, ``rmsprop`` and ``lamb``, and the
-AMP dynamic loss scaling's ``check_finite_and_unscale`` and
-``update_loss_scaling``.
+``adamax``, ``adagrad``, ``adadelta``, ``rmsprop``, ``lamb``,
+``lars_momentum``, ``ftrl`` and ``dpsgd``; the shadow update of
+``ExponentialMovingAverage``, ``ema_update``; and the AMP dynamic loss
+scaling's ``check_finite_and_unscale`` and ``update_loss_scaling``.
 
-Counterpart of ``paddle_tpu/ops/optimizer_ops.py`` (``_sgd`` through
-``_lamb``, and its loss-scaling ops, computed on the device with no
-host branch, so a captured step keeps them); ``lars_momentum``,
-``ftrl`` and ``dpsgd`` come with a later slice.  Reference parity: sgd_op.cc, momentum_op.cc
+Counterpart of ``paddle_tpu/ops/optimizer_ops.py``: every op the port's
+``optimizer/static_opt.py`` and ``amp`` build, computed on the device with
+no host branch, so a captured step keeps them.  ``dpsgd``'s Gaussian noise
+is drawn from the program's ``torch.Generator`` (or one seeded by the op's
+``seed`` attr), so it matches the JAX package's draw in its statistics,
+not bit for bit.  Reference parity: sgd_op.cc, momentum_op.cc
 (``use_nesterov``, ``regularization_method == "l2_decay"``), adam_op.cc,
 adamax_op.cc, adagrad_op.cc, adadelta_op.cc, rmsprop_op.cc (``centered``),
-lamb_op.cc.  ``sgd``, ``momentum``, ``adamax``, ``adagrad``, ``adadelta``
+lamb_op.cc, lars_momentum_op.cc, ftrl_op.h, dpsgd_op.h.  ``sgd``, ``momentum``, ``adamax``, ``adagrad``, ``adadelta``
 and ``rmsprop`` update in the parameter's type; Adam, AdamW and LAMB run
 in float32 whatever the parameter's type.  Each writes its outputs back under their
 own names (the executor stores them into the scope).  The JAX package
@@ -22,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..framework.lowering import register_lower
-from .common import as_scalar
+from .common import as_scalar, op_generator
 
 
 @register_lower("sgd")
@@ -180,6 +183,86 @@ def _lamb(ctx, op):
     ctx.set_out(op, "Moment2Out", m2n)
     ctx.set_out(op, "Beta1PowOut", b1p * b1)
     ctx.set_out(op, "Beta2PowOut", b2p * b2)
+
+
+@register_lower("lars_momentum")
+def _lars_momentum(ctx, op):
+    """Momentum with a layer-wise rate: ``lr * lars_coeff * ||p|| /
+    (||g|| + lars_weight_decay * ||p|| + epsilon)`` when both norms are
+    positive, else ``lr``."""
+    p = ctx.in1(op, "Param")
+    g = ctx.in1(op, "Grad")
+    v = ctx.in1(op, "Velocity")
+    lr = as_scalar(ctx.in1(op, "LearningRate"))
+    mu = float(op.attr("mu", 0.9))
+    lars_coeff = float(op.attr("lars_coeff", 0.001))
+    lars_wd = float(op.attr("lars_weight_decay", 0.0005))
+    eps = float(op.attr("epsilon", 0.0))
+    p_norm = torch.linalg.vector_norm(p)
+    g_norm = torch.linalg.vector_norm(g)
+    local_lr = torch.where(
+        (p_norm > 0) & (g_norm > 0),
+        lr * lars_coeff * p_norm / (g_norm + lars_wd * p_norm + eps), lr)
+    vn = mu * v + local_lr * (g + lars_wd * p)
+    ctx.set_out(op, "ParamOut", p - vn)
+    ctx.set_out(op, "VelocityOut", vn)
+
+
+@register_lower("ftrl")
+def _ftrl(ctx, op):
+    """Follow-the-regularized-leader with L1/L2 terms and a learning-rate
+    power (``lr_power`` -0.5: the square-root schedule)."""
+    p = ctx.in1(op, "Param")
+    g = ctx.in1(op, "Grad")
+    sq = ctx.in1(op, "SquaredAccumulator")
+    lin = ctx.in1(op, "LinearAccumulator")
+    lr = as_scalar(ctx.in1(op, "LearningRate"))
+    l1 = float(op.attr("l1", 0.0))
+    l2 = float(op.attr("l2", 0.0))
+    lr_power = float(op.attr("lr_power", -0.5))
+    new_sq = sq + torch.square(g)
+    sigma = (torch.pow(new_sq, -lr_power) - torch.pow(sq, -lr_power)) / lr
+    new_lin = lin + g - sigma * p
+    y = torch.pow(new_sq, -lr_power) / lr + 2 * l2
+    shrunk = torch.where(torch.abs(new_lin) > l1,
+                         (-new_lin + torch.sign(new_lin) * l1) / y,
+                         torch.zeros_like(p))
+    ctx.set_out(op, "ParamOut", shrunk)
+    ctx.set_out(op, "SquaredAccumOut", new_sq)
+    ctx.set_out(op, "LinearAccumOut", new_lin)
+
+
+@register_lower("dpsgd")
+def _dpsgd(ctx, op):
+    """Differentially-private SGD: the batch gradient L2-clipped to
+    ``clip``, plus Gaussian noise of deviation ``clip * sigma /
+    batch_size``, then the SGD step, in float32."""
+    p = ctx.in1(op, "Param")
+    g = ctx.in1(op, "Grad").float()
+    lr = as_scalar(ctx.in1(op, "LearningRate")).float()
+    clip = float(op.attr("clip", 10.0))
+    batch_size = float(op.attr("batch_size", 16.0))
+    sigma = float(op.attr("sigma", 1.0))
+    norm = torch.sqrt(torch.sum(g * g))
+    g = g * torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
+    noise = torch.randn(g.shape, generator=op_generator(ctx, op),
+                        device=g.device, dtype=torch.float32)
+    noise = noise * (clip * sigma / batch_size)
+    ctx.set_out(op, "ParamOut", (p.float() - lr * (g + noise)).to(p.dtype))
+
+
+@register_lower("ema_update")
+def _ema_update(ctx, op):
+    """``ExponentialMovingAverage``'s shadow: ``decay * shadow + (1 -
+    decay) * param`` in float32, ``decay`` from the ``Decay`` input (the
+    ramp) when there is one, else the attr."""
+    p = ctx.in1(op, "Param").float()
+    s = ctx.in1(op, "Shadow").float()
+    if op.inputs.get("Decay"):
+        decay = as_scalar(ctx.in1(op, "Decay")).float()
+    else:
+        decay = float(op.attr("decay", 0.999))
+    ctx.set_out(op, "ShadowOut", decay * s + (1.0 - decay) * p)
 
 
 @register_lower("check_finite_and_unscale")

@@ -1,7 +1,8 @@
 """Tensor manipulation ops: reshape / transpose / flatten / squeeze /
 unsqueeze, concat / split / stack / unstack, slicing, gather and scatter,
 tile and expand, top-k / arg-max / argsort / where, one-hot, pad,
-tril / triu, cumsum, flip, roll, meshgrid, cast.
+tril / triu, cumsum, flip, roll, meshgrid, cast, and activation
+recompute's ``recompute_barrier``.
 
 Counterpart of ``paddle_tpu/ops/tensor_ops.py`` (``where_index``, the
 JAX package's ``tail_ops.py``, included: ``nonzero``'s fixed-size form,
@@ -461,3 +462,13 @@ def _roll(ctx, op):
     else:
         out = torch.roll(x.reshape(-1), shifts[0]).reshape(x.shape)
     ctx.set_out(op, "Out", out)
+
+
+@register_lower("recompute_barrier")
+def _recompute_barrier(ctx, op):
+    """Activation recompute's fence (``framework/backward.py``
+    ``_emit_recompute_segments``): the identity.  The JAX rule wraps it
+    in ``lax.optimization_barrier`` so that XLA cannot merge the
+    re-emitted forward with the original; the port runs ops one at a
+    time and merges nothing, so the identity is the whole rule."""
+    ctx.set_out(op, "Out", ctx.in1(op, "X"))

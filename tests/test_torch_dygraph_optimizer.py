@@ -54,17 +54,18 @@ def test_optimizer_steps(make_opt):
 
 def test_optimizers_without_an_update_lowering_raise_at_step():
     """Lamb, Adagrad, Adamax and RMSProp have their update lowerings now
-    (held to the JAX package in ``test_torch_optimizers_more.py``); an
-    optimizer whose update op still has none (``lars_momentum``, a later
-    slice) raises at ``step``, before any parameter moves."""
-    class Lars(T.optimizer.Momentum):
-        _op_type = "lars_momentum"
+    (held to the JAX package in ``test_torch_optimizers_more.py``), and so
+    has ``lars_momentum``; an optimizer whose update op has none
+    (``dgc_momentum``, which neither package lowers) raises at ``step``,
+    before any parameter moves."""
+    class DGCMomentum(T.optimizer.Momentum):
+        _op_type = "dgc_momentum"
 
     net = _net(T)
     net(T.to_tensor(VEC)).sum().backward()
     before = [to_numpy(p) for p in net.parameters()]
     with pytest.raises(NotImplementedError, match="later slice"):
-        Lars(0.1, parameters=net.parameters()).step()
+        DGCMomentum(0.1, parameters=net.parameters()).step()
     for a, p in zip(before, net.parameters()):
         np.testing.assert_array_equal(a, to_numpy(p))
 
