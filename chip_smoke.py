@@ -442,6 +442,57 @@ from a seed, one batch repeated.
                the card and replayed on the CPU from the card's startup
                values and feed: the loss within ERNIE_ORACLE_RTOL.
 
+Slice 17's phases run after ``ernie_oracle``: the rest of ``slim`` on
+ResNet-50 v1.5 at 224 (``build_resnet``'s program in float32: the AMP
+lists name no fake-quant op; synthetic images and labels from a seed: no
+labelled dataset is in the repository, so no accuracy is claimed) and
+MoE serving and training.
+
+44. qat_resnet -- the float32 network, then the same with
+               ``slim.quant_aware`` applied before ``minimize`` (moving-
+               average activation and channel-wise weight quant-dequant
+               ops), each at RESNET_BATCH (halved while it runs out of
+               memory, logged as ``reduced``): the warm-up, the capture,
+               QAT_STEPS replays and QAT_EAGER_STEPS eager steps beside
+               them; step p50, images/s, peak memory, qdq ops, the
+               moving-average scales (all off their initial 1.0), B1-B7
+               at 0;
+45. qat_export -- the trained QAT program's ``clone(for_test=True)``
+               (scales frozen) -> ``save_inference_model`` -> a captured
+               ``Predictor`` at batch 32 against the frozen program run by
+               the executor, within 1e-4 relative / 1e-5 absolute (the
+               JAX package's bound); the scales unchanged by the frozen
+               run; rows/s;
+46. ptq_resnet -- ``PostTrainingQuantization`` of the float inference
+               program over 4 seeded calibration batches of 32 (each
+               activation's abs-max taken on the card), saved and served
+               by a captured ``Predictor`` beside the float32 one: rows/s
+               of both at batch 32, the logits' largest gap and top-1
+               agreement (``quant_quality_delta``), B1-B7 at 0;
+47. qat_oracle -- float32, batch 4: step 1 of the QAT network on the
+               card replayed op by op on the CPU from the card's inputs:
+               every fake quant-dequant output (and its straight-through
+               gradient) bit-equal, every other output within
+               RESNET_ORACLE_RTOL;
+48. moe_serve -- the serve phase's model with 8 experts, top-2, dropless
+               (537 MB of float32 experts), 6 prompts of 100-600 tokens, 32
+               new tokens each, through ``DecodeServer`` (the decode step
+               captured, prefill eager) beside the dense model in the same
+               call, then with ``quantize_moe_weights(w, "int8")``: decode
+               step p50, ttft, TPOT p50/p99, tokens/s, B5 8 a decode step
+               and B6 8 a prefill (asserted), streamed logits within 1e-3
+               of ``recompute_logits``, each layer's expert-balance
+               gauges, and int8's ``quant_quality_delta`` against the float
+               oracle teacher-forced on the int8 tokens;
+49. moe_train -- ``bench.py``'s ``moe_local`` program at the serving
+               widths (x -> ``moe_ffn`` (D 512, FFN 2048, 8 experts, top-2,
+               capacity factor 1.25) -> fc head -> MSE + 0.01 aux,
+               Momentum 0.05/0.9, 8192 tokens a batch) and its dense twin
+               (fc 4096 gelu -> 512, matched activated FLOPs) through
+               ``fleet`` at one process: captured step p50 and tokens/s of
+               both, the balance and dropped-fraction gauges, step 1's
+               loss within 1e-4 of the CPU's from the same startup.
+
 Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
 device it exits 1 before doing anything.
@@ -5696,6 +5747,598 @@ def phase_ernie_oracle():
                            f"{ERNIE_ORACLE_RTOL}")
 
 
+# -- slice 17: QAT and activation PTQ on ResNet-50, MoE serving and training --
+
+QAT_STEPS = 10          # timed replays of each ResNet network
+QAT_EAGER_STEPS = 2     # eager steps beside them
+QAT_ORACLE_BATCH = 4
+PTQ_BATCH, PTQ_CALIB_BATCHES, PTQ_RUNS = 32, 4, 20
+# the JAX package's bound for QAT -> save_inference_model -> Predictor
+# (tests/test_quantization.py): the frozen program run by the executor
+QAT_EXPORT_RTOL, QAT_EXPORT_ATOL = 1e-4, 1e-5
+FAKE_QUANT_TYPES = ("fake_quantize_dequantize_moving_average_abs_max",
+                    "fake_channel_wise_quantize_dequantize_abs_max")
+SLIM_STATE = {}         # what qat_resnet hands to qat_export
+
+MOE_SERVE = dict(SERVE_MODEL, moe_experts=8, moe_top_k=2)
+MOE_PROMPTS = (100, 180, 260, 340, 420, 600)
+MOE_NEW_TOKENS = 32
+MOE_TRAIN = dict(d_model=512, ffn=2048, experts=8, top_k=2,
+                 capacity_factor=1.25, tokens=8192, lr=0.05, momentum=0.9,
+                 aux_coeff=0.01)
+# the dense twin's rate: at 0.05 it diverges at these widths (NaN by step
+# 9 on the card and on the CPU); the rate changes no step's work
+MOE_DENSE_LR = 0.005
+MOE_TRAIN_STEPS = 10
+# bench.py's moe_loss_parity_vs_oracle bound (step 1, card against CPU)
+MOE_LOSS_RTOL = 1e-4
+
+
+def slim_resnet(qat, lr=0.1):
+    """ResNet-50 v1.5 training in float32 (``build_resnet``'s program), with
+    ``slim.quant_aware`` applied before ``minimize`` when ``qat``."""
+    from paddle_tpu_torch import slim
+    from paddle_tpu_torch.vision import resnet50_train_program
+
+    with unique_name.guard():
+        main, startup, _feeds, loss, opt = resnet50_train_program(
+            lr=lr, momentum=0.9, img_shape=RESNET_IMG)
+        main.random_seed = 1
+        with program_guard(main, startup):
+            if qat:
+                slim.quant_aware(main, startup)
+            opt.minimize(loss)
+    return main, startup, loss
+
+
+def resnet_inference():
+    """ResNet-50 v1.5's inference program (the image to the logits, batch
+    norm in test mode), its startup and the logits' name."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.vision.static_models import resnet
+
+    main, startup = pt.framework.Program(), pt.framework.Program()
+    with unique_name.guard(), program_guard(main, startup):
+        logits = resnet(layers.data("image", list(RESNET_IMG)), depth=50,
+                        class_num=1000)
+    return main.clone(for_test=True), startup, logits.name
+
+
+def qdq_ops(main):
+    return sum(op.type in FAKE_QUANT_TYPES for op in main.global_block.ops)
+
+
+def quantizable_ops(main):
+    """Ops whose weight gets a qdq op (each activation input gets one
+    more, shared by the ops that read it)."""
+    from paddle_tpu_torch.slim.quantization import _QUANT_SLOTS
+
+    return sum(op.type in _QUANT_SLOTS for op in main.global_block.ops)
+
+
+def ma_scales(main):
+    return [op.outputs["OutScale"][0] for op in main.global_block.ops
+            if op.type == FAKE_QUANT_TYPES[0]]
+
+
+def slim_train(qat, batch):
+    """Startup, the warm-up and capture, QAT_STEPS synced replays at
+    ``batch``, then the eager block beside them; the scope is handed back
+    with the program."""
+    main, startup, loss = slim_resnet(qat)
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    exe.run(startup, scope=scope)
+    feed = {k: torch.from_numpy(v).to(exe.device)
+            for k, v in resnet_feed(batch).items()}
+    captured_gb = warm_and_capture(exe, main, feed, [loss], scope)
+    replays = stat_get("cuda_graph_replays")
+    step_ms, losses = [], []
+    for _ in range(QAT_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      return_numpy=False)[0]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.ravel()[0]))
+    replays = stat_get("cuda_graph_replays") - replays
+    if replays != QAT_STEPS:
+        raise RuntimeError(f"{replays} of {QAT_STEPS} ResNet steps were "
+                           f"replays (qat={qat})")
+    graph = eager_vs_captured("qat_resnet" if qat else "resnet_float32",
+                              exe, main, feed, [loss], scope,
+                              QAT_EAGER_STEPS, RESNET_ORACLE_RTOL, True,
+                              step_ms, captured_gb)
+    exe.close()
+    p50 = float(np.median(step_ms))
+    report = dict(step_ms_p50=p50, images_per_s=batch / (p50 / 1e3),
+                  step_ms=step_ms, losses=losses, replays=replays, **graph)
+    return report, main, loss, scope
+
+
+def phase_qat_resnet():
+    """ResNet-50 at 224 in float32 (the AMP lists name no fake-quant op),
+    with and without ``quant_aware``, at the largest power-of-two batch up
+    to RESNET_BATCH that fits both."""
+    zero_kernel_launches()
+    batch, reduced = RESNET_BATCH, []
+    while True:
+        try:
+            plain, _m, _l, _s = slim_train(False, batch)
+            del _m, _l, _s
+            release("resnet_float32")
+            qat, main, loss, scope = slim_train(True, batch)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            reason = f"batch {batch} ran out of device memory: " \
+                     f"{str(e).splitlines()[0][:300]}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        reduced.append(reason)
+        batch //= 2
+        if batch < 8:
+            raise RuntimeError(f"QAT ResNet-50 does not fit: {reduced}")
+    scales = {n: float(scope.get_var(n).ravel()[0]) for n in ma_scales(main)}
+    moved = sum(v != 1.0 for v in scales.values())
+    launches = kernel_launches()
+    log("qat_resnet", model="resnet50_v1.5", batch=batch, image=RESNET_IMG,
+        dtype="float32", optimizer="momentum 0.9, lr 0.1",
+        steps=QAT_STEPS, reduced=reduced, qdq_ops=qdq_ops(main),
+        quantizable_ops=quantizable_ops(main),
+        moving_average_scales=len(scales), scales_moved_off_1=moved,
+        scale_min=min(scales.values()), scale_max=max(scales.values()),
+        qat=qat, float32=plain,
+        qat_over_float32_step=qat["step_ms_p50"] / plain["step_ms_p50"],
+        launches=launches)
+    if any(launches.values()):
+        raise RuntimeError(f"the QAT path launched hand-written kernels: "
+                           f"{launches}")
+    for label, r in (("qat", qat), ("float32", plain)):
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise RuntimeError(f"qat_resnet {label}: losses not finite: "
+                               f"{r['losses']}")
+    if qdq_ops(main) != len(scales) + quantizable_ops(main) \
+            or moved != len(scales):
+        raise RuntimeError(f"qat_resnet: {qdq_ops(main)} qdq ops for "
+                           f"{quantizable_ops(main)} quantizable ops, "
+                           f"{moved} of {len(scales)} moving-average "
+                           f"scales moved off their initial 1.0")
+    SLIM_STATE.update(main=main, loss=loss, scope=scope)
+
+
+def logits_name(main):
+    return next(op.inputs["Logits"][0] for op in main.global_block.ops
+                if op.type == "softmax_with_cross_entropy")
+
+
+def predictor_runs(pred, feed, runs):
+    """A Predictor's warm-up and capture, then ``runs`` synced replays:
+    (ms a run, the last outputs)."""
+    pred.run(feed)
+    pred.run(feed)
+    replays = stat_get("cuda_graph_replays")
+    ms = synced_ms(lambda: pred.run(feed), runs)
+    if stat_get("cuda_graph_replays") - replays != runs:
+        raise RuntimeError("a Predictor's timed runs were not replays")
+    return ms, pred.run(feed)
+
+
+def save_model(model_dir, program, logits, exe, scope):
+    with pt.fluid.scope_guard(scope):
+        pt.fluid.io.save_inference_model(
+            model_dir, ["image"], [program.global_block.var(logits)], exe,
+            main_program=program)
+
+
+def phase_qat_export(tmp):
+    """The trained QAT ResNet's ``clone(for_test=True)`` (scales frozen)
+    -> ``save_inference_model`` -> a captured ``Predictor`` at batch 32,
+    against the frozen program run by the executor."""
+    from paddle_tpu_torch import inference
+
+    main, scope = SLIM_STATE["main"], SLIM_STATE["scope"]
+    test_prog = main.clone(for_test=True)
+    logits = logits_name(test_prog)
+    frozen = [op for op in test_prog.global_block.ops
+              if op.type == FAKE_QUANT_TYPES[0]]
+    if not frozen or not all(op.attr("is_test") for op in frozen):
+        raise RuntimeError("qat_export: clone(for_test=True) left a "
+                           "moving-average qdq op training")
+    exe = pt.Executor()
+    feed = {"image": resnet_feed(PTQ_BATCH, seed=3)["image"]}
+    before = {n: scope.get_var(n).clone() for n in ma_scales(main)}
+    ref = exe.run(test_prog, feed=feed, fetch_list=[logits], scope=scope,
+                  use_prune=True)[0]
+    model_dir = os.path.join(tmp, "qat_resnet")
+    save_model(model_dir, test_prog, logits, exe, scope)
+    exe.close()
+    pred = inference.create_predictor(inference.Config(model_dir))
+    ms, out = predictor_runs(pred, feed, PTQ_RUNS)
+    got = np.asarray(out[0])
+    gap = float(np.abs(got - ref).max())
+    still = all(torch.equal(scope.get_var(n), v) for n, v in before.items())
+    types = [op.type for op in pred._program.global_block.ops]
+    log("qat_export", batch=PTQ_BATCH, frozen_scales=len(frozen),
+        predictor_qdq_ops=sum(t in FAKE_QUANT_TYPES for t in types),
+        predictor_ms_p50=float(np.median(ms)),
+        rows_per_s=PTQ_BATCH / (float(np.median(ms)) / 1e3),
+        max_abs_gap_vs_frozen_program=gap,
+        logits_max_abs=float(np.abs(ref).max()), rtol=QAT_EXPORT_RTOL,
+        atol=QAT_EXPORT_ATOL, scales_unchanged=still)
+    pred._exe.close()
+    if not np.allclose(got, ref, rtol=QAT_EXPORT_RTOL, atol=QAT_EXPORT_ATOL) \
+            or not np.isfinite(got).all():
+        raise RuntimeError(f"qat_export: the Predictor's logits are {gap} "
+                           f"from the frozen program's")
+    if not still:
+        raise RuntimeError("qat_export: the frozen program moved a scale")
+    SLIM_STATE.clear()
+
+
+def phase_ptq_resnet(tmp):
+    """``PostTrainingQuantization`` of the float ResNet-50 inference
+    program over PTQ_CALIB_BATCHES seeded batches of 32, then a captured
+    ``Predictor`` of the quantized program beside the float32 one."""
+    from paddle_tpu_torch import inference, slim
+
+    zero_kernel_launches()
+    infer, startup, logits = resnet_inference()
+    quantizable = quantizable_ops(infer)
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    exe.run(startup, scope=scope)
+    calib = [{"image": resnet_feed(PTQ_BATCH, seed=10 + i)["image"]}
+             for i in range(PTQ_CALIB_BATCHES)]
+    t0 = time.monotonic()
+    with unique_name.guard():
+        ptq = slim.PostTrainingQuantization(
+            exe, infer, feed_list=["image"], fetch_list=[logits],
+            data_loader=calib, scope=scope, batch_nums=PTQ_CALIB_BATCHES)
+        qprog = ptq.quantize()
+    torch.cuda.synchronize()
+    calib_s = time.monotonic() - t0
+    dirs = {"float32": os.path.join(tmp, "resnet_float32"),
+            "ptq_int8": os.path.join(tmp, "resnet_ptq")}
+    save_model(dirs["float32"], infer, logits, exe, scope)
+    save_model(dirs["ptq_int8"], qprog, logits, exe, scope)
+    exe.close()
+    feed = {"image": resnet_feed(PTQ_BATCH, seed=4)["image"]}
+    res = {}
+    for label, d in dirs.items():
+        pred = inference.create_predictor(inference.Config(d))
+        ms, out = predictor_runs(pred, feed, PTQ_RUNS)
+        p50 = float(np.median(ms))
+        res[label] = dict(ms_p50=p50, rows_per_s=PTQ_BATCH / (p50 / 1e3),
+                          qdq_ops=sum(op.type.startswith("fake_") for op in
+                                      pred._program.global_block.ops))
+        res[label + "_logits"] = np.asarray(out[0])
+        pred._exe.close()
+    q, f = res.pop("ptq_int8_logits"), res.pop("float32_logits")
+    delta = qo.quant_quality_delta(q, f)
+    launches = kernel_launches()
+    scales = list(ptq._act_scales.values())
+    log("ptq_resnet", batch=PTQ_BATCH, calibration_batches=PTQ_CALIB_BATCHES,
+        calibrated_activations=len(scales), quantizable_ops=quantizable,
+        scale_min=min(scales),
+        scale_max=max(scales), calibration_s=calib_s,
+        quant_quality_delta=delta,
+        float32_logits_max_abs=float(np.abs(f).max()), launches=launches,
+        **res)
+    if any(launches.values()):
+        raise RuntimeError(f"the PTQ path launched hand-written kernels: "
+                           f"{launches}")
+    if not (np.isfinite(q).all() and q.shape == f.shape == (PTQ_BATCH, 1000)
+            and res["ptq_int8"]["qdq_ops"] == len(scales) + quantizable):
+        raise RuntimeError(f"ptq_resnet: logits {q.shape}, "
+                           f"{res['ptq_int8']['qdq_ops']} qdq ops for "
+                           f"{len(scales)} activations and {quantizable} "
+                           f"quantizable ops")
+
+
+def phase_qat_oracle():
+    """float32, batch 4: step 1 of the QAT ResNet-50 on the card replayed
+    op by op on the CPU from the card's inputs (``replay_step``).  The
+    fake quant-dequant ops (and their straight-through gradients) must be
+    bit-equal -- division, round half to even and clamp are exact in IEEE
+    arithmetic -- and every other output within RESNET_ORACLE_RTOL.  No
+    trajectory is compared: a one-ulp difference before a rounding moves
+    a value by a whole quantization step."""
+    main, startup, loss = slim_resnet(True, lr=RESNET_ORACLE_LR)
+    exe = pt.Executor()
+    card = pt.framework.Scope()
+    exe.run(startup, scope=card)
+    feed = resnet_feed(QAT_ORACLE_BATCH, seed=1)
+    exe.warmup(main, [feed], [loss], card)
+    snap = snapshot(card)
+    captured_first = float(exe.run(main, feed=feed, fetch_list=[loss],
+                                   scope=card)[0].ravel()[0])
+    restore(card, snap)
+    del snap
+    t0 = time.monotonic()
+    first, errs = replay_step(exe, main, feed, loss.name, card)
+    replay_s = time.monotonic() - t0
+    exe.close()
+    qdq = [e for e in errs if e[0].startswith("fake_")]
+    rest = [e for e in errs if not e[0].startswith("fake_")]
+    worst_qdq = max(qdq, key=lambda r: r[2])
+    worst = max(rest, key=lambda r: r[2])
+    conv = max(e for t, _n, e in rest if t.startswith("conv2d"))
+    by_type = {}
+    for t, _n, e in errs:
+        by_type[t] = max(by_type.get(t, 0.0), e)
+    log("qat_oracle", batch=QAT_ORACLE_BATCH, dtype="float32",
+        replayed_outputs=len(errs), qdq_outputs=len(qdq),
+        qdq_max_rel_err=list(worst_qdq), conv_max_rel_err=conv,
+        other_max_rel_err=list(worst), replay_max_rel_err_by_type=by_type,
+        tolerance=RESNET_ORACLE_RTOL, loss_step1_card_captured=captured_first,
+        loss_step1_card_replayed=float(first.ravel()[0]), replay_s=replay_s)
+    if worst_qdq[2] != 0.0:
+        raise RuntimeError(f"qat_oracle: the card's {worst_qdq[0]} output "
+                           f"{worst_qdq[1]} is not bit-equal to the CPU's "
+                           f"({worst_qdq[2]})")
+    if worst[2] > RESNET_ORACLE_RTOL or not math.isfinite(captured_first):
+        raise RuntimeError(f"qat_oracle: the card's {worst[0]} output "
+                           f"{worst[1]} is {worst[2]} from the CPU's on the "
+                           f"same inputs (> {RESNET_ORACLE_RTOL})")
+
+
+def moe_layer_loads(model, tokens):
+    """Each layer's kept-token counts by expert for one sequence (causal
+    attention through SDPA, the router as the served layer runs it)."""
+    from paddle_tpu_torch.ops.moe_ops import moe_route
+
+    e, k = model.moe_experts, model.moe_top_k
+    with torch.no_grad():
+        tok = torch.as_tensor(tokens, device=model.device)
+        pos = torch.arange(len(tokens), device=model.device)
+        x = model._embed(tok, pos)
+        loads = []
+        for lw in model.layers:
+            q, kk, v = (t.transpose(0, 1) for t in
+                        model._qkv(lw, model._ln(x, lw.ln1_g, lw.ln1_b)))
+            ctx = F.scaled_dot_product_attention(q, kk, v, is_causal=True)
+            x = x + model._attn_out(lw, ctx.transpose(0, 1))
+            h = model._ln(x, lw.ln2_g, lw.ln2_b)
+            loads.append(moe_route(h, lw.gate, num_experts=e, top_k=k,
+                                   capacity_factor=e / k)[3])
+            x = x + model._mlp(lw, h)
+    return loads
+
+
+def decode_window(model, weights, prompts):
+    """The prompts through a fresh ``DecodeServer`` (slots 8, pages of 16;
+    decode step captured, prefill eager) after a short warm-up request:
+    the serving numbers, the requests, and B5/B6's launches in the
+    window."""
+    srv = DecodeServer(model, weights, DecodeConfig(
+        slots=8, max_seq_len=1024, page_size=16)).start()
+    eng = srv.replicas[0]
+    try:
+        # a warm-up request that shares no page with the window's prompts
+        srv.submit(list(range(1, 65)), max_new_tokens=4).result(timeout=600)
+        torch.cuda.synchronize()
+        flags.set_flags({"enable_tracer": True})
+        tracer.clear()
+        pa.reset_launch_counts()
+        t0 = time.monotonic()
+        reqs = [srv.submit(p, max_new_tokens=MOE_NEW_TOKENS,
+                           record_logits=True) for p in prompts]
+        for r in reqs:
+            r.result(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = (pa.paged_decode_attention.launches,
+                    pa.paged_chunk_attention.launches)
+        spans = tracer.snapshot()
+    finally:
+        flags.set_flags({"enable_tracer": False})
+        srv.stop()
+    steps = [1e3 * sp.duration for sp in spans
+             if sp.name == "serving/decode_step"]
+    prefills = sum(sp.name == "serving/decode_prefill" for sp in spans)
+    tpot = [1e3 * (r.t_last_token - r.t_first_token)
+            / (len(r.generated) - 1) for r in reqs]
+    n_tokens = sum(len(r.generated) for r in reqs)
+    captured = eng._step is not None and eng._step.graph is not None
+    want = (model.num_layers * len(steps), model.num_layers * prefills)
+    report = dict(
+        tokens=n_tokens, wall_s=wall, tokens_per_s=n_tokens / wall,
+        decode_step_p50_ms=float(np.median(steps)), decode_steps=len(steps),
+        ttft_p50_ms=float(np.median([1e3 * (r.t_first_token - r.t_enqueue)
+                                     for r in reqs])),
+        tpot_p50_ms=float(np.median(tpot)),
+        tpot_p99_ms=float(np.percentile(tpot, 99)),
+        prefills=prefills, b5_launches=launches[0],
+        b6_launches=launches[1], decode_step_captured=captured)
+    if not captured or launches != want:
+        raise RuntimeError(f"decode window: captured {captured}, B5/B6 "
+                           f"launched {launches} times in {len(steps)} "
+                           f"decode steps and {prefills} prefills, want "
+                           f"{want}")
+    return report, reqs, eng
+
+
+def phase_moe_serve():
+    """The serve phase's model with 8 experts, top-2, dropless, through
+    ``DecodeServer`` beside the dense model in the same call; then the same
+    MoE weights quantized to int8 carriers."""
+    from paddle_tpu_torch.ops.moe_ops import moe_balance_gauges
+    from paddle_tpu_torch.serving import quantize_moe_weights
+
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, 32000, n).tolist() for n in MOE_PROMPTS]
+    dense = TransformerLM(**SERVE_MODEL)
+    dense_report, _r, _e = decode_window(
+        dense, dense.init_weights(torch.Generator().manual_seed(0)), prompts)
+    del dense, _r, _e
+    model = TransformerLM(**MOE_SERVE)
+    weights = model.init_weights(torch.Generator().manual_seed(1))
+    expert_bytes = sum(t.numel() * t.element_size() for lw in
+                       weights["layers"] for n, t in lw.items()
+                       if n in ("moe_w1", "moe_w2"))
+    moe_report, reqs, eng = decode_window(model, weights, prompts)
+    oracle_err = 0.0
+    for prompt, r in zip(prompts, reqs):
+        n = len(r.generated)
+        for i in sorted({0, n // 2, n - 1}):
+            got = r.logits_trace[i]
+            want = eng.recompute_logits(prompt + r.generated[:i])
+            if got.shape != (32000,) or not np.isfinite(got).all():
+                raise RuntimeError(f"moe_serve: logits {got.shape} not "
+                                   f"finite")
+            oracle_err = max(oracle_err, float(np.abs(got - want).max()))
+    loads = moe_layer_loads(model, prompts[-1])
+    gauges = [moe_balance_gauges(ld, len(prompts[-1]), model.moe_top_k,
+                                 publish=False) for ld in loads]
+    qweights = quantize_moe_weights(weights, "int8")
+    carrier_bytes = sum(t.numel() * t.element_size() for lw in
+                        qweights["layers"] for n, t in lw.items()
+                        if n in ("moe_w1_q", "moe_w2_q"))
+    int8_report, qreqs, _e = decode_window(model, qweights, prompts)
+    model.load_weights(weights)         # the float oracle again
+    got, ref = [], []
+    for prompt, r in zip(prompts[:3], qreqs[:3]):
+        got += r.logits_trace
+        ref += [eng.recompute_logits(prompt + r.generated[:t])
+                for t in range(len(r.generated))]
+    delta = qo.quant_quality_delta(np.stack(got), np.stack(ref))
+    log("moe_serve", model=MOE_SERVE, dropless=True,
+        expert_weight_mb=expert_bytes / 1e6,
+        int8_carrier_mb=carrier_bytes / 1e6, requests=len(prompts),
+        new_tokens=MOE_NEW_TOKENS, moe=moe_report, dense=dense_report,
+        moe_int8=int8_report,
+        moe_over_dense_step=moe_report["decode_step_p50_ms"]
+        / dense_report["decode_step_p50_ms"],
+        logits_vs_oracle_max_abs=oracle_err, tolerance=LOGIT_TOL,
+        balance_gauges_by_layer=gauges, int8_quant_quality_delta=delta,
+        int8_teacher_forced_positions=len(got))
+    if oracle_err > LOGIT_TOL:
+        raise RuntimeError(f"moe_serve: streamed logits vs recompute_logits:"
+                           f" max abs {oracle_err} > {LOGIT_TOL}")
+    if not np.isfinite(np.stack(got)).all():
+        raise RuntimeError("moe_serve: int8 logits not finite")
+
+
+def moe_train_program(kind):
+    """bench.py's ``moe_local`` program at the serving widths (x -> moe_ffn
+    -> fc head -> MSE + 0.01 aux), or its ``dense`` twin at matched
+    activated FLOPs (fc top_k * ffn gelu -> fc d_model -> head) through
+    ``fleet`` at one process; Momentum 0.05/0.9 (the twin's rate
+    MOE_DENSE_LR)."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.optimizer import MomentumOptimizer
+
+    c = MOE_TRAIN
+    main, startup = pt.framework.Program(), pt.framework.Program()
+    main.random_seed = 1
+    load = None
+    with unique_name.guard(), program_guard(main, startup):
+        x = layers.data("x", [c["d_model"]])
+        y = layers.data("y", [1])
+        opt = MomentumOptimizer(MOE_DENSE_LR if kind == "dense" else c["lr"],
+                                c["momentum"])
+        if kind == "dense":
+            h = layers.fc(x, c["top_k"] * c["ffn"], act="gelu",
+                          name="dense_up")
+            h = layers.fc(h, c["d_model"], name="dense_down")
+            pred = layers.fc(h, 1, name="head")
+            loss = layers.mean(layers.square_error_cost(pred, y))
+            fleet.init(is_collective=True)
+            fleet.distributed_optimizer(opt)
+            fleet.minimize(loss)
+        else:
+            h, aux, load = layers.moe_ffn(
+                x, num_experts=c["experts"], ffn_dim=c["ffn"],
+                top_k=c["top_k"], capacity_factor=c["capacity_factor"],
+                name="moe0")
+            pred = layers.fc(h, 1, name="head")
+            loss = layers.elementwise_add(
+                layers.mean(layers.square_error_cost(pred, y)),
+                layers.scale(aux, c["aux_coeff"]))
+            opt.minimize(loss)
+    return main, startup, loss, load
+
+
+def moe_feed():
+    c = MOE_TRAIN
+    rs = np.random.RandomState(0)
+    x = rs.randn(c["tokens"], c["d_model"]).astype("float32")
+    return {"x": x, "y": (x.sum(axis=1, keepdims=True) * 0.3)
+            .astype("float32")}
+
+
+def phase_moe_train():
+    """The MoE program and its dense twin captured on the card
+    (MOE_TRAIN_STEPS replays each), and the MoE program's step 1 against
+    the CPU from the same startup values."""
+    from paddle_tpu_torch.framework.scope import scope_from_numpy, to_numpy
+    from paddle_tpu_torch.ops.moe_ops import moe_balance_gauges
+
+    c = MOE_TRAIN
+    feed = moe_feed()
+    res = {}
+    for kind in ("moe", "dense"):
+        main, startup, loss, load = moe_train_program(kind)
+        exe = pt.Executor()
+        scope = pt.framework.Scope()
+        exe.run(startup, scope=scope)
+        host = {n: to_numpy(v) for n, v in scope._vars.items()
+                if isinstance(v, torch.Tensor)}
+        fetch = [loss] + ([load] if load is not None else [])
+        dfeed = {k: torch.from_numpy(v).to(exe.device)
+                 for k, v in feed.items()}
+        first = float(np.asarray(exe.run(main, feed=dfeed, fetch_list=fetch,
+                                         scope=scope)[0]).ravel()[0])
+        exe.run(main, feed=dfeed, fetch_list=fetch, scope=scope)
+        replays = stat_get("cuda_graph_replays")
+        step_ms, out = [], None
+        for _ in range(MOE_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            out = exe.run(main, feed=dfeed, fetch_list=fetch, scope=scope)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        if stat_get("cuda_graph_replays") - replays != MOE_TRAIN_STEPS:
+            raise RuntimeError(f"moe_train {kind}: the timed steps were not "
+                               f"replays")
+        exe.close()
+        p50 = float(np.median(step_ms))
+        r = dict(step_ms_p50=p50, tokens_per_s=c["tokens"] / (p50 / 1e3),
+                 step_ms=step_ms, loss_first=first,
+                 loss_last=float(np.asarray(out[0]).ravel()[0]))
+        if kind == "moe":
+            r["gauges"] = moe_balance_gauges(np.asarray(out[1]),
+                                             c["tokens"], c["top_k"])
+            r["expert_load"] = np.asarray(out[1]).tolist()
+            t0 = time.monotonic()
+            r["loss_first_cpu"] = float(pt.Executor(pt.CPUPlace()).run(
+                main, feed=feed, fetch_list=[loss], use_prune=True,
+                scope=scope_from_numpy(host, device="cpu"))[0].ravel()[0])
+            r["cpu_s"] = time.monotonic() - t0
+            r["loss_parity_vs_cpu"] = abs(first - r["loss_first_cpu"]) \
+                / abs(r["loss_first_cpu"])
+        res[kind] = r
+        del main, startup, scope, exe
+        release(f"moe_train_{kind}")
+    moe, dense = res["moe"], res["dense"]
+    log("moe_train", **c, dense_lr=MOE_DENSE_LR, steps=MOE_TRAIN_STEPS,
+        moe_tokens_per_sec=moe["tokens_per_s"],
+        moe_dense_equiv_tokens_per_sec=dense["tokens_per_s"],
+        moe_loss_parity_vs_oracle=moe["loss_parity_vs_cpu"],
+        tolerance=MOE_LOSS_RTOL, moe=moe, dense=dense)
+    for kind, r in res.items():
+        if not (math.isfinite(r["loss_first"])
+                and r["loss_last"] < r["loss_first"]):
+            raise RuntimeError(f"moe_train {kind}: the loss did not fall: "
+                               f"{r['loss_first']} -> {r['loss_last']}")
+    if moe["loss_parity_vs_cpu"] > MOE_LOSS_RTOL:
+        raise RuntimeError(f"moe_train: step 1's loss {moe['loss_first']} on"
+                           f" the card against {moe['loss_first_cpu']} on "
+                           f"the CPU: {moe['loss_parity_vs_cpu']} > "
+                           f"{MOE_LOSS_RTOL}")
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script measures "
@@ -5825,6 +6468,19 @@ def main():
     release("ernie_gm")
     phase_ernie_oracle()
     release("ernie_oracle")
+    phase_qat_resnet()
+    release("qat_resnet")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_qat_export(tmp)
+        release("qat_export")
+        phase_ptq_resnet(tmp)
+    release("ptq_resnet")
+    phase_qat_oracle()
+    release("qat_oracle")
+    phase_moe_serve()
+    release("moe_serve")
+    phase_moe_train()
+    release("moe_train")
     kernels = []
     main_case = TRAIN_FLASH_CASES[0][0]
     for kernel, case in (("paged_decode_attention", "decode_float32"),

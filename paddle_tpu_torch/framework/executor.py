@@ -13,7 +13,8 @@ of ``_Compiled``) per key, and on the card that step is a CUDA graph
 - **The key** is the pass-rewritten program's fingerprint, the feeds'
   shapes and dtypes, the fetch names, the state's shapes and dtypes, the
   scope, the device and the lowering flags (``FLAGS_flash_attention``,
-  ``FLAGS_weight_quant``, ``FLAGS_fuse_passes``).  The scope joins the
+  ``FLAGS_weight_quant``, ``FLAGS_fuse_passes``,
+  ``FLAGS_moe_alltoall_chunks``).  The scope joins the
   key because the graph's state buffers are that scope's tensors.
   ``executor_compile``, ``executor_cache_hit`` and ``executor_run`` move
   as in the JAX package.
@@ -32,7 +33,8 @@ of ``_Compiled``) per key, and on the card that step is a CUDA graph
 - **Eager for a reason.**  A program runs eagerly only for a reason
   found in its op list (``capture_reason``): a random op with a fixed
   nonzero ``seed`` (it seeds a fresh generator on each call, which a
-  replay could not repeat) or host I/O.  Each such run counts
+  replay could not repeat), host I/O, or a ``print`` op (it writes its
+  value to the host's stdout at each run).  Each such run counts
   ``executor_eager_<kind>`` and runs in an ``executor/eager`` span that
   names the reason.  A capture or replay that fails raises; nothing
   falls back.
@@ -183,6 +185,10 @@ def capture_reason(program: Program) -> Optional[Tuple[str, str]]:
         if op.type in HOST_OPS:
             return ("host_io", f"op {op.type!r} reads or writes files on "
                                f"the host")
+        if op.type == "print":
+            return ("print", "op 'print' writes its value to the host's "
+                             "stdout at each run, which a replay would not "
+                             "repeat")
         seed = int(op.attr("seed", 0) or 0)
         if seed:
             return ("seeded_random",
@@ -981,7 +987,7 @@ class Executor:
                      (scope.get_var(n) for n in state_in)),
                scope.serial, self.device,
                str(flag("flash_attention")), str(flag("weight_quant")),
-               bool(flag("fuse_passes")))
+               bool(flag("fuse_passes")), int(flag("moe_alltoall_chunks")))
         entry = self._cache.get(key)
         if entry is not None:
             stat_add("executor_cache_hit")

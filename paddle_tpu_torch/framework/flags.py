@@ -315,3 +315,11 @@ define_flag("pp_degree", 0,
 define_flag("ep_degree", 0,
             "default expert-parallel degree for a mesh built without a "
             "shape; the port refuses a degree above 1, as for pp_degree")
+define_flag("moe_alltoall_chunks", 0,
+            "MoE (ops/moe_ops.py): run the expert FFN over this many "
+            "CAPACITY-axis chunks, concatenated and combined once, so "
+            "chunked and sequential schedules stay bitwise-identical; a "
+            "capacity the count does not divide runs unchunked, counted "
+            "moe_alltoall_fallback.  0/1 = off.  In the JAX package the "
+            "chunks overlap the expert-parallel all-to-all; at one "
+            "process there is none to overlap")

@@ -3,7 +3,7 @@
 - The lowerings (``math_ops``, ``tensor_ops``, ``linalg_ops``,
   ``nn_ops``, ``rnn_ops``, ``activations``, ``creation``, ``embedding_ops``,
   ``optimizer_ops``, ``misc``, ``fused``, ``flash_attention``,
-  ``grad_generic``, ``quant_ops``, ``collective``), which the static executor and dygraph's ``run_op``
+  ``grad_generic``, ``quant_ops``, ``moe_ops``, ``collective``), which the static executor and dygraph's ``run_op``
   both run: importing this package registers them with
   ``framework.lowering``, as importing ``paddle_tpu.ops`` does.
 - The kernels' wrappers and plain versions: paged attention
@@ -27,6 +27,7 @@ from . import (  # noqa: F401
     linalg_ops,
     math_ops,
     misc,
+    moe_ops,
     nn_ops,
     optimizer_ops,
     quant_ops,

@@ -622,6 +622,20 @@ def _square_error_cost(ctx, op):
     ctx.set_out(op, "Out", torch.square(ctx.in1(op, "X") - ctx.in1(op, "Y")))
 
 
+@register_lower("cos_sim")
+def _cos_sim(ctx, op):
+    """Row-wise cosine similarity over the last axis, the norms beside."""
+    x = ctx.in1(op, "X")
+    y = ctx.in1(op, "Y")
+    xn = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), dim=-1, keepdim=True))
+    out = torch.sum(x * y, dim=-1, keepdim=True) / torch.clamp_min(
+        xn * yn, 1e-12)
+    ctx.set_out(op, "Out", out)
+    ctx.set_out(op, "XNorm", xn)
+    ctx.set_out(op, "YNorm", yn)
+
+
 @register_lower("huber_loss")
 def _huber_loss(ctx, op):
     r = ctx.in1(op, "Y") - ctx.in1(op, "X")

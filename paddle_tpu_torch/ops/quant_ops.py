@@ -1,11 +1,28 @@
-"""Weight-only int8 / fp8 quantization and the dequant-fused matmul (B7).
+"""Fake quantization, weight-only int8 / fp8 quantization and the
+dequant-fused matmul (B7).
 
-Counterpart of the weight-only half of ``paddle_tpu/ops/quant_ops.py``
-(the inference half; the fake-quant training lowerings wait for a later
-slice of the port):
+Counterpart of ``paddle_tpu/ops/quant_ops.py``:
 
-- ``quantize_weight`` / ``dequantize_weight``: symmetric per-output-
-  channel quantization to an int8 grid or to float8 e4m3
+- the ten fake-quant lowerings (reference operators/fake_quantize_op.cc:
+  ``fake_quantize_abs_max``, ``fake_channel_wise_quantize_abs_max``,
+  ``fake_quantize_moving_average_abs_max``, ``fake_quantize_range_abs_max``,
+  their ``*_dequantize_*`` variants, ``moving_average_abs_max_scale`` and
+  the two ``fake_*dequantize_max_abs`` ops), which simulate the int8 grid
+  in float as the JAX package does.  The quant-dequant variants carry a
+  straight-through estimator, ``x + (qdq(x) - x).detach()``, so the
+  generic gradient (``ops/grad_generic.py``), which replays the forward
+  under autograd, passes the output's gradient through unchanged.  State
+  (the moving averages, the range ring buffer and its ``Iter``) is read
+  from its input slots and written to its output slots, which name the
+  same persistable vars: the executor writes them back in place, inside
+  the captured step, as it does optimizer state.  The ring buffer is
+  indexed with the ``Iter`` tensor, never a host copy of it.  Every
+  division whose result must match the CPU bit for bit divides by a
+  tensor (see ``quantize_weight``), and the outputs keep ``X``'s dtype;
+
+- ``quantize_weight`` / ``dequantize_weight`` (and their per-expert
+  ``*_stacked`` forms for ``[E, ...]`` MoE weights, scales ``[E, out]``):
+  symmetric per-output-channel quantization to an int8 grid or to float8 e4m3
   (``torch.float8_e4m3fn``), every channel's scale clamped to
   ``SCALE_EPS`` on its own, so that an all-zero channel dequantizes to
   exact zeros;
@@ -46,6 +63,7 @@ import torch
 from ..framework import graphs
 from ..framework.lowering import register_lower
 from ..framework.scope import to_numpy, to_tensor
+from .common import as_scalar
 from ..native import build
 
 # the ONE scale clamp, shared by every scale computation.  It must be
@@ -125,14 +143,8 @@ def quantize_weight(w, axis: int, mode: str = "int8"):
     scale = _clamp_scale(amax / qmax)
     bshape = [1] * w.dim()
     bshape[axis] = -1
-    scaled = w / scale.reshape(bshape)
-    if mode == "int8":
-        q = torch.clamp(torch.round(scaled), -INT8_QMAX, INT8_QMAX) \
-            .to(torch.int8)
-    else:
-        q = torch.clamp(scaled, -FP8_E4M3_MAX, FP8_E4M3_MAX) \
-            .to(_fp8_dtype())
-    return q, scale.to(torch.float32)
+    return _carrier_of(w / scale.reshape(bshape), mode), \
+        scale.to(torch.float32)
 
 
 def dequantize_weight(q, scale, axis: int, dtype=torch.float32):
@@ -141,6 +153,230 @@ def dequantize_weight(q, scale, axis: int, dtype=torch.float32):
     bshape = [1] * q.dim()
     bshape[axis] = -1
     return (q.float() * scale.float().reshape(bshape)).to(dtype)
+
+
+def _carrier_of(scaled, mode):
+    if mode == "int8":
+        return torch.clamp(torch.round(scaled), -INT8_QMAX, INT8_QMAX) \
+            .to(torch.int8)
+    return torch.clamp(scaled, -FP8_E4M3_MAX, FP8_E4M3_MAX) \
+        .to(_fp8_dtype())
+
+
+def quantize_weight_stacked(w, axis: int, mode: str = "int8"):
+    """Per-expert variant of :func:`quantize_weight` for stacked
+    ``[E, ...]`` MoE weights: the scale keeps BOTH the leading stack axis
+    and the output-channel ``axis`` (shape ``[E, out]``), so each expert
+    calibrates its own step sizes -- a shared scale would let one hot
+    expert's outliers crush every other expert's resolution."""
+    w = to_tensor(w)
+    if w.dim() < 2 or axis == 0:
+        raise ValueError(
+            f"stacked quantization needs a [E, ...] weight with an "
+            f"output-channel axis != 0, got shape {tuple(w.shape)} axis "
+            f"{axis}")
+    mode = resolve_quant_mode(mode)
+    red = tuple(i for i in range(w.dim()) if i not in (0, axis))
+    amax = torch.amax(w.abs(), dim=red) if red else w.abs()
+    qmax = torch.full((), INT8_QMAX if mode == "int8" else FP8_E4M3_MAX,
+                      dtype=amax.dtype, device=amax.device)
+    scale = _clamp_scale(amax / qmax)
+    bshape = [1] * w.dim()
+    bshape[0] = w.shape[0]
+    bshape[axis] = w.shape[axis]
+    return _carrier_of(w / scale.reshape(bshape), mode), \
+        scale.to(torch.float32)
+
+
+def dequantize_weight_stacked(q, scale, axis: int, dtype=torch.float32):
+    """Inverse of :func:`quantize_weight_stacked`."""
+    bshape = [1] * q.dim()
+    bshape[0] = q.shape[0]
+    bshape[axis] = q.shape[axis]
+    return (q.float() * scale.float().reshape(bshape)).to(dtype)
+
+
+# -- the fake-quant lowerings ----------------------------------------------
+
+
+def _qmax(op):
+    return 2.0 ** (int(op.attr("bit_length", 8)) - 1) - 1
+
+
+def _like(value, x):
+    """``value`` as a 0-dim tensor of ``x``'s dtype on ``x``'s device: a
+    divisor that divides (on CUDA a Python divisor becomes a multiplication
+    by its reciprocal, which rounds differently from the CPU)."""
+    return torch.full((), value, dtype=x.dtype, device=x.device)
+
+
+def _abs_max(x):
+    return _clamp_scale(torch.amax(x.abs()))
+
+
+def _channel_abs_max(x, axis):
+    red = tuple(i for i in range(x.dim()) if i != axis)
+    return _clamp_scale(torch.amax(x.abs(), dim=red) if red else x.abs())
+
+
+def _quant(x, scale, qmax):
+    """Quantize to the integer grid, kept in float (the reference outputs
+    float tensors holding integer values); round half to even, as
+    ``jnp.round``."""
+    return torch.clamp(torch.round(x / scale * qmax), -qmax, qmax)
+
+
+def _qdq_ste(x, scale, qmax):
+    """Quant-dequant with a straight-through gradient."""
+    q = _quant(x, scale, qmax)
+    qdq = q * scale / _like(qmax, q)
+    return x + (qdq - x).detach()
+
+
+def _bshape(x, axis):
+    shape = [1] * x.dim()
+    shape[axis] = -1
+    return shape
+
+
+@register_lower("fake_quantize_abs_max")
+def lower_fake_quantize_abs_max(ctx, op):
+    x = ctx.in1(op, "X")
+    scale = _abs_max(x)
+    ctx.set_out(op, "Out", _quant(x, scale, _qmax(op)).to(x.dtype))
+    ctx.set_out(op, "OutScale", scale.reshape(1))
+
+
+@register_lower("fake_quantize_dequantize_abs_max")
+def lower_fake_quantize_dequantize_abs_max(ctx, op):
+    x = ctx.in1(op, "X")
+    scale = _abs_max(x)
+    ctx.set_out(op, "Out", _qdq_ste(x, scale, _qmax(op)).to(x.dtype))
+    ctx.set_out(op, "OutScale", scale.reshape(1))
+
+
+@register_lower("fake_channel_wise_quantize_abs_max")
+def lower_fake_channel_wise_quantize_abs_max(ctx, op):
+    x = ctx.in1(op, "X")
+    axis = int(op.attr("quant_axis", 0))
+    scale = _channel_abs_max(x, axis)
+    ctx.set_out(op, "Out", _quant(x, scale.reshape(_bshape(x, axis)),
+                                  _qmax(op)).to(x.dtype))
+    ctx.set_out(op, "OutScale", scale)
+
+
+@register_lower("fake_channel_wise_quantize_dequantize_abs_max")
+def lower_fake_channel_wise_qdq_abs_max(ctx, op):
+    x = ctx.in1(op, "X")
+    axis = int(op.attr("quant_axis", 0))
+    scale = _channel_abs_max(x, axis)
+    ctx.set_out(op, "Out", _qdq_ste(x, scale.reshape(_bshape(x, axis)),
+                                    _qmax(op)).to(x.dtype))
+    ctx.set_out(op, "OutScale", scale)
+
+
+def _moving_average_scale(ctx, op, x):
+    """Shared accumulator update (fake_quantize_op.cc FindMovingAverage):
+    state = rate*state + 1;  accum = rate*accum + abs_max(x);
+    scale = accum / state.  In is_test mode the stored scale is used
+    unchanged and no state is written."""
+    rate = float(op.attr("moving_rate", 0.9))
+    in_scale = as_scalar(ctx.in1(op, "InScale"))
+    if op.attr("is_test", False):
+        return torch.clamp_min(in_scale, 1e-8), None, None
+    state = as_scalar(ctx.in1(op, "InState"))
+    accum = as_scalar(ctx.in1(op, "InAccum"))
+    state = rate * state + 1.0
+    accum = rate * accum + _abs_max(x)
+    return torch.clamp_min(accum / state, 1e-8), state, accum
+
+
+def _emit_moving_average_state(ctx, op, scale, state, accum):
+    ctx.set_out(op, "OutScale", scale.reshape(1))
+    if state is not None:
+        ctx.set_out(op, "OutState", state.reshape(1))
+        ctx.set_out(op, "OutAccum", accum.reshape(1))
+
+
+@register_lower("fake_quantize_moving_average_abs_max")
+def lower_fake_quantize_moving_average_abs_max(ctx, op):
+    x = ctx.in1(op, "X")
+    scale, state, accum = _moving_average_scale(ctx, op, x)
+    ctx.set_out(op, "Out", _quant(x, scale, _qmax(op)).to(x.dtype))
+    _emit_moving_average_state(ctx, op, scale, state, accum)
+
+
+@register_lower("fake_quantize_dequantize_moving_average_abs_max")
+def lower_fake_qdq_moving_average_abs_max(ctx, op):
+    x = ctx.in1(op, "X")
+    scale, state, accum = _moving_average_scale(ctx, op, x)
+    ctx.set_out(op, "Out", _qdq_ste(x, scale, _qmax(op)).to(x.dtype))
+    _emit_moving_average_state(ctx, op, scale, state, accum)
+
+
+@register_lower("fake_quantize_range_abs_max")
+def lower_fake_quantize_range_abs_max(ctx, op):
+    """Windowed running-max scale (fake_quantize_op.cc FindRangeAbsMax):
+    a [window_size] ring buffer of per-step abs-maxes; the scale is the
+    max over the window.  The slot is ``Iter % window``, taken on the
+    device (``index_put``), so the step needs no host read."""
+    x = ctx.in1(op, "X")
+    qmax = _qmax(op)
+    if op.attr("is_test", False):
+        scale = torch.clamp_min(as_scalar(ctx.in1(op, "InScale")), 1e-8)
+        ctx.set_out(op, "Out", _quant(x, scale, qmax).to(x.dtype))
+        return
+    window = int(op.attr("window_size", 10000))
+    cur = _abs_max(x)
+    scales = ctx.in1(op, "InScales")
+    it = ctx.in1(op, "Iter").reshape(1)
+    if scales is None:  # windowless degenerate form: running max
+        prev = as_scalar(ctx.in1(op, "InScale"))
+        scale = torch.clamp_min(torch.maximum(prev, cur.to(prev.dtype)),
+                                1e-8)
+    else:
+        scales = scales.clone().index_put_(
+            (torch.remainder(it, window).long(),),
+            cur.to(scales.dtype).reshape(1))
+        scale = torch.clamp_min(torch.amax(scales), 1e-8)
+        ctx.set_out(op, "OutScales", scales)
+    ctx.set_out(op, "Out", _quant(x, scale, qmax).to(x.dtype))
+    ctx.set_out(op, "OutScale", scale.reshape(1))
+    ctx.set_out(op, "OutIter", it + 1)
+
+
+@register_lower("moving_average_abs_max_scale")
+def lower_moving_average_abs_max_scale(ctx, op):
+    """Observer only: Out = X unchanged, scale state updated (used by the
+    reference's OutScaleForTrainingPass)."""
+    x = ctx.in1(op, "X")
+    scale, state, accum = _moving_average_scale(ctx, op, x)
+    if ctx.out_name(op, "Out"):
+        ctx.set_out(op, "Out", x)
+    _emit_moving_average_state(ctx, op, scale, state, accum)
+
+
+@register_lower("fake_dequantize_max_abs")
+def lower_fake_dequantize_max_abs(ctx, op):
+    x = ctx.in1(op, "X")
+    scale = as_scalar(ctx.in1(op, "Scale"))
+    out = x * scale
+    max_range = float(op.attr("max_range", 127.0))
+    ctx.set_out(op, "Out", (out / _like(max_range, out)).to(x.dtype))
+
+
+@register_lower("fake_channel_wise_dequantize_max_abs")
+def lower_fake_channel_wise_dequantize_max_abs(ctx, op):
+    x = ctx.in1(op, "X")
+    scales = ctx.in_list(op, "Scales")
+    axis = int(op.attr("quant_axis", 0))
+    bits = op.attr("quant_bits", [8])
+    out = x * scales[0].reshape(_bshape(x, axis))
+    out = out / _like(2.0 ** (int(bits[0]) - 1) - 1, out)
+    if len(scales) > 1:  # second-level (whole-tensor) scale, mul path
+        out = out * as_scalar(scales[1])
+        out = out / _like(2.0 ** (int(bits[1]) - 1) - 1, out)
+    ctx.set_out(op, "Out", out.to(x.dtype))
 
 
 # -- B7: plain version and kernel wrapper ---------------------------------

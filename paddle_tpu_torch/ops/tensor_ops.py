@@ -1,8 +1,8 @@
 """Tensor manipulation ops: reshape / transpose / flatten / squeeze /
 unsqueeze, concat / split / stack / unstack, slicing, gather and scatter,
 tile and expand, top-k / arg-max / argsort / where, one-hot, pad,
-tril / triu, cumsum, flip, roll, meshgrid, cast, and activation
-recompute's ``recompute_barrier``.
+tril / triu, ``diag``, ``size``, cumsum, flip, roll, meshgrid, cast, and
+activation recompute's ``recompute_barrier``.
 
 Counterpart of ``paddle_tpu/ops/tensor_ops.py`` (``where_index``, the
 JAX package's ``tail_ops.py``, included: ``nonzero``'s fixed-size form,
@@ -363,6 +363,31 @@ def _shape(ctx, op):
     x = ctx.in1(op, "Input")
     ctx.set_out(op, "Out", torch.tensor(list(x.shape), dtype=torch.int32,
                                         device=x.device))
+
+
+@register_lower("size")
+def _size(ctx, op):
+    """The element count, int64 (the JAX package's x64-off int32)."""
+    x = ctx.in1(op, "Input")
+    ctx.set_out(op, "Out", torch.tensor(x.numel(), dtype=torch.int64,
+                                        device=x.device))
+
+
+@register_lower("diag", "diag_v2")
+def _diag(ctx, op):
+    """A vector to a matrix with it on diagonal ``offset`` (the rest
+    ``padding_value``), or a matrix's diagonal ``offset``."""
+    x = ctx.in1(op, "X")
+    offset = int(op.attr("offset", 0))
+    pad = float(op.attr("padding_value", 0.0))
+    if x.dim() == 1:
+        out = torch.diag(x, offset)
+        if pad:
+            mask = torch.diag(torch.ones_like(x), offset)
+            out = out + pad * (1 - mask)
+    else:
+        out = torch.diagonal(x, offset)
+    ctx.set_out(op, "Out", out)
 
 
 def _pad_list(pairs):

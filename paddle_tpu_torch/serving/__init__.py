@@ -34,6 +34,8 @@ from .decode import (  # noqa: F401
     DecodeEngine,
     DecodeRequest,
     TransformerLM,
+    quantize_moe_weights,
+    shard_moe_weights,
     weights_from_numpy,
 )
 from .disagg import (  # noqa: F401
@@ -66,5 +68,6 @@ __all__ = [
     "QueueFullError", "RequestAbandonedError", "RequestBase",
     "RequestTooLargeError", "Server", "ServerClosedError",
     "ServingConfig", "ServingError", "TransformerLM",
-    "least_loaded_order", "prefill_bucket_grid", "weights_from_numpy",
+    "least_loaded_order", "prefill_bucket_grid", "quantize_moe_weights",
+    "shard_moe_weights", "weights_from_numpy",
 ]

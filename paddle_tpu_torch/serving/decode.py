@@ -62,8 +62,14 @@ What the port changes:
   the payload is a ``kv_cache.KVPageExport`` of torch tensors; on one
   card it moves device to device.
 
-MoE serving (``moe_experts``) waits for a later slice of the port;
-asking for it raises ``NotImplementedError``.
+- **MoE** (``moe_experts``): a top-k routed expert FFN in place of the
+  dense MLP (``ops/moe_ops.moe_ffn_ref``, dispatch by index), dropless by
+  default (capacity = the rows of the call), so every shape of a step is
+  static and the decode step stays captured; ``quantize_moe_weights``
+  swaps the stacked expert weights for int8 / fp8 carriers with
+  per-expert scales, dequantized before the expert products.  Expert
+  parallelism (``moe_mesh``, ``shard_moe_weights``) raises, naming ROADMAP
+  Queue A item 8: the port runs one card.
 """
 from __future__ import annotations
 
@@ -81,9 +87,11 @@ from torch import nn
 
 from ..framework.graphs import StepGraph
 from ..framework.place import DeviceLike, default_device, device_of
+from ..framework.scope import to_tensor
 from ..monitor import stat_add, stat_get, stat_max, stat_set
 from ..observe import tracer as otrace
 from ..observe.histogram import stat_time
+from ..ops.moe_ops import _dequant_stacked, moe_ffn_ref
 from ..ops.paged_attention import (paged_chunk_attention,
                                    paged_decode_attention)
 from ..ops.sampling_ops import greedy_sample, sample_tokens, token_generator
@@ -113,13 +121,21 @@ def _param(*shape, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+# the stacked expert weights a quantized MoE layer holds as carriers
+_MOE_QUANT = ("moe_w1", "moe_w2")
+
+
 class _Layer(nn.Module):
     """One decoder layer's parameters, named as the JAX weights dict's
-    per-layer keys."""
+    per-layer keys: the dense MLP's ``w1``/``w2``, or with ``experts`` the
+    router ``gate`` and the stacked ``moe_w1/b1/w2/b2`` (or, once
+    quantized, ``moe_w1_q``/``moe_w1_scale`` and ``moe_w2_q``/
+    ``moe_w2_scale`` in place of ``moe_w1``/``moe_w2``)."""
 
-    def __init__(self, d_model: int, ffn_dim: int, device):
+    def __init__(self, d_model: int, ffn_dim: int, device,
+                 experts: int = 0):
         super().__init__()
-        dm, f = d_model, ffn_dim
+        dm, f, e = d_model, ffn_dim, experts
         self.ln1_g = _param(dm, device=device)
         self.ln1_b = _param(dm, device=device)
         self.wq = _param(dm, dm, device=device)
@@ -128,8 +144,37 @@ class _Layer(nn.Module):
         self.wo = _param(dm, dm, device=device)
         self.ln2_g = _param(dm, device=device)
         self.ln2_b = _param(dm, device=device)
-        self.w1 = _param(dm, f, device=device)
-        self.w2 = _param(f, dm, device=device)
+        self.moe_quantized = False
+        if not e:
+            self.w1 = _param(dm, f, device=device)
+            self.w2 = _param(f, dm, device=device)
+            return
+        self.gate = _param(dm, e, device=device)
+        self.moe_w1 = _param(e, dm, f, device=device)
+        self.moe_b1 = _param(e, f, device=device)
+        self.moe_w2 = _param(e, f, dm, device=device)
+        self.moe_b2 = _param(e, dm, device=device)
+
+    def set_moe_layout(self, entries: Dict) -> None:
+        """Register the expert weights in the layout of a weights-dict
+        layer ``entries`` (float ``moe_w*`` or quantized ``moe_w*_q`` +
+        ``moe_w*_scale``), with its shapes and dtypes, so that
+        ``load_state_dict`` takes it."""
+        quantized = "moe_w1_q" in entries
+        if quantized == self.moe_quantized:
+            return
+        dev = self.gate.device
+        for nm in _MOE_QUANT:
+            for key in (nm, nm + "_q", nm + "_scale"):
+                if key in self._parameters:
+                    del self._parameters[key]
+            keys = (nm + "_q", nm + "_scale") if quantized else (nm,)
+            for key in keys:
+                t = to_tensor(entries[key])
+                setattr(self, key, nn.Parameter(torch.zeros(
+                    tuple(t.shape), dtype=t.dtype, device=dev),
+                    requires_grad=False))
+        self.moe_quantized = quantized
 
 
 class TransformerLM(nn.Module):
@@ -144,10 +189,27 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab_size: int, d_model: int = 64,
                  num_layers: int = 2, num_heads: int = 2,
                  ffn_dim: Optional[int] = None, max_seq_len: int = 256,
-                 moe_experts: int = 0, device: DeviceLike = None):
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 0.0, moe_mesh=None,
+                 device: DeviceLike = None):
         super().__init__()
-        if moe_experts:
-            raise _later_slice("MoE serving (moe_experts > 0)")
+        # MoE FFN (ops/moe_ops.moe_ffn_ref): moe_experts > 0 replaces the
+        # dense MLP with a top-k routed expert FFN.  The default capacity
+        # factor 0.0 means DROPLESS (cap = E/K * S*K/E = S): with no drops
+        # the routed output is row-independent, so cached decode agrees
+        # with a prefill recompute to float tolerance.  A finite factor
+        # reintroduces batch-dependent drops (fine for training, wrong
+        # for the serving oracle).
+        self.moe_experts = int(moe_experts)
+        self.moe_top_k = int(moe_top_k)
+        self.moe_capacity_factor = float(moe_capacity_factor)
+        if self.moe_experts and self.moe_top_k > self.moe_experts:
+            raise ValueError(f"moe_top_k={moe_top_k} exceeds "
+                             f"moe_experts={moe_experts}")
+        if moe_mesh is not None:
+            from ..distributed.parallel_env import later
+
+            raise later("expert-parallel decode (moe_mesh)")
         self.vocab_size = int(vocab_size)
         self.d_model = int(d_model)
         self.num_layers = int(num_layers)
@@ -165,7 +227,8 @@ class TransformerLM(nn.Module):
         self.lnf_g = _param(dm, device=dev)
         self.lnf_b = _param(dm, device=dev)
         self.layers = nn.ModuleList(
-            [_Layer(dm, self.ffn_dim, dev) for _ in range(self.num_layers)])
+            [_Layer(dm, self.ffn_dim, dev, self.moe_experts)
+             for _ in range(self.num_layers)])
 
     @property
     def device(self) -> torch.device:
@@ -175,8 +238,12 @@ class TransformerLM(nn.Module):
         """Random weights in the JAX weights-dict layout, with the JAX
         package's distributions: normal x 1/sqrt(fan_in) for the
         projections, x 0.02 for the embeddings, LayerNorm ones/zeros.
-        Drawn from ``generator`` (on its device) and returned on the
-        model's device; not loaded -- pass them to the engine."""
+        The stacked expert weights keep the JAX package's scales too:
+        ``moe_w1`` [E, Dm, F] x 1/sqrt(E) (its leading dim, as the JAX
+        ``dense`` takes it), ``moe_w2`` x 1/sqrt(F), the gate x 0.02,
+        biases zero.  Drawn from ``generator`` (on its device) and
+        returned on the model's device; not loaded -- pass them to the
+        engine."""
         dm, f, v = self.d_model, self.ffn_dim, self.vocab_size
 
         def dense(shape, scale=None):
@@ -195,13 +262,21 @@ class TransformerLM(nn.Module):
              "pos_emb": dense((self.max_seq_len, dm), 0.02),
              "lm_head": dense((dm, v)),
              "lnf_g": ones(), "lnf_b": zeros(), "layers": []}
+        e = self.moe_experts
         for _ in range(self.num_layers):
-            w["layers"].append({
-                "ln1_g": ones(), "ln1_b": zeros(),
-                "wq": dense((dm, dm)), "wk": dense((dm, dm)),
-                "wv": dense((dm, dm)), "wo": dense((dm, dm)),
-                "ln2_g": ones(), "ln2_b": zeros(),
-                "w1": dense((dm, f)), "w2": dense((f, dm))})
+            lw = {"ln1_g": ones(), "ln1_b": zeros(),
+                  "wq": dense((dm, dm)), "wk": dense((dm, dm)),
+                  "wv": dense((dm, dm)), "wo": dense((dm, dm)),
+                  "ln2_g": ones(), "ln2_b": zeros()}
+            if e:
+                lw.update(
+                    gate=dense((dm, e), 0.02), moe_w1=dense((e, dm, f)),
+                    moe_b1=torch.zeros(e, f, device=self.device),
+                    moe_w2=dense((e, f, dm), 1.0 / math.sqrt(f)),
+                    moe_b2=torch.zeros(e, dm, device=self.device))
+            else:
+                lw.update(w1=dense((dm, f)), w2=dense((f, dm)))
+            w["layers"].append(lw)
         return w
 
     def load_weights(self, weights: Dict) -> "TransformerLM":
@@ -217,12 +292,14 @@ class TransformerLM(nn.Module):
                 raise ValueError(f"weights hold {len(val)} layers, the "
                                  f"model has {self.num_layers}")
             for i, lw in enumerate(val):
+                if self.moe_experts:
+                    self.layers[i].set_moe_layout(lw)
                 for name, t in lw.items():
                     flat[f"layers.{i}.{name}"] = t
         with torch.no_grad():
             self.load_state_dict(
-                {k: t if isinstance(t, torch.Tensor)
-                 else torch.tensor(np.asarray(t)) for k, t in flat.items()},
+                {k: t if isinstance(t, torch.Tensor) else to_tensor(t)
+                 for k, t in flat.items()},
                 strict=True)
         return self
 
@@ -247,21 +324,83 @@ class TransformerLM(nn.Module):
         return ctx.reshape(*ctx.shape[:-2], self.d_model) @ lw.wo
 
     def _mlp(self, lw: _Layer, h):
+        if self.moe_experts:
+            return self._moe_mlp(lw, h)
         # jax.nn.gelu's default is the tanh approximation
         return F.gelu(h @ lw.w1, approximate="tanh") @ lw.w2
+
+    def _moe_mlp(self, lw: _Layer, h):
+        """Routed expert FFN, dropless by default (see __init__).
+        Quantized expert carriers (``quantize_moe_weights``) dequantize
+        per expert before the expert products."""
+        if lw.moe_quantized:
+            w1 = _dequant_stacked(lw.moe_w1_q, lw.moe_w1_scale)
+            w2 = _dequant_stacked(lw.moe_w2_q, lw.moe_w2_scale)
+        else:
+            w1, w2 = lw.moe_w1, lw.moe_w2
+        cf = self.moe_capacity_factor or (
+            self.moe_experts / self.moe_top_k)
+        out, _aux, _load, _chunked = moe_ffn_ref(
+            h, lw.gate, w1, lw.moe_b1, w2, lw.moe_b2,
+            num_experts=self.moe_experts, top_k=self.moe_top_k,
+            capacity_factor=cf)
+        return out.to(h.dtype)
 
     def _head(self, x):
         return self._ln(x, self.lnf_g, self.lnf_b) @ self.lm_head
 
 
+def quantize_moe_weights(weights: Dict, mode: str = "int8") -> Dict:
+    """Post-training quantization of a TransformerLM weights dict's
+    stacked expert tensors -- the serving twin of the
+    PostTrainingWeightQuantPass moe_ffn branch (slim/quantization.py):
+    every layer's ``moe_w1``/``moe_w2`` becomes an int8 (or fp8) carrier
+    ``moe_w*_q`` plus a per-expert ``[E, out]`` scale ``moe_w*_scale``
+    (ops/quant_ops.quantize_weight_stacked), which ``_moe_mlp``
+    dequantizes before the expert products.  Gate, biases and everything
+    dense stay full precision.  Returns a NEW dict; the original is
+    untouched (it stays the full-precision oracle)."""
+    from ..ops.quant_ops import quantize_weight_stacked
+
+    out = dict(weights)
+    layers = []
+    n_quantized = 0
+    for lw in weights["layers"]:
+        lw = dict(lw)
+        if "moe_w1" in lw:
+            for nm in _MOE_QUANT:
+                q, s = quantize_weight_stacked(lw.pop(nm), 2, mode)
+                lw[nm + "_q"] = q
+                lw[nm + "_scale"] = s
+                n_quantized += 1
+        layers.append(lw)
+    if not n_quantized:
+        raise ValueError(
+            "quantize_moe_weights found no stacked expert weights; "
+            "build the model with moe_experts > 0")
+    out["layers"] = layers
+    stat_add("serving_moe_weights_quantized", n_quantized)
+    return out
+
+
+def shard_moe_weights(weights, mesh):
+    """Expert-parallel placement of the stacked expert weights over a
+    mesh's 'ep' axis: the port runs one card, so this raises, naming
+    ROADMAP Queue A item 8."""
+    from ..distributed.parallel_env import later
+
+    raise later("shard_moe_weights (expert-parallel serving)")
+
+
 def weights_from_numpy(np_weights: Dict, device: DeviceLike = None) -> Dict:
     """The JAX package's weights dict as numpy arrays (e.g.
-    ``jax.tree_util.tree_map(np.asarray, model.init_weights(key))``) ->
-    the same layout of torch tensors on ``device`` (CUDA by default)."""
+    ``jax.tree_util.tree_map(np.asarray, model.init_weights(key))``; the
+    int8 / float8 carriers of ``quantize_moe_weights`` included) -> the
+    same layout of torch tensors on ``device`` (CUDA by default)."""
     dev = default_device(device)
 
     def conv(a):
-        return torch.tensor(np.asarray(a), device=dev)
+        return to_tensor(np.asarray(a)).to(dev, copy=True)
 
     out = {k: conv(v) for k, v in np_weights.items() if k != "layers"}
     out["layers"] = [{k: conv(v) for k, v in lw.items()}

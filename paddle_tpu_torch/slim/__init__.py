@@ -1,12 +1,14 @@
-"""Model-compression toolkit (reference python/paddle/fluid/contrib/slim/).
+"""Model-compression toolkit (reference
+python/paddle/fluid/contrib/slim/): quantization-aware training,
+post-training activation quantization and weight-only post-training
+quantization over static Programs.
 
-Counterpart of ``paddle_tpu/slim``: of it the port has the weight-only
-post-training quantization (``quantization.PostTrainingWeightQuantPass``,
-``mark_weight_quant``); quantization-aware training and activation PTQ
-(``QuantizationTransformPass``, ``PostTrainingQuantization``,
-``quant_aware``) come with a later slice of the port.
+Counterpart of ``paddle_tpu/slim``, with the same exports.
 """
 from .quantization import (  # noqa: F401
+    PostTrainingQuantization,
     PostTrainingWeightQuantPass,
+    QuantizationTransformPass,
     mark_weight_quant,
+    quant_aware,
 )

@@ -229,10 +229,10 @@ def _payload(page_size=8, n_tokens=1):
                         arrays={}, quantized=False, page_size=page_size)
 
 
-# option -> (call, the error it raises now, match).  MoE serving and the
-# HTTP routes still wait for a later slice; the options slice 14 ported
-# raise what the JAX package raises on misuse (``ragged`` has no misuse
-# to reject: it now builds an engine).
+# option -> (call, the error it raises now, match).  The HTTP routes
+# still wait for a later slice; the options slice 14 ported raise what the
+# JAX package raises on misuse (``ragged`` has no misuse to reject: it now
+# builds an engine, as ``moe`` does since the MoE slice).
 _OUT_OF_SLICE = {
     "spec_k": (lambda m: DecodeEngine(m, None, DecodeConfig(
         **CFG, spec_k=2)).submit([1], speculative=True), ValueError,
@@ -252,9 +252,9 @@ _OUT_OF_SLICE = {
     "kv_import": (lambda m: DecodeEngine(
         m, None, DecodeConfig(**CFG)).submit([1], kv_import=_payload(4)),
         ValueError, "page_size"),
-    "moe": (lambda m: TransformerLM(VOCAB, 32, 2, 2, moe_experts=4,
-                                    device="cpu"), NotImplementedError,
-            "later slice"),
+    "moe": (lambda m: DecodeEngine(TransformerLM(
+        VOCAB, 32, 2, 2, moe_experts=4, device="cpu"), None,
+        DecodeConfig(**CFG)), None, None),
     "http_port": (lambda m: DecodeServer(m, None, DecodeConfig(**CFG),
                                          http_port=0), NotImplementedError,
                   "later slice"),
