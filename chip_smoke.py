@@ -491,9 +491,37 @@ MoE serving and training.
                (fc 4096 gelu -> 512, matched activated FLOPs) through
                ``fleet`` at one process: captured step p50 and tokens/s of
                both, the balance and dropped-fraction gauges, step 1's
-               loss within 1e-4 of the CPU's from the same startup.
+               loss within 1e-4 of the CPU's from the same startup;
+50. jit_resnet -- dygraph ResNet-50 (eval, float32, batch 32) through
+               ``jit.to_static``: traced, captured, 20 replays beside the
+               eager forward's p50 (within 1e-4 relative of it), no
+               ``executor_eager_*`` run, B1-B7 at 0, the ``trace_const``
+               vars (every one a scalar or a batch-norm buffer: no
+               activation escaped the recorder); ``jit.save`` at
+               ``InputSpec([-1, 3, 224, 224])`` -> ``jit.load`` on the
+               card at batch 32 (within 1e-4 of ``to_static``, rows/s);
+               ``flops(net, [1, 3, 224, 224])`` beside the static ResNet
+               program's ``program_flops``;
+51. jit_bert_int8 -- a dygraph BERT-base-width encoder (the 2.0 layers:
+               word and position embeddings, the pad mask from
+               ``ids != 0``, 12 gelu layers, tanh pooler, 2-way
+               classifier) at 32 x 128, ``jit.save`` on example tensors
+               of that shape, ``jit.load`` in float32 (within 1e-4 of
+               eager) and under ``FLAGS_weight_quant=int8`` (B7 74 a run,
+               each ``matmul_v2`` of a weight rewritten): rows/s of both,
+               the int8 logits' ``quant_quality_delta``, the peak memory;
+52. dy2static -- the JAX package's VERDICT function (a branch on the
+               mean, a loop on the sum) at [32, 768] through
+               ``to_static`` -> ``jit.save`` -> ``jit.load``: fills
+               taking both branches and 0, 1, 2 and 7 trips, each run
+               within 1e-6 of eager and one ``executor_eager_control_flow``
+               run; then the cond training program (x [4096, 1024], fc
+               4096) 10 Momentum steps on the card with the flag
+               alternating: losses within 1e-4 of a CPU run from the same
+               initial scope, the branch-only parameter moved, step ms.
 
-Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
+Every phase also logs ``{"phase": "phase_seconds", "name": ...,
+"seconds": ...}``, its wall seconds, when it ends.  Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
 device it exits 1 before doing anything.
 """
@@ -6339,6 +6367,405 @@ def phase_moe_train():
 
 
 
+# -- slice 18: jit / dy2static -------------------------------------------
+
+JIT_BATCH = 32          # jit_resnet's and jit_bert_int8's batch
+JIT_RUNS = 20           # timed runs of each path (replays where captured)
+JIT_RTOL = 1e-4         # traced or loaded against eager, relative
+JIT_BERT = dict(vocab=30522, d_model=768, layers=12, heads=12, ffn=3072,
+                positions=512)  # the repo's bert_base widths, dropout 0
+JIT_SEQ = 128
+# The VERDICT function's fills at [32, 768] (exact powers of two, so every
+# run is exact): (fill, branch, while trips).
+DY2S_SHAPE = (32, 768)
+DY2S_FILLS = ((0.5, "x * 2", 0), (2.0 ** -10, "x * 2", 1),
+              (2.0 ** -16, "x * 2", 7), (-2.0 ** -12, "x * -3", 2),
+              (-1.0, "x * -3", 0))
+DY2S_RTOL = 1e-6
+# The JAX package's cond training program at width: x [4096, 1024], fc
+# 4096 relu, the branch fc 4096 -> 1 (true) or the row mean (false).
+COND_TRAIN = dict(batch=4096, width=1024, hidden=4096, steps=10, lr=0.001)
+COND_RTOL = 1e-4        # float32 on cuBLAS against ATen's CPU kernels
+
+
+def eager_counts():
+    """Every ``executor_eager_<kind>`` counter the monitor holds."""
+    from paddle_tpu_torch.monitor import export_stats
+
+    return {n: v for n, v in export_stats()
+            if n.startswith("executor_eager_")}
+
+
+def timed_runs(fn, runs):
+    """Milliseconds of each of ``runs`` calls of ``fn``, synced; the last
+    output."""
+    ms = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, out
+
+
+def rel_gap(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def trace_consts(traced, network):
+    """The ``trace_const`` vars of a traced program: (count, bytes, the
+    names of those that are neither a scalar nor a buffer of
+    ``network``)."""
+    consts = {n: v for n, v in traced._param_values.items()
+              if n.startswith("trace_const")}
+    buffers = [b._value for b in network.buffers()]
+    stray = [n for n, v in consts.items() if v.numel() > 1 and not any(
+        b.shape == v.shape and torch.equal(b, v) for b in buffers)]
+    return (len(consts), sum(v.numel() * v.element_size()
+                             for v in consts.values()), stray)
+
+
+def phase_jit_resnet():
+    """Dygraph ResNet-50 (``vision.models.resnet50``, eval, float32) at
+    batch 32 through ``jit.to_static``: captured, then replayed; beside
+    the eager forward (and both at batch 1), then ``jit.save`` ->
+    ``jit.load`` on the card, and ``flops`` of the Layer beside the
+    static program's."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.hapi.model_stat import program_flops
+
+    pt.set_device("gpu:0")
+    pt.seed(0)
+    net = pt.vision.models.resnet50()
+    net.eval()
+    x = pt.to_tensor(np.random.RandomState(0).randn(
+        JIT_BATCH, *RESNET_IMG).astype("float32"))
+    eager0 = eager_counts()
+    zero_kernel_launches()
+    with pt.no_grad():
+        timed_runs(lambda: net(x), 3)
+        eager_ms, eager = timed_runs(lambda: net(x), JIT_RUNS)
+        sf = jit.to_static(net)
+        t0 = time.monotonic()
+        first = sf(x)           # the trace, then the program's eager run
+        torch.cuda.synchronize()
+        trace_s = time.monotonic() - t0
+        captures, replays = (stat_get("cuda_graph_captures"),
+                             stat_get("cuda_graph_replays"))
+        sf(x)                   # the capture
+        static_ms, static = timed_runs(lambda: sf(x), JIT_RUNS)
+        replays = stat_get("cuda_graph_replays") - replays
+        captures = stat_get("cuda_graph_captures") - captures
+        # at batch 1 the forward's ~320 dispatches outlast its card work
+        x1 = pt.to_tensor(x.numpy()[:1])
+        timed_runs(lambda: net(x1), 3)
+        eager1_ms, _ = timed_runs(lambda: net(x1), JIT_RUNS)
+        timed_runs(lambda: sf(x1), 3)       # trace, capture, replay
+        static1_ms, _ = timed_runs(lambda: sf(x1), JIT_RUNS)
+    launches = kernel_launches()
+    eager1 = eager_counts()
+    traced = sf.concrete_program
+    n_const, const_bytes, stray = trace_consts(traced, net)
+    gap = rel_gap(static.numpy(), eager.numpy())
+    first_gap = rel_gap(first.numpy(), eager.numpy())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resnet50")
+        t0 = time.monotonic()
+        jit.save(net, path, input_spec=[
+            pt.hapi.model.InputSpec([-1, 3, *RESNET_IMG[1:]])])
+        save_s = time.monotonic() - t0
+        loaded = jit.load(path)
+        timed_runs(lambda: loaded(x), 2)            # eager, then captured
+        load_ms, load_out = timed_runs(lambda: loaded(x), JIT_RUNS)
+        loaded._predictor._exe.close()
+    load_gap = rel_gap(load_out.numpy(), static.numpy())
+    flops = pt.flops(net, [1, *RESNET_IMG])
+    static_flops = program_flops(resnet_inference()[0])
+    p50 = {k: float(np.median(v)) for k, v in
+           (("eager", eager_ms), ("to_static", static_ms),
+            ("jit_load", load_ms))}
+    log("jit_resnet", model="resnet50_v1.5", api="jit.to_static",
+        batch=JIT_BATCH, image=RESNET_IMG, dtype="float32", runs=JIT_RUNS,
+        eager_ms_p50=p50["eager"], to_static_ms_p50=p50["to_static"],
+        jit_load_ms_p50=p50["jit_load"],
+        capture_saves=1.0 - p50["to_static"] / p50["eager"],
+        batch_1_eager_ms_p50=float(np.median(eager1_ms)),
+        batch_1_to_static_ms_p50=float(np.median(static1_ms)),
+        batch_1_capture_saves=1.0 - float(np.median(static1_ms))
+        / float(np.median(eager1_ms)),
+        rows_per_s={k: JIT_BATCH / (v / 1e3) for k, v in p50.items()},
+        to_static_rel_gap=gap, first_run_rel_gap=first_gap,
+        jit_load_rel_gap=load_gap, rel_tolerance=JIT_RTOL,
+        trace_s=trace_s, save_s=save_s, captures=captures,
+        replays=replays, ops=len(traced.program.global_block.ops),
+        trace_const_vars=n_const, trace_const_bytes=const_bytes,
+        trace_const_not_buffers=stray, executor_eager_before=eager0,
+        executor_eager_after=eager1, launches=launches, flops_b1=flops,
+        static_program_flops_b1=static_flops,
+        flops_ratio=flops / static_flops,
+        eager_ms=eager_ms, to_static_ms=static_ms)
+    if any(launches.values()):
+        raise RuntimeError(f"jit_resnet launched hand-written kernels: "
+                           f"{launches}")
+    if max(gap, first_gap, load_gap) > JIT_RTOL:
+        raise RuntimeError(f"jit_resnet: to_static {gap}, its first run "
+                           f"{first_gap}, jit.load {load_gap} from eager "
+                           f"(> {JIT_RTOL})")
+    if eager1 != eager0 or captures != 1 or replays < JIT_RUNS:
+        raise RuntimeError(f"jit_resnet: eager counts {eager0} -> {eager1}, "
+                           f"{captures} captures and {replays} replays "
+                           f"(want 1 and >= {JIT_RUNS})")
+    if stray:
+        raise RuntimeError(f"jit_resnet: trace constants that are no "
+                           f"buffer (an op escaped the recorder): {stray}")
+    if static.shape != [JIT_BATCH, 1000] or not np.isfinite(
+            static.numpy()).all():
+        raise RuntimeError(f"jit_resnet: logits {static.shape} not finite")
+
+
+class JitBert(pt.nn.Layer):
+    """A BERT-base-width encoder written as a dygraph user writes one:
+    word and position embeddings, the pad mask built from ``ids != 0``,
+    12 post-norm encoder layers (gelu, dropout 0), a tanh pooler on
+    [CLS] and a 2-way classifier."""
+
+    def __init__(self, vocab, d_model, layers, heads, ffn, positions):
+        super().__init__()
+        self.word = pt.nn.Embedding(vocab, d_model)
+        self.pos = pt.nn.Embedding(positions, d_model)
+        layer = pt.nn.TransformerEncoderLayer(d_model, heads, ffn,
+                                              dropout=0.0,
+                                              activation="gelu")
+        self.encoder = pt.nn.TransformerEncoder(layer, layers)
+        self.pooler = pt.nn.Linear(d_model, d_model)
+        self.classifier = pt.nn.Linear(d_model, 2)
+
+    def forward(self, ids, pos):
+        mask = pt.unsqueeze(ids != 0, [1, 2])
+        h = self.encoder(self.word(ids) + self.pos(pos), mask)
+        cls = pt.reshape(pt.slice(h, axes=[1], starts=[0], ends=[1]),
+                         [0, -1])
+        return self.classifier(pt.tanh(self.pooler(cls)))
+
+
+def jit_bert_feed(batch, seq, vocab, seed):
+    """Token ids with each row padded (id 0) after a random length in
+    [seq / 2, seq], and the position ids."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, vocab, (batch, seq)).astype("int64")
+    for r, n in enumerate(rng.randint(seq // 2, seq + 1, batch)):
+        ids[r, n:] = 0
+    pos = np.tile(np.arange(seq, dtype="int64"), (batch, 1))
+    return pt.to_tensor(ids), pt.to_tensor(pos)
+
+
+def phase_jit_bert_int8():
+    """The dygraph BERT-base-width encoder exported by ``jit.save`` at the
+    serving shape (MultiHeadAttention bakes b and s into its reshapes),
+    then served by ``jit.load`` in float32 and under
+    ``FLAGS_weight_quant=int8`` (B7 74 a run)."""
+    from paddle_tpu_torch import jit
+
+    c = JIT_BERT
+    pt.set_device("gpu:0")
+    pt.seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    net = JitBert(**c)
+    net.eval()
+    ids, pos = jit_bert_feed(JIT_BATCH, JIT_SEQ, c["vocab"], seed=2)
+    with pt.no_grad():
+        timed_runs(lambda: net(ids, pos), 2)
+        eager_ms, eager = timed_runs(lambda: net(ids, pos), 5)
+    eager = eager.numpy()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bert_jit")
+        t0 = time.monotonic()
+        with pt.no_grad():
+            traced = jit.save(net, path, input_spec=[ids, pos])
+        save_s = time.monotonic() - t0
+        weight_mm = sum(
+            op.type == "matmul_v2" and traced.program.global_block
+            ._find_var_recursive(op.input("Y")[0]).persistable
+            for op in traced.program.global_block.ops)
+        for mode in ("", "int8"):
+            flags.set_flags({"weight_quant": mode})
+            try:
+                loaded = jit.load(path)
+                n0 = stat_get("pass_weight_quant_ops")
+                timed_runs(lambda: loaded(ids, pos), 2)  # eager, captured
+                rewritten = stat_get("pass_weight_quant_ops") - n0
+                zero_kernel_launches()
+                ms, out = timed_runs(lambda: loaded(ids, pos), JIT_RUNS)
+                launches = kernel_launches()
+                loaded._predictor._exe.close()
+            finally:
+                flags.set_flags({"weight_quant": ""})
+            p50 = float(np.median(ms))
+            res[mode or "float32"] = dict(
+                ms_p50=p50, rows_per_s=JIT_BATCH / (p50 / 1e3),
+                ops_rewritten=rewritten, launches=launches,
+                rel_gap_vs_eager=rel_gap(out.numpy(), eager),
+                logits=out.numpy(), ms=ms)
+    f32, q8 = res["float32"], res["int8"]
+    delta = qo.quant_quality_delta(q8.pop("logits"), f32.pop("logits"))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log("jit_bert_int8", model="dygraph bert-base-width encoder + pooler "
+        "+ 2-way classifier", batch=JIT_BATCH, seq=JIT_SEQ, **c,
+        eager_ms_p50=float(np.median(eager_ms)), save_s=save_s,
+        matmul_v2_of_a_weight=weight_mm,
+        ops=len(traced.program.global_block.ops), float32=f32, int8=q8,
+        quant_quality_delta=delta, logits_max_abs=float(np.abs(eager).max()),
+        peak_memory_gb=peak, rel_tolerance=JIT_RTOL)
+    others = {k: v for k, v in q8["launches"].items() if k != "b7"}
+    if q8["launches"]["b7"] != B7_PER_RUN * JIT_RUNS or any(
+            others.values()) or any(f32["launches"].values()):
+        raise RuntimeError(f"jit_bert_int8: launches float32 "
+                           f"{f32['launches']}, int8 {q8['launches']} in "
+                           f"{JIT_RUNS} runs; want B7 {B7_PER_RUN} a run "
+                           f"under int8 and nothing else")
+    if weight_mm != B7_PER_RUN or q8["ops_rewritten"] != B7_PER_RUN:
+        raise RuntimeError(f"jit_bert_int8: {weight_mm} matmuls of a weight,"
+                           f" {q8['ops_rewritten']} rewritten; want "
+                           f"{B7_PER_RUN}")
+    if f32["rel_gap_vs_eager"] > JIT_RTOL:
+        raise RuntimeError(f"jit_bert_int8: float32 {f32['rel_gap_vs_eager']}"
+                           f" from eager (> {JIT_RTOL})")
+    if q8["rel_gap_vs_eager"] > INT8_QUALITY_BOUND:
+        raise RuntimeError(f"jit_bert_int8: int8 logits "
+                           f"{q8['rel_gap_vs_eager']} of the float32 "
+                           f"magnitude from eager (> {INT8_QUALITY_BOUND})")
+
+
+def verdict(x):
+    """The JAX package's VERDICT function (tests/test_dy2static.py): a
+    branch on the mean, then a loop on the sum."""
+    if x.mean() > 0:
+        h = x * 2.0
+    else:
+        h = x * -3.0
+    s = h
+    while s.sum() < 64.0:
+        s = s * 2.0
+    return s
+
+
+def cond_train_program(c):
+    """The JAX package's cond training program (tests/test_control_flow.py)
+    at width: the branch fc is read only inside the true branch."""
+    from paddle_tpu_torch import layers
+
+    main, startup = pt.framework.Program(), pt.framework.Program()
+    main.random_seed = startup.random_seed = 3
+    with unique_name.guard(), program_guard(main, startup):
+        x = layers.data("x", [c["width"]])
+        y = layers.data("y", [1])
+        flag = layers.data("flag", [1])
+        h = layers.fc(x, c["hidden"], act="relu")
+        pred = layers.greater_than(layers.reduce_sum(flag),
+                                   layers.fill_constant([1], "float32", 0.0))
+        out = layers.cond(
+            pred, lambda: layers.fc(h, 1, bias_attr=False),
+            lambda: layers.reduce_mean(h, dim=1, keep_dim=True))
+        loss = layers.mean(layers.square_error_cost(out, y))
+        pt.optimizer.MomentumOptimizer(c["lr"], 0.9).minimize(loss)
+    return main, startup, loss
+
+
+def cond_train_run(place, main, init, feeds, loss):
+    from paddle_tpu_torch.framework.scope import scope_from_numpy
+
+    exe = pt.Executor(place)
+    scope = scope_from_numpy(init, device=place.torch_device())
+    losses, ms = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        losses.append(float(np.asarray(out[0]).item()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    exe.close()
+    return losses, ms, scope
+
+
+def phase_dy2static():
+    """The VERDICT function through ``to_static`` -> ``jit.save`` ->
+    ``jit.load`` on the card, run on fills that take both branches and
+    0, 1, 2 and 7 loop trips; then the cond training program, 10 Momentum
+    steps on the card with the flag alternating, against a CPU run from
+    the same initial scope."""
+    from paddle_tpu_torch import jit
+
+    pt.set_device("gpu:0")
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "verdict")
+        example = pt.to_tensor(np.full(DY2S_SHAPE, 0.5, "float32"))
+        t0 = time.monotonic()
+        traced = jit.save(jit.to_static(verdict), path,
+                          input_spec=[example])
+        save_s = time.monotonic() - t0
+        types = [op.type for op in traced.program.global_block.ops]
+        loaded = jit.load(path)
+        for fill, branch, trips in DY2S_FILLS:
+            x = pt.to_tensor(np.full(DY2S_SHAPE, fill, "float32"))
+            want = verdict(x).numpy()
+            n0 = stat_get("executor_eager_control_flow")
+            ms, out = timed_runs(lambda: loaded(x), 3)
+            runs.append(dict(
+                fill=fill, branch=branch, trips=trips, ms=ms,
+                eager_control_flow_runs=stat_get(
+                    "executor_eager_control_flow") - n0,
+                rel_gap=rel_gap(out.numpy(), want),
+                out=float(out.numpy().flat[0])))
+        loaded._predictor._exe.close()
+    c = COND_TRAIN
+    main, startup, loss = cond_train_program(c)
+    exe = pt.Executor()
+    init_scope = pt.framework.Scope()
+    exe.run(startup, scope=init_scope)
+    init = {n: init_scope.get_var(n).cpu().numpy()
+            for n in init_scope.local_var_names()
+            if isinstance(init_scope.get_var(n), torch.Tensor)}
+    exe.close()
+    rng = np.random.RandomState(5)
+    x = rng.randn(c["batch"], c["width"]).astype("float32")
+    y = (x[:, :8].sum(1, keepdims=True) * 0.5).astype("float32")
+    feeds = [{"x": x, "y": y, "flag": np.full((1, 1), float(i % 2 == 0),
+                                              "float32")}
+             for i in range(c["steps"])]
+    n0 = stat_get("executor_eager_control_flow")
+    card, card_ms, scope = cond_train_run(pt.CUDAPlace(0), main, init,
+                                          feeds, loss)
+    card_eager = stat_get("executor_eager_control_flow") - n0
+    t0 = time.monotonic()
+    cpu, _, _ = cond_train_run(pt.CPUPlace(), main, init, feeds, loss)
+    cpu_s = time.monotonic() - t0
+    branch_w = [n for n in init if n.startswith("fc_1.w")][0]
+    moved = float(np.abs(scope.get_var(branch_w).cpu().numpy()
+                         - init[branch_w]).max())
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    log("dy2static", shape=DY2S_SHAPE, ops=types, save_s=save_s, runs=runs,
+        rel_tolerance=DY2S_RTOL, cond_train=c, card_losses=card,
+        cpu_losses=cpu, loss_rel_gap=loss_gap, loss_rtol=COND_RTOL,
+        step_ms_p50=float(np.median(card_ms[1:])), step_ms=card_ms,
+        card_eager_control_flow_runs=card_eager, cpu_s=cpu_s,
+        branch_param=branch_w, branch_param_max_move=moved)
+    if "cond_pair" not in types or "while" not in types:
+        raise RuntimeError(f"dy2static: the export holds {types}")
+    for r in runs:
+        if r["rel_gap"] > DY2S_RTOL or r["eager_control_flow_runs"] != 3:
+            raise RuntimeError(f"dy2static: fill {r['fill']}: gap "
+                               f"{r['rel_gap']} (> {DY2S_RTOL}) or "
+                               f"{r['eager_control_flow_runs']} eager runs "
+                               f"for 3")
+    if loss_gap > COND_RTOL or not all(map(math.isfinite, card)) or \
+            card_eager != c["steps"] or moved == 0.0:
+        raise RuntimeError(f"dy2static: cond training losses {card} vs the "
+                           f"CPU's {cpu} (gap {loss_gap}), {card_eager} "
+                           f"eager runs, branch parameter moved {moved}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script measures "
@@ -6481,6 +6908,12 @@ def main():
     release("moe_serve")
     phase_moe_train()
     release("moe_train")
+    phase_jit_resnet()
+    release("jit_resnet")
+    phase_jit_bert_int8()
+    release("jit_bert_int8")
+    phase_dy2static()
+    release("dy2static")
     kernels = []
     main_case = TRAIN_FLASH_CASES[0][0]
     for kernel, case in (("paged_decode_attention", "decode_float32"),
@@ -6505,6 +6938,27 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _timed_phase(fn):
+    """``fn`` logging its wall seconds when it ends, passed or not."""
+    def run(*args, **kwargs):
+        t0 = time.monotonic()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log("phase_seconds", name=fn.__name__[len("phase_"):],
+                seconds=time.monotonic() - t0)
+
+    run.__name__ = run.__qualname__ = fn.__name__
+    run.__doc__ = fn.__doc__
+    return run
+
+
+# every phase logs its own seconds, called from main or from any script
+for _name, _fn in list(globals().items()):
+    if _name.startswith("phase_") and callable(_fn):
+        globals()[_name] = _timed_phase(_fn)
 
 
 if __name__ == "__main__":

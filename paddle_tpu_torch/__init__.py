@@ -60,7 +60,15 @@ imports), ported slice by slice:
    .minimize(loss)`` over the single-process meta-optimizer chain (amp,
    recompute, gradient merge, LARS, LAMB, DGC), the collective functions
    and ``DataParallel`` at world size 1; an ERNIE-1.0-width finetune
-   trains through amp + recompute with B1 on its path.
+   trains through amp + recompute with B1 on its path;
+12. ``jit`` and ``static``: ``jit.to_static`` / ``TracedLayer`` trace a
+   dygraph ``Layer`` into a program (run by the executor, captured on
+   the card when it has no control flow), ``jit.save`` / ``jit.load``
+   export it through ``fluid.io.save_inference_model`` and serve it
+   through ``inference.Predictor`` (int8 through the dequant kernel
+   under ``FLAGS_weight_quant``); ``dy2static`` turns Python
+   ``if``/``while``/``for`` over tensors into ``cond_pair`` / ``while``
+   ops, which the executor runs eagerly (``ops/control_flow.py``).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, ``CPUPlace()``); importing the package builds no
@@ -126,5 +134,6 @@ from .param_attr import ParamAttr  # noqa: F401
 from . import ckpt, incubate  # noqa: F401
 from .serialization import load, save  # noqa: F401
 from . import distributed, serving  # noqa: F401
+from . import jit, static  # noqa: F401
 
 __version__ = "0.2.0"

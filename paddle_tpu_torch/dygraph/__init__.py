@@ -2,8 +2,9 @@
 
 Counterpart of ``paddle_tpu/dygraph``: eager execution of the same
 lowering rules the static executor runs (``framework/lowering.py``), on
-torch tensors, with ``torch.autograd`` as the tape.  ``jit`` and
-``dy2static`` come with a later slice of the port.
+torch tensors, with ``torch.autograd`` as the tape; ``jit`` traces
+it into static programs, with ``dy2static`` converting Python control
+flow over tensors.
 """
 from . import base  # noqa: F401
 from .backward import grad, run_backward  # noqa: F401
@@ -20,6 +21,8 @@ from .base import (  # noqa: F401
     set_device,
     to_variable,
 )
-from .eager import apply_torch, run_op  # noqa: F401
+from .eager import Tracer, apply_torch, run_op, tracer  # noqa: F401
+from . import dy2static, jit  # noqa: F401
+from .jit import TracedLayer, declarative, to_static  # noqa: F401
 from .layers import Layer, state_dict_from_numpy  # noqa: F401
 from .tensor import Parameter, Tensor  # noqa: F401

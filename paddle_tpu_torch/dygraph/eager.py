@@ -22,6 +22,12 @@ differentiate the one-pass moments pass by pass.
 
 ``run_op`` runs about 320 times a ResNet-50 forward: it builds one
 dict of values and one op stand-in, and nothing else, per call.
+
+Dygraph-to-static (``dygraph/jit.py``): while a trace is active,
+``_TRACE_REC`` holds its recorder and each op, once run, is recorded
+into the program being built, its inputs named by the ``Tensor`` objects
+that went in.  The check is one read of a module global, so an untraced
+``run_op`` pays nothing else.
 """
 from __future__ import annotations
 
@@ -66,6 +72,9 @@ _EAGER_RULES = {"batch_norm": batch_norm_eager,
 # ops whose listed output slot is a LIST with the same length as input list
 _LIST_OUT_OPS = {"split": "Out", "unstack": "Y", "meshgrid": "Out",
                  "check_finite_and_unscale": "Out"}
+
+# active dygraph->static program recorder (set by jit._trace_guard)
+_TRACE_REC = None
 
 # bound on first use (amp imports the framework; keep eager import-light)
 _AMP_STATE = None
@@ -216,4 +225,50 @@ def run_op(op_type: str, inputs: Dict[str, object], attrs: Optional[dict] = None
         raise RuntimeError(
             f"op {op_type!r} produced none of the requested output slots "
             f"{list(out_slots)}; the lowering writes different slot names")
+    if _TRACE_REC is not None:
+        _TRACE_REC.record(op_type, _traced_inputs(inputs, in_names, env),
+                          attrs, result, out_slots)
     return result
+
+
+def _traced_inputs(inputs, in_names, env) -> Dict[str, list]:
+    """The op's inputs as ``Tensor`` objects, slot by slot, for the
+    recorder: the caller's own ``Tensor`` where one went in (its identity
+    names the var), else a new one over the value ``run_op`` made of it
+    (a number, an array or a bare torch tensor: a constant of the trace)."""
+    out = {}
+    for slot, names in in_names.items():
+        v = inputs[slot]
+        items = v if isinstance(v, (list, tuple)) else (v,)
+        out[slot] = [t if isinstance(t, Tensor) else _wrap(env[n])
+                     for n, t in zip(names, items)]
+    return out
+
+
+class Tracer:
+    """API-parity shim over the global dygraph state (reference
+    imperative::Tracer): ``trace_op`` runs an op and hands each result to
+    the caller's own output ``Tensor``."""
+
+    @property
+    def _has_grad(self):
+        return base.grad_enabled()
+
+    def trace_op(self, type, inputs, outputs, attrs=None):
+        res = run_op(type, inputs, attrs,
+                     out_slots=tuple(outputs.keys()) if outputs else None)
+        for slot, t in res.items():
+            caller = (outputs or {}).get(slot)
+            if isinstance(caller, Tensor) and isinstance(t, Tensor):
+                caller._value = t._value
+                if _TRACE_REC is not None:
+                    # the trace follows the caller's tensor identity
+                    _TRACE_REC.alias(t, caller)
+        return res
+
+
+_tracer = Tracer()
+
+
+def tracer() -> Tracer:
+    return _tracer

@@ -9,26 +9,23 @@ program of save/load ops and run it through the Executor, which
 interprets such programs on the host (``framework/executor.py``
 ``HOST_OPS``; files in ``framework/var_io.py``'s format).
 
-Two changes from the JAX package:
-
-- ``__model__`` is written and read by the port's own wire codec
-  (``framework/ir_wire.py``), not by protobuf, which the hosts the port
-  runs on need not have; the bytes are the same format, so a model saved
-  by either package loads in the other;
-- ``prune_program`` raises on a program whose ops own sub-blocks (control
-  flow reads its sub-blocks' closures, and the port lowers no control
-  flow yet), as the executor's ``_prune_ops`` does, instead of slicing it
-  by its visible reads alone.
+One change from the JAX package: ``__model__`` is written and read by
+the port's own wire codec (``framework/ir_wire.py``), not by protobuf,
+which the hosts the port runs on need not have; the bytes are the same
+format, so a model saved by either package loads in the other.
+``prune_program`` slices an op that owns sub-blocks by what they read
+from its surroundings too (``framework/executor.op_reads``), as the
+JAX package's does.
 """
 from __future__ import annotations
 
 import os
 from typing import List
 
+from ..framework.executor import op_reads
 from ..framework.program import Parameter, Program, Variable
 
 MODEL_FILENAME = "__model__"
-_SUB_BLOCK_ATTRS = ("sub_block", "sub_block_t", "sub_block_f")
 
 
 def is_parameter(var) -> bool:
@@ -130,18 +127,6 @@ def load_persistables(executor, dirname, main_program=None, filename=None):
 # ---------------------------------------------------------------------------
 
 
-def _op_reads(op) -> List[str]:
-    """What an op reads.  Control-flow ops also read their sub-blocks'
-    closures; the port lowers no control flow yet, so such an op raises
-    here rather than be pruned by its visible reads alone."""
-    if any(op.has_attr(a) for a in _SUB_BLOCK_ATTRS):
-        raise NotImplementedError(
-            f"pruning a program with control flow (op {op.type!r} owns a "
-            f"sub-block) is not in the PyTorch port yet: it comes with a "
-            f"later slice of the port")
-    return list(op.input_arg_names())
-
-
 def prune_program(program: Program, feed_names, target_names,
                   for_test: bool = False) -> Program:
     """Backward-slice the program to the ops needed for target_names given
@@ -157,7 +142,7 @@ def prune_program(program: Program, feed_names, target_names,
     for op in reversed(block.ops):
         if op.type in ("feed", "fetch"):
             continue
-        reads = _op_reads(op)
+        reads = op_reads(pruned, op)
         if set(op.output_arg_names()) & needed:
             kept.append(op)
             for n in reads:
@@ -166,7 +151,7 @@ def prune_program(program: Program, feed_names, target_names,
     block.ops[:] = list(reversed(kept))
     referenced = set(feed_set) | set(target_names)
     for op in block.ops:
-        referenced.update(_op_reads(op))
+        referenced.update(op_reads(pruned, op))
         referenced.update(op.output_arg_names())
     block.vars = {n: v for n, v in block.vars.items() if n in referenced}
     pruned._bump()

@@ -33,8 +33,12 @@ of ``_Compiled``) per key, and on the card that step is a CUDA graph
 - **Eager for a reason.**  A program runs eagerly only for a reason
   found in its op list (``capture_reason``): a random op with a fixed
   nonzero ``seed`` (it seeds a fresh generator on each call, which a
-  replay could not repeat), host I/O, or a ``print`` op (it writes its
-  value to the host's stdout at each run).  Each such run counts
+  replay could not repeat), host I/O, a ``print`` op (it writes its
+  value to the host's stdout at each run), control flow (``while``,
+  ``conditional_block``, ``cond_pair`` and the tensor-array index ops
+  read a value on the host to choose what runs: a graph cannot branch on
+  data), a shape tensor (``reshape2`` / ``fill_constant`` reading their
+  shape from a tensor) or a ``py_func``.  Each such run counts
   ``executor_eager_<kind>`` and runs in an ``executor/eager`` span that
   names the reason.  A capture or replay that fails raises; nothing
   falls back.
@@ -42,14 +46,16 @@ of ``_Compiled``) per key, and on the card that step is a CUDA graph
   after the op that uses it last (not a feed, not state written back,
   not a fetch), as the reference's eager garbage collection and XLA's
   buffer reuse do: eagerly the memory returns to the allocator, under
-  capture to the graph's private pool.  On the CPU (``CPUPlace()``, the
-  kernels' plain versions) an entry is the plan without a graph.
+  capture to the graph's private pool.  A block holding an op that owns
+  a sub-block frees nothing.  On the CPU (``CPUPlace()``, the kernels'
+  plain versions) an entry is the plan without a graph.
 
 Other behaviour, as in the JAX package:
 
 - feeds are coerced to their declared dtypes (int64 stays int64);
 - a static use/def walk finds the state the block reads from the scope
-  (parameters, optimizer slots) and raises, naming the op and where it
+  (parameters, optimizer slots; what a sub-block reads counts as a read
+  of the op that owns it) and raises, naming the op and where it
   was built, when the startup program has not initialized it;
 - outputs that persist (persistable vars, or names already in the scope)
   are written back to the scope after the block;
@@ -177,6 +183,14 @@ def _feed_tensors(block, feed: Dict, device: torch.device):
     return out
 
 
+# ops whose lowering reads a value on the host to decide what runs: a
+# branch or a loop's trip count, a tensor array's index
+CONTROL_FLOW_OPS = {"while", "conditional_block", "cond_pair",
+                    "write_to_array", "read_from_array"}
+
+SUB_BLOCK_ATTRS = ("sub_block", "sub_block_t", "sub_block_f")
+
+
 def capture_reason(program: Program) -> Optional[Tuple[str, str]]:
     """Why ``program`` cannot run as a captured graph, from its op list
     alone: ``(kind, text)``, or None when it can.  ``kind`` names the
@@ -189,6 +203,21 @@ def capture_reason(program: Program) -> Optional[Tuple[str, str]]:
             return ("print", "op 'print' writes its value to the host's "
                              "stdout at each run, which a replay would not "
                              "repeat")
+        if op.type in CONTROL_FLOW_OPS:
+            return ("control_flow",
+                    f"op {op.type!r} reads a value on the host to choose "
+                    f"what runs, which a graph cannot branch on")
+        if op.type == "py_func":
+            return ("py_func", "op 'py_func' calls a Python function on "
+                               "the host at each run")
+        if (op.type in ("reshape", "reshape2")
+                and (op.inputs.get("ShapeTensor") or op.inputs.get("Shape"))) \
+                or (op.type == "fill_constant"
+                    and (op.inputs.get("ShapeTensor")
+                         or op.inputs.get("ShapeTensorList"))):
+            return ("shape_tensor",
+                    f"op {op.type!r} takes its shape from a tensor, read on "
+                    f"the host at each run")
         seed = int(op.attr("seed", 0) or 0)
         if seed:
             return ("seeded_random",
@@ -597,7 +626,7 @@ class Executor:
         fetches, entry = self._run(program, feed, fetch_names, scope,
                                    use_prune)
         if self._owns(entry):
-            fetches = [v.clone() for v in fetches]
+            fetches = [_own(v) for v in fetches]
         return self._finish(entry, fetches, scope, return_numpy, t0, 1,
                             cap)
 
@@ -613,7 +642,8 @@ class Executor:
             host = None
             on_card = self.device.type == "cuda"
             if on_card and return_numpy:
-                host = [_pinned_copy(v) for v in fetches]
+                host = [_pinned_copy(v) if isinstance(v, torch.Tensor)
+                        else v for v in fetches]
             if on_card and nan_flags is not None:
                 nan_flags = _pinned_copy(nan_flags)
             event = None
@@ -724,7 +754,7 @@ class Executor:
                     [[] for _ in entry.fetch_names]
             for acc, v in zip(per_step,
                               self._run_entry(entry, step_feed, scope)):
-                acc.append(v.clone() if self._owns(entry) else v)
+                acc.append(_own(v) if self._owns(entry) else v)
         fetches = [torch.stack(vs) for vs in per_step]
         return self._finish(entry, fetches, scope, return_numpy, t0,
                             n_steps, cap)
@@ -1092,7 +1122,9 @@ class Executor:
         env = {}
         for n in state_in:
             v = scope.get_var(n)
-            env[n] = v.to(self.device) if v.device != self.device else v
+            # a tensor array (a Python list) passes through as it is
+            env[n] = v.to(self.device) if isinstance(v, torch.Tensor) \
+                and v.device != self.device else v
         env.update(feeds)
         ctx = LoweringContext(block, env, self.device,
                               self._generator(scope, program))
@@ -1210,8 +1242,7 @@ def _free_plan(program, keep) -> Tuple[Tuple[str, ...], ...]:
     not all in its op's slots)."""
     ops = program.global_block.ops
     frees: List[List[str]] = [[] for _ in ops]
-    if any(op.has_attr(a) for op in ops
-           for a in ("sub_block", "sub_block_t", "sub_block_f")):
+    if any(op.has_attr(a) for op in ops for a in SUB_BLOCK_ATTRS):
         return tuple(tuple(f) for f in frees)
     last = {}
     for i, op in enumerate(ops):
@@ -1223,6 +1254,14 @@ def _free_plan(program, keep) -> Tuple[Tuple[str, ...], ...]:
         if n not in keep:
             frees[i].append(n)
     return tuple(tuple(f) for f in frees)
+
+
+def _own(v):
+    """A copy of a fetch a later replay would rewrite; a tensor array (a
+    Python list) copied element by element."""
+    if isinstance(v, list):
+        return [_own(x) for x in v]
+    return v.clone()
 
 
 def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
@@ -1238,17 +1277,64 @@ def _names(fetch_list) -> tuple:
                  for v in (fetch_list or []))
 
 
+def _block_written(program, block_idx: int) -> set:
+    """All names written anywhere inside a block (nested blocks too)."""
+    out: set = set()
+    for sop in program.blocks[block_idx].ops:
+        out.update(sop.output_arg_names())
+        for aname in SUB_BLOCK_ATTRS:
+            if sop.has_attr(aname):
+                out |= _block_written(program, int(sop.attr(aname)))
+    return out
+
+
+def _ctrl_attr_reads(program, op) -> List[str]:
+    """``cond_pair`` branch-output names that are NOT produced inside the
+    branch (a branch returning an unchanged outer var or a captured
+    constant): the lowering reads them from the environment."""
+    reads: List[str] = []
+    if op.type == "cond_pair":
+        for aname, sb in (("t_outs", "sub_block_t"),
+                          ("f_outs", "sub_block_f")):
+            written = _block_written(program, int(op.attr(sb)))
+            reads.extend(n for n in (op.attr(aname, []) or [])
+                         if n not in written)
+    return reads
+
+
+def _sub_external_reads(program, block_idx: int) -> List[str]:
+    """Names a sub-block reads from its surroundings."""
+    local_written: set = set()
+    ext: List[str] = []
+    for sop in program.blocks[block_idx].ops:
+        reads = sop.input_arg_names() + _ctrl_attr_reads(program, sop)
+        for aname in SUB_BLOCK_ATTRS:
+            if sop.has_attr(aname):
+                reads += _sub_external_reads(program, int(sop.attr(aname)))
+        for n in reads:
+            if n not in local_written and n not in ext:
+                ext.append(n)
+        local_written.update(sop.output_arg_names())
+    return ext
+
+
+def op_reads(program, op) -> List[str]:
+    """What ``op`` reads: its input slots, and for an op that owns
+    sub-blocks what they read from its surroundings."""
+    reads = list(op.input_arg_names()) + _ctrl_attr_reads(program, op)
+    for aname in SUB_BLOCK_ATTRS:
+        if op.has_attr(aname):
+            reads += _sub_external_reads(program, int(op.attr(aname)))
+    return reads
+
+
 def _prune_ops(program, fetch_names, keep_side_effect_ops=False):
     """Backward slice: keep only ops whose outputs (transitively) feed the
-    fetch list (reference framework/prune.h).
+    fetch list (reference framework/prune.h).  An op that owns a
+    sub-block also needs what the sub-block reads from its surroundings.
 
     ``keep_side_effect_ops`` (the pass-pipeline DCE caller) additionally
-    keeps ops with no outputs and the SIDE_EFFECT_OPS unconditionally.
-
-    An op that owns a sub-block also reads what the sub-block reads from
-    its surroundings.  The port lowers no control flow yet, so such a
-    program raises here instead of being sliced by its visible reads
-    alone."""
+    keeps ops with no outputs and the SIDE_EFFECT_OPS unconditionally."""
     block = program.global_block
     needed = set(fetch_names)
     keep = []
@@ -1259,19 +1345,16 @@ def _prune_ops(program, fetch_names, keep_side_effect_ops=False):
         if keep_side_effect_ops and (
                 op.type in SIDE_EFFECT_OPS or not op.output_arg_names()):
             keep_this = True
-        if any(op.has_attr(a)
-               for a in ("sub_block", "sub_block_t", "sub_block_f")):
-            raise _later(f"pruning a program with control flow (op "
-                         f"{op.type!r} owns a sub-block)")
         if keep_this:
             keep.append(op)
-            needed.update(op.input_arg_names())
+            needed.update(op_reads(program, op))
     keep.reverse()
     return keep
 
 
 def _analyze_state(program: Program, feed_names: set, scope: Scope):
-    """Static use/def analysis of the global block.
+    """Static use/def analysis of the global block, an op that owns
+    sub-blocks reading what they read from its surroundings.
 
     state_in  = names read before written that are not feeds (must come
                 from the scope: parameters, optimizer state, ...)
@@ -1285,7 +1368,7 @@ def _analyze_state(program: Program, feed_names: set, scope: Scope):
     for op in block.ops:
         if op.type in PSEUDO_OPS:
             continue
-        for name in op.input_arg_names():
+        for name in op_reads(program, op):
             if name in feed_names or name in written or name in state_in:
                 continue
             if not scope.has_var(name) or scope.get_var(name) is None:

@@ -23,8 +23,8 @@ JAX package's pipelined ``StepHandle`` window is ROADMAP Queue A item
 conversion of the fetched loss.  ``save``/``load`` pickle ``.pdparams``
 and ``.pdopt`` dicts of numpy arrays, the JAX package's format: a file
 written by either package's ``Model.save`` loads into the other's
-``Model``.  ``save(training=False)`` exports through ``jit``, which
-comes with ROADMAP Queue A item 6: it raises ``NotImplementedError``.
+``Model``.  ``save(training=False)`` exports a servable inference
+model through ``jit.save`` (traced at the Model's ``inputs``).
 
 One difference from the JAX package: under an ``LRScheduler`` the static
 adapter writes the scheduler's current rate into its own scope before
@@ -518,14 +518,28 @@ class Model:
         """Reference Model.save: ``training=True`` saves the state dict
         (``path.pdparams``) and the optimizer's state (``path.pdopt``),
         pickled dicts of numpy arrays; ``training=False`` exports a
-        servable inference model through ``jit``, which comes with
-        ROADMAP Queue A item 6 and raises here."""
+        servable inference model via the trace-based ``jit.save``
+        (reference hapi/model.py:199)."""
         if not training:
-            raise NotImplementedError(
-                "Model.save(training=False) exports through jit.save, "
-                "which comes with ROADMAP Queue A item 6 (jit / dy2static) "
-                "in a later slice of the port; save(path) writes the "
-                "training state")
+            from .. import jit
+
+            if not self._inputs:
+                raise ValueError(
+                    "Model.save(training=False) needs the Model to be "
+                    "constructed with `inputs=[InputSpec(...)]` so the "
+                    "forward can be traced for export")
+            if self._static_mode and self._st is not None:
+                # trained values live in the executor scope; the traced
+                # export reads the eager parameters
+                self._sync_scope_to_network()
+            was_training = getattr(self.network, "training", False)
+            self.network.eval()
+            try:
+                jit.save(self.network, path, input_spec=self._inputs)
+            finally:
+                if was_training:
+                    self.network.train()
+            return
         dirname = os.path.dirname(path)
         if dirname:
             os.makedirs(dirname, exist_ok=True)

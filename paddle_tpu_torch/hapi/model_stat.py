@@ -6,9 +6,7 @@ fluid/contrib/model_stat.py).  Stats come from a static Program walk, the
 op stream the executor runs, so a whole train program's count includes
 its backward ops.  ``flops(layer, input_size)`` and ``summary(layer,
 input_size=...)`` trace a dygraph Layer into a program through
-``dygraph.jit``, which comes with ROADMAP Queue A item 6: they raise
-``NotImplementedError`` naming it.  ``flops(program)``,
-``program_flops``, ``memory_usage`` and ``summary(layer)`` work.
+``dygraph.jit`` on zeros of ``input_size`` and price that program.
 """
 from __future__ import annotations
 
@@ -293,19 +291,28 @@ def memory_usage(program, batch_size=1) -> Dict[str, float]:
 def flops(net, input_size=None, dtype="float32", print_detail=False):
     """Reference paddle.flops: FLOPs of one forward pass.
 
-    ``net`` is an already-built static Program; a Layer (traced at
-    ``input_size``) raises until ``dygraph.jit`` is ported (ROADMAP
-    Queue A item 6).
+    ``net`` is an nn.Layer (traced into a program at ``input_size``,
+    which includes the batch dim) or an already-built static Program.
     """
     from ..framework.program import Program
 
-    if not isinstance(net, Program):
-        raise NotImplementedError(
-            "flops(layer, input_size) traces the Layer into a program "
-            "through dygraph.jit, which comes with ROADMAP Queue A item 6 "
-            "(jit / dy2static) in a later slice of the port; pass a static "
-            "Program (e.g. a hapi Model's train program) instead")
-    prog = net
+    if isinstance(net, Program):
+        prog = net
+    else:
+        if input_size is None:
+            raise ValueError("flops(net, input_size=...) needs the input "
+                             "shape (batch dim included)")
+        from ..dygraph import base as dy_base
+        from ..dygraph import jit as djit
+        from ..dygraph.tensor import Tensor
+
+        x = Tensor(np.zeros(tuple(input_size), dtype))
+        with dy_base.guard():
+            # the program only: no copy of the parameters
+            _, rec, _ = djit.trace(
+                net.forward if hasattr(net, "forward") else net, [x],
+                snapshot=False)
+        prog = rec.program
     total, per_type = program_flops(prog, detail=True)
     if print_detail:
         print(f"Total FLOPs: {total:,}")
@@ -317,8 +324,7 @@ def flops(net, input_size=None, dtype="float32", print_detail=False):
 def summary(net, input_size=None, dtypes=None):
     """Reference paddle.summary: parameter table + totals for a Layer.
     With ``input_size`` it also prices a traced forward (``dtypes`` the
-    traced input dtype), which raises until ``dygraph.jit`` is ported
-    (ROADMAP Queue A item 6)."""
+    traced input dtype)."""
     out = {}
     if input_size is not None:
         dt = dtypes if isinstance(dtypes, str) else \

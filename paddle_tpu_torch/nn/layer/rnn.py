@@ -9,8 +9,9 @@ op (``ops/rnn_ops.py``); the parameters keep the JAX package's names
 A static program gives the 2.0 layers' outputs no shape, so a layer that
 reads its input's batch size (the zero initial state) raises there,
 naming the shape it lacks; the JAX package fails at the same place with
-an ``IndexError``.  Static text models wait for shape tensors and
-``jit`` (ROADMAP Queue A item 6).
+an ``IndexError``.  Static text models are left for later (ROADMAP.md,
+"static text models"): porting them would add what the JAX package
+lacks.
 """
 from __future__ import annotations
 
@@ -32,8 +33,9 @@ def known_shape(x, rank, who):
         raise NotImplementedError(
             f"{who}: input {getattr(x, 'name', '?')!r} has no known shape "
             f"({shape}, {rank} dims needed): the 2.0 layers' outputs in a "
-            "static program carry none; static text models wait for shape "
-            "tensors and jit (ROADMAP Queue A item 6)")
+            "static program carry none; static text models are left for "
+            "later, as the JAX package's static adapter stops here too "
+            "(ROADMAP.md, static text models)")
     return shape
 
 
@@ -100,8 +102,10 @@ class RNNBase(Layer):
         if not isinstance(x, Tensor):
             raise NotImplementedError(
                 f"{type(self).__name__}: a zero initial state in a static "
-                "program needs the batch size as a shape tensor (ROADMAP "
-                "Queue A item 6); pass initial_states")
+                "program needs the batch size, which the 2.0 layers' static "
+                "outputs do not carry; static text models are left for "
+                "later (ROADMAP.md, static text models); pass "
+                "initial_states")
         batch = shape[1] if self.time_major else shape[0]
         v = x._value
         return Tensor(torch.zeros(

@@ -2,6 +2,7 @@
 
 - The lowerings (``math_ops``, ``tensor_ops``, ``linalg_ops``,
   ``nn_ops``, ``rnn_ops``, ``activations``, ``creation``, ``embedding_ops``,
+  ``control_flow``,
   ``optimizer_ops``, ``misc``, ``fused``, ``flash_attention``,
   ``grad_generic``, ``quant_ops``, ``moe_ops``, ``collective``), which the static executor and dygraph's ``run_op``
   both run: importing this package registers them with
@@ -19,6 +20,7 @@ at first launch (``native/build.py``).
 from . import (  # noqa: F401
     activations,
     collective,
+    control_flow,
     creation,
     embedding_ops,
     flash_attention,

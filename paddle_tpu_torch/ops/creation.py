@@ -24,14 +24,19 @@ from .common import attr_dtype, op_generator
 
 @register_lower("fill_constant")
 def _fill_constant(ctx, op):
-    if op.inputs.get("ShapeTensor") or op.inputs.get("ShapeTensorList"):
-        raise NotImplementedError(
-            "fill_constant with a shape tensor input comes with a later "
-            "slice of the port; pass the shape attr")
+    shape = [int(s) for s in op.attr("shape", [])]
+    st = op.inputs.get("ShapeTensor") or op.inputs.get("ShapeTensorList")
+    if st:
+        # read on the host (a program holding one runs eagerly,
+        # capture_reason "shape_tensor")
+        vals = [ctx.get(n).reshape(-1) for n in st]
+        if len(vals) == 1 and vals[0].numel() > 1:
+            shape = [int(v) for v in vals[0].tolist()]
+        else:
+            shape = [int(v.item()) for v in vals]
     value = op.attr("value", 0.0)
     if op.attr("str_value", ""):
         value = float(op.attr("str_value"))
-    shape = [int(s) for s in op.attr("shape", [])]
     ctx.set_out(op, "Out", torch.full(shape, value, dtype=attr_dtype(op),
                                       device=ctx.device))
 

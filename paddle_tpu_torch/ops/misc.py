@@ -11,6 +11,15 @@ ROC curve, ties broken by position; float64 out); of its
 value`` to the host's stdout at each run (``jax.debug.print`` in the JAX
 package; here a host copy, so a program holding it runs eagerly, see
 ``framework/executor.capture_reason``); and of ``_share_data`` (identity).
+
+Counterpart of ``paddle_tpu/ops/misc_ops.py``'s ``select_input`` /
+``select_output``, the tensor-array ops (``write_to_array``,
+``read_from_array``, ``lod_array_length``, ``array_to_lod_tensor``,
+``lod_tensor_to_array``: the environment holds a Python list for an
+array, which the executor passes through as it is; an index tensor is
+read on the host) and ``py_func`` (a registered host callable, called on
+host copies of its inputs at each run: ``jax.pure_callback`` in the JAX
+package; a program holding it runs eagerly).
 The other ops of that module live in ``math_ops`` (``increment``,
 ``sum``, ``clip``), ``linalg_ops`` and ``tensor_ops``, or come with later
 slices of the port.
@@ -84,3 +93,103 @@ def _print(ctx, op):
 @register_lower("share_data", "memcpy", "memcpy_h2d", "memcpy_d2h")
 def _share_data(ctx, op):
     ctx.set_out(op, "Out", ctx.in1(op, "X"))
+
+
+@register_lower("select_input")
+def _select_input(ctx, op):
+    xs = ctx.in_list(op, "X")
+    mask = ctx.in1(op, "Mask").reshape(()).to(torch.int32)
+    out = xs[0]
+    for i, x in enumerate(xs[1:], start=1):
+        out = torch.where(mask == i, x, out)
+    ctx.set_out(op, "Out", out)
+
+
+@register_lower("select_output")
+def _select_output(ctx, op):
+    x = ctx.in1(op, "X")
+    mask = ctx.in1(op, "Mask").reshape(()).to(torch.int32)
+    for i, name in enumerate(op.outputs.get("Out", [])):
+        # each branch output gets x where selected, zeros otherwise (the
+        # consuming conditional_block reads only the live branch)
+        ctx.set(name, torch.where(mask == i, x, torch.zeros_like(x)))
+
+
+def _host_index(ctx, op) -> int:
+    return int(ctx.in1(op, "I").reshape(-1)[0].item())
+
+
+@register_lower("write_to_array")
+def _write_to_array(ctx, op):
+    x = ctx.in1(op, "X")
+    i = _host_index(ctx, op)
+    name = op.outputs["Out"][0]
+    arr = list(ctx.env.get(name, []))
+    while len(arr) <= i:
+        arr.append(None)
+    arr[i] = x
+    ctx.set(name, arr)
+
+
+@register_lower("read_from_array")
+def _read_from_array(ctx, op):
+    arr = ctx.get(op.inputs["X"][0])
+    ctx.set_out(op, "Out", arr[_host_index(ctx, op)])
+
+
+@register_lower("lod_array_length")
+def _lod_array_length(ctx, op):
+    arr = ctx.get(op.inputs["X"][0])
+    ctx.set_out(op, "Out", torch.tensor([len(arr)], dtype=torch.int64,
+                                        device=ctx.device))
+
+
+@register_lower("array_to_lod_tensor")
+def _array_to_lod_tensor(ctx, op):
+    arr = ctx.get(op.inputs["X"][0])
+    ctx.set_out(op, "Out", torch.cat([torch.atleast_1d(a) for a in arr],
+                                     dim=0))
+
+
+@register_lower("lod_tensor_to_array")
+def _lod_tensor_to_array(ctx, op):
+    x = ctx.in1(op, "X")
+    ctx.set_out(op, "Out", [x[i] for i in range(x.shape[0])])
+
+
+_PY_FUNCS = {}
+
+
+def register_py_func(fid, fn):
+    _PY_FUNCS[fid] = fn
+
+
+@register_lower("py_func")
+def _py_func(ctx, op):
+    """Host-side Python function embedded in the program (reference
+    py_func_op): called on host copies of its inputs, its results cast to
+    the output vars' declared dtypes on the device."""
+    from ..framework import dtypes
+
+    fid = int(op.attr("forward_callable_id", op.attr("func_id", -1)))
+    fn = _PY_FUNCS.get(fid)
+    if fn is None:
+        raise NotImplementedError(
+            f"py_func id {fid} is not registered in this process; call "
+            f"paddle_tpu_torch.ops.misc.register_py_func")
+    if torch.device(ctx.device).type == "meta":
+        # the shape probe of a branch that does not run (ops/control_flow)
+        raise NotImplementedError(
+            "py_func needs its inputs' values, which a meta tensor does "
+            "not hold")
+    xs = [np.asarray(v.detach().float().cpu() if v.dtype == torch.bfloat16
+                     else v.detach().cpu())
+          for v in ctx.in_list(op, "X")]
+    outs = fn(*xs)
+    out_names = op.outputs.get("Out", [])
+    if not isinstance(outs, (list, tuple)):
+        outs = (outs,)
+    for n, v in zip(out_names, outs):
+        var = ctx.block._find_var_recursive(n)
+        ctx.set(n, torch.as_tensor(np.asarray(v), device=ctx.device).to(
+            dtypes.to_torch(var.dtype)))

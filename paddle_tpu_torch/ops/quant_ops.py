@@ -534,8 +534,9 @@ def lower_dequant_matmul(ctx, op):
     preserves the ORIGINAL op's semantics (``orig_type`` attr: mul's
     flattening dims, matmul's transpose flags and alpha); the weight is
     dequantized at ``X``'s dtype so AMP-bypassed casts keep their
-    numerics.  B7 serves the plain 2-D column-scaled case; everything else
-    dequantizes, then multiplies."""
+    numerics.  B7 serves the column-scaled 2-D weight without transposes,
+    a batched ``X`` flattened to its rows; everything else dequantizes,
+    then multiplies."""
     x = ctx.in1(op, "X")
     qw = ctx.in1(op, "Y")
     scale = ctx.in1(op, "Scale")
@@ -561,9 +562,13 @@ def lower_dequant_matmul(ctx, op):
     trans_x = bool(op.attr("transpose_X", op.attr("trans_x", False)))
     trans_y = bool(op.attr("transpose_Y", op.attr("trans_y", False)))
     alpha = float(op.attr("alpha", 1.0))
-    if fused_ok and not trans_x and not trans_y and x.dim() == 2:
-        out = dequant_matmul(x.contiguous(), qw, scale,
-                             use_pallas=use_pallas, out_dtype=x.dtype)
+    if fused_ok and not trans_x and not trans_y and x.dim() >= 2:
+        # a batched x [..., K] against the 2-D weight is one [M, K]
+        # matmul over its flattened rows (a dygraph Linear's 3-D input)
+        out = dequant_matmul(x.reshape(-1, x.shape[-1]).contiguous(), qw,
+                             scale, use_pallas=use_pallas,
+                             out_dtype=x.dtype).reshape(
+            *x.shape[:-1], qw.shape[1])
     else:
         w = dequantize_weight(qw, scale, axis, x.dtype)
         if trans_x and x.dim() > 1:

@@ -50,11 +50,19 @@ def _resolve_reshape(x, shape):
 @register_lower("reshape", "reshape2")
 def _reshape(ctx, op):
     x = ctx.in1(op, "X")
-    if op.inputs.get("ShapeTensor") or op.inputs.get("Shape"):
-        raise NotImplementedError(
-            "reshape2 with a shape tensor input comes with a later slice "
-            "of the port; pass the shape attr")
-    ctx.set_out(op, "Out", x.reshape(_resolve_reshape(x, op.attr("shape", []))))
+    shape = op.attr("shape", [])
+    st = op.inputs.get("ShapeTensor") or op.inputs.get("Shape")
+    if st:
+        # the JAX package's rule, with the values read on the host (a
+        # program holding one runs eagerly, capture_reason "shape_tensor"):
+        # one tensor of several elements is the shape, scalars are its
+        # dims, a mix leaves the attr
+        vals = [ctx.get(n).reshape(-1) for n in st]
+        if len(vals) == 1 and vals[0].numel() > 1:
+            shape = [int(v) for v in vals[0].tolist()]
+        elif all(v.numel() == 1 for v in vals):
+            shape = [int(v.item()) for v in vals]
+    ctx.set_out(op, "Out", x.reshape(_resolve_reshape(x, shape)))
     _xshape(ctx, op, x)
 
 

@@ -1,15 +1,15 @@
 """PyTorch port: every op the port's builders emit has a lowering
 (``recompute_barrier``, ``clip_by_norm``, ``ema_update``,
 ``lars_momentum``, ``ftrl``, ``dpsgd``, ``print``, ``auc``, ``cos_sim``,
-``diag``, ``size``, ``share_data`` and ``moe_ffn`` among them), each
-matching the JAX package's on the CPU; only control flow waits.
+``diag``, ``size``, ``share_data``, ``moe_ffn``, ``while`` and
+``cond_pair`` among them), each matching the JAX package's on the CPU.
 
 - The walk: every op type named in the source of ``layers``,
   ``optimizer/static_opt.py``, ``framework/backward.py``, ``amp``,
   ``fluid/io.py`` and ``distributed`` (a string literal, or an f-string's
   constant prefix, that is an op type of the JAX package) lowers in the
-  port, is a host I/O op, or is on ``LATER`` with the ROADMAP item it
-  waits for.
+  port or is a host I/O op; ``LATER``, the list of op types waiting for
+  a ROADMAP item, is empty.
 - Each program is built in both packages and run from the JAX startup's
   values: fetches within 1e-5 relative (float32 both sides, other
   summation orders); the recompute program's gradients also within 1e-6
@@ -35,10 +35,7 @@ RTOL = 1e-5
 
 # op types the port's builders can emit that wait for a later slice, with
 # the ROADMAP Queue A item each waits for
-LATER = {
-    "while": "item 5, control flow (with item 6)",
-    "cond_pair": "item 5, control flow (with item 6)",
-}
+LATER = {}
 
 BUILDERS = ["layers.py", "optimizer/static_opt.py", "framework/backward.py",
             "fluid/io.py", "amp", "distributed"]
@@ -91,7 +88,7 @@ def test_every_emitted_op_type_lowers_or_is_named_later():
     for t in ("recompute_barrier", "clip_by_norm", "ema_update",
               "lars_momentum", "ftrl", "dpsgd", "c_allreduce_sum", "dgc",
               "print", "auc", "cos_sim", "diag", "size", "share_data",
-              "moe_ffn"):
+              "moe_ffn", "while", "cond_pair"):
         assert t in found and get_lowering(t) is not None
 
 

@@ -292,12 +292,21 @@ def test_later_slice_features_raise_naming_their_item(tmp_path):
     # save_dir commits a checkpoint step an epoch
     m.fit(_tiny_data(T), batch_size=8, verbose=0, save_dir=str(tmp_path))
     assert (tmp_path / "step_0" / "MANIFEST.json").is_file()
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    # Queue A item 6 is ported: an export needs the Model's inputs, and
+    # then serves the network's forward; flops and summary of the Layer
+    # price its traced forward
+    with pytest.raises(ValueError, match="inputs=\\[InputSpec"):
         m.save(str(tmp_path / "infer"), training=False)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        T.flops(m.network, input_size=(2, 3, 2, 2))
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        T.summary(m.network, input_size=(2, 3, 2, 2))
+    spec = [T.hapi.model.InputSpec([-1, 3, 2, 2])]
+    T.Model(m.network, inputs=spec).save(str(tmp_path / "infer"),
+                                         training=False)
+    x = rs.randn(5, 3, 2, 2).astype("f4")
+    got = T.jit.load(str(tmp_path / "infer"))(T.to_tensor(x)).numpy()
+    np.testing.assert_allclose(got, m.network(T.to_tensor(x)).numpy(),
+                               rtol=1e-5, atol=1e-6)
+    flops = T.flops(m.network, input_size=(2, 3, 2, 2))
+    assert flops == J.flops(_mlp(J), input_size=(2, 3, 2, 2))
+    assert T.summary(m.network, input_size=(2, 3, 2, 2))["flops"] == flops
     stats = m.summary()
     assert stats["total_params"] == 12 * 16 + 16 + 16 * 4 + 4
 

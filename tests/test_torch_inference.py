@@ -356,11 +356,27 @@ def test_save_load_params_combined_and_prune_refusals(tmp_path):
     assert len(prog.global_block.ops) < len(main.global_block.ops) + 1
     with pytest.raises(ValueError, match="not produced"):
         tio.prune_program(main, FEED_NAMES, ["no_such_var"])
+    # a while whose sub-block alone reads the encoder's output: the
+    # slice keeps the encoder (what the sub-block reads counts)
     ctrl = main.clone()
-    ctrl.global_block.append_op("while", {"X": [seq.name]},
-                                {"Out": [seq.name]}, {"sub_block": 0})
-    with pytest.raises(NotImplementedError, match="control flow"):
-        tio.prune_program(ctrl, FEED_NAMES, [nsp.name])
+    blk = ctrl.global_block
+    for name, dtype in (("c", "bool"), ("acc", "float32")):
+        blk.create_var(name=name, dtype=dtype)
+        blk.append_op("fill_constant", {}, {"Out": [name]},
+                      {"shape": [1], "dtype": dtype, "value": 0.0})
+    sub = ctrl._create_block()
+    sub.append_op("reduce_sum", {"X": [seq.name]}, {"Out": ["acc"]},
+                  {"reduce_all": True})
+    ctrl._rollback()
+    blk.append_op("while", {"X": ["c", "acc"], "Condition": ["c"]},
+                  {"Out": ["c", "acc"]}, {"sub_block": sub.idx})
+    sliced = tio.prune_program(ctrl, FEED_NAMES, ["acc"])
+    kept = [op.type for op in sliced.global_block.ops]
+    assert kept[-1] == "while" and "layer_norm" in kept
+    assert any(seq.name in op.output_arg_names()
+               for op in sliced.global_block.ops)
+    assert not any(nsp.name in op.output_arg_names()
+                   for op in sliced.global_block.ops)
     mixed = tprogram.Program()
     mixed.global_block.append_op("save", {"X": ["a"]}, {},
                                  {"file_path": str(tmp_path / "a")})

@@ -427,8 +427,18 @@ def test_prune_ops_keeps_side_effects_and_refuses_nothing_silently():
     assert kinds[-1] == "print" and "scale" not in kinds
     assert "print" not in [op.type for op in _prune_ops(main, [out])]
     # an op that owns a sub-block reads more than its slots show: the
-    # port has no control flow yet and raises rather than mis-prune
-    main.global_block.append_op("while", {"X": ["x"]}, {"Out": ["w"]},
-                                {"sub_block": 1})
-    with pytest.raises(NotImplementedError, match="control flow"):
-        _prune_ops(main, [out])
+    # dead branch's scale, read only inside a branch, is kept with it
+    blk = main.global_block
+    dead = next(op for op in blk.ops if op.type == "scale")
+    dead_out = dead.output("Out")[0]
+    sub_t, sub_f = main._create_block(), main._create_block()
+    main._rollback()
+    sub_t.append_op("scale", {"X": [dead_out]}, {"Out": ["t_out"]},
+                    {"scale": 1.0})
+    blk.append_op("cond_pair", {"Cond": ["x"]}, {"Out": ["c_out"]},
+                  {"sub_block_t": sub_t.idx, "sub_block_f": sub_f.idx,
+                   "t_outs": ["t_out"], "f_outs": [out]})
+    kept = _prune_ops(main, ["c_out"])
+    assert dead in kept and kept[-1].type == "cond_pair"
+    # the false branch returns `out` unchanged: its producers stay too
+    assert any(out in op.output_arg_names() for op in kept[:-1])

@@ -242,6 +242,9 @@ LOWERING_CASES = [
     ("mul_flatten", dict(orig_type="mul", x_num_col_dims=2,
                          y_num_col_dims=1), (2, 5, 24), (24, 12), 1),
     ("matmul_v2_2d", dict(orig_type="matmul_v2"), (7, 24), (24, 12), 1),
+    # a dygraph Linear's 3-D input: B7 over the flattened rows
+    ("matmul_v2_batched_x", dict(orig_type="matmul_v2"), (2, 5, 24),
+     (24, 12), 1),
     ("matmul_alpha_batched", dict(orig_type="matmul", alpha=0.5),
      (2, 5, 24), (24, 12), 1),
     ("matmul_transpose_x", dict(orig_type="matmul", transpose_X=True),

@@ -167,13 +167,15 @@ def test_jax_static_adapter_fails_on_text_models(kind, ptb):
 @pytest.mark.parametrize("kind", ["nmt", "lm"])
 def test_port_static_adapter_names_the_missing_shape(kind, ptb):
     """The port's static adapter stops at the same place, naming the
-    layer, the shape it lacks and the ROADMAP items that bring it."""
+    layer, the shape it lacks and that static text models are left for
+    later."""
     who = "MultiHeadAttention" if kind == "nmt" else "LSTM"
     try:
         net, model = _static_model(T, kind, ptb)
         with pytest.raises(NotImplementedError,
                            match=rf"{who}: input .* has no known shape"
-                                 r".*Queue A item 6"):
+                                 r".*static text models are left for "
+                                 r"later"):
             _static_prepare(T, net, model, kind)
     finally:
         T.disable_static()
