@@ -520,11 +520,55 @@ MoE serving and training.
                alternating: losses within 1e-4 of a CPU run from the same
                initial scope, the branch-only parameter moved, step ms.
 
+Slice 19's phases: the rest of observability.  ``observe_train`` and
+``observe_profiler`` run after ``auto_checkpoint``, on its program
+(``bert15``); ``observe_serve`` after ``oneshot_server``, on its saved
+model.
+
+53. observe_train -- fused bf16 BERT-base at batch 32 through the
+               pipelined window with ``FLAGS_device_peak_tflops=989``:
+               the warm-up under ``FLAGS_hbm_budget_fraction=0.9`` (the
+               verdict ``pass``; ``on_compile``'s record: the pre-launch
+               estimate beside the allocator's reading and the measured
+               peak); 20 steps with phase attribution on and 20 off from
+               one state (losses bit-equal, every step a replay with 24
+               B1 launches, each drained step's four buckets summing to
+               its wall within 1e-6 relative; the measured and predicted
+               split, step p50 on and off); the split under a 40 ms host
+               feed (input wait at least 0.9 of it a step); one step
+               slowed 4x its p50 under ``FLAGS_prof_trigger_ratio=2``:
+               exactly one capture, its Chrome trace holding
+               ``flash_fwd_mma_kernel`` kernel events and its bundle
+               ``phases.json``; a feed whose copy waits 4 s on a stalled
+               stream under ``FLAGS_stall_timeout_s=2``: exactly one
+               bundle, its ``stacks.txt`` naming the blocked thread, its
+               ``memory.json`` the allocator's figures,
+               ``tools/postmortem.py`` exiting 0 on it; a budget no
+               program fits: ``MemoryBudgetError`` at the key's first run,
+               no B1 launch, no capture, nothing cached;
+54. observe_profiler -- ``profiler.profiler(profile_path=...)`` around 5
+               replayed steps of the same program, then
+               ``profiler.cuda_profiler()`` (``PADDLE_TPU_PROFILE_DIR``):
+               each Chrome trace holds ``flash_fwd_mma_kernel`` kernel
+               events;
+55. observe_serve -- the serve model behind ``DecodeServer(http_port=0)``,
+               16 greedy requests: ``/stats``, ``/health``, ``/metrics``,
+               ``/debug/requests``, ``/debug/request/<id>``,
+               ``/debug/slo`` and ``/metrics/cluster`` answer 200 with
+               JSON or Prometheus text that parses, every ``/metrics``
+               series has a rule in the port's catalog, a
+               ``HealthReporter`` beat shows rank 0 alive, tokens equal a
+               server's without HTTP, B5/B6 launched in multiples of 8;
+               then the one-shot ``Server(http_port=0)`` over the int8
+               ``Predictor`` (batch bucket 1, 8 requests: B7 74 and B1 12
+               a batch) answers ``/stats`` and ``/health``.
+
 Every phase also logs ``{"phase": "phase_seconds", "name": ...,
 "seconds": ...}``, its wall seconds, when it ends.  Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
 device it exits 1 before doing anything.
 """
+import faulthandler
 import gc
 import json
 import math
@@ -652,6 +696,7 @@ TRAIN_STEPS = 10
 # Eager steps timed beside the captured ones on each training path (the
 # eager block, ``Executor._run_block``, called directly).
 EAGER_STEPS = 5
+HANG_S = 1140     # main's watchdog: stacks and exit 1 past this
 B1_PER_STEP = 24   # 12 fused attention ops, each replayed by its gradient
 # train oracle: the float32 losses of B1 and of the plain composition, per
 # step, within this relative gap (summation order over 3 steps)
@@ -3258,8 +3303,8 @@ HAPI_IMAGE, HAPI_EVAL_IMAGE = 224, 256   # train and eval images' sides
 HAPI_PROFILE = (14, 5)             # (first step, steps) of the profiled window
 HAPI_EVAL_BATCHES, HAPI_PREDICT_BATCHES = 4, 2
 # The loader alone, nothing consuming: (workers, shared memory) and the
-# batches timed after its first; the dygraph phase times each, the static
-# one the main path's.
+# batches timed after its first; the dygraph phase times each (the static
+# phase's loader is the same, over the same data, and is not timed again).
 HAPI_LOADERS = {(0, True): 3, (HAPI_WORKERS, True): 12,
                 (HAPI_WORKERS, False): 6}
 HAPI_PEAK_RTOL = 0.05              # peak memory after step 3 vs the last
@@ -3531,9 +3576,8 @@ def phase_hapi(static):
     by_name = device_time_by_kernel(probe.prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     growth = probe.peak_last / probe.peak_step3 - 1.0
-    loaders = [loader_alone(HAPI_DATA["train"], w, shm)
-               for w, shm in HAPI_LOADERS
-               if not static or (w, shm) == (HAPI_WORKERS, True)]
+    loaders = [] if static else [loader_alone(HAPI_DATA["train"], w, shm)
+                                 for w, shm in HAPI_LOADERS]
     reason = None
     if static:
         st = model._st
@@ -6766,6 +6810,494 @@ def phase_dy2static():
                            f"eager runs, branch parameter moved {moved}")
 
 
+# ---- slice 19: observability around fused BERT-base and serving ----------
+
+# observe_train: steps a mode; the injected slow step (x the step p50); the
+# stall's device sleep; the relative bound on the four buckets' sum
+OBSERVE_STEPS, OBSERVE_SPIKE_X, OBSERVE_STALL_S = 20, 4.0, 4.0
+OBSERVE_SUM_RTOL = 1e-6
+OBSERVE_CAPTURE_S = 0.25        # the triggered window (~40k kernel events)
+OBSERVE_PEAK_TFLOPS = 989.0     # the H100's bf16 data-sheet peak (CARDS)
+OBSERVE_PROFILE_STEPS = 5       # observe_profiler: steps a capture
+# observe_serve: requests, new tokens a request, one-shot requests
+OBSERVE_REQUESTS, OBSERVE_NEW_TOKENS, OBSERVE_ONESHOT = 16, 16, 8
+
+
+def quench_slo_burn():
+    """Zero the ``slo_burn_rate_*_ppm`` gauges earlier phases left: the
+    capture engine's SLO trigger reads them."""
+    from paddle_tpu_torch.monitor import StatRegistry, stat_set
+
+    for name, _v in StatRegistry.instance().export():
+        if name.startswith("slo_burn_rate_") and name.endswith("_ppm"):
+            stat_set(name, 0)
+
+
+def recorded_splits(fn):
+    """``fn()`` with every split the phase engine makes recorded: its
+    result and [(wall, split)]."""
+    from paddle_tpu_torch.observe import phases
+
+    eng, got = phases.phase_engine(), []
+    orig = eng.on_step_drained
+
+    def record(wall_s, sync_s, host_s, steps=1, plan=None, compiled=False):
+        split = orig(wall_s, sync_s, host_s, steps=steps, plan=plan,
+                     compiled=compiled)
+        if split is not None:
+            got.append((wall_s, split))
+        return split
+
+    eng.on_step_drained = record
+    try:
+        return fn(), got
+    finally:
+        del eng.on_step_drained
+
+
+def trace_kernels(path, name):
+    """(kernel events, those whose name holds ``name``, CPU op events) of
+    a Chrome trace written by ``torch.profiler``."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return (len(kernels), sum(name in e.get("name", "") for e in kernels),
+            sum(e.get("cat") == "cpu_op" for e in events))
+
+
+def trace_files(directory):
+    return [os.path.join(r, f) for r, _d, fs in os.walk(directory)
+            for f in fs if f.endswith(".trace.json")]
+
+
+def sleep_cycles_per_s(dev, cycles=200_000_000):
+    """The card's ``torch.cuda._sleep`` cycles a second, timed with
+    events."""
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    b.synchronize()
+    return cycles / (a.elapsed_time(b) / 1e3)
+
+
+def stalled_feed(feed, seconds, dev):
+    """``feed`` on the card, its ``input_ids`` copied on a side stream
+    behind ``seconds`` of device sleep that the current stream waits for
+    (a prefetcher whose copy stream is stuck)."""
+    cycles = int(seconds * sleep_cycles_per_s(dev))
+    out = {n: torch.as_tensor(v).to(dev) for n, v in feed.items()}
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(cycles)
+        ids = out["input_ids"].clone()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    ids.record_stream(torch.cuda.current_stream(dev))
+    out["input_ids"] = ids
+    return out
+
+
+def phase_observe_train():
+    """Fused bf16 BERT-base (batch 32, ``bert15``) through the pipelined
+    window with the observability plane on: the budget gate at 0.9 and
+    ``on_compile``'s record (estimate against the allocator's reading);
+    OBSERVE_STEPS steps with phase attribution on, then off, from one
+    state (losses bit-equal, every step a replay launching B1 24 times,
+    each drained step's four buckets summing to its wall); the split
+    again under a SLOW_FEED_S host feed (input wait takes it); one
+    injected slow step under ``FLAGS_prof_trigger_ratio=2`` (one
+    capture, its trace holding ``flash_fwd_mma_kernel`` kernel events,
+    its bundle ``phases.json``); a feed stalled on the card past
+    ``FLAGS_stall_timeout_s=2`` (one bundle naming the blocked thread,
+    the allocator's figures in ``memory.json``, rendered by
+    ``tools/postmortem.py``); and a budget no program fits (raises
+    before B1 launches)."""
+    import shutil
+
+    from paddle_tpu_torch.ckpt import restore_scope, snapshot_scope
+    from paddle_tpu_torch.observe import (health, phases, profiler_capture,
+                                          xla_stats)
+
+    b = bert15()
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="observe_")
+    quench_slo_burn()
+    flags.set_flags({"device_peak_tflops": OBSERVE_PEAK_TFLOPS,
+                     "hbm_budget_fraction": 0.9, "postmortem_dir": tmp})
+    try:
+        exe = pt.Executor()
+        scope = bert15_scope(exe)
+        start = snapshot_scope(scope)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats()
+        xla_stats.clear_compile_records()
+        exe.warmup(b["main"], [b["feeds"][0]], [b["loss"]], scope)
+        torch.cuda.synchronize()
+        rec = xla_stats.last_compile()
+        memory = dict(
+            estimated_bytes=rec["estimated_bytes"],
+            allocator_total_bytes=rec["memory"]["total_bytes"],
+            breakdown=rec["memory"], budget=rec["budget"],
+            compile_seconds=rec["compile_seconds"],
+            measured_peak_bytes=torch.cuda.max_memory_allocated(dev),
+            measured_peak_above_start_bytes=(
+                torch.cuda.max_memory_allocated(dev) - base))
+        if rec["budget"]["verdict"] != "pass":
+            raise RuntimeError(f"observe_train: budget 0.9: {rec}")
+
+        runs = {}
+        for on in (True, False):
+            flags.set_flags({"phase_attribution": on})
+            restore_scope(scope, start)
+            phases.reset_phases()
+            (losses, ms), splits = recorded_splits(
+                lambda: check_replays_and_b1(
+                    f"observe_train attribution {on}",
+                    lambda: bert15_steps(exe, scope, 1, OBSERVE_STEPS, 2),
+                    OBSERVE_STEPS))
+            runs[on] = dict(losses=losses, ms=ms, splits=splits,
+                            report=phases.phases_report())
+        flags.set_flags({"phase_attribution": True})
+        on = runs[True]
+        sum_err = max(abs(sum(s.values()) - w) / w for w, s in on["splits"])
+        report = on["report"]
+
+        restore_scope(scope, start)
+        phases.reset_phases()
+        _l, slow_ms = bert15_steps(exe, scope, 1, SLOW_FEED_STEPS, 2,
+                                   sleep=SLOW_FEED_S)
+        slow = phases.phases_report()
+        slow_wait_s = slow["measured_s"]["input_wait"] / slow["steps"]
+
+        # one injected slow step: one capture of at most prof_capture_s
+        profiler_capture.reset_capture()
+        flags.set_flags({"prof_trigger_ratio": 2.0,
+                         "prof_capture_s": OBSERVE_CAPTURE_S,
+                         "prof_cooldown_s": 60.0})
+        p50 = float(np.median(on["ms"][2:])) / 1e3
+        eng = profiler_capture.capture_engine()
+        b1 = fab.flash_attention_bias.launches
+        k = 1
+
+        def step(sleep=0.0):
+            nonlocal k
+            time.sleep(sleep)      # the loader's host time for the batch
+            exe.run(b["main"], feed=b["feeds"][k % 4],
+                    fetch_list=[b["loss"]], scope=scope)
+            k += 1
+
+        for _ in range(14):   # the baseline
+            step()
+        step(OBSERVE_SPIKE_X * p50)      # drained two dispatches later
+        t_fire = time.monotonic()
+        while (eng.captures == 0 or eng._capture_thread.is_alive()) and \
+                time.monotonic() - t_fire < 60:
+            step()
+        exe.drain()
+        finished = eng.wait(60)
+        flags.set_flags({"prof_trigger_ratio": 0.0})
+        if not finished or eng.captures != 1 or len(eng.bundles) != 1:
+            raise RuntimeError(f"observe_train: {eng.captures} captures, "
+                               f"bundles {eng.bundles}")
+        bundle = eng.bundles[0]
+        meta = json.load(open(os.path.join(bundle, "meta.json")))
+        prof = meta["extra"]["profiler"]
+        if "error" in prof or not prof.get("trace_events"):
+            raise RuntimeError(f"observe_train: the capture traced "
+                               f"nothing: {prof}")
+        traces = trace_files(prof["dir"])
+        n_kernels, n_flash, n_cpu = trace_kernels(traces[0],
+                                                  "flash_fwd_mma_kernel")
+        capture = dict(trigger=meta["extra"]["trigger"], profiler=prof,
+                       kernel_events=n_kernels, flash_fwd_events=n_flash,
+                       cpu_op_events=n_cpu,
+                       b1_launches_in_window=fab.flash_attention_bias
+                       .launches - b1, steps_after_spike=k - 16,
+                       phases_json=os.path.isfile(
+                           os.path.join(bundle, "phases.json")))
+        if not n_flash or not capture["phases_json"]:
+            raise RuntimeError(f"observe_train: capture {capture}")
+
+        # a feed stalled on the card past the watchdog's timeout
+        flags.set_flags({"stall_timeout_s": 2.0})
+        wd = health.maybe_start_watchdog()
+        err, t_stall = [], []
+
+        def stall_loop():
+            try:
+                for step in range(1, 5):
+                    feed = b["feeds"][step % 4]
+                    if step == 2:
+                        feed = stalled_feed(feed, OBSERVE_STALL_S, dev)
+                        t_stall.append(time.time())
+                    exe.run(b["main"], feed=feed, fetch_list=[b["loss"]],
+                            scope=scope)
+                exe.drain()
+            except Exception as e:  # noqa: BLE001 - reported below
+                err.append(e)
+
+        loop = threading.Thread(target=stall_loop, name="observe-stall-loop")
+        loop.start()
+        loop.join(120)
+        time.sleep(2 * wd.poll_s)
+        health.stop_watchdog()
+        flags.set_flags({"stall_timeout_s": 0.0})
+        if err or loop.is_alive() or len(wd.bundles) != 1:
+            raise RuntimeError(f"observe_train: stall: errors {err}, "
+                               f"bundles {wd.bundles}")
+        stall = wd.bundles[0]
+        stacks = open(os.path.join(stall, "stacks.txt")).read()
+        mem = json.load(open(os.path.join(stall, "memory.json")))
+        render = subprocess.run(
+            [sys.executable, "tools/postmortem.py", stall],
+            capture_output=True, text=True, timeout=60)
+        stall_report = dict(
+            bundle_after_s=json.load(open(os.path.join(
+                stall, "meta.json")))["ts"] - t_stall[0],
+            names_thread="observe-stall-loop" in stacks,
+            device_memory=mem["device_memory"],
+            compiles_recorded=len(mem["compiles"]),
+            postmortem_rc=render.returncode,
+            postmortem_lines=len(render.stdout.splitlines()))
+        if not stall_report["names_thread"] or not mem["device_memory"] \
+                or render.returncode != 0:
+            raise RuntimeError(f"observe_train: stall bundle "
+                               f"{stall_report}: {render.stderr[-2000:]}")
+
+        # a budget nothing fits: rejected at the key's first run
+        flags.set_flags({"hbm_budget_fraction": 1e-6})
+        fab.reset_launch_count()
+        captures = stat_get("cuda_graph_captures")
+        exe2 = pt.Executor()
+        try:
+            exe2.run(b["main"], feed=b["feeds"][0], fetch_list=[b["loss"]],
+                     scope=scope)
+            raise RuntimeError("observe_train: budget 1e-6 did not reject")
+        except xla_stats.MemoryBudgetError as e:
+            rejected = dict(required_bytes=e.required_bytes,
+                            budget_bytes=e.budget_bytes,
+                            capacity_bytes=e.capacity_bytes,
+                            top=e.attribution[0]["name"],
+                            b1_launches=fab.flash_attention_bias.launches,
+                            captures=stat_get("cuda_graph_captures")
+                            - captures, cached=len(exe2._cache))
+        if rejected["b1_launches"] or rejected["captures"] or \
+                rejected["cached"]:
+            raise RuntimeError(f"observe_train: rejection {rejected}")
+        exe2.close()
+    finally:
+        flags.set_flags({"device_peak_tflops": 0.0, "phase_attribution": True,
+                         "hbm_budget_fraction": 0.0, "stall_timeout_s": 0.0,
+                         "prof_trigger_ratio": 0.0,
+                         "postmortem_dir": "postmortem"})
+        health.stop_watchdog()
+        shutil.rmtree(tmp, ignore_errors=True)
+    on_p50 = float(np.median(on["ms"][2:]))
+    off_p50 = float(np.median(runs[False]["ms"][2:]))
+    log("observe_train", steps=OBSERVE_STEPS, memory=memory,
+        attributed_steps=report["steps"],
+        measured_fractions=report["measured_fractions"],
+        measured_s=report["measured_s"],
+        predicted=report["predicted"]["predicted_fractions"],
+        predicted_compute_ms=report["predicted"]["compute_s"] * 1e3,
+        flops_per_step=report["predicted"]["flops_per_step"],
+        bucket_sum_max_rel_err=sum_err, tolerance=OBSERVE_SUM_RTOL,
+        step_p50_ms_attribution_on=on_p50,
+        step_p50_ms_attribution_off=off_p50,
+        losses_equal=on["losses"] == runs[False]["losses"],
+        slow_feed_s=SLOW_FEED_S,
+        slow_feed_fractions=slow["measured_fractions"],
+        slow_feed_input_wait_s_a_step=slow_wait_s,
+        slow_feed_step_p50_ms=float(np.median(slow_ms[2:])),
+        capture=capture, stall=stall_report, rejected=rejected)
+    if sum_err > OBSERVE_SUM_RTOL or on["losses"] != runs[False]["losses"] \
+            or report["steps"] != OBSERVE_STEPS \
+            or runs[False]["report"]["steps"] != 0 \
+            or slow_wait_s < 0.9 * SLOW_FEED_S:
+        raise RuntimeError("observe_train: attribution checks failed")
+    exe.close()
+
+
+def phase_observe_profiler():
+    """``profiler.profiler(profile_path=...)`` around OBSERVE_PROFILE_STEPS
+    fused BERT-base steps, then ``profiler.cuda_profiler()`` (its
+    default directory from ``PADDLE_TPU_PROFILE_DIR``) around as many:
+    each writes a Chrome trace whose kernel events hold
+    ``flash_fwd_mma_kernel``."""
+    import shutil
+
+    from paddle_tpu_torch import profiler
+
+    exe = pt.Executor()
+    scope = bert15_scope(exe)
+    b = bert15()
+    exe.warmup(b["main"], [b["feeds"][0]], [b["loss"]], scope)
+    tmp = tempfile.mkdtemp(prefix="observe_profiler_")
+    old = os.environ.get("PADDLE_TPU_PROFILE_DIR")
+    os.environ["PADDLE_TPU_PROFILE_DIR"] = os.path.join(tmp, "cuda")
+    out = {}
+    try:
+        with profiler.profiler(profile_path=os.path.join(tmp, "profiler")):
+            bert15_steps(exe, scope, 1, OBSERVE_PROFILE_STEPS, 2)
+        with profiler.cuda_profiler():
+            bert15_steps(exe, scope, 1, OBSERVE_PROFILE_STEPS, 2)
+        for kind in ("profiler", "cuda"):
+            files = trace_files(os.path.join(tmp, kind))
+            n, flash, cpu = trace_kernels(files[0], "flash_fwd_mma_kernel")
+            out[kind] = dict(files=len(files), kernel_events=n,
+                             flash_fwd_events=flash, cpu_op_events=cpu,
+                             bytes=os.path.getsize(files[0]))
+    finally:
+        if old is None:
+            os.environ.pop("PADDLE_TPU_PROFILE_DIR", None)
+        else:
+            os.environ["PADDLE_TPU_PROFILE_DIR"] = old
+        shutil.rmtree(tmp, ignore_errors=True)
+        exe.close()
+    log("observe_profiler", steps=OBSERVE_PROFILE_STEPS, **out)
+    if any(r["flash_fwd_events"] < B1_PER_STEP * OBSERVE_PROFILE_STEPS // 2
+           for r in out.values()):
+        raise RuntimeError(f"observe_profiler: {out}")
+
+
+def http_get(port, path):
+    """(status, content type, body) of GET ``path`` on 127.0.0.1."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def prometheus_series(text):
+    """The series names of a Prometheus text exposition (histogram
+    suffixes folded into their family); raises on a malformed line."""
+    names = set()
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        float(value)
+        name = name.split("{", 1)[0]
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and f"# TYPE {name[:-len(suffix)]} " \
+                    f"histogram" in text:
+                name = name[:-len(suffix)]
+        names.add(name)
+    return names
+
+
+def phase_observe_serve(model_dir):
+    """The README's serve model (B5/B6) behind ``DecodeServer(http_port=0)``:
+    OBSERVE_REQUESTS greedy requests; every route answers 200 with JSON
+    or Prometheus text that parses, every ``/metrics`` series has a rule
+    in the port's catalog, a ``HealthReporter`` heartbeat to the server's
+    KV shows rank 0 alive on ``/metrics/cluster``, and the tokens equal a
+    server's without HTTP.  Then the one-shot ``Server(http_port=0)`` over
+    the int8 BERT-base ``Predictor`` (B7 74 and B1 float32 12 a batch)
+    answers ``/stats`` and ``/health``."""
+    from paddle_tpu_torch import inference, serving
+    from paddle_tpu_torch.observe import health, metrics_catalog
+
+    dev = torch.device("cuda", 0)
+    model = TransformerLM(**SERVE_MODEL, device=dev)
+    weights = model.init_weights(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(19)
+    prompts = [rng.randint(1, 32000, int(n)).tolist()
+               for n in rng.randint(16, 400, OBSERVE_REQUESTS)]
+    cfg = DecodeConfig(slots=8, max_seq_len=1024, page_size=16)
+    tokens, routes = {}, {}
+    for http in (True, False):
+        srv = DecodeServer(model, weights, cfg,
+                           http_port=0 if http else None).start()
+        try:
+            pa.reset_launch_counts()
+            reqs = [srv.submit(p, max_new_tokens=OBSERVE_NEW_TOKENS)
+                    for p in prompts]
+            tokens[http] = [r.result(timeout=120) for r in reqs]
+            if not http:
+                continue
+            launches = {"b5": pa.paged_decode_attention.launches,
+                        "b6": pa.paged_chunk_attention.launches}
+            port = srv.http_port
+            health.serve_cluster_health(srv._kv, world_size=1)
+            reporter = health.HealthReporter(f"127.0.0.1:{port}", rank=0,
+                                             world_size=1)
+            beat = reporter.publish_once()
+            for path in ("/stats", "/health", "/metrics", "/debug/requests",
+                         f"/debug/request/{reqs[0].trace.trace_id}",
+                         "/debug/slo", "/metrics/cluster"):
+                code, ctype, body = http_get(port, path)
+                if path == "/metrics":
+                    series = prometheus_series(body.decode())
+                    undocumented = sorted(
+                        n for n in series if metrics_catalog.lookup(
+                            n[len("paddle_tpu_"):]) is None)
+                    routes[path] = dict(code=code, type=ctype,
+                                        series=len(series),
+                                        undocumented=undocumented)
+                else:
+                    doc = json.loads(body)
+                    routes[path] = dict(code=code, type=ctype,
+                                        keys=len(doc))
+            cluster = json.loads(http_get(port, "/metrics/cluster")[2])
+        finally:
+            srv.stop()
+    del model, weights
+    bad = [p for p, r in routes.items() if r["code"] != 200]
+    if bad or routes["/metrics"]["undocumented"] or not beat or \
+            cluster["alive_ranks"] != 1 or cluster["dead_ranks"] or \
+            tokens[True] != tokens[False] or \
+            not launches["b5"] or not launches["b6"] or \
+            launches["b5"] % 8 or launches["b6"] % 8:
+        raise RuntimeError(f"observe_serve: routes {routes}, beat {beat}, "
+                           f"cluster {cluster}, launches {launches}, "
+                           f"tokens equal {tokens[True] == tokens[False]}")
+
+    flags.set_flags({"weight_quant": "int8", "flash_attention": "always"})
+    try:
+        icfg = inference.Config(model_dir)
+        icfg.enable_tpu(0)
+        one = serving.Server(icfg, serving.ServingConfig(
+            batch_sizes=(1,), batch_window_ms=1, http_port=0))
+        one.start()
+        try:
+            zero_kernel_launches()
+            batches = stat_get("serving_batches")
+            outs = [one.infer(infer_feed(1, seed=1900 + i))
+                    for i in range(OBSERVE_ONESHOT)]
+            batches = stat_get("serving_batches") - batches
+            oneshot = dict(batches=batches, launches_b7_b1=[
+                qo.dequant_matmul.launches,
+                fab.flash_attention_bias.launches])
+            for path in ("/stats", "/health"):
+                code, ctype, body = http_get(one.http_port, path)
+                oneshot[path] = dict(code=code, type=ctype,
+                                     keys=len(json.loads(body)))
+        finally:
+            one.stop()
+    finally:
+        flags.set_flags({"weight_quant": "", "flash_attention": "auto"})
+    finite = all(np.isfinite(np.asarray(o)).all() for out in outs
+                 for o in out)
+    log("observe_serve", requests=OBSERVE_REQUESTS,
+        new_tokens=OBSERVE_NEW_TOKENS, routes=routes, heartbeat=beat,
+        cluster_alive_ranks=cluster["alive_ranks"],
+        cluster_dead_ranks=cluster["dead_ranks"],
+        tokens_equal_http_on_off=tokens[True] == tokens[False],
+        launches=launches, oneshot=oneshot, oneshot_outputs_finite=finite)
+    if oneshot["launches_b7_b1"] != [B7_PER_RUN * batches,
+                                     B1_PER_RUN * batches] or not finite \
+            or any(oneshot[p]["code"] != 200 for p in ("/stats", "/health")):
+        raise RuntimeError(f"observe_serve: one-shot server {oneshot}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script measures "
@@ -6773,6 +7305,9 @@ def main():
               file=sys.stderr)
         return 1
     t_start = time.monotonic()
+    # a phase that hangs ends the run with every thread's stack on
+    # stderr and exit code 1, inside the run's 1200 s limit
+    faulthandler.dump_traceback_later(HANG_S, exit=True)
     name = phase_device()
     phase_build()
     rows = phase_kernels(name)
@@ -6800,8 +7335,12 @@ def main():
     phase_prune()
     release("prune")
     phase_auto_checkpoint()
-    BERT15.clear()
     release("auto_checkpoint")
+    phase_observe_train()
+    release("observe_train")
+    phase_observe_profiler()
+    BERT15.clear()
+    release("observe_profiler")
     phase_train_oracle()
     release("train_oracle")
     unfused, state = phase_train_unfused()
@@ -6855,7 +7394,9 @@ def main():
         release("infer")
         phase_preflight()
         phase_oneshot_server(model_dir)
-    release("oneshot_server")
+        release("oneshot_server")
+        phase_observe_serve(model_dir)
+    release("observe_serve")
     state = phase_resnet()
     phase_train_profile(lambda: exe_eager(state), lambda: exe_run(state),
                         phase="resnet_profile", kernels=(),
@@ -6932,6 +7473,7 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "f32_cuda_core_bound_ms": row.get("f32_cuda_core_bound_ms")})
+    faulthandler.cancel_dump_traceback_later()
     log("done", seconds=round(time.monotonic() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -100,9 +100,28 @@ interpreted on the host: ``framework/var_io.py`` writes and reads the
 files, and loaded values go straight to the executor's device.
 
 Not in the port yet (each raises ``NotImplementedError`` when asked for):
-meshes and tensor parallelism, localsgd and pipeline programs.  The JAX
-executor's drain also feeds ``observe/phases.py`` and
-``observe/profiler_capture.py``, which the port does not have yet.
+meshes and tensor parallelism, localsgd and pipeline programs.
+
+Observability, as in the JAX package, all of it a pure observer (losses
+and fetches are bit-equal with every flag of it on or off): each drain
+feeds ``observe/phases.py`` (the step's inter-drain wall, its wait on
+the event and the dispatch-side host seconds carried on the in-flight
+step, the wait for backpressure left out) and
+``observe/profiler_capture.py``'s anomaly trigger.  A key's first run
+prices its phase plan (``program_flops`` over
+``FLAGS_device_peak_tflops``), estimates its footprint (state and
+feeds, plus the peak of the live temporaries in the free plan's order
+at the run's shapes) and puts it to ``FLAGS_hbm_budget_fraction``'s gate
+before anything launches (``observe/xla_stats.py``; a rejected key is
+not cached); on the card its warm-up reads the caching allocator after
+each op, and once its step is captured (its first run on the CPU or
+when it runs eagerly) ``xla_stats.on_compile`` records it.  A
+constructed Executor records run metadata and ``executor/created`` to
+the flight recorder and starts the stall watchdog
+(``FLAGS_stall_timeout_s``) and continuous profiling
+(``FLAGS_prof_continuous_s``) when their flags ask for them; the key's
+warm-up and capture count as a compile in flight for the watchdog
+(``_ACTIVE_COMPILES``).
 
 Graph passes: before a program's block runs, ``_apply_graph_passes``
 hands it to the ``framework/passes.py`` pipeline (attention-chain fusion
@@ -131,8 +150,13 @@ import torch
 
 from . import dtypes
 from ..monitor import stat_add, stat_max, stat_set
+from ..observe import flight as _flight
+from ..observe import health as _health
+from ..observe import phases as _phases
+from ..observe import profiler_capture as _prof
 from ..observe import step_stats
 from ..observe import tracer as otrace
+from ..observe import xla_stats as _xla_stats
 from . import passes as passes_mod
 from .flags import flag
 from .graphs import StepGraph
@@ -245,6 +269,14 @@ class _Entry:
     batch: int = 0                        # the first feed's leading dim
     flops_per_step: float = 0.0           # program_flops at that batch
     runs: int = 0                         # warmup's included
+    phase_plan: Optional[object] = None   # observe/phases.PhasePlan
+    # the pre-launch footprint estimate, the budget gate's verdict on it,
+    # the size entries it was judged on, and the warm-up's allocator
+    # reading (observe/xla_stats.memory_breakdown)
+    estimated_bytes: int = 0
+    budget: Optional[dict] = None
+    size_entries: Tuple[tuple, ...] = ()
+    memory: Optional[dict] = None
     nan_scan: bool = False                # FLAGS_check_nan_inf at compile
     # (op type, build site, index in the block) per scanned op, in the
     # order of the NAN_FLAGS_VAR fetch
@@ -298,11 +330,12 @@ class _InflightStep:
 
     __slots__ = ("fetches", "host", "nan_flags", "nan_ops", "event",
                  "t_dispatch", "steps", "examples", "compiled",
-                 "flops_per_step", "scope", "drained")
+                 "flops_per_step", "scope", "drained", "host_s",
+                 "phase_plan")
 
     def __init__(self, fetches, host, nan_flags, nan_ops, event,
                  t_dispatch, steps, examples, compiled, flops_per_step,
-                 scope=None):
+                 scope=None, host_s=0.0, phase_plan=None):
         self.fetches = fetches
         self.host = host
         self.nan_flags = nan_flags
@@ -315,6 +348,8 @@ class _InflightStep:
         self.flops_per_step = flops_per_step
         self.scope = scope
         self.drained = False
+        self.host_s = host_s
+        self.phase_plan = phase_plan
 
 
 class _InflightWindow:
@@ -404,6 +439,14 @@ class _InflightWindow:
         step_stats.step_timer().record_run(
             max(now - start, 0.0), steps=e.steps, examples=e.examples,
             compiled=e.compiled, flops_per_step=e.flops_per_step)
+        # step-phase attribution and the anomaly trigger: wall = the
+        # inter-drain loop period, sync = this drain's wait, host = the
+        # dispatch-side host seconds carried on the step
+        _phases.on_step_drained(
+            wall_s=max(now - start, 0.0), sync_s=now - t0, host_s=e.host_s,
+            steps=e.steps, plan=e.phase_plan, compiled=e.compiled)
+        _prof.on_step_drained(max(now - start, 0.0) / max(e.steps, 1),
+                              compiled=e.compiled)
         if e.nan_flags is not None:
             try:
                 _raise_on_nan(e.nan_flags, e.nan_ops, e.scope)
@@ -501,20 +544,31 @@ class StepHandle(list):
 
 
 # every constructed Executor, for the process-wide drain points
-# (checkpoint snapshots, StepTimer.summary)
+# (checkpoint snapshots, StepTimer.summary) and the stall watchdog
 _LIVE_EXECUTORS: "weakref.WeakSet[Executor]" = weakref.WeakSet()
+
+# thread id -> perf_counter start of a key's warm-up or capture in
+# flight (observe/health.executor_progress reads it without a lock)
+_ACTIVE_COMPILES: Dict[int, float] = {}
+
+
+_GAUGE_LOCK = threading.Lock()
 
 
 def _update_inflight_gauge():
     """``executor_inflight_steps`` = in-flight steps over every live
-    Executor (deque lengths read without their locks: a gauge)."""
-    try:
-        total = sum(len(exe._window._entries)
-                    for exe in list(_LIVE_EXECUTORS))
-    except RuntimeError:  # the WeakSet changed under a construction
-        return
-    stat_set("executor_inflight_steps", total)
-    stat_max("executor_inflight_steps_max", total)
+    Executor (deque lengths read without their windows' locks).  The
+    read and the write are one step under ``_GAUGE_LOCK``: every change
+    of a window is followed by an update, so the last update reads the
+    last state, where a stale sum written late could otherwise stick."""
+    with _GAUGE_LOCK:
+        try:
+            total = sum(len(exe._window._entries)
+                        for exe in list(_LIVE_EXECUTORS))
+        except RuntimeError:  # the WeakSet changed under a construction
+            return
+        stat_set("executor_inflight_steps", total)
+        stat_max("executor_inflight_steps_max", total)
 
 
 def drain_all(raise_errors: bool = True):
@@ -585,6 +639,11 @@ class Executor:
         # the steps dispatched and not yet drained
         self._window = _InflightWindow()
         _LIVE_EXECUTORS.add(self)
+        _flight.record_run_metadata()
+        _flight.record("executor/created", place=type(self.place).__name__,
+                       device=str(self.device))
+        _health.maybe_start_watchdog()
+        _prof.maybe_start_continuous()
 
     # ------------------------------------------------------------------
     def run(
@@ -623,17 +682,19 @@ class Executor:
         if cap > 0:
             self._window.backpressure(cap)
         t0 = time.perf_counter()
-        fetches, entry = self._run(program, feed, fetch_names, scope,
-                                   use_prune)
+        fetches, entry, t_exec0 = self._run(program, feed, fetch_names,
+                                            scope, use_prune)
         if self._owns(entry):
             fetches = [_own(v) for v in fetches]
         return self._finish(entry, fetches, scope, return_numpy, t0, 1,
-                            cap)
+                            cap, t_exec0 - t0)
 
     def _finish(self, entry, fetches, scope, return_numpy, t0, n_steps,
-                cap):
+                cap, host_s=0.0):
         """The dispatched step's fetches: into the window and a handle
-        (``cap`` > 0), or waited for and recorded here."""
+        (``cap`` > 0), or waited for and recorded here.  ``host_s``: the
+        host seconds from the dispatch (past backpressure) to the step's
+        launch."""
         nan_flags = None
         if entry.nan_scan:
             nan_flags, fetches = fetches[-1], fetches[:-1]
@@ -653,7 +714,8 @@ class Executor:
             inflight = _InflightStep(
                 fetches, host, nan_flags, entry.nan_ops, event, t0,
                 n_steps, entry.batch * n_steps, compiled,
-                entry.flops_per_step, scope)
+                entry.flops_per_step, scope, max(host_s, 0.0),
+                entry.phase_plan)
             self._window.push(inflight)
             stat_add("executor_steps_dispatched", n_steps)
             if flag("benchmark") or entry.nan_scan:
@@ -680,7 +742,8 @@ class Executor:
     def _run(self, program, feed, fetch_names, scope, use_prune=False):
         """One step: the pass pipeline, the pruning, the entry's lookup,
         its run.  Returns the fetches (the graph's own buffers when the
-        entry is captured) and the entry."""
+        entry is captured), the entry and the ``perf_counter`` time its
+        run began."""
         self._refuse_left_out(program)
         feeds = _feed_tensors(program.global_block, dict(feed or {}),
                               self.device)
@@ -690,7 +753,8 @@ class Executor:
             program = self._pruned(program, fetch_names)
         entry = self._entry(program, feeds, fetch_names, scope)
         stat_add("executor_run")
-        return self._run_entry(entry, feeds, scope), entry
+        t_exec0 = time.perf_counter()
+        return self._run_entry(entry, feeds, scope), entry, t_exec0
 
     # ------------------------------------------------------------------
     def run_steps(
@@ -749,6 +813,7 @@ class Executor:
             if entry is None:
                 entry = self._entry(program, step_feed, fetch_names, scope)
                 stat_add("executor_run")
+                t_exec0 = time.perf_counter()
                 # the entry's fetches: the NaN flags last when it scans
                 per_step: List[List[torch.Tensor]] = \
                     [[] for _ in entry.fetch_names]
@@ -757,7 +822,7 @@ class Executor:
                 acc.append(_own(v) if self._owns(entry) else v)
         fetches = [torch.stack(vs) for vs in per_step]
         return self._finish(entry, fetches, scope, return_numpy, t0,
-                            n_steps, cap)
+                            n_steps, cap, t_exec0 - t0)
 
     # ------------------------------------------------------------------
     def warmup(
@@ -1023,11 +1088,27 @@ class Executor:
             stat_add("executor_cache_hit")
             return entry
         stat_add("executor_compile")
+        if self.device.type == "cuda":
+            _flight.record_device_topology()
+        _flight.record("executor/compile",
+                       fingerprint=program.fingerprint()[:16],
+                       fetches=len(fetch_names))
+        frees = self._frees(program, feeds, fetch_names, scope)
+        batch, flops = _batch_flops(program, feeds)
+        # the budget gate judges the estimate before anything launches;
+        # a rejected key is not cached, so its next run is judged again
+        estimate, sizes = _footprint(program, feeds, state_in, scope,
+                                     frees, batch)
+        budget = _xla_stats.judge_program(
+            estimate, sizes, device=self.device,
+            fingerprint=program.fingerprint())
+        block = program.global_block
         entry = self._cache[key] = _Entry(
-            program, fetch_names, state_in, state_out,
-            self._frees(program, feeds, fetch_names, scope),
-            capture_reason(program), *_batch_flops(program, feeds),
-            nan_scan=scan)
+            program, fetch_names, state_in, state_out, frees,
+            capture_reason(program), batch, flops, nan_scan=scan,
+            phase_plan=_phases.build_phase_plan(block, block.ops,
+                                                flops_per_step=flops),
+            estimated_bytes=estimate, budget=budget, size_entries=sizes)
         return entry
 
     def _compiled(self, entry, n_steps) -> bool:
@@ -1044,6 +1125,28 @@ class Executor:
         return self._captures and entry.eager_reason is None
 
     def _run_entry(self, entry, feeds, scope) -> List[torch.Tensor]:
+        """Run ``entry`` once; its runs before its first replay (the
+        warm-up and the capture; the first run on the CPU or when it
+        runs eagerly) count as a compile in flight, and the last of them
+        is recorded by ``xla_stats.on_compile``."""
+        warm_runs = 2 if self._owns(entry) else 1
+        if entry.runs >= warm_runs:
+            return self._run_entry_once(entry, feeds, scope)
+        tid = threading.get_ident()
+        t0 = _ACTIVE_COMPILES[tid] = time.perf_counter()
+        try:
+            out = self._run_entry_once(entry, feeds, scope)
+        finally:
+            _ACTIVE_COMPILES.pop(tid, None)
+        if entry.runs == warm_runs:
+            _xla_stats.on_compile(
+                entry, fingerprint=entry.program.fingerprint(),
+                seconds=time.perf_counter() - t0,
+                size_entries=entry.size_entries,
+                program_flops=entry.flops_per_step, device=self.device)
+        return out
+
+    def _run_entry_once(self, entry, feeds, scope) -> List[torch.Tensor]:
         entry.runs += 1
         if entry.eager_reason is not None:
             kind, why = entry.eager_reason
@@ -1119,6 +1222,16 @@ class Executor:
         scans)."""
         block = program.global_block
         state_in, state_out = self._analysis(program, set(feeds), scope)
+        # a key's first run on the card reads the caching allocator
+        # (xla_stats.memory_breakdown)
+        probe = entry is not None and entry.runs == 1 \
+            and self.device.type == "cuda"
+        if probe:
+            args = sum(_nbytes(scope.get_var(n)) for n in state_in) + \
+                sum(_nbytes(t) for t in feeds.values())
+            written = set(state_out)
+            aliased = sum(_nbytes(scope.get_var(n)) for n in state_in
+                          if n in written)
         env = {}
         for n in state_in:
             v = scope.get_var(n)
@@ -1128,23 +1241,33 @@ class Executor:
         env.update(feeds)
         ctx = LoweringContext(block, env, self.device,
                               self._generator(scope, program))
-        self._run_ops(ctx, self._frees(program, feeds, fetch_names, scope),
-                      entry)
+        peak = self._run_ops(
+            ctx, self._frees(program, feeds, fetch_names, scope), entry,
+            probe)
         _check_fetches(fetch_names, env)
+        if probe:
+            outs = sum(_nbytes(env[n]) for n in fetch_names)
+            entry.memory = {"arguments_bytes": args, "outputs_bytes": outs,
+                            "temporaries_bytes": max(peak - outs, 0),
+                            "aliased_bytes": aliased}
         for n in state_out:
             scope.set_var(n, env[n])
         return [env[n] for n in fetch_names]
 
-    def _run_ops(self, ctx, frees, entry=None):
+    def _run_ops(self, ctx, frees, entry=None, probe=False) -> int:
         """Every op of the block through its lowering, raising with the
         op's type and build site; ``frees[i]`` names the values dropped
         after op i.  When ``entry`` scans for NaN/Inf, each floating
         output adds one flag, computed on the device (whether all its
         elements are finite), and the flags land in the environment as
         one tensor, ``NAN_FLAGS_VAR``; ``entry.nan_ops`` names the op of
-        each flag, in the flags' order."""
+        each flag, in the flags' order.  With ``probe`` (on the card)
+        returns the most bytes the caching allocator held above its
+        count at the start, read after each op (host counters: no
+        wait), else 0."""
         env = ctx.env
         peak = len(env)
+        base = top = torch.cuda.memory_allocated(ctx.device) if probe else 0
         scan = entry is not None and entry.nan_scan
         groups = {}   # dtype -> ([min, max, ...], [(type, site, index)])
         k = -1                      # the op's index among non-pseudo ops
@@ -1177,6 +1300,8 @@ class Executor:
                             vals.extend(torch.aminmax(v))
                             ops.append((op.type, site, k))
                 peak = max(peak, len(env))
+                if probe:
+                    top = max(top, torch.cuda.memory_allocated(ctx.device))
                 for n in frees[i]:
                     env.pop(n, None)
             if scan:
@@ -1188,6 +1313,7 @@ class Executor:
                 entry.nan_ops = tuple(o for _, ops in groups.values()
                                       for o in ops)
         self.env_peak = peak
+        return top - base
 
     def _analysis(self, program, feed_names, scope):
         key = (program.fingerprint(), frozenset(feed_names), scope.serial)
@@ -1225,6 +1351,61 @@ def _batch_flops(program, feeds) -> Tuple[int, float]:
     if var is not None and var.shape and int(var.shape[0]) <= 0:
         flops *= batch
     return batch, flops
+
+
+def _nbytes(v) -> int:
+    """Bytes of a tensor (0 for anything else: a generator, a tensor
+    array)."""
+    return v.numel() * v.element_size() if isinstance(v, torch.Tensor) \
+        else 0
+
+
+def _footprint(program, feeds, state_in, scope, frees, batch):
+    """(estimated bytes the step holds at once, size entries): its state
+    and feeds as they are, plus the peak of the live temporaries when
+    the block runs in its free plan's order, each sized from its
+    declared shape (a -1 dim taken as the run's ``batch``) and dtype; a
+    var without a known shape counts 0.  The size entries are
+    ``(name, shape, dtype, kind)`` for ``xla_stats.var_attribution``."""
+    block = program.global_block
+    sizes = []
+    for n in state_in:
+        v = scope.get_var(n)
+        if isinstance(v, torch.Tensor):
+            sizes.append((n, tuple(v.shape), str(v.dtype)[6:], "state"))
+    for n, t in feeds.items():
+        sizes.append((n, tuple(t.shape), str(t.dtype)[6:], "feed"))
+    held = sum(_nbytes(scope.get_var(n)) for n in state_in) + \
+        sum(_nbytes(t) for t in feeds.values())
+    have = set(state_in) | set(feeds)
+    itemsize: Dict[object, int] = {}
+    live: Dict[str, int] = {}
+    cur = peak = 0
+    for i, op in enumerate(block.ops):
+        if op.type in PSEUDO_OPS:
+            continue
+        for n in op.output_arg_names():
+            if n in have or n in live:
+                continue
+            var = block._find_var_recursive(n)
+            b = 0
+            if var is not None and var.shape and var.dtype is not None:
+                if var.dtype not in itemsize:
+                    try:
+                        itemsize[var.dtype] = torch.empty(
+                            (), dtype=dtypes.to_torch(var.dtype)
+                        ).element_size()
+                    except (KeyError, TypeError, ValueError):
+                        itemsize[var.dtype] = 0
+                b = itemsize[var.dtype]
+                for d in var.shape:
+                    b *= batch if int(d) < 0 else int(d)
+            live[n] = b
+            cur += b
+        peak = max(peak, cur)
+        for n in frees[i]:
+            cur -= live.pop(n, 0)
+    return held + peak, tuple(sizes)
 
 
 def _check_fetches(fetch_names, env):

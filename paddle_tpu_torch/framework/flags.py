@@ -131,6 +131,81 @@ define_flag("slo_windows_s", "60,300",
             "multi-window burn-rate evaluation; goodput is measured over "
             "the shortest window")
 
+# ---- health, memory accounting, phases and profiler capture
+# (observe/health.py, xla_stats.py, phases.py, profiler_capture.py) ---------
+define_flag("stall_timeout_s", 0.0,
+            "stall watchdog (paddle_tpu_torch.observe.health): when > 0, "
+            "a daemon thread samples executor progress (steps dispatched "
+            "vs drained, in-flight window age) and dumps a postmortem "
+            "bundle (all-thread stacks, Chrome trace, metrics snapshot, "
+            "flight-recorder tail, flags) after this many seconds of "
+            "no-progress with work pending; 0 = disabled")
+define_flag("postmortem_dir", "postmortem",
+            "directory postmortem bundles are written under (stall "
+            "watchdog, crash hook, anomaly captures); each dump is its "
+            "own bundle_<ts>_<pid>_<reason> subdirectory -- read one "
+            "with: python -m tools.postmortem <dir>")
+define_flag("heartbeat_interval_s", 10.0,
+            "cluster health telemetry (observe/health.py): period of "
+            "each rank's HealthReporter heartbeat PUT to the fleet KV "
+            "HTTP server; a rank is reported dead on /metrics/cluster "
+            "after 3 missed intervals")
+define_flag("hbm_budget_fraction", 0.0,
+            "pre-launch memory budget gate: when > 0, a program whose "
+            "estimated footprint on the card (its state and feeds plus "
+            "the peak of its live temporaries in the executor's "
+            "last-use order, at the run's shapes) exceeds this fraction "
+            "of the device's memory is rejected at its key's first run, "
+            "before anything launches, with a MemoryBudgetError naming "
+            "the largest vars.  0 = gate disabled")
+define_flag("hbm_bytes_per_device", 0,
+            "explicit per-device memory capacity in bytes for the budget "
+            "gate; 0 = the card's total_memory (none on the CPU, where "
+            "the gate then skips unless this override is set)")
+define_flag("phase_attribution", True,
+            "step-phase attribution (paddle_tpu_torch.observe.phases): "
+            "decompose each drained step's wall time into compute / "
+            "exposed-collective / host-blocked / input-wait buckets "
+            "(phase_*_seconds_micro gauges + the per-collective "
+            "exposed-vs-hidden ledger on /metrics).  Pure observer: "
+            "never affects lowering or numerics -- the measured split "
+            "comes from timestamps the drain path already takes, the "
+            "predicted split from the program's FLOPs over "
+            "FLAGS_device_peak_tflops (none while that is 0)")
+define_flag("phase_interconnect_gbps", 0.0,
+            "assumed per-device interconnect bandwidth (GB/s) for the "
+            "phase-attribution cost model's predicted collective "
+            "times (observe/phases.py); 0 (the default) leaves "
+            "collectives unpriced: set it to your fabric's number.  "
+            "Prediction only: measured phases and step numerics never "
+            "read it")
+define_flag("prof_trigger_ratio", 0.0,
+            "anomaly-triggered profiling (observe/profiler_capture): "
+            "when a drained step's wall time exceeds this ratio x the "
+            "rolling step-time baseline (or an slo_burn_rate_* gauge "
+            "trips past its budget), capture ONE bounded torch.profiler "
+            "trace window + phase snapshot into a postmortem bundle "
+            "(phases.json section), then latch until the step time "
+            "drops back under the threshold; 0 = disabled")
+define_flag("prof_cooldown_s", 60.0,
+            "minimum seconds between two anomaly-triggered captures "
+            "(observe/profiler_capture): after one bundle is written "
+            "the trigger stays quiet for this long even if the episode "
+            "re-trips -- a sustained regression produces one bundle per "
+            "cooldown window, not one per step; the capture itself "
+            "perturbs step times, so this also keeps the observer from "
+            "triggering on its own overhead")
+define_flag("prof_capture_s", 2.0,
+            "bound (seconds) of one anomaly/continuous profiler "
+            "capture window -- the trace is stopped after this long no "
+            "matter what, so a capture can never become the overhead "
+            "it is meant to explain")
+define_flag("prof_continuous_s", 0.0,
+            "continuous low-duty-cycle profiling: every this many "
+            "seconds, capture one FLAGS_prof_capture_s torch.profiler "
+            "window (duty cycle = capture_s / continuous_s) into a "
+            "2-deep rotation of directories; 0 = disabled")
+
 # ---- decode engine (serving/decode.py DecodeConfig defaults) -------------
 define_flag("decode_slots", 8,
             "fixed slot-batch capacity of one DecodeEngine replica — the "

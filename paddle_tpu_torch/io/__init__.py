@@ -532,6 +532,32 @@ def _from_shared(x):
         shm.unlink()
 
 
+def _start_all(procs):
+    """``p.start()`` for every process at once, each on its own thread;
+    raises the first error after all have returned.  A spawned start
+    blocks until its child has imported the parent's main module and
+    read the pickled dataset, so one after another the start-ups add up
+    (about 10 s a worker for a full-width ImageNet-shaped ``FakeData``
+    on the H100 machine's host)."""
+    errors = []
+
+    def start(p):
+        try:
+            p.start()
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=start, args=(p,),
+                                name=f"loader-start-{i}")
+               for i, p in enumerate(procs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
 def _worker_loop(wid, n_workers, dataset, collate, init_fn, task_q,
                  result_q, parent_pid, shared=False):
     """Worker-process body.  Module-level so the spawn start method can
@@ -649,8 +675,7 @@ class DataLoader:
             saved = os.environ.get("CUDA_VISIBLE_DEVICES")
             os.environ["CUDA_VISIBLE_DEVICES"] = ""
             try:
-                for p in procs:
-                    p.start()
+                _start_all(procs)
                 return True
             except (pickle.PicklingError, TypeError, AttributeError) as e:
                 for p in procs:

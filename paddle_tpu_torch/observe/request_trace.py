@@ -29,9 +29,13 @@ Retention (the Dapper/production compromise):
   have dropped.
 
 PyTorch port: a copy of ``paddle_tpu/observe/request_trace.py`` (no
-JAX in it) without the Chrome trace-event export, which waits for the
-port of ``observe/timeline.py``.  ``DecodeEngine.debug_requests`` and
-``TraceStore.get(id).to_dict()`` read the timelines.
+JAX in it).  Surfaces: ``/debug/requests`` (live in-flight table) and
+``/debug/request/<id>`` (full timeline JSON) on any fleet KV HTTP
+server a ``Server``/``DecodeServer`` runs; :func:`chrome_trace` renders
+one request's timeline through ``observe/timeline.py`` for
+Perfetto/chrome://tracing; postmortem bundles embed the retained
+violators as ``requests.json`` (``observe/health.py``), pretty-printed
+by ``python -m tools.reqtrace``.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from ..framework import flags as _flags
 from ..monitor import stat_add, stat_set
 
 __all__ = ["RequestTrace", "TraceStore", "get_trace_store",
+           "chrome_trace", "export_request_chrome_trace",
            "ABNORMAL_OUTCOMES", "MAX_EVENTS_PER_TRACE"]
 
 # per-trace event cap: a max_new_tokens=64 request emits ~70 events;
@@ -272,3 +277,49 @@ _STORE = TraceStore()
 
 def get_trace_store() -> TraceStore:
     return _STORE
+
+
+# ---------------------------------------------------------------------------
+# Chrome trace-event export (one request's timeline in Perfetto)
+# ---------------------------------------------------------------------------
+
+
+def chrome_trace(trace_or_id) -> dict:
+    """Render ONE request's timeline as Chrome trace-event JSON through
+    the ``observe/timeline.py`` machinery: each lifecycle event becomes
+    a complete-span lasting until the next event, so the lane reads as
+    'where did this request's milliseconds go' (queued, prefill chunks,
+    token cadence) in Perfetto/chrome://tracing."""
+    tr = trace_or_id
+    if not isinstance(tr, RequestTrace):
+        tr = _STORE.get(str(trace_or_id))
+        if tr is None:
+            raise KeyError(f"no trace {trace_or_id!r} in flight or "
+                           f"retained")
+    from .timeline import chrome_trace as _chrome
+    from .tracer import SpanRecord
+
+    evs = list(tr.events)
+    lane = f"{tr.replica or tr.kind}:{tr.trace_id}"
+    recs = []
+    for i, (t, name, attrs) in enumerate(evs):
+        t_end = evs[i + 1][0] if i + 1 < len(evs) else t
+        recs.append(SpanRecord(f"request/{name}", t, t_end, 1, lane, 0,
+                               None, dict(attrs or {})))
+    doc = _chrome(recs)
+    doc["otherData"]["trace_id"] = tr.trace_id
+    doc["otherData"]["outcome"] = tr.outcome
+    return doc
+
+
+def export_request_chrome_trace(trace_or_id, path: Optional[str] = None):
+    """Write one request's Chrome trace to ``path`` (or return the
+    dict when ``path`` is None)."""
+    doc = chrome_trace(trace_or_id)
+    if path is None:
+        return doc
+    import json
+
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path

@@ -106,12 +106,6 @@ _DONE = object()  # stream sentinel
 _NEG_INF = -1e30
 
 
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} waits for a later slice of the PyTorch port (ROADMAP.md, "
-        f"Queue A); the JAX package (paddle_tpu.serving) serves it today")
-
-
 # ---------------------------------------------------------------------------
 # model
 

@@ -10,16 +10,17 @@ thread, and the batcher's worker thread replays it), and
 ``monitor.StatRegistry`` for runtime counters::
 
     srv = serving.Server(model_dir, serving.ServingConfig(
-        batch_sizes=(1, 2, 4, 8), seq_lens=(16, 32)))
+        batch_sizes=(1, 2, 4, 8), seq_lens=(16, 32), http_port=0))
     srv.start()                  # warms (captures) every bucket, serves
     outs = srv.infer({"x": x})   # thread-safe, blocks for the result
     srv.stop(drain=True)         # refuse new work, finish the queue
 
-The HTTP routes (``/stats``, ``/health``, ``/metrics``, ``/debug/*``)
-ride the fleet KV HTTP server in the JAX package and wait for a later
-slice here: ``http_port`` raises ``NotImplementedError`` in both
-servers; the same data is on their ``stats``, ``health`` and
-``debug_requests`` (and ``DecodeServer.debug_slo``).
+``http_port`` (0: an ephemeral port, read back from ``srv.http_port``)
+serves GET ``/stats`` (counter snapshot), ``/health`` (liveness + queue
+depth), ``/debug/requests`` (the live in-flight table),
+``/debug/request/<id>`` (one request's timeline) and ``/metrics``
+(Prometheus text exposition, registered by the fleet KV HTTP server
+itself); ``DecodeServer`` adds ``/debug/slo``.
 """
 from __future__ import annotations
 
@@ -31,16 +32,28 @@ from ..monitor import stat_add, stat_get
 from .batcher import _UNSET, Batcher, InferenceRequest
 from .buckets import BucketSpec, QueueFullError, bucket_feed_specs, \
     feed_plans
-from .decode import DecodeConfig, DecodeEngine, _later_slice
+from .decode import DecodeConfig, DecodeEngine
 
 logger = logging.getLogger(__name__)
 
 
+def _debug_request_route(trace_id: str) -> Dict:
+    """GET ``/debug/request/<id>``: full timeline JSON for one trace
+    (in flight or retained), from the process trace store."""
+    from ..observe.request_trace import get_trace_store
+
+    tr = get_trace_store().get(trace_id)
+    if tr is None:
+        return {"error": f"no trace {trace_id!r} in flight or retained "
+                         f"(head-sampled out, or fell off the ring — "
+                         f"see FLAGS_request_trace_sample / "
+                         f"FLAGS_request_trace_ring)"}
+    return tr.to_dict()
+
+
 class ServingConfig:
     """Knobs for the serving layer (reference Paddle Serving's
-    server-config proto, collapsed to what the serving path needs).
-    ``http_port`` other than None raises in ``Server`` (a later
-    slice)."""
+    server-config proto, collapsed to what the serving path needs)."""
 
     def __init__(self,
                  batch_sizes: Sequence[int] = (1, 2, 4, 8),
@@ -55,7 +68,7 @@ class ServingConfig:
         self.batch_window_ms = float(batch_window_ms)
         self.default_deadline_ms = default_deadline_ms
         self.pad_value = pad_value
-        self.http_port = http_port
+        self.http_port = http_port  # None: no HTTP; 0: ephemeral port
 
 
 class Server:
@@ -74,8 +87,6 @@ class Server:
                 f"model must be a Predictor, inference.Config, or model "
                 f"dir path, got {type(model).__name__}")
         self._config = config or ServingConfig()
-        if self._config.http_port is not None:
-            raise _later_slice("the HTTP routes of Server (http_port=)")
         self._predictor = predictor
         self._plans = feed_plans(predictor._program,
                                  predictor.get_input_names())
@@ -85,6 +96,7 @@ class Server:
             batch_window_ms=self._config.batch_window_ms,
             default_deadline_ms=self._config.default_deadline_ms,
             pad_value=self._config.pad_value)
+        self._kv = None
         self._t_start = None
         self._started = False
 
@@ -120,15 +132,31 @@ class Server:
         if warmup:
             self.warmup()
         self._batcher.start()
+        if self._config.http_port is not None:
+            from ..distributed.fleet.utils.http_server import KVServer
+
+            self._kv = KVServer(self._config.http_port,
+                                routes={"/stats": self.stats,
+                                        "/health": self.health,
+                                        "/debug/requests":
+                                            self.debug_requests,
+                                        "/debug/request/":
+                                            _debug_request_route})
+            self._kv.start()
         self._t_start = time.monotonic()
         self._started = True
         from ..observe import flight as _flight
 
-        _flight.record("serving/start", warmup=bool(warmup))
+        _flight.record("serving/start",
+                       http_port=self._config.http_port,
+                       warmup=bool(warmup))
         return self
 
     def stop(self, drain: bool = True):
         self._batcher.stop(drain=drain)
+        if self._kv is not None:
+            self._kv.stop()
+            self._kv = None
         self._started = False
         from ..observe import flight as _flight
 
@@ -157,6 +185,10 @@ class Server:
         return self._batcher.submit(feeds, deadline_ms=deadline_ms)
 
     # -- observability ---------------------------------------------------
+    @property
+    def http_port(self) -> Optional[int]:
+        return self._kv.port if self._kv is not None else None
+
     def stats(self) -> Dict[str, float]:
         """Snapshot of the serving/executor counters plus derived
         averages."""
@@ -224,9 +256,6 @@ class DecodeServer:
     def __init__(self, model, weights, config: Optional[DecodeConfig] = None,
                  replicas: int = 1, http_port: Optional[int] = None,
                  draft_model=None, draft_weights=None):
-        if http_port is not None:
-            raise _later_slice("the HTTP routes of DecodeServer "
-                               "(http_port=)")
         if replicas < 1:
             raise ValueError("replicas must be >= 1")
         self._config = config or DecodeConfig()
@@ -238,6 +267,8 @@ class DecodeServer:
                          draft_weights=draft_weights)
             for i in range(replicas)
         ]
+        self._http_port = http_port
+        self._kv = None
         self._t_start = None
         self._started = False
 
@@ -264,6 +295,18 @@ class DecodeServer:
             return self
         for eng in self._engines:
             eng.start()
+        if self._http_port is not None:
+            from ..distributed.fleet.utils.http_server import KVServer
+
+            self._kv = KVServer(self._http_port,
+                                routes={"/stats": self.stats,
+                                        "/health": self.health,
+                                        "/debug/requests":
+                                            self.debug_requests,
+                                        "/debug/request/":
+                                            _debug_request_route,
+                                        "/debug/slo": self.debug_slo})
+            self._kv.start()
         self._t_start = time.monotonic()
         self._started = True
         return self
@@ -271,6 +314,9 @@ class DecodeServer:
     def stop(self, drain: bool = True):
         for eng in self._engines:
             eng.stop(drain=drain)
+        if self._kv is not None:
+            self._kv.stop()
+            self._kv = None
         self._started = False
 
     def __enter__(self) -> "DecodeServer":
@@ -281,8 +327,14 @@ class DecodeServer:
         return False
 
     # -- observability ---------------------------------------------------
+    @property
+    def http_port(self) -> Optional[int]:
+        return self._kv.port if self._kv is not None else None
+
     def debug_requests(self) -> Dict:
-        """Replica-tagged live in-flight rows across every engine."""
+        """GET ``/debug/requests``: replica-tagged live in-flight rows
+        across every engine (each row carries its replica name and trace
+        id; follow ``/debug/request/<id>`` for the full timeline)."""
         rows = []
         for eng in self._engines:
             rows.extend(eng.debug_requests())
@@ -290,8 +342,8 @@ class DecodeServer:
                 "replicas": len(self._engines)}
 
     def debug_slo(self) -> Dict:
-        """Objectives, multi-window burn rates, budget remaining, and
-        goodput (observe/slo.py snapshot)."""
+        """GET ``/debug/slo``: objectives, multi-window burn rates,
+        budget remaining, and goodput (observe/slo.py snapshot)."""
         from ..observe import slo as _slo
 
         return _slo.snapshot()

@@ -229,10 +229,27 @@ def _payload(page_size=8, n_tokens=1):
                         arrays={}, quantized=False, page_size=page_size)
 
 
-# option -> (call, the error it raises now, match).  The HTTP routes
-# still wait for a later slice; the options slice 14 ported raise what the
-# JAX package raises on misuse (``ragged`` has no misuse to reject: it now
-# builds an engine, as ``moe`` does since the MoE slice).
+def _http_server(m):
+    """A DecodeServer on an ephemeral port answers /health, then stops."""
+    import json
+    import urllib.request
+
+    srv = DecodeServer(m, None, DecodeConfig(**CFG), http_port=0).start()
+    try:
+        port = srv.http_port
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                    timeout=10) as r:
+            assert json.loads(r.read())["status"] == "ok"
+    finally:
+        srv.stop()
+    assert srv.http_port is None
+
+
+# option -> (call, the error it raises now, match).  The options slice 14
+# ported raise what the JAX package raises on misuse (``ragged`` has no
+# misuse to reject: it now builds an engine, as ``moe`` does since the MoE
+# slice, and ``http_port`` serves its routes since the observability
+# slice).
 _OUT_OF_SLICE = {
     "spec_k": (lambda m: DecodeEngine(m, None, DecodeConfig(
         **CFG, spec_k=2)).submit([1], speculative=True), ValueError,
@@ -255,9 +272,7 @@ _OUT_OF_SLICE = {
     "moe": (lambda m: DecodeEngine(TransformerLM(
         VOCAB, 32, 2, 2, moe_experts=4, device="cpu"), None,
         DecodeConfig(**CFG)), None, None),
-    "http_port": (lambda m: DecodeServer(m, None, DecodeConfig(**CFG),
-                                         http_port=0), NotImplementedError,
-                  "later slice"),
+    "http_port": (_http_server, None, None),
 }
 
 
@@ -343,10 +358,12 @@ def test_flag_defaults_match_the_jax_package():
 
     ours = flags.flags_snapshot()
     theirs = jflags.get_flags(sorted(ours))
-    # the JAX package's MFU peak defaults to a TPU's bfloat16 figure; the
-    # port's is 0 (MFU null) until the caller sets the card's peak
-    assert ours.pop("device_peak_tflops") == 0.0
-    theirs.pop("device_peak_tflops")
+    # the JAX package's MFU peak and the phase model's interconnect rate
+    # default to a TPU's figures; the port's are 0 (MFU null, collectives
+    # unpriced) until the caller sets the card's and the fabric's
+    for tpu_figure in ("device_peak_tflops", "phase_interconnect_gbps"):
+        assert ours.pop(tpu_figure) == 0.0
+        theirs.pop(tpu_figure)
     assert ours == theirs
     with pytest.raises(KeyError, match="unknown flag"):
         flags.set_flags({"FLAGS_use_tpu": False})

@@ -25,7 +25,7 @@ from paddle_tpu.optimizer import MomentumOptimizer as JMomentum
 import paddle_tpu_torch as tpkg
 from paddle_tpu_torch import io as tio
 from paddle_tpu_torch import layers as tlayers
-from paddle_tpu_torch.observe import histogram as thistogram
+from paddle_tpu_torch.observe.histogram import histogram as thistogram
 from paddle_tpu_torch.observe import step_stats as tstep_stats
 from paddle_tpu_torch.ckpt import snapshot_scope
 from paddle_tpu_torch.framework import executor as texecutor
@@ -292,7 +292,7 @@ def test_step_timer_summary_drains_the_window(window):
     assert len(exe._window) == 0
     assert s["compiles"] == 2 and s["steps"] == 3
     assert s["step_time_s"]["count"] == 3
-    assert thistogram.histogram("fetch_sync_seconds").count > 0
+    assert thistogram("fetch_sync_seconds").count > 0
 
 
 def test_device_prefetcher_feeds_a_pipelined_executor(window, monkeypatch):

@@ -11,7 +11,9 @@ output must agree within 1e-5.  The feed planning (``feed_plans``,
 JAX functions on the same inputs, and the warmup to the JAX server's
 count.
 """
+import json
 import threading
+import urllib.request
 
 import numpy as np
 import pytest
@@ -233,6 +235,11 @@ def test_request_too_large_and_contract_violations(model_dirs):
         srv.submit({"x": np.ones((1, 3, 4), "f4")})
 
 
+def _get(url):
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return json.loads(r.read())
+
+
 def test_drain_restart_and_http_port(model_dirs):
     srv, _j = _servers(model_dirs)
     srv.start()
@@ -248,9 +255,23 @@ def test_drain_restart_and_http_port(model_dirs):
         assert srv.debug_requests()["n"] == 0
     finally:
         srv.stop()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        serving.Server(_config(model_dirs["torch"]),
-                       serving.ServingConfig(http_port=0))
+    # the HTTP routes on an ephemeral port, the same data as the methods
+    srv = serving.Server(_config(model_dirs["torch"]),
+                         serving.ServingConfig(http_port=0))
+    srv.start(warmup=False)
+    try:
+        port = srv.http_port
+        base = f"http://127.0.0.1:{port}"
+        assert _get(f"{base}/health")["status"] == "ok"
+        assert _get(f"{base}/debug/requests") == {"requests": [], "n": 0}
+        assert isinstance(_get(f"{base}/stats"), dict)
+        with urllib.request.urlopen(f"{base}/metrics", timeout=10) as r:
+            assert r.headers["Content-Type"].startswith("text/plain")
+            assert b"# TYPE paddle_tpu_" in r.read()
+        assert "error" in _get(f"{base}/debug/request/nope")
+    finally:
+        srv.stop()
+    assert srv.http_port is None
 
 
 def test_warmup_first_keeps_the_weight_quant_carriers(model_dirs):
