@@ -315,6 +315,28 @@ peak memory once its executors and graphs are dropped.
                the largest magnitude (float32, TF32 off), and the card's
                forward + backward ms.
 
+Slice 21's phase runs after ``nn_extras``:
+
+56. op_library -- the dense op library (``OPLIB``), each group one program
+               through the Executor on the card, forward and input
+               gradient, against the port's CPU path on the same inputs
+               (``OPLIB_RTOL``; integer outputs and pure gathers equal;
+               row-independent ops on the CPU for the first rows):
+               ``warpctc`` at PaddleOCR CRNN's [80, 256, 6625], the
+               resizes at DeepLabv3+'s x4, YOLOv3's neck, a bicubic pass
+               and a 3-D volume, ``logsumexp`` / ``nll_loss`` /
+               ``kldiv_loss`` at [4096, 32000], 64 ``beam_search`` steps
+               over [128, 37000] (each step on the CPU from the card's
+               inputs) and ``beam_search_decode``, ``lookup_table`` at
+               ERNIE's [18000, 768], ``coalesce_tensor`` +
+               ``squared_l2_norm`` over BERT-base's parameters,
+               ``cholesky`` / ``inverse`` at [64, 256, 256], ``addmm``,
+               ``segment_pool`` at [65536, 128] and the other lowerings at
+               small shapes: each group's card ms (median of 5 CUDA-event
+               timings of the captured step); 1e6 draws of each
+               ``distribution`` by their statistics; ``utils.run_check()``
+               on the card; B1-B7 at 0.
+
 Slice 14's phases run after ``profile`` (the first three, on the serving
 model, the launch counters zeroed before each timed window and read after
 it) and after ``infer_oracle`` (the last two, on its saved directory).
@@ -4390,6 +4412,595 @@ def phase_nn_extras():
                            f"{launches}")
 
 
+# ---- slice 21: the dense op library -------------------------------------------
+
+# op_library: the lowerings ported from the JAX package's linalg, loss,
+# interp and misc files, each group one program through the Executor on
+# the card (forward and the input gradient, as append_backward's grad
+# makers build it) and again on the CPU from the same inputs.  A float gap
+# is relative to the CPU value's largest magnitude: 1e-4 leaves ~800
+# float32 steps for one op's sums of up to 32,000 terms in another order,
+# a chain of 80 log-sum-exps (CTC) or the factorization of a matrix whose
+# condition number is at most 5 (TF32 off), and stays far under any wrong
+# formula.  Integer outputs (ids, parents, counts) and pure gathers and
+# copies (``exact``: nearest resizes, embedding rows, coalesce, the beam
+# selection from bit-equal inputs) must be equal.  Row-independent ops
+# (CTC's per-row loss, the resizes, beam rows) are checked on the CPU on
+# the first ``cpu_rows`` of the batch at full width.
+OPLIB_RTOL = 1e-4
+OPLIB = dict(   # the shapes, at the widths of the programs that run them
+    # PaddleOCR CRNN rec_chinese_lite: 3x32x320 -> 80 steps, 25 labels,
+    # 6,623 characters + space + blank, 256 a card
+    ctc=dict(T=80, B=256, C=6625, N=25, cpu_rows=8),
+    # DeepLabv3+ logits, Cityscapes 1024x512 crop: the final x4
+    bilinear=dict(x=(8, 19, 128, 256), out=(512, 1024), cpu_rows=1),
+    # YOLOv3's neck at 608
+    nearest=(dict(x=(8, 256, 19, 19), out=(38, 38)),
+             dict(x=(8, 128, 38, 38), out=(76, 76))),
+    bicubic=dict(x=(8, 3, 224, 224), out=(256, 256), cpu_rows=1),
+    trilinear=dict(x=(2, 16, 16, 32, 32), out=(32, 64, 64), cpu_rows=1),
+    # 8 x 512 tokens over SERVE_MODEL's 32,000-way vocab
+    vocab=dict(rows=4096, classes=32000),
+    # the text Transformer's 37,000-way vocab, batch 32, beam 4
+    beam=dict(batch=32, beam=4, vocab=37000, steps=64, end_id=1,
+              cpu_batches=1, cpu_every=4),
+    # ERNIE-1.0's table as the fluid 1.x embedding emits it
+    lookup=dict(rows=18000, width=768, ids=(32, 128, 1)),
+    linalg=dict(batch=64, n=256),
+    addmm=dict(m=4096, k=1024, n=4096),
+    segment=dict(rows=65536, width=128, segments=16384),
+    draws=1_000_000,
+)
+
+
+def oplib_program(ops, feeds, cots=None, no_grad=()):
+    """A program of ``ops`` ((type, inputs, outputs, attrs), over the vars
+    of ``feeds`` and earlier ops' outputs) and, given output cotangents,
+    the gradients of the float feeds not in ``no_grad`` from
+    ``calc_gradient``, each output seeded with its cotangent.  Returns
+    the program, the fetch list (outputs, then gradients) and the
+    cotangent feeds."""
+    from paddle_tpu_torch.framework.backward import calc_gradient
+    from paddle_tpu_torch.framework.program import Program
+
+    prog = Program()
+    blk = prog.global_block
+    wrt = []
+    for name, t in feeds.items():
+        wants = t.is_floating_point() and name not in no_grad
+        v = blk.create_var(name=name, shape=tuple(t.shape),
+                           dtype=str(t.dtype).replace("torch.", ""),
+                           stop_gradient=not wants)
+        if wants:
+            wrt.append(v)
+    fetch = []
+    for op_type, ins, outs, attrs in ops:
+        for names in outs.values():
+            for n in names:
+                blk.create_var(name=n)
+                fetch.append(n)
+        blk.append_op(op_type, ins, outs, attrs)
+    grad_feeds, targets, seeds = {}, [], []
+    for name, cot in (cots or {}).items():
+        targets.append(blk.var(name))
+        seeds.append(blk.create_var(name=f"{name}@COT",
+                                    shape=tuple(cot.shape), dtype="float32"))
+        grad_feeds[seeds[-1].name] = cot
+    if targets:
+        fetch += [g.name for g in calc_gradient(targets, wrt, seeds)
+                  if g is not None]
+    return prog, fetch, grad_feeds
+
+
+def oplib_run(exe, prog, feed, fetch):
+    return exe.run(prog, feed=feed, fetch_list=fetch, return_numpy=False)
+
+
+def oplib_gap(a, b):
+    """``a``'s gap to ``b`` relative to ``b``'s largest finite magnitude;
+    the non-finite entries must match exactly (inf where they do not)."""
+    if a.shape != b.shape:
+        return float("inf")
+    fin = torch.isfinite(b)
+    if not torch.equal(torch.isfinite(a), fin) or not torch.equal(
+            torch.nan_to_num(a[~fin]), torch.nan_to_num(b[~fin])):
+        return float("inf")
+    if not fin.any():
+        return 0.0
+    return float((a[fin] - b[fin]).abs().max()
+                 / b[fin].abs().max().clamp_min(1e-30))
+
+
+def oplib_cot(t, dev):
+    """A fixed cotangent of ``t``'s shape, every entry of its own."""
+    i = torch.arange(t.numel(), dtype=torch.float32, device=dev)
+    return torch.cos(0.37 * i + 0.2).reshape(t.shape)
+
+
+def oplib_synced(fn):
+    """``fn()``'s wall seconds, to the end of its work on the card."""
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    return time.monotonic() - t0
+
+
+def oplib_group(dev, flush, label, ops, feeds, grad=(), rows=None,
+                axis=lambda name: 0, exact=(), no_grad=()):
+    """``ops`` on ``dev`` through the Executor, forward and the gradients
+    of ``grad``'s outputs (fixed cotangents) for every float feed not in
+    ``no_grad``, against the CPU from the same inputs (each var cut to its
+    first ``rows`` along ``axis(name)`` when given); ``dev``'s ms, the
+    median of 5 CUDA-event timings after the eager run and the capture
+    (the replays bind the feeds), and the seconds of the forward probe,
+    the eager run and the capture."""
+    t0 = time.monotonic()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    try:
+        prog, fetch, _ = oplib_program(ops, feeds)
+        probe = dict(zip(fetch, oplib_run(exe, prog, feeds, fetch)))
+        cots = {n: oplib_cot(probe[n], dev) for n in grad}
+        del probe
+        prog, fetch, grad_feeds = oplib_program(ops, feeds, cots, no_grad)
+        feed = {**feeds, **grad_feeds}
+        first = [time.monotonic() - t0] + [oplib_synced(
+            lambda: oplib_run(exe, prog, feed, fetch)) for _ in range(2)]
+        ms = cuda_ms(lambda: oplib_run(exe, prog, feed, fetch), flush,
+                     reps=5, warmup=0)
+        card = [v.clone() for v in oplib_run(exe, prog, feed, fetch)]
+    finally:
+        exe.close()
+    t1 = time.monotonic()
+
+    def cut(name, t):
+        return t if rows is None else t.narrow(axis(name), 0, rows)
+
+    cpu_exe = pt.Executor(pt.CPUPlace())
+    try:
+        cpu = oplib_run(cpu_exe, prog, {n: cut(n, t).cpu()
+                                        for n, t in feed.items()}, fetch)
+    finally:
+        cpu_exe.close()
+    t2 = time.monotonic()
+    gaps = {}
+    for n, a, b in zip(fetch, card, cpu):   # compared on ``dev``
+        a, b = cut(n, a), b.to(dev)
+        if a.is_floating_point() and n not in exact:
+            gaps[n] = oplib_gap(a, b)
+        else:
+            gaps[n] = 0.0 if torch.equal(a, b) else float("inf")
+    worst = max(gaps, key=gaps.get)
+    return {"group": label, "ops": sorted({o[0] for o in ops}),
+            "shapes": {n: list(t.shape) for n, t in feeds.items()
+                       if len(feeds) <= 8},
+            "card_ms": ms, "cpu_rows": rows, "max_rel_gap": gaps[worst],
+            "worst": worst, "outputs_compared": len(gaps),
+            "seconds_probe_eager_capture": first,
+            "seconds_card_cpu_compare": [t1 - t0, t2 - t1,
+                                         time.monotonic() - t2]}
+
+
+def one_op(op_type, ins, outs, attrs=None):
+    """(ops, feeds) of one op over ``ins`` {slot: tensor or [tensors]}:
+    vars named ``<slot>_<i>``, outputs ``<slot>``."""
+    feeds, slots = {}, {}
+    for slot, ts in ins.items():
+        ts = ts if isinstance(ts, (list, tuple)) else [ts]
+        slots[slot] = []
+        for i, t in enumerate(ts):
+            feeds[f"{slot.lower()}_{i}"] = t
+            slots[slot].append(f"{slot.lower()}_{i}")
+    outs = {s: ([s.lower()] if isinstance(s, str) else None) for s in outs}
+    return [(op_type, slots, outs, dict(attrs or {}))], feeds
+
+
+def oplib_ctc(dev, gen, flush):
+    c = OPLIB["ctc"]
+    t, b, k, n = c["T"], c["B"], c["C"], c["N"]
+    logits = torch.randn((t, b, k), generator=gen, device=dev)
+    label = torch.randint(1, k, (b, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+    label_len = torch.randint(1, n + 1, (b,), generator=gen, device=dev)
+    ops, feeds = one_op("warpctc", dict(
+        Logits=logits, Label=label,
+        LogitsLength=torch.full((b,), t, dtype=torch.int64, device=dev),
+        LabelLength=label_len), ["Loss", "WarpCTCGrad"],
+        dict(blank=0, norm_by_times=False))
+    row = oplib_group(
+        dev, flush, "warpctc", ops, feeds, grad=("loss",),
+        rows=c["cpu_rows"],
+        axis=lambda name: 1 if name.startswith(("logits_0", "warpctcgrad"))
+        else 0)
+    # the library's CTC on the same inputs, log-softmax, forward and the
+    # logits' gradient: timed beside the port's recursion, used nowhere
+    # in the port (it gives inf, not optax's value, on an infeasible row)
+    cot = oplib_cot(torch.empty(b), dev)
+    lengths = feeds["logitslength_0"]
+
+    def library():
+        x = logits.detach().requires_grad_()
+        loss = torch.nn.functional.ctc_loss(
+            torch.log_softmax(x, dim=2), label, lengths, label_len, blank=0,
+            reduction="none")
+        return torch.autograd.grad(loss, x, cot)
+
+    row["library"] = "F.ctc_loss(reduction='none'), forward + backward"
+    row["library_ms"] = cuda_ms(library, flush, reps=5, warmup=1)
+    return row
+
+
+def oplib_resizes(dev, gen, flush):
+    rows = []
+    c = OPLIB["bilinear"]
+    ops, feeds = one_op("bilinear_interp_v2", dict(
+        X=torch.randn(c["x"], generator=gen, device=dev)), ["Out"], dict(
+        out_h=c["out"][0], out_w=c["out"][1], align_corners=False,
+        align_mode=0))
+    rows.append(oplib_group(dev, flush, "bilinear_interp_v2", ops, feeds,
+                            grad=("out",), rows=c["cpu_rows"]))
+    for c in OPLIB["nearest"]:
+        ops, feeds = one_op("nearest_interp_v2", dict(
+            X=torch.randn(c["x"], generator=gen, device=dev)), ["Out"], dict(
+            out_h=c["out"][0], out_w=c["out"][1], align_corners=False))
+        rows.append(oplib_group(
+            dev, flush, f"nearest_interp_v2_{c['out'][0]}", ops, feeds,
+            grad=("out",), rows=2, exact=("out",)))
+    c = OPLIB["bicubic"]
+    ops, feeds = one_op("bicubic_interp_v2", dict(
+        X=torch.randn(c["x"], generator=gen, device=dev)), ["Out"], dict(
+        out_h=c["out"][0], out_w=c["out"][1], align_corners=False))
+    rows.append(oplib_group(dev, flush, "bicubic_interp_v2", ops, feeds,
+                            grad=("out",), rows=c["cpu_rows"]))
+    c = OPLIB["trilinear"]
+    ops, feeds = one_op("trilinear_interp_v2", dict(
+        X=torch.randn(c["x"], generator=gen, device=dev)), ["Out"], dict(
+        out_d=c["out"][0], out_h=c["out"][1], out_w=c["out"][2],
+        align_corners=False, align_mode=0))
+    rows.append(oplib_group(dev, flush, "trilinear_interp_v2", ops, feeds,
+                            grad=("out",), rows=c["cpu_rows"]))
+    return rows
+
+
+def oplib_vocab(dev, gen, flush):
+    c = OPLIB["vocab"]
+    shape = (c["rows"], c["classes"])
+    logits = torch.randn(shape, generator=gen, device=dev)
+    logp = torch.log_softmax(logits, dim=1)
+    target = torch.softmax(torch.randn(shape, generator=gen, device=dev),
+                           dim=1)
+    label = torch.randint(0, c["classes"], (c["rows"],), generator=gen,
+                          device=dev)
+    label[::7] = -100                       # ignored rows
+    rows = []
+    # logsumexp is row-independent; the two losses' means are over all rows
+    # the distillation target is the teacher's output: no gradient
+    for op_type, ins, outs, attrs, grad, cpu_rows in (
+            ("logsumexp", dict(X=logits), ["Out"], dict(axis=[1]), ("out",),
+             c["rows"] // 8),
+            ("nll_loss", dict(X=logp, Label=label), ["Out", "Total_weight"],
+             dict(ignore_index=-100, reduction="mean"), ("out",), None),
+            ("kldiv_loss", dict(X=logp, Target=target), ["Loss"],
+             dict(reduction="batchmean"), ("loss",), None)):
+        ops, feeds = one_op(op_type, ins, outs, attrs)
+        rows.append(oplib_group(dev, flush, op_type, ops, feeds, grad=grad,
+                                rows=cpu_rows, no_grad=("target_0",)))
+    return rows
+
+
+def oplib_beam(dev, gen, flush):
+    """``beam_search`` step by step (64 steps, accumulated scores, finished
+    lanes frozen), every ``cpu_every``-th step's selection and gradient
+    on the CPU from the card's inputs of that step for the first
+    ``cpu_batches`` batches (equal ids, parents, scores and gradients),
+    then ``beam_search_decode`` over the steps."""
+    c = OPLIB["beam"]
+    k, v, end = c["beam"], c["vocab"], c["end_id"]
+    bk, cpu_rows = c["batch"] * k, c["cpu_batches"] * k
+    pre_ids = torch.zeros((bk, 1), dtype=torch.int64, device=dev)
+    # only lane 0 of each group live at first: k distinct expansions
+    pre_scores = torch.full((bk, 1), -1e9, device=dev)
+    pre_scores[::k] = 0.0
+    scores = torch.zeros((bk, v), device=dev)
+    ops, feeds = one_op("beam_search", dict(
+        pre_ids=pre_ids, pre_scores=pre_scores, scores=scores),
+        ["selected_ids", "selected_scores", "parent_idx"],
+        dict(beam_size=k, end_id=end, is_accumulated=True))
+    cot = oplib_cot(torch.empty(bk, 1), dev)
+    prog, fetch, grad_feeds = oplib_program(ops, feeds,
+                                            {"selected_scores": cot})
+    exe, cpu_exe = pt.Executor(pt.CUDAPlace(0)), pt.Executor(pt.CPUPlace())
+    ids, parents, step_scores, bad, finished = [], [], [], [], 0
+    seconds = [0.0, 0.0]                     # card, CPU
+    try:
+        for step in range(c["steps"]):
+            t0 = time.monotonic()
+            logp = torch.log_softmax(torch.randn(
+                (bk, v), generator=gen, device=dev), dim=1)
+            logp[:, end] += 2.0             # some lanes finish early
+            feed = {"pre_ids_0": pre_ids, "pre_scores_0": pre_scores,
+                    "scores_0": pre_scores + logp, **grad_feeds}
+            card = [t.clone() for t in oplib_run(exe, prog, feed, fetch)]
+            t1 = time.monotonic()
+            seconds[0] += t1 - t0
+            if step % c["cpu_every"] == 0:
+                cpu = oplib_run(cpu_exe, prog, {
+                    n: t[:cpu_rows].cpu() for n, t in feed.items()}, fetch)
+                bad += [(step, n) for n, a, b in zip(fetch, card, cpu)
+                        if not torch.equal(a[:cpu_rows].cpu(), b)]
+                seconds[1] += time.monotonic() - t1
+            got = dict(zip(fetch, card))
+            pre_ids = got["selected_ids"].long()
+            pre_scores = got["selected_scores"]
+            finished += int((pre_ids == end).sum())
+            ids.append(pre_ids.reshape(bk))
+            parents.append(got["parent_idx"].long())
+            step_scores.append(pre_scores.reshape(bk))
+        ms = cuda_ms(lambda: oplib_run(exe, prog, feed, fetch), flush,
+                     reps=5, warmup=1)
+    finally:
+        exe.close()
+        cpu_exe.close()
+    rows = [{"group": "beam_search", "ops": ["beam_search"],
+             "steps": c["steps"], "rows": bk, "vocab": v, "card_ms": ms,
+             "cpu_rows": cpu_rows, "finished_lane_steps": finished,
+             "max_rel_gap": float("inf") if bad else 0.0,
+             "unequal": bad[:8], "seconds_card_cpu": seconds}]
+    ops, feeds = one_op("beam_search_decode", dict(
+        Ids=torch.stack(ids), ParentIdx=torch.stack(parents),
+        Scores=torch.stack(step_scores)), ["SentenceIds", "SentenceScores"],
+        dict(beam_size=k))
+    rows.append(oplib_group(dev, flush, "beam_search_decode", ops, feeds,
+                            grad=("sentencescores",),
+                            exact=("sentencescores",)))
+    return rows
+
+
+def oplib_params(dev, gen, flush):
+    """``coalesce_tensor`` over BERT-base's parameter list, then one
+    ``squared_l2_norm`` for each (the global-norm clip's sums)."""
+    from paddle_tpu_torch.text import bert_base_pretrain_program
+
+    with unique_name.guard():
+        main, _startup, _feeds, _loss, _opt = bert_base_pretrain_program(
+            batch_size=2, seq_len=16)
+    params = main.all_parameters()
+    feeds = {f"p{i}": torch.randn(tuple(p.shape), generator=gen, device=dev)
+             * 0.02 for i, p in enumerate(params)}
+    names = list(feeds)
+    ops = [("coalesce_tensor", {"Input": names},
+            {"Output": [f"{n}_out" for n in names], "FusedOutput": ["fused"]},
+            {"dtype": 5})]
+    ops += [("squared_l2_norm", {"X": [n]}, {"Out": [f"{n}_sq"]}, {})
+            for n in names]
+    row = oplib_group(dev, flush, "coalesce_tensor+squared_l2_norm", ops,
+                      feeds, grad=tuple(f"{n}_sq" for n in names),
+                      exact=tuple(f"{n}_out" for n in names) + ("fused",))
+    row["params"] = len(names)
+    row["elements"] = sum(t.numel() for t in feeds.values())
+    return [row]
+
+
+def oplib_dense(dev, gen, flush):
+    rows = []
+    c = OPLIB["lookup"]
+    ids = torch.randint(0, c["rows"], c["ids"], generator=gen, device=dev)
+    ids[:, ::9] = 0                          # padding_idx rows
+    ops, feeds = one_op("lookup_table", dict(
+        W=torch.randn((c["rows"], c["width"]), generator=gen, device=dev),
+        Ids=ids), ["Out"], dict(padding_idx=0, is_sparse=False))
+    rows.append(oplib_group(dev, flush, "lookup_table", ops, feeds,
+                            grad=("out",), exact=("out",)))
+    c = OPLIB["linalg"]
+    a = torch.randn((c["batch"], c["n"], c["n"]), generator=gen, device=dev)
+    spd = a @ a.transpose(1, 2) / c["n"] + torch.eye(c["n"], device=dev)
+    for op_type, slot, out in (("cholesky", "X", "Out"),
+                               ("inverse", "Input", "Output")):
+        ops, feeds = one_op(op_type, {slot: spd}, [out])
+        rows.append(oplib_group(dev, flush, op_type, ops, feeds,
+                                grad=(out.lower(),)))
+    # a singular matrix: its inverse is not finite on the card either
+    ops, feeds = one_op("inverse", dict(Input=torch.tensor(
+        [[1.0, 2.0], [2.0, 4.0]], device=dev)), ["Output"])
+    prog, fetch, _ = oplib_program(ops, feeds)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    try:
+        finite = int(torch.isfinite(oplib_run(exe, prog, feeds, fetch)[0])
+                     .sum())
+    finally:
+        exe.close()
+    rows.append({"group": "inverse_singular", "finite_entries": finite,
+                 "max_rel_gap": 0.0 if finite < 4 else float("inf")})
+    c = OPLIB["addmm"]
+    ops, feeds = one_op("addmm", dict(
+        Input=torch.randn((c["m"], c["n"]), generator=gen, device=dev),
+        X=torch.randn((c["m"], c["k"]), generator=gen, device=dev),
+        Y=torch.randn((c["k"], c["n"]), generator=gen, device=dev)),
+        ["Out"], dict(Alpha=0.5, Beta=2.0))
+    rows.append(oplib_group(dev, flush, "addmm", ops, feeds, grad=("out",)))
+    c = OPLIB["segment"]
+    x = torch.randn((c["rows"], c["width"]), generator=gen, device=dev)
+    seg = torch.sort(torch.randint(0, c["segments"], (c["rows"],),
+                                   generator=gen, device=dev)).values
+    for pool in ("SUM", "MEAN", "MAX"):
+        ops, feeds = one_op("segment_pool", dict(X=x, SegmentIds=seg),
+                            ["Out", "SummedIds"], dict(pooltype=pool))
+        rows.append(oplib_group(dev, flush, f"segment_pool_{pool.lower()}",
+                                ops, feeds, grad=("out",)))
+    return rows
+
+
+def oplib_small(dev, gen, flush):
+    """The other lowerings of the slice at small shapes."""
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def p(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 0.9 + 0.05
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev)
+
+    binary = (p(16, 1) > 0.5).float()
+    a = r(64, 64)
+    spd = a @ a.T / 64 + torch.eye(64, device=dev)
+    cases = (
+        ("cholesky", dict(X=spd), ["Out"], dict(upper=True)),
+        # a matrix that is not positive definite: its factor and gradient
+        # NaN on the card as on the CPU (the positive-definite one finite)
+        ("cholesky", dict(X=torch.stack([spd, spd - 2 * torch.eye(
+            64, device=dev)])), ["Out"], {}),
+        ("mv", dict(X=r(64, 32), Vec=r(32)), ["Out"], {}),
+        ("kron", dict(X=r(8, 6), Y=r(5, 7)), ["Out"], {}),
+        ("cross", dict(X=r(16, 3, 8), Y=r(16, 3, 8)), ["Out"],
+         dict(dim=-2147483648)),
+        ("dist", dict(X=r(32, 16), Y=r(32, 16)), ["Out"], dict(p=3.0)),
+        ("dist", dict(X=r(32, 16), Y=r(32, 16)), ["Out"],
+         dict(p=float("inf"))),
+        ("trace", dict(Input=r(4, 32, 40)), ["Out"],
+         dict(offset=2, axis1=1, axis2=2)),
+        ("norm", dict(X=r(16, 64, 8)), ["Out", "Norm"], dict(axis=1)),
+        ("multiplex", dict(X=[r(32, 16) for _ in range(4)],
+                           Ids=ints(4, 32, 1)), ["Out"], {}),
+        ("unbind", dict(X=r(4, 3, 16)), [None], dict(axis=1)),
+        ("minus", dict(X=r(16, 16), Y=r(16, 16)), ["Out"], {}),
+        ("partial_sum", dict(X=[r(16, 32) for _ in range(3)]), ["Out"],
+         dict(start_index=4, length=16)),
+        ("partial_concat", dict(X=[r(16, 32) for _ in range(3)]), ["Out"],
+         dict(start_index=4, length=8)),
+        ("segment_pool", dict(X=r(64, 16), SegmentIds=torch.sort(
+            ints(40, 64)).values), ["Out", "SummedIds"],
+         dict(pooltype="MIN")),
+        ("maximum", dict(X=r(32, 16), Y=r(16)), ["Out"], {}),
+        ("minimum", dict(X=r(32, 16), Y=r(16)), ["Out"], {}),
+        ("bce_loss", dict(X=p(16, 8), Label=(p(16, 8) > 0.5).float()),
+         ["Out"], {}),
+        ("log_loss", dict(Predicted=p(16, 1), Labels=binary), ["Loss"],
+         dict(epsilon=1e-4)),
+        ("hinge_loss", dict(Logits=r(16, 1), Labels=binary), ["Loss"], {}),
+        ("rank_loss", dict(Label=binary, Left=r(16, 1), Right=r(16, 1)),
+         ["Out"], {}),
+        ("margin_rank_loss", dict(Label=binary * 2 - 1, X1=r(16, 1),
+                                  X2=r(16, 1)), ["Out", "Activated"],
+         dict(margin=0.1)),
+        ("smooth_l1_loss", dict(X=r(16, 4, 8), Y=r(16, 4, 8),
+                                InsideWeight=p(16, 4, 8),
+                                OutsideWeight=p(16, 4, 8)),
+         ["Diff", "Out"], dict(sigma=2.0)),
+        ("sigmoid_focal_loss", dict(X=r(32, 10), Label=ints(11, 32, 1),
+                                    FgNum=torch.tensor([20], device=dev)),
+         ["Out"], dict(gamma=2.0, alpha=0.25)),
+        ("bpr_loss", dict(X=r(32, 10), Label=ints(10, 32, 1)), ["Y"], {}),
+        ("l1_norm", dict(X=r(16, 16)), ["Out"], {}),
+        ("linear_interp_v2", dict(X=r(4, 8, 50)), ["Out"],
+         dict(out_w=120, align_corners=False, align_mode=1)),
+        ("bilinear_interp", dict(X=r(2, 4, 10, 12)), ["Out"],
+         dict(out_h=7, out_w=30, align_corners=True)),
+        ("squared_l2_norm", dict(X=r(64, 64)), ["Out"], {}),
+        ("reshape2_grad", {"Out@GRAD": r(6, 40),
+                           "XShape": torch.zeros((0, 2, 3, 40), device=dev)},
+         ["X@GRAD"], {}),
+    )
+    rows = []
+    for i, (op_type, ins, outs, attrs) in enumerate(cases):
+        if outs == [None]:                  # unbind: one var per slice
+            ops, feeds = one_op(op_type, ins, [], attrs)
+            ops[0][2]["Out"] = [f"out{j}" for j in range(3)]
+            grad = ("out0", "out1", "out2")
+        else:
+            ops, feeds = one_op(op_type, ins, outs, attrs)
+            grad = () if op_type == "reshape2_grad" else \
+                tuple(o.lower() for o in outs
+                      if o not in ("SummedIds", "Activated"))
+        rows.append(oplib_group(dev, flush, f"{i}_{op_type}", ops, feeds,
+                                grad=grad))
+    return rows
+
+
+def oplib_distribution(dev, flush):
+    """1e6 draws from each distribution on ``dev``, held to their
+    statistics (5 standard errors; each category's share within 5
+    binomial standard deviations), with the draw's ms."""
+    from paddle_tpu_torch import distribution as D
+
+    n = OPLIB["draws"]
+    loc = torch.tensor([0.3, -1.2, 2.0], device=dev)
+    scale = torch.tensor([0.5, 1.5, 2.5], device=dev)
+    logits = torch.tensor([0.2, -1.0, 1.5, 0.0], device=dev)
+    dists = {"normal": D.Normal(loc, scale),
+             "uniform": D.Uniform(torch.tensor(-1.0, device=dev),
+                                  torch.tensor(3.0, device=dev)),
+             "categorical": D.Categorical(logits)}
+    rows, bad = [], []
+    for name, d in dists.items():
+        x = d.sample([n], seed=21)._value
+        if x.device != dev:
+            bad.append((name, "device", str(x.device)))
+        if name == "normal":
+            mean, var = x.mean(0), x.var(0)
+            se = 5 * scale / math.sqrt(n)
+            if ((mean - loc).abs() > se).any() or \
+                    ((var - scale ** 2).abs()
+                     > 5 * scale ** 2 * math.sqrt(2 / n)).any():
+                bad.append((name, mean.tolist(), var.tolist()))
+        elif name == "uniform":
+            if x.min() < -1.0 or x.max() >= 3.0 or \
+                    abs(float(x.mean()) - 1.0) > 5 * (4 / math.sqrt(12)) \
+                    / math.sqrt(n):
+                bad.append((name, float(x.min()), float(x.max())))
+        else:
+            prob = torch.softmax(logits, 0)
+            share = torch.bincount(x, minlength=4).float() / n
+            if ((share - prob).abs()
+                    > 5 * torch.sqrt(prob * (1 - prob) / n)).any():
+                bad.append((name, share.tolist()))
+        rows.append({"group": f"distribution_{name}", "draws": n,
+                     "card_ms": cuda_ms(lambda d=d: d.sample([n], seed=21),
+                                        flush, reps=5, warmup=1),
+                     "max_rel_gap": 0.0})
+    if bad:
+        raise RuntimeError(f"op_library: distribution statistics {bad}")
+    return rows
+
+
+def phase_op_library():
+    """The dense op library of slice 21 on the card at its users' widths
+    (``OPLIB``), each group against the port's CPU path on the same
+    inputs, forward and input gradient (``OPLIB_RTOL``); the draws of
+    ``distribution`` by their statistics; ``utils.run_check()``; no
+    hand-written kernel launched."""
+    t0 = time.monotonic()
+    dev = torch.device("cuda", 0)
+    card = nvidia_smi("name,power.limit")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev).zero_
+    zero_kernel_launches()
+    rows, seconds = [], {}
+    for name, fn in (("ctc", oplib_ctc), ("resizes", oplib_resizes),
+                     ("vocab", oplib_vocab), ("beam", oplib_beam),
+                     ("params", oplib_params), ("dense", oplib_dense),
+                     ("small", oplib_small),
+                     ("distribution", lambda d, g, f: oplib_distribution(
+                         d, f))):
+        t1 = time.monotonic()
+        got = fn(dev, gen, flush)
+        rows += got if isinstance(got, list) else [got]
+        seconds[name] = time.monotonic() - t1
+    t1 = time.monotonic()
+    pt.utils.run_check()
+    seconds["run_check"] = time.monotonic() - t1
+    launches = kernel_launches()
+    bad = [r for r in rows if r["max_rel_gap"] > OPLIB_RTOL]
+    log("op_library", card=card, dtype="float32",
+        tf32=torch.backends.cuda.matmul.allow_tf32, tolerance=OPLIB_RTOL,
+        groups=rows, launches_after=launches, run_check=True,
+        group_seconds=seconds, seconds=time.monotonic() - t0)
+    if bad:
+        raise RuntimeError(f"op_library, card vs CPU: {bad}")
+    if any(launches.values()):
+        raise RuntimeError(f"op_library launched hand-written kernels: "
+                           f"{launches}")
+
+
 # ---- slice 14: the rest of serving --------------------------------------------
 
 # runs of the packed ragged schedule (phase_ragged): its pad waste
@@ -7428,6 +8039,8 @@ def main():
     release("text_oracle")
     phase_nn_extras()
     release("nn_extras")
+    phase_op_library()
+    release("op_library")
     phase_model_checkpoint()
     release("model_checkpoint")
     phase_ernie_fleet()

@@ -123,7 +123,7 @@ from .framework.executor import Executor, StepHandle  # noqa: F401
 from .framework.backward import append_backward, calc_gradient  # noqa: F401
 from .framework.scope import global_scope  # noqa: F401
 from .framework.flags import get_flags, set_flags  # noqa: F401
-from .framework.place import CPUPlace, CUDAPlace  # noqa: F401
+from .framework.place import CPUPlace, CUDAPlace, TPUPlace  # noqa: F401
 from .framework.program import (  # noqa: F401
     Program,
     default_main_program,
@@ -135,5 +135,6 @@ from . import ckpt, incubate  # noqa: F401
 from .serialization import load, save  # noqa: F401
 from . import distributed, serving  # noqa: F401
 from . import jit, static  # noqa: F401
+from . import distribution, utils, version  # noqa: F401
 
-__version__ = "0.2.0"
+__version__ = version.full_version

@@ -20,6 +20,7 @@ package syncs once per parameter).
 from __future__ import annotations
 
 import contextlib
+from typing import Optional  # noqa: F401  (API.spec names it)
 
 import torch
 

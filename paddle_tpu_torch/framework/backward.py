@@ -10,6 +10,9 @@ time, last segment first, as the reference's
 emits them all at the backward's start and leaves the schedule to XLA;
 the port runs ops in program order and frees each value at its last
 use, so only this order keeps a single segment's activations alive.
+``calc_gradient`` takes several targets and seeds each with its entry
+of ``target_gradients``, as the reference's does; the JAX package's
+takes one target and seeds it with ones.
 
 Role parity: reference python/paddle/fluid/backward.py (`append_backward`
 :1275 — reverse walk, per-op grad-op makers, sum-op insertion on fan-out,
@@ -312,28 +315,38 @@ def append_backward(
 
     Only root-block autodiff (control-flow sub-block autodiff arrives with
     the control-flow lowering)."""
-    block = loss.block
+    return _append_backward([(loss, None)], parameter_list, no_grad_set,
+                            checkpoints)
+
+
+def _append_backward(seeds, parameter_list, no_grad_set, checkpoints):
+    """The backward of ``seeds`` [(target, its gradient var or None)]: a
+    target without one is seeded with ones of its shape."""
+    block = seeds[0][0].block
     program = block.program
     bctx = BackwardContext(block, no_grad_set)
 
     fwd_ops = list(block.ops)
 
-    # seed: d loss / d loss = 1
-    loss_grad = grad_var_name(loss.name)
-    bctx.ensure_grad_var(loss_grad, loss.name)
-    block.append_op(
-        "fill_constant",
-        {},
-        {"Out": loss_grad},
-        {
-            "shape": list(loss.shape),
-            "value": 1.0,
-            "dtype": loss.dtype,
-        },
-    )
-
     pending: Dict[str, List[str]] = defaultdict(list)
-    pending[loss.name].append(loss_grad)
+    for target, given in seeds:
+        if given is not None:
+            pending[target.name].append(getattr(given, "name", given))
+            continue
+        # d target / d target = 1
+        target_grad = grad_var_name(target.name)
+        bctx.ensure_grad_var(target_grad, target.name)
+        block.append_op(
+            "fill_constant",
+            {},
+            {"Out": target_grad},
+            {
+                "shape": list(target.shape),
+                "value": 1.0,
+                "dtype": target.dtype,
+            },
+        )
+        pending[target.name].append(target_grad)
 
     # activation recompute: re-emit forward segments behind a CSE fence and
     # point grad ops at the recomputed copies (reference backward.py:689)
@@ -422,12 +435,22 @@ def append_backward(
 
 def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
     """Gradients of `targets` w.r.t. arbitrary `inputs` (reference
-    backward.py:1728).  Single-target, root-block version."""
+    backward.py:1728), None for an input no target reaches.  Each target
+    is seeded with its entry of `target_gradients` (a var of the
+    target's shape), or with ones where that entry or the argument is
+    None.  Root block only."""
     tgts = targets if isinstance(targets, (list, tuple)) else [targets]
     ins = inputs if isinstance(inputs, (list, tuple)) else [inputs]
-    if len(tgts) != 1:
-        raise NotImplementedError("calc_gradient supports a single target for now")
-    pg = append_backward(tgts[0], parameter_list=[v.name for v in ins], no_grad_set=no_grad_set)
+    given = target_gradients
+    if given is None:
+        given = [None] * len(tgts)
+    elif not isinstance(given, (list, tuple)):
+        given = [given]
+    if len(given) != len(tgts):
+        raise ValueError(f"calc_gradient: {len(given)} target_gradients for "
+                         f"{len(tgts)} targets")
+    pg = _append_backward(list(zip(tgts, given)), [v.name for v in ins],
+                          no_grad_set, None)
     by_name = {p.name: g for p, g in pg}
     return [by_name.get(v.name) for v in ins]
 
@@ -519,10 +542,10 @@ def _transpose_maker(bctx, op, out_grads):
 @register_grad_maker("while")
 def _while_maker(bctx, op, out_grads):
     raise NotImplementedError(
-        "gradients through `while` loops are not supported: XLA/jax has no "
-        "reverse-mode rule for lax.while_loop (unbounded trip count). For "
-        "differentiable recurrences use the lax.scan-backed RNN ops "
-        "(gru/lstm/rnn) or unroll a fixed-length loop")
+        "gradients through `while` loops are not supported: `while` runs "
+        "eagerly, its predicate read on the host each iteration, and has "
+        "no gradient rule. For a differentiable recurrence use the `rnn` "
+        "op (lstm/gru/rnn on cuDNN) or unroll a fixed-length loop")
 
 
 @register_grad_maker("assign", "share_data")

@@ -38,7 +38,9 @@ of ``_Compiled``) per key, and on the card that step is a CUDA graph
   ``conditional_block``, ``cond_pair`` and the tensor-array index ops
   read a value on the host to choose what runs: a graph cannot branch on
   data), a shape tensor (``reshape2`` / ``fill_constant`` reading their
-  shape from a tensor) or a ``py_func``.  Each such run counts
+  shape from a tensor), a ``py_func`` or an op whose CUDA library call
+  synchronizes with the host (``inverse`` and its gradient: torch.linalg's
+  batched LU).  Each such run counts
   ``executor_eager_<kind>`` and runs in an ``executor/eager`` span that
   names the reason.  A capture or replay that fails raises; nothing
   falls back.
@@ -214,6 +216,11 @@ CONTROL_FLOW_OPS = {"while", "conditional_block", "cond_pair",
 
 SUB_BLOCK_ATTRS = ("sub_block", "sub_block_t", "sub_block_f")
 
+# ops whose CUDA library call synchronizes with the host inside it, which a
+# graph cannot capture: torch.linalg's batched LU (MAGMA, or cuSOLVER
+# matrix by matrix), which ``inverse`` and its gradient run
+HOST_SYNC_OPS = {"inverse", "inverse_grad"}
+
 
 def capture_reason(program: Program) -> Optional[Tuple[str, str]]:
     """Why ``program`` cannot run as a captured graph, from its op list
@@ -234,6 +241,10 @@ def capture_reason(program: Program) -> Optional[Tuple[str, str]]:
         if op.type == "py_func":
             return ("py_func", "op 'py_func' calls a Python function on "
                                "the host at each run")
+        if op.type in HOST_SYNC_OPS:
+            return ("host_sync", f"op {op.type!r} runs a CUDA library call "
+                                 f"that synchronizes with the host, which a "
+                                 f"graph cannot capture")
         if (op.type in ("reshape", "reshape2")
                 and (op.inputs.get("ShapeTensor") or op.inputs.get("Shape"))) \
                 or (op.type == "fill_constant"

@@ -8,7 +8,8 @@ tests do): asking for the card on a host without one raises instead of
 falling back, so a measurement can never come from the CPU by accident.
 
 The static-graph executor takes a ``Place`` as the JAX package's does:
-``CPUPlace()`` or ``CUDAPlace(i)``; ``_default_place()`` is
+``CPUPlace()`` or ``CUDAPlace(i)`` (``TPUPlace(i)``, the JAX package's
+accelerator place, is card ``i`` too); ``_default_place()`` is
 ``CUDAPlace(0)`` and raises without CUDA (the JAX package's falls back to
 the CPU there).
 """
@@ -82,6 +83,12 @@ class CUDAPlace(Place):
                 f"CUDAPlace({self.device_id}) out of range: "
                 f"{torch.cuda.device_count()} card(s) visible")
         return dev
+
+
+class TPUPlace(CUDAPlace):
+    """The JAX package's name for the accelerator's place: here CUDA card
+    ``device_id``, as ``static.tpu_places`` and ``Config.enable_tpu``
+    map it.  It has no ``jax_device``: the port has no JAX device."""
 
 
 def _default_place() -> Place:

@@ -49,7 +49,7 @@ import os
 import queue
 import threading
 import time
-from typing import List, Sequence
+from typing import Iterable, List, Optional, Sequence  # noqa: F401  (API.spec)
 
 import numpy as np
 

@@ -5,7 +5,7 @@ JAX); the program it builds is the same, op for op.
 
 Role parity: reference python/paddle/fluid/layers/ (nn.py 15.2k LoC,
 tensor.py, loss.py).  Each function creates vars + one or more OpDescs;
-execution happens when the Executor compiles the block to XLA.
+execution happens when the Executor runs the block's lowerings.
 """
 from __future__ import annotations
 
@@ -1015,15 +1015,16 @@ def shape(input):
 
 # ---------------------------------------------------------------------------
 # control flow (reference python/paddle/fluid/layers/control_flow.py —
-# While:1020, while_loop:1035, cond:2333; ops lower to lax.while_loop /
-# lax.cond, see ops/control_flow.py)
+# While:1020, while_loop:1035, cond:2333; the ops run eagerly with a
+# host-read predicate, see ops/control_flow.py)
 # ---------------------------------------------------------------------------
 
 
 def while_loop(cond, body, loop_vars, is_test=False, name=None):
     """Functional while: loop_vars are updated in place by `body` until
     `cond` is false.  Carried state is exactly `loop_vars` (+ the
-    condition), recorded on the op for the lax.while_loop lowering."""
+    condition), recorded on the op for the eager ``while`` lowering,
+    which has no gradient rule."""
     if not loop_vars:
         raise ValueError("while_loop requires at least one loop var")
     prog = default_main_program()
@@ -1091,7 +1092,7 @@ def cond(pred, true_fn=None, false_fn=None, name=None):
         out.shape = tuple(tv.shape)
         results.append(out)
     # record both branches' external reads as an input slot: the backward
-    # (generic vjp over the re-emitted lax.cond) differentiates w.r.t.
+    # (generic autograd over the re-run branch) differentiates w.r.t.
     # these — params captured inside a branch get gradients
     captured = []
     for sub, outs in ((sub_t, t_outs), (sub_f, f_outs)):

@@ -4,9 +4,13 @@ Counterpart of ``paddle_tpu/nn/functional.py``, ported whole.  Dual-mode:
 every function runs eagerly on Tensors or appends IR ops for Variables
 (see dispatch.op_call).  ``unfold``,
 ``interpolate`` and ``sequence_mask``, which have no IR op, run torch
-directly (``dygraph.eager.apply_torch``), eager only; ``interpolate``'s
-bilinear and bicubic resize take half-pixel centres and no antialiasing,
-and its nearest resize rounds half-pixel centres (``nearest-exact``).
+directly (``dygraph.eager.apply_torch``), eager only.  ``interpolate``
+matches the JAX package's ``jax.image.resize``: bilinear and bicubic
+resize take half-pixel centres and antialias when they shrink (torch's
+``antialias=True``, whose cubic is Keys' with a = -0.5, as jax's), and
+the nearest resize rounds half-pixel centres (``nearest-exact``).  The
+``*_interp`` ops (``ops/interp_ops.py``) keep the reference's own
+coordinate rules instead.
 
 ``batch_norm`` in training writes the new running statistics into the
 buffers it was given, detached from autograd's graph: they are state,
@@ -538,7 +542,8 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
         oh, ow = int(h * sf[0]), int(w * sf[1])
     method = {"nearest": "nearest-exact", "bilinear": "bilinear",
               "bicubic": "bicubic"}[mode]
-    extra = {} if method == "nearest-exact" else {"align_corners": False}
+    extra = {} if method == "nearest-exact" else {"align_corners": False,
+                                                  "antialias": True}
 
     return apply_torch(lambda v: TF.interpolate(v, size=(oh, ow), mode=method,
                                                 **extra), x)

@@ -2,7 +2,7 @@
 
 - The lowerings (``math_ops``, ``tensor_ops``, ``linalg_ops``,
   ``nn_ops``, ``rnn_ops``, ``activations``, ``creation``, ``embedding_ops``,
-  ``control_flow``,
+  ``control_flow``, ``loss_ops``, ``interp_ops``,
   ``optimizer_ops``, ``misc``, ``fused``, ``flash_attention``,
   ``grad_generic``, ``quant_ops``, ``moe_ops``, ``collective``), which the static executor and dygraph's ``run_op``
   both run: importing this package registers them with
@@ -26,7 +26,9 @@ from . import (  # noqa: F401
     flash_attention,
     fused,
     grad_generic,
+    interp_ops,
     linalg_ops,
+    loss_ops,
     math_ops,
     misc,
     moe_ops,

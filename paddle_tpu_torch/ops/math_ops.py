@@ -6,7 +6,8 @@ Counterpart of ``paddle_tpu/ops/math_ops.py`` (``increment`` is in the
 JAX package's ``misc.py``).  Reference parity: operators/mul_op.cc,
 matmul_op.cc, elementwise/*, scale_op.cc, sum_op.cc, reduce_ops/*,
 mean_op.cc, compare_op.cc, logical_op.cc, activation_op.cc (the unary
-math), pow_op.cc, clip_op.cc, isfinite_op.cc.  ``mul`` and ``matmul``
+math), pow_op.cc, clip_op.cc, isfinite_op.cc, maximum / minimum
+(elementwise, numpy broadcasting).  ``mul`` and ``matmul``
 are one ``torch.matmul`` each: large matrix products outside any kernel
 of the port.  Gradients: the explicit ``mean_grad``, else the generic
 gradient (static programs) or autograd (dygraph).
@@ -338,3 +339,16 @@ def _isnan(ctx, op):
 @register_lower("isinf_v2")
 def _isinf(ctx, op):
     ctx.set_out(op, "Out", torch.isinf(ctx.in1(op, "X")))
+
+
+# at a tie both sides take half the gradient, as under jax.vjp
+@register_lower("maximum")
+def _maximum(ctx, op):
+    ctx.set_out(op, "Out", torch.maximum(*promote(ctx.in1(op, "X"),
+                                                  ctx.in1(op, "Y"))))
+
+
+@register_lower("minimum")
+def _minimum(ctx, op):
+    ctx.set_out(op, "Out", torch.minimum(*promote(ctx.in1(op, "X"),
+                                                  ctx.in1(op, "Y"))))

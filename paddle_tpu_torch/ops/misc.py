@@ -1,5 +1,6 @@
-"""Metric ops: ``accuracy``, ``auc``; ``clip_by_norm``; ``print``;
-``share_data`` and the ``memcpy`` family.
+"""Metric ops: ``accuracy``, ``auc``; ``clip_by_norm``,
+``squared_l2_norm``; ``print``; ``share_data`` and the ``memcpy``
+family; ``coalesce_tensor``; ``beam_search`` and ``beam_search_decode``.
 
 Counterpart of ``paddle_tpu/ops/misc.py`` ``_accuracy`` (reference
 operators/metrics/accuracy_op.cc): the share of rows whose label is among
@@ -20,6 +21,20 @@ array, which the executor passes through as it is; an index tensor is
 read on the host) and ``py_func`` (a registered host callable, called on
 host copies of its inputs at each run: ``jax.pure_callback`` in the JAX
 package; a program holding it runs eagerly).
+
+Counterpart of its ``_squared_l2_norm`` (a float32 sum, shape [1]: the
+reference's global-norm clip sums one per gradient), ``_coalesce_tensor``
+(the values pass through and ``FusedOutput`` is their raveled
+concatenation, as in the JAX package; not the reference's aliasing of
+one buffer), ``_beam_search`` and ``_beam_search_decode`` (the JAX
+package's dense redesign of beam_search_op.cc / beam_search_decode_op.cc:
+rows stay [batch * beam]; a finished lane, ``pre_id == end_id``,
+competes with one ``end_id`` candidate at its frozen score; the top k of
+each batch's beam * C candidates come from a stable descending sort, so
+a tie goes to the lower index as under ``lax.top_k``, which
+``torch.topk`` on the card does not promise; ``parent_idx`` is the global
+row; the decode walks the steps back with ``linalg_ops.backtrack_beams``,
+as ``gather_tree`` does).
 The other ops of that module live in ``math_ops`` (``increment``,
 ``sum``, ``clip``), ``linalg_ops`` and ``tensor_ops``, or come with later
 slices of the port.
@@ -30,6 +45,7 @@ import numpy as np
 import torch
 
 from ..framework.lowering import register_lower
+from .linalg_ops import backtrack_beams
 
 
 @register_lower("accuracy")
@@ -88,6 +104,85 @@ def _print(ctx, op):
         host = host.float()
     print(f"{message} = {np.asarray(host)}", flush=True)
     ctx.set_out(op, "Out", x)
+
+
+@register_lower("squared_l2_norm")
+def _squared_l2_norm(ctx, op):
+    x = ctx.in1(op, "X")
+    ctx.set_out(op, "Out", torch.sum(torch.square(x.float())).reshape(1))
+
+
+@register_lower("coalesce_tensor")
+def _coalesce_tensor(ctx, op):
+    names = op.inputs.get("Input", [])
+    for name_in, name_out in zip(names, op.outputs.get("Output", [])):
+        ctx.set(name_out, ctx.get(name_in))
+    fused = op.outputs.get("FusedOutput")
+    if fused:
+        vals = [ctx.get(n).reshape(-1) for n in names]
+        ctx.set(fused[0], torch.cat(vals) if vals
+                else torch.zeros((0,), device=ctx.device))
+
+
+BEAM_NEG = -1e9     # the score of a finished lane's other candidates
+
+
+@register_lower("beam_search")
+def _beam_search(ctx, op):
+    """One selection step.  pre_ids / pre_scores [B*K, 1], scores
+    [B*K, C] (accumulated log-probabilities, or probabilities when
+    ``is_accumulated`` is false), ids [B*K, C] (optional: candidate j is
+    token j) -> selected_ids / selected_scores [B*K, 1], parent_idx [B*K]
+    (int32, as the JAX rule gives them)."""
+    pre_ids = ctx.in1(op, "pre_ids")
+    pre_scores = ctx.in1(op, "pre_scores")
+    scores = ctx.in1(op, "scores")
+    ids = ctx.in1(op, "ids")
+    k = int(op.attr("beam_size"))
+    end_id = int(op.attr("end_id"))
+    bk, c = scores.shape
+    if bk % k:
+        raise ValueError(
+            f"beam_search rows {bk} not divisible by beam_size {k}")
+    b, dev = bk // k, scores.device
+    if ids is None:
+        ids = torch.arange(c, dtype=torch.int32, device=dev).expand(bk, c)
+    ids = ids.to(torch.int32)
+    pre_s = pre_scores.reshape(bk).float()
+    acc = scores.float() if bool(op.attr("is_accumulated", True)) \
+        else pre_s[:, None] + torch.log(torch.clamp_min(scores.float(),
+                                                        1e-30))
+    finished = (pre_ids.reshape(bk) == end_id)[:, None]
+    only_end = torch.cat([torch.zeros(1, device=dev), torch.full(
+        (c - 1,), BEAM_NEG, dtype=torch.float32, device=dev)])
+    acc = torch.where(finished, pre_s[:, None] + only_end, acc)
+    ids = ids.masked_fill(finished, end_id)
+    top_scores, top_idx = torch.sort(acc.reshape(b, k * c), dim=1,
+                                     descending=True, stable=True)
+    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+    sel_ids = torch.gather(ids.reshape(b, k * c), 1, top_idx)
+    parent = (torch.arange(b, device=dev)[:, None] * k
+              + torch.div(top_idx, c, rounding_mode="floor"))
+    ctx.set_out(op, "selected_ids", sel_ids.reshape(bk, 1))
+    ctx.set_out(op, "selected_scores", top_scores.reshape(bk, 1))
+    ctx.set_out(op, "parent_idx", parent.to(torch.int32).reshape(bk))
+
+
+@register_lower("beam_search_decode")
+def _beam_search_decode(ctx, op):
+    """Ids / ParentIdx [T, B*K] (each step's tokens and global parent
+    rows, as ``beam_search`` gives them), Scores [T, B*K] ->
+    SentenceIds [B*K, T] (each final lane's path) and SentenceScores
+    [B*K] (its last score)."""
+    ids = ctx.in1(op, "Ids").to(torch.int32)
+    parents = ctx.in1(op, "ParentIdx").long()
+    k = int(op.attr("beam_size"))
+    t, bk = ids.shape
+    sent = backtrack_beams(ids.reshape(t, bk // k, k),
+                           (parents % k).reshape(t, bk // k, k))
+    ctx.set_out(op, "SentenceIds", sent.reshape(t, bk).transpose(0, 1))
+    ctx.set_out(op, "SentenceScores", ctx.in1(op, "Scores")[t - 1]
+                .reshape(bk))
 
 
 @register_lower("share_data", "memcpy", "memcpy_h2d", "memcpy_d2h")

@@ -66,6 +66,13 @@ def _reshape(ctx, op):
     _xshape(ctx, op, x)
 
 
+@register_lower("reshape2_grad")
+def _reshape2_grad(ctx, op):
+    # XShape carries the input's shape behind a 0 dim (``_xshape``)
+    ctx.set_out(op, "X@GRAD", ctx.in1(op, "Out@GRAD").reshape(
+        tuple(ctx.in1(op, "XShape").shape)[1:]))
+
+
 @register_lower("transpose", "transpose2")
 def _transpose(ctx, op):
     x = ctx.in1(op, "X")

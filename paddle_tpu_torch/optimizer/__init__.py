@@ -13,7 +13,7 @@ optimizer comes with the distributed slices.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional  # noqa: F401  (API.spec names them)
 
 import torch
 

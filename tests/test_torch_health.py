@@ -21,9 +21,11 @@ import numpy as np
 import pytest
 
 import paddle_tpu_torch as tpkg
+from paddle_tpu import monitor as jmonitor
 from paddle_tpu.observe import health as jhealth
 from paddle_tpu.observe import phases as jphases
 from paddle_tpu_torch import layers as tlayers
+from paddle_tpu_torch import monitor as tmonitor
 from paddle_tpu_torch.distributed.fleet.utils import KVServer
 from paddle_tpu_torch.framework import unique_name as tunique
 from paddle_tpu_torch.framework.executor import _InflightStep
@@ -77,10 +79,20 @@ def test_cluster_health_equals_jax():
 def test_bundle_sections_equal_jax(tmp_path):
     jphases.reset_phases()           # no plan left by an earlier test
     tphases.reset_phases()
-    jb = jhealth.dump_postmortem("parity", directory=str(tmp_path / "j"),
-                                 extra={"k": 1})
-    tb = thealth.dump_postmortem("parity", directory=str(tmp_path / "t"),
-                                 extra={"k": 1})
+    # nor an hbm gauge: memory.json holds them only when one is set
+    gauges = ("hbm_free_bytes", "hbm_used_bytes", "hbm_limit_bytes")
+    kept = [(m, k, m.stat_get(k)) for m in (jmonitor, tmonitor)
+            for k in gauges]
+    try:
+        for m, k, _ in kept:
+            m.stat_set(k, 0)
+        jb = jhealth.dump_postmortem("parity", directory=str(tmp_path / "j"),
+                                     extra={"k": 1})
+        tb = thealth.dump_postmortem("parity", directory=str(tmp_path / "t"),
+                                     extra={"k": 1})
+    finally:
+        for m, k, v in kept:
+            m.stat_set(k, v)
     assert sorted(os.listdir(tb)) == sorted(os.listdir(jb))
     jmeta, tmeta = (json.load(open(os.path.join(b, "meta.json")))
                     for b in (jb, tb))

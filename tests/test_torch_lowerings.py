@@ -52,9 +52,21 @@ def _f(rs, *shape, lo=None):
 
 def _case(op_type, inputs, outs, attrs=None, grad=("Out",), flash=False,
           tol=None):
+    """``outs``: output slots, each a name (one var, ``out_<slot>``) or
+    (name, count) (vars ``out_<slot>_<j>``, e.g. ``unbind``'s)."""
     return dict(type=op_type, inputs=inputs, outs=list(outs),
                 attrs=dict(attrs or {}), grad=list(grad), flash=flash,
                 tol=tol or TOL)
+
+
+def _out_names(case):
+    names = {}
+    for o in case["outs"]:
+        if isinstance(o, tuple):
+            names[o[0]] = [f"out_{o[0].lower()}_{j}" for j in range(o[1])]
+        else:
+            names[o] = [f"out_{o.lower()}"]
+    return names
 
 
 def _cases():
@@ -191,11 +203,11 @@ def _build(which, case, cotangents=None):
                            stop_gradient=False)
             feed[name] = a
             ins[slot].append(name)
-    outs = {s: [f"out_{s.lower()}"] for s in case["outs"]}
-    for (name,) in outs.values():
+    outs = _out_names(case)
+    fetch = [n for names in outs.values() for n in names]
+    for name in fetch:
         blk.create_var(name=name)
     op = blk.append_op(case["type"], ins, outs, case["attrs"])
-    fetch = [n for (n,) in outs.values()]
     if cotangents:
         out_grads = {}
         for name, cot in cotangents.items():
@@ -255,7 +267,8 @@ def _f32(a):
 
 def check_case(name, case):
     """Run ``case`` through both packages and compare every output and
-    every input gradient (shared with test_torch_lowerings_unfused.py)."""
+    every input gradient (shared with test_torch_lowerings_unfused.py and
+    the op library's tests).  Returns {fetch name: (port, jax)}."""
     with _flash(case["flash"]):
         # the outputs' shapes and types, to make their cotangents
         prog, feed, fetch = _build("torch", case)
@@ -263,22 +276,26 @@ def check_case(name, case):
         rs = np.random.RandomState(1)
         cots = {}
         for slot in case["grad"]:
-            out = probe[f"out_{slot.lower()}"]
-            cots[f"out_{slot.lower()}"] = np.asarray(
-                rs.randn(*out.shape)).astype(out.dtype)
+            for n in _out_names(case)[slot]:
+                out = np.asarray(probe[n])
+                cots[n] = np.asarray(rs.randn(*out.shape)).astype(out.dtype)
         fab.reset_launch_count()
         got = _run("torch", *_build("torch", case, cots))
         want = _run("jax", *_build("jax", case, cots))
     _prog, _feed, fetch = _build("torch", case, cots)
     assert len(got) == len(want) == len(fetch)
-    assert len(fetch) > len(case["outs"]) or not case["grad"]
+    n_outs = sum(len(v) for v in _out_names(case).values())
+    assert len(fetch) > n_outs or not case["grad"]
+    pairs = {}
     for n, g, w in zip(fetch, got, want):
         g, w = _f32(g), _f32(w)
         assert g.shape == w.shape, (n, g.shape, w.shape)
         if name.startswith("dropout") and n == "out_mask":
             g, w = g.astype("f4"), w.astype("f4")
         np.testing.assert_allclose(g, w, err_msg=n, **case["tol"])
+        pairs[n] = (g, w)
     assert fab.flash_attention_bias.launches == 0   # CPU tensors
+    return pairs
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
