@@ -337,6 +337,29 @@ Slice 21's phase runs after ``nn_extras``:
                ``distribution`` by their statistics; ``utils.run_check()``
                on the card; B1-B7 at 0.
 
+Slice 22's phase runs after ``op_library``:
+
+57. vision_ops -- the vision and detection ops (``VISION``), each group one
+               program through the Executor on the card, captured (its
+               ``executor_eager_*`` counters unchanged; ``crop_tensor``
+               with an ``Offsets`` tensor the one eager case), forward and
+               input gradient, then on the card and the CPU from the same
+               cut inputs (one image, one clip or the first RoIs at full
+               width; ``OPLIB_RTOL``; NMS, proposals and pool masks by the
+               margin rules, VISION_MARGIN): YOLOv3's three ``yolo_box``
+               heads at 608 into ``multiclass_nms3`` and PP-YOLO's into
+               ``matrix_nms`` (linear and gaussian), SSD300's priors,
+               decode, NMS and matching, Faster R-CNN's RPN proposals and
+               RoI head (``roi_align`` 14x14, ``roi_pool`` 7x7 over 1,024
+               RoIs), R-FCN's ``psroi_pool`` and ``prroi_pool``, PP-YOLO's
+               DCN res5, a flow warp and FlowNetC's correlation, C3D's
+               conv3a with 3-D pools, TSM's shift, SegNet's pool with
+               index, AlexNet's LRN, a x2 pixel shuffle, 37,000-way label
+               smoothing and the other lowerings at small shapes: each
+               group's card ms (median of 5 CUDA-event timings of the
+               captured step); ``vision.ops``' four functions in dygraph
+               on the card against the static path; B1-B7 at 0.
+
 Slice 14's phases run after ``profile`` (the first three, on the serving
 model, the launch counters zeroed before each timed window and read after
 it) and after ``infer_oracle`` (the last two, on its saved directory).
@@ -5001,6 +5024,862 @@ def phase_op_library():
                            f"{launches}")
 
 
+# ---- slice 22: vision and detection ops -------------------------------------
+
+# vision_ops: the lowerings ported from the JAX package's vision,
+# detection, NMS, deformable and correlation files (ROADMAP item 5b), each
+# group one program through the Executor on the card, captured (its
+# executor_eager_* counters unchanged; crop_tensor with Offsets the one
+# eager case), forward and, for the differentiable groups, the input
+# gradient; then the same program on the card and on the CPU from the
+# same cut inputs (``cut``: one image, one clip or the first RoIs, at full
+# width).  Float gaps as OPLIB_RTOL (relative to the CPU value's largest
+# magnitude; float32, TF32 off).  Integer outputs must be equal, but for
+# the two kinds of decisions a last-bit difference between the card's and
+# the CPU's float32 (exp, sigmoid, cuDNN's sums) may flip:
+# - NMS and proposals (``vision_nms_check``): a kept row may differ only
+#   where a deciding score or IoU lies within VISION_MARGIN of its
+#   threshold, of a rank neighbour or of the top-k cut, or where it
+#   follows from such a flip (suppressed by a flipped box, shifted past
+#   the cut); the count of such rows is logged;
+# - a pool's Mask (``mask_of``): a position may differ only where the
+#   two candidates' input values are within VISION_MARGIN.
+VISION_MARGIN = 1e-6
+VISION = dict(   # the shapes, at the widths of the models that run them
+    # PaddleDetection yolov3_darknet53_270e_coco, eval at 608: three heads
+    # of 3 x (5 + 80) channels, the COCO anchors -> 22,743 boxes
+    yolo=dict(batch=4, classes=80, img=608, grids=(19, 38, 76),
+              downsample=(32, 16, 8),
+              anchors=(10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119,
+                       116, 90, 156, 198, 373, 326),
+              masks=((6, 7, 8), (3, 4, 5), (0, 1, 2)), conf=0.005,
+              nms=dict(score_threshold=0.01, nms_top_k=1000, keep_top_k=100,
+                       nms_threshold=0.45, background_label=-1,
+                       normalized=False)),
+    # ppyolo_r50vd_dcn_1x_coco's head: scale_x_y 1.05, matrix NMS
+    ppyolo=dict(scale_x_y=1.05, nms=dict(
+        score_threshold=0.01, post_threshold=0.01, nms_top_k=1000,
+        keep_top_k=100, background_label=-1, normalized=False)),
+    # ssd_vgg16_300_240e_voc: 8,732 priors, 21 classes, batch 8, 40
+    # ground-truth boxes an image
+    ssd=dict(batch=8, classes=21, img=300, maps=(38, 19, 10, 5, 3, 1),
+             min_sizes=(30, 60, 111, 162, 213, 264),
+             max_sizes=(60, 111, 162, 213, 264, 315),
+             ratios=((2,), (2, 3), (2, 3), (2, 3), (2,), (2,)), gt=40,
+             nms=dict(score_threshold=0.01, nms_top_k=400, keep_top_k=200,
+                      nms_threshold=0.45, background_label=0,
+                      normalized=True)),
+    # faster_rcnn_r50_1x_coco (C4) at 800 x 1333, test: the RPN head
+    rpn=dict(batch=2, h=50, w=84, img=(800, 1333),
+             sizes=(32, 64, 128, 256, 512), ratios=(0.5, 1.0, 2.0),
+             attrs=dict(pre_nms_topN=6000, post_nms_topN=1000,
+                        nms_thresh=0.7, min_size=0.0, eta=1.0,
+                        pixel_offset=True)),
+    # the same model's RoI head, 512 sampled RoIs an image in training
+    roi=dict(x=(2, 1024, 50, 84), per_image=512, align=14, pool=7,
+             cpu_rois=8),
+    # R-FCN's head on COCO (81 x 7 x 7 maps); PrRoI pooling (IoU-Net)
+    psroi=dict(x=(1, 3969, 50, 84), rois=300, out_c=81, bins=7, cpu_rois=8),
+    prroi=dict(x=(2, 256, 50, 84), per_image=512, bins=7, cpu_rois=8),
+    # PP-YOLO's ResNet50-vd DCN res5 at 608
+    deform=dict(x=(8, 512, 19, 19), filter=(512, 512, 3, 3)),
+    # a flow warp; FlowNetC's correlation at 384 x 512
+    grid=dict(x=(8, 64, 128, 256)),
+    corr=dict(x=(4, 256, 48, 64), attrs=dict(
+        pad_size=20, kernel_size=1, max_displacement=20, stride1=1,
+        stride2=2)),
+    # C3D's conv3a on 16 x 112 x 112 clips; TSM ResNet-50 (8 segments)
+    c3d=dict(x=(8, 128, 8, 28, 28), filter=(256, 128, 3, 3, 3)),
+    tsm=dict(x=(64, 256, 56, 56), seg_num=8, ratio=0.125),
+    # SegNet on CamVid; AlexNet's conv1; a x2 super-resolution head; the
+    # text Transformer's 37,000-way labels
+    segnet=(8, 64, 360, 480), alexnet=(128, 96, 55, 55),
+    sr=(16, 256, 64, 64), labels=(4096, 37000),
+)
+
+
+def vision_cut(rows):
+    """A ``cut`` keeping the first ``rows(name)`` of each feed and output
+    (a cotangent feed as its output); ``rows`` None keeps the whole
+    tensor."""
+    def cut(name, t):
+        k = rows(name.split("@")[0])
+        return t if k is None else t[:k]
+    return cut
+
+
+def vision_gap(a, b):
+    if not a.is_floating_point():
+        return 0.0 if torch.equal(a, b) else float("inf")
+    return oplib_gap(a, b)
+
+
+def vision_diff(a, b):
+    """Where ``a`` and ``b`` differ most, for the log."""
+    if a.shape != b.shape:
+        return {"shapes": [list(a.shape), list(b.shape)]}
+    d = (a.double() - b.double()).abs()
+    i = int(d.reshape(-1).argmax())
+    at = [int(v) for v in np.unravel_index(i, tuple(a.shape))]
+    return {"differ": int((a != b).sum()), "of": a.numel(), "at": at,
+            "card": float(a.reshape(-1)[i]), "cpu": float(b.reshape(-1)[i])}
+
+
+def vision_group(dev, flush, label, ops, feeds, grad=(), no_grad=(),
+                 cut=None, checks=None):
+    """``ops`` on ``dev`` through the Executor at full width, forward and
+    the gradients of ``grad``'s outputs for every float feed not in
+    ``no_grad``: the captured step's ms (median of 5 CUDA-event timings
+    after the eager run and the capture), whether it ran captured, its
+    outputs finite; then the same program on ``dev`` and on the CPU from
+    the ``cut`` inputs, every fetch compared (``checks``: {fetch: fn(card,
+    cpu, card_fetches, cpu_fetches) -> (gap, margin_flips)} for the
+    decisions), and the full run's outputs against the cut run's."""
+    t0 = time.monotonic()
+    eager0 = eager_counts()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    try:
+        prog, fetch, _ = oplib_program(ops, feeds)
+        outs = list(fetch)
+        probe = dict(zip(fetch, oplib_run(exe, prog, feeds, fetch)))
+        cots = {n: oplib_cot(probe[n], dev) for n in grad}
+        del probe
+        prog, fetch, grad_feeds = oplib_program(ops, feeds, cots, no_grad)
+        feed = {**feeds, **grad_feeds}
+        first = [time.monotonic() - t0] + [oplib_synced(
+            lambda: oplib_run(exe, prog, feed, fetch)) for _ in range(2)]
+        ms = cuda_ms(lambda: oplib_run(exe, prog, feed, fetch), flush,
+                     reps=5, warmup=0)
+        full = dict(zip(fetch, [v.clone() for v in
+                                oplib_run(exe, prog, feed, fetch)]))
+        full_outs = [full[n] for n in outs]
+        captured = eager_counts() == eager0
+        cut = cut or (lambda name, t: t)
+        small = {n: cut(n, t) for n, t in feed.items()}
+        card = dict(zip(fetch, [v.clone() for v in
+                                oplib_run(exe, prog, small, fetch)]))
+    finally:
+        exe.close()
+    t1 = time.monotonic()
+    cpu_exe = pt.Executor(pt.CPUPlace())
+    try:
+        cpu = dict(zip(fetch, oplib_run(
+            cpu_exe, prog, {n: t.cpu() for n, t in small.items()}, fetch)))
+    finally:
+        cpu_exe.close()
+    t2 = time.monotonic()
+    gaps, flips = {}, {}
+    card, cpu = {**small, **card}, {**small, **cpu}
+    for n in fetch:
+        a, b = card[n], cpu[n].to(dev)
+        if checks and n in checks:
+            gaps[n], flips[n] = checks[n](a, b, card, cpu)
+        else:
+            gaps[n] = vision_gap(a, b) if a.shape == b.shape \
+                else float("inf")
+    # the full-width outputs: finite where the cut run is, and their cut
+    # rows the cut run's (decisions by the same checks)
+    full = {**small, **{n: cut(n, full[n]) for n in outs}}
+    for n in outs:
+        a, b = full[n], card[n]
+        if not a.numel():           # an XShape
+            continue
+        if checks and n in checks:
+            g = checks[n](a, b, full, card)[0]
+        else:
+            g = vision_gap(a, b) if a.shape == b.shape else float("inf")
+        gaps[f"{n}/full"] = g
+    finite = all(torch.isfinite(t).all() for t in full_outs
+                 if t.is_floating_point())
+    worst = max(gaps, key=gaps.get)
+    bad = {n: vision_diff(card[n], cpu[n].to(dev)) for n in fetch
+           if gaps[n] > OPLIB_RTOL}
+    return {"group": label, "ops": sorted({o[0] for o in ops}),
+            "shapes": {n: list(t.shape) for n, t in feeds.items()},
+            "card_ms": ms, "captured": captured, "finite": bool(finite),
+            "over_tolerance": bad,
+            "max_rel_gap": gaps[worst], "worst": worst,
+            "outputs_compared": len(gaps), "margin_flips": flips,
+            "seconds_probe_eager_capture": first,
+            "seconds_card_cpu_compare": [t1 - t0, t2 - t1,
+                                         time.monotonic() - t2]}
+
+
+def nms_rows(rows, probs, index, num, b):
+    """Image ``b``'s kept rows as [(label, index or None, score, box)]."""
+    out = []
+    for i in range(int(num[b])):
+        if probs is None:                  # (label, score, x1, y1, x2, y2)
+            out.append((int(rows[b, i, 0]),
+                        None if index is None else int(index[b, i]),
+                        float(rows[b, i, 1]), rows[b, i, 2:6].tolist()))
+        else:                              # proposals: box + probability
+            out.append((0, None, float(probs[b, i, 0]), rows[b, i].tolist()))
+    return out
+
+
+def nms_match(ra, rb, tol):
+    """Pairs (i, j) of rows that are the same detection: the same label
+    and index where the op gives one, else the same label and a box
+    within ``tol``; and the rows of each side left unmatched."""
+    pairs, free = [], set(range(len(rb)))
+    for i, (lab, idx, _s, box) in enumerate(ra):
+        for j in sorted(free):
+            lb, jb, _sb, bb = rb[j]
+            if lb == lab and (idx == jb if idx is not None else max(
+                    abs(x - y) for x, y in zip(box, bb)) <= tol):
+                pairs.append((i, j))
+                free.discard(j)
+                break
+    left_a = sorted(set(range(len(ra))) - {i for i, _ in pairs})
+    return pairs, left_a, sorted(free)
+
+
+def box_iou(a, b, normalized):
+    off = 0.0 if normalized else 1.0
+    iw = max(min(a[2], b[2]) - max(a[0], b[0]) + off, 0.0)
+    ih = max(min(a[3], b[3]) - max(a[1], b[1]) + off, 0.0)
+    inter = iw * ih
+    union = (max(a[2] - a[0] + off, 0.0) * max(a[3] - a[1] + off, 0.0)
+             + max(b[2] - b[0] + off, 0.0) * max(b[3] - b[1] + off, 0.0)
+             - inter)
+    return inter / union if union > 0 else 0.0
+
+
+def vision_nms_check(kind, attrs, num, index=None, probs=None,
+                     scores=None):
+    """A ``checks`` entry for an NMS or proposal output (``kind``
+    "greedy", "matrix" or "proposals"; with the
+    count ``num``, the ``index`` and ``probs`` fetches where the op gives
+    them, and ``scores`` its score input [B, C, M], for the top-k cut):
+    (gap, flips).  The kept rows of each image are matched by key; a
+    matched row's score and box within OPLIB_RTOL; a row kept on one side
+    only must be a margin flip (see above), else the gap is inf."""
+    thr = None if kind == "matrix" else attrs.get(
+        "nms_threshold", attrs.get("nms_thresh"))
+    top_k = attrs.get("nms_top_k", attrs.get("pre_nms_topN", -1))
+    floor = attrs.get("post_threshold", attrs.get(
+        "score_threshold", float("-inf")))
+    normalized = attrs.get("normalized", not attrs.get("pixel_offset", True))
+    off = 0.0 if normalized else 1.0
+    min_size = max(attrs["min_size"], 1.0) if "min_size" in attrs else None
+
+    def check(a, b, fa, fb):
+        got = [None if n is None else fa[n].cpu()
+               for n in (None, num, index, probs)]
+        want = [None if n is None else fb[n].cpu()
+                for n in (None, num, index, probs)]
+        got[0], want[0] = a.cpu(), b.cpu()
+        sc = fb[scores].cpu() if scores else None
+        gap, flips = 0.0, 0
+        scale = max(float(b.abs().max()), 1e-30)
+        for img in range(a.shape[0]):
+            ra = nms_rows(got[0], got[3], got[2], got[1], img)
+            rb = nms_rows(want[0], want[3], want[2], want[1], img)
+            pairs, left_a, left_b = nms_match(ra, rb, 1e-3 * scale)
+            for i, j in pairs:
+                gap = max(gap, max(abs(x - y) for x, y in zip(
+                    [ra[i][2]] + ra[i][3], [rb[j][2]] + rb[j][3])) / scale)
+            # rows kept on one side only, the higher scores first, each
+            # with its position on its side and the other side's count
+            diff = sorted([(ra[i], i, len(rb)) for i in left_a]
+                          + [(rb[j], j, len(ra)) for j in left_b],
+                          key=lambda d: -d[0][2])
+            every = ra + rb
+            cuts = []
+            if sc is not None and 0 < top_k < sc[img].numel():
+                flat = sc[img].reshape(1, -1) if kind == "proposals" \
+                    else sc[img].reshape(-1, sc.shape[-1])
+                top = torch.sort(flat, dim=-1, descending=True).values
+                cuts = top[:, top_k - 1:top_k + 1]
+            explained = []
+            for (lab, _idx, s, box), pos, n_other in diff:
+                near = [abs(s - floor)] + [abs(s - o[2]) for o in every
+                                           if o[3] != box]
+                if len(cuts):
+                    near += [abs(s - float(c)) for c in cuts[max(lab, 0)]]
+                if thr is not None:
+                    near += [abs(box_iou(box, o[3], normalized) - thr)
+                             for o in every if o[0] == lab and o[3] != box]
+                if min_size is not None:   # the proposals' size filter
+                    near += [abs(box[2] - box[0] + off - min_size),
+                             abs(box[3] - box[1] + off - min_size)]
+                # suppressed by a flipped box, or pushed past the cut by
+                # one (a flip above it)
+                follows = explained and pos >= n_other - len(
+                    explained) or any(
+                    e[2] > s and e[0] == lab and thr is not None
+                    and box_iou(box, e[3], normalized) >= thr - VISION_MARGIN
+                    for e in explained)
+                if min(near) <= VISION_MARGIN or follows:
+                    explained.append((lab, _idx, s, box))
+                else:
+                    gap = float("inf")
+            flips += len(explained)
+        return gap, flips
+    return check
+
+
+def mask_check(x_name):
+    """A ``checks`` entry for a pool's int32 Mask over the feed
+    ``x_name``: positions may differ only where the input values at the
+    two indices are within VISION_MARGIN of the window's value (a tie
+    the card's and the CPU's sums break apart)."""
+    def check(a, b, fa, fb):
+        if a.shape != b.shape:
+            return float("inf"), 0
+        bad = a != b
+        n = int(bad.sum())
+        if not n:
+            return 0.0, 0
+        x = fb[x_name].to(a.device).flatten(2)
+        a, b, bad = a.flatten(2), b.flatten(2), bad.flatten(2)
+        va = torch.gather(x, 2, a.long())[bad]
+        vb = torch.gather(x, 2, b.long())[bad]
+        scale = float(x.abs().max())
+        ok = (va - vb).abs().max() <= VISION_MARGIN * max(scale, 1.0)
+        return (0.0 if ok else float("inf")), n
+    return check
+
+
+def yolo_ops(c, scale_x_y, tail):
+    """YOLOv3's post-process: a ``yolo_box`` a head, the boxes and scores
+    concatenated, the scores transposed to [B, C, M], then ``tail``."""
+    ops, boxes, scores = [], [], []
+    for i, down in enumerate(c["downsample"]):
+        anchors = [c["anchors"][2 * m + j] for m in c["masks"][i]
+                   for j in (0, 1)]
+        ops.append(("yolo_box", {"X": [f"head{i}"], "ImgSize": ["img_size"]},
+                    {"Boxes": [f"boxes{i}"], "Scores": [f"scores{i}"]},
+                    dict(anchors=anchors, class_num=c["classes"],
+                         conf_thresh=c["conf"], downsample_ratio=down,
+                         clip_bbox=True, scale_x_y=scale_x_y)))
+        boxes.append(f"boxes{i}")
+        scores.append(f"scores{i}")
+    ops += [("concat", {"X": boxes}, {"Out": ["all_boxes"]}, {"axis": 1}),
+            ("concat", {"X": scores}, {"Out": ["all_scores"]}, {"axis": 1}),
+            ("transpose2", {"X": ["all_scores"]},
+             {"Out": ["scores_t"], "XShape": ["scores_xshape"]},
+             {"axis": [0, 2, 1]})]
+    return ops + tail
+
+
+def vision_yolo(dev, gen, flush):
+    c = VISION["yolo"]
+    feeds = {f"head{i}": torch.randn(
+        (c["batch"], 3 * (5 + c["classes"]), g, g), generator=gen,
+        device=dev) for i, g in enumerate(c["grids"])}
+    feeds["img_size"] = torch.full((c["batch"], 2), c["img"],
+                                   dtype=torch.int32, device=dev)
+    one = vision_cut(lambda n: 1)
+    nms = c["nms"]
+    rows = [vision_group(
+        dev, flush, "yolov3: yolo_box x3 + multiclass_nms3",
+        yolo_ops(c, 1.0, [("multiclass_nms3", {
+            "BBoxes": ["all_boxes"], "Scores": ["scores_t"]},
+            {"Out": ["dets"], "Index": ["index"], "NmsRoisNum": ["num"]},
+            nms)]), feeds, cut=one,
+        checks={"dets": vision_nms_check("greedy", nms, "num", "index",
+                                         scores="scores_t"),
+                "index": lambda a, b, fa, fb: (0.0, 0),
+                "num": lambda a, b, fa, fb: (0.0, 0)})]
+    p = VISION["ppyolo"]
+    tail, checks = [], {}
+    for kind, gaussian in (("linear", False), ("gaussian", True)):
+        attrs = dict(p["nms"], use_gaussian=gaussian, gaussian_sigma=2.0)
+        tail.append(("matrix_nms", {"BBoxes": ["all_boxes"],
+                                    "Scores": ["scores_t"]},
+                     {"Out": [f"dets_{kind}"], "Index": [f"index_{kind}"],
+                      "RoisNum": [f"num_{kind}"]}, attrs))
+        checks[f"dets_{kind}"] = vision_nms_check(
+            "matrix", attrs, f"num_{kind}", f"index_{kind}",
+            scores="scores_t")
+        checks[f"index_{kind}"] = checks[f"num_{kind}"] = \
+            lambda a, b, fa, fb: (0.0, 0)
+    rows.append(vision_group(dev, flush, "ppyolo: yolo_box x3 + matrix_nms",
+                             yolo_ops(c, p["scale_x_y"], tail), feeds,
+                             cut=one, checks=checks))
+    return rows
+
+
+def vision_ssd(dev, gen, flush):
+    """SSD300's priors, its decode + ``multiclass_nms``, and its matching
+    (``iou_similarity`` + ``bipartite_match`` + ``box_coder`` encode).
+    ``prior_box`` reads its inputs' shapes only: 1-channel maps."""
+    c = VISION["ssd"]
+    b, img = c["batch"], c["img"]
+    feeds = {f"map{i}": torch.zeros((1, 1, m, m), device=dev)
+             for i, m in enumerate(c["maps"])}
+    feeds["image"] = torch.zeros((1, 3, img, img), device=dev)
+    ops, pri, var = [], [], []
+    for i, m in enumerate(c["maps"]):
+        ops.append(("prior_box", {"Input": [f"map{i}"], "Image": ["image"]},
+                    {"Boxes": [f"pb{i}"], "Variances": [f"pv{i}"]},
+                    dict(min_sizes=[float(c["min_sizes"][i])],
+                         max_sizes=[float(c["max_sizes"][i])],
+                         aspect_ratios=[float(r) for r in c["ratios"][i]],
+                         flip=True, clip=True, offset=0.5,
+                         min_max_aspect_ratios_order=True)))
+        for src, dst in ((f"pb{i}", f"pbf{i}"), (f"pv{i}", f"pvf{i}")):
+            ops.append(("reshape2", {"X": [src]},
+                        {"Out": [dst], "XShape": [f"{dst}_xshape"]},
+                        {"shape": [-1, 4]}))
+        pri.append(f"pbf{i}")
+        var.append(f"pvf{i}")
+    ops += [("concat", {"X": pri}, {"Out": ["priors"]}, {"axis": 0}),
+            ("concat", {"X": var}, {"Out": ["prior_var"]}, {"axis": 0})]
+    n_priors = sum(m * m * (2 + 2 * len(r))
+                   for m, r in zip(c["maps"], c["ratios"]))
+    feeds["loc"] = torch.randn((b, n_priors, 4), generator=gen,
+                               device=dev) * 0.5
+    feeds["conf"] = torch.randn((b, n_priors, c["classes"]), generator=gen,
+                                device=dev) * 2
+    xy = torch.rand((b * c["gt"], 2), generator=gen, device=dev) * 0.7
+    feeds["gt"] = torch.cat([xy, xy + 0.05 + torch.rand(
+        (b * c["gt"], 2), generator=gen, device=dev) * 0.25], 1)
+    ops += [
+        ("box_coder", {"PriorBox": ["priors"], "PriorBoxVar": ["prior_var"],
+                       "TargetBox": ["loc"]}, {"OutputBox": ["decoded"]},
+         dict(code_type="decode_center_size", box_normalized=True)),
+        ("softmax", {"X": ["conf"]}, {"Out": ["probs"]}, {"axis": -1}),
+        ("transpose2", {"X": ["probs"]},
+         {"Out": ["scores_t"], "XShape": ["scores_xshape"]},
+         {"axis": [0, 2, 1]}),
+        ("multiclass_nms", {"BBoxes": ["decoded"], "Scores": ["scores_t"]},
+         {"Out": ["dets"], "NmsRoisNum": ["num"]}, c["nms"]),
+        ("iou_similarity", {"X": ["gt"], "Y": ["priors"]}, {"Out": ["iou"]},
+         dict(box_normalized=True)),
+        ("reshape2", {"X": ["iou"]},
+         {"Out": ["dist"], "XShape": ["dist_xshape"]},
+         {"shape": [-1, c["gt"], n_priors]}),
+        ("bipartite_match", {"DistMat": ["dist"]},
+         {"ColToRowMatchIndices": ["match"],
+          "ColToRowMatchDist": ["match_dist"]},
+         dict(match_type="per_prediction", dist_threshold=0.5)),
+        ("box_coder", {"PriorBox": ["priors"], "PriorBoxVar": ["prior_var"],
+                       "TargetBox": ["gt"]}, {"OutputBox": ["encoded"]},
+         dict(code_type="encode_center_size", box_normalized=True))]
+    cut = vision_cut(lambda n: {"loc": 1, "conf": 1, "gt": c["gt"],
+                                "decoded": 1, "probs": 1, "scores_t": 1,
+                                "dets": 1, "num": 1, "iou": c["gt"],
+                                "dist": 1, "match": 1, "match_dist": 1,
+                                "encoded": c["gt"]}.get(n))
+    return [vision_group(
+        dev, flush, "ssd300: prior_box x6 + box_coder + multiclass_nms; "
+        "iou_similarity + bipartite_match + box_coder encode", ops, feeds,
+        cut=cut, checks={"dets": vision_nms_check("greedy", c["nms"], "num",
+                                                  scores="scores_t"),
+                         "num": lambda a, b, fa, fb: (0.0, 0)})]
+
+
+def vision_rpn(dev, gen, flush):
+    c = VISION["rpn"]
+    b, h, w = c["batch"], c["h"], c["w"]
+    a = len(c["sizes"]) * len(c["ratios"])
+    feeds = {"feat": torch.zeros((1, 1, h, w), device=dev),
+             "rpn_scores": torch.randn((b, a, h, w), generator=gen,
+                                       device=dev),
+             "rpn_deltas": torch.randn((b, 4 * a, h, w), generator=gen,
+                                       device=dev) * 0.3,
+             "im_shape": torch.tensor([c["img"]] * b, dtype=torch.float32,
+                                      device=dev)}
+    ops = [("anchor_generator", {"Input": ["feat"]},
+            {"Anchors": ["anchors"], "Variances": ["variances"]},
+            dict(anchor_sizes=[float(s) for s in c["sizes"]],
+                 aspect_ratios=list(c["ratios"]), stride=[16.0, 16.0],
+                 offset=0.5, variances=[1.0, 1.0, 1.0, 1.0])),
+           ("generate_proposals_v2",
+            {"Scores": ["rpn_scores"], "BboxDeltas": ["rpn_deltas"],
+             "Anchors": ["anchors"], "Variances": ["variances"],
+             "ImShape": ["im_shape"]},
+            {"RpnRois": ["rois"], "RpnRoiProbs": ["probs"],
+             "RpnRoisNum": ["num"]}, c["attrs"])]
+    cut = vision_cut(lambda n: 1 if n in ("rpn_scores", "rpn_deltas",
+                                          "im_shape", "rois", "probs",
+                                          "num") else None)
+    return [vision_group(
+        dev, flush, "faster_rcnn c4: anchor_generator + "
+        "generate_proposals_v2", ops, feeds, cut=cut,
+        checks={"rois": vision_nms_check("proposals", c["attrs"], "num",
+                                         probs="probs", scores="rpn_scores"),
+                "probs": lambda a, b, fa, fb: (0.0, 0),
+                "num": lambda a, b, fa, fb: (0.0, 0)})]
+
+
+def random_rois(gen, dev, n, img=(800, 1333)):
+    """``n`` boxes inside an ``img`` image, 16 to 600 pixels a side."""
+    hw = torch.tensor([img[1], img[0]], dtype=torch.float32, device=dev)
+    size = 16 + torch.rand((n, 2), generator=gen, device=dev) * 584
+    lo = torch.rand((n, 2), generator=gen, device=dev) * (hw - size)
+    return torch.cat([lo, lo + size], 1)
+
+
+def vision_rois(dev, gen, flush):
+    rows = []
+    c = VISION["roi"]
+    n = c["x"][0] * c["per_image"]
+    feeds = {"x": torch.relu(torch.randn(c["x"], generator=gen,
+                                         device=dev)),
+             "rois": random_rois(gen, dev, n),
+             "rois_num": torch.full((c["x"][0],), c["per_image"],
+                                    dtype=torch.int32, device=dev)}
+    ops = [("roi_align", {"X": ["x"], "ROIs": ["rois"],
+                          "RoisNum": ["rois_num"]}, {"Out": ["aligned"]},
+            dict(pooled_height=c["align"], pooled_width=c["align"],
+                 spatial_scale=1 / 16, sampling_ratio=0, aligned=True)),
+           ("roi_pool", {"X": ["x"], "ROIs": ["rois"],
+                         "RoisNum": ["rois_num"]},
+            {"Out": ["pooled"], "Argmax": ["argmax"]},
+            dict(pooled_height=c["pool"], pooled_width=c["pool"],
+                 spatial_scale=1 / 16))]
+    first = vision_cut(lambda n: c["cpu_rois"] if n in (
+        "rois", "aligned", "pooled", "argmax") else None)
+    rows.append(vision_group(dev, flush, "roi_align 14x14 + roi_pool 7x7",
+                             ops, feeds, grad=("aligned", "pooled"),
+                             no_grad=("rois",), cut=first))
+    p, q = VISION["psroi"], VISION["prroi"]
+    n = q["x"][0] * q["per_image"]
+    feeds = {"x_ps": torch.randn(p["x"], generator=gen, device=dev),
+             "rois_ps": random_rois(gen, dev, p["rois"]),
+             "x_pr": torch.randn(q["x"], generator=gen, device=dev),
+             "rois_pr": random_rois(gen, dev, n),
+             "batch_num": torch.full((q["x"][0],), q["per_image"],
+                                     dtype=torch.int32, device=dev)}
+    ops = [("psroi_pool", {"X": ["x_ps"], "ROIs": ["rois_ps"]},
+            {"Out": ["ps"]}, dict(output_channels=p["out_c"],
+                                  pooled_height=p["bins"],
+                                  pooled_width=p["bins"],
+                                  spatial_scale=1 / 16)),
+           ("prroi_pool", {"X": ["x_pr"], "ROIs": ["rois_pr"],
+                           "BatchRoINums": ["batch_num"]},
+            {"Out": ["pr"]}, dict(pooled_height=q["bins"],
+                                  pooled_width=q["bins"],
+                                  spatial_scale=1 / 16))]
+    first = vision_cut(lambda n: {"rois_ps": p["cpu_rois"],
+                                  "ps": p["cpu_rois"],
+                                  "rois_pr": q["cpu_rois"],
+                                  "pr": q["cpu_rois"]}.get(n))
+    rows.append(vision_group(dev, flush, "psroi_pool; prroi_pool", ops,
+                             feeds, grad=("ps", "pr"),
+                             no_grad=("rois_ps", "rois_pr"), cut=first))
+    return rows
+
+
+def vision_dense(dev, gen, flush):
+    rows = []
+    one = vision_cut(lambda n: 1)
+    c = VISION["deform"]
+    n, _ci, h, w = c["x"]
+    kk = c["filter"][2] * c["filter"][3]
+    feeds = {"x": torch.randn(c["x"], generator=gen, device=dev),
+             "offset": torch.randn((n, 2 * kk, h, w), generator=gen,
+                                   device=dev) * 2,
+             "mask": torch.rand((n, kk, h, w), generator=gen, device=dev),
+             "filter": torch.randn(c["filter"], generator=gen,
+                                   device=dev) * 0.02}
+    attrs = dict(strides=[1, 1], paddings=[1, 1], dilations=[1, 1],
+                 groups=1, deformable_groups=1)
+    ops = [("deformable_conv", {"Input": ["x"], "Offset": ["offset"],
+                                "Mask": ["mask"], "Filter": ["filter"]},
+            {"Output": ["out_v2"]}, attrs),
+           ("deformable_conv_v1", {"Input": ["x"], "Offset": ["offset"],
+                                   "Filter": ["filter"]},
+            {"Output": ["out_v1"]}, attrs)]
+    rows.append(vision_group(
+        dev, flush, "deformable_conv (v2) + deformable_conv_v1", ops, feeds,
+        grad=("out_v2", "out_v1"),
+        cut=vision_cut(lambda n: None if n == "filter" else 1)))
+    g, k = VISION["grid"], VISION["corr"]
+    gn, _gc, gh, gw = g["x"]
+    feeds = {"img": torch.randn(g["x"], generator=gen, device=dev),
+             "grid": torch.rand((gn, gh, gw, 2), generator=gen,
+                                device=dev) * 2.2 - 1.1,
+             "frame1": torch.randn(k["x"], generator=gen, device=dev),
+             "frame2": torch.randn(k["x"], generator=gen, device=dev)}
+    ops = [("grid_sampler", {"X": ["img"], "Grid": ["grid"]},
+            {"Output": ["warped"]},
+            dict(mode="bilinear", padding_mode="zeros", align_corners=False)),
+           ("correlation", {"Input1": ["frame1"], "Input2": ["frame2"]},
+            {"Output": ["cost"]}, k["attrs"])]
+    rows.append(vision_group(dev, flush, "grid_sampler; correlation", ops,
+                             feeds, grad=("warped", "cost"), cut=one))
+    c, t = VISION["c3d"], VISION["tsm"]
+    pooled_in = (c["x"][0], c["filter"][0]) + c["x"][2:]
+    feeds = {"clip": torch.randn(c["x"], generator=gen, device=dev),
+             "w3": torch.randn(c["filter"], generator=gen,
+                               device=dev) * 0.03,
+             # the pools take a feed of conv3a's output shape: after the
+             # conv, last-bit differences between cuDNN and the CPU would
+             # move a near-tied maximum, and its gradient with it
+             "c3": torch.randn(pooled_in, generator=gen, device=dev),
+             "segs": torch.randn(t["x"], generator=gen, device=dev)}
+    ops = [("conv3d", {"Input": ["clip"], "Filter": ["w3"]},
+            {"Output": ["conv"]}, dict(strides=[1, 1, 1],
+                                       paddings=[1, 1, 1])),
+           ("pool3d", {"X": ["c3"]}, {"Out": ["p3"]},
+            dict(pooling_type="max", ksize=[2, 2, 2], strides=[2, 2, 2])),
+           ("max_pool3d_with_index", {"X": ["c3"]},
+            {"Out": ["p3i"], "Mask": ["mask3"]},
+            dict(ksize=[2, 2, 2], strides=[2, 2, 2])),
+           ("temporal_shift", {"X": ["segs"]}, {"Out": ["shifted"]},
+            dict(seg_num=t["seg_num"], shift_ratio=t["ratio"]))]
+    rows.append(vision_group(
+        dev, flush, "conv3d + pool3d max + max_pool3d_with_index; "
+        "temporal_shift", ops, feeds,
+        grad=("conv", "p3", "p3i", "shifted"),
+        cut=vision_cut(lambda n: {"w3": None, "segs": t["seg_num"],
+                                  "shifted": t["seg_num"]}.get(n, 1)),
+        checks={"mask3": mask_check("c3")}))
+    feeds = {"seg": torch.randn(VISION["segnet"], generator=gen, device=dev),
+             "alex": torch.randn(VISION["alexnet"], generator=gen,
+                                 device=dev),
+             "sr": torch.randn(VISION["sr"], generator=gen, device=dev)}
+    rows_, classes = VISION["labels"]
+    feeds["labels"] = F.one_hot(torch.randint(
+        0, classes, (rows_,), generator=gen, device=dev), classes).float()
+    ops = [("max_pool2d_with_index", {"X": ["seg"]},
+            {"Out": ["seg_pooled"], "Mask": ["seg_mask"]},
+            dict(ksize=[2, 2], strides=[2, 2], paddings=[0, 0])),
+           ("lrn", {"X": ["alex"]}, {"Out": ["lrn"], "MidOut": ["lrn_mid"]},
+            dict(n=5, alpha=1e-4, beta=0.75, k=2.0)),
+           ("pixel_shuffle", {"X": ["sr"]}, {"Out": ["shuffled"]},
+            dict(upscale_factor=2)),
+           ("label_smooth", {"X": ["labels"]}, {"Out": ["smoothed"]},
+            dict(epsilon=0.1))]
+    rows.append(vision_group(
+        dev, flush, "max_pool2d_with_index; lrn; pixel_shuffle; "
+        "label_smooth", ops, feeds,
+        grad=("seg_pooled", "lrn", "shuffled", "smoothed"),
+        cut=vision_cut(lambda n: 64 if n in ("labels", "smoothed") else 1),
+        checks={"seg_mask": mask_check("seg")}))
+    return rows
+
+
+def vision_small(dev, gen, flush):
+    """The slice's other lowerings at small shapes, each its own program;
+    ``crop_tensor`` with an ``Offsets`` tensor is the one that runs
+    eagerly (``shape_tensor``)."""
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def boxes(n, scale=1.0):
+        xy = torch.rand((n, 2), generator=gen, device=dev) * 0.6 * scale
+        return torch.cat([xy, xy + (0.1 + torch.rand(
+            (n, 2), generator=gen, device=dev) * 0.3) * scale], 1)
+
+    tied = (torch.randint(0, 4, (4, 3, 12, 12), generator=gen,
+                          device=dev) / 4.0)
+    cases = (
+        ("space_to_depth", dict(X=r(4, 8, 16, 16)), ["Out"],
+         dict(blocksize=2)),
+        ("shuffle_channel", dict(X=r(4, 12, 8, 8)), ["Out"], dict(group=3)),
+        ("affine_channel", dict(X=r(4, 16, 8, 8), Scale=r(16), Bias=r(16)),
+         ["Out"], {}),
+        ("pad_constant_like", dict(X=r(6, 9, 9), Y=r(4, 7, 9)), ["Out"],
+         dict(pad_value=0.5)),
+        ("crop", dict(X=r(8, 16, 16)), ["Out"],
+         dict(offsets=[2, 3, 1], shape=[4, 8, -1])),
+        ("crop_tensor", dict(X=r(8, 16, 16), Offsets=torch.tensor(
+            [1, 2, 3], dtype=torch.int32, device=dev)), ["Out"],
+         dict(shape=[4, 8, 8])),
+        ("reverse", dict(X=r(8, 16, 5)), ["Out"], dict(axis=[0, 2])),
+        ("unfold", dict(X=r(2, 8, 16, 16)), ["Y"],
+         dict(kernel_sizes=[3, 3], strides=[2, 2], paddings=[1, 1, 1, 1],
+              dilations=[1, 1])),
+        ("im2sequence", dict(X=r(2, 4, 12, 12)), ["Out"],
+         dict(kernels=[3, 3], strides=[2, 2], paddings=[1, 1, 1, 1])),
+        ("cvm", dict(X=torch.cat([torch.rand((64, 2), generator=gen,
+                                             device=dev) * 5, r(64, 14)], 1)),
+         ["Y"], dict(use_cvm=True)),
+        ("iou_similarity", dict(X=boxes(32, 100.0), Y=boxes(48, 100.0)),
+         ["Out"], dict(box_normalized=False)),
+        ("box_clip", dict(Input=boxes(64, 900.0).reshape(2, 32, 4) - 50,
+                          ImInfo=torch.tensor([[600.0, 800.0, 1.5],
+                                               [500.0, 700.0, 1.0]],
+                                              device=dev)), ["Output"], {}),
+        ("box_coder", dict(PriorBox=boxes(64), TargetBox=r(8, 64, 4) * 0.3),
+         ["OutputBox"], dict(code_type="decode_center_size", axis=0,
+                             variance=[0.1, 0.1, 0.2, 0.2])),
+        ("pool3d", dict(X=r(2, 4, 6, 9, 9)), ["Out"],
+         dict(pooling_type="avg", ksize=[3, 3, 3], strides=[2, 2, 2],
+              paddings=[1, 1, 1])),
+        ("max_pool2d_with_index", dict(X=tied), ["Out", "Mask"],
+         dict(ksize=[5, 5], adaptive=True)),
+        ("grid_sampler", dict(X=r(2, 4, 16, 16), Grid=torch.rand(
+            (2, 9, 11, 2), generator=gen, device=dev) * 3 - 1.5),
+         ["Output"], dict(mode="nearest", padding_mode="reflection",
+                          align_corners=True)),
+        ("grid_sampler", dict(X=r(2, 4, 16, 16), Grid=torch.rand(
+            (2, 9, 11, 2), generator=gen, device=dev) * 3 - 1.5),
+         ["Output"], dict(mode="bilinear", padding_mode="border",
+                          align_corners=False)),
+        ("correlation", dict(Input1=r(1, 16, 24, 24), Input2=r(1, 16, 24, 24)),
+         ["Output"], dict(pad_size=4, kernel_size=3, max_displacement=4,
+                          stride1=2, stride2=2)),
+        ("generate_proposals", dict(
+            Scores=r(1, 3, 8, 10), BboxDeltas=r(1, 12, 8, 10) * 0.3,
+            ImInfo=torch.tensor([[128.0, 160.0, 1.0]], device=dev),
+            Anchors=torch.cat([boxes(240, 100.0)]).reshape(8, 10, 3, 4),
+            Variances=torch.ones((8, 10, 3, 4), device=dev)),
+         ["RpnRois", "RpnRoiProbs", "RpnRoisNum"],
+         dict(pre_nms_topN=120, post_nms_topN=40, nms_thresh=0.6,
+              min_size=2.0)),
+        ("multiclass_nms2", dict(BBoxes=boxes(64).reshape(1, 64, 4),
+                                 Scores=torch.rand((1, 4, 64), generator=gen,
+                                                   device=dev)),
+         ["Out", "Index", "NmsRoisNum"],
+         dict(score_threshold=0.2, nms_top_k=32, keep_top_k=40,
+              nms_threshold=0.5, nms_eta=0.9, background_label=0)),
+    )
+    rows, eager = [], []
+    for i, (op_type, ins, outs, attrs) in enumerate(cases):
+        ops, feeds = one_op(op_type, ins, outs, attrs)
+        float_outs = tuple(o.lower() for o in outs
+                           if o not in ("Mask", "Index", "NmsRoisNum",
+                                        "RpnRoisNum"))
+        checks = None
+        if op_type == "generate_proposals":
+            checks = {"rpnrois": vision_nms_check(
+                "proposals", attrs, "rpnroisnum", probs="rpnroiprobs",
+                scores="scores_0"),
+                "rpnroiprobs": lambda a, b, fa, fb: (0.0, 0),
+                "rpnroisnum": lambda a, b, fa, fb: (0.0, 0)}
+            float_outs = ()
+        elif op_type == "multiclass_nms2":
+            checks = {"out": vision_nms_check("greedy", attrs, "nmsroisnum",
+                                              "index", scores="scores_0"),
+                      "index": lambda a, b, fa, fb: (0.0, 0),
+                      "nmsroisnum": lambda a, b, fa, fb: (0.0, 0)}
+            float_outs = ()
+        row = vision_group(dev, flush, f"{i}_{op_type}", ops, feeds,
+                           grad=float_outs, checks=checks)
+        rows.append(row)
+        if "Offsets" in ins:
+            eager.append(row)
+    return rows, eager
+
+
+def vision_dygraph(dev, gen):
+    """``vision.ops``' four functions once in dygraph on the card, each
+    against the same op through the Executor on the card: equal."""
+    from paddle_tpu_torch.vision import ops as vops
+
+    pt.set_device("gpu:0")
+    c = VISION["yolo"]
+    x = torch.randn((2, 3 * (5 + c["classes"]), 19, 19), generator=gen,
+                    device=dev)
+    img = torch.full((2, 2), c["img"], dtype=torch.int32, device=dev)
+    roi_x = torch.randn((2, 256, 50, 84), generator=gen, device=dev)
+    rois = random_rois(gen, dev, 128)
+    num = torch.tensor([64, 64], dtype=torch.int32, device=dev)
+    dx = torch.randn((2, 64, 19, 19), generator=gen, device=dev)
+    off = torch.randn((2, 18, 19, 19), generator=gen, device=dev)
+    mask = torch.rand((2, 9, 19, 19), generator=gen, device=dev)
+    wt = torch.randn((64, 64, 3, 3), generator=gen, device=dev) * 0.05
+    anchors = [116, 90, 156, 198, 373, 326]
+
+    def t(v):
+        return pt.to_tensor(v.cpu().numpy())
+
+    calls = {
+        "yolo_box": (lambda: vops.yolo_box(
+            t(x), t(img), anchors, c["classes"], 0.005, 32)[0],
+            ("yolo_box", dict(X=x, ImgSize=img), ["Boxes", "Scores"],
+             dict(anchors=anchors, class_num=c["classes"],
+                  conf_thresh=0.005, downsample_ratio=32, clip_bbox=True,
+                  scale_x_y=1.0))),
+        "deform_conv2d": (lambda: vops.deform_conv2d(
+            t(dx), t(off), t(wt), padding=1, mask=t(mask)),
+            ("deformable_conv", dict(Input=dx, Offset=off, Filter=wt,
+                                     Mask=mask), ["Output"],
+             dict(strides=[1, 1], paddings=[1, 1], dilations=[1, 1],
+                  groups=1, deformable_groups=1))),
+        "roi_align": (lambda: vops.roi_align(
+            t(roi_x), t(rois), t(num), 7, 1 / 16, 0, True),
+            ("roi_align", dict(X=roi_x, ROIs=rois, RoisNum=num), ["Out"],
+             dict(pooled_height=7, pooled_width=7, spatial_scale=1 / 16,
+                  sampling_ratio=0, aligned=True))),
+        "roi_pool": (lambda: vops.roi_pool(t(roi_x), t(rois), t(num), 7,
+                                           1 / 16),
+                     ("roi_pool", dict(X=roi_x, ROIs=rois, RoisNum=num),
+                      ["Out", "Argmax"],
+                      dict(pooled_height=7, pooled_width=7,
+                           spatial_scale=1 / 16))),
+    }
+    gaps = {}
+    exe = pt.Executor(pt.CUDAPlace(0))
+    try:
+        for name, (dy, (op_type, ins, outs, attrs)) in calls.items():
+            got = dy()._value
+            ops, feeds = one_op(op_type, ins, outs, attrs)
+            prog, fetch, _ = oplib_program(ops, feeds)
+            want = oplib_run(exe, prog, feeds, fetch)[0]
+            gaps[name] = vision_gap(got, want) if got.device == want.device \
+                else float("inf")
+    finally:
+        exe.close()
+    return gaps
+
+
+def phase_vision_ops():
+    """The vision and detection ops of slice 22 on the card at their
+    users' widths (``VISION``): each group one program through the
+    Executor, captured (crop_tensor with Offsets eager), forward and input
+    gradient, against the port's CPU path on the same (cut) inputs
+    (``OPLIB_RTOL``; NMS and pool masks by the margin rules); the four
+    ``vision.ops`` functions in dygraph against the static path; no
+    hand-written kernel launched."""
+    t0 = time.monotonic()
+    dev = torch.device("cuda", 0)
+    card = nvidia_smi("name,power.limit")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev).zero_
+    zero_kernel_launches()
+    eager0 = eager_counts()
+    rows, seconds = [], {}
+    for name, fn in (("yolo", vision_yolo), ("ssd", vision_ssd),
+                     ("rpn", vision_rpn), ("rois", vision_rois),
+                     ("dense", vision_dense)):
+        t1 = time.monotonic()
+        rows += fn(dev, gen, flush)
+        seconds[name] = time.monotonic() - t1
+    t1 = time.monotonic()
+    small, eager_rows = vision_small(dev, gen, flush)
+    rows += small
+    seconds["small"] = time.monotonic() - t1
+    t1 = time.monotonic()
+    dygraph = vision_dygraph(dev, gen)
+    seconds["dygraph"] = time.monotonic() - t1
+    launches = kernel_launches()
+    eager1 = eager_counts()
+    moved = {k: eager1.get(k, 0) - eager0.get(k, 0)
+             for k in set(eager0) | set(eager1)
+             if eager1.get(k, 0) != eager0.get(k, 0)}
+    bad = [r for r in rows if r["max_rel_gap"] > OPLIB_RTOL]
+    uncaptured = [r["group"] for r in rows
+                  if not r["captured"] and r not in eager_rows]
+    flips = {r["group"]: r["margin_flips"] for r in rows
+             if any(r["margin_flips"].values())}
+    log("vision_ops", card=card, dtype="float32",
+        tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_tf32=torch.backends.cudnn.allow_tf32, tolerance=OPLIB_RTOL,
+        margin=VISION_MARGIN, groups=rows, margin_flips=flips,
+        dygraph_gaps=dygraph, eager_moved=moved, launches_after=launches,
+        group_seconds=seconds, seconds=time.monotonic() - t0)
+    if bad or any(g > OPLIB_RTOL for g in dygraph.values()):
+        raise RuntimeError(f"vision_ops, card vs CPU: {bad} {dygraph}")
+    if uncaptured or [r["captured"] for r in eager_rows] != [False] or \
+            set(moved) != {"executor_eager_shape_tensor"}:
+        raise RuntimeError(f"vision_ops capture: uncaptured {uncaptured}, "
+                           f"eager counters moved {moved}")
+    if not all(r["finite"] for r in rows):
+        raise RuntimeError("vision_ops: non-finite outputs at full width: "
+                           f"{[r['group'] for r in rows if not r['finite']]}")
+    if any(launches.values()):
+        raise RuntimeError(f"vision_ops launched hand-written kernels: "
+                           f"{launches}")
+
+
 # ---- slice 14: the rest of serving --------------------------------------------
 
 # runs of the packed ragged schedule (phase_ragged): its pad waste
@@ -8041,6 +8920,8 @@ def main():
     release("nn_extras")
     phase_op_library()
     release("op_library")
+    phase_vision_ops()
+    release("vision_ops")
     phase_model_checkpoint()
     release("model_checkpoint")
     phase_ernie_fleet()

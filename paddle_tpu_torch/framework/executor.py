@@ -253,6 +253,10 @@ def capture_reason(program: Program) -> Optional[Tuple[str, str]]:
             return ("shape_tensor",
                     f"op {op.type!r} takes its shape from a tensor, read on "
                     f"the host at each run")
+        if op.type in ("crop", "crop_tensor") and op.inputs.get("Offsets"):
+            return ("shape_tensor",
+                    f"op {op.type!r} takes its offsets from a tensor, read "
+                    f"on the host at each run")
         seed = int(op.attr("seed", 0) or 0)
         if seed:
             return ("seeded_random",

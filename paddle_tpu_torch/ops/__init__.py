@@ -4,7 +4,10 @@
   ``nn_ops``, ``rnn_ops``, ``activations``, ``creation``, ``embedding_ops``,
   ``control_flow``, ``loss_ops``, ``interp_ops``,
   ``optimizer_ops``, ``misc``, ``fused``, ``flash_attention``,
-  ``grad_generic``, ``quant_ops``, ``moe_ops``, ``collective``), which the static executor and dygraph's ``run_op``
+  ``grad_generic``, ``quant_ops``, ``moe_ops``, ``collective``, and the
+  vision and detection ops: ``vision_ops``, ``detection_ops``,
+  ``nms_ops``, ``deformable_ops``, ``sampling_ops``'s ``correlation``),
+  which the static executor and dygraph's ``run_op``
   both run: importing this package registers them with
   ``framework.lowering``, as importing ``paddle_tpu.ops`` does.
 - The kernels' wrappers and plain versions: paged attention
@@ -12,7 +15,8 @@
   (``flash_attention_bias``, B1), the flash-attention training op
   (``flash_attention``, B2 forward and B3/B4 backward) and the
   weight-only dequant-fused matmul (``quant_ops``, B7).
-- The decode-time token samplers (``sampling_ops``).
+- The decode-time token samplers (``sampling_ops``, beside
+  ``correlation``).
 
 Importing this package builds no kernel: the CUDA libraries are compiled
 at first launch (``native/build.py``).
@@ -22,6 +26,8 @@ from . import (  # noqa: F401
     collective,
     control_flow,
     creation,
+    deformable_ops,
+    detection_ops,
     embedding_ops,
     flash_attention,
     fused,
@@ -32,9 +38,12 @@ from . import (  # noqa: F401
     math_ops,
     misc,
     moe_ops,
+    nms_ops,
     nn_ops,
     optimizer_ops,
     quant_ops,
     rnn_ops,
+    sampling_ops,
     tensor_ops,
+    vision_ops,
 )

@@ -12,7 +12,12 @@ torch is not jax:
   dimensioned one (``bf16[B,S] + f32[]`` is bf16 in torch, f32 in jax);
   the programs' dtypes were decided under jax's rule.
 
-``adaptive_windows`` is the JAX module's, unchanged (numpy only).
+``adaptive_windows`` is the JAX module's, unchanged (numpy only);
+``adaptive_max_with_index`` and ``bilinear_sample_chw`` are its helpers
+on torch (the second over a leading batch axis), with ``jmax`` / ``jmin``
+/ ``jclip``, which split a tie's gradient as jax's ``maximum`` does,
+``tdiv``, a division by a Python number rounded alike on the card and the
+CPU, and ``device_const``, a constant built on the device by fills.
 """
 from __future__ import annotations
 
@@ -79,3 +84,146 @@ def adaptive_windows(size: int, out_size: int):
     idx = starts[:, None] + np.arange(maxw)[None, :]
     valid = idx < ends[:, None]
     return np.minimum(idx, size - 1), valid, maxw
+
+
+def device_const(values, dtype, device) -> torch.Tensor:
+    """A small constant tensor of ``values`` (a flat list) built on
+    ``device`` by fills: no host-to-device copy, which a captured step
+    could not hold."""
+    return torch.stack([torch.full((), float(v), dtype=dtype, device=device)
+                        for v in values])
+
+
+def tdiv(x: torch.Tensor, v) -> torch.Tensor:
+    """``x / v`` for a Python number ``v``, rounded as the CPU (and jax)
+    round it: torch's CUDA kernels multiply by ``1 / v`` instead, one
+    rounding more, and a floor, ceil or comparison after it could then
+    move by one on the card."""
+    return x / torch.full((), v, dtype=x.dtype, device=x.device)
+
+
+def jmax(x: torch.Tensor, lo) -> torch.Tensor:
+    """``jnp.maximum(x, lo)`` for a Python ``lo``: a tie splits the
+    gradient in half, as jax's does (``clamp_min`` gives it all to x)."""
+    return torch.maximum(x, torch.full((), lo, dtype=x.dtype,
+                                       device=x.device))
+
+
+def jmin(x: torch.Tensor, hi) -> torch.Tensor:
+    """``jnp.minimum(x, hi)`` for a Python or tensor ``hi``, ties split."""
+    if not isinstance(hi, torch.Tensor):
+        hi = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(x, hi)
+
+
+def jclip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``, so a value on a
+    bound passes half its gradient, as in jax."""
+    return jmin(jmax(x, lo), hi)
+
+
+def adaptive_max_with_index(x, out_sizes):
+    """N-D non-divisible adaptive max pool with flat argmax indices.
+
+    ``x`` is [N, C, *spatial]; each output cell gathers its variable
+    floor/ceil window through a fixed max-width index table (built on
+    x's device) and reduces under a validity mask; the masked argmax (the
+    first maximum) decomposes back into original coordinates to give the
+    reference Mask contract (flat index into the unpadded spatial
+    volume).  ``amax`` splits a tie's gradient evenly, as ``jnp.max``.
+    Returns (out, flat_int32).
+    """
+    spatial = len(out_sizes)
+    in_sp = [int(s) for s in x.shape[2:2 + spatial]]
+    dev = x.device
+    tabs = []
+    for size, o in zip(in_sp, out_sizes):
+        o = int(o)
+        maxw = adaptive_windows(size, o)[2]
+        cell = torch.arange(o, device=dev)
+        starts = torch.div(cell * size, o, rounding_mode="floor")
+        ends = -torch.div(-(cell + 1) * size, o, rounding_mode="floor")
+        idx = starts[:, None] + torch.arange(maxw, device=dev)[None, :]
+        tabs.append((idx.clamp(max=size - 1), idx < ends[:, None], maxw))
+    g = x
+    for i, (idx, _, maxw) in enumerate(tabs):
+        axis = 2 + 2 * i  # dims before it already split into (o, m)
+        g = torch.index_select(g, axis, idx.reshape(-1))
+        g = g.reshape(g.shape[:axis] + (idx.shape[0], maxw)
+                      + g.shape[axis + 1:])
+    perm = ([0, 1] + [2 + 2 * i for i in range(spatial)]
+            + [3 + 2 * i for i in range(spatial)])
+    g = g.permute(perm)  # [N, C, o..., m...]
+    mask = None
+    for i, (_, valid, _) in enumerate(tabs):
+        shape = [1] * (2 * spatial)
+        shape[i], shape[spatial + i] = valid.shape
+        m = valid.reshape(shape)
+        mask = m if mask is None else (mask & m)
+    lowest = float("-inf") if g.is_floating_point() \
+        else torch.iinfo(g.dtype).min
+    gm = torch.where(mask, g, torch.full((), lowest, dtype=g.dtype,
+                                         device=dev))
+    maxws = [t[2] for t in tabs]
+    head = tuple(gm.shape[:2 + spatial])
+    flatwin = gm.reshape(head + (-1,))
+    out = flatwin.amax(dim=-1)
+    rem = flatwin.argmax(dim=-1)  # window-local flat, first maximum
+    ks = []
+    for i in reversed(range(spatial)):
+        ks.append(rem % maxws[i])
+        rem = torch.div(rem, maxws[i], rounding_mode="floor")
+    ks.reverse()
+    flat = torch.zeros_like(ks[0])
+    stride = 1
+    for i in reversed(range(spatial)):
+        # map each axis's window-local index through its table to the
+        # ORIGINAL coordinate
+        idx = tabs[i][0]
+        cell_shape = [1] * (2 + spatial)
+        cell_shape[2 + i] = idx.shape[0]
+        cell = torch.arange(idx.shape[0], device=dev).reshape(cell_shape)
+        coord = idx[cell.expand(head), ks[i]]
+        flat = flat + coord * stride
+        stride *= in_sp[i]
+    return out, flat.to(torch.int32)
+
+
+def bilinear_sample_chw(img, ys, xs, padding="zeros"):
+    """Bilinear sampling of img [B, C, H, W] at float coords ys/xs
+    [B, ...] -> [B, C, ...]: the JAX package's helper of the same name
+    (one [C, H, W] image) over a leading batch axis.
+
+    padding="zeros": out-of-range taps contribute 0 (reference
+    DmcnIm2colBilinear / grid_sampler zeros semantics — the validity
+    test runs on the UNCLIPPED coordinate, so coords in (-1, 0) get the
+    partial in-range contribution).  padding="border": coords clamp to
+    the edge pixel.  Shared by deformable conv and grid_sampler so the
+    subtle boundary semantics live in one place.  The taps are gathers
+    from the flattened image; their gradient is a scatter-add.
+    """
+    b, c, h, w = img.shape
+    flat = img.reshape(b, c, h * w)
+    shape = ys.shape
+    ys = ys.reshape(b, -1)
+    xs = xs.reshape(b, -1)
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+
+    def at(yy, xx):
+        yc = yy.clamp(0, h - 1).long()
+        xc = xx.clamp(0, w - 1).long()
+        idx = (yc * w + xc)[:, None, :].expand(b, c, yc.shape[1])
+        vals = torch.gather(flat, 2, idx)
+        if padding == "zeros":
+            valid = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            vals = vals * valid[:, None].to(img.dtype)
+        return vals
+
+    wy = (ys - y0)[:, None]
+    wx = (xs - x0)[:, None]
+    out = (at(y0, x0) * (1 - wy) * (1 - wx)
+           + at(y0, x0 + 1) * (1 - wy) * wx
+           + at(y0 + 1, x0) * wy * (1 - wx)
+           + at(y0 + 1, x0 + 1) * wy * wx)
+    return out.reshape((b, c) + tuple(shape[1:]))

@@ -10,12 +10,18 @@ index) by :func:`token_generator`, and a draw that reads only its own
 row.  JAX's threefry bits cannot be reproduced, so only greedy output
 is comparable across the two packages; draws are checked by their
 statistics.
+
+It also holds the ``correlation`` lowering (FlowNet's cost volume), as
+the JAX module does.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
+
+from ..framework.lowering import register_lower
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
@@ -102,3 +108,72 @@ def sample_tokens(generators: Sequence[Optional[torch.Generator]],
         out[i] = torch.multinomial(probs[j], 1,
                                    generator=generators[i])[0].to(torch.int32)
     return out
+
+
+@register_lower("correlation")
+def _correlation(ctx, op):
+    """FlowNet correlation cost volume (reference correlation_op.cu):
+    for each displacement in the ``max_displacement`` neighbourhood (a
+    multiple of ``stride2``), the channel mean of x1(p) * x2(p + d) over
+    the padded frame, box-filtered over ``kernel_size`` x
+    ``kernel_size`` patches when it is above 1; an even
+    ``kernel_size`` raises.  The JAX lowering's geometry: the output
+    and the sample centers are bounded by max_displacement + the
+    kernel's radius, and x2 is shifted as ``roll`` shifts it (indices
+    modulo the padded frame).  Only the rows and columns the output
+    reads are formed: x1's band, and x2's at each row shift with every
+    column shift as a window view."""
+    x1 = ctx.in1(op, "Input1")  # [N, C, H, W]
+    x2 = ctx.in1(op, "Input2")
+    pad = int(op.attr("pad_size", 0))
+    ks = int(op.attr("kernel_size", 1))
+    max_disp = int(op.attr("max_displacement", 1))
+    stride1 = int(op.attr("stride1", 1))
+    stride2 = int(op.attr("stride2", 1))
+    if ks % 2 == 0:
+        raise NotImplementedError("correlation kernel_size must be odd")
+    kr = (ks - 1) // 2
+    _n, _c, h, w = x1.shape
+    # over-pad by the kernel radius so centered windows at every sampled
+    # position (and every displacement) stay in bounds
+    pw = pad + kr
+    x1p = F.pad(x1, [pw] * 4)
+    x2p = F.pad(x2, [pw] * 4)
+    hp, wp = x1p.shape[2], x1p.shape[3]
+    radius = max_disp // stride2
+    disps = [i * stride2 for i in range(-radius, radius + 1)]
+    border = max_disp + kr
+    oh = -(-(h + 2 * pad - 2 * border) // stride1)  # ceil div
+    ow = -(-(w + 2 * pad - 2 * border) // stride1)
+    dev = x1.device
+    if ks > 1:
+        # the band the box filter reads, filtered at stride1: its
+        # corners land on the sample centers
+        rows = torch.arange(border, border + stride1 * (oh - 1) + ks,
+                            device=dev)
+        cols, step = border, 1
+        n_cols = stride1 * (ow - 1) + ks
+    else:
+        rows = border + stride1 * torch.arange(oh, device=dev)
+        cols, step, n_cols = border, stride1, ow
+    a = x1p.index_select(2, rows)
+    a = a[..., cols:cols + step * (n_cols - 1) + 1:step]
+    # x2's columns at every displacement: one gather a row shift (indices
+    # modulo the frame), then a window view, displacement last
+    span = 2 * radius * stride2
+    ext = (torch.arange(cols - radius * stride2,
+                        cols + step * (n_cols - 1) + span - radius * stride2
+                        + 1, device=dev)) % wp
+    outs = []
+    for dy in disps:
+        b = x2p.index_select(2, (rows + dy) % hp).index_select(3, ext)
+        win = b.unfold(3, span + 1, step)[..., ::stride2]  # [N,C,R,w,D]
+        prod = (a[..., None] * win).mean(1).permute(0, 3, 1, 2)  # [N,D,R,w]
+        if ks > 1:
+            n, d = prod.shape[:2]
+            prod = F.avg_pool2d(prod.reshape(n * d, 1, *prod.shape[2:]), ks,
+                                stride1, divisor_override=1).reshape(
+                n, d, oh, ow) / float(ks * ks)
+        outs.append(prod)
+    # displacements (dy, dx), dy-major
+    ctx.set_out(op, "Output", torch.cat(outs, dim=1))

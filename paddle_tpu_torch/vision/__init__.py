@@ -2,10 +2,10 @@
 (``static_models``, a copy of the JAX package's), the dygraph models
 (``models``: LeNet, ResNet, MobileNetV1/V2, VGG), the datasets
 (``FakeData``, and ``MNIST``, ``Cifar10``, ``DatasetFolder`` from local
-files) and the host-side transforms.  Counterpart of
-``paddle_tpu/vision/__init__.py``; ``vision/ops.py`` (the detection ops)
-comes with a later slice."""
-from . import datasets, models, static_models, transforms  # noqa: F401
+files), the host-side transforms and ``ops`` (``yolo_box``,
+``deform_conv2d``, ``roi_align``, ``roi_pool``).  Counterpart of
+``paddle_tpu/vision/__init__.py``."""
+from . import datasets, models, ops, static_models, transforms  # noqa: F401
 from .datasets import Cifar10, DatasetFolder, FakeData, ImageFolder, MNIST  # noqa: F401
 from .models import (  # noqa: F401
     LeNet,
