@@ -360,6 +360,36 @@ Slice 22's phase runs after ``op_library``:
                captured step); ``vision.ops``' four functions in dygraph
                on the card against the static path; B1-B7 at 0.
 
+Slice 23's phase runs after ``vision_ops``:
+
+58. sequence_misc_ops -- the sequence ops, the linear-chain CRF, the
+               sampled losses and the rest of the op library (``SEQMISC``),
+               each group one program through the Executor on the card,
+               captured (``sequence_slice`` and ``affine_grid`` with an
+               ``OutputShape`` tensor eager, ``executor_eager_shape_tensor``;
+               the seeded ``nce`` / ``sample_logits`` eager,
+               ``executor_eager_seeded_random``; no other eager counter
+               moves), forward and input gradient, then on the card and
+               the CPU from the same cut inputs (``OPLIB_RTOL``; Viterbi
+               paths and pool masks by the margin rules, VISION_MARGIN):
+               LAC's CRF tagger ([64, 128, 57]: ``linear_chain_crf`` with
+               its gradient, ``crf_decoding`` with and without ``Label``),
+               a text CNN's padded batch ([64, 128, 128]: pad / unpad /
+               mask, six pools, softmax, ``sequence_conv`` 128 -> 128 over
+               8,192 tokens, expand, reverse, concat, reshape, enumerate,
+               scatter), DeepSpeech2's ``row_conv`` ([3000, 2048], 20
+               ahead), word2vec's ``nce`` (4,096 x 300 against 100,000
+               classes, samplers 0, 1, 2) and a 32,000-way
+               ``sample_logits`` (the CPU reading the card's draw), SegNet's
+               pool -> ``unpool``, ``affine_grid`` -> ``grid_sampler``,
+               ``conv3d_transpose``, ``depthwise_conv2d_transpose``,
+               ``fsp``, ``spectral_norm``, ``data_norm``, ``batch_fc``,
+               ``center_loss`` over 10,575 classes twice with its centers
+               as state, and the other lowerings at small shapes: each
+               group's card ms (median of 5 CUDA-event timings of the
+               captured step); 1e6 draws of each sampler by their
+               statistics; ``shuffle_batch`` a permutation; B1-B7 at 0.
+
 Slice 14's phases run after ``profile`` (the first three, on the serving
 model, the launch counters zeroed before each timed window and read after
 it) and after ``infer_oracle`` (the last two, on its saved directory).
@@ -613,6 +643,7 @@ Every phase also logs ``{"phase": "phase_seconds", "name": ...,
 raises, so the script exits non-zero without the last line; without a CUDA
 device it exits 1 before doing anything.
 """
+import contextlib
 import faulthandler
 import gc
 import json
@@ -5126,7 +5157,7 @@ def vision_diff(a, b):
 
 
 def vision_group(dev, flush, label, ops, feeds, grad=(), no_grad=(),
-                 cut=None, checks=None):
+                 cut=None, checks=None, cpu_context=None, nan_ok=()):
     """``ops`` on ``dev`` through the Executor at full width, forward and
     the gradients of ``grad``'s outputs for every float feed not in
     ``no_grad``: the captured step's ms (median of 5 CUDA-event timings
@@ -5134,7 +5165,11 @@ def vision_group(dev, flush, label, ops, feeds, grad=(), no_grad=(),
     outputs finite; then the same program on ``dev`` and on the CPU from
     the ``cut`` inputs, every fetch compared (``checks``: {fetch: fn(card,
     cpu, card_fetches, cpu_fetches) -> (gap, margin_flips)} for the
-    decisions), and the full run's outputs against the cut run's."""
+    decisions), and the full run's outputs against the cut run's.
+    ``cpu_context``, when given, is entered around the CPU run (the
+    sampled losses' CPU reference reads the card's draw through it);
+    the outputs in ``nan_ok`` hold NaN by design and are left out of the
+    finite check (their NaNs must still sit where the CPU's do)."""
     t0 = time.monotonic()
     eager0 = eager_counts()
     exe = pt.Executor(pt.CUDAPlace(0))
@@ -5152,7 +5187,7 @@ def vision_group(dev, flush, label, ops, feeds, grad=(), no_grad=(),
                      reps=5, warmup=0)
         full = dict(zip(fetch, [v.clone() for v in
                                 oplib_run(exe, prog, feed, fetch)]))
-        full_outs = [full[n] for n in outs]
+        full_outs = [full[n] for n in outs if n not in nan_ok]
         captured = eager_counts() == eager0
         cut = cut or (lambda name, t: t)
         small = {n: cut(n, t) for n, t in feed.items()}
@@ -5163,8 +5198,10 @@ def vision_group(dev, flush, label, ops, feeds, grad=(), no_grad=(),
     t1 = time.monotonic()
     cpu_exe = pt.Executor(pt.CPUPlace())
     try:
-        cpu = dict(zip(fetch, oplib_run(
-            cpu_exe, prog, {n: t.cpu() for n, t in small.items()}, fetch)))
+        with cpu_context() if cpu_context else contextlib.nullcontext():
+            cpu = dict(zip(fetch, oplib_run(
+                cpu_exe, prog, {n: t.cpu() for n, t in small.items()},
+                fetch)))
     finally:
         cpu_exe.close()
     t2 = time.monotonic()
@@ -5878,6 +5915,638 @@ def phase_vision_ops():
     if any(launches.values()):
         raise RuntimeError(f"vision_ops launched hand-written kernels: "
                            f"{launches}")
+
+
+# sequence_misc_ops: the sequence ops, the linear-chain CRF, the sampled
+# losses and the rest of the op library (ROADMAP item 5c), each group one
+# program through the Executor on the card, captured (its executor_eager_*
+# counters unchanged) but for the named eager rows (``sequence_slice`` and
+# ``affine_grid`` with an ``OutputShape`` tensor read on the host:
+# ``shape_tensor``; the seeded sampled losses: ``seeded_random``), forward
+# and input gradient, then on the card and the CPU from the same cut
+# inputs (``vision_group``; OPLIB_RTOL).  A Viterbi path of the card may
+# differ from the CPU's only in a row whose two paths score within
+# VISION_MARGIN of each other (a near-tie that the card's and the CPU's
+# float32 may break apart); such rows are counted.  The sampled losses'
+# CPU reference reads the card's draw (``sampling_ops._draw_samples``
+# replaced while the CPU runs); the draws themselves are held to their
+# statistics on the card (SEQMISC_DRAWS draws a sampler, bins merged until
+# each expects SEQMISC_MIN_EXPECTED, each within SEQMISC_SIGMAS standard
+# deviations).
+SEQMISC_DRAWS = 1_000_000
+SEQMISC_MIN_EXPECTED = 100.0
+SEQMISC_SIGMAS = 5.0
+SEQMISC = dict(   # the shapes, at the widths of the models that run them
+    # a BiGRU-CRF tagger as Baidu LAC: 57 tags, batch 64, up to 128 tokens
+    tagger=dict(batch=64, steps=128, tags=57, min_len=16, cpu_rows=4),
+    # a text CNN over padded batches: 64 x 128 tokens of 128-d embeddings,
+    # a context-3 convolution 128 -> 128 over the 8,192 flattened tokens
+    text_cnn=dict(batch=64, steps=128, width=128, context=3, start=-1,
+                  window=3, scatter_rows=1024, scatter_ids=4096),
+    # DeepSpeech2's lookahead: 3,000 frames of 2,048 units, 20 ahead
+    speech=dict(frames=3000, width=2048, lookahead=20, cpu_cols=256),
+    # word2vec's NCE at batch 4,096 over a 100,000 x 300 table, 5
+    # negatives; a sampled softmax over a 32,000-way vocab, 128 samples
+    sampled=dict(batch=4096, dim=300, classes=100000, negatives=5,
+                 logits=(1024, 32000), samples=128, cpu_rows=64),
+    # SegNet's pool / unpool on CamVid (VISION["segnet"]); a spatial
+    # transformer's grid; a 3-D decoder's x2 transposed conv; a depthwise
+    # x2 upsampler; FSP distillation over ResNet's 56 x 56 stage; a GAN
+    # discriminator's 512 x 512 x 3 x 3 conv under spectral norm;
+    # CASIA-WebFace center loss (10,575 identities, 512-d, batch 256); a
+    # CTR model's data_norm and batch_fc
+    stn=(32, 3, 128, 128), deconv3d=(2, 256, 16, 32, 32), deconv3d_out=128,
+    depthwise=(8, 256, 64, 64), fsp=(32, 64, 56, 56), spectral=(512, 512, 3, 3),
+    center=dict(batch=256, dim=512, classes=10575, rate=0.5),
+    data_norm=(4096, 512), batch_fc=dict(slots=10, rows=2048, dim=64, out=32),
+)
+
+
+def seqmisc_viterbi_check(emission, transition, length):
+    """A ``checks`` entry for a ``crf_decoding`` path (no Label): the rows
+    where card and CPU differ must score, as float64 paths of the CPU's
+    inputs, within VISION_MARGIN (relative) of each other; (gap, rows)."""
+    def score(e, tr, path, n):
+        start, stop, m = tr[0], tr[1], tr[2:]
+        p = path[:n].long()
+        s = start[p[0]] + e[torch.arange(n), p].sum() + stop[p[-1]]
+        return s + m[p[:-1], p[1:]].sum()
+
+    def check(a, b, fa, fb):
+        if a.shape != b.shape:
+            return float("inf"), 0
+        rows = (a != b).any(1).nonzero().flatten().tolist()
+        e = fb[emission].double().cpu()
+        tr = fb[transition].double().cpu()
+        lens = fb[length].cpu()
+        for r in rows:
+            n = int(lens[r])
+            sa = score(e[r], tr, a[r].cpu(), n)
+            sb = score(e[r], tr, b[r].cpu(), n)
+            if abs(float(sa - sb)) > VISION_MARGIN * max(abs(float(sb)), 1.0):
+                return float("inf"), len(rows)
+        return 0.0, len(rows)
+    return check
+
+
+def seqmisc_tagger(dev, gen, flush):
+    c = SEQMISC["tagger"]
+    b, t, d = c["batch"], c["steps"], c["tags"]
+    lens = torch.randint(c["min_len"], t + 1, (b,), generator=gen, device=dev)
+    lens[0], lens[1] = t, c["min_len"]
+    feeds = {"emission": torch.randn((b, t, d), generator=gen, device=dev),
+             "transition": torch.randn((d + 2, d), generator=gen,
+                                       device=dev) * 0.5,
+             "label": torch.randint(0, d, (b, t), generator=gen, device=dev),
+             "length": lens}
+    ins = {"Emission": ["emission"], "Transition": ["transition"],
+           "Length": ["length"]}
+    ops = [("linear_chain_crf", {**ins, "Label": ["label"]},
+            {"LogLikelihood": ["nll"], "Alpha": ["alpha"],
+             "EmissionExps": ["emission_exps"],
+             "TransitionExps": ["transition_exps"]}, {}),
+           ("crf_decoding", ins, {"ViterbiPath": ["path"]}, {}),
+           ("crf_decoding", {**ins, "Label": ["label"]},
+            {"ViterbiPath": ["path_hits"]}, {})]
+    path_check = seqmisc_viterbi_check("emission", "transition", "length")
+
+    def hits_check(a, b, fa, fb):
+        """The 0 / 1 hits may differ only in rows whose paths differ,
+        which ``path_check`` holds to the margin rule."""
+        if a.shape != b.shape:
+            return float("inf"), 0
+        rows = (a != b).any(1)
+        paths = (fa["path"] != fb["path"].to(a.device)).any(1)
+        return (0.0 if not (rows & ~paths).any() else float("inf")), \
+            int(rows.sum())
+
+    return [vision_group(
+        dev, flush, "linear_chain_crf + crf_decoding", ops, feeds,
+        grad=("nll",),
+        cut=vision_cut(lambda n: None if n.startswith("transition")
+                       else c["cpu_rows"]),
+        checks={"path": path_check, "path_hits": hits_check})]
+
+
+def seqmisc_text_cnn(dev, gen, flush):
+    c = SEQMISC["text_cnn"]
+    b, t, w = c["batch"], c["steps"], c["width"]
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+    lens[0], lens[1] = t, 0
+    feeds = {"padded": torch.randn((b, t, w), generator=gen, device=dev),
+             "flat": torch.randn((b * t, w), generator=gen, device=dev),
+             "pad_value": torch.zeros((1,), device=dev),
+             "length": lens,
+             "filter": torch.randn((c["context"] * w, w), generator=gen,
+                                   device=dev) * 0.05,
+             "ids": torch.randint(0, 30000, (b * t,), generator=gen,
+                                  device=dev),
+             "pooled_rows": torch.randn((b, w), generator=gen, device=dev),
+             "table": torch.randn((c["scatter_rows"], w), generator=gen,
+                                  device=dev),
+             "rows": torch.randint(-c["scatter_rows"], c["scatter_rows"] + 64,
+                                   (c["scatter_ids"], 1), generator=gen,
+                                   device=dev),
+             "updates": torch.randn((c["scatter_ids"], w), generator=gen,
+                                    device=dev)}
+    ops = [("sequence_unpad", {"X": ["padded"], "Length": ["length"]},
+            {"Out": ["unpadded"]}, {}),
+           ("sequence_pad", {"X": ["flat"], "PadValue": ["pad_value"],
+                             "Length": ["length"]}, {"Out": ["repadded"]},
+            {"padded_length": t}),
+           ("sequence_mask", {"X": ["length"]}, {"Y": ["mask"]},
+            {"maxlen": t})]
+    ops += [("sequence_pool", {"X": ["padded"]},
+             {"Out": [f"pool_{p.lower()}"],
+              **({"MaxIndex": ["pool_argmax"]} if p == "MAX" else {})},
+             {"pooltype": p})
+            for p in ("AVERAGE", "SUM", "SQRT", "MAX", "LAST", "FIRST")]
+    ops += [("sequence_softmax", {"X": ["padded"]}, {"Out": ["softmax"]}, {}),
+            ("sequence_conv", {"X": ["flat"], "Filter": ["filter"]},
+             {"Out": ["conv"]}, {"contextLength": c["context"],
+                                 "contextStart": c["start"]}),
+            ("sequence_expand", {"X": ["pooled_rows"], "Y": ["flat"]},
+             {"Out": ["expanded"]}, {}),
+            ("sequence_expand_as", {"X": ["pooled_rows"], "Y": ["flat"]},
+             {"Out": ["expanded_as"]}, {}),
+            ("sequence_reverse", {"X": ["padded"]}, {"Y": ["reversed"]}, {}),
+            ("sequence_concat", {"X": ["padded", "reversed"]},
+             {"Out": ["joined"]}, {}),
+            ("sequence_reshape", {"X": ["flat"]}, {"Out": ["reshaped"]},
+             {"new_dim": 2 * w}),
+            ("sequence_enumerate", {"X": ["ids"]}, {"Out": ["windows"]},
+             {"win_size": c["window"], "pad_value": 0}),
+            ("sequence_scatter", {"X": ["table"], "Ids": ["rows"],
+                                  "Updates": ["updates"]},
+             {"Out": ["scattered"]}, {})]
+    grad = ("unpadded", "repadded", "pool_average", "pool_sum", "pool_sqrt",
+            "pool_max", "pool_last", "pool_first", "softmax", "conv",
+            "expanded", "expanded_as", "joined", "reshaped", "scattered")
+    return [vision_group(dev, flush, "text_cnn sequence ops", ops, feeds,
+                         grad=grad)]
+
+
+def seqmisc_speech(dev, gen, flush):
+    c = SEQMISC["speech"]
+    feeds = {"frames": torch.randn((c["frames"], c["width"]), generator=gen,
+                                   device=dev),
+             "lookahead": torch.randn((c["lookahead"], c["width"]),
+                                      generator=gen, device=dev) * 0.2}
+    ops = [("row_conv", {"X": ["frames"], "Filter": ["lookahead"]},
+            {"Out": ["ahead"]}, {})]
+    cols = c["cpu_cols"]
+    return [vision_group(dev, flush, "row_conv", ops, feeds, grad=("ahead",),
+                         cut=lambda name, t: t[:, :cols])]
+
+
+def seqmisc_fixed_draw(draws):
+    """A context under which ``sampling_ops._draw_samples`` returns, for
+    the op of each sampler, the card's draw ``draws[sampler]`` on the
+    CPU (its probabilities from ``_sampler_prob``), as the CPU reference
+    of the sampled losses reads it."""
+    from paddle_tpu_torch.ops import sampling_ops as so
+
+    def fixed(ctx, op, n_samples, n_classes):
+        sampler = int(op.attr("sampler", 0))
+        custom = None
+        if sampler == 2:
+            custom = ctx.in1(op, "CustomDistProbs").reshape(-1).float()
+            custom = custom / custom.sum()
+        s = draws[(op.type, sampler)].to(ctx.device)
+        return s, so._sampler_prob(s, sampler, n_classes, custom), custom
+
+    @contextlib.contextmanager
+    def context():
+        saved = so._draw_samples
+        so._draw_samples = fixed
+        try:
+            yield
+        finally:
+            so._draw_samples = saved
+    return context
+
+
+def seqmisc_zipf(classes, dev):
+    """A word-frequency-like custom distribution: 1 / (rank + 10), every
+    seventh class 0."""
+    p = 1.0 / (torch.arange(classes, device=dev, dtype=torch.float32) + 10)
+    p[::7] = 0.0
+    return p
+
+
+def seqmisc_sampled(dev, gen, flush):
+    c = SEQMISC["sampled"]
+    b, d, k = c["batch"], c["dim"], c["classes"]
+    lb, lc = c["logits"]
+    feeds = {"words": torch.randn((b, d), generator=gen, device=dev),
+             "targets": torch.randint(0, k, (b, 1), generator=gen,
+                                      device=dev),
+             "table": torch.randn((k, d), generator=gen, device=dev) * 0.1,
+             "bias": torch.randn((k,), generator=gen, device=dev) * 0.1,
+             "custom": seqmisc_zipf(k, dev),
+             "logits": torch.randn((lb, lc), generator=gen, device=dev),
+             "labels": torch.randint(0, lc, (lb, 1), generator=gen,
+                                     device=dev)}
+    ops = []
+    for sampler in (0, 1, 2):
+        ins = {"Input": ["words"], "Label": ["targets"], "Weight": ["table"],
+               "Bias": ["bias"]}
+        if sampler == 2:
+            ins["CustomDistProbs"] = ["custom"]
+        ops.append(("nce", ins, {"Cost": [f"cost{sampler}"],
+                                 "SampleLogits": [f"nce_logits{sampler}"],
+                                 "SampleLabels": [f"nce_labels{sampler}"]},
+                    dict(num_total_classes=k, num_neg_samples=c["negatives"],
+                         sampler=sampler, seed=23 + sampler)))
+    ops.append(("sample_logits", {"Logits": ["logits"], "Labels": ["labels"]},
+                {"SampledLogits": ["sampled"], "Samples": ["samples"],
+                 "Probabilities": ["probs"], "SampledLabels": ["sampled_lbl"]},
+                dict(num_samples=c["samples"], sampler=1, seed=29,
+                     remove_accidental_hits=True)))
+    # the card's draws, for the CPU reference (seeded: every run draws
+    # the same classes)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    try:
+        prog, fetch, _ = oplib_program(ops, feeds)
+        got = dict(zip(fetch, oplib_run(exe, prog, feeds, fetch)))
+    finally:
+        exe.close()
+    n = c["negatives"]
+    draws = {("nce", s): got[f"nce_labels{s}"][0, 1:1 + n].cpu()
+             for s in (0, 1, 2)}
+    draws[("sample_logits", 1)] = got["samples"][0, 1:].cpu()
+    rows = c["cpu_rows"]
+    return [vision_group(
+        dev, flush, "nce (samplers 0, 1, 2) + sample_logits", ops, feeds,
+        grad=("cost0", "cost1", "cost2", "sampled"),
+        no_grad=("custom",),
+        cut=vision_cut(lambda name: None if name in (
+            "table", "bias", "custom") else rows),
+        cpu_context=seqmisc_fixed_draw(draws))]
+
+
+def seqmisc_draw_stats(dev):
+    """SEQMISC_DRAWS draws of each sampler on the card, from a fresh
+    generator, against the sampler's probabilities: bins merged in class
+    order until each expects SEQMISC_MIN_EXPECTED; the largest |z| and
+    the draws of classes of probability 0 (none allowed)."""
+    from paddle_tpu_torch.ops import sampling_ops as so
+
+    class Ctx:
+        device = dev
+
+        def __init__(self, probs):
+            self.probs = probs
+            self.gen = torch.Generator(device=dev).manual_seed(5)
+
+        def in1(self, op, slot):
+            return self.probs
+
+        def next_generator(self):
+            return self.gen
+
+    class Op:
+        type = "nce"
+
+        def __init__(self, sampler):
+            self.sampler = sampler
+
+        def attr(self, name, default=None):
+            return self.sampler if name == "sampler" else default
+
+    k = SEQMISC["sampled"]["classes"]
+    n = SEQMISC_DRAWS
+    out = {}
+    for sampler in (0, 1, 2):
+        custom = seqmisc_zipf(k, dev) if sampler == 2 else None
+        s, _p, norm = so._draw_samples(Ctx(custom), Op(sampler), n, k)
+        probs = so._sampler_prob(torch.arange(k, device=dev), sampler, k,
+                                 norm).double().cpu().numpy()
+        counts = torch.zeros(k, dtype=torch.int64, device=dev).index_add_(
+            0, s.long(), torch.ones_like(s, dtype=torch.int64)).cpu().numpy()
+        # bins merged in class order until each expects enough draws (a
+        # last bin short of it is left out)
+        worst, bins, low, acc_c, acc_p = 0.0, 0, float("inf"), 0, 0.0
+        for cnt, p in zip(counts.tolist(), probs.tolist()):
+            acc_c, acc_p = acc_c + cnt, acc_p + p
+            if n * acc_p >= SEQMISC_MIN_EXPECTED:
+                z = abs(acc_c - n * acc_p) / math.sqrt(n * acc_p
+                                                       * (1 - acc_p))
+                worst, bins, low = max(worst, z), bins + 1, min(low,
+                                                               n * acc_p)
+                acc_c, acc_p = 0, 0.0
+        out[sampler] = {"bins": bins, "max_abs_z": worst,
+                        "min_expected": low, "probability_sum":
+                        float(probs.sum()),
+                        "zero_probability_draws": int(
+                            counts[probs == 0].sum())}
+    return out
+
+
+def seqmisc_vision(dev, gen, flush):
+    rows = []
+    one = vision_cut(lambda n: 1)
+    seg = torch.randn(VISION["segnet"], generator=gen, device=dev)
+    ops = [("max_pool2d_with_index", {"X": ["seg"]},
+            {"Out": ["seg_pooled"], "Mask": ["seg_mask"]},
+            dict(ksize=[2, 2], strides=[2, 2], paddings=[0, 0])),
+           ("unpool", {"X": ["seg_pooled"], "Indices": ["seg_mask"]},
+            {"Out": ["seg_unpooled"]},
+            dict(ksize=[2, 2], strides=[2, 2], paddings=[0, 0]))]
+    rows.append(vision_group(dev, flush, "max_pool2d_with_index -> unpool",
+                             ops, {"seg": seg}, grad=("seg_unpooled",),
+                             cut=one, checks={"seg_mask": mask_check("seg")}))
+    n, ch, h, w = SEQMISC["stn"]
+    theta = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], device=dev) \
+        + 0.2 * torch.randn((n, 2, 3), generator=gen, device=dev)
+    ops = [("affine_grid", {"Theta": ["theta"]}, {"Output": ["grid"]},
+            dict(output_shape=[n, ch, h, w], align_corners=False)),
+           ("grid_sampler", {"X": ["img"], "Grid": ["grid"]},
+            {"Output": ["warped"]},
+            dict(mode="bilinear", padding_mode="zeros",
+                 align_corners=False))]
+    rows.append(vision_group(
+        dev, flush, "affine_grid -> grid_sampler", ops,
+        {"theta": theta, "img": torch.randn((n, ch, h, w), generator=gen,
+                                            device=dev)},
+        grad=("grid", "warped"), cut=one))
+    x3, xd = SEQMISC["deconv3d"], SEQMISC["depthwise"]
+    feeds = {"vol": torch.randn(x3, generator=gen, device=dev),
+             "w3t": torch.randn((x3[1], SEQMISC["deconv3d_out"], 2, 2, 2),
+                                generator=gen, device=dev) * 0.05,
+             "maps": torch.randn(xd, generator=gen, device=dev),
+             "wdt": torch.randn((xd[1], 1, 4, 4), generator=gen,
+                                device=dev) * 0.2}
+    ops = [("conv3d_transpose", {"Input": ["vol"], "Filter": ["w3t"]},
+            {"Output": ["vol_up"]}, dict(strides=[2, 2, 2])),
+           ("depthwise_conv2d_transpose", {"Input": ["maps"],
+                                           "Filter": ["wdt"]},
+            {"Output": ["maps_up"]},
+            dict(strides=[2, 2], paddings=[1, 1], groups=xd[1]))]
+    rows.append(vision_group(
+        dev, flush, "conv3d_transpose; depthwise_conv2d_transpose", ops,
+        feeds, grad=("vol_up", "maps_up"),
+        cut=vision_cut(lambda n: None if n in ("w3t", "wdt") else 1)))
+    f, sp = SEQMISC["fsp"], SEQMISC["spectral"]
+    dn, bf = SEQMISC["data_norm"], SEQMISC["batch_fc"]
+    width = sp[1] * sp[2] * sp[3]
+    feeds = {"fa": torch.randn(f, generator=gen, device=dev),
+             "fb": torch.randn(f, generator=gen, device=dev),
+             "disc_w": torch.randn(sp, generator=gen, device=dev) * 0.02,
+             "disc_u": torch.randn((sp[0],), generator=gen, device=dev),
+             "disc_v": torch.randn((width,), generator=gen, device=dev),
+             "ctr": torch.randn(dn, generator=gen, device=dev),
+             "bsize": torch.full((dn[1],), 1e4, device=dev),
+             "bsum": torch.randn((dn[1],), generator=gen, device=dev) * 100,
+             "bsq": torch.rand((dn[1],), generator=gen, device=dev) * 1e4
+             + 1e4,
+             "slots": torch.randn((bf["slots"], bf["rows"], bf["dim"]),
+                                  generator=gen, device=dev),
+             "slot_w": torch.randn((bf["slots"], bf["dim"], bf["out"]),
+                                   generator=gen, device=dev) * 0.1,
+             "slot_b": torch.randn((bf["slots"], 1, bf["out"]),
+                                   generator=gen, device=dev)}
+    ops = [("fsp", {"X": ["fa"], "Y": ["fb"]}, {"Out": ["fsp"]}, {}),
+           ("spectral_norm", {"Weight": ["disc_w"], "U": ["disc_u"],
+                              "V": ["disc_v"]}, {"Out": ["disc_sn"]},
+            dict(dim=0, power_iters=1, eps=1e-12)),
+           ("data_norm", {"X": ["ctr"], "BatchSize": ["bsize"],
+                          "BatchSum": ["bsum"], "BatchSquareSum": ["bsq"]},
+            {"Y": ["ctr_norm"], "Means": ["ctr_means"],
+             "Scales": ["ctr_scales"]}, dict(epsilon=1e-4)),
+           ("batch_fc", {"Input": ["slots"], "W": ["slot_w"],
+                         "Bias": ["slot_b"]}, {"Out": ["slot_out"]}, {})]
+    rows.append(vision_group(
+        dev, flush, "fsp; spectral_norm; data_norm; batch_fc", ops, feeds,
+        grad=("fsp", "disc_sn", "ctr_norm", "slot_out"),
+        cut=vision_cut(lambda n: {"fa": 1, "fb": 1, "fsp": 1,
+                                  "ctr": 64, "ctr_norm": 64,
+                                  "ctr_means": 64, "ctr_scales": 64}.get(n))))
+    return rows
+
+
+def seqmisc_center_loss(dev, gen):
+    """``center_loss`` with ``CentersOut`` written to the persistable
+    ``Centers``: two runs on the card and two on the CPU from the same
+    centers; each run's loss and the centers after it within
+    OPLIB_RTOL; the second run reads the centers the first wrote."""
+    from paddle_tpu_torch.framework.program import Program
+    from paddle_tpu_torch.framework.scope import scope_from_numpy
+
+    c = SEQMISC["center"]
+    values = {"feat": torch.randn((c["batch"], c["dim"]), generator=gen,
+                                  device=dev),
+              "ident": torch.randint(0, c["classes"], (c["batch"], 1),
+                                     generator=gen, device=dev),
+              "rate": torch.full((1,), c["rate"], device=dev)}
+    centers0 = torch.randn((c["classes"], c["dim"]), generator=gen,
+                           device=dev)
+    prog = Program()
+    blk = prog.global_block
+    for name, t in values.items():
+        blk.create_var(name=name, shape=tuple(t.shape),
+                       dtype=str(t.dtype).replace("torch.", ""))
+    blk.create_var(name="centers", shape=tuple(centers0.shape),
+                   dtype="float32", persistable=True)
+    for name in ("center_loss", "center_diff"):
+        blk.create_var(name=name)
+    blk.append_op("center_loss",
+                  {"X": ["feat"], "Label": ["ident"], "Centers": ["centers"],
+                   "CenterUpdateRate": ["rate"]},
+                  {"Loss": ["center_loss"], "SampleCenterDiff":
+                   ["center_diff"], "CentersOut": ["centers"]},
+                  {"need_update": True})
+    runs = {}
+    for place, d in ((pt.CUDAPlace(0), dev), (pt.CPUPlace(), "cpu")):
+        exe = pt.Executor(place)
+        scope = scope_from_numpy({"centers": centers0.cpu().numpy()},
+                                 device=d)
+        feed = {n: t.to(d) for n, t in values.items()}
+        try:
+            runs[d if d == "cpu" else "card"] = [
+                (exe.run(prog, feed=feed, fetch_list=["center_loss"],
+                         scope=scope, return_numpy=False)[0].clone(),
+                 scope.get_var("centers").clone()) for _ in range(2)]
+        finally:
+            exe.close()
+    gaps = []
+    for (la, ca), (lb, cb) in zip(runs["card"], runs["cpu"]):
+        gaps += [oplib_gap(la, lb.to(dev)), oplib_gap(ca, cb.to(dev))]
+    moved = [float((runs["card"][i][1] - (centers0 if i == 0 else
+                                            runs["card"][0][1])).abs().max())
+             for i in (0, 1)]
+    return {"group": "center_loss, two runs", "gaps": gaps,
+            "max_rel_gap": max(gaps), "centers_moved": moved}
+
+
+def seqmisc_small(dev, gen, flush):
+    """The slice's other lowerings at small shapes, in one captured
+    program; ``sequence_slice`` and ``affine_grid`` with an
+    ``OutputShape`` tensor each in their own, which run eagerly
+    (``shape_tensor``); ``shuffle_batch`` held to being a permutation."""
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    feeds = {"x": r(64, 32), "y": r(64, 32), "mask": torch.rand(
+        (64, 32), generator=gen, device=dev) < 0.3,
+        "vals": torch.rand((4096,), generator=gen, device=dev) * 3 - 1,
+        "ids": torch.randint(-3, 40, (4096,), generator=gen, device=dev),
+        "weights": r(4096),
+        "index": torch.randint(-40, 40, (64, 16), generator=gen,
+                               device=dev),
+        "put_index": torch.argsort(torch.rand((64, 32), generator=gen,
+                                              device=dev), 1)[:, :8],
+        "put_value": r(64, 8), "small": r(1, 32), "put_one": r(1, 1),
+        "kernel": r(64, 5),
+        "rows": r(16, 8)}
+    ops = [("allclose", {"Input": ["x"], "Other": ["y"]}, {"Out": ["close"]},
+            dict(rtol=1e-5, atol=1e-8)),
+           ("allclose", {"Input": ["x"], "Other": ["x"]},
+            {"Out": ["close_self"]}, {}),
+           ("histogram", {"X": ["vals"]}, {"Out": ["hist"]},
+            dict(bins=50, min=0, max=1)),
+           ("bincount", {"X": ["ids"]}, {"Out": ["counts"]},
+            dict(minlength=32)),
+           ("bincount", {"X": ["ids"], "Weights": ["weights"]},
+            {"Out": ["weighted"]}, dict(minlength=32)),
+           ("masked_select", {"X": ["x"], "Mask": ["mask"]},
+            {"Y": ["selected"], "Count": ["selected_n"]}, {}),
+           ("index_sample", {"X": ["x"], "Index": ["index"]},
+            {"Out": ["sampled"]}, {}),
+           ("put_along_axis", {"Input": ["x"], "Index": ["put_index"],
+                               "Value": ["put_value"]}, {"Result": ["put"]},
+            dict(Axis=1, Reduce="assign")),
+           ("put_along_axis", {"Input": ["x"], "Index": ["index"],
+                               "Value": ["put_one"]}, {"Result": ["put_add"]},
+            dict(Axis=1, Reduce="add")),
+           ("put_along_axis", {"Input": ["x"], "Index": ["index"],
+                               "Value": ["put_one"]}, {"Result": ["put_mul"]},
+            dict(Axis=1, Reduce="mul")),
+           ("broadcast_to", {"X": ["small"]}, {"Out": ["broadcast"]},
+            dict(shape=[16, 64, 32])),
+           ("full_like", {"X": ["x"]}, {"Out": ["full"]}, dict(value=0.25)),
+           ("conv_shift", {"X": ["x"], "Y": ["kernel"]}, {"Out": ["shifted"]},
+            {}),
+           ("lod_reset", {"X": ["rows"]}, {"Out": ["lod"]}, {}),
+           ("get_tensor_from_selected_rows", {"X": ["rows"]},
+            {"Out": ["dense"]}, {}),
+           ("merge_selected_rows", {"X": ["rows"]}, {"Out": ["merged"]}, {})]
+    # index_sample fills NaN where an index is out of range, on the card
+    # as on the CPU (compared entry by entry)
+    rows = [vision_group(dev, flush, "small lowerings", ops, feeds,
+                         grad=("selected", "sampled", "put", "put_add",
+                               "broadcast", "shifted", "lod", "dense",
+                               "merged", "weighted"), nan_ok=("sampled",))]
+    eager = []
+    ops, fd = one_op("sequence_slice", dict(
+        X=r(64, 16), Offset=torch.tensor([5], device=dev),
+        Length=torch.tensor([20], device=dev)), ["Out"])
+    eager.append(vision_group(dev, flush, "sequence_slice (eager)", ops, fd,
+                              grad=("out",)))
+    ops, fd = one_op("affine_grid", dict(
+        Theta=r(4, 2, 3), OutputShape=torch.tensor(
+            [4, 3, 24, 32], dtype=torch.int32, device=dev)), ["Output"],
+        dict(align_corners=True))
+    eager.append(vision_group(dev, flush, "affine_grid OutputShape (eager)",
+                              ops, fd, grad=("output",)))
+    ops, fd = one_op("shuffle_batch", dict(X=r(4096, 16)),
+                     ["Out", "ShuffleIdx"])
+    exe = pt.Executor(pt.CUDAPlace(0))
+    eager0 = eager_counts()
+    try:
+        prog, fetch, _ = oplib_program(ops, fd)
+        outs = [[v.clone() for v in oplib_run(exe, prog, fd, fetch)]
+                for _ in range(3)]
+    finally:
+        exe.close()
+    x = fd["x_0"]
+    perm_ok = all(torch.equal(torch.sort(idx.long()).values,
+                              torch.arange(x.shape[0], device=dev))
+                  and torch.equal(out, x[idx.long()]) for out, idx in outs)
+    shuffle = {"permutation_and_gather": perm_ok,
+               "captured": eager_counts() == eager0,
+               "runs_differ": not torch.equal(outs[1][1], outs[2][1])}
+    return rows + eager, eager, shuffle
+
+
+def phase_sequence_misc_ops():
+    """The sequence ops, the CRF, the sampled losses and the rest of the
+    op library of slice 23 on the card at their users' widths
+    (``SEQMISC``): each group one program through the Executor, captured
+    (``sequence_slice`` and ``affine_grid`` with ``OutputShape`` eager,
+    ``shape_tensor``; the seeded sampled losses eager, ``seeded_random``),
+    forward and input gradient, against the port's CPU path on the same
+    (cut) inputs (``OPLIB_RTOL``; Viterbi paths and pool masks by the
+    margin rules); the draws by their statistics; no hand-written kernel
+    launched."""
+    t0 = time.monotonic()
+    dev = torch.device("cuda", 0)
+    card = nvidia_smi("name,power.limit")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev).zero_
+    zero_kernel_launches()
+    eager0 = eager_counts()
+    rows, seconds = [], {}
+    sampled_rows = []
+    for name, fn in (("tagger", seqmisc_tagger),
+                     ("text_cnn", seqmisc_text_cnn),
+                     ("speech", seqmisc_speech),
+                     ("sampled", seqmisc_sampled),
+                     ("vision_misc", seqmisc_vision)):
+        t1 = time.monotonic()
+        got = fn(dev, gen, flush)
+        rows += got
+        if name == "sampled":
+            sampled_rows = got
+        seconds[name] = time.monotonic() - t1
+    t1 = time.monotonic()
+    draws = seqmisc_draw_stats(dev)
+    seconds["draw_stats"] = time.monotonic() - t1
+    t1 = time.monotonic()
+    center = seqmisc_center_loss(dev, gen)
+    seconds["center_loss"] = time.monotonic() - t1
+    t1 = time.monotonic()
+    small, shape_rows, shuffle = seqmisc_small(dev, gen, flush)
+    rows += small
+    seconds["small"] = time.monotonic() - t1
+    launches = kernel_launches()
+    eager1 = eager_counts()
+    moved = {k: eager1.get(k, 0) - eager0.get(k, 0)
+             for k in set(eager0) | set(eager1)
+             if eager1.get(k, 0) != eager0.get(k, 0)}
+    eager_rows = shape_rows + sampled_rows
+    bad = [r for r in rows if r["max_rel_gap"] > OPLIB_RTOL]
+    uncaptured = [r["group"] for r in rows
+                  if not r["captured"] and r not in eager_rows]
+    flips = {r["group"]: r["margin_flips"] for r in rows
+             if any(r["margin_flips"].values())}
+    draws_bad = {s: d for s, d in draws.items()
+                 if d["max_abs_z"] > SEQMISC_SIGMAS
+                 or d["zero_probability_draws"]
+                 or d["min_expected"] < SEQMISC_MIN_EXPECTED}
+    log("sequence_misc_ops", card=card, dtype="float32",
+        tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_tf32=torch.backends.cudnn.allow_tf32, tolerance=OPLIB_RTOL,
+        margin=VISION_MARGIN, groups=rows, margin_flips=flips,
+        center_loss=center, draws=draws, shuffle_batch=shuffle,
+        eager_moved=moved, launches_after=launches, group_seconds=seconds,
+        seconds=time.monotonic() - t0)
+    if bad or center["max_rel_gap"] > OPLIB_RTOL:
+        raise RuntimeError(f"sequence_misc_ops, card vs CPU: {bad} {center}")
+    if uncaptured or any(r["captured"] for r in eager_rows) or \
+            set(moved) != {"executor_eager_shape_tensor",
+                           "executor_eager_seeded_random"}:
+        raise RuntimeError(f"sequence_misc_ops capture: uncaptured "
+                           f"{uncaptured}, eager counters moved {moved}")
+    if not all(r["finite"] for r in rows):
+        raise RuntimeError("sequence_misc_ops: non-finite outputs at full "
+                           f"width: {[r['group'] for r in rows if not r['finite']]}")
+    if draws_bad or not all(shuffle.values()):
+        raise RuntimeError(f"sequence_misc_ops draws: {draws_bad} "
+                           f"shuffle_batch {shuffle}")
+    if any(launches.values()):
+        raise RuntimeError(f"sequence_misc_ops launched hand-written "
+                           f"kernels: {launches}")
 
 
 # ---- slice 14: the rest of serving --------------------------------------------
@@ -8922,6 +9591,8 @@ def main():
     release("op_library")
     phase_vision_ops()
     release("vision_ops")
+    phase_sequence_misc_ops()
+    release("sequence_misc_ops")
     phase_model_checkpoint()
     release("model_checkpoint")
     phase_ernie_fleet()

@@ -257,6 +257,14 @@ def capture_reason(program: Program) -> Optional[Tuple[str, str]]:
             return ("shape_tensor",
                     f"op {op.type!r} takes its offsets from a tensor, read "
                     f"on the host at each run")
+        if op.type == "sequence_slice":
+            return ("shape_tensor",
+                    "op 'sequence_slice' takes its offset and length from "
+                    "tensors, read on the host at each run")
+        if op.type == "affine_grid" and op.inputs.get("OutputShape"):
+            return ("shape_tensor",
+                    "op 'affine_grid' takes its output shape from a tensor, "
+                    "read on the host at each run")
         seed = int(op.attr("seed", 0) or 0)
         if seed:
             return ("seeded_random",

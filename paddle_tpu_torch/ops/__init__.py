@@ -6,7 +6,10 @@
   ``optimizer_ops``, ``misc``, ``fused``, ``flash_attention``,
   ``grad_generic``, ``quant_ops``, ``moe_ops``, ``collective``, and the
   vision and detection ops: ``vision_ops``, ``detection_ops``,
-  ``nms_ops``, ``deformable_ops``, ``sampling_ops``'s ``correlation``),
+  ``nms_ops``, ``deformable_ops``, ``sampling_ops``'s ``correlation``,
+  and the sequence ops and the rest of the op library:
+  ``sequence_ops``, ``tail_ops``, ``misc_ops``, ``sampling_ops``'s
+  ``nce`` and ``sample_logits``),
   which the static executor and dygraph's ``run_op``
   both run: importing this package registers them with
   ``framework.lowering``, as importing ``paddle_tpu.ops`` does.
@@ -37,6 +40,7 @@ from . import (  # noqa: F401
     loss_ops,
     math_ops,
     misc,
+    misc_ops,
     moe_ops,
     nms_ops,
     nn_ops,
@@ -44,6 +48,8 @@ from . import (  # noqa: F401
     quant_ops,
     rnn_ops,
     sampling_ops,
+    sequence_ops,
+    tail_ops,
     tensor_ops,
     vision_ops,
 )

@@ -18,6 +18,14 @@ on torch (the second over a leading batch axis), with ``jmax`` / ``jmin``
 / ``jclip``, which split a tie's gradient as jax's ``maximum`` does,
 ``tdiv``, a division by a Python number rounded alike on the card and the
 CPU, and ``device_const``, a constant built on the device by fills.
+
+jax's indexing rules, which torch's index ops do not follow (they assert
+on a bad index, which on the card ends the CUDA context), are kept on the
+device by ``gather_index`` (a plain gather: negatives wrap once, then
+clamp), ``take`` (such a gather whose gradient, as jax's, drops what an
+out-of-range index read), ``scatter_index`` (a scatter: negatives wrap
+once, the rest out of range dropped) and ``take_along_axis`` (out of
+range fills).
 """
 from __future__ import annotations
 
@@ -227,3 +235,57 @@ def bilinear_sample_chw(img, ys, xs, padding="zeros"):
            + at(y0 + 1, x0) * wy * (1 - wx)
            + at(y0 + 1, x0 + 1) * wy * wx)
     return out.reshape((b, c) + tuple(shape[1:]))
+
+
+def gather_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The int64 index ``x[idx]`` reads in jax along an axis of ``n``: a
+    negative index wraps once (``+ n``), then the index is clamped into
+    [0, n - 1]."""
+    idx = idx.long()
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
+def grad_only_where(out: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``out`` unchanged, its gradient passed only where ``valid``
+    (broadcast over ``out``'s trailing axes): jax's gather reads a
+    clamped index but its gradient, a scatter, drops an out-of-range
+    one."""
+    if not out.requires_grad:
+        return out
+    valid = valid.reshape(tuple(valid.shape)
+                          + (1,) * (out.dim() - valid.dim()))
+    return torch.where(valid, out, out.detach())
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along axis 0 as jax computes it: ``gather_index``'s
+    index, and the gradient of a read through an index outside [-n, n)
+    dropped."""
+    n = x.shape[0]
+    return grad_only_where(x[gather_index(idx, n)], (idx >= -n) & (idx < n))
+
+
+def scatter_index(idx: torch.Tensor, n: int):
+    """(index, valid) for jax's ``.at[idx]`` scatter along an axis of
+    ``n``: a negative index wraps once, anything still outside [0, n) is
+    dropped.  ``index`` is int64 and in range everywhere (0 where
+    dropped); the caller zeroes the dropped updates with ``valid``."""
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    return torch.where(valid, idx, torch.zeros_like(idx)), valid
+
+
+def take_along_axis(x: torch.Tensor, idx: torch.Tensor,
+                    dim: int) -> torch.Tensor:
+    """``jnp.take_along_axis`` (mode "fill"): a negative index from -n
+    wraps, an index outside [-n, n) gives NaN (a signed integer x: the
+    type's minimum).  The gather reads a clamped index, so a bad one
+    never reaches it; the filled entries get no gradient."""
+    n = x.shape[dim]
+    valid = (idx >= -n) & (idx < n)
+    out = torch.gather(x, dim, gather_index(idx, n))
+    fill = float("nan") if x.is_floating_point() \
+        else torch.iinfo(x.dtype).min
+    return torch.where(valid, out, torch.full((), fill, dtype=x.dtype,
+                                              device=x.device))

@@ -11,17 +11,27 @@ row.  JAX's threefry bits cannot be reproduced, so only greedy output
 is comparable across the two packages; draws are checked by their
 statistics.
 
-It also holds the ``correlation`` lowering (FlowNet's cost volume), as
-the JAX module does.
+It also holds the ``correlation`` lowering (FlowNet's cost volume) and
+the sampled losses ``nce`` and ``sample_logits``, as the JAX module
+does, with their samplers (``_sampler_prob``, ``_draw_samples``, module
+functions a test can replace).  A sampled loss draws one set of classes
+for the whole batch from ``op_generator``: a nonzero ``seed`` attr gives
+the op a generator of its own (its program then runs eagerly, as any
+seeded op's), else it draws from the program's stream.  Its gradient
+replays the forward, which can draw again only from a seeded generator:
+without a ``seed`` the gradient raises, as in the JAX package.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..framework.lowering import register_lower
+from .common import device_const, op_generator, take, tdiv
+from .common import take_along_axis
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
@@ -177,3 +187,148 @@ def _correlation(ctx, op):
         outs.append(prod)
     # displacements (dy, dx), dy-major
     ctx.set_out(op, "Output", torch.cat(outs, dim=1))
+
+
+# -- sampled losses (nce, sample_logits) ------------------------------------
+
+
+def _sampler_prob(idx, sampler, n_classes, custom_probs=None):
+    """P(class) under the sampler: 0 uniform, 1 log-uniform (Zipfian,
+    the reference's LogUniformSampler::Probability), 2 the normalized
+    ``CustomDistProbs``.  float32, on ``idx``'s device."""
+    if sampler == 2:
+        return take(custom_probs, idx)
+    if sampler == 0:
+        return torch.full(tuple(idx.shape), 1.0 / n_classes,
+                          dtype=torch.float32, device=idx.device)
+    idxf = idx.float()
+    return tdiv(torch.log((idxf + 2.0) / (idxf + 1.0)),
+                float(np.log(n_classes + 1.0)))
+
+
+def _draw_samples(ctx, op, n_samples, n_classes):
+    """-> (samples [n_samples] int32, their probabilities, the normalized
+    custom distribution or None): one draw shared by the batch, from
+    ``op_generator``.  Sampler 0 is ``randint``; 1 is ``exp(u * log(n +
+    1)) - 1`` cast to int32 and clipped; 2 draws by the inverse CDF,
+    ``searchsorted(cumsum(p), u)`` clamped to the last class, on the
+    device (the JAX package draws ``categorical``: the same
+    distribution), never on a class of probability 0.  The draws are made on ``ctx.device``.  The custom
+    distribution is normalized here, once, for the draw and the
+    corrections alike."""
+    sampler = int(op.attr("sampler", 0))
+    gen = op_generator(ctx, op)
+    device = ctx.device
+    custom_probs = None
+    if sampler == 0:
+        s = torch.randint(0, n_classes, (n_samples,), generator=gen,
+                          device=device, dtype=torch.int32)
+    elif sampler == 1:
+        u = torch.rand((n_samples,), generator=gen, device=device)
+        s = (torch.exp(u * float(np.log(n_classes + 1.0))) - 1.0).to(
+            torch.int32).clamp(0, n_classes - 1)
+    elif sampler == 2:
+        custom_probs = ctx.in1(op, "CustomDistProbs")
+        if custom_probs is None:
+            raise ValueError(
+                f"{op.type} sampler=2 (custom_dist) needs the "
+                f"CustomDistProbs input (per-class sampling probabilities)")
+        custom_probs = custom_probs.reshape(-1).float()
+        custom_probs = custom_probs / custom_probs.sum()
+        u = torch.rand((n_samples,), generator=gen, device=device)
+        # a class of probability 0 repeats the edge below it exactly (the
+        # card's parallel scan may round it apart), so no draw lands on
+        # it; a draw past the last edge goes to the last possible class
+        live = custom_probs > 0
+        cdf = torch.cummax(torch.where(live, torch.cumsum(custom_probs, 0),
+                                       torch.zeros_like(custom_probs)),
+                           0).values
+        classes = torch.arange(custom_probs.shape[0], device=device)
+        last = torch.where(live, classes, torch.zeros_like(classes)).amax()
+        s = torch.minimum(torch.searchsorted(cdf, u, right=True),
+                          last).to(torch.int32)
+    else:
+        raise NotImplementedError(f"{op.type} sampler {sampler} is unknown")
+    return (s, _sampler_prob(s, sampler, n_classes, custom_probs),
+            custom_probs)
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: log(1 + e^x) as logaddexp(x, 0), finite for
+    large x, with no threshold."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+@register_lower("nce")
+def _nce(ctx, op):
+    """Noise-contrastive estimation: the softplus logistic loss of each
+    row's true classes against ``num_neg_samples`` classes drawn once
+    for the batch, each logit less log(k * P_noise).  ``SampleLogits``
+    holds the true then the noise logits, ``SampleLabels`` the classes,
+    int32.  As in the JAX package, ``SampleWeight``, ``is_sparse`` and
+    the remote-prefetch attrs are not read; labels gather as jax gathers
+    (``common.take``)."""
+    x = ctx.in1(op, "Input")                  # [B, D]
+    label = ctx.in1(op, "Label")              # [B, T]
+    w = ctx.in1(op, "Weight")                 # [C, D]
+    b = ctx.in1(op, "Bias")                   # [C] or None
+    n_classes = int(op.attr("num_total_classes"))
+    n_neg = int(op.attr("num_neg_samples", 10))
+    sampler = int(op.attr("sampler", 0))
+    bsz = x.shape[0]
+    t = label.shape[1] if label.dim() > 1 else 1
+    lbl = label.reshape(bsz, t)
+    samples, sample_prob, custom_probs = _draw_samples(
+        ctx, op, n_neg, n_classes)
+    true_logit = torch.einsum("bd,btd->bt", x, take(w, lbl))
+    noise_logit = x @ take(w, samples).t()    # [B, n_neg]
+    if b is not None:
+        b = b.reshape(-1)
+        true_logit = true_logit + take(b, lbl)
+        noise_logit = noise_logit + take(b, samples)
+    p_true = _sampler_prob(lbl, sampler, n_classes, custom_probs)
+    k = float(n_neg)
+    true_adj = true_logit - torch.log(k * p_true)
+    noise_adj = noise_logit - torch.log(k * sample_prob)[None, :]
+    cost = _softplus(-true_adj).sum(1) + _softplus(noise_adj).sum(1)
+    ctx.set_out(op, "Cost", cost.reshape(bsz, 1))
+    ctx.set_out(op, "SampleLogits", torch.cat([true_logit, noise_logit], 1))
+    ctx.set_out(op, "SampleLabels", torch.cat(
+        [lbl.to(torch.int32), samples[None].expand(bsz, n_neg)], 1))
+
+
+@register_lower("sample_logits")
+def _sample_logits(ctx, op):
+    """Sampled softmax's inputs: the logits of each row's true labels
+    and of ``num_samples`` classes drawn once for the batch, less log Q
+    (the sampler's probability, the true labels' too), 1e20 subtracted
+    where a drawn class is one of the row's labels
+    (``remove_accidental_hits``).  The gathers are
+    ``jnp.take_along_axis``'s.  ``Samples``, ``SampledLabels``,
+    ``LogitsDim`` and ``LabelsDim`` are int32; ``Probabilities`` is Q."""
+    logits = ctx.in1(op, "Logits")            # [B, C]
+    label = ctx.in1(op, "Labels")             # [B, T]
+    n_samples = int(op.attr("num_samples", 10))
+    sampler = int(op.attr("sampler", 0))
+    bsz, c = logits.shape
+    t = label.shape[1]
+    dev = logits.device
+    samples, prob, custom_probs = _draw_samples(ctx, op, n_samples, c)
+    lbl = label.to(torch.int32)
+    all_idx = torch.cat([lbl, samples[None].expand(bsz, n_samples)], 1)
+    picked = take_along_axis(logits, all_idx, 1)
+    if bool(op.attr("remove_accidental_hits", True)):
+        acc = (all_idx[:, t:, None] == lbl[:, None, :]).any(-1)
+        picked = torch.cat([picked[:, :t], picked[:, t:]
+                            + (-1e20) * acc.to(picked.dtype)], 1)
+    logq = torch.cat([
+        torch.log(_sampler_prob(lbl, sampler, c, custom_probs)),
+        torch.log(prob)[None].expand(bsz, n_samples)], 1)
+    ctx.set_out(op, "SampledLogits", picked - logq)
+    ctx.set_out(op, "SampledLabels", torch.arange(
+        t, dtype=torch.int32, device=dev)[None].expand(bsz, t).contiguous())
+    ctx.set_out(op, "Samples", all_idx)
+    ctx.set_out(op, "Probabilities", torch.exp(logq))
+    ctx.set_out(op, "LogitsDim", device_const([bsz, c], torch.int32, dev))
+    ctx.set_out(op, "LabelsDim", device_const([bsz, t], torch.int32, dev))

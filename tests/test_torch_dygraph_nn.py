@@ -181,7 +181,7 @@ def test_unported_lowerings_raise_the_later_slice_error():
     x = T.to_tensor(IMG)
     ids = T.to_tensor(np.array([[1, 2]], "int64"))
     for make in (lambda: T.nn.Embedding(4, 3, sparse=True)(ids),
-                 lambda: run_op("row_conv", {"X": x, "Filter": x}, {},
+                 lambda: run_op("layer_index", {"X": x}, {},
                                 out_slots=("Out",))):
         with pytest.raises(NotImplementedError, match="later slice"):
             make()
