@@ -638,6 +638,49 @@ model.
                ``Predictor`` (batch bucket 1, 8 requests: B7 74 and B1 12
                a batch) answers ``/stats`` and ``/health``.
 
+Slice 24's phases run after ``dy2static``: scan-over-layers
+(``FLAGS_layer_scan`` / ``recompute_configs`` scan stamps:
+``LayerScanPass`` rewrites each run of isomorphic layer segments into one
+``layer_scan`` op over ``@LAYER_STACK@`` carriers, its body lowering one
+layer's ops once per layer) and the one-process CTR path.
+
+59. layer_scan_train -- phase 7's BERT-base (bf16 AMP, batch 32, dropout
+               0.1, B1) from one startup state, unrolled and then under
+               ``FLAGS_layer_scan=1`` (min_layers 4): the pass's segments
+               and layers, carriers, program ops before and after, the
+               warm-up and capture seconds, peak memory, B1 24 a step in
+               both, step p50, both 12-step loss trajectories (bit-equal,
+               or within ERNIE_TRAJ_RTOL with the first step apart and
+               the gap logged); then the scanned scope's
+               ``snapshot_scope`` (per-layer names, no carrier) restored
+               into an unrolled executor: its next step's loss equals the
+               scanned run's next step;
+60. layer_scan_recompute -- phase 41's ERNIE-1.0 finetune (amp +
+               recompute) with ``recompute_configs`` ``scan_layers=12``,
+               ERNIE_STEPS steps from ernie_fleet's initial state: the
+               trajectory held to ernie_fleet's recompute run's (bit-equal
+               or ERNIE_TRAJ_RTOL), B1 36 a step, the peak beside
+               ernie_fleet's; then ``policy="dots_saveable"`` alone under
+               ``FLAGS_layer_scan=1`` for LS_POLICY_STEPS steps, held the
+               same way;
+61. layer_scan_infer -- phase 30's BERT-base + NSP model saved and served
+               through ``Predictor`` under ``FLAGS_weight_quant=int8`` at
+               batch 32, unscanned and scanned: B7 74 and B1 12 a run in
+               both (B7 reading slices of the stacked ``@WQ`` carriers,
+               [12, K, N] int8, scales [12, N]), run p50 of both, outputs
+               bit-equal or within LS_INFER_RTOL;
+62. rec_data_feed -- ~100 MB of seeded MultiSlot text at Criteo's layout
+               (13 dense, 26 ids, a label) parsed by
+               ``io.MultiSlotDataFeed`` on the native parser (asserted:
+               no fallback parse) and a 2 MB slice by the Python
+               fallback (the same arrays): MB/s of both; then
+               ``rec.wide_deep_program`` at bench.py's DLRM sizes (batch
+               256, vocab 65,536, emb 32, hidden (128, 64), padding 0,
+               sparse tables: the dense fallback lookup) 10 steps on the
+               card, captured from step 2: step p50, examples/s,
+               ``emb_sparse_fallback_dense``, step 1's loss within 1e-4
+               of a CPU run of the port from the same state.
+
 Every phase also logs ``{"phase": "phase_seconds", "name": ...,
 "seconds": ...}``, its wall seconds, when it ends.  Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
@@ -821,6 +864,7 @@ RESNET_ORACLE_BATCH, RESNET_ORACLE_LR, RESNET_ORACLE_RTOL = 4, 1e-3, 1e-4
 INFER_BATCHES, INFER_RUNS = (1, 8, 32), 10
 INFER_MODES = ("", "int8", "fp8_e4m3")
 B7_PER_RUN, B1_PER_RUN = 74, 12   # 6 matmuls x 12 layers + pooler + nsp_out
+BERT_LAYERS = 12   # the served encoder's layers (layer_scan_infer's stack)
 # int8 vs float32 sequence output: the JAX package's bound
 # (tests/test_quant_inference.py), a fraction of the output's scale
 INT8_QUALITY_BOUND = 0.05
@@ -7677,12 +7721,14 @@ ERNIE_TRAJ_RTOL = 1e-3   # amp-only vs amp + recompute when not bit-equal
 # own summation orders
 ERNIE_ORACLE_RTOL = 1e-2
 B1_PER_RECOMPUTE_STEP = 36   # forward, recomputed forward, gradient replay
+ERNIE_STATE = {}   # ernie_fleet's initial state and recompute run
 
 
 def ernie_program(amp=True, recompute=True, gradient_merge=0,
-                  dropout=ERNIE["dropout"]):
+                  dropout=ERNIE["dropout"], scan_layers=0, policy=""):
     """The finetune through ``fleet``: main, startup, loss and the
-    applied chain's class names."""
+    applied chain's class names.  ``scan_layers`` / ``policy`` join
+    recompute's configs (the scan-over-layers stamps)."""
     from paddle_tpu_torch import layers
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.fleet.meta_optimizers import chain_names
@@ -7719,7 +7765,12 @@ def ernie_program(amp=True, recompute=True, gradient_merge=0,
         strategy.amp = amp
         if recompute:
             strategy.recompute = True
-            strategy.recompute_configs = {"checkpoints": ckpts}
+            rc = {"checkpoints": ckpts}
+            if scan_layers:
+                rc["scan_layers"] = scan_layers
+            if policy:
+                rc["policy"] = policy
+            strategy.recompute_configs = rc
         if gradient_merge:
             strategy.gradient_merge = True
             strategy.gradient_merge_configs = {"k_steps": gradient_merge,
@@ -7770,11 +7821,11 @@ def graph_pools_gb():
     ) / 1e9
 
 
-def ernie_train(prog, init, feed, steps, b1_per_step, label):
+def ernie_train(prog, init, feed, steps, b1_per_step, label, eager=True):
     """``steps`` steps of ``prog`` from the host state ``init``: the
     eager warm-up and the capture (peak memory over both, and the graph
     pools' size after the capture), then replays with B1's launches
-    counted; the eager block's p50 beside."""
+    counted; the eager block's p50 beside unless ``eager`` is off."""
     main, loss = prog["main"], prog["loss"]
     exe = pt.Executor()
     scope = pt.framework.Scope()
@@ -7815,7 +7866,8 @@ def ernie_train(prog, init, feed, steps, b1_per_step, label):
         raise RuntimeError(f"{label}: B1 launched {launches} times in "
                            f"{steps - 2} steps, want {b1_per_step} a step")
     graph = eager_vs_captured(label, exe, main, feed, [loss], scope,
-                              EAGER_STEPS, ORACLE_RTOL, True, step_ms, peak)
+                              EAGER_STEPS, ORACLE_RTOL, True, step_ms,
+                              peak) if eager else {}
     exe.close()
     return dict(losses=losses, step_ms_p50=float(np.median(step_ms)),
                 step_ms=step_ms, warm_ms=warm_ms, capture_ms=capture_ms,
@@ -7845,6 +7897,8 @@ def phase_ernie_fleet():
     release("ernie_startup")
     rc, launches = ernie_train(prog, init, feed, ERNIE_STEPS,
                                B1_PER_RECOMPUTE_STEP, "ernie_fleet")
+    # what layer_scan_recompute starts from and is held to
+    ERNIE_STATE.update(init=init, recompute=rc)
     rc_chain = prog["chain"]
     del prog
     release("ernie_recompute")
@@ -9457,6 +9511,481 @@ def phase_observe_serve(model_dir):
         raise RuntimeError(f"observe_serve: one-shot server {oneshot}")
 
 
+# ---- slice 24: scan-over-layers and the one-process CTR path -------------
+
+LS_STEPS = 10            # timed replays of each layer_scan_train run
+LS_POLICY_STEPS = 6      # steps of the policy-only ERNIE run
+LS_INFER_RUNS = 20       # timed runs of each layer_scan_infer predictor
+LS_INFER_RTOL = 1e-3     # scanned vs unscanned int8 outputs, relative
+SCAN_STATS = ("pass_layer_scan_segments", "pass_layer_scan_layers",
+              "pass_layer_scan_skipped")
+# bench.py's DLRM sizes (bench_dlrm) over Criteo's layout: 13 dense
+# floats, 26 categorical ids, one click label
+REC = dict(batch=256, vocab=65_536, emb=32, fields=26, dense=13,
+           hidden=(128, 64), lr=1e-2, steps=10, mb=100, fallback_mb=2)
+REC_ORACLE_TOL = 1e-4    # step 1's loss, card against CPU, float32
+REC_SLOTS = (("dense", "f", 13), ("ids", "u", 26), ("label", "u", 1))
+
+
+def reset_scan_stats():
+    for k in SCAN_STATS:
+        stat_reset(k)
+
+
+def scan_stats():
+    return {k[len("pass_layer_scan_"):]: stat_get(k) for k in SCAN_STATS}
+
+
+def rewritten(exe, main):
+    """The pass-rewritten program the executor runs for ``main``."""
+    fp = main.fingerprint()
+    return next(p for k, p in exe._pass_cache.items() if k[0] == fp)
+
+
+def trajectory_gap(a, b):
+    """(bit-equal, first step apart (1-based) or None, max relative gap)
+    of two loss lists."""
+    first = next((i + 1 for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 None)
+    gap = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    return a == b, first, gap
+
+
+def ls_bert_run(main, loss, init, feed, scan):
+    """BERT-base from the device state ``init``: the eager warm-up, the
+    capture, LS_STEPS timed replays (B1 counted); returns the executor,
+    the scope and the run's figures."""
+    flags.set_flags({"layer_scan": scan})
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    for n, v in init.items():
+        scope.set_var(n, v.clone())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0].ravel()[0])]
+    warm_s = time.perf_counter() - t0
+    captures = stat_get("cuda_graph_captures")
+    t0 = time.perf_counter()
+    losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0].ravel()[0]))
+    capture_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if stat_get("cuda_graph_captures") != captures + 1:
+        raise RuntimeError(f"layer_scan_train (scan={scan}): the second run "
+                           f"did not capture")
+    fab.reset_launch_count()    # this run's count starts here
+    replays = stat_get("cuda_graph_replays")
+    step_ms = []
+    for _ in range(LS_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        losses.append(float(out.ravel()[0]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = fab.flash_attention_bias.launches
+    replays = stat_get("cuda_graph_replays") - replays
+    if replays != LS_STEPS or launches != B1_PER_STEP * LS_STEPS:
+        raise RuntimeError(f"layer_scan_train (scan={scan}): B1 launched "
+                           f"{launches} times in {LS_STEPS} steps "
+                           f"({replays} replays), want {B1_PER_STEP} a "
+                           f"step, each a replay")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"layer_scan_train (scan={scan}): a loss is not "
+                           f"finite: {losses}")
+    prog = rewritten(exe, main)
+    plan = getattr(prog, "_layer_plan", None)
+    return exe, scope, dict(
+        losses=losses, step_ms_p50=float(np.median(step_ms)),
+        step_ms=step_ms, warm_s=warm_s, capture_s=capture_s,
+        peak_memory_gb=peak, b1_launches=launches,
+        b1_launches_per_step=launches / LS_STEPS, replays=replays,
+        program_ops=len(prog.global_block.ops),
+        layer_scan_ops=sum(op.type == "layer_scan"
+                           for op in prog.global_block.ops),
+        carriers=len(plan.stacks) if plan is not None else 0)
+
+
+def phase_layer_scan_train():
+    """BERT-base (bf16 AMP, batch 32, dropout 0.1, B1) unrolled, then
+    scanned under FLAGS_layer_scan=1 from one startup state: both loss
+    trajectories, B1 24 a step in both; the scanned scope's checkpoint,
+    restored into an unrolled executor, continues as the scanned run."""
+    from paddle_tpu_torch.ckpt import restore_scope, snapshot_scope
+
+    flags.set_flags({"flash_attention": "always"})
+    try:
+        main, startup, loss = build_bert(TRAIN_BATCH, amp=True, dropout=0.1)
+        exe = pt.Executor()
+        scope = pt.framework.Scope()
+        exe.run(startup, scope=scope)
+        init = {n: v.detach().clone() for n, v in scope._vars.items()
+                if isinstance(v, torch.Tensor)}
+        exe.close()
+        del exe, scope
+        feed = bert_feed(TRAIN_BATCH, seed=0)
+        exe, scope, unrolled = ls_bert_run(main, loss, init, feed, False)
+        exe.close()
+        del exe, scope
+        release("layer_scan_unrolled")
+        reset_scan_stats()
+        exe, scope, scanned = ls_bert_run(main, loss, init, feed, True)
+        stats = scan_stats()
+        del init
+        if not stats["segments"] or not scanned["carriers"]:
+            raise RuntimeError(f"layer_scan_train: the pass scanned nothing: "
+                               f"{stats}")
+        # the checkpoint crosses from the scanned run to an unrolled one
+        snap = snapshot_scope(scope)
+        stacked = [k for k in snap
+                   if k.startswith(passes.LAYER_STACK_PREFIX)]
+        if stacked:
+            raise RuntimeError(f"layer_scan_train: carriers in the "
+                               f"checkpoint: {stacked[:3]}")
+        next_scanned = float(exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=scope)[0].ravel()[0])
+        exe.close()
+        del exe, scope
+        flags.set_flags({"layer_scan": False})
+        exe = pt.Executor()
+        scope = pt.framework.Scope()
+        restore_scope(scope, snap)
+        del snap
+        next_unrolled = float(exe.run(main, feed=feed, fetch_list=[loss],
+                                      scope=scope)[0].ravel()[0])
+        exe.close()
+        del exe, scope
+    finally:
+        flags.set_flags({"layer_scan": False, "flash_attention": "auto"})
+    bit_equal, first_apart, gap = trajectory_gap(scanned["losses"],
+                                                 unrolled["losses"])
+    ckpt_gap = abs(next_unrolled - next_scanned) / abs(next_scanned)
+    log("layer_scan_train", model="bert-base", batch=TRAIN_BATCH, seq=128,
+        amp="bfloat16", dropout=0.1, steps=LS_STEPS,
+        min_layers=flags.flag("layer_scan_min_layers"),
+        pass_layer_scan=stats, user_program_ops=len(main.global_block.ops),
+        unrolled=unrolled, scanned=scanned,
+        trajectories_bit_equal=bit_equal, first_step_apart=first_apart,
+        max_rel_gap=gap, tolerance=ERNIE_TRAJ_RTOL,
+        ckpt_next_step_scanned=next_scanned,
+        ckpt_next_step_unrolled=next_unrolled, ckpt_rel_gap=ckpt_gap)
+    if not (bit_equal or gap <= ERNIE_TRAJ_RTOL):
+        raise RuntimeError(f"layer_scan_train: scanned and unrolled part "
+                           f"by {gap} > {ERNIE_TRAJ_RTOL} (first at step "
+                           f"{first_apart})")
+    if not (next_unrolled == next_scanned or ckpt_gap <= ERNIE_TRAJ_RTOL):
+        raise RuntimeError(f"layer_scan_train: the restored unrolled step "
+                           f"{next_unrolled} is not the scanned run's "
+                           f"{next_scanned}")
+
+
+def phase_layer_scan_recompute():
+    """ERNIE-1.0 (amp + recompute, B1) with recompute_configs
+    scan_layers=12 from ernie_fleet's initial state, held to its
+    recompute run's trajectory; then policy only under
+    FLAGS_layer_scan=1."""
+    flags.set_flags({"flash_attention": "always"})
+    init, ref = ERNIE_STATE["init"], ERNIE_STATE["recompute"]
+    feed = ernie_feed()
+    try:
+        prog = ernie_program(amp=True, recompute=True,
+                             scan_layers=ERNIE["layers"])
+        stamped = sum(op.has_attr(passes.LAYER_SCAN_ATTR)
+                      for op in prog["main"].global_block.ops)
+        reset_scan_stats()
+        rc, _ = ernie_train(prog, init, feed, ERNIE_STEPS,
+                            B1_PER_RECOMPUTE_STEP, "layer_scan_recompute",
+                            eager=False)
+        stats = scan_stats()
+        del prog
+        release("layer_scan_scan_layers")
+        flags.set_flags({"layer_scan": True})
+        pprog = ernie_program(amp=True, recompute=True,
+                              policy="dots_saveable")
+        reset_scan_stats()
+        pol, _ = ernie_train(pprog, init, feed, LS_POLICY_STEPS,
+                             B1_PER_RECOMPUTE_STEP,
+                             "layer_scan_recompute_policy", eager=False)
+        pstats = scan_stats()
+        del pprog
+    finally:
+        flags.set_flags({"layer_scan": False, "flash_attention": "auto"})
+        ERNIE_STATE.clear()
+    bit_equal, first_apart, gap = trajectory_gap(rc["losses"], ref["losses"])
+    pbit, pfirst, pgap = trajectory_gap(
+        pol["losses"], ref["losses"][:LS_POLICY_STEPS])
+    log("layer_scan_recompute", model="ernie-1.0 finetune",
+        steps=ERNIE_STEPS, scan_layers=ERNIE["layers"],
+        optimizer_ops_stamped=stamped, pass_layer_scan=stats,
+        scan_layers_run=rc, ernie_fleet_recompute_peak_gb=ref[
+            "peak_memory_gb"], ernie_fleet_recompute_step_ms_p50=ref[
+            "step_ms_p50"], trajectories_bit_equal=bit_equal,
+        first_step_apart=first_apart, max_rel_gap=gap,
+        policy_only=dict(policy="dots_saveable", steps=LS_POLICY_STEPS,
+                         pass_layer_scan=pstats, bit_equal=pbit,
+                         first_step_apart=pfirst, max_rel_gap=pgap, **pol),
+        tolerance=ERNIE_TRAJ_RTOL)
+    for label, st in (("scan_layers", stats), ("policy", pstats)):
+        if not st["segments"]:
+            raise RuntimeError(f"layer_scan_recompute ({label}): the pass "
+                               f"scanned nothing: {st}")
+    if not (bit_equal or gap <= ERNIE_TRAJ_RTOL):
+        raise RuntimeError(f"layer_scan_recompute: scan_layers and "
+                           f"ernie_fleet's recompute part by {gap} > "
+                           f"{ERNIE_TRAJ_RTOL} (first at step {first_apart})")
+    if not (pbit or pgap <= ERNIE_TRAJ_RTOL):
+        raise RuntimeError(f"layer_scan_recompute: the policy-only run and "
+                           f"ernie_fleet's recompute part by {pgap}")
+
+
+def phase_layer_scan_infer():
+    """The int8 BERT-base + NSP model through ``Predictor`` at batch 32,
+    unscanned and under FLAGS_layer_scan=1: B7 74 and B1 12 a run in
+    both, B7 reading the stacked int8 carriers; outputs compared."""
+    from paddle_tpu_torch import inference
+
+    feed = infer_feed(32, seed=32)
+    res, outs = {}, {}
+    flags.set_flags({"flash_attention": "always"})
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            model_dir = os.path.join(tmp, "bert_base")
+            main_prog, startup, seq_out, nsp_logits = build_bert_inference()
+            exe = pt.Executor()
+            scope = pt.framework.Scope()
+            exe.run(startup, scope=scope)
+            with pt.fluid.scope_guard(scope):
+                pt.fluid.io.save_inference_model(
+                    model_dir, list(INFER_FEEDS), [seq_out, nsp_logits],
+                    exe, main_prog)
+            exe.close()
+            del exe, scope
+            flags.set_flags({"weight_quant": "int8"})
+            for scan in (False, True):
+                flags.set_flags({"layer_scan": scan})
+                reset_scan_stats()
+                pred = inference.create_predictor(
+                    inference.Config(model_dir))
+                t0 = time.perf_counter()
+                pred.run(feed)
+                pred.run(feed)            # the warm-up, then the capture
+                torch.cuda.synchronize()
+                warm_capture_s = time.perf_counter() - t0
+                stats = scan_stats()
+                qo.reset_launch_count()   # this run's counts start here
+                fab.reset_launch_count()
+                replays = stat_get("cuda_graph_replays")
+                ms = []
+                for _ in range(LS_INFER_RUNS):
+                    t0 = time.perf_counter()
+                    out = pred.run(feed)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                launches = (qo.dequant_matmul.launches,
+                            fab.flash_attention_bias.launches)
+                replays = stat_get("cuda_graph_replays") - replays
+                want = (B7_PER_RUN * LS_INFER_RUNS,
+                        B1_PER_RUN * LS_INFER_RUNS)
+                if launches != want or replays != LS_INFER_RUNS:
+                    raise RuntimeError(
+                        f"layer_scan_infer (scan={scan}): B7/B1 launched "
+                        f"{launches} times in {LS_INFER_RUNS} runs "
+                        f"({replays} replays), want {want}")
+                wq = {n: (tuple(v.shape), str(v.dtype)[6:])
+                      for n, v in pred._scope._vars.items()
+                      if n.startswith(passes.LAYER_STACK_PREFIX)
+                      and "@WQ" in n}
+                if scan and (not stats["segments"] or not wq or any(
+                        s[0] != BERT_LAYERS for s, _ in wq.values())):
+                    raise RuntimeError(f"layer_scan_infer: no stacked int8 "
+                                       f"carriers of {BERT_LAYERS} layers: "
+                                       f"{stats} {wq}")
+                outs[scan] = [np.asarray(o) for o in out]
+                res["scanned" if scan else "unscanned"] = dict(
+                    run_ms_p50=float(np.median(ms)), run_ms=ms,
+                    warm_capture_s=warm_capture_s,
+                    launches_b7_b1=list(launches),
+                    launches_per_run=[n / LS_INFER_RUNS for n in launches],
+                    replays=replays, pass_layer_scan=stats,
+                    stacked_wq_carriers=len(wq),
+                    stacked_wq_shapes=sorted(set(wq.values()))[:4])
+                pred._exe.close()
+                del pred
+    finally:
+        flags.set_flags({"layer_scan": False, "weight_quant": "",
+                         "flash_attention": "auto"})
+    bit_equal = all(np.array_equal(a, b)
+                    for a, b in zip(outs[True], outs[False]))
+    gap = max_gap(outs[True], outs[False], True)
+    for o in outs[True]:
+        if not np.isfinite(o).all():
+            raise RuntimeError("layer_scan_infer: outputs not finite")
+    log("layer_scan_infer", model="bert-base encoder + nsp head, int8",
+        batch=32, seq=128, runs=LS_INFER_RUNS, outputs_bit_equal=bit_equal,
+        max_rel_gap=gap, tolerance=LS_INFER_RTOL, **res)
+    if not (bit_equal or gap <= LS_INFER_RTOL):
+        raise RuntimeError(f"layer_scan_infer: scanned vs unscanned outputs "
+                           f"apart by {gap} > {LS_INFER_RTOL}")
+
+
+def rec_text(path, mb, seed):
+    """About ``mb`` MB of MultiSlot text at Criteo's layout, from a seed:
+    a line is 13 dense features (``d.dddd``: log(1 + count), exponential
+    with mean 1.5, capped below 10), 26 categorical ids hashed into the
+    vocabulary (5 digits; 4 % missing, id 0, the padding row) and a
+    click label (25 % positive).  Returns (lines, bytes)."""
+    rng = np.random.RandomState(seed)
+    d, f = REC["dense"], REC["fields"]
+    line = 3 + d * 7 + 3 + f * 6 + 2 + 2
+    per_block = 1 << 16
+    lines = 0
+    with open(path, "wb") as out:
+        while lines * line < mb * 1e6:
+            n = per_block
+            buf = np.full((n, line), ord(" "), np.uint8)
+            buf[:, 0:2] = np.frombuffer(b"13", np.uint8)
+            dense = np.minimum(rng.exponential(1.5, (n, d)) * 1e4,
+                               99_999).astype(np.int64)
+            for j in range(d):
+                o = 3 + 7 * j
+                buf[:, o] = 48 + dense[:, j] // 10_000
+                buf[:, o + 1] = ord(".")
+                for k, div in enumerate((1_000, 100, 10, 1)):
+                    buf[:, o + 2 + k] = 48 + dense[:, j] // div % 10
+            o = 3 + d * 7
+            buf[:, o:o + 2] = np.frombuffer(b"26", np.uint8)
+            ids = rng.randint(1, REC["vocab"], (n, f))
+            ids[rng.rand(n, f) < 0.04] = 0
+            for j in range(f):
+                p = o + 3 + 6 * j
+                for k, div in enumerate((10_000, 1_000, 100, 10, 1)):
+                    buf[:, p + k] = 48 + ids[:, j] // div % 10
+            p = o + 3 + 6 * f
+            buf[:, p] = ord("1")
+            buf[:, p + 2] = 48 + (rng.rand(n) < 0.25)
+            buf[:, -1] = ord("\n")
+            out.write(buf.tobytes())
+            lines += n
+    return lines, lines * line
+
+
+def wide_deep(place):
+    from paddle_tpu_torch.rec import wide_deep_program
+
+    with unique_name.guard():
+        main, startup, _feeds, loss, opt = wide_deep_program(
+            batch_size=REC["batch"], vocab_size=REC["vocab"],
+            emb_dim=REC["emb"], n_fields=REC["fields"],
+            n_dense=REC["dense"], hidden=REC["hidden"], padding_idx=0,
+            sparse=True, lr=REC["lr"])
+        with program_guard(main, startup):
+            opt.minimize(loss)
+    return main, startup, loss
+
+
+def rec_feed(batch):
+    return {"sparse_ids": batch["ids"][0].astype("int64"),
+            "dense_x": batch["dense"][0],
+            "labels": batch["label"][0].astype("int64")}
+
+
+def phase_rec_data_feed():
+    """Criteo-layout MultiSlot text through ``io.MultiSlotDataFeed`` (the
+    native parser, and the Python fallback on a slice), then
+    ``rec.wide_deep_program`` (sparse tables, padding 0) 10 steps at
+    batch 256 on the card, captured; step 1 against the CPU."""
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch import native as tnative
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "part-00000")
+        t0 = time.perf_counter()
+        n_lines, n_bytes = rec_text(path, REC["mb"], seed=24)
+        write_s = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            data = f.read()
+    feed = tio.MultiSlotDataFeed(REC_SLOTS, REC["batch"])
+    if not tnative.has_native():
+        raise RuntimeError("rec_data_feed: the native MultiSlot parser did "
+                           "not build")
+    fallbacks = stat_get("data_feed_parse_fallback")
+    t0 = time.perf_counter()
+    n, parsed = feed.parse(data)
+    native_s = time.perf_counter() - t0
+    if stat_get("data_feed_parse_fallback") != fallbacks or n != n_lines:
+        raise RuntimeError(f"rec_data_feed: the native parser did not run "
+                           f"({n} of {n_lines} lines)")
+    cut = data.index(b"\n", int(REC["fallback_mb"] * 1e6)) + 1
+    t0 = time.perf_counter()
+    m, py = tnative._parse_multislot_py(data[:cut], feed.types)
+    fallback_s = time.perf_counter() - t0
+    for (a, la), (b, lb) in zip(py, parsed):
+        if not (np.array_equal(a, b[:len(a)]) and np.array_equal(
+                la, lb[:m + 1])):
+            raise RuntimeError("rec_data_feed: the Python fallback and the "
+                               "native parser disagree")
+    del data
+    batches = []
+    for b in feed._batches(n, parsed):
+        batches.append(rec_feed(b))
+        if len(batches) == REC["steps"]:
+            break
+    del parsed
+    main, startup, loss = wide_deep(None)
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    exe.run(startup, scope=scope)
+    init = {k: v.detach().cpu().clone() for k, v in scope._vars.items()
+            if isinstance(v, torch.Tensor)}
+    sparse0 = stat_get("emb_sparse_fallback_dense")
+    captures = stat_get("cuda_graph_captures")
+    replays = stat_get("cuda_graph_replays")
+    losses, step_ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=b, fetch_list=[loss], scope=scope)[0]
+        losses.append(float(out.ravel()[0]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    sparse = stat_get("emb_sparse_fallback_dense") - sparse0
+    captures = stat_get("cuda_graph_captures") - captures
+    replays = stat_get("cuda_graph_replays") - replays
+    exe.close()
+    if captures != 1 or replays != REC["steps"] - 1:
+        raise RuntimeError(f"rec_data_feed: {captures} captures and "
+                           f"{replays} replays in {REC['steps']} steps")
+    cexe = pt.Executor(pt.CPUPlace())
+    cscope = pt.framework.Scope()
+    for k, v in init.items():
+        cscope.set_var(k, v)
+    cpu_loss = float(cexe.run(main, feed=batches[0], fetch_list=[loss],
+                              scope=cscope)[0].ravel()[0])
+    cexe.close()
+    gap = abs(losses[0] - cpu_loss)
+    p50 = float(np.median(step_ms[2:]))
+    log("rec_data_feed", model="wide&deep (bench.py DLRM sizes)",
+        batch=REC["batch"], vocab=REC["vocab"], emb=REC["emb"],
+        fields=REC["fields"], dense=REC["dense"], hidden=list(REC["hidden"]),
+        lines=n_lines, mb=n_bytes / 1e6, write_s=write_s,
+        native_parse_s=native_s, native_parse_mb_s=n_bytes / 1e6 / native_s,
+        fallback_parse_mb=cut / 1e6,
+        fallback_parse_mb_s=cut / 1e6 / fallback_s,
+        native_over_fallback=(n_bytes / native_s) / (cut / fallback_s),
+        steps=REC["steps"], captures=captures, replays=replays,
+        losses=losses, step_ms=step_ms, step_ms_p50_replays=p50,
+        examples_per_s=REC["batch"] / (p50 / 1e3),
+        emb_sparse_fallback_dense=sparse, step1_cpu_loss=cpu_loss,
+        step1_gap=gap, tolerance=REC_ORACLE_TOL)
+    if not all(math.isfinite(x) for x in losses) or not sparse:
+        raise RuntimeError(f"rec_data_feed: losses {losses}, sparse "
+                           f"lookups counted {sparse}")
+    if not gap <= REC_ORACLE_TOL:
+        raise RuntimeError(f"rec_data_feed: step 1 on the card {losses[0]} "
+                           f"vs the CPU {cpu_loss}: {gap} > "
+                           f"{REC_ORACLE_TOL}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script measures "
@@ -9620,6 +10149,14 @@ def main():
     release("jit_bert_int8")
     phase_dy2static()
     release("dy2static")
+    phase_layer_scan_train()
+    release("layer_scan_train")
+    phase_layer_scan_recompute()
+    release("layer_scan_recompute")
+    phase_layer_scan_infer()
+    release("layer_scan_infer")
+    phase_rec_data_feed()
+    release("rec_data_feed")
     kernels = []
     main_case = TRAIN_FLASH_CASES[0][0]
     for kernel, case in (("paged_decode_attention", "decode_float32"),

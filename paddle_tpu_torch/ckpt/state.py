@@ -30,9 +30,17 @@ buffer at its next replay, by the executor's identity check.
 A scope whose last scanned step failed the NaN scan is refused until a
 restore replaces its state, so no poisoned checkpoint is written.
 
-The JAX package's lazy views of stacked and packed parameters
-(``StackedParamRef``, ``PackedParamRef``) do not exist in the port's
-scope; their branch comes with the distributed slices.
+Layer-scanned state (``framework/passes.py`` ``LayerScanPass``), as in
+the JAX package: a snapshot of the whole scope leaves the
+``@LAYER_STACK@`` carriers out and takes each member through its
+``StackedParamRef`` view (the carrier's slice, cloned like any card
+tensor), so checkpoints hold per-layer names whether the run was scanned
+or not.  A restore writes concrete per-layer tensors over the views; the
+next scanned dispatch copies them into the live carrier
+(``LayerScanPlan.ensure_stacked``) and an unrolled one reads them as they
+are, so a checkpoint crosses the scan flag in both directions.  The
+pipeline's packed view (``PackedParamRef``) comes with the
+several-process slice.
 """
 from __future__ import annotations
 
@@ -42,7 +50,7 @@ import numpy as np
 import torch
 
 from ..framework.place import DeviceLike, default_device
-from ..framework.scope import to_tensor
+from ..framework.scope import StackedParamRef, to_tensor
 
 RNG_VAR = "@RNG_KEY@"
 
@@ -160,11 +168,18 @@ def take_snapshot(scope, var_names: Optional[Sequence[str]] = None,
     drain_all()
     _check_poison(scope)
     if var_names is None:
-        var_names = scope.local_var_names()
+        # the carriers' bytes are the members' views taken below: saving
+        # both would double the checkpoint and tie it to the scan flag
+        from ..framework.passes import LAYER_STACK_PREFIX
+
+        var_names = [n for n in scope.local_var_names()
+                     if not n.startswith(LAYER_STACK_PREFIX)]
     out: Dict[str, object] = {}
     cards = []
     for n in var_names:
         v = scope.get_var(n) if scope.has_var(n) else None
+        if isinstance(v, StackedParamRef):
+            v = v.device_value()
         if isinstance(v, torch.Generator):
             out[n] = GeneratorState(v.get_state().clone(), v.device.type)
         elif isinstance(v, torch.Tensor):

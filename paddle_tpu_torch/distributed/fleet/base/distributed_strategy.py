@@ -93,8 +93,8 @@ class DistributedStrategy:
     # recompute config keys the message cannot hold (RecomputeConfig
     # carries only the checkpoint list): "policy" and "scan_layers", the
     # scan-over-layers extras.  Python-side only: they do not survive
-    # serialize_to_string.  RecomputeMetaOptimizer refuses them in the
-    # port (layer_scan is ROADMAP Queue A item 8).
+    # serialize_to_string.  RecomputeMetaOptimizer stamps them onto the
+    # program's optimizer ops, where LayerScanPass reads them.
     _RC_EXTRA_KEYS = ("policy", "scan_layers")
 
     @property

@@ -16,15 +16,16 @@ At one process the port runs:
   AMP takes;
 - ``AMPMetaOptimizer``: bf16 by default, fp16 with dynamic loss scaling
   when ``use_bf16`` is false;
-- ``RecomputeMetaOptimizer`` with ``checkpoints``;
+- ``RecomputeMetaOptimizer`` with ``checkpoints``, and its
+  scan-over-layers stamps ``policy`` / ``scan_layers``;
 - ``DGCMetaOptimizer`` (its ``dgc`` op is a one-device top-k sparsifier);
 - ``FP16AllReduceMetaOptimizer``, which only stamps the program.
 
 ``GraphExecutionMetaOptimizer`` and ``ShardingMetaOptimizer`` apply only
 above one rank, which the port does not run.  ``LocalSGDMetaOptimizer``,
 ``PipelineMetaOptimizer``, ``TensorParallelMetaOptimizer``,
-``ExpertParallelMetaOptimizer`` and recompute's ``policy`` /
-``scan_layers`` raise the later-slice error (ROADMAP Queue A item 8).
+``ExpertParallelMetaOptimizer`` raise the later-slice error (ROADMAP
+Queue A item 8).
 """
 from __future__ import annotations
 
@@ -176,30 +177,67 @@ class RecomputeMetaOptimizer(MetaOptimizerBase):
     ``recompute_barrier`` ops just before the gradient ops that read it,
     so only one segment's activations are alive in the backward.
 
-    The JAX package's scan-over-layers extras (``policy``,
-    ``scan_layers``) need its ``layer_scan`` pass, which is not ported."""
+    Scan-over-layers extras (recompute_configs ``policy`` /
+    ``scan_layers``), as in the JAX package: stamped AFTER the inner
+    minimize onto the program's optimizer ops (``__layer_scan__`` /
+    ``__layer_scan_policy__``: attrs, so the contract survives
+    clone/proto round trips and re-keys every executor cache through the
+    fingerprint).  They turn the executor's LayerScanPass on for this
+    program and name the remat policy its scan bodies record (the
+    JAX package's ``jax.checkpoint`` policy; the port's recompute is the
+    checkpoints' program-level one, so the policy changes no number)."""
 
     def _can_apply(self):
         return self.user_strategy.recompute
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
+        from ...framework.passes import (LAYER_SCAN_ATTR,
+                                         LAYER_SCAN_POLICY_ATTR,
+                                         REMAT_POLICIES)
+
         cfg = self.user_strategy.recompute_configs
         ckpts = list(cfg.get("checkpoints", []))
         policy = str(cfg.get("policy") or "")
         scan_layers = int(cfg.get("scan_layers") or 0)
-        if policy or scan_layers:
-            raise later("recompute_configs 'policy' / 'scan_layers' "
-                        "(scan-over-layers needs the layer_scan pass)")
-        if not ckpts:
+        if policy and policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"recompute_configs['policy'] must be one of "
+                f"{sorted(REMAT_POLICIES)}, got {policy!r}")
+        if not ckpts and not (policy or scan_layers):
             raise ValueError(
                 "strategy.recompute=True needs recompute_configs with "
                 "'checkpoints': [var_names] (barrier-based recompute), "
                 "'scan_layers': N and/or 'policy': <remat policy> "
                 "(scan-over-layers), or both")
-        loss.block.program._recompute_checkpoints = ckpts
-        return self.inner_opt.minimize(loss, startup_program, parameter_list,
-                                       no_grad_set)
+        prog = loss.block.program
+        if ckpts:
+            prog._recompute_checkpoints = ckpts
+        ret = self.inner_opt.minimize(loss, startup_program, parameter_list,
+                                      no_grad_set)
+        if policy or scan_layers:
+            stamped = False
+            for op in prog.global_block.ops:
+                if op.type in _OPTIMIZER_OP_TYPES:
+                    if scan_layers:
+                        op.attrs[LAYER_SCAN_ATTR] = scan_layers
+                    if policy:
+                        op.attrs[LAYER_SCAN_POLICY_ATTR] = policy
+                    stamped = True
+            if not stamped:
+                raise ValueError(
+                    "recompute_configs scan_layers/policy found no "
+                    "optimizer ops to stamp; minimize() must build the "
+                    "training program first")
+            prog._bump()
+        return ret
+
+
+# the optimizer ops a scan stamp rides (the JAX package's list)
+_OPTIMIZER_OP_TYPES = {
+    "sgd", "momentum", "adam", "adamw", "adamax", "adagrad", "adadelta",
+    "rmsprop", "ftrl", "lamb", "lars_momentum", "dgc_momentum", "dpsgd",
+}
 
 
 class GradientMergeMetaOptimizer(MetaOptimizerBase):

@@ -130,7 +130,13 @@ hands it to the ``framework/passes.py`` pipeline (attention-chain fusion
 to ``flash_attention``, redundant-cast and dead-op elimination), which
 rewrites a clone and leaves the caller's program as built, cached per
 (fingerprint, pass list, fetch and feed names, scope, and the pass
-flags); ``FLAGS_fuse_passes=0`` runs the program as built.  State read
+flags); ``FLAGS_fuse_passes=0`` runs the program as built, but for
+scan-over-layers, which answers to its own flag and stamps.  A
+layer-scanned program's per-layer state lives in ``@LAYER_STACK@``
+carriers: ``LayerScanPlan.ensure_stacked`` packs it before each
+dispatch's analysis, and a member the block reads or writes (a
+``StackedParamRef`` in the scope) is its carrier's slice in the step,
+never a state buffer of its own.  State read
 from the scope reaches the device with its own dtype, never cast to the
 var's declared one: a float8 weight-quant carrier is declared ``int8``
 in the block (the IR has no float8 type) and the op's ``mode`` attr says
@@ -165,7 +171,8 @@ from .graphs import StepGraph
 from .lowering import PSEUDO_OPS, LoweringContext, get_lowering
 from .place import Place, _default_place
 from .program import Program, Variable, default_main_program
-from .scope import Scope, global_scope, to_numpy, to_tensor
+from .scope import (Scope, StackedParamRef, global_scope, to_numpy,
+                    to_tensor)
 
 RNG_VAR = "@RNG_KEY@"
 NAN_FLAGS_VAR = "@NAN_FLAGS@"
@@ -772,6 +779,7 @@ class Executor:
                               self.device)
         program = self._apply_graph_passes(program, fetch_names, feeds,
                                            scope)
+        self._ensure_stacked(program, scope)
         if use_prune and fetch_names:
             program = self._pruned(program, fetch_names)
         entry = self._entry(program, feeds, fetch_names, scope)
@@ -829,6 +837,7 @@ class Executor:
         fetch_names = _names(fetch_list)
         program = self._apply_graph_passes(program, fetch_names, feeds,
                                            scope)
+        self._ensure_stacked(program, scope)
         entry = None
         for i in range(n_steps):
             step_feed = feeds if steps is not None else \
@@ -886,9 +895,10 @@ class Executor:
         self.drain()
         n0 = len(self._cache)
         for spec in (feed_specs or []):
-            # the pass cache is keyed by the feed names, not their values
-            self._apply_graph_passes(program, fetch_names,
-                                     dict.fromkeys(spec), scope)
+            # the pass cache is keyed by the feed names, not their values;
+            # the layer-scan carriers, like the weight-quant ones, stay
+            self._ensure_stacked(self._apply_graph_passes(
+                program, fetch_names, dict.fromkeys(spec), scope), scope)
         snapshots = []
         s = scope
         while s is not None:
@@ -1037,6 +1047,11 @@ class Executor:
             raise _later("the localsgd strategy")
         if getattr(program, "_pipeline", None) is not None:
             raise _later("a pipeline program")
+        if passes_mod.has_tp_marks(program) or \
+                passes_mod.has_ep_marks(program):
+            # its dp loss-grad scale was removed for a sharded run: one
+            # device would compute wrong gradients, not just slow ones
+            raise _later("a tensor- or expert-parallel program")
 
     def _pruned(self, program, fetch_names) -> Program:
         """``program`` with only the ops the fetches need (a clone whose
@@ -1063,17 +1078,22 @@ class Executor:
         a rewritten clone, or the original object when no pass changed
         anything -- is cached per (fingerprint, pass config, fetch/feed
         names, scope serial) and the values of the flags the passes
-        read (FLAGS_weight_quant among them: flipping it back serves the
-        float program again, not a stale rewrite); FLAGS_fuse_passes
-        gates the whole pipeline."""
-        if not flag("fuse_passes"):
+        read (FLAGS_weight_quant and the layer-scan flags among them:
+        flipping one back serves the program it gave before, not a stale
+        rewrite).  FLAGS_fuse_passes gates the optimization passes; with
+        it off, scan-over-layers still runs when FLAGS_layer_scan or a
+        ``recompute_configs`` scan stamp asks for it (its own gate)."""
+        if flag("fuse_passes"):
+            pipeline = passes_mod.default_pipeline()
+        elif passes_mod.LayerScanPass._config(program)[0]:
+            pipeline = passes_mod.PassPipeline([passes_mod.LayerScanPass()])
+        else:
             return program
         with otrace.span("executor/pass_pipeline"):
-            pipeline = passes_mod.default_pipeline()
             key = (program.fingerprint(), pipeline.config_key(),
                    fetch_names, frozenset(feed), scope.serial,
                    str(flag("flash_attention")), str(flag("weight_quant")),
-                   bool(flag("fuse_passes")))
+                   bool(flag("fuse_passes"))) + _scan_flags()
             cached = self._pass_cache.get(key)
             if cached is not None:
                 stat_add("executor_pass_cache_hit")
@@ -1083,6 +1103,16 @@ class Executor:
                                          scope=scope)
             out = self._pass_cache[key] = pipeline.apply(program, ctx)
             return out
+
+    def _ensure_stacked(self, program, scope):
+        """Before the state analysis of a layer-scanned program: its
+        per-layer state packed into the carriers once, and anything
+        written over a member since (a restore) copied into its slice in
+        place (``LayerScanPlan.ensure_stacked``); a no-op in steady
+        state."""
+        plan = getattr(program, "_layer_plan", None)
+        if plan is not None:
+            plan.ensure_stacked(scope, self.device)
 
     def _generator(self, scope, program) -> torch.Generator:
         gen = scope.get_var(RNG_VAR) if scope.has_var(RNG_VAR) else None
@@ -1101,11 +1131,13 @@ class Executor:
         key = (program.fingerprint(),
                tuple((n, tuple(t.shape), t.dtype) for n, t in feeds.items()),
                fetch_names,
-               tuple((tuple(v.shape), v.dtype) for v in
+               tuple((tuple(v.shape), v.dtype,
+                      isinstance(v, StackedParamRef)) for v in
                      (scope.get_var(n) for n in state_in)),
                scope.serial, self.device,
                str(flag("flash_attention")), str(flag("weight_quant")),
-               bool(flag("fuse_passes")), int(flag("moe_alltoall_chunks")))
+               bool(flag("fuse_passes")), int(flag("moe_alltoall_chunks"))
+               ) + _scan_flags()
         entry = self._cache.get(key)
         if entry is not None:
             stat_add("executor_cache_hit")
@@ -1198,8 +1230,15 @@ class Executor:
         block = entry.program.global_block
         gen = self._generator(scope, entry.program)
         static_feeds = {n: t.clone() for n, t in feeds.items()}
+        # members of a layer-scan carrier are slices of it inside the
+        # step, never state buffers of their own: a second buffer on
+        # the carrier's storage would be cloned off it below, and an
+        # edge layer's update would never reach the carrier
+        views_in, views_out, carriers = _stacked_views(
+            scope, entry.state_in, entry.state_out)
         state, held = {}, set()
-        for n in entry.state_in:
+        for n in tuple(n for n in entry.state_in if n not in views_in) \
+                + tuple(c for c in carriers if c not in entry.state_in):
             v = scope.get_var(n)
             if v.device != self.device or _storage(v) in held:
                 # each state buffer its own: an update in place must not
@@ -1212,14 +1251,19 @@ class Executor:
         graph = _GraphStep(entry.step, static_feeds, state, gen,
                            int(entry.program.random_seed or 0))
 
+        read = set(entry.state_in)
+
         def step():
-            env = dict(state)
+            env = {n: v for n, v in state.items() if n in read}
+            env.update((n, state[c][i]) for n, (c, i) in views_in.items())
             env.update(static_feeds)
             self._run_ops(LoweringContext(block, env, self.device, gen),
                           entry.frees, entry)
             _check_fetches(entry.fetch_names, env)
             copies = []
             for n in entry.state_out:
+                if n in views_out:
+                    continue
                 v = env[n]
                 if n in state and v is state[n]:
                     continue
@@ -1229,6 +1273,9 @@ class Executor:
                     copies.append((state[n], v))
                 else:
                     graph.written[n] = v
+            for n, (c, i) in views_out.items():
+                # after the carrier's own write-back
+                copies.append((state[c][i], env[n]))
             for buf, v in copies:
                 buf.copy_(v)
             return [env[n] for n in entry.fetch_names]
@@ -1255,9 +1302,12 @@ class Executor:
             written = set(state_out)
             aliased = sum(_nbytes(scope.get_var(n)) for n in state_in
                           if n in written)
+        views_in, views_out, _ = _stacked_views(scope, state_in, state_out)
         env = {}
         for n in state_in:
             v = scope.get_var(n)
+            if n in views_in:   # a layer-scan member: its carrier's slice
+                v = v.device_value()
             # a tensor array (a Python list) passes through as it is
             env[n] = v.to(self.device) if isinstance(v, torch.Tensor) \
                 and v.device != self.device else v
@@ -1274,7 +1324,11 @@ class Executor:
                             "temporaries_bytes": max(peak - outs, 0),
                             "aliased_bytes": aliased}
         for n in state_out:
-            scope.set_var(n, env[n])
+            if n not in views_out:
+                scope.set_var(n, env[n])
+        with torch.no_grad():
+            for n, (c, i) in views_out.items():
+                scope.get_var(c)[i].copy_(env[n])
         return [env[n] for n in fetch_names]
 
     def _run_ops(self, ctx, frees, entry=None, probe=False) -> int:
@@ -1378,9 +1432,36 @@ def _batch_flops(program, feeds) -> Tuple[int, float]:
 
 def _nbytes(v) -> int:
     """Bytes of a tensor (0 for anything else: a generator, a tensor
-    array)."""
+    array, a layer-scan member, whose bytes its carrier holds)."""
     return v.numel() * v.element_size() if isinstance(v, torch.Tensor) \
         else 0
+
+
+def _scan_flags() -> tuple:
+    """The layer-scan flags, which decide the pass's rewrite: they key
+    the pass cache and the compiled-step cache."""
+    return (bool(flag("layer_scan")), int(flag("layer_scan_min_layers")),
+            str(flag("layer_scan_policy")), int(flag("layer_scan_unroll")))
+
+
+def _stacked_views(scope, state_in, state_out):
+    """The state names that are layer-scan members in ``scope``
+    (``StackedParamRef`` views): ``(read, written, carriers)``, the
+    first two mapping a name to its (carrier, index).  A step reads such
+    a member as its carrier's slice and writes it back into that slice,
+    so the carrier stays the one copy of the layer's state."""
+    def views(names):
+        out = {}
+        for n in names:
+            v = scope.get_var(n) if scope.has_var(n) else None
+            if isinstance(v, StackedParamRef):
+                out[n] = (v.stack_name, v.index)
+        return out
+
+    vin, vout = views(state_in), views(state_out)
+    carriers = tuple(dict.fromkeys(
+        c for c, _ in list(vin.values()) + list(vout.values())))
+    return vin, vout, carriers
 
 
 def _footprint(program, feeds, state_in, scope, frees, batch):

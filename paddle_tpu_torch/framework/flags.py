@@ -352,6 +352,36 @@ define_flag("fuse_passes", True,
             "the executor lowers it; off runs the program exactly as "
             "built")
 
+# ---- scan-over-layers (framework/passes.py LayerScanPass,
+# ops/layer_scan.py) --------------------------------------------------------
+define_flag("layer_scan", False,
+            "scan-over-layers (framework/passes.py LayerScanPass): detect "
+            "maximal runs of isomorphic repeated op segments (the "
+            "forward, backward and optimizer regions a repeated-layer "
+            "model builder emits), stack their per-layer state on a "
+            "leading num_layers axis, and run each run as ONE layer_scan "
+            "op whose body lowers one layer's ops once per layer, with "
+            "bit-identical step numerics.  Also enabled per program by "
+            "DistributedStrategy.recompute_configs={'scan_layers': N}; "
+            "non-matching programs are left untouched "
+            "(pass_layer_scan_skipped counters name why)")
+define_flag("layer_scan_min_layers", 4,
+            "minimum isomorphic segment repeat count before "
+            "LayerScanPass rewrites a run; "
+            "recompute_configs={'scan_layers': N} overrides per program")
+define_flag("layer_scan_policy", "",
+            "rematerialization policy recorded on each layer_scan op: '' "
+            "or one of the JAX package's names ('nothing_saveable', "
+            "'dots_saveable', 'checkpoint_dots', 'save_anything', "
+            "'everything_saveable', 'dots_with_no_batch_dims_saveable'). "
+            "The port's recompute is program-level (recompute_configs "
+            "checkpoints); the policy changes no number")
+define_flag("layer_scan_unroll", 1,
+            "the JAX package's lax.scan unroll= factor; the port's "
+            "layer_scan body is a Python loop over the layers, so the "
+            "factor is recorded on the op (attr 'unroll') and changes "
+            "nothing that runs")
+
 # ---- weight-only quantized inference (slim/quantization.py,
 # ops/quant_ops.py) --------------------------------------------------------
 define_flag("weight_quant", "",

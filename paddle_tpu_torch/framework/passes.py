@@ -9,7 +9,7 @@ the exact pre-pass program runs).  Application is cached by the Executor
 per ``(program.fingerprint(), pass config, fetch/feed names, scope, the
 flags the passes read)``.
 
-Passes in default order (the JAX package's registry order; the four it
+Passes in default order (the JAX package's registry order; the two it
 also registers and the port does not have yet keep their places in the
 comments below and in ROADMAP.md):
 
@@ -19,22 +19,30 @@ comments below and in ROADMAP.md):
    ``flash_attention_grad`` (``ops/flash_attention.py``: the forward
    kernel keeps only the per-row logsumexp, the two backward kernels
    recompute the probabilities tile by tile).
-2. ``RedundantCastEliminationPass`` -- removes ``cast`` ops whose input
+2. ``LayerScanPass`` -- scan-over-layers, under ``FLAGS_layer_scan`` or
+   a ``recompute_configs`` scan stamp: each run of isomorphic layer
+   segments becomes one ``layer_scan`` op (``ops/layer_scan.py``) over
+   per-layer state stacked into ``@LAYER_STACK@`` carriers
+   (``LayerScanPlan``, ``scope.StackedParamRef``); trimmed runs' edge
+   layers stay unrolled and read the carriers' slices.
+3. ``RedundantCastEliminationPass`` -- removes ``cast`` ops whose input
    provably already holds the target dtype (a conservative forward
    dataflow; unknown dtypes are never touched).
-3. ``DeadOpEliminationPass`` -- drops ops that feed neither a fetch nor
+4. ``DeadOpEliminationPass`` -- drops ops that feed neither a fetch nor
    persistent/scope-resident state, reusing the executor's ``_prune_ops``
    backward slice (side-effect ops are always kept).
 
 ``PostTrainingWeightQuantPass`` (``slim/quantization.py``) registers
-itself between 1 and 2 when the first default pipeline is built
+itself between 1 and 2 (before ``layer_scan``) when the first default pipeline is built
 (``_ensure_external_passes``): gated by ``FLAGS_weight_quant`` or
 ``slim.mark_weight_quant``, it rewrites matmul-family ops onto int8 /
 fp8-e4m3 carriers through ``dequant_matmul`` (``ops/quant_ops.py``).
 
 Observability (``paddle_tpu_torch.monitor``):
 ``pass_flash_attention_fused`` / ``pass_flash_attention_grad_fused``,
-``pass_casts_removed``, ``pass_dead_ops_removed``,
+``pass_layer_scan_segments`` / ``pass_layer_scan_layers`` /
+``pass_layer_scan_skipped`` (+ ``_<reason>``), ``pass_casts_removed``,
+``pass_dead_ops_removed``,
 ``pass_pipeline_apply``, and the Executor's ``executor_pass_cache_hit``;
 one ``pass/<name>`` tracer span per applied pass.
 """
@@ -52,6 +60,15 @@ __all__ = [
     "PassPipeline",
     "PASS_REGISTRY",
     "FlashAttentionPass",
+    "LayerScanPass",
+    "LayerScanPlan",
+    "LAYER_SCAN_ATTR",
+    "LAYER_SCAN_POLICY_ATTR",
+    "LAYER_STACK_ATTR",
+    "LAYER_STACK_PREFIX",
+    "REMAT_POLICIES",
+    "has_tp_marks",
+    "has_ep_marks",
     "RedundantCastEliminationPass",
     "DeadOpEliminationPass",
     "register_pass",
@@ -132,11 +149,10 @@ _DTYPE_PRESERVING = {
     "allreduce", "mp_allreduce_sum",
 }
 
-# The JAX package's registry holds three more passes, not ported yet, in
-# this order (flash_attention_fuse comes first there too):
-#   sharding_propagation, layer_scan, fuse_allreduce
-# all between flash_attention_fuse and redundant_cast_eliminate; the
-# weight-quant pass (slim/quantization.py) sits between the first two.
+# The JAX package's registry holds two more passes, not ported yet:
+# sharding_propagation (between flash_attention_fuse and the weight-quant
+# pass) and fuse_allreduce (right after layer_scan); both need several
+# processes or devices (ROADMAP Queue A item 8).
 
 
 @register_pass
@@ -470,6 +486,1023 @@ class FlashAttentionPass(Pass):
         stat_add("pass_flash_attention_fused", len(groups))
         stat_add("pass_flash_attention_grad_fused",
                  sum(1 for g in groups if g["grads"]))
+        return True
+
+
+# ---------------------------------------------------------------------------
+# scan-over-layers (the JAX package's LayerScanPass, ops/layer_scan.py)
+# ---------------------------------------------------------------------------
+
+# op-attr markers stamped by the transpilers and meta-optimizers, as in
+# the JAX package (attrs, so they survive clone/proto round trips and
+# join the program fingerprint)
+FUSED_ALLREDUCE_ATTR = "__fused_allreduce__"
+TP_RULES_ATTR = "__tp_rules__"
+TP_CONSTRAINT_ATTR = "__tp_constraint__"
+EP_DEGREE_ATTR = "__ep_degree__"
+
+# scan-over-layers markers.  The first two are stamped by the
+# RecomputeMetaOptimizer (DistributedStrategy.recompute_configs
+# 'scan_layers' / 'policy') on the program's optimizer ops and OVERRIDE
+# the FLAGS_layer_scan* defaults for this program.  LAYER_STACK_ATTR is
+# stamped by LayerScanPass on a pulled-out allreduce whose payload
+# carries the stacked (num_layers, ...) leading axis over a var whose
+# DECLARED shape stays per-layer: byte accounting multiplies by it.
+LAYER_SCAN_ATTR = "__layer_scan__"            # min isomorphic run length
+LAYER_SCAN_POLICY_ATTR = "__layer_scan_policy__"  # remat policy name
+LAYER_STACK_ATTR = "__layer_stack__"          # num stacked layers
+# scope/block name prefix of a stacked family's carrier; ckpt
+# snapshot_scope skips these (the per-layer StackedParamRef views are
+# what checkpoints save, so a resume works across the scan flag)
+LAYER_STACK_PREFIX = "@LAYER_STACK@"
+
+# the JAX package's remat policy names (its framework/jax_compat.py
+# _CHECKPOINT_POLICY_NAMES): what recompute_configs['policy'] and
+# FLAGS_layer_scan_policy accept
+REMAT_POLICIES = (
+    "nothing_saveable", "dots_saveable", "checkpoint_dots",
+    "save_anything", "everything_saveable",
+    "dots_with_no_batch_dims_saveable",
+)
+
+
+def has_tp_marks(program) -> bool:
+    """True when a TensorParallelMetaOptimizer stamped this program."""
+    return any(op.attr(TP_RULES_ATTR) for op in program.global_block.ops)
+
+
+def has_ep_marks(program) -> bool:
+    """True when an ExpertParallelMetaOptimizer stamped this program."""
+    return any(op.attr(EP_DEGREE_ATTR) is not None
+               for op in program.global_block.ops)
+
+
+class LayerScanPlan:
+    """Scope-side stacker for a layer-scanned program.
+
+    ``stacks`` holds one entry per scope-resident family the
+    LayerScanPass stacked (params, optimizer slots): carrier name,
+    ordered per-layer member names, per-layer shape and dtype.  The
+    Executor calls :meth:`ensure_stacked` on every dispatch before its
+    state analysis:
+
+    - first call: the concrete per-layer scope values are stacked into
+      one ``(num_layers, *shape)`` carrier tensor on the device (the one
+      allocation) and each member becomes a
+      :class:`~.scope.StackedParamRef` view, so checkpoints and
+      ``paddle.save`` keep seeing per-layer values;
+    - steady state (all members are views of the carrier): no-op;
+    - concrete members over a live carrier (a restore, a scope filled
+      by ``set_var``): each is copied into its slice in place,
+      ``carrier[i].copy_(v)`` (the JAX package's ``.at[i].set``), every
+      member at once included, so a captured graph that holds the
+      carrier as its state buffer keeps reading it.
+    """
+
+    __slots__ = ("stacks",)
+
+    def __init__(self, stacks):
+        self.stacks = tuple(stacks)
+
+    def ensure_stacked(self, scope, device=None):
+        import torch
+
+        from .scope import StackedParamRef, to_tensor
+
+        for st in self.stacks:
+            carrier, members = st["carrier"], st["members"]
+            shape = tuple(int(d) for d in st["shape"])
+            buf = scope.get_var(carrier) if scope.has_var(carrier) \
+                else None
+            vals, concrete_idx = [], []
+            for i, m in enumerate(members):
+                v = scope.get_var(m) if scope.has_var(m) else None
+                if v is None and buf is None:
+                    raise RuntimeError(
+                        f"layer-scan stacked state var {m!r} is not "
+                        f"initialized in the scope; run the startup "
+                        f"program first")
+                vals.append(v)
+                if v is not None and not (isinstance(v, StackedParamRef)
+                                          and v.stack_name == carrier):
+                    concrete_idx.append(i)
+            if buf is not None and not concrete_idx:
+                continue  # steady state
+            if buf is not None and tuple(buf.shape) == \
+                    (len(members),) + shape:
+                # refresh in place: the carrier keeps its storage
+                with torch.no_grad():
+                    for i in concrete_idx:
+                        v = vals[i]
+                        if isinstance(v, StackedParamRef):
+                            v = v.device_value()
+                        buf[i].copy_(to_tensor(v).reshape(shape))
+            else:
+                # the first pack: the one allocation
+                ts = [to_tensor(v.device_value()
+                                if isinstance(v, StackedParamRef) else v)
+                      for v in vals]
+                dev = device if device is not None else ts[0].device
+                buf = torch.stack([t.reshape(shape).to(dev) for t in ts])
+                scope.set_var(carrier, buf)
+            for i, m in enumerate(members):
+                scope.set_var(m, StackedParamRef(
+                    scope, carrier, i, shape, buf.dtype))
+
+    def __repr__(self):
+        return f"LayerScanPlan(stacks={len(self.stacks)})"
+
+
+# op types that must never sit inside a scanned segment: host I/O,
+# control flow (their sub-blocks would need nested region handling),
+# positional p2p pairs (a scan would re-order the ring FIFO), and the
+# fuse pass's own coalesce machinery
+_LS_BREAKER_OPS = {
+    "while", "cond_pair", "layer_scan", "layer_index", "feed", "fetch",
+    "save", "load", "save_combine", "load_combine", "send_v2",
+    "partial_send", "recv_v2", "partial_recv", "barrier", "print",
+    "coalesce_tensor", "uncoalesce_tensor",
+}
+_LS_SUB_BLOCK_ATTRS = ("sub_block", "sub_block_t", "sub_block_f",
+                       "layer_block")
+# attrs excluded from the isomorphism comparison (placement annotations
+# carry no semantics here)
+_LS_IGNORED_ATTRS = {"op_device"}
+
+
+class _LayerStack:
+    """One stacked family the pass knows about: ordered member names ->
+    carrier.  ``kind``: 'state' (scope-resident, managed by
+    LayerScanPlan), 'ys' (produced by a scan in this program), or a
+    pending carry stack ('carry_pre'/'carry_post') that only
+    materializes a stacked output if something consumes it."""
+
+    __slots__ = ("carrier", "members", "template", "kind", "index_of",
+                 "producer", "active")
+
+    def __init__(self, carrier, members, template, kind, producer=None):
+        self.carrier = carrier
+        self.members = tuple(members)
+        self.template = template
+        self.kind = kind
+        self.index_of = {m: i for i, m in enumerate(self.members)}
+        self.producer = producer  # producing _RunPlan for ys/carry kinds
+        self.active = kind in ("state", "ys")
+
+
+class _RunPlan:
+    """One accepted isomorphic run, fully planned for emission."""
+
+    __slots__ = ("start", "L", "M", "tpl", "sigmas", "shared", "carries",
+                 "xs", "ys", "pulled", "policy")
+
+    def __init__(self, start, L, M, tpl, sigmas):
+        self.start = start
+        self.L = L
+        self.M = M
+        self.tpl = tpl          # template ops (program Operators)
+        self.sigmas = sigmas    # per segment: {template name -> member}
+        self.shared = []        # names identical across segments
+        self.carries = []       # (t_tpl, w_tpl) chained pairs
+        self.xs = []            # dicts: tpl, members, src, stack, flip,
+        #                         slice (start, stop) or None
+        self.ys = []            # dicts: tpl, members, pre, stack,
+        #                         flip, update_start (None = fresh/full)
+        self.pulled = []        # (template allreduce op, ys index)
+        self.policy = ""
+
+    @property
+    def end(self):
+        return self.start + self.L * self.M
+
+
+@register_pass(before="redundant_cast_eliminate")
+class LayerScanPass(Pass):
+    """Scan-over-layers: detect maximal runs of isomorphic op segments
+    (same op types/slots/attrs/topology, differing only in var names --
+    the shape a repeated-layer model builder emits for its forward,
+    backward and optimizer regions) and rewrite each run into ONE
+    ``layer_scan`` region op (``ops/layer_scan.py``), whose body lowers
+    the template segment once per layer over leading-axis-stacked
+    per-layer state.
+
+    The JAX package does this to make trace and compile time constant in
+    depth (one ``lax.scan`` body); the port keeps the same rewrite, so
+    a program's state, checkpoints and counters are the same in both
+    packages, and runs the body as a loop over the layers, launching the
+    same kernels on the same shapes as the unrolled program (the
+    weights are slices of a carrier), in the same order, drawing from
+    the program's generator in the same order: step numerics are
+    bit-identical to the unrolled run.
+
+    Detection contract (anything else is left untouched, loudly:
+    ``pass_layer_scan_skipped`` + a per-reason counter):
+
+    - segments must be attr-identical under a positionally-consistent
+      bijective renaming; mapped vars must agree on shape AND dtype
+      (stacking needs rectangular families);
+    - every template input classifies as shared (same name each layer),
+      carry (layer k reads what layer k-1 wrote), or a per-layer xs
+      family; every output as carry-out or a per-layer ys family;
+    - per-layer weights/slots whose members live in the scope become
+      scope-resident stacked carriers (:class:`LayerScanPlan`); grads
+      and activations stack as internal ys consumed by later runs (the
+      backward scan reads the forward scan's activation stacks, the
+      optimizer scan reads the backward's grad stacks);
+    - a later run whose families align with an existing stack only on a
+      sub-range (layer 0's backward segment differs when the input
+      needs no grad) is TRIMMED to the aligned window, the edge layers
+      staying unrolled;
+    - transpiler-marked per-grad allreduces inside a segment are pulled
+      out of the body and re-emitted ONCE on the stacked grad carrier
+      (stamped ``LAYER_STACK_ATTR``).
+    """
+
+    name = "layer_scan"
+
+    # -- config ------------------------------------------------------------
+    @staticmethod
+    def _config(program):
+        """(enabled, min_layers, policy): program stamps (strategy
+        plumbing via RecomputeMetaOptimizer) override the FLAGS_*
+        defaults."""
+        from .flags import flag
+
+        enabled = bool(flag("layer_scan"))
+        min_layers = int(flag("layer_scan_min_layers") or 4)
+        policy = str(flag("layer_scan_policy") or "")
+        for op in program.global_block.ops:
+            # RecomputeMetaOptimizer may stamp scan_layers, policy, or
+            # BOTH (recompute_configs={'policy': ...} alone picks the
+            # remat policy for a FLAGS_layer_scan-enabled run)
+            has_n = op.has_attr(LAYER_SCAN_ATTR)
+            p = op.attr(LAYER_SCAN_POLICY_ATTR, None)
+            if not (has_n or p):
+                continue
+            if has_n:
+                v = int(op.attr(LAYER_SCAN_ATTR) or 0)
+                if v > 0:
+                    enabled = True
+                    min_layers = v
+            if p:
+                policy = str(p)
+            break
+        return enabled, max(min_layers, 2), policy
+
+    def should_apply(self, program, ctx):
+        if getattr(program, "_pipeline", None) is not None:
+            return False
+        enabled, min_layers, _ = self._config(program)
+        return enabled and len(program.global_block.ops) >= 2 * min_layers
+
+    # -- structural fingerprints -------------------------------------------
+    @staticmethod
+    def _is_breaker(op):
+        if op.type in _LS_BREAKER_OPS:
+            return True
+        if any(op.has_attr(a) for a in _LS_SUB_BLOCK_ATTRS):
+            return True
+        # ZeRO-sharded optimizer state is laid out over the dp axis by
+        # name; stacking those members would break the shard specs
+        if op.attr("__sharded_accumulators__", None):
+            return True
+        return False
+
+    @staticmethod
+    def _var_sig(block, name):
+        v = block._find_var_recursive(name)
+        if v is None:
+            return ("?",)
+        return (tuple(int(s) for s in v.shape), int(v.dtype),
+                bool(v.persistable))
+
+    @classmethod
+    def _op_key(cls, block, op):
+        """Structural fingerprint: everything about the op EXCEPT the
+        concrete var names.  Name-bearing attrs (tp constraint anchors)
+        are canonicalized positionally against the op's own outputs."""
+        out_names = op.output_arg_names()
+
+        def canon_attr(k, v):
+            if k == TP_CONSTRAINT_ATTR:
+                ents = []
+                for ent in (v or []):
+                    nm, _, spec = str(ent).partition("\t")
+                    if nm in out_names:
+                        ents.append((out_names.index(nm), spec))
+                    else:
+                        ents.append((-1, nm, spec))  # conservative
+                return tuple(ents)
+            if isinstance(v, (list, tuple)):
+                return tuple(v)
+            return v
+
+        def slots(d):
+            return tuple(
+                (s, tuple(cls._var_sig(block, n) for n in names))
+                for s, names in sorted(d.items()))
+
+        attrs = tuple(sorted(
+            (k, canon_attr(k, v)) for k, v in op.attrs.items()
+            if k not in _LS_IGNORED_ATTRS))
+        return (op.type, slots(op.inputs), slots(op.outputs), attrs)
+
+    # -- run detection ------------------------------------------------------
+    def _find_runs(self, block, ops, min_layers, max_period=256):
+        """Non-overlapping (start, period, count) candidates, greedy in
+        stream order; candidates are verified/classified later."""
+        n = len(ops)
+        breaker = [self._is_breaker(op) for op in ops]
+        interned: Dict[tuple, int] = {}
+        kid = []
+        positions: Dict[int, List[int]] = {}
+        for i, op in enumerate(ops):
+            if breaker[i]:
+                kid.append(-1 - i)  # unique: never matches anything
+                continue
+            k = interned.setdefault(self._op_key(block, op), len(interned))
+            kid.append(k)
+            positions.setdefault(k, []).append(i)
+
+        runs = []
+        i = 0
+        while i < n:
+            if breaker[i]:
+                i += 1
+                continue
+            limit = min(max_period, (n - i) // min_layers)
+            found = None
+            for p in positions.get(kid[i], ()):
+                L = p - i
+                if L <= 0:
+                    continue
+                if L > limit:
+                    break
+                if kid[i:i + L] != kid[i + L:i + 2 * L]:
+                    continue
+                M = 2
+                while i + (M + 1) * L <= n \
+                        and kid[i + M * L:i + (M + 1) * L] == kid[i:i + L]:
+                    M += 1
+                if M >= min_layers:
+                    found = (L, M)
+                    break
+            if found:
+                L, M = found
+                runs.append((i, L, M))
+                i += L * M
+            else:
+                i += 1
+        return runs
+
+    # -- renaming + classification -----------------------------------------
+    @staticmethod
+    def _sigma(tpl_ops, seg_ops):
+        """Positional renaming template->segment; None on conflict or
+        non-bijectivity."""
+        fwd: Dict[str, str] = {}
+        rev: Dict[str, str] = {}
+        for a, b in zip(tpl_ops, seg_ops):
+            for da, db in ((a.inputs, b.inputs), (a.outputs, b.outputs)):
+                for slot, names in da.items():
+                    other = db.get(slot, [])
+                    if len(other) != len(names):
+                        return None
+                    for x, y in zip(names, other):
+                        if fwd.setdefault(x, y) != y:
+                            return None
+                        if rev.setdefault(y, x) != x:
+                            return None
+        return fwd
+
+    def _classify(self, ops, start, L, M):
+        """Build the run's role model.  Returns (plan, reason): plan is
+        a _RunPlan with shared/carries/xs/ys member tuples filled in
+        (stack alignment happens later), reason names the rejection."""
+        tpl = ops[start:start + L]
+        sigmas = []
+        for k in range(M):
+            s = self._sigma(tpl, ops[start + k * L:start + (k + 1) * L])
+            if s is None:
+                return None, "rename_conflict"
+            sigmas.append(s)
+
+        tpl_writes = list(dict.fromkeys(
+            n for op in tpl for n in op.output_arg_names()))
+        written = set(tpl_writes)
+        ext_in = []
+        seen_w: set = set()
+        for op in tpl:
+            for n in op.input_arg_names():
+                if n not in seen_w and n not in ext_in:
+                    ext_in.append(n)
+            seen_w.update(op.output_arg_names())
+
+        # who writes each member name (cross-segment dependency map)
+        write_owner: Dict[str, int] = {}
+        for j, s in enumerate(sigmas):
+            for w in tpl_writes:
+                m = s[w]
+                if write_owner.setdefault(m, j) != j:
+                    return None, "output_classify"
+
+        plan = _RunPlan(start, L, M, tpl, sigmas)
+
+        def members(t):
+            return tuple(s[t] for s in sigmas)
+
+        carry_w: set = set()
+        for t in ext_in:
+            mem = members(t)
+            if all(m == t for m in mem):
+                if t in written:
+                    return None, "shared_written"
+                plan.shared.append(t)
+                continue
+            cw = None
+            for w in tpl_writes:
+                if w in carry_w:
+                    continue
+                if all(sigmas[k][t] == sigmas[k - 1][w]
+                       for k in range(1, M)):
+                    cw = w
+                    break
+            if cw is not None and write_owner.get(mem[0]) is None:
+                plan.carries.append((t, cw))
+                carry_w.add(cw)
+                continue
+            if len(set(mem)) == M and all(
+                    write_owner.get(m, k) == k for k, m in enumerate(mem)):
+                # per-layer xs family (a member may be written by its
+                # OWN segment -- the in-place optimizer update -- but
+                # never by a sibling)
+                plan.xs.append({"tpl": t, "members": mem})
+                continue
+            return None, "input_classify"
+
+        for w in tpl_writes:
+            if w in carry_w:
+                continue
+            mem = members(w)
+            if len(set(mem)) != M:
+                return None, "output_classify"
+            plan.ys.append({"tpl": w, "members": mem, "pre": False})
+        return plan, None
+
+    # -- stack alignment ----------------------------------------------------
+    @staticmethod
+    def _family_window(mem, stacks_of):
+        """Longest contiguous segment window [a, b) over which the
+        member tuple is either entirely absent from every known stack
+        (a fresh family) or maps to a contiguous ascending/descending
+        index slice of ONE stack.  Returns (a, b)."""
+        n = len(mem)
+        best = (0, 0)
+
+        def better(w):
+            nonlocal best
+            if w[1] - w[0] > best[1] - best[0]:
+                best = w
+
+        # fresh runs
+        a = None
+        for i in range(n + 1):
+            fresh = i < n and not stacks_of(mem[i])
+            if fresh and a is None:
+                a = i
+            elif not fresh and a is not None:
+                better((a, i))
+                a = None
+
+        # mapped runs, per candidate stack
+        cands = []
+        for m in (mem[0], mem[n // 2], mem[-1]):
+            for st in stacks_of(m):
+                if st not in cands:
+                    cands.append(st)
+        for st in cands:
+            pos = [st.index_of.get(m) for m in mem]
+            a = None
+            dirn = 0
+            for i in range(n + 1):
+                ok = i < n and pos[i] is not None
+                if ok and a is not None:
+                    step = pos[i] - pos[i - 1]
+                    if dirn == 0 and step in (1, -1):
+                        dirn = step
+                    elif step != dirn:
+                        better((a, i))
+                        a, dirn = i, 0
+                        continue
+                if ok and a is None:
+                    a, dirn = i, 0
+                elif not ok and a is not None:
+                    better((a, i))
+                    a, dirn = None, 0
+        return best
+
+    # -- planning one run ---------------------------------------------------
+    def _plan_run(self, block, ops, start, L, M, registry, member_stacks,
+                  min_layers, tp_plan, scope):
+        """Classify + align a detected run against the stack registry;
+        returns (_RunPlan, None) or (None, reason).  Stacks created for
+        a run that is ultimately rejected are rolled back so they can
+        never serve a later run's alignment."""
+        created: List[_LayerStack] = []
+
+        def rollback(reason):
+            for st in created:
+                registry.pop(st.carrier, None)
+                for m in st.members:
+                    lst = member_stacks.get(m)
+                    if lst and st in lst:
+                        lst.remove(st)
+            return None, reason
+
+        def stacks_of(name):
+            return member_stacks.get(name, ())
+
+        a, b = 0, M
+        for _ in range(4):
+            plan, reason = self._classify(ops, start + a * L, L, b - a)
+            if plan is None:
+                return None, reason
+            lo, hi = 0, b - a
+            for fam in plan.xs:
+                wa, wb = self._family_window(fam["members"], stacks_of)
+                lo, hi = max(lo, wa), min(hi, wb)
+            if hi - lo < min_layers:
+                return None, "stack_align"
+            if (lo, hi) == (0, b - a):
+                break
+            a, b = a + lo, a + hi
+        else:
+            return None, "stack_align"
+        plan.start = start + a * L
+
+        # xs: bind to carriers / gather lists
+        for fam in plan.xs:
+            mem = fam["members"]
+            hits = [st for st in stacks_of(mem[0]) if self._slice_of(
+                mem, st) is not None]
+            if hits:
+                st = hits[0]
+                s0, flip = self._slice_of(mem, st)
+                fam.update(src="c", stack=st, flip=flip,
+                           slice=None if (s0 == 0 and len(mem) ==
+                                          len(st.members))
+                           else (s0, s0 + len(mem)))
+                st.active = True
+            else:
+                if any(stacks_of(m) for m in mem):
+                    return rollback("family_mismatch")
+                tvar = block._find_var_recursive(fam["tpl"])
+                if tvar is None or not tvar.shape:
+                    return rollback("var_missing")
+                state = all(
+                    (lambda v: v is not None and v.persistable)(
+                        block._find_var_recursive(m))
+                    or (scope is not None and scope.has_var(m))
+                    for m in mem)
+                if state:
+                    st = self._new_stack(block, fam["tpl"], mem, "state",
+                                         registry, member_stacks)
+                    created.append(st)
+                    fam.update(src="c", stack=st, flip=0, slice=None)
+                else:
+                    fam.update(src="g", stack=None, flip=0, slice=None)
+            if tp_plan is not None and not self._tp_uniform(
+                    tp_plan, fam["members"]):
+                return rollback("tp_spec_mismatch")
+
+        # ys: fresh stacks, or in-place updates of state carriers
+        for fam in plan.ys:
+            mem = fam["members"]
+            upd = None
+            for st in stacks_of(mem[0]):
+                sl = self._slice_of(mem, st)
+                if sl is not None and st.kind == "state":
+                    upd = (st, sl)
+                    break
+            if upd is not None:
+                st, (s0, flip) = upd
+                fam.update(stack=st, flip=flip,
+                           update_start=None if (s0 == 0 and len(mem) ==
+                                                 len(st.members) and
+                                                 not flip) else s0)
+                continue
+            if any(stacks_of(m) for m in mem):
+                return rollback("ys_conflict")
+            st = self._new_stack(block, fam["tpl"], mem, "ys", registry,
+                                 member_stacks, producer=plan)
+            created.append(st)
+            fam.update(stack=st, flip=0, update_start=None)
+            if tp_plan is not None and not self._tp_uniform(tp_plan, mem):
+                return rollback("tp_spec_mismatch")
+
+        # pending carry stacks: later consumers (the backward scan over
+        # forward activations) or outside readers activate them.  BOTH
+        # the iteration-start (pre) and iteration-end (post) views are
+        # registered -- the backward's activation families span either,
+        # depending on whether the chained value is consumed before or
+        # after its layer's update -- and only the consumed one ever
+        # emits a stacked output
+        for (t, w) in plan.carries:
+            mem_in = tuple(s[t] for s in plan.sigmas)
+            mem_out = tuple(s[w] for s in plan.sigmas)
+            for kind, tpl_n, mem in (("carry_pre", t, mem_in),
+                                     ("carry_post", w, mem_out)):
+                if any(st.members == mem
+                       for m in mem for st in member_stacks.get(m, ())):
+                    continue  # identical family already registered
+                created.append(self._new_stack(
+                    block, tpl_n, mem, kind, registry, member_stacks,
+                    producer=plan))
+
+        return plan, None
+
+    @staticmethod
+    def _slice_of(mem, st):
+        """(start, flip) when ``mem`` is a contiguous ascending or
+        descending index slice of stack ``st``, else None."""
+        pos = [st.index_of.get(m) for m in mem]
+        if any(p is None for p in pos):
+            return None
+        if len(pos) == 1:
+            return pos[0], 0
+        step = pos[1] - pos[0]
+        if step not in (1, -1):
+            return None
+        if any(pos[i + 1] - pos[i] != step for i in range(len(pos) - 1)):
+            return None
+        return (pos[0], 0) if step == 1 else (pos[-1], 1)
+
+    @staticmethod
+    def _tp_uniform(tp_plan, mem):
+        specs = {tuple(tp_plan.specs.get(m, ())) for m in mem}
+        return len(specs) == 1
+
+    @staticmethod
+    def _new_stack(block, tpl_name, mem, kind, registry, member_stacks,
+                   producer=None):
+        carrier = LAYER_STACK_PREFIX + tpl_name
+        if carrier in registry:
+            # same template name reused by a disjoint family (two runs
+            # whose templates landed on the same layer): uniquify
+            n = 2
+            while f"{carrier}#{n}" in registry:
+                n += 1
+            carrier = f"{carrier}#{n}"
+        tvar = block._find_var_recursive(tpl_name)
+        # the carrier's DECLARED shape stays per-layer (see
+        # LAYER_STACK_ATTR): consumers that need physical bytes must
+        # multiply by the stamp
+        block.create_var(
+            name=carrier,
+            shape=list(tvar.shape) if tvar is not None else [],
+            dtype=(tvar.dtype if tvar is not None else "float32"),
+            persistable=bool(kind == "state"),
+            stop_gradient=True)
+        st = _LayerStack(carrier, mem, tpl_name, kind, producer=producer)
+        registry[carrier] = st
+        for m in mem:
+            member_stacks.setdefault(m, []).append(st)
+        return st
+
+    # -- emission -----------------------------------------------------------
+    def _emit_run(self, block, plan, policy, unroll):
+        """Emit the layer_scan op (+ pulled-out stacked allreduces) for
+        one planned run.  layer_index materializations are appended by
+        the caller, which knows the outside readers."""
+        from .program import Operator
+
+        program = block.program
+        tblock = program._create_block(parent_idx=block.idx)
+        program._rollback()
+
+        # pull transpiler-marked in-place grad allreduces out of the
+        # body: the scan emits the stacked pre-reduce grads and ONE
+        # collective covers all layers (an elementwise sum per layer ==
+        # the same sum on the stacked tensor)
+        ys_by_tpl = {f["tpl"]: f for f in plan.ys}
+        pulled = []
+        for j, op in enumerate(plan.tpl):
+            if op.type != "c_allreduce_sum" \
+                    or not op.attr(FUSED_ALLREDUCE_ATTR):
+                continue
+            xs_n = op.inputs.get("X", [])
+            if len(xs_n) != 1 or op.outputs.get("Out", []) != xs_n:
+                continue
+            g = xs_n[0]
+            fam = ys_by_tpl.get(g)
+            if fam is None or fam.get("update_start") is not None \
+                    or fam.get("flip"):
+                continue
+            # nothing later in the body may read the pre-reduce value
+            if any(g in later.input_arg_names()
+                   for later in plan.tpl[j + 1:]):
+                continue
+            pulled.append((j, op, fam))
+        pulled_idx = {j for j, _, _ in pulled}
+
+        for j, op in enumerate(plan.tpl):
+            if j in pulled_idx:
+                continue
+            top = Operator.__new__(Operator)
+            top.block = tblock
+            top.type = op.type
+            top.inputs = {s: list(n) for s, n in op.inputs.items()}
+            top.outputs = {s: list(n) for s, n in op.outputs.items()}
+            top.attrs = dict(op.attrs)
+            top.callstack = list(op.callstack)
+            tblock.ops.append(top)
+
+        sig0, sigN = plan.sigmas[0], plan.sigmas[-1]
+        inputs = {}
+        outputs = {}
+        attrs = {
+            "layer_block": tblock.idx,
+            "num_layers": plan.M,
+        }
+        if policy:
+            attrs["remat_policy"] = policy
+        if unroll != 1:
+            attrs["unroll"] = unroll
+        if plan.carries:
+            inputs["CarryIn"] = [sig0[t] for t, _ in plan.carries]
+            outputs["CarryOut"] = [sigN[w] for _, w in plan.carries]
+            attrs["carry_in_tpl"] = [t for t, _ in plan.carries]
+            attrs["carry_out_tpl"] = [w for _, w in plan.carries]
+        if plan.shared:
+            inputs["Shared"] = list(plan.shared)
+
+        stacked_in, gather_in = [], []
+        xs_tpl, xs_src, xs_flip, xs_start, xs_stop = [], [], [], [], []
+        for fam in plan.xs:
+            xs_tpl.append(fam["tpl"])
+            xs_src.append(fam["src"])
+            xs_flip.append(int(fam.get("flip") or 0))
+            sl = fam.get("slice")
+            xs_start.append(-1 if sl is None else int(sl[0]))
+            xs_stop.append(-1 if sl is None else int(sl[1]))
+            if fam["src"] == "c":
+                stacked_in.append(fam["stack"].carrier)
+            else:
+                gather_in.extend(fam["members"])
+        if xs_tpl:
+            attrs.update(xs_tpl=xs_tpl, xs_src=xs_src, xs_flip=xs_flip,
+                         xs_start=xs_start, xs_stop=xs_stop)
+        if stacked_in:
+            inputs["StackedIn"] = stacked_in
+        if gather_in:
+            inputs["GatherIn"] = gather_in
+
+        ys_tpl, ys_pre, ys_flip, ys_ustart, stacked_out = [], [], [], [], []
+        for fam in plan.ys:
+            st = fam["stack"]
+            if st.kind in ("carry_pre", "carry_post") and not st.active:
+                continue  # nobody consumes this carry stack
+            ys_tpl.append(fam["tpl"])
+            ys_pre.append(int(bool(fam.get("pre"))))
+            ys_flip.append(int(fam.get("flip") or 0))
+            us = fam.get("update_start")
+            ys_ustart.append(-1 if us is None else int(us))
+            stacked_out.append(st.carrier)
+        if ys_tpl:
+            attrs.update(ys_tpl=ys_tpl, ys_pre=ys_pre, ys_flip=ys_flip,
+                         ys_update_start=ys_ustart)
+            outputs["StackedOut"] = stacked_out
+
+        seq = [Operator(block, "layer_scan", inputs, outputs, attrs)]
+        for _, op, fam in pulled:
+            ar_attrs = dict(op.attrs)
+            ar_attrs[LAYER_STACK_ATTR] = plan.M
+            carrier = fam["stack"].carrier
+            seq.append(Operator(block, "c_allreduce_sum",
+                                {"X": [carrier]}, {"Out": [carrier]},
+                                ar_attrs))
+        return seq
+
+    # -- apply --------------------------------------------------------------
+    def apply(self, program, ctx):
+        from ..monitor import stat_add, stat_set
+        from .flags import flag
+
+        def skip(reason):
+            stat_add("pass_layer_scan_skipped")
+            stat_add(f"pass_layer_scan_skipped_{reason}")
+
+        _, min_layers, policy = self._config(program)
+        if policy and policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"layer-scan remat policy must be one of "
+                f"{sorted(REMAT_POLICIES)}, got {policy!r}")
+        unroll = int(flag("layer_scan_unroll") or 1)
+        block = program.global_block
+        ops = list(block.ops)
+
+        runs = self._find_runs(block, ops, min_layers)
+        if not runs:
+            skip("no_repeats")
+            return False
+
+        tp_plan = getattr(program, "_tp_plan", None)
+        registry: Dict[str, _LayerStack] = {}
+        member_stacks: Dict[str, List[_LayerStack]] = {}
+        plans: List[_RunPlan] = []
+        for (start, L, M) in runs:
+            plan, reason = self._plan_run(
+                block, ops, start, L, M, registry, member_stacks,
+                min_layers, tp_plan, ctx.scope)
+            if plan is None:
+                skip(reason)
+                continue
+            plans.append(plan)
+        if not plans:
+            return False
+
+        # -- validation against the surviving unrolled ops ------------------
+        run_ranges = [(p.start, p.end) for p in plans]
+
+        def outside(i):
+            return not any(a <= i < b for a, b in run_ranges)
+
+        # an outside op writing an xs member in the carrier's STALE
+        # window would be read stale through the stack: drop such plans
+        # (their ops fall back to the unrolled stream).  A state stack
+        # is packed by ensure_stacked BEFORE the program runs, so any
+        # outside write preceding the consuming scan is a hazard; a
+        # producer-backed stack (ys / activated carry) is filled DURING
+        # the producing run, so only the [producer.end, consumer.start)
+        # gap is stale.  Dropping a producer also drops every plan
+        # consuming one of its stacks -- iterate to the fixpoint.
+        for _ in range(len(plans) + 1):
+            outside_writes: Dict[str, List[int]] = {}
+            for i, op in enumerate(ops):
+                if outside(i):
+                    for n in op.output_arg_names():
+                        outside_writes.setdefault(n, []).append(i)
+            alive = set(id(p) for p in plans)
+            bad = []
+            for p in plans:
+                for fam in p.xs:
+                    if fam["src"] != "c":
+                        continue
+                    st = fam["stack"]
+                    if st.producer is not None \
+                            and id(st.producer) not in alive:
+                        bad.append(p)
+                        break
+                    lo = st.producer.end if st.producer is not None else 0
+                    if any(lo <= i < p.start
+                           for m in fam["members"]
+                           for i in outside_writes.get(m, ())):
+                        bad.append(p)
+                        break
+            if not bad:
+                break
+            for p in bad:
+                plans.remove(p)
+                skip("outside_write")
+            run_ranges = [(p.start, p.end) for p in plans]
+        if not plans:
+            return False
+
+        # -- which stacked members must materialize per-layer ---------------
+        # (read by a surviving unrolled op after the producing run, a
+        # fetch, or a persistable write-back that no state carrier
+        # covers)
+        reads_after: Dict[str, int] = {}
+        for i, op in enumerate(ops):
+            if outside(i):
+                for n in op.input_arg_names():
+                    reads_after[n] = max(reads_after.get(n, -1), i)
+        fetches = set(ctx.fetch_names)
+        need: Dict[int, List[tuple]] = {}  # plan idx -> (stack, member, idx)
+        for pi, p in enumerate(plans):
+            for fam in p.ys:
+                st = fam["stack"]
+                for m in fam["members"]:
+                    wanted = m in fetches
+                    if not wanted and m in reads_after \
+                            and reads_after[m] >= p.end:
+                        wanted = True
+                    if not wanted and st.kind == "ys":
+                        var = block._find_var_recursive(m)
+                        if (var is not None and var.persistable) or (
+                                ctx.scope is not None
+                                and ctx.scope.has_var(m)):
+                            # persistable per-layer write-back with no
+                            # scope-view coverage: keep the write
+                            wanted = True
+                    if wanted:
+                        st.active = True
+                        need.setdefault(pi, []).append(
+                            (st, m, st.index_of[m]))
+            for (t, w) in p.carries:
+                for tpl_n, kind in ((t, "carry_pre"), (w, "carry_post")):
+                    mem = tuple(s[tpl_n] for s in p.sigmas)
+                    sts = [s for s in member_stacks.get(mem[0], [])
+                           if s.kind == kind and s.members == mem]
+                    if not sts:
+                        continue
+                    st = sts[0]
+                    # the final carry-out is bound directly by CarryOut;
+                    # a carry-pre's first member is the run's EXTERNAL
+                    # initial value -- neither needs a stacked slice
+                    excluded = {mem[-1]} if kind == "carry_post" \
+                        else {mem[0]}
+                    for m in mem:
+                        if m in excluded:
+                            continue
+                        if m in fetches or reads_after.get(m, -1) >= p.end:
+                            st.active = True
+                            need.setdefault(pi, []).append(
+                                (st, m, st.index_of[m]))
+
+        # activated carry stacks become ys entries of their producer
+        for p in plans:
+            for (t, w) in p.carries:
+                for tpl_n, pre, kind in ((t, True, "carry_pre"),
+                                         (w, False, "carry_post")):
+                    mem = tuple(s[tpl_n] for s in p.sigmas)
+                    sts = [s for s in member_stacks.get(mem[0], [])
+                           if s.kind == kind and s.members == mem
+                           and s.active]
+                    if sts and not any(f["stack"] is sts[0]
+                                       for f in p.ys):
+                        p.ys.append({"tpl": tpl_n, "members": mem,
+                                     "pre": pre, "stack": sts[0],
+                                     "flip": 0, "update_start": None})
+
+        # -- rebuild the op stream ------------------------------------------
+        from .program import Operator
+
+        plan_at = {p.start: p for p in plans}
+        new_ops: List = []
+        i = 0
+        n_layers_total = 0
+        while i < len(ops):
+            p = plan_at.get(i)
+            if p is None:
+                if outside(i):
+                    new_ops.append(ops[i])
+                i += 1
+                continue
+            seq = self._emit_run(block, p, policy, unroll)
+            new_ops.extend(seq)
+            for (st, m, j) in need.get(plans.index(p), []):
+                new_ops.append(Operator(
+                    block, "layer_index", {"X": [st.carrier]},
+                    {"Out": [m]}, {"index": int(j)}))
+            n_layers_total += p.M
+            i = p.end
+
+        block.ops[:] = new_ops
+        program._bump()
+
+        # -- scope plan + tp plan growth ------------------------------------
+        used: set = set()
+        for p in plans:
+            for fam in p.xs:
+                if fam.get("stack") is not None:
+                    used.add(fam["stack"].carrier)
+            for fam in p.ys:
+                used.add(fam["stack"].carrier)
+        state_stacks = []
+        for st in registry.values():
+            if st.kind != "state" or st.carrier not in used:
+                continue
+            tvar = block._find_var_recursive(st.template)
+            state_stacks.append({
+                "carrier": st.carrier,
+                "members": st.members,
+                "shape": tuple(int(s) for s in tvar.shape)
+                if tvar is not None else (),
+                "dtype": dtypes.to_str(tvar.dtype) if tvar is not None
+                else "float32",
+            })
+        program._layer_plan = LayerScanPlan(state_stacks)
+
+        if tp_plan is not None:
+            for st in registry.values():
+                if st.carrier not in used:
+                    continue
+                spec = tuple(tp_plan.specs.get(st.members[0], ()))
+                if spec:
+                    tp_plan.specs[st.carrier] = (None,) + spec
+                # a pulled-out stacked allreduce replaces its members'
+                # per-grad dp-reduce accounting entries
+                moved = [m for m in st.members
+                         if m in tp_plan.grad_reduce]
+                if moved:
+                    total = sum(int(tp_plan.grad_reduce.pop(m)["bytes"])
+                                for m in moved)
+                    tp_plan.grad_reduce[st.carrier] = {
+                        "axes": ("dp",), "bytes": total}
+
+        stat_set("pass_layer_scan_segments", len(plans))
+        stat_set("pass_layer_scan_layers", n_layers_total)
         return True
 
 

@@ -2,14 +2,16 @@
 
 Counterpart of ``paddle_tpu/framework/scope.py``.  Values are tensors on
 the executor's device; a Scope is a flat dict with an optional parent
-chain, as in the JAX package.  The lazy views of packed (pipeline) and
-layer-stacked state, ``PackedParamRef`` and ``StackedParamRef``, belong
-to the sharding and layer-scan paths, which are later slices of the port.
+chain, as in the JAX package.  ``StackedParamRef`` is the per-layer view
+into a layer-stacked carrier (``framework/passes.py`` ``LayerScanPass``);
+the pipeline's packed view, ``PackedParamRef``, belongs to the
+several-process slice of the port.
 
 ``scope_from_numpy`` builds a Scope from host arrays, e.g. the JAX
 package's scope after its startup program: the two packages draw random
 numbers with different generators, so a comparison starts both from the
-same values.
+same values.  Anything ``np.asarray`` reads is taken, the JAX package's
+carriers and ``StackedParamRef`` views included.
 """
 from __future__ import annotations
 
@@ -88,6 +90,44 @@ class _VarView:
         return _TensorView(self._scope, self._name)
 
 
+class StackedParamRef:
+    """Per-layer view into a layer-stacked state tensor.
+
+    ``LayerScanPass`` (framework/passes.py) stacks per-layer weights and
+    optimizer slots into one ``(num_layers, *shape)`` carrier per family,
+    held in the scope under an ``@LAYER_STACK@`` name, so that a
+    ``layer_scan`` op reads layer ``k`` as the view ``carrier[k]``.  The
+    scope keeps serving the per-layer names through this view: reading
+    it (``np.asarray``: checkpoints, ``paddle.save``, tests) copies layer
+    ``index`` of the carrier to the host, ``device_value()`` is the live
+    slice on the device; writing a concrete tensor over it (a restore, an
+    unrolled edge layer's update) makes
+    ``LayerScanPlan.ensure_stacked`` copy it into the carrier before the
+    next step, so checkpoints stay per-layer across the scan flag.
+    """
+
+    __slots__ = ("_scope", "stack_name", "index", "shape", "dtype")
+
+    def __init__(self, scope, stack_name, index, shape, dtype):
+        self._scope = scope
+        self.stack_name = stack_name
+        self.index = int(index)
+        self.shape = torch.Size(int(d) for d in shape)
+        self.dtype = dtype
+
+    def device_value(self) -> torch.Tensor:
+        """The layer's slice of the carrier: a view, no copy."""
+        return self._scope.get_var(self.stack_name)[self.index]
+
+    def __array__(self, dtype=None, copy=None):
+        arr = to_numpy(self.device_value()).reshape(tuple(self.shape))
+        return arr.astype(dtype) if dtype is not None else arr
+
+    def __repr__(self):
+        return (f"StackedParamRef({self.stack_name!r}[{self.index}], "
+                f"shape={tuple(self.shape)}, dtype={self.dtype})")
+
+
 _scope_serial = itertools.count()
 
 
@@ -119,7 +159,8 @@ class Scope:
     def set_var(self, name: str, value, place=None):
         """Store ``value``; host arrays become tensors, moved to
         ``place``'s device when one is given."""
-        if value is not None and not isinstance(value, torch.Generator):
+        if value is not None and not isinstance(
+                value, (torch.Generator, StackedParamRef)):
             value = to_tensor(value, None if place is None
                               else place.torch_device())
         self._vars[name] = value

@@ -871,3 +871,6 @@ _worker_info = None
 
 def get_worker_info():
     return _worker_info  # None in the main process
+
+
+from .data_feed import MultiSlotDataFeed  # noqa: E402,F401

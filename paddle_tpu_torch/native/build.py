@@ -16,6 +16,11 @@ There is no fallback: a host without ``nvcc`` raises, and only CPU
 tensors take the plain PyTorch versions (see ``ops/paged_attention``,
 ``ops/flash_attention_bias``, ``ops/flash_attention`` and
 ``ops/quant_ops``).
+
+``build_host`` / ``load_host`` do the same for a host library,
+``csrc/<name>.cc`` compiled by the host's ``g++`` (the MultiSlot
+parser, ``csrc/data_feed.cc``, the JAX package's one g++ call); its
+caller keeps a Python fallback for a host without a compiler.
 """
 from __future__ import annotations
 
@@ -121,4 +126,51 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(build_all([name])[name])
+        return lib
+
+
+HOST_SOURCES = ("data_feed",)
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+_HOST_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def host_library_path(name: str) -> str:
+    """Where host library ``name`` lives: keyed by its source's bytes and
+    the compiler flags."""
+    h = hashlib.sha256()
+    with open(os.path.join(CSRC_DIR, name + ".cc"), "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return os.path.join(OUT_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build_host(name: str) -> str:
+    """Compile ``csrc/<name>.cc`` with the host's C++ compiler (``$CXX``,
+    else ``g++``, else ``c++``) unless it is built; returns the path."""
+    path = host_library_path(name)
+    if os.path.exists(path):
+        return path
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler found (looked at $CXX, g++ and "
+                           "c++ on PATH)")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    cmd = [cxx, *HOST_FLAGS, os.path.join(CSRC_DIR, name + ".cc"), "-o", tmp]
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=BUILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"host build failed: {' '.join(cmd)}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, path)   # atomic publish for concurrent builders
+    return path
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """Build (if needed) and open host library ``name``, once per
+    process."""
+    with _LOCK:
+        lib = _HOST_LIBS.get(name)
+        if lib is None:
+            lib = _HOST_LIBS[name] = ctypes.CDLL(build_host(name))
         return lib

@@ -328,8 +328,8 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train", name=No
 
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
-    # sparse=True asks for the distributed row-sharded table, which
-    # comes with a later slice of the port: the lowering raises
+    # sparse=True on one process is the JAX package's dense fallback:
+    # out-of-vocab and padding ids give zero rows and no gradient
     return op_call("lookup_table_v2", {"Ids": x, "W": weight},
                    {"padding_idx": -1 if padding_idx is None else int(padding_idx),
                     "is_sparse": bool(sparse)},

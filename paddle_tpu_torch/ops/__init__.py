@@ -9,7 +9,8 @@
   ``nms_ops``, ``deformable_ops``, ``sampling_ops``'s ``correlation``,
   and the sequence ops and the rest of the op library:
   ``sequence_ops``, ``tail_ops``, ``misc_ops``, ``sampling_ops``'s
-  ``nce`` and ``sample_logits``),
+  ``nce`` and ``sample_logits``, and ``layer_scan``, the region ops of
+  scan-over-layers),
   which the static executor and dygraph's ``run_op``
   both run: importing this package registers them with
   ``framework.lowering``, as importing ``paddle_tpu.ops`` does.
@@ -36,6 +37,7 @@ from . import (  # noqa: F401
     fused,
     grad_generic,
     interp_ops,
+    layer_scan,
     linalg_ops,
     loss_ops,
     math_ops,

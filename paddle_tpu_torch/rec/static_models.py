@@ -1,0 +1,83 @@
+"""Static-graph recommender builders (wide&deep / DLRM family).
+
+Counterpart of ``paddle_tpu/rec/static_models.py`` (the reference's
+PaddleRec wide_deep & DLRM models over the Criteo layout): dense float
+features + multi-field sparse ids into embedding tables, a wide
+(linear-in-ids) side and a deep MLP tower, binary click loss.  Both
+tables are built ``is_sparse=True``; on one process the lookup takes the
+dense fallback (``ops/embedding_ops.py``: out-of-vocab and padding ids
+give zero rows and no gradient, counted ``emb_sparse_fallback_dense``).
+The row-sharded table needs several processes (ROADMAP Queue A item 8).
+"""
+from __future__ import annotations
+
+from .. import layers
+from ..initializer import NormalInitializer
+from ..param_attr import ParamAttr
+
+
+def wide_deep_net(sparse_ids, dense, vocab_size, emb_dim=16,
+                  n_fields=8, hidden=(64, 32), padding_idx=None,
+                  sparse=True, name="wd"):
+    """Wide&deep trunk -> [B, 2] click logits.
+
+    ``sparse_ids`` [B, n_fields] int64 (all fields share one
+    ``vocab_size × emb_dim`` table — the DLRM "one big table" shape
+    that forces sharding), ``dense`` [B, n_dense] float32.  The wide
+    side is a second dim-1 table over the same ids (a linear model in
+    the categorical features)."""
+    emb_attr = lambda n: ParamAttr(  # noqa: E731
+        name=n, initializer=NormalInitializer(0.0, 0.01))
+    # deep side: [B, F, emb_dim] -> [B, F*emb_dim]
+    emb = layers.embedding(sparse_ids, (vocab_size, emb_dim),
+                           is_sparse=sparse, padding_idx=padding_idx,
+                           param_attr=emb_attr(name + "_table"))
+    deep = layers.reshape(emb, [0, int(n_fields) * int(emb_dim)],
+                          name=name + "_flat")
+    deep = layers.concat([deep, dense], axis=1, name=name + "_in")
+    deep.shape = (int(dense.shape[0]),
+                  int(n_fields) * int(emb_dim) + int(dense.shape[1]))
+    for i, h in enumerate(hidden):
+        deep = layers.fc(deep, int(h), act="relu",
+                         name=f"{name}_deep{i}")
+    deep_logit = layers.fc(deep, 2, name=name + "_deep_out")
+    # wide side: per-id scalar weights -> [B, F] -> linear head
+    wide = layers.embedding(sparse_ids, (vocab_size, 1),
+                            is_sparse=sparse, padding_idx=padding_idx,
+                            param_attr=emb_attr(name + "_wide_table"))
+    wide = layers.reshape(wide, [0, int(n_fields)], name=name + "_wide_f")
+    wide_logit = layers.fc(wide, 2, name=name + "_wide_out")
+    return layers.elementwise_add(deep_logit, wide_logit,
+                                  name=name + "_logits")
+
+
+def wide_deep_program(batch_size=64, vocab_size=65536, emb_dim=16,
+                      n_fields=8, n_dense=13, hidden=(64, 32),
+                      padding_idx=None, sparse=True, lr=1e-2):
+    """Build (main, startup, feeds, loss, optimizer) for one wide&deep
+    training step — the recommender flagship.
+
+    Feeds: sparse_ids [B, n_fields] int64, dense_x [B, n_dense]
+    float32, labels [B, 1] int64 (click / no-click).
+    """
+    from ..framework.program import Program, program_guard
+    from ..optimizer import SGDOptimizer
+
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        sparse_ids = layers.data("sparse_ids", [batch_size, n_fields],
+                                 dtype="int64", append_batch_size=False)
+        dense_x = layers.data("dense_x", [batch_size, n_dense],
+                              dtype="float32", append_batch_size=False)
+        labels = layers.data("labels", [batch_size, 1],
+                             dtype="int64", append_batch_size=False)
+        logits = wide_deep_net(
+            sparse_ids, dense_x, vocab_size, emb_dim=emb_dim,
+            n_fields=n_fields, hidden=hidden, padding_idx=padding_idx,
+            sparse=sparse)
+        loss = layers.mean(
+            layers.softmax_with_cross_entropy(logits, labels),
+            name="wd_loss")
+        opt = SGDOptimizer(learning_rate=lr)
+    feeds = (sparse_ids, dense_x, labels)
+    return main, startup, feeds, loss, opt

@@ -409,10 +409,9 @@ def mark_weight_quant(program: Program, mode: str = "int8") -> Program:
     return program
 
 
-# The JAX package registers the pass before layer_scan (after
-# sharding_propagation); of that order the port has flash_attention_fuse
-# first, so the pass sits right after it.
-@register_pass(before="redundant_cast_eliminate")
+# Registered before layer_scan, as in the JAX package: the quantized
+# carriers and scales are per-layer state the scan then stacks.
+@register_pass(before="layer_scan")
 class PostTrainingWeightQuantPass(Pass):
     """Rewrite matmul-family weights to int8 / fp8-e4m3 carriers with
     per-output-channel scales, lowered through the dequant-fused

@@ -172,16 +172,32 @@ def test_functional_misc():
 
 def test_unported_lowerings_raise_the_later_slice_error():
     """What the port still lacks raises the later-slice error: the
-    sparse (distributed) embedding, and an op with no lowering run
-    eagerly.  (Conv2DTranspose, GroupNorm and InstanceNorm2D, which
-    raised it until their lowerings came, are held to the JAX package
-    in test_torch_nn_extras.py.)"""
+    row-sharded (distributed) embedding, and an op with no lowering run
+    eagerly.  The one-process sparse embedding, which raised it until
+    its dense fallback came, runs as the JAX package's does (zero rows
+    for the padding id).  (Conv2DTranspose, GroupNorm and InstanceNorm2D,
+    which raised it until their lowerings came, are held to the JAX
+    package in test_torch_nn_extras.py.)"""
     from paddle_tpu_torch.dygraph.eager import run_op
 
+    ids_np = np.array([[1, 2, 0]], "int64")
+    T.seed(0)
+    emb = T.nn.Embedding(4, 3, sparse=True, padding_idx=0)
+    J.seed(0)
+    jemb = J.nn.Embedding(4, 3, sparse=True, padding_idx=0)
+    w = np.asarray(jemb.weight.numpy())
+    T.dygraph.state_dict_from_numpy(emb, {"weight": w})
+    got = emb(T.to_tensor(ids_np)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jemb(J.to_tensor(ids_np)).numpy()))
+    assert not got[0, 2].any()
     x = T.to_tensor(IMG)
-    ids = T.to_tensor(np.array([[1, 2]], "int64"))
-    for make in (lambda: T.nn.Embedding(4, 3, sparse=True)(ids),
-                 lambda: run_op("layer_index", {"X": x}, {},
+    ids = T.to_tensor(ids_np)
+    for make in (lambda: run_op("lookup_table_v2",
+                                {"Ids": ids, "W": emb.weight},
+                                {"__emb_row_sharded__": 2},
+                                out_slots=("Out",)),
+                 lambda: run_op("op_without_a_lowering", {"X": x}, {},
                                 out_slots=("Out",))):
         with pytest.raises(NotImplementedError, match="later slice"):
             make()

@@ -63,8 +63,8 @@ REFUSED = {
     "expert_parallel": (dict(expert_parallel=True), NotImplementedError,
                         "item 8"),
     "recompute_policy": (dict(recompute=True, recompute_configs={
-        "checkpoints": ["x"], "policy": "dots_saveable"}),
-        NotImplementedError, "item 8"),
+        "checkpoints": ["x"], "policy": "bogus"}),
+        ValueError, r"recompute_configs\['policy'\] must be one of"),
     "sharding": (dict(sharding=True), ValueError,
                  "strategy.sharding=True could not be applied: it needs a "
                  "data-parallel degree > 1"),

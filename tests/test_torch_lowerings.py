@@ -388,10 +388,12 @@ def test_op_without_a_lowering_names_a_later_slice():
     blk = prog.global_block
     blk.create_var(name="x", shape=(2, 2), dtype="float32")
     blk.create_var(name="y")
-    blk.append_op("layer_index", {"X": ["x"]}, {"Out": ["y"]}, {})
+    blk.append_op("op_without_a_lowering", {"X": ["x"]}, {"Out": ["y"]},
+                  {})
     exe = tpkg.Executor(tpkg.CPUPlace())
     with pytest.raises(NotImplementedError,
-                       match="'layer_index'.*later slice of the port"):
+                       match="'op_without_a_lowering'.*later slice of the "
+                             "port"):
         exe.run(prog, feed={"x": np.ones((2, 2), "f4")}, fetch_list=["y"],
                 scope=tpkg.framework.Scope())
 

@@ -312,6 +312,7 @@ def test_pass_order_and_refusals():
               if p.name in ours]
     assert ours == theirs == ["flash_attention_fuse",
                               "post_training_weight_quant",
+                              "layer_scan",
                               "redundant_cast_eliminate",
                               "dead_op_eliminate"]
     main, _h, _exe, scope = _pair(_fc_program, depth=1, seed=9)["torch"]
