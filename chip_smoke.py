@@ -681,6 +681,40 @@ layer's ops once per layer) and the one-process CTR path.
                ``emb_sparse_fallback_dense``, step 1's loss within 1e-4
                of a CPU run of the port from the same state.
 
+Slice 25's phases run after ``rec_data_feed``: data parallelism across
+processes.  The script starts its ranks by running itself in a child
+mode (``--fleet-rank <dir>``, ``--collective-capture <dir>``) through
+the port's launcher (``distributed/launch.py``), every child on cuda:0
+(``FLAGS_selected_gpus=0``) with the kernels this run built; each writes
+a JSON that the parent reads and checks.
+
+63. fleet_dp -- phase 7's BERT-base (bf16 AMP through ``fleet`` with
+               ``strategy.amp``, dropout 0.1, B1) at two ranks of batch 16
+               over gloo (the card is one device; NCCL refuses two ranks
+               on it), ``GradAllReduce`` with bucketed ``c_allreduce_sum``:
+               a warm-up and FLEET_STEPS eager steps (``host_collective``)
+               on each rank; B1 24 a step on each, one loss scale, the
+               buckets ``FuseAllReducePass`` planned and their bytes, the
+               losses bit-identical across ranks, every parameter's digest
+               equal across ranks after the startup and the last step;
+               step p50, allreduce seconds a step, peak memory a rank;
+64. fleet_dp_oracle -- float32, dropout 0, BERT-base width: the two
+               ranks at batch 4 each (the children of phase 63, from this
+               process's startup values) against this process at batch 8
+               (``train_oracle``'s shape) over 3 steps: losses within
+               ORACLE_RTOL, the parameters within it over the norm of all
+               of them; fused and unfused allreduce bit-equal;
+65. collective_capture -- one child, NCCL at world size 1, started with
+               phase 63's ranks (its start-up beside theirs, its work
+               after their timed steps): a program of
+               ``c_allreduce_sum``, ``c_allgather``, ``c_broadcast`` and
+               ``c_reducescatter`` through ``Executor.run``, captured
+               (``capture_reason`` None, one capture, replays), outputs
+               equal to the input, every collective calling NCCL inside
+               the capture, the replay's device work under
+               ``torch.profiler``, and what gloo accepts on a CUDA tensor
+               in this torch (a report).
+
 Every phase also logs ``{"phase": "phase_seconds", "name": ...,
 "seconds": ...}``, its wall seconds, when it ends.  Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
@@ -7230,8 +7264,10 @@ def phase_dropout():
 
 # pipelined: steps a mode, and the slow feed's host seconds a batch and its
 # steps a mode; ckpt_resume: the run's length, its save steps and the crash
+# (short: the script runs near its time limit, and the phase checks the
+# saves, the crash and the resume, not the steps between them)
 CKPT_WINDOW_STEPS, SLOW_FEED_S, SLOW_FEED_STEPS = 30, 0.040, 20
-CKPT_STEPS, CKPT_EVERY, CKPT_CRASH = 200, 50, 150
+CKPT_STEPS, CKPT_EVERY, CKPT_CRASH = 100, 25, 75
 CKPT_AFTER_SAVE = 5            # steps timed after each save
 NAN_STEPS, PRUNE_STEPS, PRUNE_RTOL = 10, 5, 1e-6
 ACP_EPOCHS, ACP_STEPS = 3, 10  # auto_checkpoint: epochs of steps
@@ -7374,11 +7410,11 @@ def phase_pipelined():
 
 
 def phase_ckpt_resume():
-    """200 pipelined steps saving asynchronously every 50 through
-    ``CheckpointManager(keep_n=2)``; a second run whose commit of step 150
-    crashes; a fresh Executor and Scope restore the newest intact step
-    (100) and run to 200, bit-equal to the first run in losses and final
-    state; then a corrupt shard falls back to the step before it, and a
+    """CKPT_STEPS pipelined steps saving asynchronously every CKPT_EVERY
+    through ``CheckpointManager(keep_n=2)``; a second run whose commit of
+    step CKPT_CRASH crashes; a fresh Executor and Scope restore the newest
+    intact step (CKPT_CRASH - CKPT_EVERY) and run to CKPT_STEPS, bit-equal
+    to the first run in losses and final state; then a corrupt shard falls back to the step before it, and a
     bfloat16 var round-trips without ``ml_dtypes``."""
     import shutil
 
@@ -9986,6 +10022,598 @@ def phase_rec_data_feed():
                            f"{REC_ORACLE_TOL}")
 
 
+# ---- slice 25: fleet data parallel across processes --------------------------
+
+# fleet_dp: BERT-base at two ranks, each on cuda:0 over gloo (the card is
+# one device, and NCCL refuses two ranks on one device), a rank's batch
+# 16 (32 global), FLEET_STEPS eager steps after the warm-up
+FLEET_RANKS, FLEET_BATCH, FLEET_STEPS = 2, 16, 5
+# fleet_dp_oracle: float32, dropout 0, 2 ranks x ORACLE_BATCH // 2 against
+# one process at ORACLE_BATCH, 3 steps, held to ORACLE_RTOL
+FLEET_ORACLE_STEPS = 3
+# ... and their updates (p_3 - p_0) by parameter, each against one
+# process's, within FLEET_UPDATE_RTOL norm-wise, leaving out the
+# parameters whose step-1 gradient in one process is zero to rounding:
+# its norm below FLEET_ZERO_GRAD of the largest parameter's (the
+# attention key biases: a softmax is blind to a shift along its keys,
+# and AdamW turns their rounding into an update of about lr).  A control
+# run in one process on rank 0's half alone (the other rank's gradient
+# left out) must miss the limit.  On an H100 (PERF.md §6): the
+# sound runs' worst gap 1.7e-4, the control's least 0.10; the key biases'
+# gradient shares <= 2.9e-10, the others' >= 2.0e-4.
+FLEET_UPDATE_RTOL = 1e-3
+FLEET_ZERO_GRAD = 1e-7
+FLEET_CHILD_TIMEOUT_S = 300
+# collective_capture: the ops of the hand-built program and its input
+CAPTURE_OPS = ("c_allreduce_sum", "c_allgather", "c_broadcast",
+               "c_reducescatter")
+CAPTURE_SHAPE = (1024, 256)
+FLEET_STATE = {}   # fleet_dp's ranks' results and the oracle's start
+
+
+def fleet_bert(batch, amp, dropout, lr, fuse=True):
+    """BERT-base pretraining at a rank's ``batch``, minimized through
+    ``fleet`` (``strategy.amp``: bf16) as ``ernie_program`` builds its
+    finetune: main, startup, loss and the applied chain's names."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import chain_names
+    from paddle_tpu_torch.text import bert_base_pretrain_program
+
+    with unique_name.guard():
+        main, startup, _feeds, loss, opt = bert_base_pretrain_program(
+            batch_size=batch, max_preds_per_seq=BERT_PREDS,
+            dropout_prob=dropout, lr=lr, use_fused_attention=True)
+        main.random_seed = 1
+        strategy = fleet.DistributedStrategy()
+        strategy.amp = amp
+        strategy.fuse_all_reduce_ops = fuse
+        with program_guard(main, startup):
+            fleet.init(is_collective=True, strategy=strategy)
+            fleet.distributed_optimizer(opt, strategy)
+            fleet.minimize(loss)
+    return main, startup, loss, chain_names(
+        fleet._fleet_singleton.applied_chain)
+
+
+def bert_shard(feed, lo, hi):
+    """Examples ``lo:hi`` of a ``bert_feed`` batch (their masked
+    positions made local to the shard)."""
+    seq, preds = feed["input_ids"].shape[1], BERT_PREDS
+    flat = feed["masked_flat_pos"].reshape(-1, preds)[lo:hi] - lo * seq
+    out = {k: feed[k][lo:hi] for k in ("input_ids", "token_type_ids",
+                                       "pos_ids", "input_mask",
+                                       "nsp_labels")}
+    out.update(masked_flat_pos=flat.reshape(-1),
+               masked_labels=feed["masked_labels"][lo * preds:hi * preds],
+               masked_weights=feed["masked_weights"][lo * preds:hi * preds])
+    return out
+
+
+def param_names(main):
+    return sorted(v.name for v in main.global_block.vars.values()
+                  if getattr(v, "is_parameter", False))
+
+
+def param_digest(scope, names):
+    """A SHA-256 of every parameter's bytes, in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for n in names:
+        h.update(scope.get_var(n).detach().cpu().contiguous().view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def timed_lowering(op_type):
+    """Wrap ``op_type``'s lowering to add its synced seconds to the
+    returned list's first item (calls to its second); returns it and the
+    undo."""
+    from paddle_tpu_torch.framework.lowering import LOWERINGS
+
+    real, acc = LOWERINGS[op_type], [0.0, 0]
+
+    def run(ctx, op):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(ctx, op)
+        torch.cuda.synchronize()
+        acc[0] += time.perf_counter() - t0
+        acc[1] += 1
+
+    LOWERINGS[op_type] = run
+    return acc, lambda: LOWERINGS.__setitem__(op_type, real)
+
+
+def wait_for_file(path):
+    """Wait (FLEET_CHILD_TIMEOUT_S at most) for another process of this
+    run to write ``path``."""
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > FLEET_CHILD_TIMEOUT_S:
+            raise RuntimeError(f"{path} was not written in "
+                               f"{FLEET_CHILD_TIMEOUT_S} s")
+        time.sleep(0.1)
+
+
+def fleet_rank_dp(tmp):
+    """fleet_dp on this rank: the bf16 path's warm-up, FLEET_STEPS timed
+    steps and one with its allreduces timed, B1's launches, the buckets,
+    the digests."""
+    from paddle_tpu_torch.distributed import parallel_env
+
+    rank, world = parallel_env.get_rank(), parallel_env.get_world_size()
+    flags.set_flags({"flash_attention": "always"})
+    t0 = time.monotonic()
+    main, startup, loss, chain = fleet_bert(FLEET_BATCH, amp=True,
+                                            dropout=0.1, lr=1e-4)
+    build_s = time.monotonic() - t0
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    torch.cuda.reset_peak_memory_stats()
+    exe.run(startup, scope=scope)
+    names = param_names(main)
+    startup_digest = param_digest(scope, names)
+    feed = bert_shard(bert_feed(FLEET_BATCH * world, seed=0),
+                      rank * FLEET_BATCH, (rank + 1) * FLEET_BATCH)
+    t0 = time.monotonic()
+    warm = float(exe.run(main, feed=feed, fetch_list=[loss],
+                         scope=scope)[0].ravel()[0])
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    eager0 = stat_get("executor_eager_host_collective")
+    fab.reset_launch_count()    # this path's count starts here
+    step_ms, losses = [], [warm]
+    for _ in range(FLEET_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.ravel()[0]))
+    launches = fab.flash_attention_bias.launches
+    eager = stat_get("executor_eager_host_collective") - eager0
+    # one step more, not timed, with each allreduce synced and timed
+    acc, undo = timed_lowering("c_allreduce_sum")
+    try:
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        losses.append(float(out.ravel()[0]))
+    finally:
+        undo()
+    if rank == 0:   # the timed steps are over: collective_capture may run
+        open(os.path.join(tmp, "dp_done"), "w").close()
+    prog = rewritten(exe, main)
+    ops = prog.global_block.ops
+    buckets = [op for op in ops if op.type == "c_allreduce_sum"
+               and op.attr(passes.COMM_ID_ATTR)]
+    result = dict(
+        chain=chain, build_s=build_s, warm_s=warm_s, losses=losses,
+        step_ms=step_ms, step_ms_p50=float(np.median(step_ms)),
+        allreduce_s_per_step=acc[0], allreduce_calls_per_step=acc[1],
+        b1_launches=launches, b1_launches_per_step=launches / FLEET_STEPS,
+        eager_host_collective=eager,
+        scale_ops=sum(op.type == "scale"
+                      and bool(op.attr(passes.DP_LOSS_SCALE_ATTR))
+                      for op in main.global_block.ops),
+        buckets=len(buckets),
+        buckets_planned=stat_get("pass_fused_allreduce_buckets"),
+        bucket_bytes=[executor_mod._program_allreduce_bytes(
+            prog.global_block, [op]) for op in buckets],
+        allreduce_bytes_per_step=executor_mod._program_allreduce_bytes(
+            prog.global_block, ops),
+        allreduce_ops_before=stat_get("pass_allreduce_ops_before"),
+        startup_digest=startup_digest,
+        final_digest=param_digest(scope, names),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    exe.close()
+    return result
+
+
+def fleet_rank_oracle(tmp):
+    """fleet_dp_oracle's two-rank runs on this rank: float32 from the
+    parent's startup values, with the fused allreduce and without."""
+    from paddle_tpu_torch.distributed import parallel_env
+
+    rank = parallel_env.get_rank()
+    half = ORACLE_BATCH // FLEET_RANKS
+    path = os.path.join(tmp, "oracle_init.npz")
+    wait_for_file(path)   # the parent writes it beside fleet_dp
+    init = dict(np.load(path))
+    feed = bert_shard(bert_feed(ORACLE_BATCH, seed=1, padded_keys=16),
+                      rank * half, (rank + 1) * half)
+    flags.set_flags({"flash_attention": "always"})
+    out = {}
+    for fuse in (True, False):
+        main, startup, loss, _ = fleet_bert(half, amp=False, dropout=0.0,
+                                            lr=ORACLE_LR, fuse=fuse)
+        exe = pt.Executor()
+        scope = pt.framework.Scope()
+        exe.run(startup, scope=scope)
+        names = param_names(main)
+        for n in names:
+            scope.set_var(n, torch.from_numpy(init[n]).to(exe.device))
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0].ravel()[0])
+                  for _ in range(FLEET_ORACLE_STEPS)]
+        if fuse and rank == 0:
+            np.savez(os.path.join(tmp, "oracle_ranks.npz"), **{
+                n: scope.get_var(n).detach().cpu().numpy() for n in names})
+        out["fuse" if fuse else "nofuse"] = dict(
+            losses=losses, digest=param_digest(scope, names))
+        exe.close()
+        del exe, scope
+    return out
+
+
+def fleet_child(tmp):
+    """One rank of fleet_dp and fleet_dp_oracle, started by
+    ``phase_fleet_dp`` through the port's launcher: checks that the
+    parent's kernels are there (a rank must not build them), joins the
+    gloo group, runs both, writes ``rank<r>.json`` into ``tmp``."""
+    from paddle_tpu_torch.distributed import parallel_env
+
+    if not torch.cuda.is_available():
+        raise SystemExit("fleet rank: no CUDA device")
+    built = {n: os.path.exists(build.library_path(n)) for n in build.SOURCES}
+    if not all(built.values()):
+        raise RuntimeError(f"a rank found kernels unbuilt: {built}")
+    parallel_env.init_parallel_env()
+    rank = parallel_env.get_rank()
+    result = dict(rank=rank, world=parallel_env.get_world_size(),
+                  backend=parallel_env.backend(),
+                  device_count=torch.cuda.device_count(),
+                  device=str(pt.Executor().device),
+                  kind=torch.cuda.get_device_name(0), kernels_prebuilt=built,
+                  dp=fleet_rank_dp(tmp))
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["oracle"] = fleet_rank_oracle(tmp)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    parallel_env.destroy_parallel_env()
+    return 0
+
+
+def capture_child(tmp):
+    """collective_capture's one rank: NCCL at world size 1 on cuda:0, a
+    program of CAPTURE_OPS through ``Executor.run`` (warm-up, capture,
+    replay), a profiled replay, and what gloo accepts on a CUDA tensor in
+    this torch (a one-rank gloo group beside, each call tried once and
+    its error kept: a report, no route of the port)."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.distributed import parallel_env
+    from paddle_tpu_torch.framework.program import Program
+
+    if not torch.cuda.is_available():
+        raise SystemExit("capture rank: no CUDA device")
+    parallel_env.init_parallel_env()
+    # started with fleet_dp's ranks: its work waits for their timed steps
+    wait_for_file(os.path.join(tmp, "dp_done"))
+    main = Program()
+    block = main.global_block
+    block.create_var(name="x", shape=list(CAPTURE_SHAPE), dtype="float32")
+    for t in CAPTURE_OPS:
+        block.create_var(name=t + "_out", shape=list(CAPTURE_SHAPE),
+                         dtype="float32")
+        block.append_op(t, {"X": ["x"]}, {"Out": [t + "_out"]},
+                        {"ring_id": 0, "root": 0})
+    fetch = [t + "_out" for t in CAPTURE_OPS]
+    x = np.random.RandomState(25).randn(*CAPTURE_SHAPE).astype("f4")
+    in_capture = {}
+
+    def counted(name):
+        real = getattr(dist, name)
+
+        def call(*a, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                in_capture[name] = in_capture.get(name, 0) + 1
+            return real(*a, **kw)
+        return call
+
+    for name in ("all_reduce", "all_gather", "broadcast"):
+        setattr(dist, name, counted(name))
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    captures = stat_get("cuda_graph_captures")
+    replays = stat_get("cuda_graph_replays")
+    outs = [exe.run(main, feed={"x": x}, fetch_list=fetch, scope=scope)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        exe.run(main, feed={"x": x}, fetch_list=fetch, scope=scope)
+        torch.cuda.synchronize()
+    kernels = device_time_by_kernel(prof)
+    result = dict(
+        backend=parallel_env.backend(), world=parallel_env.get_world_size(),
+        device_count=torch.cuda.device_count(), device=str(exe.device),
+        capture_reason=executor_mod.capture_reason(main),
+        captures=stat_get("cuda_graph_captures") - captures,
+        replays=stat_get("cuda_graph_replays") - replays,
+        identity=all(np.array_equal(np.asarray(o), x) for o in outs[-1]),
+        shapes=[list(np.asarray(o).shape) for o in outs[-1]],
+        nccl_calls_in_capture=in_capture,
+        nccl_kernels={k: v for k, v in kernels.items()
+                      if "nccl" in k.lower()},
+        replay_device_us=kernels)
+    exe.close()
+    with open(os.path.join(tmp, "capture.json"), "w") as f:
+        json.dump(result, f)
+    parallel_env.destroy_parallel_env()
+    return 0
+
+
+CHILD_MODES = {"--fleet-rank": fleet_child,
+               "--collective-capture": capture_child}
+
+
+def start_ranks(tmp, mode, nproc, backend):
+    """Start ``nproc`` children of this script in ``mode`` through the
+    port's launcher, every one on cuda:0 (``FLAGS_selected_gpus``), over
+    ``backend``; ``wait_ranks`` waits for them."""
+    import socket
+
+    from paddle_tpu_torch.distributed import launch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logs = os.path.join(tmp, mode.strip("-") + "_logs")
+    env = {"PADDLE_DISTRI_BACKEND": backend, "GLOO_SOCKET_IFNAME": "lo"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:   # the children copy the environment when they start
+        procs = launch.start_local_trainers(
+            nproc, f"127.0.0.1:{port}", os.path.abspath(__file__),
+            [mode, tmp], log_dir=logs, selected_gpus=[0] * nproc)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return dict(procs=procs, logs=logs, mode=mode, t0=time.monotonic())
+
+
+def stop_ranks(started):
+    from paddle_tpu_torch.distributed import launch
+
+    launch.terminate_local_procs(started["procs"])
+
+
+def wait_ranks(started):
+    """Wait for ``start_ranks``' children (FLEET_CHILD_TIMEOUT_S from
+    their start); a child that fails or outlives it fails the phase, and
+    every child is stopped on the way out.  Returns their seconds."""
+    from paddle_tpu_torch.distributed import launch
+
+    procs, t0, rc = started["procs"], started["t0"], None
+    try:
+        while rc is None and time.monotonic() - t0 < FLEET_CHILD_TIMEOUT_S:
+            codes = [p.poll() for p in procs]
+            if any(c not in (None, 0) for c in codes):
+                rc = next(c for c in codes if c not in (None, 0))
+            elif all(c == 0 for c in codes):
+                rc = 0
+            else:
+                time.sleep(0.2)
+    finally:
+        launch.terminate_local_procs(procs)
+    if rc != 0:
+        logs = started["logs"]
+        tails = "".join(f"\n----- {f} -----\n" + open(os.path.join(
+            logs, f), errors="replace").read()[-4000:]
+            for f in sorted(os.listdir(logs)))
+        raise RuntimeError(f"{started['mode']}: children exited {rc} "
+                           f"after {time.monotonic() - t0:.1f} s{tails}")
+    return time.monotonic() - t0
+
+
+def phase_fleet_dp(tmp):
+    """BERT-base at two ranks over gloo on cuda:0 (fleet_child); while
+    they start, this process writes the oracle's startup values for
+    their fleet_dp_oracle runs (read after their timed steps)."""
+    started = start_ranks(tmp, "--fleet-rank", FLEET_RANKS, "gloo")
+    try:
+        main, startup, _loss, _ = fleet_bert(ORACLE_BATCH, amp=False,
+                                             dropout=0.0, lr=ORACLE_LR)
+        exe = pt.Executor()
+        scope = pt.framework.Scope()
+        exe.run(startup, scope=scope)
+        init = {n: scope.get_var(n).detach().cpu().numpy()
+                for n in param_names(main)}
+        part = os.path.join(tmp, "oracle_init.part.npz")
+        np.savez(part, **init)
+        os.replace(part, os.path.join(tmp, "oracle_init.npz"))
+        exe.close()
+        del exe, scope
+        release("fleet_dp_startup")
+        FLEET_STATE["init"] = init
+    except BaseException:
+        stop_ranks(started)
+        raise
+    launch_s = wait_ranks(started)
+    ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+             for r in range(FLEET_RANKS)]
+    FLEET_STATE["ranks"] = ranks
+    dp = [r["dp"] for r in ranks]
+    card = nvidia_smi("name,power.limit")
+    log("fleet_dp", model="bert-base", ranks=FLEET_RANKS, backend="gloo",
+        devices=[r["device"] for r in ranks],
+        device_count=[r["device_count"] for r in ranks],
+        kernels_prebuilt=[all(r["kernels_prebuilt"].values())
+                          for r in ranks],
+        batch_per_rank=FLEET_BATCH, global_batch=FLEET_BATCH * FLEET_RANKS,
+        seq=128, amp="bfloat16", dropout=0.1, steps=FLEET_STEPS,
+        chain=dp[0]["chain"], children_s=launch_s, card=card,
+        **{k: [d[k] for d in dp] for k in (
+            "step_ms_p50", "step_ms", "allreduce_s_per_step",
+            "allreduce_calls_per_step", "peak_memory_gb", "build_s",
+            "warm_s", "b1_launches_per_step", "eager_host_collective",
+            "scale_ops", "buckets", "buckets_planned",
+            "allreduce_bytes_per_step", "allreduce_ops_before")},
+        bucket_bytes=dp[0]["bucket_bytes"], losses=dp[0]["losses"],
+        losses_bit_identical=dp[0]["losses"] == dp[1]["losses"],
+        startup_digests_equal=dp[0]["startup_digest"] == dp[1][
+            "startup_digest"],
+        final_digests_equal=dp[0]["final_digest"] == dp[1]["final_digest"])
+    for r, d in zip(ranks, dp):
+        if r["world"] != FLEET_RANKS or r["backend"] != "gloo" \
+                or r["device"] != "cuda:0":
+            raise RuntimeError(f"fleet_dp: rank {r['rank']} ran as "
+                               f"{r['world']} ranks over {r['backend']} on "
+                               f"{r['device']}")
+        if d["b1_launches"] != B1_PER_STEP * FLEET_STEPS:
+            raise RuntimeError(f"fleet_dp: rank {r['rank']} launched B1 "
+                               f"{d['b1_launches']} times in {FLEET_STEPS} "
+                               f"steps, want {B1_PER_STEP} a step")
+        if d["scale_ops"] != 1 or not 1 <= d["buckets"] == \
+                d["buckets_planned"]:
+            raise RuntimeError(f"fleet_dp: rank {r['rank']}: "
+                               f"{d['scale_ops']} loss scales, "
+                               f"{d['buckets']} buckets of "
+                               f"{d['buckets_planned']} planned")
+        if d["eager_host_collective"] != FLEET_STEPS:
+            raise RuntimeError(f"fleet_dp: rank {r['rank']} counted "
+                               f"{d['eager_host_collective']} eager "
+                               f"host-collective runs in {FLEET_STEPS}")
+        if not all(math.isfinite(x) for x in d["losses"]):
+            raise RuntimeError(f"fleet_dp: losses {d['losses']}")
+    if dp[0]["losses"] != dp[1]["losses"]:
+        raise RuntimeError(f"fleet_dp: the ranks fetched different losses "
+                           f"{dp[0]['losses']} and {dp[1]['losses']}")
+    if dp[0]["startup_digest"] != dp[1]["startup_digest"] or \
+            dp[0]["final_digest"] != dp[1]["final_digest"]:
+        raise RuntimeError("fleet_dp: the ranks' parameters differ")
+
+
+def fleet_oracle_one(init, batch, feed, grads=False):
+    """FLEET_ORACLE_STEPS float32 steps in this process at ``batch`` from
+    the startup values ``init``: the losses, the parameters after them
+    and, with ``grads``, each parameter's step-1 gradient norm."""
+    main, startup, loss, _ = fleet_bert(batch, amp=False, dropout=0.0,
+                                        lr=ORACLE_LR)
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    exe.run(startup, scope=scope)
+    for n, v in init.items():
+        scope.set_var(n, torch.from_numpy(v).to(exe.device))
+    names = sorted(init)
+    losses, norms = [], {}
+    for step in range(FLEET_ORACLE_STEPS):
+        extra = [n + "@GRAD" for n in names] if grads and step == 0 else []
+        out = eager_run(exe, main, feed, [loss] + extra, scope)
+        losses.append(float(out[0].ravel()[0]))
+        norms.update({n: float(torch.as_tensor(g).double().norm())
+                      for n, g in zip(names, out[1:])})
+    after = {n: scope.get_var(n).double().cpu().numpy() for n in names}
+    exe.close()
+    return losses, after, norms
+
+
+def update_gaps(init, after, ref):
+    """By parameter, ||(after - init) - (ref - init)|| / ||ref - init||."""
+    gaps = {}
+    for n, p0 in init.items():
+        p0 = p0.astype(np.float64)
+        d_ref = ref[n] - p0
+        gaps[n] = float(np.linalg.norm((after[n] - p0) - d_ref)
+                        / max(float(np.linalg.norm(d_ref)), 1e-300))
+    return gaps
+
+
+def phase_fleet_dp_oracle(tmp):
+    """One process at ORACLE_BATCH (float32, dropout 0) from the startup
+    values the ranks started from, against the two ranks' runs; the
+    control, one process on rank 0's half, against the same."""
+    init, ranks = FLEET_STATE["init"], FLEET_STATE["ranks"]
+    flags.set_flags({"flash_attention": "always"})
+    feed = bert_feed(ORACLE_BATCH, seed=1, padded_keys=16)
+    half = ORACLE_BATCH // FLEET_RANKS
+    one, ours, gnorm = fleet_oracle_one(init, ORACLE_BATCH, feed, grads=True)
+    _, ctl, _ = fleet_oracle_one(init, half, bert_shard(feed, 0, half))
+    theirs = {n: v.astype(np.float64) for n, v in
+              np.load(os.path.join(tmp, "oracle_ranks.npz")).items()}
+    # the parameters over all of them as one vector
+    diff2 = sum(float(np.sum((theirs[n] - ours[n]) ** 2)) for n in init)
+    norm2 = sum(float(np.sum(ours[n] ** 2)) for n in init)
+    param_gap = math.sqrt(diff2 / norm2)
+    # their updates, by parameter, the zero-gradient ones left out
+    top = max(gnorm.values())
+    zero = sorted(n for n, g in gnorm.items() if g <= FLEET_ZERO_GRAD * top)
+    kept = [n for n in init if n not in zero]
+    gaps = update_gaps(init, theirs, ours)
+    ctl_gaps = update_gaps(init, ctl, ours)
+    worst = max(kept, key=gaps.get)
+    ctl_worst = max(kept, key=ctl_gaps.get)
+    orc = [r["oracle"] for r in ranks]
+    two = orc[0]["fuse"]["losses"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(two, one))
+    fuse_equal = all(o["fuse"] == o["nofuse"] for o in orc)
+    log("fleet_dp_oracle", batch=ORACLE_BATCH, ranks=FLEET_RANKS,
+        batch_per_rank=half, dtype="float32",
+        steps=FLEET_ORACLE_STEPS, losses_one_process=one,
+        losses_two_ranks=two, max_rel_loss_gap=loss_gap,
+        rel_param_norm_gap=param_gap, tolerance=ORACLE_RTOL,
+        update_tolerance=FLEET_UPDATE_RTOL,
+        zero_grad_shares={n: gnorm[n] / top for n in zero},
+        kept_grad_smallest_share=min(gnorm[n] / top for n in kept),
+        worst_update=worst, worst_update_gap=gaps[worst],
+        zero_grad_update_gaps={n: gaps[n] for n in zero},
+        control_worst_update=ctl_worst,
+        control_worst_update_gap=ctl_gaps[ctl_worst],
+        control_least_update_gap=min(ctl_gaps[n] for n in kept),
+        ranks_agree=orc[0] == orc[1], fuse_on_off_bit_equal=fuse_equal)
+    if not (loss_gap <= ORACLE_RTOL and param_gap <= ORACLE_RTOL):
+        raise RuntimeError(f"fleet_dp_oracle: two ranks {two} vs one "
+                           f"process {one}: loss gap {loss_gap}, parameter "
+                           f"gap {param_gap} > {ORACLE_RTOL}")
+    if gaps[worst] > FLEET_UPDATE_RTOL:
+        raise RuntimeError(f"fleet_dp_oracle: the two ranks' update of "
+                           f"{worst} is {gaps[worst]} off one process's "
+                           f"(> {FLEET_UPDATE_RTOL})")
+    if ctl_gaps[ctl_worst] <= FLEET_UPDATE_RTOL:
+        raise RuntimeError(f"fleet_dp_oracle: the control (rank 0's half "
+                           f"alone) is within {FLEET_UPDATE_RTOL} of one "
+                           f"process: the check cannot see a lost gradient")
+    if not fuse_equal or orc[0] != orc[1]:
+        raise RuntimeError(f"fleet_dp_oracle: fused and unfused runs or the "
+                           f"ranks differ: {orc}")
+
+
+def phase_collective_capture(tmp, started):
+    """A program of CAPTURE_OPS captured at world size 1 over NCCL, in a
+    child of its own (capture_child), started by ``main`` with fleet_dp's
+    ranks: it starts up beside them and runs once their timed steps are
+    over (neither its work nor their oracle runs are timed)."""
+    launch_s = wait_ranks(started)
+    r = json.load(open(os.path.join(tmp, "capture.json")))
+    log("collective_capture", ops=list(CAPTURE_OPS), shape=CAPTURE_SHAPE,
+        children_s=launch_s, **r)
+    if r["backend"] != "nccl" or r["world"] != 1 or \
+            r["device"] != "cuda:0":
+        raise RuntimeError(f"collective_capture: ran over {r['backend']} "
+                           f"at {r['world']} ranks on {r['device']}")
+    if r["capture_reason"] is not None or r["captures"] != 1 \
+            or r["replays"] != 3:
+        raise RuntimeError(f"collective_capture: reason "
+                           f"{r['capture_reason']}, {r['captures']} "
+                           f"captures, {r['replays']} replays (want None, "
+                           f"1, 3)")
+    # every collective of the step called NCCL while the graph was being
+    # captured: c_allreduce_sum's and c_reducescatter's all-reduce,
+    # c_allgather's gather and the fetch's of the varying scattered
+    # output, c_broadcast's broadcast.  At one rank NCCL launches no
+    # kernel of its own for them (its one-rank path copies, or does
+    # nothing in place): the replay's device work is logged beside
+    want = {"all_reduce": 2, "all_gather": 2, "broadcast": 1}
+    if not r["identity"] or r["nccl_calls_in_capture"] != want:
+        raise RuntimeError(f"collective_capture: identity {r['identity']}, "
+                           f"NCCL calls inside the capture "
+                           f"{r['nccl_calls_in_capture']} (want {want})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script measures "
@@ -10157,6 +10785,19 @@ def main():
     release("layer_scan_infer")
     phase_rec_data_feed()
     release("rec_data_feed")
+    with tempfile.TemporaryDirectory() as tmp:
+        capture = start_ranks(tmp, "--collective-capture", 1, "nccl")
+        try:
+            phase_fleet_dp(tmp)
+            release("fleet_dp")
+            phase_fleet_dp_oracle(tmp)
+        except BaseException:
+            stop_ranks(capture)
+            raise
+        FLEET_STATE.clear()
+        release("fleet_dp_oracle")
+        phase_collective_capture(tmp, capture)
+    release("collective_capture")
     kernels = []
     main_case = TRAIN_FLASH_CASES[0][0]
     for kernel, case in (("paged_decode_attention", "decode_float32"),
@@ -10206,4 +10847,7 @@ for _name, _fn in list(globals().items()):
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] in CHILD_MODES:
+        # a rank of fleet_dp or collective_capture, started by main's run
+        sys.exit(CHILD_MODES[sys.argv[1]](sys.argv[2]))
     sys.exit(main())

@@ -1,17 +1,20 @@
-"""paddle.distributed collective functions, at one rank.
+"""paddle.distributed collective functions.
 
 Counterpart of ``paddle_tpu/distributed/collective.py`` (reference
 python/paddle/distributed/collective.py:89-444): broadcast, all_reduce,
 reduce, all_gather, scatter and barrier emit their ``c_*`` op through
 ``dispatch.op_call``.  On graph Variables they append it to the program;
-on eager tensors they run it at once, and the result is written back
-into the input tensor, as the reference's functions mutate their input.
-The lowerings (``ops/collective.py``) are the one-rank identities.
+on eager tensors they run it at once through the tracer, and the result
+is written back into the input tensor, as the reference's functions
+mutate their input.  The lowerings (``ops/collective.py``) call
+``torch.distributed`` on the live process group, and are the one-rank
+identities without one.  ``barrier`` is a process-level rendezvous on
+the group.
 """
 from __future__ import annotations
 
 from ..dispatch import op_call
-from .parallel_env import later, process_count
+from .parallel_env import group_live
 
 
 class ReduceOp:
@@ -52,8 +55,13 @@ def all_gather(tensor_list, tensor, group=0, use_calc_stream=True):
     out = op_call("c_allgather", {"X": tensor},
                   {"ring_id": int(group), "use_calc_stream": use_calc_stream})
     if isinstance(tensor_list, list):
-        # one rank: the gathered tensor is this rank's own
-        tensor_list.append(out)
+        n = get_world_size()
+        if n > 1:
+            from ..tensor.manipulation import split
+
+            tensor_list.extend(split(out, n, axis=0))
+        else:
+            tensor_list.append(out)
     return out
 
 
@@ -71,9 +79,12 @@ def scatter(tensor, tensor_list=None, src=0, group=0, use_calc_stream=True):
 
 
 def barrier(group=0):
-    """A process-level rendezvous: nothing to wait for at one process."""
-    if process_count() > 1:
-        raise later(f"a barrier across {process_count()} processes")
+    """A process-level rendezvous on the live group (nothing to wait for
+    without one)."""
+    if group_live():
+        import torch.distributed as dist
+
+        dist.barrier()
 
 
 def get_rank():

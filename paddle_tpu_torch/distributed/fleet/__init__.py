@@ -1,12 +1,14 @@
-"""Fleet: the distributed-training facade, at one process.
+"""Fleet: the distributed-training facade.
 
 Counterpart of ``paddle_tpu/distributed/fleet/__init__.py`` (reference
 python/paddle/distributed/fleet/base/fleet_base.py: fleet.init:125,
 worker_num/worker_index, distributed_optimizer:554, minimize:946).
-``init`` checks the parallel environment (one process, one card: no
-mesh), ``minimize`` compiles the strategy's meta-optimizer chain
-(``meta_optimizers.compile_strategy``) and runs it, and the executor runs
-the program it builds.  ``elastic`` (the fault injection and device
+``init`` joins the job's process group (``init_parallel_env``: one
+process a card, no mesh), ``worker_num`` / ``worker_index`` /
+``barrier_worker`` read and cross the live group, ``minimize`` compiles
+the strategy's meta-optimizer chain (``meta_optimizers.compile_strategy``;
+above one rank it ends in the gradient-allreduce transpile) and runs it,
+and the executor runs the program it builds.  ``elastic`` (the fault injection and device
 preflight) is imported lazily; the sharded ``distributed_embedding``
 waits for ROADMAP Queue A item 8.
 """

@@ -4,16 +4,17 @@ Counterpart of ``paddle_tpu/distributed/fleet/base/role_maker.py``
 (reference fleet/base/role_maker.py:33, PaddleCloudRoleMaker's env
 parsing :363): ``PADDLE_TRAINER_ID``, ``PADDLE_TRAINERS_NUM``,
 ``PADDLE_TRAINER_ENDPOINTS``.  The JAX package's barrier and all-gather
-ride ``jax.experimental.multihost_utils``; at one process both are
-trivial, so the port's ``_barrier`` does nothing and ``_all_gather``
-returns ``[obj]``.  With more than one process they raise the later-slice
-error (ROADMAP Queue A item 8).
+ride ``jax.experimental.multihost_utils``; the port's cross the ranks
+through the live ``torch.distributed`` group (``barrier``,
+``all_gather_object``).  At one process both are trivial: ``_barrier``
+does nothing and ``_all_gather`` returns ``[obj]``.  A role of several
+workers without a live group (``init_parallel_env`` not called) raises.
 """
 from __future__ import annotations
 
 import os
 
-from ...parallel_env import later
+from ...parallel_env import group_live
 
 
 class Role:
@@ -59,15 +60,27 @@ class PaddleCloudRoleMaker(RoleMakerBase):
     def _get_trainer_endpoints(self):
         return list(self._endpoints)
 
+    def _group(self, what):
+        if not group_live():
+            raise RuntimeError(
+                f"a {what} across {self._size} workers needs the process "
+                f"group: call fleet.init(is_collective=True) or "
+                f"distributed.init_parallel_env() first")
+        import torch.distributed as dist
+
+        return dist
+
     def _barrier(self, comm_world="worker"):
         if self._size > 1:
-            raise later(f"a {comm_world} barrier across {self._size} "
-                        f"processes")
+            self._group(f"{comm_world} barrier").barrier()
 
     def _all_gather(self, obj, comm_world="worker"):
-        if self._size > 1:
-            raise later(f"an all-gather across {self._size} processes")
-        return [obj]
+        if self._size <= 1:
+            return [obj]
+        dist = self._group("all-gather")
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, obj)
+        return out
 
 
 class UserDefinedRoleMaker(PaddleCloudRoleMaker):

@@ -21,9 +21,12 @@ At one process the port runs:
 - ``DGCMetaOptimizer`` (its ``dgc`` op is a one-device top-k sparsifier);
 - ``FP16AllReduceMetaOptimizer``, which only stamps the program.
 
-``GraphExecutionMetaOptimizer`` and ``ShardingMetaOptimizer`` apply only
-above one rank, which the port does not run.  ``LocalSGDMetaOptimizer``,
-``PipelineMetaOptimizer``, ``TensorParallelMetaOptimizer``,
+``GraphExecutionMetaOptimizer`` applies above one rank: it runs the
+inner chain, then ``collective_transpiler.GradAllReduce`` with the
+strategy's ``fuse_all_reduce_ops`` / ``fuse_grad_size_in_MB`` and the
+program's ``_fp16_allreduce``, as the JAX class does.
+``ShardingMetaOptimizer`` (above one rank), ``LocalSGDMetaOptimizer``,
+``PipelineMetaOptimizer``, ``TensorParallelMetaOptimizer`` and
 ``ExpertParallelMetaOptimizer`` raise the later-slice error (ROADMAP
 Queue A item 8).
 """
@@ -536,7 +539,23 @@ class GraphExecutionMetaOptimizer(MetaOptimizerBase):
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
-        raise later("the data-parallel gradient allreduce transpile")
+        from ...framework.program import GRAD_SUFFIX
+        from .collective_transpiler import GradAllReduce
+
+        ops, params_grads = self.inner_opt.minimize(
+            loss, startup_program, parameter_list, no_grad_set)
+        prog = loss.block.program
+        strat = self.user_strategy
+        GradAllReduce(
+            self._nranks(),
+            fuse_all_reduce=bool(strat.fuse_all_reduce_ops)
+            if strat is not None else True,
+            fuse_grad_size_in_MB=(strat.fuse_grad_size_in_MB or 32)
+            if strat is not None else 32,
+            fp16=bool(getattr(prog, "_fp16_allreduce", False)),
+        ).transpile(prog, params_grads,
+                    loss_grad_name=loss.name + GRAD_SUFFIX)
+        return ops, params_grads
 
 
 class TensorParallelMetaOptimizer(MetaOptimizerBase):

@@ -1,14 +1,19 @@
-"""Dygraph ``DataParallel`` and ``spawn``, at one process.
+"""Dygraph ``DataParallel`` and ``spawn``.
 
 Counterpart of ``paddle_tpu/distributed/parallel.py`` (reference
 python/paddle/fluid/dygraph/parallel.py: ``DataParallel``:335,
 ``scale_loss``:432, ``apply_collective_grads``:441; distributed/spawn.py:231).
-At world size 1 ``scale_loss`` returns the loss and
-``apply_collective_grads`` has nothing to sum; the wrapper delegates
+Above one rank (a live process group, ``init_parallel_env``),
+``scale_loss`` divides the loss by the number of ranks and
+``apply_collective_grads`` all-reduces every parameter's gradient over
+the group, in flat buckets of up to ``comm_buffer_size`` MB a dtype (the
+reference's coalesced allreduce; the JAX package all-gathers each
+gradient and sums, the same sums); at world size 1 the loss is returned
+as it is and there is nothing to sum.  The wrapper delegates
 ``parameters``, ``named_parameters``, ``state_dict`` and
 ``set_state_dict`` to the wrapped layer, so the keys are the wrapped
-layer's own, as in the JAX package.  Several processes (``spawn`` with
-``nprocs > 1``) raise the later-slice error (ROADMAP Queue A item 8).
+layer's own, as in the JAX package.  ``spawn`` with ``nprocs > 1``
+raises the later-slice error (ROADMAP Queue A item 8).
 """
 from __future__ import annotations
 
@@ -27,16 +32,55 @@ class DataParallel(Layer):
         super().__init__()
         self._layers = layers
         self._nranks = max(get_world_size(), ParallelEnv().world_size)
-        if self._nranks > 1:
-            raise later(f"DataParallel over {self._nranks} processes")
+        self._bucket_bytes = int(comm_buffer_size) * 1024 * 1024
+        if self._nranks > 1 and get_world_size() != self._nranks:
+            raise RuntimeError(
+                f"DataParallel over {self._nranks} processes needs the "
+                f"process group: call distributed.init_parallel_env() "
+                f"first")
 
     def forward(self, *inputs, **kwargs):
         return self._layers(*inputs, **kwargs)
 
     def scale_loss(self, loss):
-        return loss
+        if self._nranks <= 1:
+            return loss
+        from ..tensor.math import scale
+
+        return scale(loss, 1.0 / self._nranks)
 
     def apply_collective_grads(self):
+        """Sum every parameter's gradient over the ranks, in place."""
+        if self._nranks <= 1:
+            return None
+        import torch
+        import torch.distributed as dist
+
+        from ..ops.collective import _all_reduce
+
+        def reduce(grads):
+            summed = _all_reduce(dist, torch.cat([g.reshape(-1)
+                                                  for g in grads]), "sum")
+            off = 0
+            with torch.no_grad():
+                for g in grads:
+                    g.copy_(summed[off:off + g.numel()].view_as(g))
+                    off += g.numel()
+
+        buckets, sizes = {}, {}
+        for p in self._layers.parameters():
+            g = p._value.grad
+            if g is None:
+                continue
+            key = (g.dtype, g.device)
+            n = g.numel() * g.element_size()
+            if sizes.get(key, 0) and sizes[key] + n > self._bucket_bytes:
+                reduce(buckets.pop(key))
+                sizes[key] = 0
+            buckets.setdefault(key, []).append(g)
+            sizes[key] = sizes.get(key, 0) + n
+        for grads in buckets.values():
+            reduce(grads)
         return None
 
     # delegation so DataParallel looks like the wrapped layer

@@ -101,6 +101,25 @@ leading K dimension.  Host I/O programs (``save``/``load``/
 interpreted on the host: ``framework/var_io.py`` writes and reads the
 files, and loaded values go straight to the executor's device.
 
+Several processes (a live ``torch.distributed`` group,
+``distributed/parallel_env.py``): each rank runs its own program on its
+own card, the feeds its own slice of the batch, and the program's
+``c_*`` ops call the group (``ops/collective.py``).  The fetches follow
+the JAX executor's ``step_once``, from the same static dp-variance
+analysis (``dp_varying``): a feed with a batch dim above 1 varies across
+ranks, an op with a varying input makes its outputs vary, and an
+allreduce, broadcast or allgather (``_CLEARING``) or the split-back of a
+fused allreduced buffer makes them the same again.  A fetch that is the
+same on every rank is the local copy, a varying scalar is the cross-rank
+mean, a varying batched value is all-gathered on dim 0, and the NaN
+flags are the cross-rank minimum.  Under NCCL a program holding
+collectives is captured like any other (NCCL calls on the step's stream
+are legal in a CUDA graph); under gloo a collective is a host call, so
+``capture_reason`` gives ``host_collective`` and the program runs
+eagerly, as does any program holding a ``barrier`` op.  Each collective
+op runs in a ``collective/<type>`` span with its bytes, and the step
+timer counts the post-pass program's allreduce bytes a step.
+
 Not in the port yet (each raises ``NotImplementedError`` when asked for):
 meshes and tensor parallelism, localsgd and pipeline programs.
 
@@ -187,6 +206,20 @@ HOST_OPS = {"save", "load", "save_combine", "load_combine"}
 SIDE_EFFECT_OPS = {"send_v2", "partial_send", "recv_v2", "partial_recv",
                    "barrier", "print"}
 
+# communication ops (the JAX executor's set, kept with the phase model's
+# inventory): each lowering runs in a tracer span of its own with its
+# payload's bytes and dtype, and the allreduce subset feeds the step
+# timer's bytes a step
+COLLECTIVE_OPS = _phases.COLLECTIVE_OPS
+_ALLREDUCE_OPS = {"c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
+                  "c_allreduce_prod", "allreduce", "mp_allreduce_sum"}
+# collective ops whose lowering takes only this rank's tile: no traffic
+_LOCAL_COLLECTIVES = {"c_split", "c_shard_slice"}
+# ops after which a value is the same on every rank (the JAX executor's
+# dp-variance analysis)
+_CLEARING = {"c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
+             "c_allreduce_prod", "c_broadcast", "c_allgather", "allreduce"}
+
 
 def _later(what: str):
     return NotImplementedError(
@@ -231,9 +264,24 @@ HOST_SYNC_OPS = {"inverse", "inverse_grad"}
 
 def capture_reason(program: Program) -> Optional[Tuple[str, str]]:
     """Why ``program`` cannot run as a captured graph, from its op list
-    alone: ``(kind, text)``, or None when it can.  ``kind`` names the
-    ``executor_eager_<kind>`` counter its runs move."""
+    and the live process group's backend: ``(kind, text)``, or None when
+    it can.  ``kind`` names the ``executor_eager_<kind>`` counter its
+    runs move."""
+    from ..distributed.parallel_env import backend
+
+    group = backend()
     for op in program.global_block.ops:
+        if group is not None and op.type in COLLECTIVE_OPS \
+                and op.type not in _LOCAL_COLLECTIVES:
+            if group == "gloo":
+                return ("host_collective",
+                        f"op {op.type!r} calls the gloo process group, a "
+                        f"host library: a host call at each run, which a "
+                        f"graph cannot hold")
+            if op.type == "barrier":
+                return ("host_collective",
+                        "op 'barrier' waits on the host for every rank "
+                        "at each run, which a graph cannot hold")
         if op.type in HOST_OPS:
             return ("host_io", f"op {op.type!r} reads or writes files on "
                                f"the host")
@@ -311,6 +359,10 @@ class _Entry:
     # (op type, build site, index in the block) per scanned op, in the
     # order of the NAN_FLAGS_VAR fetch
     nan_ops: Tuple[Tuple[str, str, int], ...] = ()
+    # with a live process group: the names whose values differ across
+    # ranks (dp_varying), which decide how each fetch is assembled
+    varying: Optional[frozenset] = None
+    allreduce_bytes: int = 0              # the post-pass program's, a step
     step: Optional[StepGraph] = None      # on the card, from the 1st run
     graph: Optional["_GraphStep"] = None  # from the 2nd run
 
@@ -361,11 +413,12 @@ class _InflightStep:
     __slots__ = ("fetches", "host", "nan_flags", "nan_ops", "event",
                  "t_dispatch", "steps", "examples", "compiled",
                  "flops_per_step", "scope", "drained", "host_s",
-                 "phase_plan")
+                 "phase_plan", "allreduce_bytes")
 
     def __init__(self, fetches, host, nan_flags, nan_ops, event,
                  t_dispatch, steps, examples, compiled, flops_per_step,
-                 scope=None, host_s=0.0, phase_plan=None):
+                 scope=None, host_s=0.0, phase_plan=None,
+                 allreduce_bytes=0):
         self.fetches = fetches
         self.host = host
         self.nan_flags = nan_flags
@@ -380,6 +433,7 @@ class _InflightStep:
         self.drained = False
         self.host_s = host_s
         self.phase_plan = phase_plan
+        self.allreduce_bytes = allreduce_bytes
 
 
 class _InflightWindow:
@@ -468,7 +522,8 @@ class _InflightWindow:
         self._last_drain = now
         step_stats.step_timer().record_run(
             max(now - start, 0.0), steps=e.steps, examples=e.examples,
-            compiled=e.compiled, flops_per_step=e.flops_per_step)
+            compiled=e.compiled, flops_per_step=e.flops_per_step,
+            allreduce_bytes_per_step=e.allreduce_bytes)
         # step-phase attribution and the anomaly trigger: wall = the
         # inter-drain loop period, sync = this drain's wait, host = the
         # dispatch-side host seconds carried on the step
@@ -745,7 +800,7 @@ class Executor:
                 fetches, host, nan_flags, entry.nan_ops, event, t0,
                 n_steps, entry.batch * n_steps, compiled,
                 entry.flops_per_step, scope, max(host_s, 0.0),
-                entry.phase_plan)
+                entry.phase_plan, entry.allreduce_bytes)
             self._window.push(inflight)
             stat_add("executor_steps_dispatched", n_steps)
             if flag("benchmark") or entry.nan_scan:
@@ -764,7 +819,8 @@ class Executor:
         step_stats.step_timer().record_run(
             time.perf_counter() - t0, steps=n_steps,
             examples=entry.batch * n_steps, compiled=compiled,
-            flops_per_step=entry.flops_per_step)
+            flops_per_step=entry.flops_per_step,
+            allreduce_bytes_per_step=entry.allreduce_bytes)
         if nan_flags is not None:
             _raise_on_nan(nan_flags, entry.nan_ops, scope)
         return list(fetches)
@@ -1163,7 +1219,9 @@ class Executor:
             capture_reason(program), batch, flops, nan_scan=scan,
             phase_plan=_phases.build_phase_plan(block, block.ops,
                                                 flops_per_step=flops),
-            estimated_bytes=estimate, budget=budget, size_entries=sizes)
+            estimated_bytes=estimate, budget=budget, size_entries=sizes,
+            varying=self._varying(program, feeds),
+            allreduce_bytes=_program_allreduce_bytes(block, block.ops))
         return entry
 
     def _compiled(self, entry, n_steps) -> bool:
@@ -1278,7 +1336,9 @@ class Executor:
                 copies.append((state[c][i], env[n]))
             for buf, v in copies:
                 buf.copy_(v)
-            return [env[n] for n in entry.fetch_names]
+            return _assemble_fetches(entry.fetch_names,
+                                     [env[n] for n in entry.fetch_names],
+                                     entry.varying)
 
         with otrace.span("executor/capture", ops=len(block.ops)):
             entry.step.capture(step, generators=(gen,))
@@ -1329,7 +1389,10 @@ class Executor:
         with torch.no_grad():
             for n, (c, i) in views_out.items():
                 scope.get_var(c)[i].copy_(env[n])
-        return [env[n] for n in fetch_names]
+        varying = entry.varying if entry is not None \
+            else self._varying(program, feeds)
+        return _assemble_fetches(fetch_names, [env[n] for n in fetch_names],
+                                 varying)
 
     def _run_ops(self, ctx, frees, entry=None, probe=False) -> int:
         """Every op of the block through its lowering, raising with the
@@ -1354,7 +1417,12 @@ class Executor:
                     continue
                 k += 1
                 try:
-                    get_lowering(op.type)(ctx, op)
+                    if op.type in COLLECTIVE_OPS:
+                        with otrace.span(f"collective/{op.type}",
+                                         **_collective_span_args(env, op)):
+                            get_lowering(op.type)(ctx, op)
+                    else:
+                        get_lowering(op.type)(ctx, op)
                 except Exception as e:
                     site = op.callstack[-1] if op.callstack else "<unknown>"
                     msg = f"while lowering op {op.type!r} (built at " \
@@ -1401,6 +1469,15 @@ class Executor:
             program, feed_names, scope)
         return cached
 
+    def _varying(self, program, feeds) -> Optional[frozenset]:
+        """``dp_varying`` of ``program`` with these feeds when a process
+        group is live, else None (every fetch is the local value)."""
+        from ..distributed.parallel_env import group_live
+
+        if not group_live():
+            return None
+        return dp_varying(program, feeds)
+
     def _frees(self, program, feeds, fetch_names, scope):
         key = (program.fingerprint(), frozenset(feeds), fetch_names,
                scope.serial)
@@ -1410,6 +1487,106 @@ class Executor:
             cached = self._free_cache[key] = _free_plan(
                 program, set(feeds) | set(state_out) | set(fetch_names))
         return cached
+
+
+def dp_varying(program, feeds) -> frozenset:
+    """The names whose values differ across data-parallel ranks (the JAX
+    executor's static dp-variance analysis, ``_build_sharded_fn``): a
+    feed with a batch dim above 1 is each rank's own shard, as is ZeRO's
+    sharded optimizer state (``__sharded_accumulators__``); an op with a
+    varying input makes its outputs vary; the ``_CLEARING`` collectives
+    make theirs the same everywhere, ``c_shard_slice`` makes its output
+    vary, and ``uncoalesce_tensor`` hands its fused buffer's variance to
+    every member.  ``feeds``: name -> tensor (or anything with a
+    ``shape``)."""
+    varying = {n for n, t in feeds.items()
+               if len(t.shape) > 0 and int(t.shape[0]) > 1}
+    for op in program.global_block.ops:
+        accs = op.attr("__sharded_accumulators__", None)
+        if accs:
+            varying.update(accs)
+    for op in program.global_block.ops:
+        if op.type in PSEUDO_OPS:
+            continue
+        if op.type in _CLEARING:
+            varying.difference_update(op.output_arg_names())
+            continue
+        if op.type == "c_shard_slice":
+            varying.update(op.output_arg_names())
+            continue
+        if op.type == "uncoalesce_tensor":
+            if any(n in varying for n in op.input_arg_names()):
+                varying.update(op.output_arg_names())
+            else:
+                varying.difference_update(op.output_arg_names())
+            continue
+        if any(n in varying for n in op.input_arg_names()):
+            varying.update(op.output_arg_names())
+    return frozenset(varying)
+
+
+def _assemble_fetches(fetch_names, values, varying):
+    """Each fetch as the JAX executor's ``step_once`` hands it back
+    across ranks (``varying`` None: no group, the local values)."""
+    if varying is None:
+        return values
+    import torch.distributed as dist
+
+    from ..ops.collective import _all_gather, _all_reduce
+
+    out = []
+    for n, v in zip(fetch_names, values):
+        if not isinstance(v, torch.Tensor):
+            out.append(v)
+        elif n == NAN_FLAGS_VAR:
+            # every rank's flags, ANDed: the minimum of the 0/1 values
+            out.append(_all_reduce(dist, v.to(torch.uint8), "min").bool())
+        elif n not in varying:
+            out.append(v)   # the same on every rank: the local copy
+        elif v.numel() == 1:
+            # a varying scalar (a loss, a metric): the cross-rank mean,
+            # the full batch's value for a mean-reduced loss
+            out.append(_all_reduce(dist, v, "sum") / dist.get_world_size())
+        else:
+            # a varying batched value: the full batch, in rank order
+            out.append(_all_gather(dist, v, 0))
+    return out
+
+
+def _collective_span_args(env, op) -> dict:
+    """The bytes and dtype of a collective's payload, for its span."""
+    names = op.input_arg_names()
+    v = env.get(names[0]) if names else None
+    if not isinstance(v, torch.Tensor):
+        return {"var": names[0] if names else ""}
+    return {"bytes": v.numel() * v.element_size(),
+            "dtype": str(v.dtype).replace("torch.", ""), "var": names[0]}
+
+
+def _program_allreduce_bytes(block, op_list) -> int:
+    """Allreduce payload a step, from the post-pass op stream's declared
+    shapes (a fused bucket counts once, at its coalesced size); a
+    layer-scan stacked collective moves ``__layer_stack__`` x its var's
+    per-layer bytes."""
+    total = 0
+    for op in op_list:
+        if op.type not in _ALLREDUCE_OPS:
+            continue
+        names = op.input_arg_names()
+        var = block._find_var_recursive(names[0]) if names else None
+        if var is None or not var.shape or any(int(s) <= 0
+                                               for s in var.shape):
+            continue
+        try:
+            itemsize = dtypes.to_torch(var.dtype).itemsize
+        except (KeyError, ValueError, TypeError):
+            continue
+        n = 1
+        for d in var.shape:
+            n *= int(d)
+        total += n * itemsize * max(
+            int(op.attr(passes_mod.LAYER_STACK_ATTR, 0) or 0), 1)
+    return total
 
 
 def _batch_flops(program, feeds) -> Tuple[int, float]:

@@ -415,8 +415,13 @@ define_flag("ckpt_verify_restore", True,
 # ---- distributed (distributed/parallel_env.py) -----------------------------
 define_flag("pp_degree", 0,
             "default pipeline-parallel degree for a mesh built without a "
-            "shape; the port runs one process on one card and refuses a "
-            "degree above 1 (parallel_env.init_parallel_env)")
+            "shape; the port runs one process a card and builds no mesh, "
+            "so it refuses a degree above 1 (parallel_env.init_parallel_env)")
+define_flag("overlap_grad_allreduce", True,
+            "FuseAllReducePass (framework/passes.py): a bucket holding a "
+            "layer-scan stacked gradient carrier closes at its scan "
+            "boundary instead of taking the unrolled edge layers' "
+            "gradients behind it, as in the JAX package")
 define_flag("ep_degree", 0,
             "default expert-parallel degree for a mesh built without a "
             "shape; the port refuses a degree above 1, as for pp_degree")

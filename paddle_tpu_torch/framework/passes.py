@@ -9,9 +9,9 @@ the exact pre-pass program runs).  Application is cached by the Executor
 per ``(program.fingerprint(), pass config, fetch/feed names, scope, the
 flags the passes read)``.
 
-Passes in default order (the JAX package's registry order; the two it
-also registers and the port does not have yet keep their places in the
-comments below and in ROADMAP.md):
+Passes in default order (the JAX package's registry order; the one it
+also registers and the port does not have yet, ``sharding_propagation``,
+keeps its place in the comments below and in ROADMAP.md):
 
 1. ``FlashAttentionPass`` -- rewrites the unfused attention chain
    matmul(Q.K^T, alpha) -> [elementwise_add mask] -> softmax -> matmul(.V)
@@ -25,10 +25,17 @@ comments below and in ROADMAP.md):
    per-layer state stacked into ``@LAYER_STACK@`` carriers
    (``LayerScanPlan``, ``scope.StackedParamRef``); trimmed runs' edge
    layers stay unrolled and read the carriers' slices.
-3. ``RedundantCastEliminationPass`` -- removes ``cast`` ops whose input
+3. ``FuseAllReducePass`` -- bucketed gradient-allreduce fusion: the
+   ``c_allreduce_sum`` ops the collective transpiler marked
+   (``FUSED_ALLREDUCE_ATTR``) become, a bucket of up to
+   ``fuse_grad_size_in_MB`` at a time, ``coalesce_tensor`` -> (cast) ->
+   one ``c_allreduce_sum`` -> (cast) -> ``uncoalesce_tensor``; a bucket
+   closes at a read barrier, so it composes with the layer-scan
+   pull-out.
+4. ``RedundantCastEliminationPass`` -- removes ``cast`` ops whose input
    provably already holds the target dtype (a conservative forward
    dataflow; unknown dtypes are never touched).
-4. ``DeadOpEliminationPass`` -- drops ops that feed neither a fetch nor
+5. ``DeadOpEliminationPass`` -- drops ops that feed neither a fetch nor
    persistent/scope-resident state, reusing the executor's ``_prune_ops``
    backward slice (side-effect ops are always kept).
 
@@ -41,7 +48,10 @@ fp8-e4m3 carriers through ``dequant_matmul`` (``ops/quant_ops.py``).
 Observability (``paddle_tpu_torch.monitor``):
 ``pass_flash_attention_fused`` / ``pass_flash_attention_grad_fused``,
 ``pass_layer_scan_segments`` / ``pass_layer_scan_layers`` /
-``pass_layer_scan_skipped`` (+ ``_<reason>``), ``pass_casts_removed``,
+``pass_layer_scan_skipped`` (+ ``_<reason>``),
+``pass_fused_allreduce_buckets`` / ``pass_allreduce_ops_before`` /
+``pass_allreduce_ops_after`` / ``pass_overlap_stretched_buckets``,
+``pass_casts_removed``,
 ``pass_dead_ops_removed``,
 ``pass_pipeline_apply``, and the Executor's ``executor_pass_cache_hit``;
 one ``pass/<name>`` tracer span per applied pass.
@@ -69,6 +79,11 @@ __all__ = [
     "REMAT_POLICIES",
     "has_tp_marks",
     "has_ep_marks",
+    "FuseAllReducePass",
+    "FUSED_ALLREDUCE_ATTR",
+    "FUSE_SIZE_ATTR",
+    "DP_LOSS_SCALE_ATTR",
+    "COMM_ID_ATTR",
     "RedundantCastEliminationPass",
     "DeadOpEliminationPass",
     "register_pass",
@@ -149,10 +164,10 @@ _DTYPE_PRESERVING = {
     "allreduce", "mp_allreduce_sum",
 }
 
-# The JAX package's registry holds two more passes, not ported yet:
+# The JAX package's registry holds one more pass, not ported yet:
 # sharding_propagation (between flash_attention_fuse and the weight-quant
-# pass) and fuse_allreduce (right after layer_scan); both need several
-# processes or devices (ROADMAP Queue A item 8).
+# pass), which needs a device mesh (ROADMAP Queue A item 8).
+# fuse_allreduce registers right after layer_scan, as there.
 
 
 @register_pass
@@ -497,6 +512,16 @@ class FlashAttentionPass(Pass):
 # the JAX package (attrs, so they survive clone/proto round trips and
 # join the program fingerprint)
 FUSED_ALLREDUCE_ATTR = "__fused_allreduce__"
+FUSE_SIZE_ATTR = "__fuse_grad_size_mb__"
+DEFAULT_FUSE_MB = 32.0
+# stamped by GradAllReduce on its 1/nranks loss-gradient scale op (the
+# tensor-parallel meta-optimizer of the JAX package removes it)
+DP_LOSS_SCALE_ATTR = "__dp_loss_scale__"
+# FuseAllReducePass's stamps on each fused c_allreduce_sum: its stable
+# bucket identity, and whether the overlap stretch closed it at its scan
+# boundary (observe/phases.py reads both)
+COMM_ID_ATTR = "__comm_id__"
+COMM_OVERLAP_ATTR = "__comm_overlap__"
 TP_RULES_ATTR = "__tp_rules__"
 TP_CONSTRAINT_ATTR = "__tp_constraint__"
 EP_DEGREE_ATTR = "__ep_degree__"
@@ -1504,6 +1529,251 @@ class LayerScanPass(Pass):
         stat_set("pass_layer_scan_segments", len(plans))
         stat_set("pass_layer_scan_layers", n_layers_total)
         return True
+
+
+def _numel(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return n
+
+
+def _itemsize(dtype_str: str) -> int:
+    return dtypes.to_torch(dtype_str).itemsize
+
+
+def _marked_inplace_cast(op, name: str) -> bool:
+    return (op.type == "cast" and bool(op.attr(FUSED_ALLREDUCE_ATTR))
+            and op.inputs.get("X", []) == [name]
+            and op.outputs.get("Out", []) == [name])
+
+
+@register_pass(before="redundant_cast_eliminate")
+class FuseAllReducePass(Pass):
+    """Bucketed gradient-allreduce fusion (reference
+    fuse_all_reduce_op_pass + coalesce_tensor_op), the JAX package's pass
+    op for op.
+
+    Only ``c_allreduce_sum`` ops carrying ``__fused_allreduce__`` are
+    touched: the transpiler stamps exactly the per-gradient collectives
+    it inserted, so user-built collectives are never rewritten.  A
+    gradient whose var has an unknown or dynamic shape stays unfused
+    (``pass_allreduce_ops_after`` counts it).
+
+    Safe placement: the transpiler emits each allreduce right after its
+    gradient's last producer, and every consumer (optimizer, merge,
+    clip) sits after the backward, so anchoring a bucket's collective at
+    its last member's allreduce moves no reduction past a read of its
+    input; where a layer-scanned program reads a member earlier (its
+    ``layer_index`` copies of a pulled-out carrier), the bucket closes
+    at that read.
+    """
+
+    name = "fuse_allreduce"
+
+    def should_apply(self, program, ctx):
+        return any(op.type == "c_allreduce_sum"
+                   and op.attr(FUSED_ALLREDUCE_ATTR)
+                   for op in program.global_block.ops)
+
+    def apply(self, program, ctx):
+        from ..monitor import stat_set
+        from .flags import flag
+
+        block = program.global_block
+        ops = block.ops
+        n_before = sum(1 for op in ops if op.type == "c_allreduce_sum")
+
+        entries = self._collect(block, ops)
+        if not entries:
+            return False
+        # read barrier: a bucket's reduction lands at its LAST member's
+        # anchor, so a read of a member before that anchor would see the
+        # pre-reduce value; each entry's first read after its own anchor
+        # bounds where its bucket may still grow
+        readers: Dict[str, List[int]] = {}
+        for i, op in enumerate(ops):
+            for n in op.input_arg_names():
+                readers.setdefault(n, []).append(i)
+        for e in entries:
+            skip = set(e["remove"])
+            e["first_read"] = next(
+                (j for j in readers.get(e["grad"], ())
+                 if j > e["anchor"] and j not in skip), len(ops))
+        # adjacency for the overlap stretch: only bucket-member ops (the
+        # marked allreduces and their cast pairs) between two entries
+        member_idx = {i for e in entries for i in e["remove"]}
+        for k in range(len(entries) - 1):
+            lo = max(entries[k]["remove"])
+            hi = min(entries[k + 1]["remove"])
+            entries[k]["adj_next"] = all(
+                j in member_idx for j in range(lo + 1, hi))
+        entries[-1]["adj_next"] = False
+
+        buckets = self._bucketize(
+            entries, overlap=bool(flag("overlap_grad_allreduce")))
+        fuse_buckets = [b for b in buckets if len(b["items"]) >= 2]
+        if not fuse_buckets:
+            return False
+
+        removed: set = set()
+        anchor_to_bucket: Dict[int, tuple] = {}
+        for bi, b in enumerate(fuse_buckets):
+            for e in b["items"]:
+                removed.update(e["remove"])
+            anchor = max(e["anchor"] for e in b["items"])
+            anchor_to_bucket[anchor] = (bi, b)
+
+        new_ops: List = []
+        for i, op in enumerate(ops):
+            if i in anchor_to_bucket:
+                bi, b = anchor_to_bucket[i]
+                new_ops.extend(self._emit_bucket(block, bi, b))
+                continue
+            if i in removed:
+                continue
+            new_ops.append(op)
+        block.ops[:] = new_ops
+        program._bump()
+
+        n_after = sum(1 for op in new_ops if op.type == "c_allreduce_sum")
+        stat_set("pass_fused_allreduce_buckets", len(fuse_buckets))
+        stat_set("pass_allreduce_ops_before", n_before)
+        stat_set("pass_allreduce_ops_after", n_after)
+        return True
+
+    # -- helpers -----------------------------------------------------------
+    @staticmethod
+    def _collect(block, ops) -> List[dict]:
+        """One marked allreduce (+ its adjacent marked cast pair) per
+        entry, in program order."""
+        entries = []
+        for i, op in enumerate(ops):
+            if op.type != "c_allreduce_sum" \
+                    or not op.attr(FUSED_ALLREDUCE_ATTR):
+                continue
+            xs = op.inputs.get("X", [])
+            if len(xs) != 1 or op.outputs.get("Out", []) != xs:
+                continue  # only the transpiler's in-place form fuses
+            g = xs[0]
+            var = block._find_var_recursive(g)
+            if var is None or any(int(s) <= 0 for s in var.shape):
+                continue  # unknown/dynamic shape: left unfused
+            try:
+                dtype = dtypes.to_str(var.dtype)
+            except (KeyError, ValueError):
+                continue
+            remove = [i]
+            anchor = i
+            pre = i > 0 and _marked_inplace_cast(ops[i - 1], g)
+            post = i + 1 < len(ops) and _marked_inplace_cast(ops[i + 1], g)
+            if pre and post:
+                remove += [i - 1, i + 1]
+                anchor = i + 1
+            # a layer-scan stacked gradient moves num_layers x its var's
+            # declared (per-layer) shape
+            stack = int(op.attr(LAYER_STACK_ATTR, 0) or 0)
+            shape = tuple(int(s) for s in var.shape)
+            if stack > 1:
+                shape = (stack,) + shape
+            entries.append({
+                "stacked": stack > 1,
+                "grad": g,
+                "shape": shape,
+                "dtype": dtype,
+                "bytes": _numel(shape) * _itemsize(dtype),
+                "fp16": pre and post,
+                "ring_id": int(op.attr("ring_id", 0) or 0),
+                "cap": float(op.attr(FUSE_SIZE_ATTR, DEFAULT_FUSE_MB))
+                * 1024.0 * 1024.0,
+                "anchor": anchor,
+                "remove": remove,
+            })
+        return entries
+
+    @staticmethod
+    def _bucketize(entries, overlap=False) -> List[dict]:
+        """Greedy size-capped bucketing in program order, one bucket
+        stream per (dtype, ring, fp16) key.  ``overlap``
+        (FLAGS_overlap_grad_allreduce): a bucket holding a stacked
+        gradient carrier admits no unstacked entry past intervening
+        backward compute."""
+        from ..monitor import stat_add
+
+        buckets: List[dict] = []
+        open_buckets: Dict[tuple, dict] = {}
+        for pos, e in enumerate(entries):
+            key = (e["dtype"], e["ring_id"], e["fp16"])
+            if e["bytes"] > e["cap"]:
+                # an over-cap gradient gets a closed bucket of its own;
+                # its neighbours keep fusing
+                buckets.append({"key": key, "items": [e],
+                                "bytes": e["bytes"]})
+                continue
+            b = open_buckets.get(key)
+            if b is not None and e["anchor"] >= b["min_read"]:
+                # the bucket's emission point would pass a member's
+                # first read: close it at the read barrier
+                open_buckets.pop(key)
+                b = None
+            if b is not None and overlap and b["has_stacked"] \
+                    and not e.get("stacked", False) \
+                    and not all(entries[j].get("adj_next", False)
+                                for j in range(b["last_pos"], pos)):
+                closed = open_buckets.pop(key)
+                closed["overlap_hidden"] = True
+                b = None
+                stat_add("pass_overlap_stretched_buckets")
+            if b is None or b["bytes"] + e["bytes"] > e["cap"]:
+                b = {"key": key, "items": [], "bytes": 0,
+                     "min_read": float("inf"), "has_stacked": False,
+                     "last_pos": pos}
+                open_buckets[key] = b
+                buckets.append(b)
+            b["items"].append(e)
+            b["bytes"] += e["bytes"]
+            b["has_stacked"] = b["has_stacked"] or e.get("stacked", False)
+            b["last_pos"] = pos
+            b["min_read"] = min(b["min_read"],
+                                e.get("first_read", float("inf")))
+        return buckets
+
+    @staticmethod
+    def _emit_bucket(block, bucket_idx: int, bucket: dict) -> List:
+        from .program import Operator
+
+        dtype, ring_id, fp16 = bucket["key"]
+        grads = [e["grad"] for e in bucket["items"]]
+        shapes = [e["shape"] for e in bucket["items"]]
+        sections = [_numel(s) for s in shapes]
+        # deterministic name: a re-transpile fuses to the same fingerprint
+        fused = f"@FUSED_GRAD@{dtype}@r{ring_id}@{bucket_idx}"
+        block.create_var(name=fused, shape=[sum(sections)], dtype=dtype,
+                         stop_gradient=True)
+        seq = [Operator(block, "coalesce_tensor", {"Input": grads},
+                        {"FusedOutput": [fused]},
+                        {"dtype": dtypes.to_enum(dtype)})]
+        if fp16:
+            seq.append(Operator(block, "cast", {"X": [fused]},
+                                {"Out": [fused]},
+                                {"out_dtype": dtypes.to_enum("bfloat16")}))
+        fused_attrs = {"ring_id": ring_id, "use_calc_stream": True,
+                       COMM_ID_ATTR: f"bucket:{dtype}@r{ring_id}@{bucket_idx}"}
+        if bucket.get("overlap_hidden"):
+            fused_attrs[COMM_OVERLAP_ATTR] = True
+        seq.append(Operator(block, "c_allreduce_sum", {"X": [fused]},
+                            {"Out": [fused]}, fused_attrs))
+        if fp16:
+            seq.append(Operator(block, "cast", {"X": [fused]},
+                                {"Out": [fused]},
+                                {"out_dtype": dtypes.to_enum(dtype)}))
+        seq.append(Operator(
+            block, "uncoalesce_tensor", {"Input": [fused]},
+            {"Output": grads},
+            {"sections": sections,
+             "dims": [int(d) for s in shapes for d in s],
+             "ranks": [len(s) for s in shapes]}))
+        return seq
 
 
 @register_pass

@@ -15,6 +15,8 @@ the CPU there).
 """
 from __future__ import annotations
 
+import os
+
 from typing import Optional, Union
 
 import torch
@@ -92,6 +94,16 @@ class TPUPlace(CUDAPlace):
 
 
 def _default_place() -> Place:
-    """``CUDAPlace(0)``, after checking that torch sees a card."""
+    """``CUDAPlace(FLAGS_selected_gpus)`` (card 0 unless the launcher
+    chose another for this rank), after checking that torch sees a
+    card."""
     default_device()
-    return CUDAPlace(0)
+    return CUDAPlace(selected_gpu())
+
+
+def selected_gpu() -> int:
+    """This process's card: the first entry of the ``FLAGS_selected_gpus``
+    environment variable (default 0), the reference's per-rank device
+    flag, which the launcher exports."""
+    raw = os.environ.get("FLAGS_selected_gpus", "").split(",")[0].strip()
+    return int(raw) if raw else 0

@@ -91,7 +91,8 @@ RULES = (
     # -- executor / compile plane ---------------------------------------
     Rule("executor_eager_", "gauge", "executor",
          "Runs kept eager, by capture_reason kind (host_io, print, "
-         "control_flow, py_func, shape_tensor, seeded_random)"),
+         "control_flow, py_func, shape_tensor, seeded_random, host_sync, "
+         "host_collective)"),
     Rule("cuda_graph_", "gauge", "executor",
          "CUDA-graph captures and replays of compiled steps "
          "(framework/graphs.py)"),

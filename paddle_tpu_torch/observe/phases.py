@@ -69,11 +69,6 @@ COLLECTIVE_OPS = {"c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
                   "send_v2", "partial_send", "recv_v2", "partial_recv",
                   "barrier"}
 
-# op attrs the JAX package's passes stamp on collectives (FuseAllReducePass,
-# LayerScanPass); a program built for either package may carry them
-COMM_ID_ATTR = "__comm_id__"
-COMM_OVERLAP_ATTR = "__comm_overlap__"
-LAYER_STACK_ATTR = "__layer_stack__"
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +90,8 @@ def collective_inventory(block, op_list, mesh=None, tp_plan=None,
     mesh or a plan is refused, and the chunk counts change nothing at
     one process, as in the JAX package without a mesh."""
     from ..framework import dtypes as _dtypes
+    from ..framework.passes import (COMM_ID_ATTR, COMM_OVERLAP_ATTR,
+                                    LAYER_STACK_ATTR)
     from .xla_stats import _itemsize
 
     if mesh is not None or tp_plan is not None:

@@ -8,8 +8,9 @@ the feed's batch when the program's batch dim is symbolic).
 
 Out the other end:
 - ``step_time_seconds`` histogram (p50/p95/p99 via observe/histogram);
-- ``summary()``: examples/sec, the warm-up-vs-steady wall split, and an
-  **MFU estimate** = achieved FLOP/s / ``peak_tflops`` (or
+- ``summary()``: examples/sec, the warm-up-vs-steady wall split, the
+  allreduce bytes a step (the post-pass program's allreduce payload, from
+  the Executor), and an **MFU estimate** = achieved FLOP/s / ``peak_tflops`` (or
   ``FLAGS_device_peak_tflops``; with neither set, MFU is null).
 
 Timing: with the pipelined window (``FLAGS_max_inflight_steps`` > 0,
@@ -74,10 +75,12 @@ class StepTimer:
         self.compile_time = 0.0
         self.execute_time = 0.0
         self.flops = 0.0
+        self.allreduce_bytes = 0
 
     def record_run(self, duration_s: float, steps: int = 1,
                    examples: int = 0, compiled: bool = False,
-                   flops_per_step: float = 0.0) -> None:
+                   flops_per_step: float = 0.0,
+                   allreduce_bytes_per_step: int = 0) -> None:
         steps = max(int(steps), 1)
         with self._lock:
             self.runs += 1
@@ -91,6 +94,7 @@ class StepTimer:
                 self.steps += steps
                 self.examples += int(examples)
                 self.flops += flops_per_step * steps
+                self.allreduce_bytes += int(allreduce_bytes_per_step) * steps
         if not compiled:
             stat_time(self._hist_name, duration_s / steps)
 
@@ -100,7 +104,7 @@ class StepTimer:
             runs, steps, examples = self.runs, self.steps, self.examples
             compiles = self.compiles
             ct, et = self.compile_time, self.execute_time
-            flops = self.flops
+            flops, ar_bytes = self.flops, self.allreduce_bytes
         out = {
             "runs": runs,
             "steps": steps,
@@ -113,6 +117,7 @@ class StepTimer:
             out["steps_per_sec"] = round(steps / et, 3)
             if examples:
                 out["examples_per_sec"] = round(examples / et, 3)
+            out["allreduce_bytes_per_step"] = ar_bytes // steps
             if flops:
                 out["flops_per_step"] = int(flops / steps)
                 peak = _peak(peak_tflops)

@@ -53,6 +53,28 @@ def op_generator(ctx, op) -> torch.Generator:
     return ctx.next_generator()
 
 
+def shard_rand(ctx, op, shape, device) -> torch.Tensor:
+    """Uniform draws in [0, 1) of ``shape`` for an op whose randomness
+    must differ across data-parallel ranks (dropout: each rank masks its
+    own slice of the batch), the JAX package's ``op_seed_key(per_shard=
+    True)``.  With a live process group of n ranks the op's generator
+    draws n times the values, the same on every rank, and rank r keeps
+    the r-th block: the stream advances alike everywhere (so the
+    replica-invariant draws after it, as the startup's, stay equal) and
+    the ranks' draws are distinct values of it.  Without a group (or
+    with one rank) it is one plain draw, as before."""
+    from ..distributed import parallel_env
+
+    gen = op_generator(ctx, op)
+    n = parallel_env.get_world_size()
+    if n <= 1:
+        return torch.rand(shape, generator=gen, dtype=torch.float32,
+                          device=device)
+    u = torch.rand((n,) + tuple(shape), generator=gen, dtype=torch.float32,
+                   device=device)
+    return u[parallel_env.get_rank()]
+
+
 def promote(x: torch.Tensor, y: torch.Tensor):
     """``x``, ``y`` cast to their common type under jax's promotion."""
     dt = torch.promote_types(x.dtype, y.dtype)

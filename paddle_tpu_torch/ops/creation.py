@@ -19,7 +19,7 @@ import torch
 
 from ..framework.lowering import register_lower
 from ..initializer import truncated_normal
-from .common import attr_dtype, op_generator
+from .common import attr_dtype, op_generator, shard_rand
 
 
 @register_lower("fill_constant")
@@ -76,8 +76,9 @@ def _dropout(ctx, op):
         ctx.set_out(op, "Out", out)
         ctx.set_out(op, "Mask", torch.ones_like(x, dtype=torch.uint8))
         return
-    u = torch.rand(x.shape, generator=op_generator(ctx, op),
-                   dtype=torch.float32, device=x.device)
+    # each data-parallel rank masks its own slice (per_shard in the JAX
+    # package)
+    u = shard_rand(ctx, op, tuple(x.shape), x.device)
     keep = u < 1.0 - p   # bernoulli(1 - p), as jax.random.bernoulli draws it
     if impl == "upscale_in_train":
         scale = 0.0 if p >= 1.0 else 1.0 / (1.0 - p)

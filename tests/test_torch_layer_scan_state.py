@@ -237,15 +237,8 @@ def test_tp_or_ep_marked_program_refused(mark):
 
 
 def test_weight_quant_composes_with_layer_scan():
-    from paddle_tpu_torch import layers
-    from paddle_tpu_torch.framework.program import Program, program_guard
-
-    main, startup = Program(), Program()
-    main.random_seed = 6
-    with program_guard(main, startup):
-        h = layers.data("x", [32])
-        for _ in range(6):
-            h = layers.fc(h, 32, act="relu")
+    # under fresh unique names: the carrier below is read as fc_0's
+    main, startup, h = _fc6(T)
     exe = T.Executor(T.CPUPlace())
     scope = T.framework.Scope()
     exe.run(startup, scope=scope)

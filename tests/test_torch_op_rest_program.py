@@ -224,7 +224,8 @@ def test_port_coverage_counts():
     assert counts["lowerings_port"] == 402
     assert counts["lowerings_port_of_jax"] == 398
     assert counts["lowerings_missing"] == 0
-    assert counts["api_spec_unresolved"] == 47
+    # 47 before FuseAllReducePass (and its apply / should_apply) came
+    assert counts["api_spec_unresolved"] == 44
     import paddle_tpu.framework.lowering as jl
     import paddle_tpu_torch.framework.lowering as tlow
 

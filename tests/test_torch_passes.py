@@ -340,8 +340,8 @@ def test_registry_order_follows_the_jax_package():
     tpasses.default_pipeline()      # loads the passes registered elsewhere
     ours = list(tpasses.PASS_REGISTRY)
     assert ours == ["flash_attention_fuse", "post_training_weight_quant",
-                    "layer_scan", "redundant_cast_eliminate",
-                    "dead_op_eliminate"]
+                    "layer_scan", "fuse_allreduce",
+                    "redundant_cast_eliminate", "dead_op_eliminate"]
     jpasses.default_pipeline()
     theirs = [n for n in jpasses.PASS_REGISTRY if n in ours]
     assert theirs == ours

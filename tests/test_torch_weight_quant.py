@@ -313,6 +313,7 @@ def test_pass_order_and_refusals():
     assert ours == theirs == ["flash_attention_fuse",
                               "post_training_weight_quant",
                               "layer_scan",
+                              "fuse_allreduce",
                               "redundant_cast_eliminate",
                               "dead_op_eliminate"]
     main, _h, _exe, scope = _pair(_fc_program, depth=1, seed=9)["torch"]
