@@ -239,7 +239,7 @@ peak memory once its executors and graphs are dropped.
                ``Momentum(CosineAnnealingDecay(0.1, T_max=steps), 0.9,
                weight_decay=4e-5)``, ``CrossEntropyLoss`` and
                ``Accuracy(topk=(1, 5))``; ``fit`` for one epoch over
-               ``io.DataLoader(FakeData(128 * 24, 1000 classes, random
+               ``io.DataLoader(FakeData(128 * 12, 1000 classes, random
                flip, ImageNet normalization), batch_size=128,
                shuffle=True, drop_last=True, num_workers=4,
                device_prefetch=True)`` (batch halved while it does not fit,
@@ -252,7 +252,7 @@ peak memory once its executors and graphs are dropped.
                step (p50 and share), the loader alone at 0 and 4 workers
                (and at 4 with batches pickled through the queue instead
                of shared memory), its workers' start-up seconds, the busy share of a profiled
-               5-step window (the union of kernels and copies on any
+               3-step window (the union of kernels and copies on any
                stream, the profiler open 0.5 s after the last sync), peak
                memory after step 3 vs the last (within 5 %), finite
                losses, evaluate's top-1 / top-5, ``[256, 1000]`` finite
@@ -471,7 +471,7 @@ where a phase sets it.
                state; the pruned step's ms;
 39. auto_checkpoint -- ``PADDLE_RUNNING_ENV=PADDLE_EDL_AUTO_CHECKPOINT``,
                a local checkpoint path, ``configure(every_n_steps=10)``:
-               ``train_epoch_range("bert", 3)`` of 10 steps an epoch stops
+               ``train_epoch_range("bert", 2)`` of 10 steps an epoch stops
                after epoch 1; a fresh executor and scope skip epoch 0,
                the executor's hook restores before their first fed run,
                and their epoch is bit-equal to the first run's
@@ -515,7 +515,9 @@ from a seed, one batch repeated.
 43. ernie_oracle -- step 1 of ``ernie_fleet``'s chain with dropout 0 (the
                card's and the CPU's generators draw other masks), run on
                the card and replayed on the CPU from the card's startup
-               values and feed: the loss within ERNIE_ORACLE_RTOL.
+               values and feed, at ERNIE_ORACLE_BATCH (the CPU's step,
+               the phase's cost, grows with the batch): the loss within
+               ERNIE_ORACLE_RTOL.
 
 Slice 17's phases run after ``ernie_oracle``: the rest of ``slim`` on
 ResNet-50 v1.5 at 224 (``build_resnet``'s program in float32: the AMP
@@ -711,9 +713,42 @@ a JSON that the parent reads and checks.
                ``c_reducescatter`` through ``Executor.run``, captured
                (``capture_reason`` None, one capture, replays), outputs
                equal to the input, every collective calling NCCL inside
-               the capture, the replay's device work under
+               the capture (``c_reducescatter``: one
+               ``reduce_scatter_tensor``), the replay's device work under
                ``torch.profiler``, and what gloo accepts on a CUDA tensor
                in this torch (a report).
+
+Slice 26's phases run inside phase 63's ranks, after their fleet_dp and
+fleet_dp_oracle work, and are logged by this process in this order after
+fleet_dp_oracle (collective_capture last):
+
+66. fleet_ckpt -- the float32 ZeRO-1 ranks of phase 67 call
+               ``save_sharded`` after step 3 through a ``KVBarrier`` on
+               this process's KV server (``fleet.utils.KVServer``), each
+               rank writing its blocks of the AdamW moments, rank 0 the
+               rest; this process restores the checkpoint at one process
+               (``load_sharded``) and runs step 4 on the full batch: the
+               moments bit-equal to the ranks' blocks, the parameters to
+               their digest, the loss within ORACLE_RTOL of the ranks'
+               step 4; the save and restore seconds;
+67. fleet_zero_oracle -- ``strategy.sharding`` (ZeRO-1) at two ranks,
+               float32, dropout 0, phase 64's start and feeds: the
+               parameters after 3 steps bit-equal to ``GradAllReduce``'s
+               (else within ZERO_PARAM_RTOL norm-wise) and within
+               FLEET_UPDATE_RTOL of one process by update, the control
+               missing it;
+68. fleet_zero -- phase 63's bf16 path with ZeRO-1: a warm-up and
+               ZERO_STEPS timed eager steps on each rank; B1 24 a step,
+               losses and parameter digests bit-identical across ranks,
+               each rank holding half of every AdamW moment (half of
+               phase 63's bytes); step p50, peak memory, the all-reduce
+               (gloo's reduce-scatter) and all-gather bytes a step;
+69. fleet_localsgd -- phase 63's bf16 path with ``strategy.localsgd``
+               (``k_steps`` LOCALSGD_K), LOCALSGD_STEPS steps: the main
+               step captured on both ranks (reason None, one capture),
+               only the averages eager (timed), the ranks' parameter
+               digests equal after each average and apart after a step
+               in between; B1 24 a step.
 
 Every phase also logs ``{"phase": "phase_seconds", "name": ...,
 "seconds": ...}``, its wall seconds, when it ends.  Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -3448,19 +3483,21 @@ def phase_capture_concurrency():
 
 # -- the 2.0 high-level API: Model.fit / evaluate / predict ----------------
 
-# One epoch of FakeData(128 * 24) through MobileNetV2 at full width; its
+# One epoch of FakeData(128 * 12) through MobileNetV2 at full width (the
+# dataset's build and its pickling into each loader's workers, not the
+# steps, set the phase's time: the epoch stays short); its
 # first HAPI_SKIP steps (the warm-up, and in static mode the capture) are
 # left out of the step p50, and so are the HAPI_PROFILE steps run under
 # torch.profiler.
-HAPI_BATCH, HAPI_STEPS, HAPI_SKIP, HAPI_WORKERS = 128, 24, 2, 4
+HAPI_BATCH, HAPI_STEPS, HAPI_SKIP, HAPI_WORKERS = 128, 12, 2, 4
 HAPI_IMAGE, HAPI_EVAL_IMAGE = 224, 256   # train and eval images' sides
-HAPI_PROFILE = (14, 5)             # (first step, steps) of the profiled window
+HAPI_PROFILE = (6, 3)              # (first step, steps) of the profiled window
 HAPI_EVAL_BATCHES, HAPI_PREDICT_BATCHES = 4, 2
 # The loader alone, nothing consuming: (workers, shared memory) and the
 # batches timed after its first; the dygraph phase times each (the static
 # phase's loader is the same, over the same data, and is not timed again).
-HAPI_LOADERS = {(0, True): 3, (HAPI_WORKERS, True): 12,
-                (HAPI_WORKERS, False): 6}
+HAPI_LOADERS = {(0, True): 3, (HAPI_WORKERS, True): 8,
+                (HAPI_WORKERS, False): 4}
 HAPI_PEAK_RTOL = 0.05              # peak memory after step 3 vs the last
 IMAGENET_MEAN, IMAGENET_STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
 # hapi_oracle: float32 MobileNetV2 at full width, batch 8, one step from
@@ -7270,7 +7307,7 @@ CKPT_WINDOW_STEPS, SLOW_FEED_S, SLOW_FEED_STEPS = 30, 0.040, 20
 CKPT_STEPS, CKPT_EVERY, CKPT_CRASH = 100, 25, 75
 CKPT_AFTER_SAVE = 5            # steps timed after each save
 NAN_STEPS, PRUNE_STEPS, PRUNE_RTOL = 10, 5, 1e-6
-ACP_EPOCHS, ACP_STEPS = 3, 10  # auto_checkpoint: epochs of steps
+ACP_EPOCHS, ACP_STEPS = 2, 10  # auto_checkpoint: epochs of steps
 BERT15 = {}                    # the slice's BERT-base program, built once
 # model_checkpoint: MobileNetV2 through Model.fit, epochs of batches
 MC_EPOCHS, MC_BATCHES = 2, 4
@@ -7693,7 +7730,7 @@ def phase_auto_checkpoint():
                   resumed_epoch_bit_equal=second["losses"][0] ==
                   first["losses"][-1], losses=second["losses"][0][:3])
     log("auto_checkpoint", **report)
-    if first["epochs"] != [0, 1] or second["epochs"] != [1, 2] or \
+    if first["epochs"] != [0, 1] or second["epochs"] != [1] or \
             not report["resumed_epoch_bit_equal"]:
         raise RuntimeError(f"auto_checkpoint: {report}")
 
@@ -7756,15 +7793,17 @@ ERNIE_TRAJ_RTOL = 1e-3   # amp-only vs amp + recompute when not bit-equal
 # ~100 bfloat16 values on the path to the loss (8-bit mantissas), in its
 # own summation orders
 ERNIE_ORACLE_RTOL = 1e-2
+ERNIE_ORACLE_BATCH = 8   # the oracle's batch: its CPU step is the cost
 B1_PER_RECOMPUTE_STEP = 36   # forward, recomputed forward, gradient replay
 ERNIE_STATE = {}   # ernie_fleet's initial state and recompute run
 
 
 def ernie_program(amp=True, recompute=True, gradient_merge=0,
-                  dropout=ERNIE["dropout"], scan_layers=0, policy=""):
-    """The finetune through ``fleet``: main, startup, loss and the
-    applied chain's class names.  ``scan_layers`` / ``policy`` join
-    recompute's configs (the scan-over-layers stamps)."""
+                  dropout=ERNIE["dropout"], scan_layers=0, policy="",
+                  batch=ERNIE["batch"]):
+    """The finetune through ``fleet`` at ``batch``: main, startup, loss
+    and the applied chain's class names.  ``scan_layers`` / ``policy``
+    join recompute's configs (the scan-over-layers stamps)."""
     from paddle_tpu_torch import layers
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.fleet.meta_optimizers import chain_names
@@ -7772,7 +7811,7 @@ def ernie_program(amp=True, recompute=True, gradient_merge=0,
     from paddle_tpu_torch.text.static_models import _dense, bert_encoder
 
     c = ERNIE
-    b, s, h = c["batch"], c["seq"], c["hidden"]
+    b, s, h = batch, c["seq"], c["hidden"]
     main, startup = pt.framework.Program(), pt.framework.Program()
     main.random_seed = 7
     with unique_name.guard(), program_guard(main, startup):
@@ -7819,11 +7858,11 @@ def ernie_program(amp=True, recompute=True, gradient_merge=0,
     return dict(main=main, startup=startup, loss=loss, chain=chain)
 
 
-def ernie_feed(seed=0):
+def ernie_feed(seed=0, batch=ERNIE["batch"]):
     """Token ids over the vocabulary, two segments, every other sequence
     with its last 32 keys padded, labels from the ids."""
     c = ERNIE
-    b, s = c["batch"], c["seq"]
+    b, s = batch, c["seq"]
     rng = np.random.RandomState(seed)
     ids = rng.randint(1, c["vocab"], (b, s)).astype("int64")
     sent = np.zeros((b, s), "int64")
@@ -8042,8 +8081,9 @@ def phase_ernie_oracle():
     from paddle_tpu_torch.framework.scope import scope_from_numpy, to_numpy
 
     flags.set_flags({"flash_attention": "always"})
-    prog = ernie_program(amp=True, recompute=True, dropout=0.0)
-    feed = ernie_feed(seed=1)
+    prog = ernie_program(amp=True, recompute=True, dropout=0.0,
+                         batch=ERNIE_ORACLE_BATCH)
+    feed = ernie_feed(seed=1, batch=ERNIE_ORACLE_BATCH)
     exe = pt.Executor()
     scope = pt.framework.Scope()
     exe.run(prog["startup"], scope=scope)
@@ -8059,7 +8099,8 @@ def phase_ernie_oracle():
         scope=cpu_scope)[0].ravel()[0])
     cpu_s = time.monotonic() - t0
     gap = abs(card - cpu) / abs(cpu)
-    log("ernie_oracle", dropout=0.0, loss_card=card, loss_cpu=cpu,
+    log("ernie_oracle", dropout=0.0, batch=ERNIE_ORACLE_BATCH,
+        loss_card=card, loss_cpu=cpu,
         rel_gap=gap, tolerance=ERNIE_ORACLE_RTOL, cpu_seconds=cpu_s,
         cpu_threads=torch.get_num_threads())
     if not (math.isfinite(card) and gap <= ERNIE_ORACLE_RTOL):
@@ -10049,12 +10090,23 @@ CAPTURE_OPS = ("c_allreduce_sum", "c_allgather", "c_broadcast",
                "c_reducescatter")
 CAPTURE_SHAPE = (1024, 256)
 FLEET_STATE = {}   # fleet_dp's ranks' results and the oracle's start
+# fleet_zero: fleet_dp's bf16 path with strategy.sharding (ZeRO-1), a
+# warm-up and ZERO_STEPS timed eager steps on each rank; fleet_localsgd:
+# the same with strategy.localsgd at LOCALSGD_K, LOCALSGD_STEPS steps
+ZERO_STEPS = 3
+LOCALSGD_K, LOCALSGD_STEPS = 2, 4
+# fleet_zero_oracle: ZeRO-1 against GradAllReduce at two ranks, bit for
+# bit (the same gradient sums; AdamW is elementwise), else within this
+# norm-wise
+ZERO_PARAM_RTOL = 1e-6
+ADAM_MOMENTS = ("Moment1", "Moment2")
 
 
-def fleet_bert(batch, amp, dropout, lr, fuse=True):
+def fleet_bert(batch, amp, dropout, lr, fuse=True, **on):
     """BERT-base pretraining at a rank's ``batch``, minimized through
-    ``fleet`` (``strategy.amp``: bf16) as ``ernie_program`` builds its
-    finetune: main, startup, loss and the applied chain's names."""
+    ``fleet`` (``strategy.amp``: bf16; ``on``: more strategy fields) as
+    ``ernie_program`` builds its finetune: main, startup, loss and the
+    applied chain's names."""
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.fleet.meta_optimizers import chain_names
     from paddle_tpu_torch.text import bert_base_pretrain_program
@@ -10067,6 +10119,8 @@ def fleet_bert(batch, amp, dropout, lr, fuse=True):
         strategy = fleet.DistributedStrategy()
         strategy.amp = amp
         strategy.fuse_all_reduce_ops = fuse
+        for k, v in on.items():
+            setattr(strategy, k, v)
         with program_guard(main, startup):
             fleet.init(is_collective=True, strategy=strategy)
             fleet.distributed_optimizer(opt, strategy)
@@ -10103,6 +10157,31 @@ def param_digest(scope, names):
         h.update(scope.get_var(n).detach().cpu().contiguous().view(
             torch.uint8).numpy().tobytes())
     return h.hexdigest()
+
+
+def tensors_digest(tensors):
+    """A SHA-256 of the tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def opt_state_bytes(main, scope):
+    """The bytes of the AdamW moments ``scope`` holds for ``main``."""
+    names = {n for op in main.global_block.ops if op.type in ("adam", "adamw")
+             for slot in ADAM_MOMENTS for n in op.inputs.get(slot, ())}
+    return sum(scope.get_var(n).numel() * scope.get_var(n).element_size()
+               for n in names)
+
+
+def comm_bytes():
+    """The collectives' bytes so far, by ``torch.distributed`` call."""
+    return {k: stat_get("comm_bytes_" + k)
+            for k in ("all_reduce", "all_gather", "reduce_scatter")}
 
 
 def timed_lowering(op_type):
@@ -10203,6 +10282,7 @@ def fleet_rank_dp(tmp):
         allreduce_ops_before=stat_get("pass_allreduce_ops_before"),
         startup_digest=startup_digest,
         final_digest=param_digest(scope, names),
+        opt_state_bytes=opt_state_bytes(main, scope),
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     exe.close()
     return result
@@ -10244,11 +10324,171 @@ def fleet_rank_oracle(tmp):
     return out
 
 
+def fleet_rank_zero(tmp):
+    """fleet_zero on this rank: fleet_dp's bf16 path with ZeRO-1
+    (``strategy.sharding``), its warm-up and ZERO_STEPS timed eager steps;
+    B1's launches, the moments this rank holds, its peak, the
+    collectives' bytes a step, the digests."""
+    from paddle_tpu_torch.distributed import parallel_env
+
+    rank, world = parallel_env.get_rank(), parallel_env.get_world_size()
+    flags.set_flags({"flash_attention": "always"})
+    main, startup, loss, chain = fleet_bert(FLEET_BATCH, amp=True,
+                                            dropout=0.1, lr=1e-4,
+                                            sharding=True)
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    torch.cuda.reset_peak_memory_stats()
+    exe.run(startup, scope=scope)
+    names = param_names(main)
+    feed = bert_shard(bert_feed(FLEET_BATCH * world, seed=0),
+                      rank * FLEET_BATCH, (rank + 1) * FLEET_BATCH)
+    t0 = time.monotonic()
+    warm = float(exe.run(main, feed=feed, fetch_list=[loss],
+                         scope=scope)[0].ravel()[0])
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    accs = executor_mod.zero_accumulators(main)
+    block = main.global_block
+    eager0, comm0 = stat_get("executor_eager_host_collective"), comm_bytes()
+    fab.reset_launch_count()
+    step_ms, losses = [], [warm]
+    for _ in range(ZERO_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.ravel()[0]))
+    launches = fab.flash_attention_bias.launches
+    comm = {k: (v - comm0[k]) / ZERO_STEPS for k, v in comm_bytes().items()}
+    ops = [op.type for op in rewritten(exe, main).global_block.ops]
+    result = dict(
+        chain=chain, warm_s=warm_s, losses=losses, step_ms=step_ms,
+        step_ms_p50=float(np.median(step_ms)), b1_launches=launches,
+        b1_launches_per_step=launches / ZERO_STEPS,
+        eager_host_collective=stat_get("executor_eager_host_collective")
+        - eager0,
+        sharded_accumulators=len(accs),
+        rows_held=all(int(scope.get_var(n).shape[0]) * world
+                      == int(block.var(n).shape[0]) for n in accs),
+        opt_state_bytes=opt_state_bytes(main, scope),
+        comm_bytes_per_step=comm,
+        op_counts={t: ops.count(t) for t in (
+            "c_reducescatter", "c_shard_slice", "c_allgather",
+            "c_allreduce_sum")},
+        final_digest=param_digest(scope, names),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    exe.close()
+    return result
+
+
+def fleet_rank_zero_oracle(tmp):
+    """fleet_zero_oracle's ZeRO-1 run and fleet_ckpt's save on this rank:
+    float32 from the parent's startup values on fleet_dp_oracle's feeds,
+    FLEET_ORACLE_STEPS steps, ``save_sharded`` through a ``KVBarrier`` on
+    the parent's KV server, then one step more."""
+    from paddle_tpu_torch.ckpt import KVBarrier
+    from paddle_tpu_torch.distributed import checkpoint as dckpt
+    from paddle_tpu_torch.distributed import parallel_env
+
+    rank, world = parallel_env.get_rank(), parallel_env.get_world_size()
+    half = ORACLE_BATCH // FLEET_RANKS
+    init = dict(np.load(os.path.join(tmp, "oracle_init.npz")))
+    feed = bert_shard(bert_feed(ORACLE_BATCH, seed=1, padded_keys=16),
+                      rank * half, (rank + 1) * half)
+    flags.set_flags({"flash_attention": "always"})
+    main, startup, loss, chain = fleet_bert(half, amp=False, dropout=0.0,
+                                            lr=ORACLE_LR, sharding=True)
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    exe.run(startup, scope=scope)
+    names = param_names(main)
+    for n in names:
+        scope.set_var(n, torch.from_numpy(init[n]).to(exe.device))
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0].ravel()[0])
+              for _ in range(FLEET_ORACLE_STEPS)]
+    moments = sorted(executor_mod.zero_accumulators(main))
+    digest = param_digest(scope, names)
+    moments_digest = param_digest(scope, moments)
+    with open(os.path.join(tmp, "kv_endpoint")) as f:
+        endpoint = f.read().strip()
+    ckpt = os.path.join(tmp, "zero_ckpt")
+    t0 = time.monotonic()
+    saved = dckpt.save_sharded(
+        scope, ckpt, step=FLEET_ORACLE_STEPS,
+        barrier=KVBarrier(endpoint, rank, world,
+                          timeout=FLEET_CHILD_TIMEOUT_S))
+    save_s = time.monotonic() - t0
+    stats = dckpt._manager(ckpt).stats[-1]
+    step4 = float(exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=scope)[0].ravel()[0])
+    exe.close()
+    return dict(chain=chain, losses=losses, digest=digest, moments=moments,
+                moments_digest=moments_digest, saved_vars=len(saved),
+                save_s=save_s, save_stats=stats, step4_loss=step4)
+
+
+def fleet_rank_localsgd(tmp):
+    """fleet_localsgd on this rank: fleet_dp's bf16 path with
+    ``strategy.localsgd`` at LOCALSGD_K, LOCALSGD_STEPS steps: the main
+    program captured, each average eager and timed, the parameters'
+    digest after every step."""
+    from paddle_tpu_torch.distributed import parallel_env
+
+    rank, world = parallel_env.get_rank(), parallel_env.get_world_size()
+    flags.set_flags({"flash_attention": "always"})
+    main, startup, loss, chain = fleet_bert(
+        FLEET_BATCH, amp=True, dropout=0.1, lr=1e-4, localsgd=True,
+        localsgd_configs={"k_steps": LOCALSGD_K})
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    exe.run(startup, scope=scope)
+    names = param_names(main)
+    feed = bert_shard(bert_feed(FLEET_BATCH * world, seed=0),
+                      rank * FLEET_BATCH, (rank + 1) * FLEET_BATCH)
+    avg, average_s = main._localsgd, []
+    real = avg.average_step
+
+    def timed_average(exe_, scope=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        did = real(exe_, scope=scope)
+        torch.cuda.synchronize()
+        if did:
+            average_s.append(time.perf_counter() - t0)
+        return did
+
+    avg.average_step = timed_average
+    counts0 = {k: stat_get(k) for k in ("cuda_graph_captures",
+                                        "cuda_graph_replays",
+                                        "executor_eager_host_collective")}
+    fab.reset_launch_count()
+    step_ms, losses, digests = [], [], []
+    for _ in range(LOCALSGD_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out.ravel()[0]))
+        digests.append(param_digest(scope, names))
+    result = dict(
+        chain=chain, losses=losses, step_ms=step_ms,
+        step_ms_p50=float(np.median(step_ms)), average_s=average_s,
+        digests=digests,
+        capture_reason=executor_mod.capture_reason(rewritten(exe, main)),
+        b1_launches=fab.flash_attention_bias.launches,
+        **{k: stat_get(k) - v for k, v in counts0.items()})
+    exe.close()
+    return result
+
+
 def fleet_child(tmp):
-    """One rank of fleet_dp and fleet_dp_oracle, started by
-    ``phase_fleet_dp`` through the port's launcher: checks that the
+    """One rank of fleet_dp, fleet_dp_oracle, fleet_zero,
+    fleet_zero_oracle (with fleet_ckpt's save) and fleet_localsgd, started
+    by ``phase_fleet_dp`` through the port's launcher: checks that the
     parent's kernels are there (a rank must not build them), joins the
-    gloo group, runs both, writes ``rank<r>.json`` into ``tmp``."""
+    gloo group, runs each, writes ``rank<r>.json`` into ``tmp``."""
     from paddle_tpu_torch.distributed import parallel_env
 
     if not torch.cuda.is_available():
@@ -10264,9 +10504,13 @@ def fleet_child(tmp):
                   device=str(pt.Executor().device),
                   kind=torch.cuda.get_device_name(0), kernels_prebuilt=built,
                   dp=fleet_rank_dp(tmp))
-    gc.collect()
-    torch.cuda.empty_cache()
-    result["oracle"] = fleet_rank_oracle(tmp)
+    for name, run in (("oracle", fleet_rank_oracle),
+                      ("zero", fleet_rank_zero),
+                      ("zero_oracle", fleet_rank_zero_oracle),
+                      ("localsgd", fleet_rank_localsgd)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        result[name] = run(tmp)
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
     parallel_env.destroy_parallel_env()
@@ -10311,7 +10555,8 @@ def capture_child(tmp):
             return real(*a, **kw)
         return call
 
-    for name in ("all_reduce", "all_gather", "broadcast"):
+    for name in ("all_reduce", "all_gather", "broadcast",
+                 "reduce_scatter_tensor"):
         setattr(dist, name, counted(name))
     exe = pt.Executor()
     scope = pt.framework.Scope()
@@ -10413,7 +10658,25 @@ def wait_ranks(started):
 def phase_fleet_dp(tmp):
     """BERT-base at two ranks over gloo on cuda:0 (fleet_child); while
     they start, this process writes the oracle's startup values for
-    their fleet_dp_oracle runs (read after their timed steps)."""
+    their fleet_dp_oracle and fleet_zero_oracle runs (read after their
+    timed steps), and serves the port's KV server, whose ``KVBarrier``
+    orders fleet_ckpt's commit."""
+    from paddle_tpu_torch.distributed.fleet.utils import KVServer
+
+    kv = KVServer(0)
+    kv.start()
+    with open(os.path.join(tmp, "kv_endpoint"), "w") as f:
+        f.write(f"127.0.0.1:{kv.port}")
+    try:
+        launch_s = fleet_dp_ranks(tmp)
+    finally:
+        kv.stop()
+    fleet_dp_check(launch_s)
+
+
+def fleet_dp_ranks(tmp):
+    """Start fleet_dp's ranks, write the oracle's startup values, wait for
+    the ranks; returns their seconds."""
     started = start_ranks(tmp, "--fleet-rank", FLEET_RANKS, "gloo")
     try:
         main, startup, _loss, _ = fleet_bert(ORACLE_BATCH, amp=False,
@@ -10434,9 +10697,14 @@ def phase_fleet_dp(tmp):
         stop_ranks(started)
         raise
     launch_s = wait_ranks(started)
-    ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
-             for r in range(FLEET_RANKS)]
-    FLEET_STATE["ranks"] = ranks
+    FLEET_STATE["ranks"] = [json.load(open(os.path.join(
+        tmp, f"rank{r}.json"))) for r in range(FLEET_RANKS)]
+    return launch_s
+
+
+def fleet_dp_check(launch_s):
+    """Log fleet_dp's ranks' results and check them."""
+    ranks = FLEET_STATE["ranks"]
     dp = [r["dp"] for r in ranks]
     card = nvidia_smi("name,power.limit")
     log("fleet_dp", model="bert-base", ranks=FLEET_RANKS, backend="gloo",
@@ -10452,7 +10720,8 @@ def phase_fleet_dp(tmp):
             "allreduce_calls_per_step", "peak_memory_gb", "build_s",
             "warm_s", "b1_launches_per_step", "eager_host_collective",
             "scale_ops", "buckets", "buckets_planned",
-            "allreduce_bytes_per_step", "allreduce_ops_before")},
+            "allreduce_bytes_per_step", "allreduce_ops_before",
+            "opt_state_bytes")},
         bucket_bytes=dp[0]["bucket_bytes"], losses=dp[0]["losses"],
         losses_bit_identical=dp[0]["losses"] == dp[1]["losses"],
         startup_digests_equal=dp[0]["startup_digest"] == dp[1][
@@ -10547,6 +10816,8 @@ def phase_fleet_dp_oracle(tmp):
     ctl_gaps = update_gaps(init, ctl, ours)
     worst = max(kept, key=gaps.get)
     ctl_worst = max(kept, key=ctl_gaps.get)
+    FLEET_STATE.update(one=one, ours=ours, ctl_gaps=ctl_gaps, kept=kept,
+                       dp_params=theirs)
     orc = [r["oracle"] for r in ranks]
     two = orc[0]["fuse"]["losses"]
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(two, one))
@@ -10582,6 +10853,202 @@ def phase_fleet_dp_oracle(tmp):
                            f"ranks differ: {orc}")
 
 
+def phase_fleet_ckpt(tmp):
+    """The checkpoint fleet_zero_oracle's ranks wrote after step 3 (each
+    its blocks of the AdamW moments, rank 0 the rest, committed after the
+    KVBarrier), restored here at one process: the moments are the ranks'
+    blocks bit for bit, the parameters their digest, and step 4 on the
+    full batch lies within ORACLE_RTOL of the ranks' step 4."""
+    from paddle_tpu_torch.distributed import checkpoint as dckpt
+
+    zo = [r["zero_oracle"] for r in FLEET_STATE["ranks"]]
+    flags.set_flags({"flash_attention": "always"})
+    main, startup, loss, _ = fleet_bert(ORACLE_BATCH, amp=False,
+                                        dropout=0.0, lr=ORACLE_LR)
+    exe = pt.Executor()
+    scope = pt.framework.Scope()
+    exe.run(startup, scope=scope)
+    ckpt = os.path.join(tmp, "zero_ckpt")
+    t0 = time.monotonic()
+    restored = dckpt.load_sharded(scope, ckpt)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    names, moments = param_names(main), zo[0]["moments"]
+    halves = []
+    for r in range(FLEET_RANKS):
+        blocks = []
+        for n in moments:
+            v = scope.get_var(n)
+            rows = v.shape[0] // FLEET_RANKS
+            blocks.append(v[r * rows:(r + 1) * rows])
+        halves.append(tensors_digest(blocks))
+    params_digest = param_digest(scope, names)
+    FLEET_STATE["zero_params"] = {n: scope.get_var(n).double().cpu().numpy()
+                                  for n in names}
+    feed = bert_feed(ORACLE_BATCH, seed=1, padded_keys=16)
+    step4 = float(exe.run(main, feed=feed, fetch_list=[loss],
+                          scope=scope)[0].ravel()[0])
+    exe.close()
+    want = zo[0]["step4_loss"]
+    gap = abs(step4 - want) / abs(want)
+    step_dir = os.path.join(ckpt, f"step_{FLEET_ORACLE_STEPS}")
+    with open(os.path.join(step_dir, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    files = {n: os.path.getsize(os.path.join(step_dir, n))
+             for n in sorted(os.listdir(step_dir))}
+    log("fleet_ckpt", ranks=FLEET_RANKS, step=FLEET_ORACLE_STEPS,
+        manifest_world_size=manifest["world_size"], file_bytes=files,
+        saved_vars=[z["saved_vars"] for z in zo],
+        restored_vars=len(restored),
+        save_s=[z["save_s"] for z in zo],
+        save_stats=[z["save_stats"] for z in zo], restore_s=restore_s,
+        moments=len(moments),
+        moments_equal_rank_blocks=halves == [z["moments_digest"]
+                                             for z in zo],
+        params_equal=params_digest == zo[0]["digest"],
+        step4_loss_ranks=want, step4_loss_one_process=step4,
+        step4_rel_gap=gap, tolerance=ORACLE_RTOL,
+        card=nvidia_smi("name,power.limit"))
+    if manifest["world_size"] != FLEET_RANKS or not {
+            "shard_r0.npz", "shard_r1.npz"} <= set(files):
+        raise RuntimeError(f"fleet_ckpt: manifest of {manifest['world_size']}"
+                           f" ranks, files {sorted(files)}")
+    if halves != [z["moments_digest"] for z in zo] or \
+            params_digest != zo[0]["digest"]:
+        raise RuntimeError("fleet_ckpt: the restored moments or parameters "
+                           "differ from the ranks'")
+    if zo[0]["step4_loss"] != zo[1]["step4_loss"] or gap > ORACLE_RTOL:
+        raise RuntimeError(f"fleet_ckpt: step 4 at one process {step4} vs "
+                           f"the ranks' {[z['step4_loss'] for z in zo]}")
+
+
+def phase_fleet_zero_oracle():
+    """ZeRO-1 at two ranks (float32, dropout 0, fleet_dp_oracle's feeds
+    and start) against GradAllReduce at two ranks, bit for bit, and
+    against one process (fleet_dp_oracle's run) with the control missing
+    the limit.  The ZeRO parameters after step 3 are the checkpoint's
+    (fleet_ckpt: their digest is the ranks')."""
+    ranks = FLEET_STATE["ranks"]
+    zo = [r["zero_oracle"] for r in ranks]
+    orc = [r["oracle"]["fuse"] for r in ranks]
+    init, one, ours = (FLEET_STATE[k] for k in ("init", "one", "ours"))
+    kept, ctl_gaps = FLEET_STATE["kept"], FLEET_STATE["ctl_gaps"]
+    theirs, dp = FLEET_STATE["zero_params"], FLEET_STATE["dp_params"]
+    bit_equal = all(z["digest"] == o["digest"] and z["losses"] == o["losses"]
+                    for z, o in zip(zo, orc))
+    dp_gap = math.sqrt(sum(float(np.sum((theirs[n] - dp[n]) ** 2))
+                           for n in init)
+                       / sum(float(np.sum(dp[n] ** 2)) for n in init))
+    gaps = update_gaps(init, theirs, ours)
+    worst = max(kept, key=gaps.get)
+    ctl_worst = max(kept, key=ctl_gaps.get)
+    two = zo[0]["losses"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(two, one))
+    log("fleet_zero_oracle", ranks=FLEET_RANKS, dtype="float32",
+        steps=FLEET_ORACLE_STEPS, chain=zo[0]["chain"],
+        losses_zero=two, losses_allreduce=orc[0]["losses"],
+        losses_one_process=one, bit_equal_to_allreduce=bit_equal,
+        rel_param_norm_gap_to_allreduce=dp_gap,
+        max_rel_loss_gap=loss_gap, tolerance=ORACLE_RTOL,
+        worst_update=worst, worst_update_gap=gaps[worst],
+        update_tolerance=FLEET_UPDATE_RTOL,
+        control_worst_update_gap=ctl_gaps[ctl_worst],
+        ranks_agree=zo[0]["losses"] == zo[1]["losses"]
+        and zo[0]["digest"] == zo[1]["digest"])
+    if not (bit_equal or dp_gap <= ZERO_PARAM_RTOL):
+        raise RuntimeError(f"fleet_zero_oracle: ZeRO-1 is {dp_gap} off "
+                           f"GradAllReduce norm-wise (> {ZERO_PARAM_RTOL})")
+    if loss_gap > ORACLE_RTOL or gaps[worst] > FLEET_UPDATE_RTOL:
+        raise RuntimeError(f"fleet_zero_oracle: loss gap {loss_gap}, the "
+                           f"update of {worst} {gaps[worst]} off one "
+                           f"process")
+    if ctl_gaps[ctl_worst] <= FLEET_UPDATE_RTOL:
+        raise RuntimeError("fleet_zero_oracle: the control is within the "
+                           "update limit")
+    if zo[0]["losses"] != zo[1]["losses"] or zo[0]["digest"] != zo[1][
+            "digest"]:
+        raise RuntimeError("fleet_zero_oracle: the ranks differ")
+
+
+def phase_fleet_zero():
+    """fleet_dp's bf16 path with ZeRO-1 on each rank (fleet_rank_zero):
+    B1 24 a step, losses and parameters bit-identical across ranks, each
+    rank holding half of every AdamW moment, half of fleet_dp's bytes."""
+    ranks = FLEET_STATE["ranks"]
+    zs, dp = [r["zero"] for r in ranks], [r["dp"] for r in ranks]
+    ratio = [z["opt_state_bytes"] / d["opt_state_bytes"]
+             for z, d in zip(zs, dp)]
+    log("fleet_zero", model="bert-base", ranks=FLEET_RANKS, backend="gloo",
+        batch_per_rank=FLEET_BATCH, amp="bfloat16", dropout=0.1,
+        steps=ZERO_STEPS, chain=zs[0]["chain"],
+        **{k: [z[k] for z in zs] for k in (
+            "step_ms_p50", "step_ms", "warm_s", "b1_launches_per_step",
+            "eager_host_collective", "sharded_accumulators", "rows_held",
+            "opt_state_bytes", "peak_memory_gb", "comm_bytes_per_step")},
+        op_counts=zs[0]["op_counts"],
+        fleet_dp_opt_state_bytes=[d["opt_state_bytes"] for d in dp],
+        opt_state_ratio_to_fleet_dp=ratio,
+        fleet_dp_peak_memory_gb=[d["peak_memory_gb"] for d in dp],
+        fleet_dp_step_ms_p50=[d["step_ms_p50"] for d in dp],
+        losses=zs[0]["losses"],
+        losses_bit_identical=zs[0]["losses"] == zs[1]["losses"],
+        final_digests_equal=zs[0]["final_digest"] == zs[1]["final_digest"],
+        card=nvidia_smi("name,power.limit"))
+    for r, z in enumerate(zs):
+        if z["b1_launches"] != B1_PER_STEP * ZERO_STEPS:
+            raise RuntimeError(f"fleet_zero: rank {r} launched B1 "
+                               f"{z['b1_launches']} times in {ZERO_STEPS} "
+                               f"steps")
+        if not z["rows_held"] or abs(ratio[r] - 0.5) > 0.01 \
+                or not z["sharded_accumulators"]:
+            raise RuntimeError(f"fleet_zero: rank {r} holds "
+                               f"{z['opt_state_bytes']} bytes of moments, "
+                               f"{ratio[r]} of fleet_dp's")
+        if z["eager_host_collective"] != ZERO_STEPS or not all(
+                math.isfinite(x) for x in z["losses"]):
+            raise RuntimeError(f"fleet_zero: rank {r}: {z['losses']}, "
+                               f"{z['eager_host_collective']} eager runs")
+    if zs[0]["losses"] != zs[1]["losses"] or \
+            zs[0]["final_digest"] != zs[1]["final_digest"]:
+        raise RuntimeError("fleet_zero: the ranks' losses or parameters "
+                           "differ")
+
+
+def phase_fleet_localsgd():
+    """fleet_dp's bf16 path with LocalSGD at LOCALSGD_K on each rank
+    (fleet_rank_localsgd): the main step captured on both ranks and only
+    the averages eager; the ranks' parameters equal after each average
+    and apart after a step in between."""
+    ls = [r["localsgd"] for r in FLEET_STATE["ranks"]]
+    averaged = [(i + 1) % LOCALSGD_K == 0 for i in range(LOCALSGD_STEPS)]
+    equal = [a == b for a, b in zip(ls[0]["digests"], ls[1]["digests"])]
+    log("fleet_localsgd", model="bert-base", ranks=FLEET_RANKS,
+        backend="gloo", batch_per_rank=FLEET_BATCH, amp="bfloat16",
+        dropout=0.1, k_steps=LOCALSGD_K, steps=LOCALSGD_STEPS,
+        chain=ls[0]["chain"],
+        **{k: [x[k] for x in ls] for k in (
+            "step_ms_p50", "step_ms", "average_s", "losses",
+            "capture_reason", "cuda_graph_captures", "cuda_graph_replays",
+            "executor_eager_host_collective", "b1_launches")},
+        averaged_after_step=averaged, digests_equal_after_step=equal,
+        card=nvidia_smi("name,power.limit"))
+    for r, x in enumerate(ls):
+        if x["capture_reason"] is not None or x["cuda_graph_captures"] != 1 \
+                or x["executor_eager_host_collective"] != sum(averaged):
+            raise RuntimeError(f"fleet_localsgd: rank {r}: reason "
+                               f"{x['capture_reason']}, "
+                               f"{x['cuda_graph_captures']} captures, "
+                               f"{x['executor_eager_host_collective']} "
+                               f"eager runs (want None, 1, {sum(averaged)})")
+        if x["b1_launches"] != B1_PER_STEP * LOCALSGD_STEPS or not all(
+                math.isfinite(v) for v in x["losses"]):
+            raise RuntimeError(f"fleet_localsgd: rank {r}: B1 "
+                               f"{x['b1_launches']}, losses {x['losses']}")
+    if equal != averaged:
+        raise RuntimeError(f"fleet_localsgd: the ranks' parameters equal "
+                           f"after steps {equal}, averaged after {averaged}")
+
+
 def phase_collective_capture(tmp, started):
     """A program of CAPTURE_OPS captured at world size 1 over NCCL, in a
     child of its own (capture_child), started by ``main`` with fleet_dp's
@@ -10602,12 +11069,13 @@ def phase_collective_capture(tmp, started):
                            f"captures, {r['replays']} replays (want None, "
                            f"1, 3)")
     # every collective of the step called NCCL while the graph was being
-    # captured: c_allreduce_sum's and c_reducescatter's all-reduce,
-    # c_allgather's gather and the fetch's of the varying scattered
-    # output, c_broadcast's broadcast.  At one rank NCCL launches no
-    # kernel of its own for them (its one-rank path copies, or does
-    # nothing in place): the replay's device work is logged beside
-    want = {"all_reduce": 2, "all_gather": 2, "broadcast": 1}
+    # captured: c_allreduce_sum's all-reduce, c_reducescatter's
+    # reduce-scatter, c_allgather's gather and the fetch's of the varying
+    # scattered output, c_broadcast's broadcast.  At one rank NCCL
+    # launches no kernel of its own for them (its one-rank path copies,
+    # or does nothing in place): the replay's device work is logged beside
+    want = {"all_reduce": 1, "all_gather": 2, "broadcast": 1,
+            "reduce_scatter_tensor": 1}
     if not r["identity"] or r["nccl_calls_in_capture"] != want:
         raise RuntimeError(f"collective_capture: identity {r['identity']}, "
                            f"NCCL calls inside the capture "
@@ -10791,11 +11259,17 @@ def main():
             phase_fleet_dp(tmp)
             release("fleet_dp")
             phase_fleet_dp_oracle(tmp)
+            release("fleet_dp_oracle")
+            phase_fleet_ckpt(tmp)
+            release("fleet_ckpt")
+            phase_fleet_zero_oracle()
+            phase_fleet_zero()
+            phase_fleet_localsgd()
         except BaseException:
             stop_ranks(capture)
             raise
         FLEET_STATE.clear()
-        release("fleet_dp_oracle")
+        release("fleet_localsgd")
         phase_collective_capture(tmp, capture)
     release("collective_capture")
     kernels = []

@@ -1,6 +1,6 @@
 """``paddle_tpu_torch.ckpt`` -- asynchronous, atomic checkpointing.
 
-Counterpart of ``paddle_tpu.ckpt``, for one process:
+Counterpart of ``paddle_tpu.ckpt``:
 
 - :class:`CheckpointManager` -- async background writes, atomic
   tmp+manifest+rename commits, SHA-256 integrity, retention GC,
@@ -13,8 +13,10 @@ Counterpart of ``paddle_tpu.ckpt``, for one process:
 - :func:`wait_all` -- drain every live manager (``Executor.close()`` and
   interpreter exit call this).
 
-``KVBarrier`` and several-process checkpoints (``LocalShard`` blocks
-written by each rank) come with the distributed slices of the port.
+- Several processes: each rank writes its own ``LocalShard`` blocks
+  (a ZeRO-1 rank's rows of its optimizer state), rank 0 commits after
+  the ``KVBarrier`` (over the fleet KV server) or the group's store
+  barrier, and a restore re-assembles the full values at any rank count.
 ``distributed.checkpoint`` (``save_sharded``/``load_sharded``),
 ``incubate.checkpoint.auto_checkpoint`` and
 ``hapi.callbacks.ModelCheckpoint`` are built on this manager.

@@ -1,6 +1,6 @@
 """Asynchronous, atomic checkpoint manager with retention + integrity.
 
-Counterpart of ``paddle_tpu/ckpt/manager.py``, for one process:
+Counterpart of ``paddle_tpu/ckpt/manager.py``:
 
 - **Async**: ``save(step, scope=...)`` snapshots the scope on the
   caller's thread (``state.take_snapshot``: a drain, device clones and
@@ -9,7 +9,10 @@ Counterpart of ``paddle_tpu/ckpt/manager.py``, for one process:
   for the copies' event first.  A queued-but-unstarted save is COALESCED
   away when a newer one arrives (the newest state wins), so at most one
   save is queued and one written: three sets of pinned buffers, reused
-  from save to save.
+  from save to save.  Coalescing applies to single-process managers
+  only: with ``world_size > 1`` pending saves queue strictly FIFO (at
+  most ``_MAX_PENDING_SAVES``, then ``save`` blocks), because the commit
+  barriers need every rank's writer to run the same step sequence.
 - **Atomic**: shards are written into ``step_<N>.tmp``; the commit
   fsyncs every file, writes a SHA-256 manifest of every file, fsyncs it,
   and renames the directory to ``step_<N>``.  A crash at any point
@@ -31,9 +34,20 @@ views, so neither side needs ``ml_dtypes`` and each package reads the
 other's checkpoints.  The generator's state is written under the port's
 own dtype string ``torch_generator``.
 
-Several processes writing one checkpoint (``world_size > 1``, the
-``KVBarrier`` over the fleet KV server) come with the distributed slices
-of the port and raise ``NotImplementedError`` here.
+- **Several processes**: every rank writes exactly its own shard file
+  (``shard_r<k>.npz`` + ``meta_r<k>.json``): a rank other than 0 only
+  its :class:`~.state.LocalShard` blocks, rank 0 the replicated values
+  too.  Three barriers order the commit, ``mkdir`` / ``written`` /
+  ``committed``: rank 0 hashes, manifests (``world_size`` in
+  ``MANIFEST.json``) and renames only after every rank wrote, and every
+  rank's save returns once the step is visible.  The barrier is
+  ``barrier=`` (a callable of a tag): :class:`KVBarrier` over the fleet
+  KV HTTP server (``distributed/fleet/utils/http_server.py``), else
+  ``_default_barrier``, which meets on the live ``torch.distributed``
+  group's store (the JAX package's ``sync_global_devices``).  ``rank``
+  and ``world_size`` default to the live group's.  A restore
+  re-assembles each sharded value from the rank files (by origin, else
+  in rank order along axis 0) at any reading world size.
 
 Observability: ``ckpt/snapshot|serialize|write|commit`` tracer spans,
 ``ckpt_save_blocking_seconds`` / ``ckpt_write_seconds`` histograms,
@@ -83,16 +97,13 @@ _BITS = {"bfloat16": (np.int16, torch.bfloat16),
          "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
          "float8_e5m2": (np.uint8, torch.float8_e5m2)}
 _TORCH_BITS = {t: (name, c) for name, (c, t) in _BITS.items()}
+# FIFO (several-rank) backlog cap: save() blocks once this many snapshots
+# are pending, bounding host memory when the writer falls behind
+_MAX_PENDING_SAVES = 2
 
 
 class CheckpointError(RuntimeError):
     """A checkpoint could not be written or no intact one restored."""
-
-
-def _later(what: str):
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port's checkpoints yet: it comes "
-        f"with the distributed slices of the port")
 
 
 # every live manager, so Executor.close()/atexit can drain pending saves
@@ -142,6 +153,12 @@ def _fsync_dir(path: str) -> None:
 
 def _to_np(v) -> Tuple[np.ndarray, dict]:
     """A host value as (the array written, its meta record)."""
+    if isinstance(v, LocalShard):
+        arr, rec = _to_np(v.array)
+        rec.update(sharded=True, global_shape=list(v.global_shape))
+        if v.origin is not None:
+            rec["origin"] = list(v.origin)
+        return arr, rec
     if isinstance(v, GeneratorState):
         arr = v.state.numpy()
         return arr, {"dtype": GENERATOR_DTYPE, "shape": list(arr.shape),
@@ -181,11 +198,162 @@ def _from_np(arr: np.ndarray, rec: dict):
 
 
 class KVBarrier:
-    """The JAX package's commit barrier over the fleet KV HTTP server;
-    the port's fleet KV server comes with its distributed slices."""
+    """Rendezvous over the fleet KV HTTP server: every rank PUTs
+    ``ckpt_barrier/<prefix><tag>:g<gen>/<rank>`` and polls until all
+    ranks arrived (the JAX package's barrier, line for line).
 
-    def __init__(self, *args, **kwargs):
-        raise _later("KVBarrier (the fleet KV server's commit barrier)")
+    ``gen`` counts prior uses of the same tag by this instance, so a
+    re-save of one step never reuses live keys; per tag, not a global
+    call counter, so that after an asymmetric failure the ranks re-align
+    at the next fresh tag.  Keys from two completed barriers back are
+    swept by rank 0.  Across a restart against a long-lived KV server,
+    pass a run-unique ``prefix``: a collision can at worst time out,
+    since the commit never renames before the post-write barrier.
+
+    ``dead_ranks_fn`` (optional): a zero-arg callable returning the
+    currently dead-listed ranks; a barrier still waiting on one of them
+    fails fast with the rank named instead of waiting out the
+    deadline."""
+
+    def __init__(self, endpoint: str, rank: int, world_size: int,
+                 timeout: float = 120.0, prefix: str = "",
+                 dead_ranks_fn: Optional[Callable[[], Sequence[int]]]
+                 = None):
+        self.endpoint = endpoint.rstrip("/")
+        if not self.endpoint.startswith("http"):
+            self.endpoint = "http://" + self.endpoint
+        self.rank = int(rank)
+        self.world_size = int(world_size)
+        self.timeout = float(timeout)
+        self.prefix = (prefix + ":") if prefix else ""
+        self.dead_ranks_fn = dead_ranks_fn
+        self._tag_gens: Dict[str, int] = {}
+        self._past_tags: list = []
+
+    def _url(self, tag: str, rank: int) -> str:
+        return f"{self.endpoint}/ckpt_barrier/{self.prefix}{tag}/{rank}"
+
+    def __call__(self, tag: str) -> None:
+        import urllib.error
+        import urllib.request
+
+        gen = self._tag_gens.get(tag, 0)
+        self._tag_gens[tag] = gen + 1
+        gen_tag = f"{tag}:g{gen}"
+        deadline = time.monotonic() + self.timeout
+        # a refused or reset connection (the server restarting or not up
+        # yet) is as transient as a 404: retry both until the deadline
+        req = urllib.request.Request(self._url(gen_tag, self.rank),
+                                     data=b"1", method="PUT")
+        while True:
+            try:
+                # clamped to the remaining deadline: a stalled but
+                # accepting server must not hold a short barrier for the
+                # full socket timeout
+                urllib.request.urlopen(req, timeout=min(
+                    5.0, max(0.1, deadline - time.monotonic())))
+                break
+            except (urllib.error.URLError, TimeoutError) as e:
+                if time.monotonic() >= deadline:
+                    raise CheckpointError(
+                        f"KVBarrier {gen_tag!r}: cannot announce to KV "
+                        f"server {self.endpoint} after {self.timeout}s: "
+                        f"{e}") from e
+                time.sleep(0.05)
+        missing = set(range(self.world_size))
+        last_dead_check = 0.0
+        while missing:
+            for r in sorted(missing):
+                try:
+                    urllib.request.urlopen(
+                        self._url(gen_tag, r),
+                        timeout=min(5.0, max(
+                            0.1, deadline - time.monotonic())))
+                    missing.discard(r)
+                except (urllib.error.URLError, TimeoutError):
+                    pass
+            if not missing:
+                break
+            # a dead-listed rank we still wait on can never arrive: fail
+            # fast with it named (throttled: dead_ranks_fn may poll HTTP)
+            if self.dead_ranks_fn is not None and \
+                    time.monotonic() - last_dead_check >= 0.25:
+                last_dead_check = time.monotonic()
+                try:
+                    dead = {int(x) for x in (self.dead_ranks_fn() or ())}
+                except Exception:  # noqa: BLE001 - no evidence,
+                    dead = set()   # no verdict
+                lost = sorted(dead & missing)
+                if lost:
+                    raise CheckpointError(
+                        f"KVBarrier {gen_tag!r}: rank(s) {lost} "
+                        f"dead-listed by the health plane while still "
+                        f"missing from the barrier "
+                        f"(world={self.world_size}); failing fast "
+                        f"instead of waiting out the {self.timeout}s "
+                        f"deadline")
+            if time.monotonic() >= deadline:
+                raise CheckpointError(
+                    f"KVBarrier {gen_tag!r}: ranks {sorted(missing)} "
+                    f"missing after {self.timeout}s "
+                    f"(world={self.world_size})")
+            time.sleep(0.02)
+        # sweep the barrier two completed barriers back: every rank
+        # trims its list, only rank 0 issues the DELETEs
+        self._past_tags.append((tag, gen_tag))
+        if len(self._past_tags) > 2:
+            old_tag, old_gen_tag = self._past_tags.pop(0)
+            # the swept barrier's gen count goes with its keys, unless a
+            # later use of the tag is still live or (rank 0) a DELETE
+            # failed: stale keys plus a re-minted gen would release a
+            # reused tag early
+            swept = True
+            if self.rank == 0:
+                for r in range(self.world_size):
+                    try:
+                        urllib.request.urlopen(urllib.request.Request(
+                            self._url(old_gen_tag, r), method="DELETE"),
+                            timeout=min(5.0, max(
+                                0.5, deadline - time.monotonic())))
+                    except (urllib.error.URLError, TimeoutError):
+                        swept = False
+            if swept and all(t != old_tag for t, _ in self._past_tags):
+                self._tag_gens.pop(old_tag, None)
+
+
+# tag -> uses so far, for the store barrier's keys (every rank calls the
+# same tags in the same order, so the generations agree)
+_STORE_GENS: Dict[str, int] = {}
+_STORE_LOCK = threading.Lock()
+
+
+def _default_barrier(tag: str) -> None:
+    """Every rank of the live ``torch.distributed`` group meets at
+    ``tag`` on the group's store (the counterpart of the JAX package's
+    ``sync_global_devices``): a counter each rank adds one to, polled
+    until it reaches the world size.  The store, not a collective, so a
+    background writer never interleaves with the training thread's
+    collectives.  Without a group above one rank, nothing to wait for."""
+    from torch.distributed import distributed_c10d
+
+    from ..distributed.parallel_env import GROUP_TIMEOUT_S, get_world_size
+
+    world = get_world_size()
+    if world <= 1:
+        return
+    store = distributed_c10d._get_default_store()
+    with _STORE_LOCK:
+        gen = _STORE_GENS.get(tag, 0)
+        _STORE_GENS[tag] = gen + 1
+    key = f"ckpt_barrier/{tag}:g{gen}"
+    store.add(key, 1)
+    deadline = time.monotonic() + GROUP_TIMEOUT_S
+    while store.add(key, 0) < world:
+        if time.monotonic() >= deadline:
+            raise CheckpointError(
+                f"checkpoint barrier {key!r}: {world - store.add(key, 0)} "
+                f"of {world} ranks missing after {GROUP_TIMEOUT_S} s")
+        time.sleep(0.005)
 
 
 class _Job:
@@ -210,12 +378,6 @@ class CheckpointManager:
                  rank: Optional[int] = None,
                  world_size: Optional[int] = None,
                  barrier: Optional[Callable[[str], None]] = None):
-        if (world_size is not None and int(world_size) != 1) or \
-                (rank is not None and int(rank) != 0):
-            raise _later(f"a checkpoint written by several processes "
-                         f"(rank={rank}, world_size={world_size})")
-        if barrier is not None:
-            raise _later("a commit barrier")
         self.dirname = os.path.abspath(dirname)
         self.keep_n = int(_flags.flag("ckpt_keep_n") if keep_n is None
                           else keep_n)
@@ -223,6 +385,9 @@ class CheckpointManager:
                                    if keep_every_n_steps else None)
         self.async_save = bool(_flags.flag("ckpt_async_save")
                                if async_save is None else async_save)
+        self._rank = None if rank is None else int(rank)
+        self._world = None if world_size is None else int(world_size)
+        self._barrier = barrier if barrier is not None else _default_barrier
         self._components: Dict[str, object] = {}
         self._fault_hook: Optional[Callable[[str, int], None]] = None
         self._cond = threading.Condition()
@@ -238,10 +403,32 @@ class CheckpointManager:
         self._free_pinned: List[dict] = []
         self._stream = None
         self.stats: List[dict] = []
+        # jobs RUN so far (not queued), in lockstep on every rank (the
+        # queue is FIFO above one rank, and a job that fails inside
+        # _run_job still used its number everywhere): it stamps the
+        # barrier tags, so a re-save of a failed step never meets the
+        # first attempt's half-used tags.  A save that fails on one rank
+        # before its job runs leaves that rank a number behind; its later
+        # saves then fail by barrier timeout, never with a bad commit.
+        self._job_seq = 0
         _LIVE.add(self)
 
-    rank = 0
-    world_size = 1
+    # -- topology ---------------------------------------------------------
+    @property
+    def rank(self) -> int:
+        if self._rank is not None:
+            return self._rank
+        from ..distributed.parallel_env import get_rank
+
+        return get_rank()
+
+    @property
+    def world_size(self) -> int:
+        if self._world is not None:
+            return self._world
+        from ..distributed.parallel_env import get_world_size
+
+        return get_world_size()
 
     # -- test/fault-injection hook ---------------------------------------
     def set_fault_hook(self, fn: Optional[Callable[[str, int], None]]):
@@ -269,12 +456,14 @@ class CheckpointManager:
 
     # -- save -------------------------------------------------------------
     def _snapshot(self, scope, var_names):
-        """(pending host state, its pinned set) of ``scope``."""
+        """(pending host state, its pinned set) of ``scope``: a rank
+        other than 0 of several takes only its sharded blocks."""
         with self._cond:
             pinned = self._free_pinned.pop() if self._free_pinned else {}
         try:
-            pending = take_snapshot(scope, var_names, pinned=pinned,
-                                    stream=self._stream)
+            pending = take_snapshot(
+                scope, var_names, pinned=pinned, stream=self._stream,
+                shards_only=self.world_size > 1 and self.rank != 0)
         except BaseException:
             self._give_back(pinned)
             raise
@@ -315,14 +504,20 @@ class CheckpointManager:
                  to_tensor(np.array(v, copy=True)))
                 for n, v in state.items()})
         for name, v in pending.values.items():
-            if isinstance(v, LocalShard) \
+            if self.world_size == 1 and isinstance(v, LocalShard) \
                     and tuple(v.array.shape) != tuple(v.global_shape):
+                # a rank-0-local save of ZeRO-sharded state would commit
+                # a checkpoint missing every other rank's block
                 self._give_back(pinned)
                 raise CheckpointError(
                     f"var {name!r} is a partial shard "
                     f"({tuple(v.array.shape)} of global {v.global_shape}) "
                     f"but this manager has world_size=1: the other ranks' "
-                    f"blocks would never be written")
+                    f"blocks would never be written and the checkpoint "
+                    f"could not restore. Save state sharded over several "
+                    f"processes through a manager with rank/world_size "
+                    f"set on every rank "
+                    f"(distributed.checkpoint.save_sharded)")
         host = dict(host_state or {})
         if self._components:
             host["components"] = {n: c.state_dict()
@@ -343,7 +538,17 @@ class CheckpointManager:
             if self._closed:
                 self._give_back(pinned)
                 raise CheckpointError("CheckpointManager is closed")
-            if self._queue:
+            if self.world_size > 1:
+                # FIFO: every rank's writer runs the same step sequence;
+                # each job holds a host snapshot, so the backlog is
+                # capped (every rank blocks at the same save)
+                while len(self._queue) >= _MAX_PENDING_SAVES \
+                        and not self._closed:
+                    self._cond.wait(timeout=0.1)
+                if self._closed:
+                    self._give_back(pinned)
+                    raise CheckpointError("CheckpointManager is closed")
+            elif self._queue:
                 # coalesce: the unstarted stale save is superseded
                 stale = self._queue.pop()
                 stale.stats["coalesced"] = True
@@ -435,25 +640,34 @@ class CheckpointManager:
     def _run_job(self, job: _Job) -> None:
         t0 = time.perf_counter()
         st = job.stats
+        rank, world = self.rank, self.world_size
+        seq, self._job_seq = self._job_seq, self._job_seq + 1
+        tag = f"{job.step}:j{seq}"
         tmp = self._step_dir(job.step) + ".tmp"
         final = self._step_dir(job.step)
-        if os.path.isdir(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp, exist_ok=True)
+        if rank == 0:
+            if os.path.isdir(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp, exist_ok=True)
+        if world > 1:
+            self._barrier(f"mkdir:{tag}")
+            os.makedirs(tmp, exist_ok=True)  # a racing mkdir is fine
 
         self._fault("serialize", job.step)
         t = time.perf_counter()
         values = job.state.wait()   # the card's copies have landed
         st["copy_wait_s"] = time.perf_counter() - t
+        # a rank other than 0 contributes only its blocks; replicated
+        # values are written once, by rank 0
         payload: Dict[str, np.ndarray] = {}
         var_meta: Dict[str, dict] = {}
         with otrace.span("ckpt/serialize", step=job.step,
                          vars=len(values)):
             for name, v in values.items():
-                payload[name], var_meta[name] = _to_np(
-                    v.array if isinstance(v, LocalShard) else v)
+                if rank == 0 or isinstance(v, LocalShard):
+                    payload[name], var_meta[name] = _to_np(v)
         nbytes = sum(a.nbytes for a in payload.values())
-        shard_name, meta_name = "shard_r0.npz", "meta_r0.json"
+        shard_name, meta_name = f"shard_r{rank}.npz", f"meta_r{rank}.json"
         shard_path = os.path.join(tmp, shard_name)
         fsync = _flags.flag("ckpt_fsync")
         fsync_s = 0.0
@@ -468,10 +682,12 @@ class CheckpointManager:
                 if fsync:
                     os.fsync(f.fileno())
                 fsync_s += time.perf_counter() - t
-            meta = {"format": 1, "step": job.step, "rank": 0,
-                    "world_size": 1, "shard": shard_name, "vars": var_meta,
-                    "host_state": job.host_state,
-                    "created_unix": time.time()}
+            meta = {"format": 1, "step": job.step, "rank": rank,
+                    "world_size": world, "shard": shard_name,
+                    "vars": var_meta}
+            if rank == 0:
+                meta["host_state"] = job.host_state
+                meta["created_unix"] = time.time()
             with open(os.path.join(tmp, meta_name), "w") as f:
                 json.dump(meta, f)
                 f.flush()
@@ -480,30 +696,39 @@ class CheckpointManager:
                     os.fsync(f.fileno())
                 fsync_s += time.perf_counter() - t
 
+        # commit: every rank's files durable -> rank 0 manifests, renames
         with otrace.span("ckpt/commit", step=job.step):
-            self._fault("pre_commit", job.step)
+            if world > 1:
+                t = time.perf_counter()
+                self._barrier(f"written:{tag}")
+                st["barrier_s"] = time.perf_counter() - t
             t = time.perf_counter()
-            files = {}
-            for fname in sorted(os.listdir(tmp)):
-                p = os.path.join(tmp, fname)
-                files[fname] = {"sha256": _sha256(p),
-                                "bytes": os.path.getsize(p)}
-            st["hash_s"] = time.perf_counter() - t
-            t = time.perf_counter()
-            manifest = {"format": 1, "step": job.step, "world_size": 1,
-                        "files": files}
-            with open(os.path.join(tmp, _MANIFEST), "w") as f:
-                json.dump(manifest, f)
-                f.flush()
-                if fsync:
-                    os.fsync(f.fileno())
-            _fsync_dir(tmp)
-            if os.path.isdir(final):  # re-save of an existing step
-                shutil.rmtree(final)
-            os.rename(tmp, final)
-            _fsync_dir(self.dirname)
+            if rank == 0:
+                self._fault("pre_commit", job.step)
+                files = {}
+                for fname in sorted(os.listdir(tmp)):
+                    p = os.path.join(tmp, fname)
+                    files[fname] = {"sha256": _sha256(p),
+                                    "bytes": os.path.getsize(p)}
+                st["hash_s"] = time.perf_counter() - t
+                t = time.perf_counter()
+                manifest = {"format": 1, "step": job.step,
+                            "world_size": world, "files": files}
+                with open(os.path.join(tmp, _MANIFEST), "w") as f:
+                    json.dump(manifest, f)
+                    f.flush()
+                    if fsync:
+                        os.fsync(f.fileno())
+                _fsync_dir(tmp)
+                if os.path.isdir(final):  # re-save of an existing step
+                    shutil.rmtree(final)
+                os.rename(tmp, final)
+                _fsync_dir(self.dirname)
+                self._fault("post_commit", job.step)
+            if world > 1:
+                # every rank's save returns once the step is visible
+                self._barrier(f"committed:{tag}")
             st["commit_s"] = time.perf_counter() - t
-            self._fault("post_commit", job.step)
         st["fsync_s"] = fsync_s
         st["bytes"] = nbytes
         dt = time.perf_counter() - t0
@@ -511,9 +736,10 @@ class CheckpointManager:
         stat_time("ckpt_write_seconds", dt)
         stat_add("ckpt_saves")
         stat_add("ckpt_bytes_written", nbytes)
-        _flight.record("ckpt/commit", step=int(job.step), rank=0,
+        _flight.record("ckpt/commit", step=int(job.step), rank=rank,
                        write_seconds=round(dt, 4), bytes=nbytes)
-        self._gc(current_step=job.step)
+        if rank == 0:
+            self._gc(current_step=job.step)
 
     # -- retention --------------------------------------------------------
     def _gc(self, current_step: int) -> None:
@@ -659,19 +885,93 @@ class CheckpointManager:
             + "; ".join(reasons))
 
     def _read_step(self, step: int) -> Tuple[Dict[str, object], dict]:
+        """Every rank file of ``step`` merged: replicated values from
+        their file, each sharded value re-assembled from its blocks (by
+        origin, else concatenated along axis 0 in rank order)."""
         d = self._step_dir(step)
         metas = []
         for fname in sorted(os.listdir(d)):
             if fname.startswith("meta_r") and fname.endswith(".json"):
                 with open(os.path.join(d, fname)) as f:
                     metas.append(json.load(f))
-        if len(metas) != 1 or any(r.get("sharded") for m in metas
-                                  for r in m.get("vars", {}).values()):
-            raise _later(f"restoring a checkpoint written by several "
-                         f"processes ({d})")
-        m = metas[0]
+        metas.sort(key=lambda m: m.get("rank", 0))
+        host_state = {}
         merged: Dict[str, object] = {}
-        with np.load(os.path.join(d, m["shard"])) as z:
-            for name, rec in m.get("vars", {}).items():
-                merged[name] = _from_np(z[name], rec)
-        return merged, m.get("host_state", {}) or {}
+        shard_parts: Dict[str, List[Tuple[int, np.ndarray]]] = {}
+        origin_parts: Dict[str, List[Tuple[tuple, np.ndarray]]] = {}
+        shard_info: Dict[str, dict] = {}
+        for m in metas:
+            if m.get("rank", 0) == 0:
+                host_state = m.get("host_state", {}) or {}
+            with np.load(os.path.join(d, m["shard"])) as z:
+                for name, rec in m.get("vars", {}).items():
+                    if not rec.get("sharded"):
+                        merged[name] = _from_np(z[name], rec)
+                        continue
+                    shard_info[name] = rec
+                    if rec.get("origin") is not None:
+                        origin_parts.setdefault(name, []).append(
+                            (tuple(int(o) for o in rec["origin"]), z[name]))
+                    else:
+                        shard_parts.setdefault(name, []).append(
+                            (m.get("rank", 0), z[name]))
+        for name, parts in shard_parts.items():
+            parts.sort(key=lambda p: p[0])
+            full = np.concatenate([a for _, a in parts], axis=0)
+            want = tuple(shard_info[name].get("global_shape") or ())
+            if want and full.shape != want:
+                raise CheckpointError(
+                    f"sharded var {name!r} re-assembles to {full.shape}, "
+                    f"manifest says {want} (rank files inconsistent)")
+            merged[name] = _from_np(full, shard_info[name])
+        for name, parts in origin_parts.items():
+            want = tuple(shard_info[name].get("global_shape") or ())
+            _check_origin_coverage(name, parts, want)
+            full = np.empty(want, dtype=parts[0][1].dtype)
+            for origin, arr in parts:
+                full[tuple(slice(o, o + s)
+                           for o, s in zip(origin, arr.shape))] = arr
+            merged[name] = _from_np(full, shard_info[name])
+        return merged, host_state
+
+
+def _check_origin_coverage(name, parts, want):
+    """The blocks of a sharded value must tile it: axis-aligned blocks on
+    a regular per-dimension origin grid, checked in O(#blocks) without
+    a mask of the global shape.  A hole means a rank's block is missing:
+    an unrestorable value fails here."""
+    import itertools
+
+    blocks = {}
+    for origin, arr in parts:
+        if len(origin) != len(want) or any(
+                o + s > w for o, s, w in zip(origin, arr.shape, want)):
+            raise CheckpointError(
+                f"sharded var {name!r}: block {arr.shape} at origin "
+                f"{origin} does not fit global {want}")
+        prev = blocks.get(origin)
+        if prev is not None and prev != arr.shape:
+            raise CheckpointError(
+                f"sharded var {name!r}: conflicting blocks {prev} vs "
+                f"{arr.shape} at origin {origin}")
+        blocks[origin] = arr.shape  # replicated duplicates collapse
+    per_dim = [sorted({o[d] for o in blocks}) for d in range(len(want))]
+    for d, origins in enumerate(per_dim):
+        if origins and origins[0] != 0:
+            raise CheckpointError(
+                f"sharded var {name!r}: dim {d} grid starts at "
+                f"{origins[0]}, not 0 (missing rank file?)")
+    for origin in itertools.product(*per_dim):
+        shape = blocks.get(origin)
+        if shape is None:
+            raise CheckpointError(
+                f"sharded var {name!r}: no block at grid origin {origin} "
+                f"of global {want} (missing rank file?)")
+        for d, (o, s) in enumerate(zip(origin, shape)):
+            nxt = per_dim[d].index(o) + 1
+            end = per_dim[d][nxt] if nxt < len(per_dim[d]) else want[d]
+            if o + s != end:
+                raise CheckpointError(
+                    f"sharded var {name!r}: block at {origin} spans "
+                    f"[{o}, {o + s}) on dim {d} but the grid expects "
+                    f"[{o}, {end}) over global {want} (holes or overlap)")

@@ -58,9 +58,10 @@ RNG_VAR = "@RNG_KEY@"
 class LocalShard:
     """This process's contiguous block of a globally sharded value:
     ``array`` (a host tensor), the full value's ``global_shape`` and the
-    block's per-dimension ``origin`` (None: an axis-0 block).  Only a
-    multi-process manager, a later slice of the port, writes partial
-    shards; a single-process one refuses them."""
+    block's per-dimension ``origin`` (None: an axis-0 block, placed in
+    rank order).  A several-process manager writes each rank's block and
+    re-assembles the full value at restore; a single-process one refuses
+    a partial shard."""
 
     __slots__ = ("array", "global_shape", "origin")
 
@@ -155,14 +156,33 @@ def _pinned_views(cards, pinned: dict) -> dict:
     return pinned["views"]
 
 
+def zero_block(scope, name: str):
+    """(global shape, origin) when ``scope`` holds ``name`` as this rank's
+    block of a ZeRO-1 sharded accumulator, else None."""
+    s = scope
+    while s is not None:
+        if name in s._vars:
+            info = s.zero_blocks.get(name)
+            v = s._vars[name]
+            if info is not None and isinstance(v, torch.Tensor) \
+                    and tuple(v.shape) != tuple(info[0]):
+                return info
+            return None
+        s = s._parent
+    return None
+
+
 def take_snapshot(scope, var_names: Optional[Sequence[str]] = None,
-                  pinned=None, stream=None) -> _Pending:
+                  pinned=None, stream=None,
+                  shards_only: bool = False) -> _Pending:
     """The scope's state, with the card's copies still in flight.
 
     ``pinned`` (a dict the snapshot fills with its pinned buffer, reused
     by the next snapshot given the same dict while the state's layout
     holds) and ``stream`` (the side stream of the copies) let the
-    checkpoint manager reuse its buffers across saves."""
+    checkpoint manager reuse its buffers across saves.  A rank's block
+    of a sharded accumulator comes back as a :class:`LocalShard`; with
+    ``shards_only`` nothing else is taken."""
     from ..framework.executor import drain_all
 
     drain_all()
@@ -176,7 +196,13 @@ def take_snapshot(scope, var_names: Optional[Sequence[str]] = None,
                      if not n.startswith(LAYER_STACK_PREFIX)]
     out: Dict[str, object] = {}
     cards = []
+    blocks = {}
     for n in var_names:
+        info = zero_block(scope, n)
+        if info is not None:
+            blocks[n] = info
+        elif shards_only:
+            continue
         v = scope.get_var(n) if scope.has_var(n) else None
         if isinstance(v, StackedParamRef):
             v = v.device_value()
@@ -188,7 +214,7 @@ def take_snapshot(scope, var_names: Optional[Sequence[str]] = None,
             else:
                 out[n] = v.detach().clone()
     if not cards:
-        return _Pending(out)
+        return _Pending(_as_shards(out, blocks))
     dev = cards[0][1].device
     cur = torch.cuda.current_stream(dev)
     clones = [(n, v.detach().clone()) for n, v in cards]
@@ -203,7 +229,16 @@ def take_snapshot(scope, var_names: Optional[Sequence[str]] = None,
     del clones
     event = torch.cuda.Event()
     event.record(side)
-    return _Pending(out, event, side)
+    return _Pending(_as_shards(out, blocks), event, side)
+
+
+def _as_shards(out, blocks):
+    """``out`` with each name of ``blocks`` a :class:`LocalShard` of its
+    host tensor."""
+    for n, (shape, origin) in blocks.items():
+        if n in out:
+            out[n] = LocalShard(out[n], shape, origin)
+    return out
 
 
 def snapshot_scope(scope, var_names: Optional[Sequence[str]] = None

@@ -11,19 +11,21 @@ Counterpart of ``paddle_tpu/distributed``, one process a card:
 - ``fleet``: ``fleet.init``, ``DistributedStrategy`` (its message written
   out without protobuf, ``distributed_strategy_schema``), the role makers,
   ``distributed_optimizer`` / ``minimize`` over the meta-optimizer chain
-  (amp, recompute, gradient merge, LARS, LAMB, DGC, and above one rank
-  the gradient-allreduce transpile, ``fleet.collective_transpiler``),
+  (amp, recompute, gradient merge, LARS, LAMB, DGC, LocalSGD, and above
+  one rank the gradient-allreduce transpile, ``fleet.collective_transpiler``,
+  or ZeRO-1's optimizer-state sharding),
   and ``fleet.elastic``'s fault injection and device preflight;
 - the collective functions (``all_reduce``, ``broadcast``, ...) over the
   ``c_*`` lowerings of ``ops/collective.py``;
 - ``DataParallel``, ``prepare_context`` and ``spawn`` (one process);
-- ``checkpoint`` (``save_sharded`` / ``load_sharded`` at one process).
+- ``checkpoint`` (``save_sharded`` / ``load_sharded``, each rank writing
+  its own blocks, a restore at any rank count).
 
-LocalSGD, ZeRO, ``spawn(nprocs > 1)``, several-process checkpoints,
-device meshes (pipeline, tensor and expert parallelism) and the sharded
-embedding (``distributed.embedding``) raise or are absent until later
-slices of ROADMAP Queue A item 8.  Importing this package builds no
-kernel and touches no card.
+``spawn(nprocs > 1)``, the elastic supervisor, device meshes (pipeline,
+tensor and expert parallelism) and the sharded embedding
+(``distributed.embedding``) raise or are absent until later slices of
+ROADMAP Queue A item 8.  Importing this package builds no kernel and
+touches no card.
 """
 from . import fleet  # noqa: F401
 from .collective import (  # noqa: F401

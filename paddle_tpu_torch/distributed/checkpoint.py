@@ -1,12 +1,16 @@
 """Sharded checkpointing over ``paddle_tpu_torch.ckpt``.
 
-Counterpart of ``paddle_tpu/distributed/checkpoint.py`` at world size 1:
-``save_sharded`` writes the scope's state as a committed checkpoint step
-(synchronous: it returns once the step is durable) and ``load_sharded``
-restores the newest intact one onto the card (or ``device``).  State
-sharded over several processes, each writing its own block, comes with
-the distributed slices of the port (``CheckpointManager`` raises for
-``world_size > 1``).
+Counterpart of ``paddle_tpu/distributed/checkpoint.py``: ``save_sharded``
+writes the scope's state as a committed checkpoint step (synchronous: it
+returns once the step is durable), called from every process of a job:
+each rank writes its own blocks of the ZeRO-1 sharded optimizer state
+(``shard_r<k>.npz``), rank 0 the replicated values, and rank 0 commits
+the manifest after the barrier (``barrier=``, e.g. a ``ckpt.KVBarrier``
+on the fleet KV server; else the live group's store).
+``load_sharded`` restores the newest intact one onto the card (or
+``device``), the sharded values re-assembled in full; the next executor
+run cuts them to the rank count of that run, so a checkpoint written at
+one rank count resumes at any other.
 """
 from __future__ import annotations
 
@@ -30,11 +34,18 @@ def _manager(dirname: str) -> CheckpointManager:
 
 
 def save_sharded(scope, dirname, var_names: Optional[Sequence[str]] = None,
-                 step: Optional[int] = None):
+                 step: Optional[int] = None, barrier=None):
     """Write the scope's state as a committed checkpoint step under
-    ``dirname``; returns the sorted saved variable names.  ``step``
-    defaults to one past the newest committed step in ``dirname``."""
+    ``dirname``; returns the sorted saved variable names.  Call from
+    every process of the job.  ``step`` defaults to one past the newest
+    committed step in ``dirname``, read from the local listing: with
+    several processes on a filesystem whose listings lag, pass the
+    training step, which every rank agrees on.  ``barrier`` (a callable
+    of a tag, e.g. ``ckpt.KVBarrier``) becomes the directory's manager's
+    commit barrier."""
     m = _manager(dirname)
+    if barrier is not None:
+        m._barrier = barrier
     if step is None:
         step = m.next_step()
     return m.save(step, scope=scope, var_names=var_names, wait=True)

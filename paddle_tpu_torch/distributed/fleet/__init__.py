@@ -7,7 +7,8 @@ worker_num/worker_index, distributed_optimizer:554, minimize:946).
 process a card, no mesh), ``worker_num`` / ``worker_index`` /
 ``barrier_worker`` read and cross the live group, ``minimize`` compiles
 the strategy's meta-optimizer chain (``meta_optimizers.compile_strategy``;
-above one rank it ends in the gradient-allreduce transpile) and runs it,
+above one rank it ends in the gradient-allreduce transpile, or in
+ZeRO-1's sharding), and runs it,
 and the executor runs the program it builds.  ``elastic`` (the fault injection and device
 preflight) is imported lazily; the sharded ``distributed_embedding``
 waits for ROADMAP Queue A item 8.

@@ -11,7 +11,10 @@ last writer.  The rewrite is the JAX package's op for op: with
 ``FUSE_SIZE_ATTR`` marks that ``framework/passes.py`` ``FuseAllReducePass``
 buckets at dispatch.  No communicator-init ops are inserted: the process
 group exists (``parallel_env.init_parallel_env``), and the ops call it
-(``ops/collective.py``).  ``LocalSGD`` (:270) waits for a later slice.
+(``ops/collective.py``).  ``LocalSGD`` (:270) averages the parameters
+every ``k_steps`` runs: its average program is ``c_allreduce_sum`` then
+``scale 1/n`` on every parameter, run by the executor after the main
+program over the live group.
 """
 from __future__ import annotations
 
@@ -105,3 +108,46 @@ class GradAllReduce:
         block.ops[:] = new_ops
         main_program._bump()  # ops[] rewritten: a new fingerprint
         return main_program
+
+
+class LocalSGD:
+    """Periodic parameter averaging (reference transpiler/collective.py:270).
+
+    ``average_step(exe, scope)`` runs once a main-program run (the
+    executor calls it); every ``k_steps``-th call runs the average
+    program over the live ``torch.distributed`` group, the counterpart of
+    the JAX package's ``process_allgather`` mean.  At two ranks
+    ``(a + b) * 0.5`` is their mean bit for bit.  The main program holds
+    no collective, so between averages it is captured like any other
+    step, and only the average program runs eagerly under gloo."""
+
+    def __init__(self, nranks, k_steps=1, ring_id=0):
+        self.nranks, self.k_steps, self.ring_id = nranks, k_steps, ring_id
+        self._avg_program = None
+        self._param_names = []
+        self._step = 0
+
+    def build_average_program(self, main_program: Program) -> Program:
+        avg = Program()
+        block = avg.global_block
+        for var in main_program.global_block.vars.values():
+            if getattr(var, "is_parameter", False):
+                self._param_names.append(var.name)
+                block.create_var(name=var.name, shape=var.shape,
+                                 dtype=var.dtype, persistable=True)
+                block.append_op("c_allreduce_sum", {"X": var.name},
+                                {"Out": var.name}, {"ring_id": self.ring_id})
+                block.append_op("scale", {"X": var.name}, {"Out": var.name},
+                                {"scale": 1.0 / self.nranks, "bias": 0.0})
+        self._avg_program = avg
+        return avg
+
+    def average_step(self, exe, scope=None):
+        """Count one main-program run; every ``k_steps``-th averages the
+        parameters.  Returns whether it did."""
+        self._step += 1
+        if self._step % self.k_steps:
+            return False
+        if self._avg_program is not None:
+            exe.run(self._avg_program, scope=scope)
+        return True

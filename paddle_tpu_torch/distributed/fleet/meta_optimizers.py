@@ -2,7 +2,7 @@
 
 Counterpart of ``paddle_tpu/distributed/fleet/meta_optimizers.py``
 (reference fleet/meta_optimizers/ and the StrategyCompiler chain,
-fleet/base/strategy_compiler.py:89,112), at one process.  Each
+fleet/base/strategy_compiler.py:89,112).  Each
 meta-optimizer declares ``_can_apply()`` against the
 ``DistributedStrategy`` and wraps ``minimize``; ``compile_strategy``
 orders the applicable ones as the JAX package does, and each builds the
@@ -25,7 +25,12 @@ At one process the port runs:
 inner chain, then ``collective_transpiler.GradAllReduce`` with the
 strategy's ``fuse_all_reduce_ops`` / ``fuse_grad_size_in_MB`` and the
 program's ``_fp16_allreduce``, as the JAX class does.
-``ShardingMetaOptimizer`` (above one rank), ``LocalSGDMetaOptimizer``,
+``ShardingMetaOptimizer`` (ZeRO-1, above one rank) is the JAX rewrite
+op for op: ``c_reducescatter`` into ``<g>@SHARD``, ``c_shard_slice`` ->
+the optimizer op on ``<p>@SHARD`` -> ``c_allgather``, with
+``__sharded_accumulators__`` stamped on each rewired optimizer op.
+``LocalSGDMetaOptimizer`` stamps the program with a ``LocalSGD``
+averager that the executor runs every ``k_steps`` runs.
 ``PipelineMetaOptimizer``, ``TensorParallelMetaOptimizer`` and
 ``ExpertParallelMetaOptimizer`` raise the later-slice error (ROADMAP
 Queue A item 8).
@@ -488,8 +493,12 @@ class FP16AllReduceMetaOptimizer(MetaOptimizerBase):
 
 class LocalSGDMetaOptimizer(MetaOptimizerBase):
     """Periodic parameter averaging instead of a per-step allreduce
-    (reference localsgd_optimizer.py): it needs per-process parameter
-    state, so it waits for several processes."""
+    (reference localsgd_optimizer.py).  It needs per-process parameter
+    state: a process holding several ranks is refused, as in the JAX
+    package.  The program carries ``_localsgd``, a
+    ``collective_transpiler.LocalSGD`` over the processes, whose average
+    program the executor runs after every ``k_steps``-th main-program
+    run."""
 
     can_be_last = True
 
@@ -498,7 +507,22 @@ class LocalSGDMetaOptimizer(MetaOptimizerBase):
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
-        raise later("strategy.localsgd")
+        from ..parallel_env import process_count
+        from .collective_transpiler import LocalSGD
+
+        if process_count() == 1 and self._nranks() > 1:
+            raise NotImplementedError(
+                "strategy.localsgd needs per-replica parameter state: run "
+                "one process per card (paddle_tpu_torch.distributed.launch) "
+                "so each process holds its own params, or use "
+                "strategy.gradient_merge for step-K synchronization")
+        ops, params_grads = self.inner_opt.minimize(
+            loss, startup_program, parameter_list, no_grad_set)
+        cfg = self.user_strategy.localsgd_configs
+        prog = loss.block.program
+        prog._localsgd = LocalSGD(self._nranks(), k_steps=cfg["k_steps"])
+        prog._localsgd.build_average_program(prog)
+        return ops, params_grads
 
 
 class PipelineMetaOptimizer(MetaOptimizerBase):
@@ -514,18 +538,246 @@ class PipelineMetaOptimizer(MetaOptimizerBase):
         raise later("strategy.pipeline")
 
 
-class ShardingMetaOptimizer(MetaOptimizerBase):
-    """ZeRO-1 optimizer-state sharding over the data-parallel ranks:
-    applies only above one rank."""
+# param-shaped accumulator input slots per optimizer op (reference
+# operators/optimizers/*_op.cc input declarations); Beta*Pow and loss-
+# scale scalars are [1]-shaped and deliberately absent
+_OPTIMIZER_ACC_SLOTS = {
+    "sgd": (),
+    "momentum": ("Velocity",),
+    "lars_momentum": ("Velocity",),
+    "dgc_momentum": ("Velocity",),
+    "adam": ("Moment1", "Moment2"),
+    "adamw": ("Moment1", "Moment2"),
+    "lamb": ("Moment1", "Moment2"),
+    "adamax": ("Moment", "InfNorm"),
+    "adagrad": ("Moment",),
+    "adadelta": ("AvgSquaredGrad", "AvgSquaredUpdate"),
+    "rmsprop": ("MeanSquare", "MeanGrad", "Moment"),
+    "ftrl": ("SquaredAccumulator", "LinearAccumulator"),
+}
 
-    can_be_last = True
+
+class ShardingMetaOptimizer(MetaOptimizerBase):
+    """ZeRO-1 optimizer-state sharding (reference
+    fleet/meta_optimizers/sharding_optimizer.py:33), the JAX package's
+    rewrite op for op.  Every param whose dim 0 divides by the rank count
+    is sliced evenly: its gradient is reduce-scattered into
+    ``<g>@SHARD`` (the rest are allreduced), ``c_shard_slice`` takes this
+    rank's rows of the param into ``<p>@SHARD``, the optimizer op updates
+    them with the gradient's rows, and ``c_allgather`` re-assembles the
+    param for the next forward.  The optimizer op's param-shaped
+    accumulators are named in its ``__sharded_accumulators__`` attr; the
+    executor keeps only this rank's rows of each
+    (``Executor._prepare_state``), so a rank holds 1/n of the optimizer
+    state."""
+
+    can_be_last = True  # replaces the plain DP transpile
 
     def _can_apply(self):
         return self.user_strategy.sharding and self._nranks() > 1
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
-        raise later("strategy.sharding")
+        from ...framework.program import GRAD_SUFFIX
+
+        ops, params_grads = self.inner_opt.minimize(
+            loss, startup_program, parameter_list, no_grad_set)
+        prog = loss.block.program
+        n = self._nranks()
+        sharded_params = self._sharded_param_set(prog, params_grads, n)
+        if not sharded_params:
+            raise ValueError(
+                "strategy.sharding=True but no parameter has dim0 divisible "
+                f"by the dp degree {n}; sharding would be a no-op")
+        # gradient_merge composition: the merge chain moves into shard
+        # space (acc and merged ride the gradient's rows) and joins the
+        # sharded optimizer state
+        gm_map = self._collect_gm_map(prog.global_block)
+        self._transpile_grads(prog, params_grads, sharded_params,
+                              loss.name + GRAD_SUFFIX, gm_map=gm_map)
+        self._shard_optimizer_ops(prog, n, sharded_params, gm_map=gm_map)
+        return ops, params_grads
+
+    @staticmethod
+    def _collect_gm_map(block):
+        """{orig grad -> {acc, merged}} from the ``__gm_grad__`` attrs the
+        merge optimizer stamps on its accumulate ops."""
+        out = {}
+        for i, op in enumerate(block.ops):
+            g = op.attr("__gm_grad__", None)
+            if not g:
+                continue
+            acc = op.inputs["X"][0]
+            for op2 in block.ops[i + 1:]:
+                if op2.type == "elementwise_mul" \
+                        and op2.inputs.get("X") == [acc] \
+                        and op2.outputs.get("Out") != [acc]:
+                    out[g] = {"acc": acc,
+                              "merged": op2.outputs["Out"][0]}
+                    break
+        return out
+
+    def _sharded_param_set(self, prog, params_grads, nranks):
+        block = prog.global_block
+        out = set()
+        for p, _ in params_grads:
+            pvar = block._find_var_recursive(
+                p.name if hasattr(p, "name") else p)
+            if pvar is not None and pvar.shape \
+                    and int(pvar.shape[0]) % nranks == 0:
+                out.add(pvar.name)
+        return out
+
+    def _transpile_grads(self, prog, params_grads, sharded_params,
+                         loss_grad_name, gm_map=None):
+        """``c_reducescatter`` for sharded params (each rank receives only
+        its rows of the summed gradient), ``c_allreduce_sum`` for the
+        params left replicated; the loss gradient scaled by 1/nranks once,
+        as in GradAllReduce."""
+        from ...framework import dtypes
+        from ...framework.passes import DP_LOSS_SCALE_ATTR
+        from ...framework.program import Operator
+        from .collective_transpiler import _last_writer_map
+
+        n = self._nranks()
+        fp16 = bool(getattr(prog, "_fp16_allreduce", False))
+        block = prog.global_block
+        grad_to_param = {}
+        for p, g in params_grads:
+            grad_to_param[g.name if hasattr(g, "name") else g] = (
+                p.name if hasattr(p, "name") else p)
+
+        last_writer = _last_writer_map(block.ops)
+        new_ops = []
+        for i, op in enumerate(block.ops):
+            new_ops.append(op)
+            if loss_grad_name in op.output_arg_names() \
+                    and op.type == "fill_constant":
+                new_ops.append(Operator(
+                    block, "scale", {"X": [loss_grad_name]},
+                    {"Out": [loss_grad_name]},
+                    {"scale": 1.0 / n, "bias": 0.0,
+                     "bias_after_scale": True,
+                     DP_LOSS_SCALE_ATTR: True}))
+            for g in op.output_arg_names():
+                pname = grad_to_param.get(g)
+                if pname is None or last_writer.get(g) != i:
+                    continue
+                if fp16:
+                    new_ops.append(Operator(
+                        block, "cast", {"X": [g]}, {"Out": [g]},
+                        {"out_dtype": dtypes.to_enum("bfloat16")}))
+                if pname in sharded_params:
+                    gvar = block._find_var_recursive(g)
+                    g_shard = g + "@SHARD"
+                    if not block.has_var(g_shard):
+                        shape = list(gvar.shape) if gvar is not None else []
+                        if shape:
+                            shape[0] = int(shape[0]) // n
+                        block.create_var(name=g_shard, shape=shape,
+                                         dtype=(gvar.dtype if gvar else
+                                                "float32"),
+                                         stop_gradient=True)
+                    new_ops.append(Operator(
+                        block, "c_reducescatter", {"X": [g]},
+                        {"Out": [g_shard]}, {"ring_id": 0}))
+                    if fp16:
+                        new_ops.append(Operator(
+                            block, "cast", {"X": [g_shard]},
+                            {"Out": [g_shard]},
+                            {"out_dtype": dtypes.to_enum("float32")}))
+                else:
+                    new_ops.append(Operator(
+                        block, "c_allreduce_sum", {"X": [g]},
+                        {"Out": [g]}, {"ring_id": 0}))
+                    if fp16:
+                        new_ops.append(Operator(
+                            block, "cast", {"X": [g]}, {"Out": [g]},
+                            {"out_dtype": dtypes.to_enum("float32")}))
+        # gradient_merge composition: the merge accumulation consumes the
+        # gradient's rows, not the full gradient before the scatter
+        if gm_map:
+            for op in new_ops:
+                if op.type != "elementwise_add":
+                    continue
+                y = op.inputs.get("Y", [])
+                if len(y) == 1 and y[0] in gm_map \
+                        and grad_to_param.get(y[0]) in sharded_params \
+                        and op.inputs.get("X") == [gm_map[y[0]]["acc"]]:
+                    op.inputs["Y"] = [y[0] + "@SHARD"]
+        block.ops[:] = new_ops
+        prog._bump()
+
+    def _shard_optimizer_ops(self, prog, nranks, sharded_params,
+                             gm_map=None):
+        from ...framework.program import Operator
+
+        block = prog.global_block
+        # merged-grad name -> its accumulator (gradient_merge composition)
+        merged_to_acc = {info["merged"]: info["acc"]
+                         for info in (gm_map or {}).values()}
+        new_ops = []
+        for op in block.ops:
+            if op.type not in _OPTIMIZER_OP_TYPES:
+                new_ops.append(op)
+                continue
+            pnames = op.inputs.get("Param", [])
+            gnames = op.inputs.get("Grad", [])
+            if len(pnames) != 1 or len(gnames) != 1 \
+                    or pnames[0] not in sharded_params:
+                new_ops.append(op)
+                continue
+            pname, gname = pnames[0], gnames[0]
+            pvar = block._find_var_recursive(pname)
+            shard_shape = [int(pvar.shape[0]) // nranks] + [
+                int(s) for s in pvar.shape[1:]]
+            p_shard = pname + "@SHARD"
+            # a merged grad already lives in shard space; plain grads
+            # rewire to the @SHARD var the scatter produced
+            g_shard = gname if gname in merged_to_acc \
+                else gname + "@SHARD"
+            if not block.has_var(p_shard):
+                block.create_var(name=p_shard, shape=shard_shape,
+                                 dtype=pvar.dtype, stop_gradient=True)
+            new_ops.append(Operator(block, "c_shard_slice",
+                                    {"X": [pname]}, {"Out": [p_shard]}, {}))
+            # the update runs on this rank's rows; its accumulators
+            # become sharded state, recorded on the op
+            outs_set = set(op.output_arg_names())
+            sharded_accs = []
+            acc_slots = _OPTIMIZER_ACC_SLOTS.get(op.type)
+            for slot, names in list(op.inputs.items()):
+                if slot == "Param":
+                    op.inputs[slot] = [p_shard]
+                elif slot == "Grad":
+                    op.inputs[slot] = [g_shard]
+                elif acc_slots is not None:
+                    # by slot name: a same-shaped persistable input in
+                    # another slot (a MasterParam) stays whole
+                    if slot in acc_slots:
+                        sharded_accs.extend(names)
+                else:
+                    # an optimizer type without a slot list: persistable,
+                    # param-shaped, read and written
+                    for nm in names:
+                        v = block._find_var_recursive(nm)
+                        if (v is not None and v.persistable
+                                and tuple(v.shape) == tuple(pvar.shape)
+                                and nm in outs_set):
+                            sharded_accs.append(nm)
+            for slot, names in list(op.outputs.items()):
+                op.outputs[slot] = [p_shard if nm == pname else nm
+                                    for nm in names]
+            if gname in merged_to_acc:
+                # the merge accumulator holds shard-space values too
+                sharded_accs.append(merged_to_acc[gname])
+            op.attrs["__sharded_accumulators__"] = sharded_accs
+            new_ops.append(op)
+            new_ops.append(Operator(block, "c_allgather",
+                                    {"X": [p_shard]}, {"Out": [pname]},
+                                    {"ring_id": 0}))
+        block.ops[:] = new_ops
+        prog._bump()
 
 
 class GraphExecutionMetaOptimizer(MetaOptimizerBase):

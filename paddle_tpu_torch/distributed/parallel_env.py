@@ -54,9 +54,9 @@ def later(what: str) -> NotImplementedError:
     """The error for what waits for a later slice of item 8."""
     return NotImplementedError(
         f"{what} is not in the PyTorch port yet: it comes with a later "
-        f"slice of ROADMAP Queue A item 8 (LocalSGD, ZeRO-1 and spawn "
-        f"first, then several-process checkpoints, then the device "
-        f"meshes: tensor, pipeline and expert parallelism)")
+        f"slice of ROADMAP Queue A item 8 (spawn and the elastic "
+        f"supervisor, then the device meshes: tensor, pipeline and "
+        f"expert parallelism)")
 
 
 def process_count() -> int:

@@ -120,8 +120,25 @@ eagerly, as does any program holding a ``barrier`` op.  Each collective
 op runs in a ``collective/<type>`` span with its bytes, and the step
 timer counts the post-pass program's allreduce bytes a step.
 
+ZeRO-1 (``__sharded_accumulators__`` on a program's optimizer ops, from
+``fleet``'s ``ShardingMetaOptimizer``): the startup creates every
+accumulator at full shape on each rank; before a dispatch reads the
+state (``_prepare_state``), each such scope var still at its declared
+dim 0 is cut to this rank's rows ``[r*d0/n, (r+1)*d0/n)`` and the full
+tensor freed, and the scope records the block's global shape and origin
+(``Scope.zero_blocks``), from which a checkpoint snapshot writes it as a
+``ckpt.LocalShard``.  A restored full value is cut again at the next
+dispatch, at the rank count of that run: a checkpoint resumes at any
+rank count.  A fetch of such a var is all-gathered, as any batched
+dp-varying fetch.  LocalSGD (``program._localsgd``): after each ``run``
+of the main program, ``average_step`` runs the average program every
+``k_steps`` runs; ``run_steps`` refuses such a program, as in the JAX
+package.  Its ranks train apart between averages, so its fetches are
+this rank's own values, and the main program, holding no collective, is
+captured at each rank even under gloo.
+
 Not in the port yet (each raises ``NotImplementedError`` when asked for):
-meshes and tensor parallelism, localsgd and pipeline programs.
+meshes and tensor parallelism, and pipeline programs.
 
 Observability, as in the JAX package, all of it a pure observer (losses
 and fetches are bit-equal with every flag of it on or off): each drain
@@ -754,6 +771,10 @@ class Executor:
             _acp.maybe_resume(self, program, scope, fed=bool(feed))
         out = self._dispatch(program, feed, fetch_names, scope,
                              return_numpy, use_prune)
+        # localsgd: the periodic cross-rank parameter average
+        localsgd = getattr(program, "_localsgd", None)
+        if localsgd is not None:
+            localsgd.average_step(self, scope=scope)
         if acp:
             _acp.on_executor_run(self, program, scope, fed=bool(feed))
         return out
@@ -831,14 +852,19 @@ class Executor:
         entry is captured), the entry and the ``perf_counter`` time its
         run began."""
         self._refuse_left_out(program)
+        # a localsgd program's ranks train apart between averages: its
+        # fetches are this rank's own (a cross-rank mean would put a
+        # collective in every step)
+        local = getattr(program, "_localsgd", None) is not None
         feeds = _feed_tensors(program.global_block, dict(feed or {}),
                               self.device)
         program = self._apply_graph_passes(program, fetch_names, feeds,
                                            scope)
-        self._ensure_stacked(program, scope)
+        self._prepare_state(program, scope)
         if use_prune and fetch_names:
             program = self._pruned(program, fetch_names)
-        entry = self._entry(program, feeds, fetch_names, scope)
+        entry = self._entry(program, feeds, fetch_names, scope,
+                            local_fetches=local)
         stat_add("executor_run")
         t_exec0 = time.perf_counter()
         return self._run_entry(entry, feeds, scope), entry, t_exec0
@@ -871,6 +897,11 @@ class Executor:
         if not feed:
             raise ValueError("run_steps requires at least one feed")
         scope = scope if scope is not None else global_scope()
+        if getattr(program, "_localsgd", None) is not None:
+            raise NotImplementedError(
+                "run_steps does not support localsgd programs: the periodic "
+                "parameter averaging hook runs between executor calls and "
+                "would be skipped inside the K-step loop; use exe.run")
         self._refuse_left_out(program)
         cap = int(flag("max_inflight_steps"))
         if cap > 0:
@@ -893,7 +924,7 @@ class Executor:
         fetch_names = _names(fetch_list)
         program = self._apply_graph_passes(program, fetch_names, feeds,
                                            scope)
-        self._ensure_stacked(program, scope)
+        self._prepare_state(program, scope)
         entry = None
         for i in range(n_steps):
             step_feed = feeds if steps is not None else \
@@ -953,7 +984,7 @@ class Executor:
         for spec in (feed_specs or []):
             # the pass cache is keyed by the feed names, not their values;
             # the layer-scan carriers, like the weight-quant ones, stay
-            self._ensure_stacked(self._apply_graph_passes(
+            self._prepare_state(self._apply_graph_passes(
                 program, fetch_names, dict.fromkeys(spec), scope), scope)
         snapshots = []
         s = scope
@@ -1099,8 +1130,6 @@ class Executor:
         if any(op.type in HOST_OPS for op in program.global_block.ops):
             raise ValueError("a host I/O program (save/load ops) runs "
                              "through Executor.run, not run_steps")
-        if getattr(program, "_localsgd", None) is not None:
-            raise _later("the localsgd strategy")
         if getattr(program, "_pipeline", None) is not None:
             raise _later("a pipeline program")
         if passes_mod.has_tp_marks(program) or \
@@ -1160,15 +1189,17 @@ class Executor:
             out = self._pass_cache[key] = pipeline.apply(program, ctx)
             return out
 
-    def _ensure_stacked(self, program, scope):
-        """Before the state analysis of a layer-scanned program: its
-        per-layer state packed into the carriers once, and anything
-        written over a member since (a restore) copied into its slice in
-        place (``LayerScanPlan.ensure_stacked``); a no-op in steady
-        state."""
+    def _prepare_state(self, program, scope):
+        """Before the state analysis: a layer-scanned program's per-layer
+        state packed into the carriers once, and anything written over a
+        member since (a restore) copied into its slice in place
+        (``LayerScanPlan.ensure_stacked``); a ZeRO-1 program's sharded
+        accumulators cut to this rank's rows (``_cut_zero_blocks``).  A
+        no-op in steady state."""
         plan = getattr(program, "_layer_plan", None)
         if plan is not None:
             plan.ensure_stacked(scope, self.device)
+        _cut_zero_blocks(program, scope)
 
     def _generator(self, scope, program) -> torch.Generator:
         gen = scope.get_var(RNG_VAR) if scope.has_var(RNG_VAR) else None
@@ -1179,7 +1210,8 @@ class Executor:
         return gen
 
     # -- the compiled-step cache ----------------------------------------
-    def _entry(self, program, feeds, fetch_names, scope) -> _Entry:
+    def _entry(self, program, feeds, fetch_names, scope,
+               local_fetches=False) -> _Entry:
         state_in, state_out = self._analysis(program, set(feeds), scope)
         scan = bool(flag("check_nan_inf"))
         if scan:   # the flags ride as the last fetch
@@ -1192,8 +1224,8 @@ class Executor:
                      (scope.get_var(n) for n in state_in)),
                scope.serial, self.device,
                str(flag("flash_attention")), str(flag("weight_quant")),
-               bool(flag("fuse_passes")), int(flag("moe_alltoall_chunks"))
-               ) + _scan_flags()
+               bool(flag("fuse_passes")), int(flag("moe_alltoall_chunks")),
+               local_fetches) + _scan_flags()
         entry = self._cache.get(key)
         if entry is not None:
             stat_add("executor_cache_hit")
@@ -1220,7 +1252,8 @@ class Executor:
             phase_plan=_phases.build_phase_plan(block, block.ops,
                                                 flops_per_step=flops),
             estimated_bytes=estimate, budget=budget, size_entries=sizes,
-            varying=self._varying(program, feeds),
+            varying=None if local_fetches
+            else self._varying(program, feeds),
             allreduce_bytes=_program_allreduce_bytes(block, block.ops))
         return entry
 
@@ -1487,6 +1520,62 @@ class Executor:
             cached = self._free_cache[key] = _free_plan(
                 program, set(feeds) | set(state_out) | set(fetch_names))
         return cached
+
+
+# program fingerprint -> its ZeRO-1 sharded accumulators
+_ZERO_ACCS: Dict[str, Tuple[str, ...]] = {}
+
+
+def zero_accumulators(program) -> Tuple[str, ...]:
+    """The ZeRO-1 sharded optimizer state of ``program``: the names in
+    its optimizer ops' ``__sharded_accumulators__``, in op order (cached
+    per fingerprint)."""
+    key = program.fingerprint()
+    out = _ZERO_ACCS.get(key)
+    if out is None:
+        names = []
+        for op in program.global_block.ops:
+            for n in op.attr("__sharded_accumulators__", None) or ():
+                if n not in names:
+                    names.append(n)
+        out = _ZERO_ACCS[key] = tuple(names)
+    return out
+
+
+def _cut_zero_blocks(program, scope) -> None:
+    """Each of ``program``'s sharded accumulators that the scope holds at
+    its declared dim 0 becomes this rank's rows ``[r*d0/n, (r+1)*d0/n)``
+    (a tensor of its own; the full one is freed), recorded in the owning
+    scope's ``zero_blocks`` as (global shape, origin).  Without a group
+    above one rank nothing is cut: a one-rank program holds every row."""
+    from ..distributed.parallel_env import get_rank, get_world_size
+
+    n = get_world_size()
+    if n <= 1:
+        return
+    names = zero_accumulators(program)
+    r = get_rank()
+    block = program.global_block
+    for name in names:
+        var = block._find_var_recursive(name)
+        if var is None or not var.shape or not scope.has_var(name):
+            continue
+        v = scope.get_var(name)
+        d0 = int(var.shape[0])
+        if not isinstance(v, torch.Tensor) or v.dim() == 0 \
+                or int(v.shape[0]) != d0:
+            continue
+        if d0 % n:
+            raise ValueError(
+                f"sharded accumulator {name!r}: dim 0 ({d0}) is not "
+                f"divisible by the {n} ranks of the group")
+        rows = d0 // n
+        owner = scope
+        while name not in owner._vars:
+            owner = owner._parent
+        owner._vars[name] = v[r * rows:(r + 1) * rows].clone()
+        owner.zero_blocks[name] = (tuple(int(d) for d in v.shape),
+                                   (r * rows,) + (0,) * (v.dim() - 1))
 
 
 def dp_varying(program, feeds) -> frozenset:

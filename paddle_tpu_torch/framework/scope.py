@@ -142,6 +142,11 @@ class Scope:
         # the NaN scan's message when a step that wrote this scope failed
         # it: ckpt.snapshot_scope refuses such a scope until a restore
         self._nan_poisoned: Optional[str] = None
+        # ZeRO-1: name -> (global shape, origin) of each var this scope
+        # holds as one rank's block of a sharded accumulator
+        # (executor._cut_zero_blocks); a checkpoint writes such a var as
+        # a LocalShard while its shape differs from the global one
+        self.zero_blocks: Dict[str, tuple] = {}
 
     # -- core -------------------------------------------------------------
     def has_var(self, name: str) -> bool:

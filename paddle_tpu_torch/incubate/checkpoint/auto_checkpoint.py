@@ -11,8 +11,10 @@ atomic with a SHA-256 manifest, old snapshots are retention-GC'd, and
 resume restores the FULL scope (parameters, optimizer slots, AMP
 loss-scale counters, the generator) plus the epoch/step counters, so a
 restarted job is bitwise a continuation of the crashed one; restored
-values land on the executor's device.  Rank 0 (``PADDLE_TRAINER_ID``,
-default 0: the port has no ``parallel_env`` yet) writes.
+values land on the executor's device.  Rank 0 (``parallel_env.get_rank``:
+the live group's rank, else ``PADDLE_TRAINER_ID``) writes, through a
+one-rank manager: against ZeRO-1 sharded state the save raises, as in
+the JAX package, pointing to ``distributed.checkpoint.save_sharded``.
 
 Enable via env (reference contract) or explicitly::
 
@@ -88,10 +90,11 @@ def _active() -> Optional[_Config]:
 
 
 def _is_rank0() -> bool:
-    # PADDLE_TRAINER_ID, as the launcher sets it; the JAX package falls
-    # back to the jax process index, the port's parallel_env comes with
-    # its distributed slices
-    return int(os.environ.get("PADDLE_TRAINER_ID", "0") or 0) == 0
+    # the live group's rank, else PADDLE_TRAINER_ID: treating every
+    # process of a job as rank 0 would race them all on one step_<N>.tmp
+    from ...distributed.parallel_env import get_rank
+
+    return get_rank() == 0
 
 
 def _ckpt_dir(cfg):

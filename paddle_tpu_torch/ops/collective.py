@@ -16,7 +16,10 @@ the JAX rule's semantics:
 - ``c_broadcast``: ``broadcast`` from ``root``;
 - ``c_allgather``: ``all_gather``, tiled on dim 0 (``c_concat``: on the
   last dim);
-- ``c_reducescatter``: the sum, this rank's dim-0 tile of it;
+- ``c_reducescatter``: the sum, this rank's dim-0 tile of it: under
+  NCCL one ``reduce_scatter_tensor`` (each rank receives only its tile,
+  half an allreduce's traffic), under gloo, which has no reduce-scatter,
+  an ``all_reduce`` and the tile;
 - ``c_reduce_{sum,max,min}``: the reduction lands on ``root_id``; the
   other ranks keep their input (the JAX rule's ``where``);
 - ``c_scatter``: ``root``'s tensor broadcast, this rank's dim-0 tile;
@@ -32,10 +35,12 @@ writes the op's output, never a tensor the input shares storage with.
 Under NCCL the call goes on the current stream, so a captured step holds
 it (``framework/executor.capture_reason``).  Under gloo a collective is a
 host call (gloo copies a tensor on the card through the host itself),
-and a program holding a collective runs eagerly.  Each call counts ``comm_calls`` and ``comm_bytes`` (the
-bytes this rank handed to the group).  ``send_v2`` / ``recv_v2`` /
-``partial_send`` / ``partial_recv`` pair ranks of a pipeline and raise
-the later-slice error.
+and a program holding a collective runs eagerly.  Each call counts
+``comm_calls`` and ``comm_bytes`` (the bytes this rank handed to the
+group), and ``comm_bytes_<call>`` by the ``torch.distributed`` call
+(``all_reduce``, ``all_gather``, ``reduce_scatter``, ``broadcast``).
+``send_v2`` / ``recv_v2`` / ``partial_send`` / ``partial_recv`` pair
+ranks of a pipeline and raise the later-slice error.
 
 ``dgc`` (reference operators/dgc_op.cc) and ``uncoalesce_tensor``
 compute as the JAX rules do; neither communicates.
@@ -65,11 +70,14 @@ def _group(op):
     return dist
 
 
-def _buf(x: torch.Tensor) -> torch.Tensor:
+def _buf(x: torch.Tensor, call: str) -> torch.Tensor:
     """The buffer one collective runs on: a copy of ``x`` of its own on
-    ``x``'s device, counted in ``comm_calls`` / ``comm_bytes``."""
+    ``x``'s device, counted in ``comm_calls`` / ``comm_bytes`` and in
+    ``comm_bytes_<call>``."""
+    nbytes = x.numel() * x.element_size()
     stat_add("comm_calls")
-    stat_add("comm_bytes", x.numel() * x.element_size())
+    stat_add("comm_bytes", nbytes)
+    stat_add("comm_bytes_" + call, nbytes)
     return x.contiguous().clone()
 
 
@@ -77,13 +85,13 @@ _RED = {"sum": "SUM", "max": "MAX", "min": "MIN", "prod": "PRODUCT"}
 
 
 def _all_reduce(dist, x, how):
-    b = _buf(x)
+    b = _buf(x, "all_reduce")
     dist.all_reduce(b, op=getattr(dist.ReduceOp, _RED[how]))
     return b
 
 
 def _all_gather(dist, x, axis):
-    b = _buf(x)
+    b = _buf(x, "all_gather")
     parts = [torch.empty_like(b) for _ in range(dist.get_world_size())]
     dist.all_gather(parts, b)
     return torch.cat(parts, dim=axis)
@@ -124,7 +132,7 @@ def _c_broadcast(ctx, op):
     if dist is None:
         ctx.set_out(op, "Out", x)
         return
-    b = _buf(x)
+    b = _buf(x, "broadcast")
     dist.broadcast(b, src=int(op.attr("root", 0) or 0))
     ctx.set_out(op, "Out", b)
 
@@ -144,12 +152,28 @@ def _c_concat(ctx, op):
                 else _all_gather(dist, x, x.dim() - 1))
 
 
+def _reduce_scatter(dist, x):
+    """This rank's dim-0 tile of the sum over the group: NCCL's
+    ``reduce_scatter_tensor``; gloo has none, so there the full sum and
+    its tile."""
+    if dist.get_backend() != "nccl":
+        return _tile(dist, _all_reduce(dist, x, "sum"), 0)
+    n = dist.get_world_size()
+    if x.shape[0] % n:
+        raise ValueError(
+            f"dim 0 ({x.shape[0]}) is not divisible by the {n} ranks of "
+            f"the group")
+    b = _buf(x, "reduce_scatter")
+    out = b.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, b, op=dist.ReduceOp.SUM)
+    return out
+
+
 @register_lower("c_reducescatter")
 def _c_reducescatter(ctx, op):
     x = ctx.in1(op, "X")
     dist = _group(op)
-    ctx.set_out(op, "Out", x if dist is None
-                else _tile(dist, _all_reduce(dist, x, "sum"), 0))
+    ctx.set_out(op, "Out", x if dist is None else _reduce_scatter(dist, x))
 
 
 def _c_reduce(how):
@@ -178,7 +202,7 @@ def _c_scatter(ctx, op):
     if dist is None:
         ctx.set_out(op, "Out", x)
         return
-    b = _buf(x)
+    b = _buf(x, "broadcast")
     dist.broadcast(b, src=int(op.attr("root", 0) or 0))
     ctx.set_out(op, "Out", _tile(dist, b, 0))
 

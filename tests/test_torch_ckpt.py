@@ -294,14 +294,19 @@ def test_resumable_iterator_position_and_component(tmp_path):
 
 
 def test_several_processes_raise_the_later_slice_error(tmp_path):
-    """world_size > 1, a rank other than 0, a commit barrier and the
-    KVBarrier come with the distributed slices; a single-process
-    manager refuses a partial shard."""
-    for kw in ({"world_size": 2}, {"rank": 1}, {"barrier": print}):
-        with pytest.raises(NotImplementedError, match="later slice|slices"):
-            CheckpointManager(str(tmp_path), **kw)
-    with pytest.raises(NotImplementedError, match="slices"):
-        KVBarrier("127.0.0.1:1", rank=0, world_size=2)
+    """Several-process managers and the KVBarrier are ported (their
+    cases: ``tests/test_torch_ckpt_ranks.py``): they construct and name
+    their topology, and no longer raise the later-slice error; a
+    single-process manager still refuses a partial shard."""
+    for kw, want in (({"world_size": 2}, (0, 2)), ({"rank": 1}, (1, 1)),
+                     ({"barrier": print, "rank": 1, "world_size": 2},
+                      (1, 2))):
+        m = CheckpointManager(str(tmp_path), **kw)
+        assert (m.rank, m.world_size) == want
+        m.close()
+    b = KVBarrier("127.0.0.1:1", rank=0, world_size=2)
+    assert (b.endpoint, b.rank, b.world_size) == (
+        "http://127.0.0.1:1", 0, 2)
     m = CheckpointManager(str(tmp_path), async_save=False)
     with pytest.raises(CheckpointError, match="partial shard"):
         m.save(0, state={"s": LocalShard(np.zeros((2, 2), "f4"), (4, 2))})

@@ -56,7 +56,11 @@ def test_compile_strategy_builds_the_jax_chain(name):
 
 
 REFUSED = {
-    "localsgd": (dict(localsgd=True), NotImplementedError, "item 8"),
+    # localsgd applies at one process; beside sharding, which needs a
+    # degree above one, it wins the graph-level slot
+    "localsgd": (dict(localsgd=True, sharding=True), ValueError,
+                 "strategy.sharding=True could not be applied: it "
+                 "conflicts with strategy.localsgd"),
     "pipeline": (dict(pipeline=True), NotImplementedError, "item 8"),
     "tensor_parallel": (dict(tensor_parallel=True), NotImplementedError,
                         "item 8"),

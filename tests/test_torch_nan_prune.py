@@ -257,8 +257,10 @@ def test_benchmark_drains_every_run(flags):
 
 
 def test_only_localsgd_and_pipeline_programs_are_refused(monkeypatch):
-    """Auto-checkpoint's environment and the scan no longer raise; the
-    localsgd strategy and pipeline programs still do."""
+    """Auto-checkpoint's environment and the scan no longer raise;
+    pipeline programs still raise the later-slice error, and a localsgd
+    program is refused by ``run_steps`` (its average runs between
+    ``run`` calls), as in the JAX package."""
     main, startup, loss = _momentum()
     exe = tpkg.Executor(tpkg.CPUPlace())
     sc = tpkg.framework.Scope()
@@ -266,8 +268,13 @@ def test_only_localsgd_and_pipeline_programs_are_refused(monkeypatch):
     monkeypatch.setenv("PADDLE_RUNNING_ENV", "PADDLE_EDL_AUTO_CHECKPOINT")
     exe.run(main, feed=_feed(), fetch_list=[loss], scope=sc)
     monkeypatch.delenv("PADDLE_RUNNING_ENV")
-    for attr in ("_localsgd", "_pipeline"):
-        setattr(main, attr, object())
-        with pytest.raises(NotImplementedError, match="later slice"):
-            exe.run(main, feed=_feed(), fetch_list=[loss], scope=sc)
-        setattr(main, attr, None)
+    main._pipeline = object()
+    with pytest.raises(NotImplementedError, match="later slice"):
+        exe.run(main, feed=_feed(), fetch_list=[loss], scope=sc)
+    main._pipeline = None
+    main._localsgd = object()
+    with pytest.raises(NotImplementedError,
+                       match="run_steps does not support localsgd"):
+        exe.run_steps(main, feed=_feed(), fetch_list=[loss], scope=sc,
+                      steps=2)
+    main._localsgd = None
