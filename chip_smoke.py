@@ -750,6 +750,39 @@ fleet_dp_oracle (collective_capture last):
                digests equal after each average and apart after a step
                in between; B1 24 a step.
 
+Slice 27's phases: fleet_elastic runs inside phase 63's ranks as their
+last work (each writes its ``rank<r>.json`` first) and is logged after
+fleet_localsgd; spawn runs after collective_capture:
+
+70. fleet_elastic -- each rank publishes a heartbeat (``HealthReporter``,
+               every ELASTIC_HEARTBEAT_S) to this process's KV server,
+               which serves ``/metrics/cluster`` at world size 2 and
+               polls it; each runs phase 67's float32 ZeRO-1 program
+               (dropout 0, its start and feeds) under an
+               ``ElasticSupervisor`` (a synchronous checkpoint every
+               ELASTIC_SAVE_EVERY steps through a ``KVBarrier`` that
+               reads the health plane); rank 1 leaves by
+               ``os._exit(ELASTIC_EXIT)`` at the start of step
+               ELASTIC_KILL; rank 0 learns it from its failed collective
+               and the dead-listed heartbeat, re-forms its world at one
+               process, restores the step-2 checkpoint and runs step 3 on
+               the full batch.  Checked: ``/metrics/cluster`` with both
+               ranks alive (step times) before the death and
+               ``dead_ranks == [1]`` after; ``recovered``, one re-shard,
+               final world 1, at most 2 restarts, an
+               ``elastic_topology_change`` bundle; the restored moments
+               bit-equal to the two ranks' step-2 blocks; losses within
+               ORACLE_RTOL and updates within FLEET_UPDATE_RTOL of phase
+               64's one process, the control missing them; B1 24 a step
+               at two ranks and at one.  Logged: the seconds from the
+               death to the verdict and to the end of step 3, the save
+               and restore seconds, the history;
+71. spawn   -- ``distributed.spawn(spawn_rank, nprocs=2)``: two rank
+               processes over gloo sharing cuda:0, each all-reducing a
+               CUDA tensor; rank 0's result (rank, world, backend,
+               device, the sum) comes back; ``spawn`` of a function that
+               fails on rank 1 raises naming rank 1.
+
 Every phase also logs ``{"phase": "phase_seconds", "name": ...,
 "seconds": ...}``, its wall seconds, when it ends.  Then the kernels line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the script exits non-zero without the last line; without a CUDA
@@ -10100,6 +10133,16 @@ LOCALSGD_K, LOCALSGD_STEPS = 2, 4
 # norm-wise
 ZERO_PARAM_RTOL = 1e-6
 ADAM_MOMENTS = ("Moment1", "Moment2")
+# fleet_elastic: fleet_zero_oracle's float32 ZeRO-1 program under each
+# rank's ElasticSupervisor for ELASTIC_STEPS steps, a checkpoint every
+# ELASTIC_SAVE_EVERY; rank 1 leaves by os._exit(ELASTIC_EXIT) at the start
+# of step ELASTIC_KILL.  Heartbeats every ELASTIC_HEARTBEAT_S (dead after
+# three missed); the supervisor backs off ELASTIC_BACKOFF_S * 2^k.
+ELASTIC_STEPS, ELASTIC_KILL, ELASTIC_SAVE_EVERY = 3, 3, 2
+ELASTIC_EXIT = 86
+ELASTIC_HEARTBEAT_S, ELASTIC_BACKOFF_S = 0.5, 0.5
+# how long the ranks wait for each other's first heartbeat
+ELASTIC_ALIVE_S = 60
 
 
 def fleet_bert(batch, amp, dropout, lr, fuse=True, **on):
@@ -10168,6 +10211,20 @@ def tensors_digest(tensors):
         h.update(t.detach().cpu().contiguous().view(torch.uint8)
                  .numpy().tobytes())
     return h.hexdigest()
+
+
+def rank_block_digests(scope, names):
+    """For each of FLEET_RANKS starting ranks, the digest of its rows (a
+    ZeRO-1 block) of every var in ``names``, in order."""
+    out = []
+    for r in range(FLEET_RANKS):
+        blocks = []
+        for n in names:
+            v = scope.get_var(n)
+            rows = v.shape[0] // FLEET_RANKS
+            blocks.append(v[r * rows:(r + 1) * rows])
+        out.append(tensors_digest(blocks))
+    return out
 
 
 def opt_state_bytes(main, scope):
@@ -10483,12 +10540,189 @@ def fleet_rank_localsgd(tmp):
     return result
 
 
+class ElasticBert:
+    """fleet_elastic's supervisor program at one topology: the group
+    re-formed over its ranks (``parallel_env._join_survivors``, on the
+    parent's KV server), fleet_zero_oracle's float32 program through
+    ``fleet`` at the topology's world (ZeRO-1 above one rank), the
+    parent's startup values, this rank's rows of each batch."""
+
+    def __init__(self, topo, rank, kv, dead, init, first, tmp):
+        from paddle_tpu_torch.distributed import fleet, parallel_env
+
+        t0 = time.monotonic()
+        parallel_env._join_survivors(topo.ranks, rank, kv,
+                                     dead_ranks_fn=dead)
+        self.join_s = time.monotonic() - t0
+        self.rank, self.first, self.tmp = rank, first, tmp
+        self.index, self.world = topo.ranks.index(rank), topo.world_size
+        self.dies = first and rank == 1
+        per = ORACLE_BATCH // self.world
+        self.lo, self.hi = self.index * per, (self.index + 1) * per
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.main, startup, self.loss, self.chain = fleet_bert(
+            per, amp=False, dropout=0.0, lr=ORACLE_LR,
+            sharding=self.world > 1)
+        self.worker_num = fleet.worker_num()
+        self.exe = pt.Executor()
+        self.scope = pt.framework.Scope()
+        self.exe.run(startup, scope=self.scope)
+        self.names = param_names(self.main)
+        for n in self.names:
+            self.scope.set_var(n, torch.from_numpy(init[n]).to(
+                self.exe.device))
+        self.build_s = time.monotonic() - t0 - self.join_s
+        self.steps, self.step_s, self.b1, self.ends = 0, [], [], []
+        self.restored = None
+
+    def step(self, feed):
+        from paddle_tpu_torch.framework.executor import zero_accumulators
+
+        if self.steps == 0 and not self.first:
+            # what the restore put in the scope, cut into each starting
+            # rank's rows of every moment
+            self.restored = rank_block_digests(self.scope,
+                                               ELASTIC_STATE["moments"])
+        self.steps += 1
+        if self.dies and self.steps == ELASTIC_KILL:
+            with open(os.path.join(self.tmp, "elastic_death.json"),
+                      "w") as f:
+                json.dump({"t": time.time()}, f)
+            os._exit(ELASTIC_EXIT)
+        b1 = fab.flash_attention_bias.launches
+        t0 = time.perf_counter()
+        out = self.exe.run(self.main, feed=bert_shard(feed, self.lo,
+                                                      self.hi),
+                           fetch_list=[self.loss], scope=self.scope)[0]
+        torch.cuda.synchronize()
+        self.step_s.append(time.perf_counter() - t0)
+        self.ends.append(time.time())
+        self.b1.append(fab.flash_attention_bias.launches - b1)
+        if self.first and self.steps == ELASTIC_SAVE_EVERY:
+            # this rank's rows of every moment after step 2: what the
+            # step-2 checkpoint holds of it
+            moments = sorted(zero_accumulators(self.main))
+            ELASTIC_STATE["moments"] = moments
+            with open(os.path.join(self.tmp, f"elastic_blocks{self.rank}"
+                                   ".json"), "w") as f:
+                json.dump({"moments": moments, "digest": tensors_digest(
+                    [self.scope.get_var(n) for n in moments])}, f)
+        return float(out.ravel()[0])
+
+    def close(self):
+        from paddle_tpu_torch.distributed import parallel_env
+
+        self.exe.close()
+        parallel_env.destroy_parallel_env()
+
+
+ELASTIC_STATE = {}   # a rank's ZeRO moment names, from its first program
+
+
+def wait_alive(dead):
+    """Wait (ELASTIC_ALIVE_S at most) until the health plane has heard
+    from every rank: one not heard from yet reads as dead, and a
+    supervisor polling then would re-shard a live job."""
+    t0 = time.monotonic()
+    while dead():
+        if time.monotonic() - t0 > ELASTIC_ALIVE_S:
+            raise RuntimeError(f"fleet_elastic: ranks {dead()} sent no "
+                               f"heartbeat in {ELASTIC_ALIVE_S} s")
+        time.sleep(0.05)
+
+
+def fleet_rank_elastic(tmp):
+    """fleet_elastic on this rank: a heartbeat to the parent's KV server,
+    then the float32 ZeRO-1 program under an ``ElasticSupervisor`` at two
+    ranks (a checkpoint every 2 steps through a ``KVBarrier``); rank 1
+    dies hard at step 3, rank 0 re-shards and finishes.  Rank 0 writes
+    ``elastic0.json`` and its parameters."""
+    from paddle_tpu_torch.ckpt import CheckpointManager, KVBarrier
+    from paddle_tpu_torch.distributed import parallel_env
+    from paddle_tpu_torch.distributed.fleet import elastic
+    from paddle_tpu_torch.observe import flight
+    from paddle_tpu_torch.observe.health import HealthReporter
+
+    rank, world = parallel_env.get_rank(), parallel_env.get_world_size()
+    with open(os.path.join(tmp, "kv_endpoint")) as f:
+        kv = f.read().strip()
+    init = dict(np.load(os.path.join(tmp, "oracle_init.npz")))
+    feed = bert_feed(ORACLE_BATCH, seed=1, padded_keys=16)
+    flags.set_flags({"flash_attention": "always"})
+    dead = elastic.dead_ranks_from_cluster(kv)
+    progs, managers, restore_s = [], [], []
+
+    def train_fn(topo):
+        prog = ElasticBert(topo, rank, kv, dead, init, not progs, tmp)
+        progs.append(prog)
+        return prog
+
+    def manager(topo):
+        # the job ranks of the starting world are its indices
+        index, n = topo.ranks.index(rank), topo.world_size
+        m = CheckpointManager(
+            os.path.join(tmp, "elastic_ckpt"), keep_n=0, async_save=False,
+            rank=index, world_size=n, barrier=KVBarrier(
+                kv, index, n, timeout=FLEET_CHILD_TIMEOUT_S,
+                prefix=f"elastic-w{n}", dead_ranks_fn=dead))
+        real = m.restore
+
+        def timed_restore(*a, **kw):
+            t0 = time.monotonic()
+            try:
+                return real(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                restore_s.append(time.monotonic() - t0)
+
+        m.restore = timed_restore
+        managers.append(m)
+        return m
+
+    reporter = HealthReporter(kv, rank, world_size=world,
+                              interval_s=ELASTIC_HEARTBEAT_S).start()
+    try:
+        wait_alive(dead)
+        sup = elastic.ElasticSupervisor(
+            world_size=world, cluster_url=kv, save_every=ELASTIC_SAVE_EVERY,
+            preflight=False, backoff_s=ELASTIC_BACKOFF_S,
+            postmortem_dir=os.path.join(tmp, "elastic_postmortem"))
+        t0 = time.monotonic()
+        r = sup.run(train_fn, manager=manager,
+                    loader=[feed] * ELASTIC_STEPS, total_steps=ELASTIC_STEPS)
+        run_s = time.monotonic() - t0
+    finally:
+        reporter.stop()
+    last = r.train
+    verdicts = [e["ts"] for e in flight.tail()
+                if e["event"] == "elastic/failure"
+                and e.get("kind") == elastic.FAILURE_TOPOLOGY]
+    np.savez(os.path.join(tmp, "elastic_params.npz"), **{
+        n: last.scope.get_var(n).detach().cpu().numpy() for n in last.names})
+    out = dict(
+        result=r.to_dict(), losses=r.losses, run_s=run_s,
+        worlds=[p.world for p in progs], chains=[p.chain for p in progs],
+        worker_num=[p.worker_num for p in progs],
+        join_s=[p.join_s for p in progs], build_s=[p.build_s for p in progs],
+        step_s=[p.step_s for p in progs], step_end=[p.ends for p in progs],
+        b1_per_step=[p.b1 for p in progs], restored=last.restored,
+        save_s=[st["blocking_s"] for m in managers for st in m.stats],
+        restore_s=restore_s, verdict_ts=verdicts,
+        bundles=sorted(os.listdir(os.path.join(tmp, "elastic_postmortem"))),
+        heartbeats=reporter.beats, heartbeat_failures=reporter.failures)
+    last.close()
+    with open(os.path.join(tmp, f"elastic{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
 def fleet_child(tmp):
     """One rank of fleet_dp, fleet_dp_oracle, fleet_zero,
-    fleet_zero_oracle (with fleet_ckpt's save) and fleet_localsgd, started
-    by ``phase_fleet_dp`` through the port's launcher: checks that the
-    parent's kernels are there (a rank must not build them), joins the
-    gloo group, runs each, writes ``rank<r>.json`` into ``tmp``."""
+    fleet_zero_oracle (with fleet_ckpt's save), fleet_localsgd and
+    fleet_elastic, started by ``phase_fleet_dp`` through the port's
+    launcher: checks that the parent's kernels are there (a rank must not
+    build them), joins the gloo group, runs each, writes ``rank<r>.json``
+    into ``tmp`` before fleet_elastic."""
     from paddle_tpu_torch.distributed import parallel_env
 
     if not torch.cuda.is_available():
@@ -10511,8 +10745,12 @@ def fleet_child(tmp):
         gc.collect()
         torch.cuda.empty_cache()
         result[name] = run(tmp)
+    # before fleet_elastic, which rank 1 does not survive
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet_rank_elastic(tmp)
     parallel_env.destroy_parallel_env()
     return 0
 
@@ -10627,24 +10865,31 @@ def stop_ranks(started):
     launch.terminate_local_procs(started["procs"])
 
 
-def wait_ranks(started):
+def wait_ranks(started, exits=None):
     """Wait for ``start_ranks``' children (FLEET_CHILD_TIMEOUT_S from
     their start); a child that fails or outlives it fails the phase, and
-    every child is stopped on the way out.  Returns their seconds."""
+    every child is stopped on the way out.  ``exits`` maps a child's
+    index to the one nonzero exit code it may end with (fleet_elastic's
+    rank 1, ``ELASTIC_EXIT``).  Keeps the codes in ``started["codes"]``;
+    returns the children's seconds."""
     from paddle_tpu_torch.distributed import launch
 
+    exits = exits or {}
     procs, t0, rc = started["procs"], started["t0"], None
     try:
         while rc is None and time.monotonic() - t0 < FLEET_CHILD_TIMEOUT_S:
             codes = [p.poll() for p in procs]
-            if any(c not in (None, 0) for c in codes):
-                rc = next(c for c in codes if c not in (None, 0))
-            elif all(c == 0 for c in codes):
+            bad = [c for i, c in enumerate(codes)
+                   if c not in (None, 0, exits.get(i))]
+            if bad:
+                rc = bad[0]
+            elif None not in codes:
                 rc = 0
             else:
                 time.sleep(0.2)
     finally:
         launch.terminate_local_procs(procs)
+        started["codes"] = [p.poll() for p in procs]
     if rc != 0:
         logs = started["logs"]
         tails = "".join(f"\n----- {f} -----\n" + open(os.path.join(
@@ -10660,18 +10905,49 @@ def phase_fleet_dp(tmp):
     they start, this process writes the oracle's startup values for
     their fleet_dp_oracle and fleet_zero_oracle runs (read after their
     timed steps), and serves the port's KV server, whose ``KVBarrier``
-    orders fleet_ckpt's commit."""
+    orders fleet_ckpt's commit, and whose ``/metrics/cluster`` (world size
+    FLEET_RANKS) this process polls while the ranks run: fleet_elastic's
+    heartbeats."""
     from paddle_tpu_torch.distributed.fleet.utils import KVServer
+    from paddle_tpu_torch.observe.health import serve_cluster_health
 
     kv = KVServer(0)
+    serve_cluster_health(kv, world_size=FLEET_RANKS)
     kv.start()
+    endpoint = f"127.0.0.1:{kv.port}"
     with open(os.path.join(tmp, "kv_endpoint"), "w") as f:
-        f.write(f"127.0.0.1:{kv.port}")
+        f.write(endpoint)
+    stop, seen = threading.Event(), []
+    poller = threading.Thread(target=poll_cluster,
+                              args=(endpoint, stop, seen), daemon=True)
+    poller.start()
     try:
         launch_s = fleet_dp_ranks(tmp)
     finally:
+        stop.set()
+        poller.join(timeout=10)
         kv.stop()
+    FLEET_STATE["cluster"] = seen
     fleet_dp_check(launch_s)
+
+
+def poll_cluster(endpoint, stop, seen):
+    """GET ``/metrics/cluster`` every 0.2 s until ``stop``; keep each
+    answer's time, live and dead ranks and each rank's step p50."""
+    import urllib.request
+
+    while not stop.wait(0.2):
+        try:
+            with urllib.request.urlopen(
+                    f"http://{endpoint}/metrics/cluster", timeout=2) as r:
+                doc = json.load(r)
+        except OSError:
+            continue
+        seen.append({"t": time.time(), "alive": doc["alive_ranks"],
+                     "dead": doc["dead_ranks"],
+                     "world": doc["world_size"],
+                     "p50": {k: v.get("step_time_p50_s")
+                             for k, v in doc["ranks"].items()}})
 
 
 def fleet_dp_ranks(tmp):
@@ -10696,9 +10972,11 @@ def fleet_dp_ranks(tmp):
     except BaseException:
         stop_ranks(started)
         raise
-    launch_s = wait_ranks(started)
+    # rank 1 leaves fleet_elastic by os._exit(ELASTIC_EXIT)
+    launch_s = wait_ranks(started, exits={1: ELASTIC_EXIT})
     FLEET_STATE["ranks"] = [json.load(open(os.path.join(
         tmp, f"rank{r}.json"))) for r in range(FLEET_RANKS)]
+    FLEET_STATE["exit_codes"] = started["codes"]
     return launch_s
 
 
@@ -10874,14 +11152,7 @@ def phase_fleet_ckpt(tmp):
     torch.cuda.synchronize()
     restore_s = time.monotonic() - t0
     names, moments = param_names(main), zo[0]["moments"]
-    halves = []
-    for r in range(FLEET_RANKS):
-        blocks = []
-        for n in moments:
-            v = scope.get_var(n)
-            rows = v.shape[0] // FLEET_RANKS
-            blocks.append(v[r * rows:(r + 1) * rows])
-        halves.append(tensors_digest(blocks))
+    halves = rank_block_digests(scope, moments)
     params_digest = param_digest(scope, names)
     FLEET_STATE["zero_params"] = {n: scope.get_var(n).double().cpu().numpy()
                                   for n in names}
@@ -11047,6 +11318,171 @@ def phase_fleet_localsgd():
     if equal != averaged:
         raise RuntimeError(f"fleet_localsgd: the ranks' parameters equal "
                            f"after steps {equal}, averaged after {averaged}")
+
+
+def phase_fleet_elastic(tmp):
+    """fleet_elastic's ranks (fleet_rank_elastic), logged and checked:
+    ``/metrics/cluster`` with both ranks alive and their step times
+    before rank 1's death and ``dead_ranks == [1]`` after it; rank 0's
+    supervisor recovered with one re-shard to one process and an
+    ``elastic_topology_change`` bundle; the moments it restored are the
+    two ranks' step-2 blocks bit for bit; its losses lie within
+    ORACLE_RTOL of fleet_dp_oracle's one process (the same start, feeds
+    and steps) and each parameter's update within FLEET_UPDATE_RTOL of
+    one process's, the control missing it; B1 B1_PER_STEP a step at two
+    ranks and at one."""
+    e = json.load(open(os.path.join(tmp, "elastic0.json")))
+    blocks = [json.load(open(os.path.join(tmp, f"elastic_blocks{r}.json")))
+              for r in range(FLEET_RANKS)]
+    with open(os.path.join(tmp, "elastic_death.json")) as f:
+        death = json.load(f)["t"]
+    init, one, ours = (FLEET_STATE[k] for k in ("init", "one", "ours"))
+    kept, ctl_gaps = FLEET_STATE["kept"], FLEET_STATE["ctl_gaps"]
+    theirs = {n: v.astype(np.float64) for n, v in
+              np.load(os.path.join(tmp, "elastic_params.npz")).items()}
+    gaps = update_gaps(init, theirs, ours)
+    worst = max(kept, key=gaps.get)
+    ctl_worst = max(kept, key=ctl_gaps.get)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(e["losses"], one))
+    cluster = FLEET_STATE["cluster"]
+    both = [c for c in cluster if c["t"] < death
+            and c["alive"] == FLEET_RANKS
+            and all((c["p50"].get(str(r)) or 0) > 0
+                    for r in range(FLEET_RANKS))]
+    dead1 = [c for c in cluster if c["t"] > death and c["dead"] == [1]]
+    verdicts = [t for t in e["verdict_ts"] if t > death]
+    r = e["result"]
+    b1 = {w: sorted(set(b)) for w, b in zip(e["worlds"], e["b1_per_step"])
+          if b}
+    log("fleet_elastic", model="bert-base", dtype="float32",
+        ranks=FLEET_RANKS,
+        backend="gloo", steps=ELASTIC_STEPS, kill_step=ELASTIC_KILL,
+        save_every=ELASTIC_SAVE_EVERY, heartbeat_s=ELASTIC_HEARTBEAT_S,
+        backoff_s=ELASTIC_BACKOFF_S, exit_codes=FLEET_STATE["exit_codes"],
+        status=r["status"], restarts=r["restarts"], reshards=r["reshards"],
+        final_world_size=r["final_world_size"], history=r["history"],
+        worlds=e["worlds"], chains=e["chains"], worker_num=e["worker_num"],
+        join_s=e["join_s"], build_s=e["build_s"], step_s=e["step_s"],
+        save_s=e["save_s"], restore_s=e["restore_s"], run_s=e["run_s"],
+        death_to_verdict_s=(verdicts[0] - death) if verdicts else None,
+        recovery_s=e["step_end"][-1][-1] - death,
+        b1_per_step_by_world=b1, bundles=e["bundles"],
+        heartbeats=e["heartbeats"],
+        cluster_both_alive=len(both), cluster_dead_1=len(dead1),
+        cluster_before_death=both[-1] if both else None,
+        cluster_after_death=dead1[0] if dead1 else None,
+        restored_equal_blocks=e["restored"] == [b["digest"] for b in blocks],
+        losses=e["losses"], losses_one_process=one, max_rel_loss_gap=loss_gap,
+        tolerance=ORACLE_RTOL, worst_update=worst,
+        worst_update_gap=gaps[worst], update_tolerance=FLEET_UPDATE_RTOL,
+        control_worst_update_gap=ctl_gaps[ctl_worst],
+        card=nvidia_smi("name,power.limit"))
+    if FLEET_STATE["exit_codes"] != [0, ELASTIC_EXIT]:
+        raise RuntimeError(f"fleet_elastic: ranks exited "
+                           f"{FLEET_STATE['exit_codes']}, want "
+                           f"[0, {ELASTIC_EXIT}]")
+    if not both or not dead1:
+        raise RuntimeError(f"fleet_elastic: /metrics/cluster showed both "
+                           f"ranks alive with step times {len(both)} times "
+                           f"before the death, rank 1 dead {len(dead1)} "
+                           f"times after it")
+    if r["status"] != "recovered" or r["reshards"] != 1 or \
+            r["final_world_size"] != 1 or r["restarts"] > 2 or not any(
+            "elastic_topology_change" in b for b in e["bundles"]):
+        raise RuntimeError(f"fleet_elastic: {r}, bundles {e['bundles']}")
+    if e["restored"] != [b["digest"] for b in blocks] or \
+            blocks[0]["moments"] != blocks[1]["moments"]:
+        raise RuntimeError("fleet_elastic: the restored moments are not the "
+                           "ranks' step-2 blocks")
+    if len(e["losses"]) != ELASTIC_STEPS or loss_gap > ORACLE_RTOL or \
+            gaps[worst] > FLEET_UPDATE_RTOL:
+        raise RuntimeError(f"fleet_elastic: losses {e['losses']} vs one "
+                           f"process {one} ({loss_gap}), the update of "
+                           f"{worst} {gaps[worst]} off one process's")
+    if ctl_gaps[ctl_worst] <= FLEET_UPDATE_RTOL:
+        raise RuntimeError("fleet_elastic: the control is within the update "
+                           "limit")
+    if set(b1) != {1, FLEET_RANKS} or any(v != [B1_PER_STEP]
+                                          for v in b1.values()):
+        raise RuntimeError(f"fleet_elastic: B1 launches a step by world "
+                           f"{b1}, want {B1_PER_STEP} at 2 and at 1")
+
+
+def spawn_rank(scale):
+    """phase_spawn's rank function (``spawn`` pickles it by name): an
+    all-reduce over the rank's group of a CUDA tensor of ``scale`` times
+    its rank + 1."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import parallel_env
+    from paddle_tpu_torch.framework.place import selected_gpu
+
+    dev = torch.device("cuda", selected_gpu())
+    x = torch.full((1024,), scale * (parallel_env.get_rank() + 1.0),
+                    device=dev)
+    dist.all_reduce(x)
+    torch.cuda.synchronize(dev)
+    return dict(rank=parallel_env.get_rank(),
+                world=parallel_env.get_world_size(),
+                backend=parallel_env.backend(), device=str(x.device),
+                sums=sorted(set(x.cpu().tolist())))
+
+
+def spawn_rank_fails():
+    """phase_spawn's failing rank function: rank 1 raises before the
+    all-reduce rank 0 waits in."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import parallel_env
+
+    if parallel_env.get_rank() == 1:
+        raise RuntimeError("phase_spawn: rank 1 fails on purpose")
+    dist.all_reduce(torch.ones(1, device="cuda:0"))
+    return "unreachable"
+
+
+def phase_spawn():
+    """``distributed.spawn(nprocs=2)`` on the one card: two rank processes
+    over gloo on cuda:0 (one card, fewer than the ranks), each all-reducing
+    a CUDA tensor; rank 0's result comes back.  Then a function that
+    fails on rank 1: spawn raises naming rank 1."""
+    from paddle_tpu_torch.distributed import spawn
+
+    env = {"GLOO_SOCKET_IFNAME": "lo", "PADDLE_DISTRI_BACKEND": None}
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        t0 = time.monotonic()
+        got = spawn(spawn_rank, args=(2.0,), nprocs=2)
+        ok_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        try:
+            spawn(spawn_rank_fails, nprocs=2)
+            failed = None
+        except RuntimeError as e:
+            failed = str(e)
+        fail_s = time.monotonic() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log("spawn", nprocs=2, result=got, seconds=ok_s, failing_seconds=fail_s,
+        failing_error=(failed or "")[:120] + " ... "
+        + (failed or "")[-300:],
+        card=nvidia_smi("name,power.limit"))
+    want = dict(rank=0, world=2, backend="gloo", device="cuda:0",
+                sums=[2.0 * (1 + 2)])
+    if got != want:
+        raise RuntimeError(f"spawn: rank 0 returned {got}, want {want}")
+    if not failed or "rank 1 failed" not in failed or \
+            "fails on purpose" not in failed:
+        raise RuntimeError(f"spawn: the failing call raised {failed!r}")
 
 
 def phase_collective_capture(tmp, started):
@@ -11265,13 +11701,16 @@ def main():
             phase_fleet_zero_oracle()
             phase_fleet_zero()
             phase_fleet_localsgd()
+            phase_fleet_elastic(tmp)
         except BaseException:
             stop_ranks(capture)
             raise
         FLEET_STATE.clear()
-        release("fleet_localsgd")
+        release("fleet_elastic")
         phase_collective_capture(tmp, capture)
     release("collective_capture")
+    phase_spawn()
+    release("spawn")
     kernels = []
     main_case = TRAIN_FLASH_CASES[0][0]
     for kernel, case in (("paged_decode_attention", "decode_float32"),

@@ -14,17 +14,18 @@ Counterpart of ``paddle_tpu/distributed``, one process a card:
   (amp, recompute, gradient merge, LARS, LAMB, DGC, LocalSGD, and above
   one rank the gradient-allreduce transpile, ``fleet.collective_transpiler``,
   or ZeRO-1's optimizer-state sharding),
-  and ``fleet.elastic``'s fault injection and device preflight;
+  and ``fleet.elastic``: the elastic supervisor, fault injection and
+  device preflight;
 - the collective functions (``all_reduce``, ``broadcast``, ...) over the
   ``c_*`` lowerings of ``ops/collective.py``;
-- ``DataParallel``, ``prepare_context`` and ``spawn`` (one process);
+- ``DataParallel``, ``prepare_context`` and ``spawn`` (``nprocs``
+  rank processes, each in the group);
 - ``checkpoint`` (``save_sharded`` / ``load_sharded``, each rank writing
   its own blocks, a restore at any rank count).
 
-``spawn(nprocs > 1)``, the elastic supervisor, device meshes (pipeline,
-tensor and expert parallelism) and the sharded embedding
-(``distributed.embedding``) raise or are absent until later slices of
-ROADMAP Queue A item 8.  Importing this package builds no kernel and
+Device meshes (pipeline, tensor and expert parallelism) and the sharded
+embedding (``distributed.embedding``) raise or are absent until later
+slices of ROADMAP Queue A item 8.  Importing this package builds no kernel and
 touches no card.
 """
 from . import fleet  # noqa: F401

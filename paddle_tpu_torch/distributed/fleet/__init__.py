@@ -9,8 +9,8 @@ process a card, no mesh), ``worker_num`` / ``worker_index`` /
 the strategy's meta-optimizer chain (``meta_optimizers.compile_strategy``;
 above one rank it ends in the gradient-allreduce transpile, or in
 ZeRO-1's sharding), and runs it,
-and the executor runs the program it builds.  ``elastic`` (the fault injection and device
-preflight) is imported lazily; the sharded ``distributed_embedding``
+and the executor runs the program it builds.  ``elastic`` (the
+supervisor, fault injection and device preflight) is imported lazily; the sharded ``distributed_embedding``
 waits for ROADMAP Queue A item 8.
 """
 from __future__ import annotations

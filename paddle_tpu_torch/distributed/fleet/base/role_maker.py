@@ -3,7 +3,10 @@
 Counterpart of ``paddle_tpu/distributed/fleet/base/role_maker.py``
 (reference fleet/base/role_maker.py:33, PaddleCloudRoleMaker's env
 parsing :363): ``PADDLE_TRAINER_ID``, ``PADDLE_TRAINERS_NUM``,
-``PADDLE_TRAINER_ENDPOINTS``.  The JAX package's barrier and all-gather
+``PADDLE_TRAINER_ENDPOINTS``; while a ``torch.distributed`` group is
+live, the rank and the number of workers are the group's (after an
+elastic re-shard, the survivors' group: the world a rebuilt program's
+``fleet.init`` must see).  The JAX package's barrier and all-gather
 ride ``jax.experimental.multihost_utils``; the port's cross the ranks
 through the live ``torch.distributed`` group (``barrier``,
 ``all_gather_object``).  At one process both are trivial: ``_barrier``
@@ -14,7 +17,8 @@ from __future__ import annotations
 
 import os
 
-from ...parallel_env import group_live
+from ...parallel_env import (get_rank, get_world_size, group_live,
+                             process_count)
 
 
 class Role:
@@ -39,8 +43,8 @@ class RoleMakerBase:
 class PaddleCloudRoleMaker(RoleMakerBase):
     def __init__(self, is_collective=True, **kwargs):
         self._is_collective = is_collective
-        self._rank = int(os.environ.get("PADDLE_TRAINER_ID", "0") or 0)
-        self._size = int(os.environ.get("PADDLE_TRAINERS_NUM", "1") or 1)
+        self._rank = get_rank()
+        self._size = get_world_size() if group_live() else process_count()
         eps = os.environ.get("PADDLE_TRAINER_ENDPOINTS", "")
         self._endpoints = [e for e in eps.split(",") if e]
         self._role = Role.WORKER

@@ -3,8 +3,8 @@
 module the port's disaggregated-serving router (``serving/disagg.py``)
 consults for ``kill_prefill_replica``; its hook reads
 ``sys.modules.get("paddle_tpu_torch.distributed.fleet.elastic.chaos")``,
-this module.  The elastic supervisor that consults the other faults
-waits for a later slice of the port.
+this module; the elastic supervisor (``supervisor.py``) consults the
+other faults.
 
 Recovery paths that are only exercised when real hardware dies are
 recovery paths that have silently rotted by the time they matter.  This

@@ -294,7 +294,7 @@ define_flag("disagg_autoscale_queue_high", 4,
             "under burn_low) a prefill replica is re-roled into the "
             "decode set")
 
-# ---- device preflight (distributed/fleet/elastic/preflight.py) -------------
+# ---- elastic training (distributed/fleet/elastic) --------------------------
 define_flag("elastic_preflight_timeout_s", 240.0,
             "deadline for ONE subprocess-isolated device preflight probe "
             "(fleet.elastic.preflight_device: a CUDA add and a "
@@ -303,6 +303,12 @@ define_flag("elastic_preflight_timeout_s", 240.0,
 define_flag("elastic_backoff_s", 10.0,
             "base backoff between preflight attempts; attempt k sleeps "
             "backoff * 2^(k-1)")
+define_flag("elastic_max_restarts", 3,
+            "elastic training supervisor (distributed/fleet/elastic): "
+            "restart budget — how many times ElasticSupervisor.run may "
+            "restart (in place) or re-shard (after a dead rank) "
+            "following a classified failure before raising a terminal "
+            "ElasticTerminated with the full restart history")
 
 # ---- step telemetry (observe/step_stats.py) -------------------------------
 define_flag("device_peak_tflops", 0.0,

@@ -201,8 +201,16 @@ def test_data_parallel_at_world_size_one():
     env = T.distributed.prepare_context()
     assert (env.rank, env.world_size) == (0, 1)
     assert T.distributed.spawn(lambda a: a + 1, args=(2,)) == 3
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.distributed.spawn(lambda: None, nprocs=2)
+    # two rank processes over gloo (no card here): rank 0's result
+    import torch_elastic_trainer as E
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GLOO_SOCKET_IFNAME", "lo")
+        mp.setenv("CUDA_VISIBLE_DEVICES", "")
+        mp.delenv("PADDLE_DISTRI_BACKEND", raising=False)
+        got = T.distributed.spawn(E.spawn_probe, args=(1.0,), nprocs=2)
+    assert got == {"rank": 0, "world": 2, "backend": "gloo",
+                   "sum": [3.0] * 4}
 
 
 # API.spec names of paddle.distributed that stay unresolved in the port,
@@ -210,7 +218,6 @@ def test_data_parallel_at_world_size_one():
 UNRESOLVED = {
     "embedding": "item 8 (the sharded embedding)",
     "fleet.distributed_embedding": "item 8 (the sharded embedding)",
-    "fleet.elastic": "item 8 (the elastic supervisor)",
 }
 
 
@@ -248,5 +255,4 @@ def test_api_spec_distributed_names_resolve_to_the_ports_own():
         waits.setdefault(key, []).append(s)
     assert len(names) == 79
     assert {k: len(v) for k, v in waits.items()} == {
-        "embedding": 6, "fleet.distributed_embedding": 1,
-        "fleet.elastic": 13}
+        "embedding": 6, "fleet.distributed_embedding": 1}
